@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Smoke test of tpudepth_torch on one NVIDIA GPU: ``python3 chip_smoke.py``.
 
-It drives the port's serving path, GuideDepth at NYU 480x640 in bf16 with
-fused GUB stages, and holds every CUDA kernel of that path against its plain
+It drives the port's two main paths at NYU 480x640, serving (GuideDepth in
+bf16 with fused GUB stages) and training (``Trainer.fit``, alhashim recipe,
+bf16, batch 8), and holds every CUDA kernel of those paths against its plain
 PyTorch version. Phases:
 
 1. device: needs CUDA; prints the card's name and power limit; turns TF32
@@ -10,16 +11,25 @@ PyTorch version. Phases:
 2. build: compiles every CUDA source of the package with nvcc (in parallel)
    and prints the time and the ptxas report;
 3. kernels: ``gub_conv_fwd`` against ``conv_bn_act_reference`` at the nine
-   shapes the path gives it, in f32 and bf16, with and without prelude, skip
-   and statistics; per shape the device time of the kernel, of the plain
-   version and of one cuDNN ``F.conv2d`` (CUDA graph replays between CUDA
-   events) beside the bound;
+   shapes the serving path gives it, in f32 and bf16, with and without
+   prelude, skip and statistics; ``fused_loss_fwd`` and ``fused_loss_bwd``
+   against ``fused_partials_reference`` / ``fused_bwd_reference`` at the
+   training path's shape and at ragged, zero-target, pred == target and flat
+   cases; per shape the device time of the kernel, of the plain version and
+   of a library yardstick (one cuDNN ``F.conv2d``; the port's ``DepthLoss``
+   and its autograd backward) beside the bound;
 4. serving: 8 single-image requests through ``InferenceEngine`` (bf16,
    flip-TTA, meters), with the kernel's launches counted over exactly that
    run, then the raw outputs against the plain f32 model, then the engine's
    img/s at bs 1 and 8, fused and plain, each with a ``torch.profiler``
    window (device busy share, launches, largest kernels);
-5. one JSON line on the kernels, and last the JSON line with the device.
+5. training: ``Trainer.fit`` for 2 epochs of 3 steps on seeded synthetic
+   uint8 batches with one validation batch and a checkpoint per epoch, the
+   loss kernels' launches counted over exactly that run; the last checkpoint
+   restored into a fresh trainer; one f32 step through the loss kernels
+   against the same step through the plain ``DepthLoss``; 8 steps on one
+   batch lower the loss; then train img/s and a ``torch.profiler`` window of one step;
+6. one JSON line on the kernels, and last the JSON line with the device.
 
 Any failed check raises, and the script exits non-zero without printing a
 result. It imports nothing of JAX.
@@ -27,10 +37,12 @@ result. It imports nothing of JAX.
 
 from __future__ import annotations
 
+import copy
 import json
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -39,6 +51,7 @@ import torch.nn.functional as F
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3
 BF16_FLOP_PER_S = 989e12    # H100 SXM dense bf16 tensor cores
+F32_FLOP_PER_S = 67e12      # H100 SXM float32 outside the tensor cores
 
 # (name, input channels per part, Cout, H, W, prelude): every k=3 GUB conv
 # of GuideDepth at 480x640, in the order a forward runs them
@@ -59,6 +72,33 @@ SERVE_BF16_REL_L2 = 5e-2
 SERVE_BF16_REL_MAX = 0.15
 # raw model output, f32 fused against f32 plain (summation order only)
 SERVE_F32_REL_MAX = 1e-4
+
+DEVICE = torch.device("cuda")
+
+# the training path: GuideDepth, NYU full resolution, batch 8
+TRAIN_BATCH, TRAIN_HW, MAX_DEPTH = 8, (480, 640), 10.0
+# (kind, B, H, W) of tests/test_torch_port_cuda.py::loss_pair: the training
+# shape with depth_norm-scale targets, half resolution, a ragged image,
+# masked (zero) targets, pred == target (gate closed, signs at 0), flat
+# patches (signs of zero differences), and uniform values
+LOSS_CASES = [("norm", 8, 480, 640), ("norm", 8, 240, 320),
+              ("norm", 2, 33, 47), ("zeros", 8, 480, 640),
+              ("equal", 2, 96, 128), ("smooth", 2, 50, 70),
+              ("random", 3, 48, 64)]
+# float operations per pixel that the functions need: 22 multiply-adds for
+# each of the 5 (forward) or 8 (backward) gaussian maps, plus the pointwise
+# formulas (SSIM map, L1 and difference terms; coefficient maps and the sum)
+LOSS_FWD_FLOP_PER_PIXEL = 5 * 22 * 2 + 30
+LOSS_BWD_FLOP_PER_PIXEL = 8 * 22 * 2 + 60
+# one f32 step through the loss kernels against the step through DepthLoss:
+# the loss (sums in another order), and per tensor the largest gradient
+# difference over the largest gradient. dL/dpred agrees to rtol 1e-4 (the
+# JAX package's tolerance for its fused loss against DepthLoss) and weight
+# gradients are sums of it over 2.4M pixels; conv biases in front of a
+# BatchNorm have a zero gradient and hold noise (floor).
+STEP_LOSS_RTOL = 1e-5
+STEP_GRAD_REL = 1e-3
+STEP_GRAD_FLOOR = 1e-6
 
 
 def check(ok: bool, what: str):
@@ -241,6 +281,153 @@ def phase_kernels():
     return rows, max_err, n_checks
 
 
+def make_loss_pair(kind, bsz, h, w, dev, seed=0):
+    """``(pred, target)`` ``[B,H,W]`` f32 on ``dev``. ``norm``: a target of
+    ``depth_norm`` scale (uniform in [1, 100]) with a prediction around it;
+    ``zeros``: the same with a third of the target pixels 0; ``equal``:
+    pred == target; ``smooth``: piecewise-constant images; ``random``: both
+    uniform in [0, 10)."""
+    rng = np.random.default_rng(seed)
+    if kind == "random":
+        p = rng.random((bsz, h, w)) * 10
+        t = rng.random((bsz, h, w)) * 10
+    elif kind == "smooth":
+        t = np.repeat(np.repeat(rng.integers(1, 9, (bsz, -(-h // 8), -(-w // 8))),
+                                8, axis=1), 8, axis=2)[:, :h, :w].astype(float)
+        p = t.copy()
+        p[:, : h // 2] += 1.0
+    else:
+        t = rng.uniform(1.0, 100.0, (bsz, h, w))
+        p = t * rng.uniform(0.5, 1.5, (bsz, h, w))
+        if kind == "zeros":
+            t[rng.random((bsz, h, w)) < 0.33] = 0.0
+        if kind == "equal":
+            p = t.copy()
+
+    def put(a):
+        return torch.from_numpy(a.astype(np.float32)).to(dev)
+
+    return put(p), put(t)
+
+
+def time_eager_ms(fn, calls: int = 20) -> float:
+    """Device time of one call of ``fn`` run eagerly: ``calls`` calls between
+    one pair of CUDA events, after a warm-up. For work that a CUDA graph does
+    not take (an autograd backward); it counts host gaps where the host is
+    slower than the card."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(calls):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / calls
+
+
+def phase_loss_kernels():
+    """``fused_loss_fwd`` and ``fused_loss_bwd`` against their plain versions
+    (tolerance: ``fused_loss.tolerance``, from the arithmetic), then their
+    times at the training path's shape."""
+    from tpudepth_torch.losses.losses import DepthLoss
+    from tpudepth_torch.ops.kernels import fused_loss as fl
+
+    dev = DEVICE
+    err = {"fwd": 0.0, "bwd": 0.0, "bwd_rel": 0.0}
+    for case in LOSS_CASES:
+        kind, bsz, h, w = case
+        p, t = make_loss_pair(kind, bsz, h, w, dev)
+        n = h * w
+        tol = fl.tolerance(p, t, MAX_DEPTH)
+        got = fl.fused_partials(p, t, MAX_DEPTH)
+        torch.cuda.synchronize()
+        want = fl.fused_partials_reference(p, t, MAX_DEPTH)
+        d = (got - want).abs()
+        ok = bool((d[:, [0, 2]] <= tol["partials_rtol"] * want[:, [0, 2]].abs()).all()
+                  and (d[:, 1] <= tol["ssim_atol"]).all())
+        e_fwd = float(d.max()) / n      # error of the per-pixel means
+        err["fwd"] = max(err["fwd"], e_fwd)
+        again = fl.fused_partials(p, t, MAX_DEPTH)
+        print(f"[kernel] fused_loss_fwd {kind:<7} B{bsz} {h}x{w}: partials/N "
+              f"max_abs_err {e_fwd:.3e} (SSIM sum err {float(d[:, 1].max()):.3e}"
+              f" <= atol {float(tol['ssim_atol'].min()):.3e}; L1, grad rtol "
+              f"{tol['partials_rtol']:g}); repeat bit-equal "
+              f"{torch.equal(got, again)}", flush=True)
+        check(ok, f"fused_loss_fwd {case} beyond tolerance")
+        check(torch.equal(got, again), f"fused_loss_fwd {case} does not repeat")
+        if kind == "equal":
+            check(bool((got[:, 1] == n).all() and (got[:, [0, 2]] == 0).all()),
+                  "pred == target must give SSIM sum N and zero L1 / gradient")
+
+        total = bsz * n
+        scales = torch.tensor([0.1 / total, -0.5 / total, 1.0 / total],
+                              device=dev)
+        gk = fl.fused_bwd(p, t, MAX_DEPTH, scales)
+        torch.cuda.synchronize()
+        gr = fl.fused_bwd_reference(p, t, MAX_DEPTH, scales)
+        bound = (0.5 / total) * tol["grad_atol"] + tol["grad_rtol"] * gr.abs()
+        dg = (gk - gr).abs()
+        e_bwd = float(dg.max())
+        e_rel = e_bwd / max(float(gr.abs().max()), 1e-30)
+        err["bwd"] = max(err["bwd"], e_bwd)
+        if kind != "equal":   # there the gradient itself is rounding noise
+            err["bwd_rel"] = max(err["bwd_rel"], e_rel)
+        scales[1] = 0.0   # without the SSIM term only signs are left: exact
+        signs_equal = torch.equal(fl.fused_bwd(p, t, MAX_DEPTH, scales),
+                                  fl.fused_bwd_reference(p, t, MAX_DEPTH, scales))
+        print(f"[kernel] fused_loss_bwd {kind:<7} B{bsz} {h}x{w}: max_abs_err "
+              f"{e_bwd:.3e} of max|dL/dp| {float(gr.abs().max()):.3e} (rel "
+              f"{e_rel:.3e}; largest share of its bound "
+              f"{float((dg / bound.clamp_min(1e-30)).max()):.3f}); sign terms "
+              f"bit-equal {signs_equal}", flush=True)
+        check(bool((dg <= bound).all()), f"fused_loss_bwd {case} beyond tolerance")
+        check(signs_equal, f"fused_loss_bwd {case}: sign terms differ")
+
+    # device times at the training shape, targets of depth_norm scale
+    bsz, (h, w) = TRAIN_BATCH, TRAIN_HW
+    p, t = make_loss_pair("norm", bsz, h, w, dev)
+    pixels = bsz * h * w
+    scales = torch.tensor([0.1 / pixels, -0.5 / pixels, 1.0 / pixels], device=dev)
+    loss = DepthLoss(0.1, 1.0, 1.0, MAX_DEPTH)
+    p4, t4 = p[:, None], t[:, None]
+    pg = p4.clone().requires_grad_(True)
+    lib_fwd = time_eager_ms(lambda: loss(p4, t4))
+    lib_both = time_eager_ms(
+        lambda: torch.autograd.grad(loss(pg, t4), pg))
+    rows = {}
+    for name, kern, plain, nbytes, flops, lib in (
+            ("fused_loss_fwd",
+             lambda: fl.fused_partials(p, t, MAX_DEPTH),
+             lambda: fl.fused_partials_reference(p, t, MAX_DEPTH),
+             2 * pixels * 4 + bsz * 3 * 4, pixels * LOSS_FWD_FLOP_PER_PIXEL,
+             lib_fwd),
+            ("fused_loss_bwd",
+             lambda: fl.fused_bwd(p, t, MAX_DEPTH, scales),
+             lambda: fl.fused_bwd_reference(p, t, MAX_DEPTH, scales),
+             3 * pixels * 4 + 3 * 4, pixels * LOSS_BWD_FLOP_PER_PIXEL,
+             lib_both - lib_fwd)):
+        ms, plain_ms = time_ms(kern), time_ms(plain, per_graph=2, replays=10)
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = flops / F32_FLOP_PER_S * 1e3
+        rows[name] = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib,
+                      "bound_ms": max(t_bytes, t_ops), "bytes_ms": t_bytes,
+                      "ops_ms": t_ops,
+                      "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+        print(f"[kernel time] {name} B{bsz} {h}x{w} f32: kernel {ms:.4f} ms, "
+              f"plain {plain_ms:.4f} ms, DepthLoss "
+              f"{'forward' if name.endswith('fwd') else 'autograd backward'} "
+              f"{lib:.4f} ms (eager), bound {max(t_bytes, t_ops):.4f} ms "
+              f"({rows[name]['bound_by']}: bytes {t_bytes:.4f}, operations "
+              f"{t_ops:.4f}; {100 * max(t_bytes, t_ops) / ms:.1f}% of bound)",
+              flush=True)
+    print(f"[kernel time] DepthLoss forward + autograd backward {lib_both:.4f} "
+          f"ms (eager), kernels {rows['fused_loss_fwd']['ms'] + rows['fused_loss_bwd']['ms']:.4f} ms")
+    return rows, err
+
+
 def phase_serving():
     from tpudepth_torch.infer.engine import InferenceEngine
     from tpudepth_torch.models.layers import init_random_
@@ -316,7 +503,7 @@ def phase_serving():
                                   compute_dtype=torch.bfloat16,
                                   max_depth=10.0)
             torch.cuda.reset_peak_memory_stats()
-            stats = eng.benchmark(200, 10)
+            stats = eng.benchmark(100, 10)
             mem = torch.cuda.max_memory_allocated() / 2**20
             perf[f"{gub}_bs{bs}"] = stats["images_per_second"]
             print(f"[engine] GuideDepth 480x640 bf16 {gub:<5} bs{bs}: "
@@ -329,22 +516,32 @@ def phase_serving():
 
 
 def profile_engine(eng, tag: str, runs: int = 5):
-    """Device busy share of ``runs`` engine calls (kernel time summed by the
-    profiler over the host-clock window) and the kernels that take most."""
+    """Profile ``runs`` engine calls on a zero image."""
+    example = torch.zeros(eng.input_shape, device="cuda")
+    profile_window(lambda: eng(example), tag, runs)
+
+
+def profile_window(fn, tag: str, runs: int):
+    """Device busy share of ``runs`` calls of ``fn`` (kernel time summed by
+    the profiler over the host-clock window) and the kernels that take
+    most."""
     from torch.profiler import ProfilerActivity, profile
 
-    example = torch.zeros(eng.input_shape, device="cuda")
-    eng(example)
+    fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(runs):
-            eng(example)
+            fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
+    # kernels and copies only: a record_function range that the profiler
+    # mirrors onto the device timeline (Optimizer.step#...) is no device work
     kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)
+               and not e.key.startswith("Optimizer.")]
     busy_us = sum(e.self_device_time_total for e in kernels)
     if busy_us == 0:
         print(f"[profile] {tag}: no device time in the trace (not measured)")
@@ -353,10 +550,209 @@ def profile_engine(eng, tag: str, runs: int = 5):
     print(f"[profile] {tag}: device busy {busy_us / runs / 1e3:.3f} ms of "
           f"{wall_us / runs / 1e3:.3f} ms per call ({100 * busy_us / wall_us:.1f}%"
           f" busy), {n_launch / runs:.0f} kernel launches per call")
-    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]:
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
         print(f"[profile] {tag}:   {e.self_device_time_total / runs / 1e3:8.3f} "
               f"ms/call  x{e.count // runs:<4} {e.key[:90]}")
     sys.stdout.flush()
+
+
+class SyntheticLoader:
+    """``n`` seeded batches as a loader of the port delivers them: NHWC
+    ``image`` raw uint8 and ``depth`` raw uint8 (training) or float in
+    [0, 1] (validation), NYU-like with a tenth of the depth pixels 0."""
+
+    def __init__(self, n: int, seed: int, raw_depth: bool):
+        rng = np.random.default_rng(seed)
+        h, w = TRAIN_HW
+        self.batches = []
+        for _ in range(n):
+            image = rng.integers(0, 256, (TRAIN_BATCH, h, w, 3), dtype=np.uint8)
+            depth = rng.integers(1, 256, (TRAIN_BATCH, h, w, 1), dtype=np.uint8)
+            depth[rng.random(depth.shape) < 0.1] = 0
+            if not raw_depth:
+                depth = depth.astype(np.float32) / 255.0
+            self.batches.append({"image": image, "depth": depth})
+
+    def __len__(self):
+        return len(self.batches)
+
+    def set_epoch(self, epoch: int):
+        pass
+
+    def __iter__(self):
+        return iter(self.batches)
+
+
+def phase_training():
+    from tpudepth_torch.core.config import TrainConfig
+    from tpudepth_torch.losses.losses import DepthLoss
+    from tpudepth_torch.models.registry import build_model
+    from tpudepth_torch.ops.kernels import fused_loss as fl
+    from tpudepth_torch.train.trainer import (
+        LossRecipe,
+        Trainer,
+        TrainState,
+        make_optimizer,
+        make_train_step,
+        step_lr,
+    )
+
+    train_loader = SyntheticLoader(3, seed=200, raw_depth=True)
+    val_loader = SyntheticLoader(1, seed=201, raw_depth=False)
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg = TrainConfig(model="GuideDepth", dataset="nyu_reduced",
+                          resolution="full", batch_size=TRAIN_BATCH,
+                          compute_dtype="bfloat16", log_every=1, seed=0,
+                          checkpoint_dir=f"{tmp}/checkpoints",
+                          results_dir=f"{tmp}/results")
+        trainer = Trainer(cfg, device=DEVICE, train_loader=train_loader,
+                          val_loader=val_loader)
+        losses = []
+
+        # the main path: 2 epochs x 3 steps, one validation batch and one
+        # checkpoint per epoch; the kernels' launches counted over it only
+        fl.fused_partials.launches = 0
+        fl.fused_bwd.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        trainer.fit(epochs=2, val_max_batches=1, checkpoint_style="per_epoch",
+                    log_fn=lambda e, i, n, loss, dt, it: losses.append(loss))
+        torch.cuda.synchronize()
+        t_fit = time.perf_counter() - t0
+        out["fwd_launches"] = fl.fused_partials.launches
+        out["bwd_launches"] = fl.fused_bwd.launches
+        mem = torch.cuda.max_memory_allocated() / 2**20
+        print(f"[train] fit: 2 epochs x 3 steps, GuideDepth {TRAIN_HW[0]}x"
+              f"{TRAIN_HW[1]} B{TRAIN_BATCH} bf16 alhashim, augment on, in "
+              f"{t_fit:.2f} s host clock (first step included); losses "
+              f"{[round(x, 4) for x in losses]}; val losses "
+              f"{[round(x, 4) for x in trainer.val_losses]}; fused_loss_fwd "
+              f"launches {out['fwd_launches']} (6 train steps + 2 validation "
+              f"batches), fused_loss_bwd launches {out['bwd_launches']}; peak "
+              f"memory {mem:.0f} MiB", flush=True)
+        check(len(losses) == 6 and all(np.isfinite(losses)),
+              f"6 finite train losses expected, got {losses}")
+        check(len(trainer.val_losses) == 2
+              and all(np.isfinite(trainer.val_losses)), "validation losses")
+        check(out["bwd_launches"] == 6,
+              f"fused_loss_bwd launched {out['bwd_launches']} times in 6 steps")
+        check(out["fwd_launches"] == 6 + 2,
+              f"fused_loss_fwd launched {out['fwd_launches']} times in 6 "
+              "steps and 2 validation batches")
+        check(trainer.state.step == 6 and trainer.epoch == 2, "step count")
+        for name, prm in trainer.model.named_parameters():
+            check(bool(torch.isfinite(prm).all()), f"non-finite {name}")
+
+        # the last checkpoint, restored into a fresh trainer
+        fresh = Trainer(cfg, device=DEVICE, train_loader=train_loader,
+                        val_loader=val_loader)
+        fresh.init_state()
+        fresh.restore(f"{tmp}/checkpoints/checkpoint_1")
+        check(fresh.epoch == 2 and fresh.state.step == 6, "restored counters")
+        check(fresh.val_losses == trainer.val_losses, "restored val_losses")
+        saved = trainer.model.state_dict()
+        for k, v in fresh.model.state_dict().items():
+            check(torch.equal(v, saved[k]), f"restored {k} differs")
+        so = trainer.state.optimizer.state_dict()["state"]
+        ro = fresh.state.optimizer.state_dict()["state"]
+        check(set(so) == set(ro) and len(so) > 100, "optimizer state keys")
+        for k in so:
+            for field in ("exp_avg", "exp_avg_sq", "step"):
+                check(torch.equal(torch.as_tensor(so[k][field]).cpu(),
+                                  torch.as_tensor(ro[k][field]).cpu()),
+                      f"restored optimizer state {k}.{field} differs")
+        print("[train] checkpoint_1 restored into a fresh trainer: model, "
+              "BatchNorm statistics, Adam moments, epoch and val_losses equal")
+
+    # one f32 step through the loss kernels against the plain DepthLoss
+    class PlainRecipe(LossRecipe):
+        def loss(self, pred, target):
+            return DepthLoss(0.1, 1.0, 1.0, self.max_depth)(pred, target)
+
+    dev = DEVICE
+    base = build_model("GuideDepth")
+    base.load_state_dict(trainer.model.state_dict())
+    batch = train_loader.batches[0]
+    image = torch.as_tensor(batch["image"]).to(dev)
+    depth = torch.as_tensor(batch["depth"]).to(dev)
+    results = {}
+    for tag, recipe_cls in (("kernel", LossRecipe), ("plain", PlainRecipe)):
+        model = copy.deepcopy(base).to(dev, memory_format=torch.channels_last)
+        state = TrainState(model, make_optimizer(cfg, model.parameters()))
+        recipe = recipe_cls(kind="alhashim", max_depth=MAX_DEPTH,
+                            depth_scale=MAX_DEPTH)
+        step = make_train_step(model, recipe, step_lr(1e-4, 15, 0.1, 3),
+                               compute_dtype=torch.float32, augment=False)
+        before = fl.fused_bwd.launches
+        loss = step(state, image, depth)
+        torch.cuda.synchronize()
+        check(fl.fused_bwd.launches - before == (1 if tag == "kernel" else 0),
+              f"{tag} step launched the backward kernel "
+              f"{fl.fused_bwd.launches - before} times")
+        results[tag] = (float(loss), {n: p.grad.clone()
+                                      for n, p in model.named_parameters()})
+    lk, gk = results["kernel"]
+    lp, gp = results["plain"]
+    worst, worst_name, g_max, n_above = 0.0, "", 0.0, 0
+    for name in gk:
+        scale = float(gp[name].abs().max())
+        diff = float((gk[name] - gp[name]).abs().max())
+        g_max = max(g_max, scale)
+        if scale > STEP_GRAD_FLOOR:
+            n_above += 1
+            if diff / scale > worst:
+                worst, worst_name = diff / scale, name
+        check(diff <= max(STEP_GRAD_REL * scale, STEP_GRAD_FLOOR),
+              f"gradient of {name}: {diff:.3e} against max {scale:.3e}")
+    print(f"[train] one f32 step, loss kernels vs plain DepthLoss: loss "
+          f"{lk:.8f} vs {lp:.8f} (rel {abs(lk - lp) / abs(lp):.2e}, rtol "
+          f"{STEP_LOSS_RTOL:g}); gradients of {len(gk)} tensors (largest "
+          f"|g| {g_max:.3e}), {n_above} with max|g| above the floor "
+          f"{STEP_GRAD_FLOOR:g}: largest max|diff|/max|g| {worst:.2e} "
+          f"({worst_name}; bound {STEP_GRAD_REL:g})", flush=True)
+    check(n_above > 100, "the gradients are too small to compare")
+    check(abs(lk - lp) <= STEP_LOSS_RTOL * abs(lp), "kernel step loss")
+    out["step_loss_rel"] = abs(lk - lp) / abs(lp)
+    out["step_grad_rel"] = worst
+
+    # 8 steps on one fixed batch lower the loss (bf16, lr 1e-3; the same
+    # augmentation draw at every step, so the batch is the same)
+    cfg8 = TrainConfig(model="GuideDepth", dataset="nyu_reduced",
+                       resolution="full", batch_size=TRAIN_BATCH,
+                       compute_dtype="bfloat16", learning_rate=1e-3, seed=1)
+    fixed = Trainer(cfg8, device=DEVICE, train_loader=train_loader)
+    fixed.init_state()
+    same_draw = torch.Generator(device=DEVICE)
+    curve = [float(fixed.train_step(batch, same_draw.manual_seed(0)))
+             for _ in range(8)]
+    print(f"[train] 8 steps on one batch (bf16, lr 1e-3): "
+          f"{[round(x, 4) for x in curve]}", flush=True)
+    check(all(np.isfinite(curve)) and curve[-1] < curve[0],
+          "8 steps on one batch did not lower the loss")
+
+    # throughput of the train step as Trainer.train_step runs it (host batch
+    # in, augment on), warm, between CUDA events; then one profiled step
+    for b in train_loader.batches:
+        trainer.train_step(b)
+    torch.cuda.synchronize()
+    n_timed = 12
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for i in range(n_timed):
+        trainer.train_step(train_loader.batches[i % 3])
+    end.record()
+    end.synchronize()
+    step_ms = start.elapsed_time(end) / n_timed
+    out["train_img_per_s"] = TRAIN_BATCH / step_ms * 1e3
+    out["train_step_ms"] = step_ms
+    print(f"[train] train step GuideDepth {TRAIN_HW[0]}x{TRAIN_HW[1]} "
+          f"B{TRAIN_BATCH} bf16: {step_ms:.2f} ms/step, "
+          f"{out['train_img_per_s']:.1f} img/s ({n_timed} steps between CUDA "
+          f"events, warm)", flush=True)
+    profile_window(lambda: trainer.train_step(batch), "train step", 2)
+    return out
 
 
 def main() -> int:
@@ -369,7 +765,9 @@ def main() -> int:
     phase_device()
     phase_build()
     rows, max_err, n_checks = phase_kernels()
+    loss_rows, loss_err = phase_loss_kernels()
     launches, errs, perf = phase_serving()
+    train = phase_training()
 
     def total(key):
         return sum(r[key] for r in rows)
@@ -395,8 +793,37 @@ def main() -> int:
         "library_ms": total("library_ms"),
         "shapes": rows,
     }]
+    for name, line, fn, count, e in (
+            ("fused_loss_fwd", 101, "_fused_partials", train["fwd_launches"],
+             loss_err["fwd"]),
+            ("fused_loss_bwd", 273, "_fused_bwd", train["bwd_launches"],
+             loss_err["bwd"])):
+        r = loss_rows[name]
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": "tpudepth_torch/csrc/fused_loss.cu",
+            "replaces": f"tpudepth/ops/pallas/fused_loss.py:{line}",
+            "replaces_function": f"tpudepth/ops/pallas/fused_loss.py::{fn}",
+            "launches": count,
+            "max_abs_err": e,
+            "max_err": e,
+            "checks": len(LOSS_CASES),
+            "ok": True,
+            "timed": f"device time of one launch at B{TRAIN_BATCH} "
+                     f"{TRAIN_HW[0]}x{TRAIN_HW[1]} f32, CUDA graph replays; "
+                     "library_ms is the port's DepthLoss "
+                     + ("forward" if name.endswith("fwd") else
+                        "forward + autograd backward less its forward")
+                     + ", eager between CUDA events",
+            "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": r["library_ms"],
+            "bytes_ms": r["bytes_ms"], "ops_ms": r["ops_ms"],
+        })
+    kernels[2]["max_rel_err"] = loss_err["bwd_rel"]
     print(json.dumps({"kernels": kernels, "serve_errors": errs,
-                      "engine_img_per_s": perf,
+                      "engine_img_per_s": perf, "training": train,
                       "seconds": time.perf_counter() - t_start}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

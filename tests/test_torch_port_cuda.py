@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 import torch
 
+from tpudepth_torch.ops.kernels import fused_loss as fl
 from tpudepth_torch.ops.kernels.gub_conv import (
     conv_bn_act,
     conv_bn_act_reference,
@@ -108,3 +109,105 @@ def test_gub_conv_fwd_refuses_what_it_does_not_take(cuda):
         conv_bn_act([parts[0].half()], wt, b)
     with pytest.raises(ValueError):
         conv_bn_act(parts, wt.new_zeros(5, 5, 4, 8), b)
+
+
+def loss_pair(kind, bsz, h, w, device, seed=0):
+    """``(pred, target)`` ``[B,H,W]`` float32. ``random``: both uniform in
+    [0, 10); ``norm``: a target of ``depth_norm`` scale (uniform in [1, 100])
+    with a prediction around it; ``zeros``: the same with a third of the
+    target pixels 0 (masked depth); ``equal``: pred == target; ``smooth``:
+    piecewise-constant images, so differences and their signs hit 0."""
+    rng = np.random.default_rng(seed)
+    if kind == "random":
+        p = rng.random((bsz, h, w)) * 10
+        t = rng.random((bsz, h, w)) * 10
+    elif kind == "smooth":
+        t = np.repeat(np.repeat(rng.integers(1, 9, (bsz, -(-h // 8), -(-w // 8))),
+                                8, axis=1), 8, axis=2)[:, :h, :w].astype(float)
+        p = t.copy()
+        p[:, : h // 2] += 1.0
+    else:
+        t = rng.uniform(1.0, 100.0, (bsz, h, w))
+        p = t * rng.uniform(0.5, 1.5, (bsz, h, w))
+        if kind == "zeros":
+            t[rng.random((bsz, h, w)) < 0.33] = 0.0
+        if kind == "equal":
+            p = t.copy()
+
+    def dev(a):
+        return torch.from_numpy(a.astype(np.float32)).to(device)
+
+    return dev(p), dev(t)
+
+
+LOSS_CASES = [("random", 3, 48, 64), ("norm", 8, 240, 320),
+              ("norm", 2, 33, 47), ("zeros", 2, 64, 96), ("equal", 2, 40, 40),
+              ("smooth", 2, 50, 70), ("norm", 1, 7, 5), ("norm", 8, 480, 640)]
+
+
+@pytest.mark.parametrize("case", LOSS_CASES, ids=lambda c: "-".join(map(str, c)))
+def test_fused_loss_fwd_matches_plain(cuda, case):
+    p, t = loss_pair(*case, cuda)
+    before = fl.fused_partials.launches
+    got = fl.fused_partials(p, t, 10.0)
+    torch.cuda.synchronize()
+    assert fl.fused_partials.launches == before + 1
+    want = fl.fused_partials_reference(p, t, 10.0)
+    tol = fl.tolerance(p, t, 10.0)
+    assert got.shape == want.shape == (p.shape[0], 3)
+    torch.testing.assert_close(got[:, [0, 2]], want[:, [0, 2]], atol=0,
+                               rtol=tol["partials_rtol"])
+    assert bool(((got[:, 1] - want[:, 1]).abs() <= tol["ssim_atol"]).all())
+    # the tile sums are added in a fixed order: the same bits every time
+    assert torch.equal(got, fl.fused_partials(p, t, 10.0))
+    if case[0] == "equal":
+        n = float(p.shape[1] * p.shape[2])
+        assert torch.equal(got[:, 1], torch.full_like(got[:, 1], n))
+        assert float(got[:, [0, 2]].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("case", LOSS_CASES, ids=lambda c: "-".join(map(str, c)))
+def test_fused_loss_bwd_matches_plain(cuda, case):
+    p, t = loss_pair(*case, cuda)
+    n = p.numel()
+    scales = torch.tensor([0.1 / n, -0.5 / n, 1.0 / n], device=cuda)
+    before = fl.fused_bwd.launches
+    got = fl.fused_bwd(p, t, 10.0, scales)
+    torch.cuda.synchronize()
+    assert fl.fused_bwd.launches == before + 1
+    want = fl.fused_bwd_reference(p, t, 10.0, scales)
+    tol = fl.tolerance(p, t, 10.0)
+    bound = (0.5 / n) * tol["grad_atol"] + tol["grad_rtol"] * want.abs()
+    assert got.shape == want.shape
+    assert bool(((got - want).abs() <= bound).all()), float(
+        ((got - want).abs() - bound).max())
+    assert float(want.abs().max()) > 0 or case[0] == "equal"
+    # without the SSIM term only signs are left, and those are exact
+    scales[1] = 0.0
+    assert torch.equal(fl.fused_bwd(p, t, 10.0, scales),
+                       fl.fused_bwd_reference(p, t, 10.0, scales))
+
+
+def test_fused_depth_loss_on_the_card_matches_autograd_of_depth_loss(cuda):
+    from tpudepth_torch.losses.losses import DepthLoss
+
+    p, t = loss_pair("random", 3, 48, 64, cuda)
+    pk = p[:, None].clone().requires_grad_(True)
+    pr = p[:, None].clone().requires_grad_(True)
+    lk = fl.fused_depth_loss(pk, t[:, None], 0.1, 1.0, 1.0, 10.0)
+    lr = DepthLoss(0.1, 1.0, 1.0, 10.0)(pr, t[:, None])
+    lk.backward()
+    lr.backward()
+    # the tolerances of the JAX package's own fused-loss tests
+    assert abs(float(lk) - float(lr)) < 2e-4
+    torch.testing.assert_close(pk.grad, pr.grad, rtol=1e-4, atol=1e-6)
+
+
+def test_fused_loss_refuses_what_it_does_not_take(cuda):
+    p, t = loss_pair("random", 1, 16, 16, cuda)
+    with pytest.raises(TypeError):
+        fl.fused_partials(p.double(), t.double(), 10.0)
+    with pytest.raises(ValueError, match="contiguous"):
+        fl.fused_partials(p.transpose(1, 2), t.transpose(1, 2), 10.0)
+    with pytest.raises(ValueError):
+        fl.fused_bwd(p, t, 10.0, torch.zeros(3))

@@ -1,0 +1,54 @@
+"""Training augmentations on the device, inside the train step.
+
+Counterpart of ``tpudepth/data/augment.py`` (``getDefaultTrainTransform``,
+``src/data.py:162-168``): per sample a horizontal flip with p = 0.5 on image
+and depth, and with p = 0.5 a uniformly drawn RGB permutation (the identity
+included). NCHW.
+"""
+
+from __future__ import annotations
+
+from itertools import permutations
+from typing import Optional, Tuple
+
+import torch
+
+# list(permutations(range(3))): the reference's table, in its order
+_PERMS = tuple(permutations(range(3)))
+
+
+def augment_batch(
+    generator: Optional[torch.Generator],
+    image: torch.Tensor,
+    depth: torch.Tensor,
+    *,
+    do_flip: Optional[torch.Tensor] = None,
+    do_swap: Optional[torch.Tensor] = None,
+    perm_idx: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-sample random flip and channel swap of ``image`` ``[B,3,H,W]`` and
+    ``depth`` ``[B,1,H,W]``.
+
+    The decisions (``do_flip`` and ``do_swap`` bool ``[B]``, ``perm_idx``
+    integers ``[B]`` into the permutation table) are drawn from ``generator``
+    (a ``torch.Generator`` on the batch's device) unless they are passed in.
+    """
+    b, dev = image.shape[0], image.device
+
+    def draw_bool():
+        return torch.rand(b, device=dev, generator=generator) < 0.5
+
+    do_flip = draw_bool() if do_flip is None else do_flip.to(dev)
+    do_swap = draw_bool() if do_swap is None else do_swap.to(dev)
+    if perm_idx is None:
+        perm_idx = torch.randint(0, len(_PERMS), (b,), device=dev,
+                                 generator=generator)
+    flip = do_flip[:, None, None, None]
+    image = torch.where(flip, image.flip(3), image)
+    depth = torch.where(flip, depth.flip(3), depth)
+
+    perms = torch.tensor(_PERMS, device=dev)[perm_idx.to(dev)]  # [b, 3]
+    swapped = torch.gather(
+        image, 1, perms[:, :, None, None].expand(-1, -1, *image.shape[2:]))
+    image = torch.where(do_swap[:, None, None, None], swapped, image)
+    return image, depth

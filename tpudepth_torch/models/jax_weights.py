@@ -1,5 +1,6 @@
 """Weight bridge: a JAX GuideDepth ``{'params', 'batch_stats'}`` tree (nested
-dicts of numpy arrays) -> the port's ``state_dict``.
+dicts of numpy arrays) -> the port's ``state_dict``, and a gradient tree of
+the same ``params`` structure -> gradients by parameter name.
 
 The inverse of ``tpudepth/models/torch_import.py::convert_guidedepth``, with
 its own copy of the name table (``_ddrnet``, ``_gub`` there):
@@ -15,7 +16,7 @@ Every leaf of the tree must be consumed; a leaf left over raises.
 from __future__ import annotations
 
 from collections import OrderedDict
-from typing import Dict, Iterator, Mapping, Tuple
+from typing import Dict, Iterator, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -107,21 +108,22 @@ def _flatten(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
     return out
 
 
-def guidedepth_state_dict_from_flax(variables: Mapping) -> "OrderedDict[str, torch.Tensor]":
-    """JAX GuideDepth variables -> the port's ``state_dict`` (GuideDepth or
-    GuideDepth-S; the widths come from the arrays)."""
-    params = _flatten(variables["params"])
-    stats = _flatten(variables.get("batch_stats", {}))
+def _convert(params: Dict[str, np.ndarray],
+             stats: Optional[Dict[str, np.ndarray]]) -> "OrderedDict[str, torch.Tensor]":
+    """Map flattened flax leaves to port names. ``stats=None`` maps a
+    params-only tree (gradients): no BatchNorm statistics are expected or
+    written."""
+    tables = [params] + ([stats] if stats is not None else [])
     used = set()
 
     def take(table, key):
         used.add((id(table), key))
         return table[key]
 
-    sd: "OrderedDict[str, torch.Tensor]" = OrderedDict()
+    out: "OrderedDict[str, torch.Tensor]" = OrderedDict()
 
     def put(name, arr):
-        sd[name] = torch.from_numpy(np.array(arr, np.float32))
+        out[name] = torch.from_numpy(np.array(arr, np.float32))
 
     entries = list(_ddrnet("feature_extractor", "feature_extractor"))
     for i in (1, 2, 3):
@@ -135,14 +137,30 @@ def guidedepth_state_dict_from_flax(variables: Mapping) -> "OrderedDict[str, tor
         elif kind == "bn":
             put(f"{tp}.weight", take(params, f"{fp}/BatchNorm_0/scale"))
             put(f"{tp}.bias", take(params, f"{fp}/BatchNorm_0/bias"))
-            put(f"{tp}.running_mean", take(stats, f"{fp}/BatchNorm_0/mean"))
-            put(f"{tp}.running_var", take(stats, f"{fp}/BatchNorm_0/var"))
-            sd[f"{tp}.num_batches_tracked"] = torch.tensor(0, dtype=torch.long)
+            if stats is not None:
+                put(f"{tp}.running_mean", take(stats, f"{fp}/BatchNorm_0/mean"))
+                put(f"{tp}.running_var", take(stats, f"{fp}/BatchNorm_0/var"))
+                out[f"{tp}.num_batches_tracked"] = torch.tensor(
+                    0, dtype=torch.long)
         else:
             put(f"{tp}.weight", take(params, f"{fp}/kernel").T)
 
-    left = ([k for k in params if (id(params), k) not in used]
-            + [k for k in stats if (id(stats), k) not in used])
+    left = [k for table in tables for k in table
+            if (id(table), k) not in used]
     if left:
         raise ValueError(f"flax leaves not consumed by the bridge: {left}")
-    return sd
+    return out
+
+
+def guidedepth_state_dict_from_flax(variables: Mapping) -> "OrderedDict[str, torch.Tensor]":
+    """JAX GuideDepth variables -> the port's ``state_dict`` (GuideDepth or
+    GuideDepth-S; the widths come from the arrays)."""
+    return _convert(_flatten(variables["params"]),
+                    _flatten(variables.get("batch_stats", {})))
+
+
+def guidedepth_grads_from_flax(grads: Mapping) -> "OrderedDict[str, torch.Tensor]":
+    """A flax gradient tree (the structure of ``variables['params']``) ->
+    ``{parameter name: gradient}`` under the same key table and layout
+    changes, to hold against ``dict(model.named_parameters())``' ``.grad``."""
+    return _convert(_flatten(grads), None)

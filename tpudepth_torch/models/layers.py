@@ -40,7 +40,19 @@ class Linear(nn.Linear):
 
 
 class BatchNorm(nn.BatchNorm2d):
-    """``nn.BatchNorm2d`` (momentum 0.1, eps 1e-5) with f32 statistics.
+    """BatchNorm (momentum 0.1, eps 1e-5) with f32 parameters and statistics,
+    computing what ``tpudepth/models/layers.py::BatchNorm`` (flax
+    ``nn.BatchNorm``) computes.
+
+    In train mode the batch mean and the BIASED variance
+    (``max(E[x^2] - E[x]^2, 0)``) are reduced in f32 over the compute-dtype
+    tensor, the running statistics move by momentum 0.1 towards them (the
+    running variance takes the biased variance, where ``nn.BatchNorm2d``
+    would take the unbiased one), and the normalization runs in the compute
+    dtype in flax's operation order,
+    ``(x - mean) * (rsqrt(var + eps) * scale) + bias``. The
+    ``num_batches_tracked`` buffer stays in the ``state_dict`` for the
+    reference key layout and is not counted up (nothing reads it).
 
     In eval it applies the per-channel affine of :meth:`eval_affine`
     (``x * A + C``, the form the fused GUB kernels take as their prelude)."""
@@ -55,11 +67,25 @@ class BatchNorm(nn.BatchNorm2d):
         return a, self.bias - self.running_mean * a
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.training:
-            return super().forward(x)
-        a, c = self.eval_affine()
-        return (x * a.to(x.dtype)[None, :, None, None]
-                + c.to(x.dtype)[None, :, None, None])
+        dt = x.dtype
+
+        def per_channel(v: torch.Tensor) -> torch.Tensor:
+            return v.to(dt)[None, :, None, None]
+
+        if not self.training:
+            a, c = self.eval_affine()
+            return x * per_channel(a) + per_channel(c)
+        xf = x if x.dtype == torch.float64 else x.float()
+        mean = xf.mean(dim=(0, 2, 3))
+        var = torch.clamp((xf * xf).mean(dim=(0, 2, 3)) - mean * mean, min=0.0)
+        with torch.no_grad():
+            self.running_mean.mul_(1.0 - self.momentum).add_(
+                mean, alpha=self.momentum)
+            self.running_var.mul_(1.0 - self.momentum).add_(
+                var, alpha=self.momentum)
+        mul = torch.rsqrt(var.to(dt) + self.eps) * self.weight.to(dt)
+        return ((x - per_channel(mean)) * mul[None, :, None, None]
+                + per_channel(self.bias))
 
 
 @torch.no_grad()
