@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Smoke test of tpudepth_torch on one NVIDIA GPU: ``python3 chip_smoke.py``.
 
-It drives the port's two main paths at NYU 480x640, serving (GuideDepth in
-bf16 with fused GUB stages) and training (``Trainer.fit``, alhashim recipe,
-bf16, batch 8), and holds every CUDA kernel of those paths against its plain
+It drives the port's main paths at NYU 480x640: serving (GuideDepth in bf16
+with fused GUB stages), training (``Trainer.fit``, alhashim recipe, bf16,
+batch 8) with plain and with fused GUB stages, and the evaluator on the
+trained model. It holds every CUDA kernel of those paths against its plain
 PyTorch version. Phases:
 
 1. device: needs CUDA; prints the card's name and power limit; turns TF32
@@ -11,25 +12,41 @@ PyTorch version. Phases:
 2. build: compiles every CUDA source of the package with nvcc (in parallel)
    and prints the time and the ptxas report;
 3. kernels: ``gub_conv_fwd`` against ``conv_bn_act_reference`` at the nine
-   shapes the serving path gives it, in f32 and bf16, with and without
-   prelude, skip and statistics; ``fused_loss_fwd`` and ``fused_loss_bwd``
+   shapes of the paths, at batch 1 (serving) and batch 8 (training,
+   evaluation), in f32 and bf16, with and without prelude and skip, output
+   and statistics; ``fused_loss_fwd`` and ``fused_loss_bwd``
    against ``fused_partials_reference`` / ``fused_bwd_reference`` at the
    training path's shape and at ragged, zero-target, pred == target and flat
    cases; per shape the device time of the kernel, of the plain version and
    of a library yardstick (one cuDNN ``F.conv2d``; the port's ``DepthLoss``
-   and its autograd backward) beside the bound;
+   and its autograd backward) beside the bound; ``gub_conv_dw`` and
+   ``gub_conv_dx`` against ``conv_bn_act_dw_reference`` /
+   ``conv_bn_act_dx_reference`` at the nine shapes of a batch-8 train step in
+   f32 and bf16 and at prelude / skip / ragged / k=1 / multi-part cases,
+   timed beside cuDNN's ``convolution_backward`` of the same conv;
 4. serving: 8 single-image requests through ``InferenceEngine`` (bf16,
    flip-TTA, meters), with the kernel's launches counted over exactly that
    run, then the raw outputs against the plain f32 model, then the engine's
    img/s at bs 1 and 8, fused and plain, each with a ``torch.profiler``
    window (device busy share, launches, largest kernels);
 5. training: ``Trainer.fit`` for 2 epochs of 3 steps on seeded synthetic
-   uint8 batches with one validation batch and a checkpoint per epoch, the
+   uint8 batches with one validation batch and a checkpoint per epoch (the
+   seeded model's output bias starts at 3, inside the targets' range), the
    loss kernels' launches counted over exactly that run; the last checkpoint
    restored into a fresh trainer; one f32 step through the loss kernels
    against the same step through the plain ``DepthLoss``; 8 steps on one
-   batch lower the loss; then train img/s and a ``torch.profiler`` window of one step;
-6. one JSON line on the kernels, and last the JSON line with the device.
+   batch lower the loss;
+6. fused training: the same ``fit`` on a ``gub="fused"`` model, with the
+   launches of ``gub_conv_fwd``, ``gub_conv_dw``, ``gub_conv_dx`` and the
+   loss kernels counted over exactly that run and checked per step; the last
+   checkpoint restored; one f32 step fused against the same step plain; then
+   ms/step, img/s, peak memory and a ``torch.profiler`` window of one step
+   for the plain and the fused trainer, in turns;
+7. evaluation: the trained fused model, its weights as ``fit`` left them,
+   through ``InferenceEngine`` (bf16, meters) and ``AlhashimEvaluator`` over
+   seeded synthetic batches, against the f32 plain model through the same
+   evaluator; ``results.txt`` written and read back;
+8. one JSON line on the kernels, and last the JSON line with the device.
 
 Any failed check raises, and the script exits non-zero without printing a
 result. It imports nothing of JAX.
@@ -73,6 +90,10 @@ SERVE_BF16_REL_MAX = 0.15
 # raw model output, f32 fused against f32 plain (summation order only)
 SERVE_F32_REL_MAX = 1e-4
 
+# per-channel sum(y) against sum|y| and sum(y^2): f32 sums of 128 values per
+# block (a few ulps each), added in f64, rounded once to f32
+STATS_RTOL = 1e-6
+
 DEVICE = torch.device("cuda")
 
 # the training path: GuideDepth, NYU full resolution, batch 8
@@ -99,6 +120,10 @@ LOSS_BWD_FLOP_PER_PIXEL = 8 * 22 * 2 + 60
 STEP_LOSS_RTOL = 1e-5
 STEP_GRAD_REL = 1e-3
 STEP_GRAD_FLOOR = 1e-6
+# evaluator metrics of the bf16 fused engine against the f32 plain model on
+# the same weights: bf16 carries 3 significant digits through the network
+EVAL_BF16_REL = 5e-2
+EVAL_BF16_ABS = 5e-3
 
 
 def check(ok: bool, what: str):
@@ -217,22 +242,24 @@ def phase_kernels():
         yr, yk = ry.float(), y.float()
         err = (yk - yr).abs()
         ok_y = bool((err <= atol + rtol * yr.abs()).all())
-        # the statistics against the sums of the kernel's own output: f32
-        # sums of the same values in another order
-        tol_s = 1e-4 + 1e-5 * float(yk.abs().sum())
-        tol_q = 1e-4 + 1e-5 * float((yk * yk).sum())
-        es = float((s - yk.sum(dim=(0, 1, 2))).abs().max())
-        eq = float((q - (yk * yk).sum(dim=(0, 1, 2))).abs().max())
+        # the statistics against f64 sums of the kernel's own output, per
+        # channel, relative to sum|y| and sum y^2
+        yd = y.double()
+        abs_s, sum_q = yd.abs().sum(dim=(0, 1, 2)), (yd * yd).sum(dim=(0, 1, 2))
+        es = float(((s.double() - yd.sum(dim=(0, 1, 2))).abs()
+                    / abs_s.clamp_min(1e-30)).max())
+        eq = float(((q.double() - sum_q).abs() / sum_q.clamp_min(1e-30)).max())
         e = float(err.max())
         max_err = max(max_err, e)
         n_checks += 1
         print(f"[kernel] {tag:<24} {str(dtype)[6:]:<8} pre={int(prelude)} "
               f"skip={int(skip)} max_abs_err {e:.3e} "
               f"(max rel {float((err / yr.abs().clamp_min(1e-3)).max()):.3e}; "
-              f"atol {atol:g} rtol {rtol:g}) stats err {es:.2e}/{tol_s:.2e} "
-              f"{eq:.2e}/{tol_q:.2e}", flush=True)
+              f"atol {atol:g} rtol {rtol:g}) stats rel err {es:.2e} {eq:.2e} "
+              f"(rtol {STATS_RTOL:g})", flush=True)
         check(ok_y, f"{tag} {dtype} output beyond tolerance")
-        check(es <= tol_s and eq <= tol_q, f"{tag} {dtype} statistics")
+        check(es <= STATS_RTOL and eq <= STATS_RTOL,
+              f"{tag} {dtype} statistics")
 
     for i, (name, cins, cout, h, w, prelude) in enumerate(PATH_SHAPES):
         for dtype in (torch.float32, torch.bfloat16):
@@ -247,6 +274,13 @@ def phase_kernels():
                    dtype, k=1)
         check_case("B3 3 parts ->40", 52, 3, 9, 18, (4, 2, 3), 40, True,
                    False, dtype)
+    # the nine shapes as the fused train step and the evaluation launch
+    # them: batch 8 with statistics (sums over up to 2.4 M pixels)
+    for i, (name, cins, cout, h, w, prelude) in enumerate(PATH_SHAPES):
+        for dtype in (torch.float32, torch.bfloat16):
+            check_case(f"B{TRAIN_BATCH} {name}", 60 + i, TRAIN_BATCH, h, w,
+                       cins, cout, prelude, False, dtype)
+            torch.cuda.empty_cache()
 
     # Device times at the path's shapes in its serving dtype (bf16, bs 1,
     # no stats).
@@ -279,6 +313,223 @@ def phase_kernels():
               f"({'bytes' if t_bytes >= t_ops else 'operations'}; "
               f"{100 * bound / ms:.1f}% of bound)", flush=True)
     return rows, max_err, n_checks
+
+
+def _rms(t) -> float:
+    """The largest per-channel root mean square of ``t`` ``[..., C]``."""
+    return float(t.float().square().mean(dim=tuple(range(t.dim() - 1)))
+                 .sqrt().max())
+
+
+def _bwd_bounds(bsz, h, w, cins, cout, prelude, dx_parts, k=3):
+    """Least times (ms) of one bf16 ``gub_conv_dw`` launch and of the
+    ``gub_conv_dx`` launches of the parts ``dx_parts``, with statistics:
+    (bound, bytes time, operations time) each. Every input is read once and
+    every output written once; ``dy`` and ``y`` count once per launch."""
+    pix, cin, io = bsz * h * w, sum(cins), 2
+    pre = 2 * bsz * cin * 4 if prelude else 0
+    dw_bytes = (pix * (cin + 2 * cout) * io + pre + 2 * cout * 4
+                + k * k * cin * cout * 4 + cout * 4)
+    dw_flops = 2 * pix * k * k * cin * cout
+    dx_bytes = dx_flops = 0
+    for j in dx_parts:
+        cj = cins[j]
+        dx_bytes += (pix * 2 * cout * io + 2 * cout * 4   # dy, y, ds, dq
+                     + k * k * cj * cout * 4              # the part's weights
+                     + pix * cj * io                      # dx
+                     + ((pix * cj * io + 4 * bsz * cj * 4) if prelude else 0))
+        dx_flops += 2 * pix * k * k * cj * cout
+
+    def bound(nbytes, flops):
+        t_b = nbytes / HBM_BYTES_PER_S * 1e3
+        t_o = flops / BF16_FLOP_PER_S * 1e3
+        return max(t_b, t_o), t_b, t_o
+
+    return bound(dw_bytes, dw_flops), bound(dx_bytes, dx_flops)
+
+
+def phase_bwd_kernels():
+    """``gub_conv_dw`` and ``gub_conv_dx`` against their plain versions, then
+    their times at the shapes of one batch-8 bf16 train step.
+
+    Tolerances: ``dx`` and ``dskip`` as the forward (``gub_conv.tolerance``:
+    same operands, another order of the f32 sum; one bf16 ulp in bf16);
+    ``dw``, ``db``, ``dA``, ``dC`` are f32 sums of bit-equal terms in another
+    order: atol ``gub_conv.sum_tolerance(number of terms, rms of a term)``,
+    rtol ``gub_conv.SUM_RTOL``."""
+    from tpudepth_torch.ops.kernels import gub_conv as gc
+
+    dev = DEVICE
+    err = {"dw": 0.0, "dw_rel": 0.0, "dx": 0.0, "dx_sums_rel": 0.0}
+    n_checks = {"dw": 0, "dx": 0}
+
+    def cotangents(seed, y, stats):
+        rng = np.random.default_rng(1000 + seed)
+        dy = torch.from_numpy(rng.standard_normal(tuple(y.shape))
+                              .astype(np.float32)).to(dev, y.dtype)
+        if not stats:
+            return dy, {}
+        ds, dq = (torch.from_numpy((0.1 * rng.standard_normal(y.shape[-1]))
+                                   .astype(np.float32)).to(dev)
+                  for _ in range(2))
+        return dy, {"y": y, "ds": ds, "dq": dq}
+
+    def close(got, want, atol, rtol):
+        d = (got.float() - want.float()).abs()
+        return bool((d <= atol + rtol * want.float().abs()).all()), float(d.max())
+
+    def check_case(tag, seed, bsz, h, w, cins, cout, prelude, skip, stats,
+                   dtype, k=3):
+        parts, wt, b, pre, sk = make_case(seed, bsz, h, w, cins, cout,
+                                          prelude, skip, dtype, dev, k)
+        y = gc.conv_bn_act(parts, wt, b, preludes=pre, skip=sk)
+        dy, cot = cotangents(seed, y, stats)
+        n = bsz * h * w
+        g_rms = _rms(gc._cotangent(dy, cot.get("y"), cot.get("ds"),
+                                   cot.get("dq")))
+        xa_rms = _rms(torch.cat(gc._activate(parts, pre, sk), dim=-1))
+
+        dw, db = gc.conv_bn_act_dw(parts, dy, wt, preludes=pre, skip=sk, **cot)
+        torch.cuda.synchronize()
+        rdw, rdb = gc.conv_bn_act_dw_reference(parts, dy, k, preludes=pre,
+                                               skip=sk, **cot)
+        ok_w, e_w = close(dw, rdw, gc.sum_tolerance(n, xa_rms * g_rms),
+                          gc.SUM_RTOL)
+        ok_b, e_b = close(db, rdb, gc.sum_tolerance(n, g_rms), gc.SUM_RTOL)
+        dw2, db2 = gc.conv_bn_act_dw(parts, dy, wt, preludes=pre, skip=sk,
+                                     **cot)
+        same = torch.equal(dw, dw2) and torch.equal(db, db2)
+        err["dw"] = max(err["dw"], e_w, e_b)
+        err["dw_rel"] = max(err["dw_rel"], e_w / float(rdw.abs().max()),
+                            e_b / float(rdb.abs().max()))
+        n_checks["dw"] += 1
+        del rdw, rdb, dw2, db2
+
+        atol, rtol = gc.tolerance(dtype)
+        e_x = e_s = 0.0
+        ok_x = True
+        off = 0
+        for j, x in enumerate(parts):
+            kw = dict(prelude=pre[j] if prelude else None,
+                      want_skip=skip and j == 0, **cot)
+            got = gc.conv_bn_act_dx(x, wt, off, dy, **kw)
+            torch.cuda.synchronize()
+            cin = x.shape[-1]
+            want = gc.conv_bn_act_dx_reference(x, wt[:, :, off:off + cin],
+                                               dy, **kw)
+            again = gc.conv_bn_act_dx(x, wt, off, dy, **kw)
+            for name, g, r, g2 in zip(("dx", "dA", "dC", "dskip"), got, want,
+                                      again):
+                check((g is None) == (r is None), f"{tag} {name} presence")
+                if g is None:
+                    continue
+                same = same and torch.equal(g, g2)
+                if name in ("dx", "dskip"):
+                    ok, e = close(g, r, atol, rtol)
+                    e_x = max(e_x, e)
+                else:
+                    # sums over H*W of dp (dC) and dp * x (dA), |dp| <= |dxa|
+                    dxa_rms = _rms(want[3] if want[3] is not None
+                                   else want[0] / pre[j][0][:, None, None, :])
+                    term = dxa_rms * (_rms(x) if name == "dA" else 1.0)
+                    ok, e = close(g, r, gc.sum_tolerance(h * w, term),
+                                  gc.SUM_RTOL)
+                    e_s = max(e_s, e / float(r.abs().max()))
+                ok_x = ok_x and ok
+            off += cin
+            n_checks["dx"] += 1
+            del got, want, again
+        err["dx"] = max(err["dx"], e_x)
+        err["dx_sums_rel"] = max(err["dx_sums_rel"], e_s)
+        print(f"[kernel] bwd {tag:<24} {str(dtype)[6:]:<8} B{bsz} "
+              f"pre={int(prelude)} skip={int(skip)} stats={int(stats)}: dw "
+              f"max_abs_err {e_w:.3e} db {e_b:.3e} (of max|dw| "
+              f"{float(dw.abs().max()):.3e}); dx max_abs_err {e_x:.3e} (atol "
+              f"{atol:g} rtol {rtol:g}); dA/dC max err / max {e_s:.2e}; "
+              f"repeat bit-equal {same}", flush=True)
+        check(ok_w and ok_b, f"{tag} {dtype} dw/db beyond tolerance")
+        check(ok_x, f"{tag} {dtype} dx/dskip/dA/dC beyond tolerance")
+        check(same, f"{tag} {dtype} backward kernels do not repeat")
+
+    for i, (name, cins, cout, h, w, prelude) in enumerate(PATH_SHAPES):
+        for dtype in (torch.float32, torch.bfloat16):
+            check_case(name, i, TRAIN_BATCH, h, w, cins, cout, prelude, False,
+                       True, dtype)
+            torch.cuda.empty_cache()
+    for dtype in (torch.float32, torch.bfloat16):
+        check_case("ragged 33x47 +skip", 50, 2, 33, 47, (16,), 8, True, True,
+                   True, dtype)
+        check_case("k=1 (5,7)->12 +skip", 51, 2, 17, 29, (5, 7), 12, True,
+                   True, False, dtype, k=1)
+        check_case("3 parts ->40", 52, 3, 9, 18, (4, 2, 3), 40, True, False,
+                   True, dtype)
+        check_case("rgb no stats", 53, 2, 40, 56, (3,), 16, False, False,
+                   False, dtype)
+
+    # Device times at the shapes of one B8 bf16 train step (statistics on).
+    # gub_conv_dx runs for every part that needs a gradient: the depth
+    # feature and both parts of the comb conv, not the RGB guide.
+    rows = []
+    conv_bwd = torch.ops.aten.convolution_backward
+    for i, (name, cins, cout, h, w, prelude) in enumerate(PATH_SHAPES):
+        dtype = torch.bfloat16
+        parts, wt, b, pre, _ = make_case(i, TRAIN_BATCH, h, w, cins, cout,
+                                         prelude, False, dtype, dev)
+        y = gc.conv_bn_act(parts, wt, b, preludes=pre)
+        dy, cot = cotangents(i, y, True)
+        dx_parts = [] if cins == (3,) else list(range(len(cins)))
+        offs = np.cumsum([0, *cins])
+
+        def run_dx():
+            for j in dx_parts:
+                gc.conv_bn_act_dx(parts[j], wt, int(offs[j]), dy,
+                                  prelude=pre[j] if prelude else None, **cot)
+
+        def plain_dx():
+            for j in dx_parts:
+                gc.conv_bn_act_dx_reference(
+                    parts[j], wt[:, :, offs[j]:offs[j + 1]], dy,
+                    prelude=pre[j] if prelude else None, **cot)
+
+        x_lib = torch.cat(gc._activate(parts, pre, None), dim=-1).permute(
+            0, 3, 1, 2)                       # channels_last NCHW view
+        w_lib = wt.to(dtype).permute(3, 2, 0, 1).contiguous(
+            memory_format=torch.channels_last)
+        g_lib = dy.permute(0, 3, 1, 2)
+
+        def lib(mask):
+            return conv_bwd(g_lib, x_lib, w_lib, [cout], [1, 1], [1, 1],
+                            [1, 1], False, [0, 0], 1, mask)
+
+        row = {"name": name, "cins": list(cins), "cout": cout, "hw": [h, w],
+               "dx_launches": len(dx_parts)}
+        row["dw_ms"] = time_ms(lambda: gc.conv_bn_act_dw(
+            parts, dy, wt, preludes=pre, **cot), per_graph=4, replays=10)
+        row["dw_plain_ms"] = time_ms(lambda: gc.conv_bn_act_dw_reference(
+            parts, dy, 3, preludes=pre, **cot), per_graph=1, replays=5)
+        row["dw_library_ms"] = time_ms(lambda: lib([False, True, True]),
+                                       per_graph=4, replays=10)
+        (row["dw_bound_ms"], row["dw_bytes_ms"], row["dw_ops_ms"]), \
+            (row["dx_bound_ms"], row["dx_bytes_ms"], row["dx_ops_ms"]) = \
+            _bwd_bounds(TRAIN_BATCH, h, w, cins, cout, prelude, dx_parts)
+        row["dx_ms"] = row["dx_plain_ms"] = row["dx_library_ms"] = 0.0
+        if dx_parts:
+            row["dx_ms"] = time_ms(run_dx, per_graph=4, replays=10)
+            row["dx_plain_ms"] = time_ms(plain_dx, per_graph=1, replays=5)
+            row["dx_library_ms"] = time_ms(lambda: lib([True, False, False]),
+                                           per_graph=4, replays=10)
+        rows.append(row)
+        print(f"[kernel time] {name:<20} {'+'.join(map(str, cins))}->{cout} "
+              f"@{h}x{w} B{TRAIN_BATCH} bf16: gub_conv_dw {row['dw_ms']:.4f} "
+              f"ms (plain {row['dw_plain_ms']:.3f}, cuDNN dw+db "
+              f"{row['dw_library_ms']:.4f}, bound {row['dw_bound_ms']:.4f}: "
+              f"{100 * row['dw_bound_ms'] / row['dw_ms']:.1f}%); gub_conv_dx "
+              f"x{len(dx_parts)} {row['dx_ms']:.4f} ms (plain "
+              f"{row['dx_plain_ms']:.3f}, cuDNN dx {row['dx_library_ms']:.4f}, "
+              f"bound {row['dx_bound_ms']:.4f})", flush=True)
+        del parts, y, dy, cot, x_lib, g_lib
+        torch.cuda.empty_cache()
+    return rows, err, n_checks
 
 
 def make_loss_pair(kind, bsz, h, w, dev, seed=0):
@@ -583,138 +834,198 @@ class SyntheticLoader:
         return iter(self.batches)
 
 
-def phase_training():
+# kernel launches of one fused train step / one fused eval forward: the
+# nine k=3 GUB convs forward; nine gub_conv_dw; gub_conv_dx for the depth
+# feature (1) and both parts of the comb conv (2) of each GUB, none for the
+# RGB guide, which needs no gradient
+FUSED_FWD_PER_PASS, FUSED_DW_PER_STEP, FUSED_DX_PER_STEP = 9, 9, 9
+# one f32 step with fused GUB stages against the same step plain. Where
+# nothing else happens the two differ by the order of the f32 sums of the
+# nine convs and their gradients (1e-5 of a tensor's largest gradient). But
+# each configuration rounds the argument of every ReLU gate and of the
+# loss's |.| its own way (``(x - mean) * a + b`` against ``x*A + C``), and
+# among 10^8 of them a few lie within rounding of 0 and fall on different
+# sides. One such flip changes a parameter gradient by about one term of
+# its sum: 1/sqrt(n) of a sum of n terms of random sign, 2.6e-3 at up_1's
+# 153,600 pixels (``scripts/torch_gub_f32_probe.py`` counts the flips
+# against f64 and shows plain and fused hit alike). Observed between the
+# configurations: 0.6-0.7 % of a tensor's largest gradient.
+FUSED_STEP_LOSS_RTOL = 1e-4
+FUSED_STEP_GRAD_REL = 3e-2
+FUSED_STEP_GRAD_FLOOR_REL = 1e-4   # of the largest gradient of all
+# the output conv's bias of the models that ``fit`` trains, so that their
+# predictions start inside the normalized targets' range [1, 100] and not
+# around 0, where the meters conversion clamps nearly every pixel
+OUTPUT_BIAS = 3.0
+
+
+def fit_checkpoint_restore(gub, train_loader, val_loader, tmp):
+    """The main training path: ``Trainer.fit`` for 2 epochs x 3 steps with
+    one validation batch and one checkpoint per epoch, every kernel's
+    launches counted over exactly that run; then the last checkpoint
+    restored into a fresh trainer and compared. Returns the trainer, its
+    config and the counts."""
     from tpudepth_torch.core.config import TrainConfig
-    from tpudepth_torch.losses.losses import DepthLoss
     from tpudepth_torch.models.registry import build_model
     from tpudepth_torch.ops.kernels import fused_loss as fl
+    from tpudepth_torch.ops.kernels import gub_conv as gc
+    from tpudepth_torch.train.trainer import Trainer
+
+    cfg = TrainConfig(model="GuideDepth", dataset="nyu_reduced",
+                      resolution="full", batch_size=TRAIN_BATCH,
+                      compute_dtype="bfloat16", log_every=1, seed=0,
+                      checkpoint_dir=f"{tmp}/checkpoints_{gub}",
+                      results_dir=f"{tmp}/results_{gub}")
+
+    def trainer_for():
+        with torch.random.fork_rng(devices=[]):
+            torch.manual_seed(cfg.seed)
+            model = build_model("GuideDepth", gub=gub)
+        with torch.no_grad():
+            model.up_3.reduce.bias.fill_(OUTPUT_BIAS)
+        return Trainer(cfg, model=model, device=DEVICE,
+                       train_loader=train_loader, val_loader=val_loader)
+
+    trainer = trainer_for()
+    losses = []
+    counters = {"fused_loss_fwd": fl.fused_partials, "fused_loss_bwd": fl.fused_bwd,
+                "gub_conv_fwd": gc.conv_bn_act, "gub_conv_dw": gc.conv_bn_act_dw,
+                "gub_conv_dx": gc.conv_bn_act_dx}
+    for fn in counters.values():
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    trainer.fit(epochs=2, val_max_batches=1, checkpoint_style="per_epoch",
+                log_fn=lambda e, i, n, loss, dt, it: losses.append(loss))
+    torch.cuda.synchronize()
+    t_fit = time.perf_counter() - t0
+    counts = {name: fn.launches for name, fn in counters.items()}
+    mem = torch.cuda.max_memory_allocated() / 2**20
+    print(f"[train {gub}] fit: 2 epochs x 3 steps, GuideDepth {TRAIN_HW[0]}x"
+          f"{TRAIN_HW[1]} B{TRAIN_BATCH} bf16 alhashim, augment on, output "
+          f"bias from {OUTPUT_BIAS:g}, in "
+          f"{t_fit:.2f} s host clock (first step included); losses "
+          f"{[round(x, 4) for x in losses]}; val losses "
+          f"{[round(x, 4) for x in trainer.val_losses]}; launches over 6 "
+          f"train steps and 2 validation batches {counts}; peak memory "
+          f"{mem:.0f} MiB", flush=True)
+    check(len(losses) == 6 and all(np.isfinite(losses)),
+          f"6 finite train losses expected, got {losses}")
+    check(len(trainer.val_losses) == 2
+          and all(np.isfinite(trainer.val_losses)), "validation losses")
+    check(counts["fused_loss_bwd"] == 6,
+          f"fused_loss_bwd launched {counts['fused_loss_bwd']} times in 6 steps")
+    check(counts["fused_loss_fwd"] == 6 + 2,
+          f"fused_loss_fwd launched {counts['fused_loss_fwd']} times in 6 "
+          "steps and 2 validation batches")
+    check(trainer.state.step == 6 and trainer.epoch == 2, "step count")
+    for name, prm in trainer.model.named_parameters():
+        check(bool(torch.isfinite(prm).all()), f"non-finite {name}")
+
+    fresh = trainer_for()
+    fresh.init_state()
+    fresh.restore(f"{tmp}/checkpoints_{gub}/checkpoint_1")
+    check(fresh.epoch == 2 and fresh.state.step == 6, "restored counters")
+    check(fresh.val_losses == trainer.val_losses, "restored val_losses")
+    saved = trainer.model.state_dict()
+    for k, v in fresh.model.state_dict().items():
+        check(torch.equal(v, saved[k]), f"restored {k} differs")
+    so = trainer.state.optimizer.state_dict()["state"]
+    ro = fresh.state.optimizer.state_dict()["state"]
+    check(set(so) == set(ro) and len(so) > 100, "optimizer state keys")
+    for k in so:
+        for field in ("exp_avg", "exp_avg_sq", "step"):
+            check(torch.equal(torch.as_tensor(so[k][field]).cpu(),
+                              torch.as_tensor(ro[k][field]).cpu()),
+                  f"restored optimizer state {k}.{field} differs")
+    print(f"[train {gub}] checkpoint_1 restored into a fresh trainer: model, "
+          "BatchNorm statistics, Adam moments, epoch and val_losses equal")
+    return trainer, cfg, counts
+
+
+def one_f32_step(cfg, model, batch, recipe):
+    """Loss and gradients of one f32 train step (augment off) of ``model``
+    (moved to the card) on ``batch``."""
     from tpudepth_torch.train.trainer import (
-        LossRecipe,
-        Trainer,
         TrainState,
         make_optimizer,
         make_train_step,
         step_lr,
     )
 
+    model = model.to(DEVICE, memory_format=torch.channels_last)
+    state = TrainState(model, make_optimizer(cfg, model.parameters()))
+    step = make_train_step(model, recipe, step_lr(1e-4, 15, 0.1, 3),
+                           compute_dtype=torch.float32, augment=False)
+    loss = step(state, torch.as_tensor(batch["image"]).to(DEVICE),
+                torch.as_tensor(batch["depth"]).to(DEVICE))
+    torch.cuda.synchronize()
+    return float(loss), {n: p.grad.clone() for n, p in model.named_parameters()}
+
+
+def compare_steps(tag, got, want, loss_rtol, grad_rel, floor):
+    """Hold loss and per-tensor gradients of two steps together: per tensor
+    the largest difference over the tensor's largest gradient, with an
+    absolute ``floor`` under which a tensor holds noise (conv biases in
+    front of a BatchNorm have a zero gradient)."""
+    (lk, gk), (lp, gp) = got, want
+    worst, worst_name, g_max, n_above = 0.0, "", 0.0, 0
+    for name in gk:
+        scale = float(gp[name].abs().max())
+        diff = float((gk[name] - gp[name]).abs().max())
+        g_max = max(g_max, scale)
+        if scale > floor:
+            n_above += 1
+            if diff / scale > worst:
+                worst, worst_name = diff / scale, name
+        check(diff <= max(grad_rel * scale, floor),
+              f"{tag}: gradient of {name}: {diff:.3e} against max {scale:.3e}")
+    print(f"[train] one f32 step, {tag}: loss {lk:.8f} vs {lp:.8f} (rel "
+          f"{abs(lk - lp) / abs(lp):.2e}, rtol {loss_rtol:g}); gradients of "
+          f"{len(gk)} tensors (largest |g| {g_max:.3e}), {n_above} with "
+          f"max|g| above the floor {floor:.3g}: largest max|diff|/max|g| "
+          f"{worst:.2e} ({worst_name}; bound {grad_rel:g})", flush=True)
+    check(n_above > 100, "the gradients are too small to compare")
+    check(abs(lk - lp) <= loss_rtol * abs(lp), f"{tag}: step loss")
+    return abs(lk - lp) / abs(lp), worst
+
+
+def phase_training(tmp):
+    from tpudepth_torch.core.config import TrainConfig
+    from tpudepth_torch.losses.losses import DepthLoss
+    from tpudepth_torch.models.registry import build_model
+    from tpudepth_torch.ops.kernels import fused_loss as fl
+    from tpudepth_torch.train.trainer import LossRecipe, Trainer
+
     train_loader = SyntheticLoader(3, seed=200, raw_depth=True)
     val_loader = SyntheticLoader(1, seed=201, raw_depth=False)
-    out = {}
-    with tempfile.TemporaryDirectory() as tmp:
-        cfg = TrainConfig(model="GuideDepth", dataset="nyu_reduced",
-                          resolution="full", batch_size=TRAIN_BATCH,
-                          compute_dtype="bfloat16", log_every=1, seed=0,
-                          checkpoint_dir=f"{tmp}/checkpoints",
-                          results_dir=f"{tmp}/results")
-        trainer = Trainer(cfg, device=DEVICE, train_loader=train_loader,
-                          val_loader=val_loader)
-        losses = []
-
-        # the main path: 2 epochs x 3 steps, one validation batch and one
-        # checkpoint per epoch; the kernels' launches counted over it only
-        fl.fused_partials.launches = 0
-        fl.fused_bwd.launches = 0
-        torch.cuda.reset_peak_memory_stats()
-        t0 = time.perf_counter()
-        trainer.fit(epochs=2, val_max_batches=1, checkpoint_style="per_epoch",
-                    log_fn=lambda e, i, n, loss, dt, it: losses.append(loss))
-        torch.cuda.synchronize()
-        t_fit = time.perf_counter() - t0
-        out["fwd_launches"] = fl.fused_partials.launches
-        out["bwd_launches"] = fl.fused_bwd.launches
-        mem = torch.cuda.max_memory_allocated() / 2**20
-        print(f"[train] fit: 2 epochs x 3 steps, GuideDepth {TRAIN_HW[0]}x"
-              f"{TRAIN_HW[1]} B{TRAIN_BATCH} bf16 alhashim, augment on, in "
-              f"{t_fit:.2f} s host clock (first step included); losses "
-              f"{[round(x, 4) for x in losses]}; val losses "
-              f"{[round(x, 4) for x in trainer.val_losses]}; fused_loss_fwd "
-              f"launches {out['fwd_launches']} (6 train steps + 2 validation "
-              f"batches), fused_loss_bwd launches {out['bwd_launches']}; peak "
-              f"memory {mem:.0f} MiB", flush=True)
-        check(len(losses) == 6 and all(np.isfinite(losses)),
-              f"6 finite train losses expected, got {losses}")
-        check(len(trainer.val_losses) == 2
-              and all(np.isfinite(trainer.val_losses)), "validation losses")
-        check(out["bwd_launches"] == 6,
-              f"fused_loss_bwd launched {out['bwd_launches']} times in 6 steps")
-        check(out["fwd_launches"] == 6 + 2,
-              f"fused_loss_fwd launched {out['fwd_launches']} times in 6 "
-              "steps and 2 validation batches")
-        check(trainer.state.step == 6 and trainer.epoch == 2, "step count")
-        for name, prm in trainer.model.named_parameters():
-            check(bool(torch.isfinite(prm).all()), f"non-finite {name}")
-
-        # the last checkpoint, restored into a fresh trainer
-        fresh = Trainer(cfg, device=DEVICE, train_loader=train_loader,
-                        val_loader=val_loader)
-        fresh.init_state()
-        fresh.restore(f"{tmp}/checkpoints/checkpoint_1")
-        check(fresh.epoch == 2 and fresh.state.step == 6, "restored counters")
-        check(fresh.val_losses == trainer.val_losses, "restored val_losses")
-        saved = trainer.model.state_dict()
-        for k, v in fresh.model.state_dict().items():
-            check(torch.equal(v, saved[k]), f"restored {k} differs")
-        so = trainer.state.optimizer.state_dict()["state"]
-        ro = fresh.state.optimizer.state_dict()["state"]
-        check(set(so) == set(ro) and len(so) > 100, "optimizer state keys")
-        for k in so:
-            for field in ("exp_avg", "exp_avg_sq", "step"):
-                check(torch.equal(torch.as_tensor(so[k][field]).cpu(),
-                                  torch.as_tensor(ro[k][field]).cpu()),
-                      f"restored optimizer state {k}.{field} differs")
-        print("[train] checkpoint_1 restored into a fresh trainer: model, "
-              "BatchNorm statistics, Adam moments, epoch and val_losses equal")
+    trainer, cfg, counts = fit_checkpoint_restore("plain", train_loader,
+                                                  val_loader, tmp)
+    check(counts["gub_conv_fwd"] == counts["gub_conv_dw"]
+          == counts["gub_conv_dx"] == 0, "plain GUB stages launched a GUB kernel")
+    out = {"fwd_launches": counts["fused_loss_fwd"],
+           "bwd_launches": counts["fused_loss_bwd"]}
 
     # one f32 step through the loss kernels against the plain DepthLoss
     class PlainRecipe(LossRecipe):
         def loss(self, pred, target):
             return DepthLoss(0.1, 1.0, 1.0, self.max_depth)(pred, target)
 
-    dev = DEVICE
     base = build_model("GuideDepth")
     base.load_state_dict(trainer.model.state_dict())
     batch = train_loader.batches[0]
-    image = torch.as_tensor(batch["image"]).to(dev)
-    depth = torch.as_tensor(batch["depth"]).to(dev)
     results = {}
     for tag, recipe_cls in (("kernel", LossRecipe), ("plain", PlainRecipe)):
-        model = copy.deepcopy(base).to(dev, memory_format=torch.channels_last)
-        state = TrainState(model, make_optimizer(cfg, model.parameters()))
         recipe = recipe_cls(kind="alhashim", max_depth=MAX_DEPTH,
                             depth_scale=MAX_DEPTH)
-        step = make_train_step(model, recipe, step_lr(1e-4, 15, 0.1, 3),
-                               compute_dtype=torch.float32, augment=False)
         before = fl.fused_bwd.launches
-        loss = step(state, image, depth)
-        torch.cuda.synchronize()
+        results[tag] = one_f32_step(cfg, copy.deepcopy(base), batch, recipe)
         check(fl.fused_bwd.launches - before == (1 if tag == "kernel" else 0),
               f"{tag} step launched the backward kernel "
               f"{fl.fused_bwd.launches - before} times")
-        results[tag] = (float(loss), {n: p.grad.clone()
-                                      for n, p in model.named_parameters()})
-    lk, gk = results["kernel"]
-    lp, gp = results["plain"]
-    worst, worst_name, g_max, n_above = 0.0, "", 0.0, 0
-    for name in gk:
-        scale = float(gp[name].abs().max())
-        diff = float((gk[name] - gp[name]).abs().max())
-        g_max = max(g_max, scale)
-        if scale > STEP_GRAD_FLOOR:
-            n_above += 1
-            if diff / scale > worst:
-                worst, worst_name = diff / scale, name
-        check(diff <= max(STEP_GRAD_REL * scale, STEP_GRAD_FLOOR),
-              f"gradient of {name}: {diff:.3e} against max {scale:.3e}")
-    print(f"[train] one f32 step, loss kernels vs plain DepthLoss: loss "
-          f"{lk:.8f} vs {lp:.8f} (rel {abs(lk - lp) / abs(lp):.2e}, rtol "
-          f"{STEP_LOSS_RTOL:g}); gradients of {len(gk)} tensors (largest "
-          f"|g| {g_max:.3e}), {n_above} with max|g| above the floor "
-          f"{STEP_GRAD_FLOOR:g}: largest max|diff|/max|g| {worst:.2e} "
-          f"({worst_name}; bound {STEP_GRAD_REL:g})", flush=True)
-    check(n_above > 100, "the gradients are too small to compare")
-    check(abs(lk - lp) <= STEP_LOSS_RTOL * abs(lp), "kernel step loss")
-    out["step_loss_rel"] = abs(lk - lp) / abs(lp)
-    out["step_grad_rel"] = worst
+    out["step_loss_rel"], out["step_grad_rel"] = compare_steps(
+        "loss kernels vs plain DepthLoss", results["kernel"], results["plain"],
+        STEP_LOSS_RTOL, STEP_GRAD_REL, STEP_GRAD_FLOOR)
 
     # 8 steps on one fixed batch lower the loss (bf16, lr 1e-3; the same
     # augmentation draw at every step, so the batch is the same)
@@ -730,29 +1041,169 @@ def phase_training():
           f"{[round(x, 4) for x in curve]}", flush=True)
     check(all(np.isfinite(curve)) and curve[-1] < curve[0],
           "8 steps on one batch did not lower the loss")
+    return out, trainer, cfg, (train_loader, val_loader)
 
-    # throughput of the train step as Trainer.train_step runs it (host batch
-    # in, augment on), warm, between CUDA events; then one profiled step
-    for b in train_loader.batches:
-        trainer.train_step(b)
-    torch.cuda.synchronize()
-    n_timed = 12
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for i in range(n_timed):
-        trainer.train_step(train_loader.batches[i % 3])
-    end.record()
-    end.synchronize()
-    step_ms = start.elapsed_time(end) / n_timed
-    out["train_img_per_s"] = TRAIN_BATCH / step_ms * 1e3
-    out["train_step_ms"] = step_ms
-    print(f"[train] train step GuideDepth {TRAIN_HW[0]}x{TRAIN_HW[1]} "
-          f"B{TRAIN_BATCH} bf16: {step_ms:.2f} ms/step, "
-          f"{out['train_img_per_s']:.1f} img/s ({n_timed} steps between CUDA "
-          f"events, warm)", flush=True)
-    profile_window(lambda: trainer.train_step(batch), "train step", 2)
-    return out
+
+def phase_training_fused(tmp, plain_trainer, cfg, loaders):
+    """The fused training path, its f32 step against the plain step, and
+    both trainers' step times in turns."""
+    from tpudepth_torch.models.registry import build_model
+    from tpudepth_torch.ops.kernels import gub_conv as gc
+    from tpudepth_torch.train.trainer import LossRecipe
+
+    train_loader, val_loader = loaders
+    trainer, _, counts = fit_checkpoint_restore("fused", train_loader,
+                                                val_loader, tmp)
+    want = {"gub_conv_fwd": FUSED_FWD_PER_PASS * (6 + 2),
+            "gub_conv_dw": FUSED_DW_PER_STEP * 6,
+            "gub_conv_dx": FUSED_DX_PER_STEP * 6}
+    for name, n in want.items():
+        check(counts[name] == n, f"{name} launched {counts[name]} times over "
+              f"6 train steps and 2 validation batches, expected {n}")
+    out = {"launches": counts}
+
+    # one f32 step, fused stages against plain stages, same weights and batch
+    batch = train_loader.batches[0]
+    recipe = LossRecipe(kind="alhashim", max_depth=MAX_DEPTH,
+                        depth_scale=MAX_DEPTH)
+    results = {}
+    for gub in ("fused", "plain"):
+        model = build_model("GuideDepth", gub=gub)
+        model.load_state_dict(trainer.model.state_dict())
+        before = (gc.conv_bn_act.launches, gc.conv_bn_act_dw.launches,
+                  gc.conv_bn_act_dx.launches)
+        results[gub] = one_f32_step(cfg, model, batch, recipe)
+        after = (gc.conv_bn_act.launches, gc.conv_bn_act_dw.launches,
+                 gc.conv_bn_act_dx.launches)
+        per_step = tuple(a - b for a, b in zip(after, before))
+        check(per_step == ((FUSED_FWD_PER_PASS, FUSED_DW_PER_STEP,
+                            FUSED_DX_PER_STEP) if gub == "fused" else (0, 0, 0)),
+              f"{gub} step launched (fwd, dw, dx) = {per_step}")
+    g_all = max(float(g.abs().max()) for g in results["plain"][1].values())
+    out["step_loss_rel"], out["step_grad_rel"] = compare_steps(
+        "fused GUB stages vs plain", results["fused"], results["plain"],
+        FUSED_STEP_LOSS_RTOL, FUSED_STEP_GRAD_REL,
+        FUSED_STEP_GRAD_FLOOR_REL * g_all)
+    del results
+
+    # step time of both trainers as Trainer.train_step runs them (host batch
+    # in, augment on), warm, between CUDA events, in turns; then one
+    # profiled window each
+    def timed(tr, n_timed=12):
+        for b in train_loader.batches:
+            tr.train_step(b)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for i in range(n_timed):
+            tr.train_step(train_loader.batches[i % 3])
+        end.record()
+        end.synchronize()
+        return (start.elapsed_time(end) / n_timed,
+                torch.cuda.max_memory_allocated() / 2**20)
+
+    times = {"plain": [], "fused": []}
+    mem = {}
+    for gub, tr in (("plain", plain_trainer), ("fused", trainer),
+                    ("fused", trainer), ("plain", plain_trainer)):
+        ms, mem[gub] = timed(tr)
+        times[gub].append(ms)
+    for gub in ("plain", "fused"):
+        ms = statistics.mean(times[gub])
+        out[f"{gub}_step_ms"] = ms
+        out[f"{gub}_img_per_s"] = TRAIN_BATCH / ms * 1e3
+        out[f"{gub}_peak_mib"] = mem[gub]
+        print(f"[train {gub}] train step GuideDepth {TRAIN_HW[0]}x{TRAIN_HW[1]} "
+              f"B{TRAIN_BATCH} bf16: {ms:.2f} ms/step "
+              f"({', '.join(f'{t:.2f}' for t in times[gub])}), "
+              f"{out[f'{gub}_img_per_s']:.1f} img/s (12 steps between CUDA "
+              f"events, warm, turns plain-fused-fused-plain), peak memory "
+              f"{mem[gub]:.0f} MiB", flush=True)
+    profile_window(lambda: plain_trainer.train_step(batch),
+                   "train step plain", 2)
+    profile_window(lambda: trainer.train_step(batch), "train step fused", 2)
+    return out, trainer
+
+
+def phase_evaluation(tmp, trainer):
+    """The trained fused model, as ``fit`` left it, through
+    ``InferenceEngine`` (bf16, meters) and ``AlhashimEvaluator`` over seeded
+    synthetic NYU-like batches, beside the same weights as a plain f32 model
+    through the same evaluator."""
+    from tpudepth_torch.core.config import EvalConfig
+    from tpudepth_torch.eval.evaluator import AlhashimEvaluator
+    from tpudepth_torch.infer.engine import InferenceEngine
+    from tpudepth_torch.models.registry import build_model
+    from tpudepth_torch.ops.kernels.gub_conv import conv_bn_act
+    from tpudepth_torch.train.trainer import make_eval_step
+
+    cfg = EvalConfig(model="GuideDepth", dataset="nyu_reduced",
+                     resolution="full", batch_size=TRAIN_BATCH)
+    rng = np.random.default_rng(300)
+    h, w = TRAIN_HW
+    loader = [{"image": rng.random((TRAIN_BATCH, h, w, 3), dtype=np.float32),
+               "depth": rng.random((TRAIN_BATCH, h, w, 1), dtype=np.float32)
+               * 0.9 + 0.05} for _ in range(2)]
+    weights = trainer.model.state_dict()
+    plain = build_model("GuideDepth", gub="plain")
+    plain.load_state_dict(weights)
+    plain.to(DEVICE, memory_format=torch.channels_last)
+    plain_step = make_eval_step(plain, torch.float32)
+    # The protocol scores every pixel of the crop and has no mask for a
+    # prediction of 0 m, which is what a raw output of exactly 0 becomes
+    # (tests/test_torch_port_evaluator.py holds that case against the JAX
+    # package: infinite logarithmic metrics). The model starts OUTPUT_BIAS
+    # away from 0, so here every raw prediction has to be positive.
+    with torch.no_grad():
+        lowest = min(float(plain_step(torch.from_numpy(b["image"]).to(DEVICE)
+                                      .permute(0, 3, 1, 2)).min())
+                     for b in loader)
+    check(lowest > 0.0, f"smallest raw prediction {lowest}: the trained "
+          "model's output crosses 0")
+    fused = build_model("GuideDepth", gub="fused")
+    fused.load_state_dict(weights)
+    engine = InferenceEngine(fused, (TRAIN_BATCH, 3, h, w),
+                             compute_dtype=torch.bfloat16, max_depth=MAX_DEPTH)
+    evaluator = AlhashimEvaluator(engine, cfg, forward_returns_meters=True)
+    conv_bn_act.launches = 0
+    t0 = time.perf_counter()
+    avg = evaluator.evaluate(loader, save_results_to=f"{tmp}/eval_fused")
+    t_eval = time.perf_counter() - t0
+    launches = conv_bn_act.launches
+    # 2 batches, each forward on the image and on its flip
+    check(launches == FUSED_FWD_PER_PASS * 2 * 2,
+          f"evaluation launched gub_conv_fwd {launches} times")
+
+    ref = AlhashimEvaluator(plain_step, cfg).evaluate(
+        loader, save_results_to=f"{tmp}/eval_plain")
+    with open(f"{tmp}/eval_fused/results.txt") as f:
+        header, values = f.read().split("\n")
+    check(header == "RMSE,MAE,REL, RMSE_log,Lg10,Delta1,Delta2,Delta3",
+          f"results.txt header {header!r}")
+    fields = ("rmse", "mae", "absrel", "rmse_log", "lg10", "delta1", "delta2",
+              "delta3")
+    check(values == ",".join(f"{getattr(avg, k):.3f}" for k in fields),
+          f"results.txt values {values!r}")
+    print(f"[eval] AlhashimEvaluator, 2 batches of {TRAIN_BATCH} + flips, "
+          f"NYU Eigen crop, the weights as fit left them (smallest raw f32 "
+          f"prediction {lowest:.3f}), fused bf16 engine in {t_eval:.2f} s "
+          f"host clock (gub_conv_fwd launches {launches}); results.txt: "
+          f"{values}")
+    print(evaluator.format_report(avg).strip().replace("\n", " "))
+    out = {}
+    for k in fields + ("irmse", "imae", "mse"):
+        a, b = getattr(avg, k), getattr(ref, k)
+        out[k] = a
+        check(np.isfinite(a) and np.isfinite(b), f"metric {k} not finite")
+        print(f"[eval] {k:<8} fused bf16 engine {a:.6f}   plain f32 model "
+              f"{b:.6f}")
+        # bf16 against f32 on the same weights
+        check(abs(a - b) <= EVAL_BF16_REL * abs(b) + EVAL_BF16_ABS,
+              f"metric {k}: {a} against {b}")
+    check(0.0 <= avg.delta1 <= avg.delta2 <= avg.delta3 <= 1.0, "delta order")
+    return out, launches
 
 
 def main() -> int:
@@ -766,13 +1217,22 @@ def main() -> int:
     phase_build()
     rows, max_err, n_checks = phase_kernels()
     loss_rows, loss_err = phase_loss_kernels()
+    bwd_rows, bwd_err, bwd_checks = phase_bwd_kernels()
     launches, errs, perf = phase_serving()
-    train = phase_training()
+    with tempfile.TemporaryDirectory() as tmp:
+        train, plain_trainer, cfg, loaders = phase_training(tmp)
+        fused_train, fused_trainer = phase_training_fused(
+            tmp, plain_trainer, cfg, loaders)
+        del plain_trainer
+        evaluation, eval_launches = phase_evaluation(tmp, fused_trainer)
 
-    def total(key):
-        return sum(r[key] for r in rows)
+    def total(table, key):
+        return sum(r[key] for r in table)
 
-    t_bytes, t_ops = total("bytes_ms"), total("ops_ms")
+    def bound_by(table, prefix=""):
+        return ("bytes" if total(table, prefix + "bytes_ms")
+                >= total(table, prefix + "ops_ms") else "operations")
+
     kernels = [{
         "name": "gub_conv_fwd",
         "route": "cuda",
@@ -780,17 +1240,21 @@ def main() -> int:
         "replaces": "tpudepth/ops/pallas/gub_conv.py:201",
         "replaces_function": "tpudepth/ops/pallas/gub_conv.py::_fwd_call",
         "launches": launches,
+        "launches_by_path": {
+            "serving": launches,
+            "fused_training": fused_train["launches"]["gub_conv_fwd"],
+            "evaluation": eval_launches},
         "max_abs_err": max_err,
         "max_err": max_err,
         "checks": n_checks,
         "ok": True,
         "timed": "device time of one bs-1 480x640 bf16 forward: the nine "
                  "k=3 GUB convs summed, CUDA graph replays",
-        "ms": total("ms"),
-        "plain_ms": total("plain_ms"),
-        "bound_ms": total("bound_ms"),
-        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-        "library_ms": total("library_ms"),
+        "ms": total(rows, "ms"),
+        "plain_ms": total(rows, "plain_ms"),
+        "bound_ms": total(rows, "bound_ms"),
+        "bound_by": bound_by(rows),
+        "library_ms": total(rows, "library_ms"),
         "shapes": rows,
     }]
     for name, line, fn, count, e in (
@@ -822,8 +1286,38 @@ def main() -> int:
             "bytes_ms": r["bytes_ms"], "ops_ms": r["ops_ms"],
         })
     kernels[2]["max_rel_err"] = loss_err["bwd_rel"]
+    for which, line, fn in (("dw", 355, "_dw_call"), ("dx", 535, "_dx_call")):
+        kernels.append({
+            "name": f"gub_conv_{which}",
+            "route": "cuda",
+            "source": "tpudepth_torch/csrc/gub_conv_bwd.cu",
+            "replaces": f"tpudepth/ops/pallas/gub_conv.py:{line}",
+            "replaces_function": f"tpudepth/ops/pallas/gub_conv.py::{fn}",
+            "launches": fused_train["launches"][f"gub_conv_{which}"],
+            "max_abs_err": bwd_err[which],
+            "max_rel_err": bwd_err["dw_rel" if which == "dw" else "dx_sums_rel"],
+            "checks": bwd_checks[which],
+            "ok": True,
+            "timed": f"device time of the launches of one B{TRAIN_BATCH} "
+                     f"{TRAIN_HW[0]}x{TRAIN_HW[1]} bf16 train step with "
+                     "statistics (nine shapes summed), CUDA graph replays; "
+                     "library_ms is cuDNN's convolution_backward of the same "
+                     "convs on the already-activated input ("
+                     + ("weight and bias gradients" if which == "dw" else
+                        "input gradient of the six convs whose input needs "
+                        "one") + ")",
+            "ms": total(bwd_rows, f"{which}_ms"),
+            "plain_ms": total(bwd_rows, f"{which}_plain_ms"),
+            "bound_ms": total(bwd_rows, f"{which}_bound_ms"),
+            "bound_by": bound_by(bwd_rows, f"{which}_"),
+            "library_ms": total(bwd_rows, f"{which}_library_ms"),
+            "shapes": [{k: v for k, v in r.items()
+                        if k in ("name", "cins", "cout", "hw", "dx_launches")
+                        or k.startswith(which)} for r in bwd_rows],
+        })
     print(json.dumps({"kernels": kernels, "serve_errors": errs,
                       "engine_img_per_s": perf, "training": train,
+                      "fused_training": fused_train, "evaluation": evaluation,
                       "seconds": time.perf_counter() - t_start}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

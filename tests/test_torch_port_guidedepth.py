@@ -125,10 +125,21 @@ def test_eval_forward_matches_jax(variables, monkeypatch, name, gub):
     np.testing.assert_allclose(got, want, rtol=1e-3, atol=1e-4)
 
 
-def test_fused_gub_is_eval_only():
+def test_fused_gub_runs_forward_and_backward_in_train_mode():
+    """Train mode of the fused stages (held against the JAX block in
+    ``tests/test_torch_port_gub_train.py``): every parameter but the conv
+    biases in front of a BatchNorm gets a gradient that is not zero."""
     gub = GuidedUpsamplingBlock(4, 4, 1, fused=True).train()
-    with pytest.raises(NotImplementedError):
-        gub(torch.zeros(1, 3, 8, 8), torch.zeros(1, 4, 8, 8))
+    gen = torch.Generator().manual_seed(0)
+    out = gub(torch.rand(2, 3, 8, 8, generator=gen),
+              torch.rand(2, 4, 8, 8, generator=gen))
+    assert out.shape == (2, 1, 8, 8)
+    out.square().mean().backward()
+    for name, p in gub.named_parameters():
+        assert p.grad is not None and torch.isfinite(p.grad).all(), name
+        if not (name.endswith(".bias") and name != "reduce.bias"
+                and name[-6] in "03"):
+            assert float(p.grad.abs().max()) > 0, name
 
 
 def test_build_model_rejects_unported_names():

@@ -196,12 +196,48 @@ def test_own_model_is_initialized_from_the_seed_and_a_given_one_is_kept(tmp_path
         assert torch.equal(given.state_dict()[k], v), k
 
 
-def test_fused_gub_training_raises(tmp_path):
-    tr = _trainer(tmp_path, "f")
-    tr.model = build_model("GuideDepth-S", gub="fused")
-    tr.init_state()
-    with pytest.raises(NotImplementedError, match="eval mode only"):
-        tr.train_step(tr.train_loader.batches[0])
+def test_fit_with_a_fused_model_checkpoints_and_restores(tmp_path):
+    """``Trainer.fit`` on a ``gub="fused"`` model: finite losses that match
+    the plain model's from the same weights (f32: the first step rel 1e-5,
+    the stages differ in rounding only; after an Adam step, which moves every
+    element by ``lr * sign(g)`` even where ``g`` is rounding noise, rel
+    1e-2), a checkpoint, and a fresh fused trainer that restores it and takes
+    the next step with the same loss, bit for bit."""
+    torch.manual_seed(0)
+    weights = build_model("GuideDepth-S").state_dict()
+
+    def trainer(tag, gub):
+        base = _trainer(tmp_path, tag)
+        model = build_model("GuideDepth-S", gub=gub)
+        model.load_state_dict(weights)
+        return Trainer(base.config, model=model, device="cpu",
+                       train_loader=base.train_loader,
+                       val_loader=base.val_loader)
+
+    losses = {}
+    for gub in ("fused", "plain"):
+        tr = trainer(f"fit_{gub}", gub)
+        seen = []
+        tr.config.log_every = 1
+        tr.fit(epochs=1, val_max_batches=1, checkpoint_style="per_epoch",
+               log_fn=lambda e, i, n, loss, dt, it: seen.append(loss))
+        losses[gub] = seen + tr.val_losses
+        if gub == "fused":
+            fused = tr
+    assert len(losses["fused"]) == 3 and np.isfinite(losses["fused"]).all()
+    assert losses["fused"][0] == pytest.approx(losses["plain"][0], rel=1e-5)
+    assert losses["fused"] == pytest.approx(losses["plain"], rel=1e-2)
+
+    assert fused.state.step == 2 and fused.epoch == 1
+    fresh = trainer("fit_fused", "fused")
+    fresh.init_state()
+    fresh.restore(str(tmp_path / "ck_fit_fused" / "checkpoint_0"))
+    assert fresh.epoch == 1 and fresh.state.step == 2
+    assert fresh.val_losses == fused.val_losses
+    batch = fused.train_loader.batches[0]
+    assert float(fresh.train_step(batch)) == float(fused.train_step(batch))
+    for k, v in fused.model.state_dict().items():
+        assert torch.equal(fresh.model.state_dict()[k], v), k
 
 
 def test_the_card_is_the_default_device(tmp_path):

@@ -31,9 +31,12 @@
 // registers. Input channels are staged 16 at a time (any count, including
 // the 3-channel RGB guide). The products run on the CUDA cores in f32; the
 // tensor cores (wgmma) and TMA staging are later work. Per-channel
-// statistics are reduced per block (warp shuffles, then shared memory) and
-// added to global f32 buffers with atomicAdd, so their summation order
-// varies from run to run.
+// statistics are reduced per block in f32 (warp shuffles, then shared
+// memory: 128 pixels) and added to global f64 buffers with atomicAdd. The
+// order of those additions varies from run to run, but in f64 it moves the
+// sums by ~1e-16 of their size: sums over the 2.4 M pixels of a batch-8
+// 480x640 stage keep f32 accuracy once rounded (f32 atomics lost ~1e-5 of
+// it, which the variance q/n - mean^2 behind them doubles).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -57,8 +60,8 @@ struct Params {
   long long w_stride[4];      // element strides of w for (u, v, ci, co)
   const float* b;             // f32 [cout]
   void* y;                    // IO dtype [B, H, W, cout]
-  float* s;                   // null, or f32 [cout], zeroed by the caller
-  float* q;
+  double* s;                  // null, or f64 [cout], zeroed by the caller
+  double* q;
   int B, H, W, cout;
 };
 
@@ -214,8 +217,8 @@ gub_conv_fwd_kernel(const Params p) {
     }
     __syncthreads();
     if (tid < COS && co0 + tid < p.cout) {
-      atomicAdd(&p.s[co0 + tid], red_s[tid]);
-      atomicAdd(&p.q[co0 + tid], red_q[tid]);
+      atomicAdd(&p.s[co0 + tid], static_cast<double>(red_s[tid]));
+      atomicAdd(&p.q[co0 + tid], static_cast<double>(red_q[tid]));
     }
   }
 }
@@ -243,7 +246,8 @@ cudaError_t launch_k(const Params& p, int k, cudaStream_t stream) {
 }  // namespace
 
 // Plain C entry, loaded with ctypes. Arrays hold one entry per part; a[j]
-// and c[j] are null when the conv has no prelude, skip/s/q may be null.
+// and c[j] are null when the conv has no prelude, skip/s/q may be null; s and
+// q are f64 [cout] accumulators that the caller zeroes.
 // Returns the cudaError_t of the launch (0 on success).
 extern "C" int gub_conv_fwd(int nparts, void* const* x, void* const* a,
                             void* const* c, const int* cin, const void* skip,
@@ -268,8 +272,8 @@ extern "C" int gub_conv_fwd(int nparts, void* const* x, void* const* a,
   for (int i = 0; i < 4; ++i) p.w_stride[i] = w_stride[i];
   p.b = static_cast<const float*>(b);
   p.y = y;
-  p.s = static_cast<float*>(s);
-  p.q = static_cast<float*>(q);
+  p.s = static_cast<double*>(s);
+  p.q = static_cast<double*>(q);
   p.B = B;
   p.H = H;
   p.W = W;

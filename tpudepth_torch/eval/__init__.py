@@ -1,1 +1,1 @@
-"""Evaluation of the port (metrics so far)."""
+"""Evaluation of the port: metrics and the GuideDepth-stack evaluator."""

@@ -1,18 +1,57 @@
-"""Evaluation metrics of the GuideDepth stack: the FastDepth-derived
-``Result`` / ``AverageMeter`` family (``src/GuideDepth/metrics.py``), in
-float64 numpy.
+"""Evaluation metrics, both families of the reference, in float64 numpy:
 
-Own copy of ``tpudepth/eval/metrics.py`` for the part the validation loop
-uses. As there, two latent faults of the original are repaired and not
-replicated: the bare ``self.sum_rmse_log`` statement in ``reset()`` and the
-mae / rmse_log argument swap between ``update()`` and ``average()``.
+- ``compute_errors``: the NeWCRFs-style 9-vector (``src/utils.py:45-66``:
+  silog, abs_rel, log10, rms, sq_rel, log_rms, d1, d2, d3);
+- ``Result`` / ``AverageMeter``: the FastDepth-derived family of the
+  GuideDepth stack (``src/GuideDepth/metrics.py``).
+
+Own copy of ``tpudepth/eval/metrics.py``. As there, two latent faults of the
+original are repaired and not replicated: the bare ``self.sum_rmse_log``
+statement in ``reset()`` and the mae / rmse_log argument swap between
+``update()`` and ``average()``.
 """
 
 from __future__ import annotations
 
 import math
+from typing import List
 
 import numpy as np
+
+METRIC_NAMES = [
+    "silog",
+    "abs_rel",
+    "log10",
+    "rms",
+    "sq_rel",
+    "log_rms",
+    "d1",
+    "d2",
+    "d3",
+]
+
+
+def compute_errors(gt: np.ndarray, pred: np.ndarray) -> List[float]:
+    """NeWCRFs eval 9-vector over pre-masked flat arrays
+    (``src/utils.py:45-66``), in the order of :data:`METRIC_NAMES`."""
+    gt = np.asarray(gt, dtype=np.float64)
+    pred = np.asarray(pred, dtype=np.float64)
+    thresh = np.maximum(gt / pred, pred / gt)
+    d1 = float(np.mean(thresh < 1.25))
+    d2 = float(np.mean(thresh < 1.25**2))
+    d3 = float(np.mean(thresh < 1.25**3))
+
+    rms = float(np.sqrt(np.mean((gt - pred) ** 2)))
+    log_rms = float(np.sqrt(np.mean((np.log(gt) - np.log(pred)) ** 2)))
+
+    abs_rel = float(np.mean(np.abs(gt - pred) / gt))
+    sq_rel = float(np.mean(((gt - pred) ** 2) / gt))
+
+    err = np.log(pred) - np.log(gt)
+    silog = float(np.sqrt(np.mean(err**2) - np.mean(err) ** 2) * 100)
+
+    log10 = float(np.mean(np.abs(np.log10(pred) - np.log10(gt))))
+    return [silog, abs_rel, log10, rms, sq_rel, log_rms, d1, d2, d3]
 
 
 class Result:

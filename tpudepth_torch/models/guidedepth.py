@@ -9,14 +9,16 @@ A GUB runs one of two ways, with the same parameters and the same
 arithmetic:
 
 - plain: conv -> BN -> ReLU modules, SE scale, residual, reduce;
-- fused (``fused_stages=True``, eval only): every k=3 conv is the
-  ``gub_conv_fwd`` CUDA kernel (``ops/kernels/gub_conv.py``) with the
-  previous BatchNorm's affine, the ReLU and the SE scale applied as it loads
-  its input, so the normalized tensors feeding the k=3 convs are never
-  written. The k=1 convs take their prelude as plain tensor code, as the
-  JAX package keeps them out of Pallas. The JAX package fuses only its
-  space-to-depth packed stages; the port fuses all three stages unpacked,
-  which is the same arithmetic.
+- fused (``fused_stages=True``): every k=3 conv is the ``gub_conv_fwd`` CUDA
+  kernel (``ops/kernels/gub_conv.py``) with the previous BatchNorm's affine,
+  the ReLU and the SE scale applied as it loads its input, so the normalized
+  tensors feeding the k=3 convs are never written. In train mode the kernel
+  also emits the per-channel sums its BatchNorm needs, the BatchNorm affine
+  is f32 vector math on them (``BatchNorm.train_affine``), and the backward
+  runs the ``gub_conv_dw`` and ``gub_conv_dx`` kernels. The k=1 convs take
+  their prelude as plain tensor code, as the JAX package keeps them out of
+  Pallas. The JAX package fuses only its space-to-depth packed stages; the
+  port fuses all three stages unpacked, which is the same arithmetic.
 """
 
 from __future__ import annotations
@@ -51,12 +53,14 @@ def _nchw(y: torch.Tensor) -> torch.Tensor:
 
 
 def _activate(y: torch.Tensor, pre: Affine, skip=None) -> torch.Tensor:
-    """``relu(y*A + C) [+ skip]`` in f32, rounded to ``y``'s dtype, with
-    ``A`` and ``C`` of shape ``[C]``: the prelude of a k=1 conv."""
+    """``relu(y*A + C) [+ skip]`` in f32 (f64 for f64 input), rounded to
+    ``y``'s dtype, with ``A`` and ``C`` of shape ``[C]``: the prelude of a
+    k=1 conv."""
+    ct = torch.promote_types(y.dtype, torch.float32)
     a, c = (t.view(-1, 1, 1) for t in pre)
-    z = torch.relu(y.float() * a + c)
+    z = torch.relu(y.to(ct) * a + c)
     if skip is not None:
-        z = z + skip.float()
+        z = z + skip.to(ct)
     return z.to(y.dtype)
 
 
@@ -108,39 +112,47 @@ class GuidedUpsamplingBlock(nn.Module):
         return self.reduce(r + depth)
 
     def _fused(self, guide, depth):
-        """Fused execution (``tpudepth/models/guidedepth.py:243-293``); the
-        normalized inputs of the k=3 convs exist only inside the kernel."""
-        if self.training:
-            raise NotImplementedError(
-                "fused GUB stages run in eval mode only; the fused training "
-                "kernels are still to port (ROADMAP Queue B)")
+        """Fused execution (``tpudepth/models/guidedepth.py:161-184,
+        243-293``); the normalized inputs of the k=3 convs exist only inside
+        the kernel. In train mode every BatchNorm affine comes from batch
+        statistics: a k=3 conv's from the sums its kernel emits, a k=1
+        conv's reduced from its output."""
+        train = self.training
 
-        def conv3(parts: Sequence[torch.Tensor], conv: Conv, preludes=None):
-            y = conv_bn_act([_nhwc(p) for p in parts],
-                            conv.weight.permute(2, 3, 1, 0), conv.bias,
-                            preludes=preludes)
-            return _nchw(y)
+        def conv3(parts: Sequence[torch.Tensor], conv: Conv, bn: BatchNorm,
+                  preludes=None):
+            out = conv_bn_act([_nhwc(p) for p in parts],
+                              conv.weight.permute(2, 3, 1, 0), conv.bias,
+                              preludes=preludes, stats=train)
+            if not train:
+                return _nchw(out), bn.eval_affine()
+            y, s, q = out
+            n = float(y.shape[0] * y.shape[1] * y.shape[2])
+            return _nchw(y), bn.train_affine(sums=(s, q, n))
+
+        def conv1(x: torch.Tensor, conv: Conv, bn: BatchNorm):
+            y = conv(x)
+            return y, bn.train_affine(y) if train else bn.eval_affine()
 
         fc, gc, cc = self.feature_conv, self.guide_conv, self.comb_conv
-        y1 = conv3([depth], fc[0])
-        y2 = fc[3](_activate(y1, fc[1].eval_affine()))
-        g1 = conv3([guide], gc[0])
-        g2 = gc[3](_activate(g1, gc[1].eval_affine()))
+        y1, p1 = conv3([depth], fc[0], fc[1])
+        y2, p2 = conv1(_activate(y1, p1), fc[3], fc[4])
+        g1, q1 = conv3([guide], gc[0], gc[1])
+        g2, q2 = conv1(_activate(g1, q1), gc[3], gc[4])
 
         # SE squeeze of the normalized branches, excitation folded into the
         # comb conv's preludes: relu(x*A + C) * e == relu(x*(A*e) + C*e)
         # because e = sigmoid(.) > 0.
-        p2, q2 = fc[4].eval_affine(), gc[4].eval_affine()
         mx = _activate(y2, p2).mean(dim=(2, 3))
         mg = _activate(g2, q2).mean(dim=(2, 3))
-        exc = self.SE_block.excite(torch.cat([mx, mg], dim=1)).float()
+        exc = self.SE_block.excite(torch.cat([mx, mg], dim=1)).to(p2[0].dtype)
         half = exc.shape[1] // 2
         pre_x = tuple((t[None] * exc[:, :half]).contiguous() for t in p2)
         pre_g = tuple((t[None] * exc[:, half:]).contiguous() for t in q2)
 
-        y5 = conv3([y2, g2], cc[0], preludes=(pre_x, pre_g))
-        y6 = cc[3](_activate(y5, cc[1].eval_affine()))
-        return self.reduce(_activate(y6, cc[4].eval_affine(), skip=depth))
+        y5, p5 = conv3([y2, g2], cc[0], cc[1], preludes=(pre_x, pre_g))
+        y6, p6 = conv1(_activate(y5, p5), cc[3], cc[4])
+        return self.reduce(_activate(y6, p6, skip=depth))
 
 
 class GuideDepth(nn.Module):

@@ -8,7 +8,7 @@ uses torch momentum 0.1 and eps 1e-5 (DDRNet and GUB).
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -55,7 +55,9 @@ class BatchNorm(nn.BatchNorm2d):
     reference key layout and is not counted up (nothing reads it).
 
     In eval it applies the per-channel affine of :meth:`eval_affine`
-    (``x * A + C``, the form the fused GUB kernels take as their prelude)."""
+    (``x * A + C``, the form the fused GUB kernels take as their prelude).
+    :meth:`train_affine` gives the same form from batch statistics, for the
+    fused GUB stages in train mode."""
 
     def __init__(self, num_features: int):
         super().__init__(num_features, eps=BN_EPS, momentum=BN_MOMENTUM)
@@ -65,6 +67,39 @@ class BatchNorm(nn.BatchNorm2d):
         statistics (``tpudepth/models/layers.py:289-291``)."""
         a = torch.rsqrt(self.running_var + self.eps) * self.weight
         return a, self.bias - self.running_mean * a
+
+    def _move_running(self, mean: torch.Tensor, var: torch.Tensor):
+        with torch.no_grad():
+            self.running_mean.mul_(1.0 - self.momentum).add_(
+                mean, alpha=self.momentum)
+            self.running_var.mul_(1.0 - self.momentum).add_(
+                var, alpha=self.momentum)
+
+    def train_affine(self, y: Optional[torch.Tensor] = None,
+                     sums: Optional[Tuple[torch.Tensor, torch.Tensor, float]]
+                     = None) -> Tuple[torch.Tensor, torch.Tensor]:
+        """``(A, C)`` with ``normalize(y) == y * A + C`` from BATCH
+        statistics, and the running statistics moved towards them: the
+        counterpart of ``_PackedBatchNormInner(stats_in=, as_vectors=True)``
+        (``tpudepth/models/layers.py:254-291``), unpacked.
+
+        The statistics come from ``sums = (sum, sum_sq, n)`` per channel (a
+        fused conv kernel's epilogue) or are reduced from ``y`` ``[B,C,H,W]``
+        itself: ``mean = s/n``, ``var = max(q/n - mean^2, 0)``, ``A =
+        rsqrt(var + eps) * weight``, ``C = bias - mean * A``. The vectors are
+        in the parameters' dtype and carry autograd through ``s`` and ``q``
+        (or ``y``): the BatchNorm chain rule is this tensor math's."""
+        if sums is not None:
+            s, q, n = sums
+            mean, mean2 = s / n, q / n
+        else:
+            yf = y.to(self.weight.dtype)
+            mean = yf.mean(dim=(0, 2, 3))
+            mean2 = (yf * yf).mean(dim=(0, 2, 3))
+        var = torch.clamp(mean2 - mean * mean, min=0.0)
+        self._move_running(mean.detach(), var.detach())
+        a = torch.rsqrt(var + self.eps) * self.weight
+        return a, self.bias - mean * a
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = x.dtype
@@ -78,11 +113,7 @@ class BatchNorm(nn.BatchNorm2d):
         xf = x if x.dtype == torch.float64 else x.float()
         mean = xf.mean(dim=(0, 2, 3))
         var = torch.clamp((xf * xf).mean(dim=(0, 2, 3)) - mean * mean, min=0.0)
-        with torch.no_grad():
-            self.running_mean.mul_(1.0 - self.momentum).add_(
-                mean, alpha=self.momentum)
-            self.running_var.mul_(1.0 - self.momentum).add_(
-                var, alpha=self.momentum)
+        self._move_running(mean.detach(), var.detach())
         mul = torch.rsqrt(var.to(dt) + self.eps) * self.weight.to(dt)
         return ((x - per_channel(mean)) * mul[None, :, None, None]
                 + per_channel(self.bias))

@@ -17,8 +17,10 @@ GUB_MODES = ("plain", "fused")
 
 
 def build_model(name: str, gub: str = "plain") -> GuideDepth:
-    """``gub='fused'`` runs every GUB's k=3 convs through the
-    ``gub_conv_fwd`` CUDA kernel (eval only); ``'plain'`` through modules."""
+    """``gub='fused'`` runs every GUB's k=3 convs through the fused GUB conv
+    kernels (``ops/kernels/gub_conv.py``: ``gub_conv_fwd`` in eval and train
+    mode, ``gub_conv_dw`` and ``gub_conv_dx`` in the backward); ``'plain'``
+    through conv, BatchNorm and ReLU modules. Both have one parameter tree."""
     if gub not in GUB_MODES:
         raise ValueError(f"gub must be one of {GUB_MODES}, not {gub!r}")
     canon = _ALIASES.get(str(name).lower())
