@@ -3,9 +3,10 @@
 
 It drives the port's main paths at NYU 480x640: serving (GuideDepth in bf16
 with fused GUB stages), training (``Trainer.fit``, alhashim recipe, bf16,
-batch 8) with plain and with fused GUB stages, and the evaluator on the
-trained model. It holds every CUDA kernel of those paths against its plain
-PyTorch version. Phases:
+batch 8) with plain and with fused GUB stages, the evaluator on the trained
+model, and serving MobileV3SAMDepth (MobileNetV3-Large + four SAM stages at
+full width, bf16) with its blocks fused and paired. It holds every CUDA
+kernel of those paths against its plain PyTorch version. Phases:
 
 1. device: needs CUDA; prints the card's name and power limit; turns TF32
    off for every f32 reference;
@@ -28,7 +29,12 @@ PyTorch version. Phases:
    flip-TTA, meters), with the kernel's launches counted over exactly that
    run, then the raw outputs against the plain f32 model, then the engine's
    img/s at bs 1 and 8, fused and plain, each with a ``torch.profiler``
-   window (device busy share, launches, largest kernels);
+   window (device busy share, launches, largest kernels); then SAM serving:
+   a seeded ``build_model("sam")`` through the bf16 ``InferenceEngine``,
+   fused and pair, batch 1 and 8, with the SAM kernels' launches counted
+   over exactly those requests (4 + 4 per forward), the served maps against
+   the f32 plain model, f32 fused and pair against f32 plain, and ms/frame,
+   img/s, peak memory and a profile of each mode;
 5. training: ``Trainer.fit`` for 2 epochs of 3 steps on seeded synthetic
    uint8 batches with one validation batch and a checkpoint per epoch (the
    seeded model's output bias starts at 3, inside the targets' range), the
@@ -1206,6 +1212,296 @@ def phase_evaluation(tmp, trainer):
     return out, launches
 
 
+# the SAM serving path: MobileV3SAMDepth at NYU 480x640, (name, windows per
+# image, C, heads, padded map, rows M per image) of the four stages, in the
+# order a forward runs them
+SAM_STAGES = [("crf3", 9, 1024, 32, (21, 21), 300),
+              ("crf2", 30, 512, 16, (35, 42), 1200),
+              ("crf1", 108, 256, 8, (63, 84), 4800),
+              ("crf0", 414, 128, 4, (126, 161), 19200)]
+SAM_BATCH = 8
+# the sigmoid map of the bf16 fused (or pair) engine against the f32 plain
+# model: ||got - ref|| / ||ref|| and max|got - ref| / max|ref|. Each bf16
+# rounding costs up to 2^-9 relative; ~60 layers (MobileNetV3's convs, four
+# SAM blocks of LayerNorm, attention and FFN) round the map's inputs about
+# 2^-9 * sqrt(60) ~ 1.5e-2 in rms, and the sigmoid's slope (at most 1/4)
+# damps that. On an H100 the seeded weights read 3.81e-3 / 2.46e-2 to
+# 2.79e-2; the bounds leave about 2.5 times that.
+SAM_BF16_REL_L2 = 1e-2
+SAM_BF16_REL_MAX = 6e-2
+# f32 fused and pair against f32 plain, TF32 off: the kernels sum in other
+# orders than the plain products (a few f32 ulps per product of up to 4096
+# terms), nothing else differs
+SAM_F32_REL_L2 = 1e-4
+
+
+def _sam_kernel_inputs(seed, bsz, windows, c, hidden, m_rows, dtype):
+    """Seeded q, k, v, bias of one stage's attention and the rows, weights
+    and vectors of its block tail, on the card (unit-scale activations,
+    weights of std 1/sqrt(fan_in), LayerNorm scales around 1)."""
+    g = torch.Generator(device=DEVICE).manual_seed(seed)
+
+    def n(*shape, s=1.0, mean=0.0, dt=torch.float32):
+        return (mean + s * torch.randn(*shape, generator=g, device=DEVICE)).to(dt)
+
+    bw = bsz * windows
+    heads = c // 32
+    attn = dict(q=n(bw, 49, c, s=32 ** -0.5, dt=dtype), k=n(bw, 49, c, dt=dtype),
+                v=n(bw, 49, c, dt=dtype), bias=n(heads, 49, 49, s=0.5))
+    m = bsz * m_rows
+    tail = dict(o=n(m, c, dt=dtype), x=n(m, c, dt=dtype),
+                wproj=n(c, c, s=c ** -0.5), bproj=n(c, s=0.1),
+                lns=n(c, s=0.2, mean=1.0), lnb=n(c, s=0.1),
+                w1=n(c, hidden, s=c ** -0.5), b1=n(hidden, s=0.1),
+                w2=n(hidden, c, s=hidden ** -0.5), b2=n(c, s=0.1))
+    return attn, tail
+
+
+def _bound(nbytes, flops):
+    """(bound ms, bytes ms, operations ms) of bf16 work on the card."""
+    t_b = nbytes / HBM_BYTES_PER_S * 1e3
+    t_o = flops / BF16_FLOP_PER_S * 1e3
+    return max(t_b, t_o), t_b, t_o
+
+
+def phase_sam_kernels():
+    """``window_attn_infer`` (also with the shift-3 mask),
+    ``block_epilogue_infer`` and ``mlp_infer`` against their plain versions
+    at the four SAM stage shapes, batch 1 and 8, f32 and bf16, each within
+    its ``tolerance``; then their times at batch 8 in bf16 (CUDA graph
+    replays) beside the bound, the plain version and one library yardstick:
+    ``F.scaled_dot_product_attention`` on the head-split tensors with the
+    bias as ``attn_mask``; the block tail's and the FFN's products alone in
+    cuBLAS (bf16, the weights cast beforehand), a lower bound on any
+    unfused composition."""
+    from tpudepth_torch.ops.kernels import epilogue_infer as ei
+    from tpudepth_torch.ops.kernels import mlp_infer as mi
+    from tpudepth_torch.ops.kernels import window_attn_infer as wai
+    from tpudepth_torch.ops.window import shifted_window_attention_mask
+
+    err = {"window_attn_infer": 0.0, "block_epilogue_infer": 0.0,
+           "mlp_infer": 0.0}
+    err_rel = dict(err)     # max_abs_err / max|ref| of the same case
+    checks = {k: 0 for k in err}
+
+    def hold(name, got, want, tol, tag):
+        frac, rtol = tol
+        g, w = got.float(), want.float()
+        scale = float(w.abs().max())
+        d = (g - w).abs()
+        ok = bool((d <= frac * scale + rtol * w.abs()).all())
+        e = float(d.max())
+        err[name] = max(err[name], e)
+        err_rel[name] = max(err_rel[name], e / scale)
+        checks[name] += 1
+        print(f"[sam kernel] {name:<20} {tag:<28} max_abs_err {e:.3e} of "
+              f"max|ref| {scale:.3e} (atol {frac:g} of it, rtol {rtol:g})",
+              flush=True)
+        check(ok, f"{name} {tag} beyond tolerance")
+
+    for i, (stage, windows, c, heads, hw, rows) in enumerate(SAM_STAGES):
+        mask = torch.from_numpy(shifted_window_attention_mask(*hw, 7, 3)).to(DEVICE)
+        for bsz in (1, SAM_BATCH):
+            for dtype in (torch.float32, torch.bfloat16):
+                tag = f"{stage} B{bsz} {str(dtype)[6:]}"
+                attn, tail = _sam_kernel_inputs(10 * i + bsz, bsz, windows, c,
+                                                4 * c, rows, dtype)
+                for mk in (None, mask):
+                    got = wai.window_attention_infer(**attn, mask=mk)
+                    torch.cuda.synchronize()
+                    want = wai.window_attention_infer_reference(**attn, mask=mk)
+                    hold("window_attn_infer", got, want, wai.tolerance(dtype),
+                         tag + (" shift-3 mask" if mk is not None else ""))
+                    del got, want
+                got = ei.block_epilogue_infer(**tail)
+                torch.cuda.synchronize()
+                hold("block_epilogue_infer", got,
+                     ei.block_epilogue_infer_reference(**tail),
+                     ei.tolerance(dtype), tag)
+                args = (tail["o"], tail["w1"], tail["b1"], tail["w2"],
+                        tail["b2"])
+                got = mi.mlp_infer(*args)
+                torch.cuda.synchronize()
+                hold("mlp_infer", got, mi.mlp_infer_reference(*args),
+                     mi.tolerance(dtype), tag)
+                del attn, tail, got, args
+                torch.cuda.empty_cache()
+
+    # device times at batch 8 in bf16, the serving dtype
+    rows = {k: [] for k in err}
+    for i, (stage, windows, c, heads, hw, m_rows) in enumerate(SAM_STAGES):
+        attn, tail = _sam_kernel_inputs(100 + i, SAM_BATCH, windows, c, 4 * c,
+                                        m_rows, torch.bfloat16)
+        bw, m, hidden = SAM_BATCH * windows, SAM_BATCH * m_rows, 4 * c
+        q4, k4, v4 = (attn[k].reshape(bw, 49, heads, 32).transpose(1, 2)
+                      .contiguous() for k in ("q", "k", "v"))
+        amask = attn["bias"][None].to(torch.bfloat16)
+        wp, w1, w2 = (tail[k].to(torch.bfloat16) for k in ("wproj", "w1", "w2"))
+        o, x = tail["o"], tail["x"]
+        args = (o, tail["w1"], tail["b1"], tail["w2"], tail["b2"])
+        g = torch.empty(m, hidden, dtype=torch.bfloat16, device=DEVICE)
+        cases = {
+            "window_attn_infer": (
+                lambda: wai.window_attention_infer(**attn),
+                lambda: wai.window_attention_infer_reference(**attn),
+                lambda: F.scaled_dot_product_attention(q4, k4, v4, attn_mask=amask,
+                                                       scale=1.0),
+                _bound(4 * bw * 49 * c * 2 + heads * 49 * 49 * 4,
+                       4 * bw * 49 * 49 * c)),
+            "block_epilogue_infer": (
+                lambda: ei.block_epilogue_infer(**tail),
+                lambda: ei.block_epilogue_infer_reference(**tail),
+                lambda: (o @ wp, x @ w1, g @ w2),
+                _bound(3 * m * c * 2 + (c * c + 2 * c * hidden) * 4
+                       + (4 * c + hidden) * 4, 2 * m * c * (c + 2 * hidden))),
+            "mlp_infer": (
+                lambda: mi.mlp_infer(*args),
+                lambda: mi.mlp_infer_reference(*args),
+                lambda: (x @ w1, g @ w2),
+                _bound(2 * m * c * 2 + 2 * c * hidden * 4 + (c + hidden) * 4,
+                       4 * m * c * hidden)),
+        }
+        for name, (kern, plain, lib, (bound, t_b, t_o)) in cases.items():
+            ms = time_ms(kern, per_graph=4, replays=10)
+            plain_ms = time_ms(plain, per_graph=1, replays=5)
+            lib_ms = time_ms(lib, per_graph=4, replays=10)
+            rows[name].append({"name": stage, "windows": bw, "rows": m, "C": c,
+                               "heads": heads, "ms": ms, "plain_ms": plain_ms,
+                               "library_ms": lib_ms, "bound_ms": bound,
+                               "bytes_ms": t_b, "ops_ms": t_o})
+            print(f"[sam kernel time] {name:<20} {stage} B{SAM_BATCH} bf16 "
+                  f"(M {m}, C {c}): kernel {ms:.4f} ms, plain {plain_ms:.4f} "
+                  f"ms, library {lib_ms:.4f} ms, bound {bound:.4f} ms "
+                  f"({'bytes' if t_b >= t_o else 'operations'}; "
+                  f"{100 * bound / ms:.1f}% of bound)", flush=True)
+        del attn, tail, q4, k4, v4, g, args
+        torch.cuda.empty_cache()
+    return rows, err, err_rel, checks
+
+
+def phase_sam_serving():
+    """The SAM serving path: a seeded ``build_model("sam")`` through
+    ``InferenceEngine`` in bf16 at 480x640, fused and pair, batch 1 and 8,
+    with the three kernels' launches counted over exactly that run; the
+    served sigmoid maps against the f32 plain model; f32 fused and pair
+    against f32 plain (TF32 is off since phase 1); then ms/frame, img/s,
+    peak memory and a profile of each mode at batch 1 and 8."""
+    from tpudepth_torch.infer.engine import InferenceEngine
+    from tpudepth_torch.models.layers import init_random_
+    from tpudepth_torch.models.registry import build_model
+    from tpudepth_torch.ops.kernels import epilogue_infer as ei
+    from tpudepth_torch.ops.kernels import mlp_infer as mi
+    from tpudepth_torch.ops.kernels import window_attn_infer as wai
+
+    counters = {"window_attn_infer": wai.window_attention_infer,
+                "block_epilogue_infer": ei.block_epilogue_infer,
+                "mlp_infer": mi.mlp_infer}
+    weights = init_random_(build_model("sam", attn="plain"), seed=0).state_dict()
+    models = {}
+    for mode in ("fused", "pair", "plain"):
+        models[mode] = build_model("sam", attn=mode)
+        models[mode].load_state_dict(weights)
+    h, w = TRAIN_HW
+    images = [np.random.default_rng(400 + i).random((1, 3, h, w), dtype=np.float32)
+              for i in range(4)]
+    batch = np.random.default_rng(410).random((SAM_BATCH, 3, h, w),
+                                              dtype=np.float32)
+    engines = {(mode, bs): InferenceEngine(models[mode], (bs, 3, h, w),
+                                           compute_dtype=torch.bfloat16)
+               for mode in ("fused", "pair") for bs in (1, SAM_BATCH)}
+    for (mode, bs), eng in engines.items():   # first calls: cuDNN set-up
+        eng(images[0] if bs == 1 else batch)
+    torch.cuda.synchronize()
+
+    # the main path, then the pair path: requests through each engine, the
+    # counts set to 0 just before and read just after
+    t0 = time.perf_counter()
+    served = {}
+    per_mode = {}
+    for mode in ("fused", "pair"):
+        for fn in counters.values():
+            fn.launches = 0
+        served[mode] = ([engines[(mode, 1)](img) for img in images]
+                        + [engines[(mode, SAM_BATCH)](batch)])
+        torch.cuda.synchronize()
+        per_mode[mode] = {k: fn.launches for k, fn in counters.items()}
+    t_serve = time.perf_counter() - t0
+    launches = {k: sum(c[k] for c in per_mode.values()) for k in counters}
+    forwards = len(images) + 1
+    print(f"[sam serve] {len(images)} single-image requests and one batch of "
+          f"{SAM_BATCH} through each of the fused and the pair bf16 engine in "
+          f"{t_serve:.3f} s host clock; launches {launches}, by mode "
+          f"{per_mode}", flush=True)
+    check(per_mode["fused"] == {"window_attn_infer": 4 * forwards,
+                                "block_epilogue_infer": 4 * forwards,
+                                "mlp_infer": 0}, "fused launches")
+    check(per_mode["pair"] == {"window_attn_infer": 4 * forwards,
+                               "block_epilogue_infer": 0,
+                               "mlp_infer": 4 * forwards}, "pair launches")
+    for outs in served.values():
+        for out in outs:
+            check(out.dtype == torch.float32 and out.shape[1:] == (1, h, w),
+                  f"served shape {tuple(out.shape)}")
+            check(bool(torch.isfinite(out).all()), "non-finite depth")
+            check(float(out.min()) >= 0.0 and float(out.max()) <= 1.0,
+                  "sigmoid map outside [0, 1]")
+
+    inputs = images + [batch]
+
+    def answers(mode, dtype):
+        eng = {1: InferenceEngine(models[mode], (1, 3, h, w), compute_dtype=dtype),
+               SAM_BATCH: InferenceEngine(models[mode], (SAM_BATCH, 3, h, w),
+                                          compute_dtype=dtype)}
+        before = [fn.launches for fn in counters.values()]
+        outs = [eng[x.shape[0]](x).float() for x in inputs]
+        if mode == "plain":
+            check([fn.launches for fn in counters.values()] == before,
+                  "the plain model launched a SAM kernel")
+        return torch.cat([o.reshape(-1) for o in outs])
+
+    ref = answers("plain", torch.float32)
+    check(float(ref.std()) > 1e-2, "reference output is constant")
+    errs = {}
+    for tag, got in (("bf16 fused", torch.cat([o.reshape(-1) for o in served["fused"]])),
+                     ("bf16 pair", torch.cat([o.reshape(-1) for o in served["pair"]])),
+                     ("f32 fused", answers("fused", torch.float32)),
+                     ("f32 pair", answers("pair", torch.float32))):
+        rel_l2 = float((got - ref).norm() / ref.norm())
+        rel_max = float((got - ref).abs().max() / ref.abs().max())
+        errs[tag] = (rel_l2, rel_max)
+        print(f"[sam serve] sigmoid map, {tag} vs f32 plain: rel L2 "
+              f"{rel_l2:.3e}, max abs / max|ref| {rel_max:.3e} (ref std "
+              f"{float(ref.std()):.3e})", flush=True)
+    for tag in ("f32 fused", "f32 pair"):
+        check(errs[tag][0] <= SAM_F32_REL_L2,
+              f"{tag} vs f32 plain beyond {SAM_F32_REL_L2} (rel L2)")
+    for tag in ("bf16 fused", "bf16 pair"):
+        check(errs[tag][0] <= SAM_BF16_REL_L2
+              and errs[tag][1] <= SAM_BF16_REL_MAX,
+              f"{tag} vs f32 plain beyond {SAM_BF16_REL_L2} (L2) / "
+              f"{SAM_BF16_REL_MAX} (max)")
+    del served
+
+    perf = {}
+    for bs in (1, SAM_BATCH):
+        for mode in ("fused", "pair", "plain"):
+            eng = InferenceEngine(models[mode], (bs, 3, h, w),
+                                  compute_dtype=torch.bfloat16)
+            torch.cuda.reset_peak_memory_stats()
+            stats = eng.benchmark(50 if bs == 1 else 20, 5)
+            mem = torch.cuda.max_memory_allocated() / 2**20
+            perf[f"{mode}_bs{bs}"] = {
+                "ms_per_batch": 1e3 * stats["seconds_per_frame"],
+                "img_per_s": stats["images_per_second"], "peak_mib": mem}
+            print(f"[sam engine] MobileV3SAMDepth 480x640 bf16 {mode:<5} "
+                  f"bs{bs}: {stats['images_per_second']:.1f} img/s, "
+                  f"{1e3 * stats['seconds_per_frame']:.3f} ms/batch mean, "
+                  f"{1e3 * stats['median_seconds_per_frame']:.3f} ms median, "
+                  f"peak memory {mem:.0f} MiB", flush=True)
+            profile_engine(eng, f"sam {mode} bs{bs}", runs=3)
+    return launches, per_mode, errs, perf
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1218,7 +1514,9 @@ def main() -> int:
     rows, max_err, n_checks = phase_kernels()
     loss_rows, loss_err = phase_loss_kernels()
     bwd_rows, bwd_err, bwd_checks = phase_bwd_kernels()
+    sam_rows, sam_err, sam_err_rel, sam_checks = phase_sam_kernels()
     launches, errs, perf = phase_serving()
+    sam_launches, sam_per_mode, sam_errs, sam_perf = phase_sam_serving()
     with tempfile.TemporaryDirectory() as tmp:
         train, plain_trainer, cfg, loaders = phase_training(tmp)
         fused_train, fused_trainer = phase_training_fused(
@@ -1315,7 +1613,42 @@ def main() -> int:
                         if k in ("name", "cins", "cout", "hw", "dx_launches")
                         or k.startswith(which)} for r in bwd_rows],
         })
+    for name, src, replaces, per, yardstick in (
+            ("window_attn_infer", "window_attn_infer.cu",
+             "window_attn_infer.py:95", "window_attention_infer",
+             "F.scaled_dot_product_attention on the head-split tensors, the "
+             "bias as attn_mask"),
+            ("block_epilogue_infer", "epilogue_infer.cu",
+             "epilogue_infer.py:92", "block_epilogue_infer",
+             "the three cuBLAS products alone (o Wp, y W1, g W2; bf16)"),
+            ("mlp_infer", "epilogue_infer.cu", "mlp_infer.py:135",
+             "mlp_infer", "the two cuBLAS products alone (x W1, g W2; bf16)")):
+        table = sam_rows[name]
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": f"tpudepth_torch/csrc/{src}",
+            "replaces": f"tpudepth/ops/pallas/{replaces}",
+            "replaces_function": f"tpudepth/ops/pallas/{replaces.split(':')[0]}"
+                                 f"::{per}",
+            "launches": sam_launches[name],
+            "launches_by_mode": {m: c[name] for m, c in sam_per_mode.items()},
+            "max_abs_err": sam_err[name],
+            "max_rel_err": sam_err_rel[name],
+            "checks": sam_checks[name],
+            "ok": True,
+            "timed": f"device time of the four launches of one B{SAM_BATCH} "
+                     "480x640 bf16 SAM forward (crf3..crf0 summed), CUDA graph "
+                     f"replays; library_ms is {yardstick}",
+            "ms": total(table, "ms"),
+            "plain_ms": total(table, "plain_ms"),
+            "bound_ms": total(table, "bound_ms"),
+            "bound_by": bound_by(table),
+            "library_ms": total(table, "library_ms"),
+            "shapes": table,
+        })
     print(json.dumps({"kernels": kernels, "serve_errors": errs,
+                      "sam_serve_errors": sam_errs, "sam_engine": sam_perf,
                       "engine_img_per_s": perf, "training": train,
                       "fused_training": fused_train, "evaluation": evaluation,
                       "seconds": time.perf_counter() - t_start}))

@@ -380,3 +380,189 @@ def test_fused_loss_refuses_what_it_does_not_take(cuda):
         fl.fused_partials(p.transpose(1, 2), t.transpose(1, 2), 10.0)
     with pytest.raises(ValueError):
         fl.fused_bwd(p, t, 10.0, torch.zeros(3))
+
+
+# -- SAM serving: window_attn_infer, block_epilogue_infer, mlp_infer ---------
+
+from tpudepth_torch.ops.kernels import epilogue_infer as ei  # noqa: E402
+from tpudepth_torch.ops.kernels import mlp_infer as mi  # noqa: E402
+from tpudepth_torch.ops.kernels import window_attn_infer as wai  # noqa: E402
+from tpudepth_torch.ops.window import (  # noqa: E402
+    shifted_window_attention_mask,
+)
+
+# (windows, C, heads, padded map or None): the four SAM stages at 480x640
+# batch 1 (crf3..crf0) and sizes off the path (N = 16 with head_dim 8,
+# N = 64 with head_dim 64)
+ATTN_CASES = [(9, 1024, 32, (21, 21)), (30, 512, 16, (35, 42)),
+              (108, 256, 8, (63, 84)), (414, 128, 4, (126, 161))]
+
+
+def _close(got, want, tol):
+    """``|got - want| <= atol * max|want| + rtol * |want|`` elementwise."""
+    frac, rtol = tol
+    g, w = got.float(), want.float()
+    bound = frac * float(w.abs().max()) + rtol * w.abs()
+    assert bool(((g - w).abs() <= bound).all()), float((g - w).abs().max())
+
+
+def _attn_case(seed, bw, n, c, heads, dtype, device):
+    g = torch.Generator().manual_seed(seed)
+    q, k, v = (torch.randn(bw, n, c, generator=g) for _ in range(3))
+    q = q * (c // heads) ** -0.5
+    bias = 0.5 * torch.randn(heads, n, n, generator=g)
+    return [t.to(device, dtype) for t in (q, k, v)] + [bias.to(device)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("masked", [False, True], ids=["plain", "shift"])
+@pytest.mark.parametrize("case", ATTN_CASES, ids=["crf3", "crf2", "crf1", "crf0"])
+def test_window_attn_infer_matches_plain(cuda, case, masked, dtype):
+    bw, c, heads, hw = case
+    q, k, v, bias = _attn_case(bw, bw, 49, c, heads, dtype, cuda)
+    mask = None
+    if masked:
+        mask = torch.from_numpy(shifted_window_attention_mask(*hw, 7, 3)).to(cuda)
+        assert mask.shape[0] == bw
+    before = wai.window_attention_infer.launches
+    got = wai.window_attention_infer(q, k, v, bias, mask)
+    torch.cuda.synchronize()
+    assert wai.window_attention_infer.launches == before + 1
+    want = wai.window_attention_infer_reference(q, k, v, bias, mask)
+    assert got.dtype == dtype and got.shape == q.shape
+    _close(got, want, wai.tolerance(dtype))
+    assert torch.equal(got, wai.window_attention_infer(q, k, v, bias, mask))
+
+
+@pytest.mark.parametrize("n,c,heads", [(16, 16, 2), (64, 128, 2), (49, 96, 3)])
+def test_window_attn_infer_off_the_path_shapes(cuda, n, c, heads):
+    q, k, v, bias = _attn_case(n, 6, n, c, heads, torch.float32, cuda)
+    mask = (torch.rand(3, n, n, device=cuda) > 0.5).float() * -100.0
+    got = wai.window_attention_infer(q, k, v, bias, mask)
+    want = wai.window_attention_infer_reference(q, k, v, bias, mask)
+    _close(got, want, wai.tolerance(torch.float32))
+
+
+def test_window_attn_infer_reads_k_and_v_through_their_row_stride(cuda):
+    q, k, v, bias = _attn_case(3, 12, 49, 128, 4, torch.bfloat16, cuda)
+    kh, vh = torch.cat([k, v], dim=-1).chunk(2, dim=-1)
+    assert not kh.is_contiguous()
+    torch.testing.assert_close(wai.window_attention_infer(q, kh, vh, bias),
+                               wai.window_attention_infer(q, k, v, bias),
+                               atol=0, rtol=0)
+
+
+def test_window_attn_infer_refuses_what_it_does_not_take(cuda):
+    q, k, v, bias = _attn_case(4, 4, 49, 60, 3, torch.float32, cuda)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        wai.window_attention_infer(q, k, v, bias)    # head_dim 20
+    q, k, v, bias = _attn_case(4, 4, 81, 64, 2, torch.float32, cuda)
+    with pytest.raises(ValueError, match="N <= 64"):
+        wai.window_attention_infer(q, k, v, bias)
+    q, k, v, bias = _attn_case(4, 4, 49, 64, 2, torch.float16, cuda)
+    with pytest.raises(TypeError):
+        wai.window_attention_infer(q, k, v, bias)
+
+
+def _epilogue_case(seed, m, c, hidden, dtype, device, c2=None):
+    g = torch.Generator().manual_seed(seed)
+    c2 = c2 or c
+
+    def n(*shape, s=1.0, mean=0.0):
+        return (mean + s * torch.randn(*shape, generator=g)).to(device)
+
+    return dict(o=n(m, c).to(dtype), x=n(m, c).to(dtype),
+                wproj=n(c, c, s=c ** -0.5), bproj=n(c, s=0.1),
+                lns=n(c, s=0.2, mean=1.0), lnb=n(c, s=0.1),
+                w1=n(c, hidden, s=c ** -0.5), b1=n(hidden, s=0.1),
+                w2=n(hidden, c2, s=hidden ** -0.5), b2=n(c2, s=0.1))
+
+
+# (M, C): the four stages' rows at 480x640 batch 1, a row count that is no
+# multiple of a tile, and widths of 32 and 96
+EPI_CASES = [(300, 1024), (1200, 512), (4800, 256), (19200, 128), (37, 32),
+             (200, 96)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", EPI_CASES, ids=lambda c: f"{c[0]}x{c[1]}")
+def test_block_epilogue_infer_matches_plain(cuda, case, dtype):
+    m, c = case
+    a = _epilogue_case(m, m, c, 4 * c, dtype, cuda)
+    before = ei.block_epilogue_infer.launches
+    got = ei.block_epilogue_infer(**a)
+    torch.cuda.synchronize()
+    assert ei.block_epilogue_infer.launches == before + 1
+    want = ei.block_epilogue_infer_reference(**a)
+    assert got.dtype == dtype and got.shape == (m, c)
+    _close(got, want, ei.tolerance(dtype))
+    assert torch.equal(got, ei.block_epilogue_infer(**a))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", EPI_CASES + [(50, 64, 96), (64, 128, 32)],
+                         ids=lambda c: "x".join(map(str, c)))
+def test_mlp_infer_matches_plain(cuda, case, dtype):
+    m, c = case[:2]
+    c2 = case[2] if len(case) > 2 else c
+    a = _epilogue_case(m + 1, m, c, 4 * c, dtype, cuda, c2)
+    args = (a["o"], a["w1"], a["b1"], a["w2"], a["b2"])
+    before = mi.mlp_infer.launches
+    got = mi.mlp_infer(*args)
+    torch.cuda.synchronize()
+    assert mi.mlp_infer.launches == before + 1
+    want = mi.mlp_infer_reference(*args)
+    assert got.dtype == dtype and got.shape == (m, c2)
+    _close(got, want, mi.tolerance(dtype))
+
+
+def test_epilogue_kernels_take_linear_weights_without_a_copy(cuda):
+    """The ``.t()`` view of a Linear weight [out, in] is the JAX [in, out]
+    layout; a contiguous [in, out] tensor gives the same answer."""
+    a = _epilogue_case(5, 64, 128, 512, torch.bfloat16, cuda)
+    views = {k: a[k].t().contiguous().t() for k in ("wproj", "w1", "w2")}
+    torch.testing.assert_close(ei.block_epilogue_infer(**dict(a, **views)),
+                               ei.block_epilogue_infer(**a), atol=0, rtol=0)
+
+
+def test_epilogue_kernels_refuse_what_they_do_not_take(cuda):
+    a = _epilogue_case(6, 16, 48, 192, torch.float32, cuda)
+    with pytest.raises(ValueError, match="multiples of 32"):
+        ei.block_epilogue_infer(**a)
+    a = _epilogue_case(6, 16, 64, 256, torch.float32, cuda)
+    with pytest.raises(TypeError):
+        ei.block_epilogue_infer(**dict(a, w1=a["w1"].bfloat16()))
+    with pytest.raises(ValueError, match="contiguous"):
+        mi.mlp_infer(a["o"].t().contiguous().t(), a["w1"], a["b1"], a["w2"],
+                     a["b2"])
+    # contiguous rows one element off a 16-byte boundary
+    o = torch.zeros(16 * 64 + 1, dtype=torch.bfloat16, device=cuda)[1:]
+    with pytest.raises(ValueError, match="aligned"):
+        mi.mlp_infer(o.view(16, 64), a["w1"], a["b1"], a["w2"], a["b2"])
+
+
+@pytest.mark.parametrize("mode,counts", [("fused", (4, 4, 0)),
+                                         ("pair", (4, 0, 4)),
+                                         ("plain", (0, 0, 0))])
+def test_sam_model_on_the_card_matches_the_plain_model(cuda, mode, counts):
+    """MobileV3SAMDepth at 1x3x64x96 f32, each mode against the plain model on
+    the card (summation order only), and the kernels each forward launches."""
+    from tpudepth_torch.models.layers import init_random_
+    from tpudepth_torch.models.registry import build_model
+
+    plain = init_random_(build_model("sam", attn="plain"), seed=0)
+    model = build_model("sam", attn=mode)
+    model.load_state_dict(plain.state_dict())
+    x = torch.rand(1, 3, 64, 96, generator=torch.Generator().manual_seed(1))
+    x = x.to(cuda).contiguous(memory_format=torch.channels_last)
+    fns = (wai.window_attention_infer, ei.block_epilogue_infer, mi.mlp_infer)
+    with torch.no_grad():
+        want = plain.to(cuda).eval()(x)
+        before = [f.launches for f in fns]
+        got = model.to(cuda).eval()(x)
+    torch.cuda.synchronize()
+    assert tuple(f.launches - b for f, b in zip(fns, before)) == counts
+    assert float((got - want).norm() / want.norm()) < 1e-5

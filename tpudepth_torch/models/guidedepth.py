@@ -30,7 +30,7 @@ import torch.nn as nn
 
 from tpudepth_torch.models.ddrnet import DualResNetBackbone
 from tpudepth_torch.models.layers import BatchNorm, Conv, Linear
-from tpudepth_torch.ops.image import resize_bilinear, resize_nearest
+from tpudepth_torch.ops.image import nhwc, resize_bilinear, resize_nearest
 from tpudepth_torch.ops.kernels.gub_conv import conv_bn_act
 
 Affine = Tuple[torch.Tensor, torch.Tensor]
@@ -40,11 +40,6 @@ def _conv_bn_relu(cin: int, cout: int, k: int) -> List[nn.Module]:
     """``_ConvBNRelu``: conv (with bias) -> BN -> ReLU."""
     return [Conv(cin, cout, k, padding=(k - 1) // 2, bias=True),
             BatchNorm(cout), nn.ReLU()]
-
-
-def _nhwc(x: torch.Tensor) -> torch.Tensor:
-    """Contiguous NHWC view of an NCHW tensor (free when channels_last)."""
-    return x.contiguous(memory_format=torch.channels_last).permute(0, 2, 3, 1)
 
 
 def _nchw(y: torch.Tensor) -> torch.Tensor:
@@ -121,7 +116,7 @@ class GuidedUpsamplingBlock(nn.Module):
 
         def conv3(parts: Sequence[torch.Tensor], conv: Conv, bn: BatchNorm,
                   preludes=None):
-            out = conv_bn_act([_nhwc(p) for p in parts],
+            out = conv_bn_act([nhwc(p) for p in parts],
                               conv.weight.permute(2, 3, 1, 0), conv.bias,
                               preludes=preludes, stats=train)
             if not train:

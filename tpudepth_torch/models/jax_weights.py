@@ -1,14 +1,20 @@
-"""Weight bridge: a JAX GuideDepth ``{'params', 'batch_stats'}`` tree (nested
-dicts of numpy arrays) -> the port's ``state_dict``, and a gradient tree of
-the same ``params`` structure -> gradients by parameter name.
+"""Weight bridge: a JAX ``{'params', 'batch_stats'}`` tree (nested dicts of
+numpy arrays) of GuideDepth or MobileV3SAMDepth -> the port's
+``state_dict``, and a GuideDepth gradient tree of the same ``params``
+structure -> gradients by parameter name.
 
-The inverse of ``tpudepth/models/torch_import.py::convert_guidedepth``, with
-its own copy of the name table (``_ddrnet``, ``_gub`` there):
+The inverse of ``tpudepth/models/torch_import.py::convert_guidedepth`` and
+``::convert_attention_model`` (``variant='sam'``), with its own copy of
+their name tables (``_ddrnet``, ``_gub``, ``_mnv3_encoder``, ``_sam_stage``
+there):
 
-- conv kernels HWIO -> OIHW;
+- conv kernels HWIO -> OIHW (depthwise ``(kh, kw, 1, C)`` -> ``(C, 1, kh,
+  kw)`` by the same transpose);
 - flax ``Dense`` kernels ``[in, out]`` -> ``Linear.weight`` ``[out, in]``;
 - BatchNorm ``scale``/``bias``/``mean``/``var`` -> ``weight``/``bias``/
-  ``running_mean``/``running_var``, with ``num_batches_tracked`` = 0.
+  ``running_mean``/``running_var``, with ``num_batches_tracked`` = 0;
+- LayerNorm ``scale``/``bias`` -> ``weight``/``bias``; the relative-position
+  bias table as it is.
 
 Every leaf of the tree must be consumed; a leaf left over raises.
 """
@@ -16,12 +22,17 @@ Every leaf of the tree must be consumed; a leaf left over raises.
 from __future__ import annotations
 
 from collections import OrderedDict
-from typing import Dict, Iterator, Mapping, Optional, Tuple
+from typing import Dict, Iterator, List, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
 
 Entry = Tuple[str, str, str]  # (kind, flax path, torch prefix)
+
+# the MobileNetV3-Large block table: (has SE) per inverted residual, the
+# port's own copy of the use_se column of LARGE_SPEC
+_MNV3_LARGE_SE = (False, False, False, True, True, True, False, False, False,
+                  False, True, True, True, True, True)
 
 
 def _basic_block(fp: str, tp: str, has_downsample: bool) -> Iterator[Entry]:
@@ -97,6 +108,60 @@ def _gub(fp: str, tp: str) -> Iterator[Entry]:
     yield "conv", f"{fp}/reduce", f"{tp}.reduce"
 
 
+def _mnv3_large(fp: str, tp: str) -> Iterator[Entry]:
+    def cna(f, t):
+        yield "conv", f"{f}/conv", f"{t}.0"
+        yield "bn", f"{f}/bn", f"{t}.1"
+
+    yield from cna(f"{fp}/stem", f"{tp}.0")
+    for i, se in enumerate(_MNV3_LARGE_SE):
+        fb, tb = f"{fp}/block{i + 1}", f"{tp}.{i + 1}.block"
+        j = 0
+        if i != 0:
+            yield from cna(f"{fb}/expand", f"{tb}.{j}")
+            j += 1
+        yield from cna(f"{fb}/depthwise", f"{tb}.{j}")
+        j += 1
+        if se:
+            yield "conv", f"{fb}/se/fc1", f"{tb}.{j}.fc1"
+            yield "conv", f"{fb}/se/fc2", f"{tb}.{j}.fc2"
+            j += 1
+        yield from cna(f"{fb}/project", f"{tb}.{j}")
+    yield from cna(f"{fp}/head", f"{tp}.{len(_MNV3_LARGE_SE) + 1}")
+
+
+def _sam_stage(fp: str, tp: str) -> Iterator[Entry]:
+    yield "conv", f"{fp}/proj_e", f"{tp}.proj_e"
+    yield "conv", f"{fp}/proj_q", f"{tp}.proj_q"
+    fb, tb = f"{fp}/sam_block", f"{tp}.sam_block"
+    yield "ln", f"{fb}/norm1", f"{tb}.norm1"
+    yield "ln", f"{fb}/normv", f"{tb}.normv"
+    yield "raw", f"{fb}/attn/relative_position_bias_table", \
+        f"{tb}.attn.relative_position_bias_table"
+    for name in ("q", "kv", "proj"):
+        yield "dense", f"{fb}/attn/{name}", f"{tb}.attn.{name}"
+    yield "ln", f"{fb}/norm2", f"{tb}.norm2"
+    yield "dense", f"{fb}/mlp/fc1", f"{tb}.mlp.fc1"
+    yield "dense", f"{fb}/mlp/fc2", f"{tb}.mlp.fc2"
+    yield "ln", f"{fp}/norm_sam", f"{tp}.norm_sam"
+
+
+def _guidedepth_entries() -> List[Entry]:
+    entries = list(_ddrnet("feature_extractor", "feature_extractor"))
+    for i in (1, 2, 3):
+        entries += list(_gub(f"up_{i}", f"up_{i}"))
+    return entries
+
+
+def _sam_entries() -> List[Entry]:
+    entries = list(_mnv3_large("encoder", "Unet.0.original_model.features"))
+    entries.append(("conv", "decoder/conv0", "Unet.1.conv0"))
+    for i in range(4):
+        entries += list(_sam_stage(f"decoder/crf{i}", f"Unet.1.crf{i}"))
+    entries.append(("conv", "decoder/conv1", "Unet.1.conv1"))
+    return entries
+
+
 def _flatten(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
     out = {}
     for k, v in tree.items():
@@ -109,10 +174,11 @@ def _flatten(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
 
 
 def _convert(params: Dict[str, np.ndarray],
-             stats: Optional[Dict[str, np.ndarray]]) -> "OrderedDict[str, torch.Tensor]":
-    """Map flattened flax leaves to port names. ``stats=None`` maps a
-    params-only tree (gradients): no BatchNorm statistics are expected or
-    written."""
+             stats: Optional[Dict[str, np.ndarray]],
+             entries: List[Entry]) -> "OrderedDict[str, torch.Tensor]":
+    """Map flattened flax leaves to port names by ``entries``.
+    ``stats=None`` maps a params-only tree (gradients): no BatchNorm
+    statistics are expected or written."""
     tables = [params] + ([stats] if stats is not None else [])
     used = set()
 
@@ -125,9 +191,6 @@ def _convert(params: Dict[str, np.ndarray],
     def put(name, arr):
         out[name] = torch.from_numpy(np.array(arr, np.float32))
 
-    entries = list(_ddrnet("feature_extractor", "feature_extractor"))
-    for i in (1, 2, 3):
-        entries += list(_gub(f"up_{i}", f"up_{i}"))
     for kind, fp, tp in entries:
         if kind == "conv":
             put(f"{tp}.weight",
@@ -142,8 +205,15 @@ def _convert(params: Dict[str, np.ndarray],
                 put(f"{tp}.running_var", take(stats, f"{fp}/BatchNorm_0/var"))
                 out[f"{tp}.num_batches_tracked"] = torch.tensor(
                     0, dtype=torch.long)
+        elif kind == "ln":
+            put(f"{tp}.weight", take(params, f"{fp}/LayerNorm_0/scale"))
+            put(f"{tp}.bias", take(params, f"{fp}/LayerNorm_0/bias"))
+        elif kind == "raw":
+            put(tp, take(params, fp))
         else:
             put(f"{tp}.weight", take(params, f"{fp}/kernel").T)
+            if f"{fp}/bias" in params:
+                put(f"{tp}.bias", take(params, f"{fp}/bias"))
 
     left = [k for table in tables for k in table
             if (id(table), k) not in used]
@@ -156,11 +226,20 @@ def guidedepth_state_dict_from_flax(variables: Mapping) -> "OrderedDict[str, tor
     """JAX GuideDepth variables -> the port's ``state_dict`` (GuideDepth or
     GuideDepth-S; the widths come from the arrays)."""
     return _convert(_flatten(variables["params"]),
-                    _flatten(variables.get("batch_stats", {})))
+                    _flatten(variables.get("batch_stats", {})),
+                    _guidedepth_entries())
+
+
+def sam_state_dict_from_flax(variables: Mapping) -> "OrderedDict[str, torch.Tensor]":
+    """JAX ``MobileV3SAMDepth`` variables -> the port's ``state_dict`` of
+    ``build_model("sam")`` (the inverse of ``convert_attention_model``)."""
+    return _convert(_flatten(variables["params"]),
+                    _flatten(variables.get("batch_stats", {})),
+                    _sam_entries())
 
 
 def guidedepth_grads_from_flax(grads: Mapping) -> "OrderedDict[str, torch.Tensor]":
     """A flax gradient tree (the structure of ``variables['params']``) ->
     ``{parameter name: gradient}`` under the same key table and layout
     changes, to hold against ``dict(model.named_parameters())``' ``.grad``."""
-    return _convert(_flatten(grads), None)
+    return _convert(_flatten(grads), None, _guidedepth_entries())

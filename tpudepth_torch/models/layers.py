@@ -3,7 +3,8 @@
 Counterpart of ``tpudepth/models/layers.py`` (unpacked only). A module's
 compute dtype is its input's dtype; parameters and BatchNorm statistics stay
 float32, as ``dtype=bf16, param_dtype=f32`` does in the JAX modules. BatchNorm
-uses torch momentum 0.1 and eps 1e-5 (DDRNet and GUB).
+uses torch momentum 0.1 and eps 1e-5 by default (DDRNet and GUB); MobileNetV3
+passes 0.01 and 1e-3.
 """
 
 from __future__ import annotations
@@ -15,12 +16,32 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from tpudepth_torch.ops.kernels.mlp_infer import mlp_infer
+
 BN_MOMENTUM = 0.1
 BN_EPS = 1e-5
 
 
 def relu(x: torch.Tensor) -> torch.Tensor:
     return F.relu(x)
+
+
+def hardswish(x: torch.Tensor) -> torch.Tensor:
+    """``x * relu6(x + 3) / 6`` in the JAX package's operation order."""
+    return x * torch.clamp(x + 3.0, 0.0, 6.0) / 6.0
+
+
+def hardsigmoid(x: torch.Tensor) -> torch.Tensor:
+    """``relu6(x + 3) / 6``."""
+    return torch.clamp(x + 3.0, 0.0, 6.0) / 6.0
+
+
+def make_divisible(v: float, divisor: int = 8) -> int:
+    """Channel rounding of the MobileNetV3 paper and torchvision."""
+    new_v = max(divisor, int(v + divisor / 2) // divisor * divisor)
+    if new_v < 0.9 * v:
+        new_v += divisor
+    return new_v
 
 
 class Conv(nn.Conv2d):
@@ -40,13 +61,14 @@ class Linear(nn.Linear):
 
 
 class BatchNorm(nn.BatchNorm2d):
-    """BatchNorm (momentum 0.1, eps 1e-5) with f32 parameters and statistics,
+    """BatchNorm (torch momentum and eps, 0.1 and 1e-5 unless given) with f32
+    parameters and statistics,
     computing what ``tpudepth/models/layers.py::BatchNorm`` (flax
     ``nn.BatchNorm``) computes.
 
     In train mode the batch mean and the BIASED variance
     (``max(E[x^2] - E[x]^2, 0)``) are reduced in f32 over the compute-dtype
-    tensor, the running statistics move by momentum 0.1 towards them (the
+    tensor, the running statistics move by the momentum towards them (the
     running variance takes the biased variance, where ``nn.BatchNorm2d``
     would take the unbiased one), and the normalization runs in the compute
     dtype in flax's operation order,
@@ -59,8 +81,9 @@ class BatchNorm(nn.BatchNorm2d):
     :meth:`train_affine` gives the same form from batch statistics, for the
     fused GUB stages in train mode."""
 
-    def __init__(self, num_features: int):
-        super().__init__(num_features, eps=BN_EPS, momentum=BN_MOMENTUM)
+    def __init__(self, num_features: int, eps: float = BN_EPS,
+                 momentum: float = BN_MOMENTUM):
+        super().__init__(num_features, eps=eps, momentum=momentum)
 
     def eval_affine(self) -> Tuple[torch.Tensor, torch.Tensor]:
         """f32 ``(A, C)`` with ``normalize(x) == x * A + C`` from the running
@@ -119,6 +142,96 @@ class BatchNorm(nn.BatchNorm2d):
                 + per_channel(self.bias))
 
 
+class Hardswish(nn.Module):
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return hardswish(x)
+
+
+class ConvBNAct(nn.Sequential):
+    """conv (no bias) -> BatchNorm -> activation (``tpudepth/models/layers.py
+    ::ConvBNAct``), laid out as torchvision's ``Conv2dNormActivation``
+    (``0`` conv, ``1`` BatchNorm, ``2`` activation), so its ``state_dict``
+    keys are torchvision's."""
+
+    def __init__(self, cin: int, cout: int, kernel_size: int = 3,
+                 stride: int = 1, groups: int = 1, act: Optional[str] = "relu",
+                 bn_eps: float = BN_EPS, bn_momentum: float = BN_MOMENTUM):
+        layers = [Conv(cin, cout, kernel_size, stride, (kernel_size - 1) // 2,
+                       groups=groups, bias=False),
+                  BatchNorm(cout, eps=bn_eps, momentum=bn_momentum)]
+        if act == "relu":
+            layers.append(nn.ReLU())
+        elif act == "hardswish":
+            layers.append(Hardswish())
+        elif act is not None:
+            raise ValueError(f"unknown activation {act!r}")
+        super().__init__(*layers)
+
+
+class SqueezeExcitation(nn.Module):
+    """torchvision's MobileNetV3 SE: spatial mean, 1x1 conv ``fc1``, ReLU,
+    1x1 conv ``fc2``, hardsigmoid scale."""
+
+    def __init__(self, channels: int, squeeze_channels: int):
+        super().__init__()
+        self.fc1 = Conv(channels, squeeze_channels, 1)
+        self.fc2 = Conv(squeeze_channels, channels, 1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        s = x.mean(dim=(2, 3), keepdim=True)
+        s = self.fc2(relu(self.fc1(s)))
+        return x * hardsigmoid(s)
+
+
+class LayerNorm(nn.Module):
+    """LayerNorm over the last dim with flax's formula
+    (``tpudepth/models/layers.py::LayerNorm``, ``nn.LayerNorm(epsilon=1e-5)``):
+    ``mean`` and the fast variance ``max(E[x^2] - mean^2, 0)`` in f32,
+    ``(x - mean) * (rsqrt(var + eps) * weight) + bias`` in f32, rounded to
+    the input dtype. Parameters ``weight`` / ``bias`` as ``nn.LayerNorm``."""
+
+    def __init__(self, dim: int, eps: float = 1e-5):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(dim))
+        self.bias = nn.Parameter(torch.zeros(dim))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        xf = x.to(torch.promote_types(x.dtype, torch.float32))
+        mean = xf.mean(dim=-1, keepdim=True)
+        var = torch.clamp((xf * xf).mean(dim=-1, keepdim=True) - mean * mean,
+                          min=0.0)
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        return ((xf - mean) * mul + self.bias).to(x.dtype)
+
+
+class Mlp(nn.Module):
+    """Transformer FFN ``fc2(gelu(fc1(x)))`` with the exact (erf) GELU
+    (``tpudepth/models/layers.py::Mlp``). With ``kernel=True`` the eval
+    forward is the ``mlp_infer`` kernel (``ops/kernels/mlp_infer.py``: the
+    hidden tile never leaves the chip; on CPU tensors its plain version);
+    in train mode that configuration raises, since the training kernels
+    (``mlp_train``) are not ported. ``kernel=False`` is the plain
+    composition, which the JAX package computes on the CPU."""
+
+    def __init__(self, dim: int, hidden: int, kernel: bool = False):
+        super().__init__()
+        self.fc1 = Linear(dim, hidden)
+        self.fc2 = Linear(hidden, dim)
+        self.kernel = kernel
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.kernel:
+            return self.fc2(F.gelu(self.fc1(x)))
+        if self.training:
+            raise NotImplementedError(
+                "the FFN's training kernels (mlp_train) are not ported; see "
+                "ROADMAP.md Queue A")
+        y = mlp_infer(x.reshape(-1, x.shape[-1]), self.fc1.weight.t(),
+                      self.fc1.bias, self.fc2.weight.t(), self.fc2.bias)
+        return y.reshape(*x.shape[:-1], y.shape[-1])
+
+
 @torch.no_grad()
 def init_random_(model: nn.Module, seed: int) -> nn.Module:
     """Fill every parameter and BatchNorm statistic from a seeded numpy
@@ -127,7 +240,9 @@ def init_random_(model: nn.Module, seed: int) -> nn.Module:
     Conv and Linear weights are lecun-normal (std 1/sqrt(fan_in)), biases
     N(0, 0.05); BatchNorm weight U(0.5, 1.5), bias N(0, 0.1), running mean
     N(0, 0.1) and running var U(0.5, 1.5), so every BN affine differs from
-    the identity."""
+    the identity; LayerNorm weight U(0.5, 1.5), bias N(0, 0.1); a
+    relative-position bias table N(0, 0.02) truncated at 2 standard
+    deviations (``tpudepth/models/sam.py:51-56``)."""
     rng = np.random.default_rng(seed)
 
     def fill(t: torch.Tensor, arr: np.ndarray):
@@ -145,4 +260,11 @@ def init_random_(model: nn.Module, seed: int) -> nn.Module:
             fill(m.bias, 0.1 * rng.standard_normal(c))
             fill(m.running_mean, 0.1 * rng.standard_normal(c))
             fill(m.running_var, rng.uniform(0.5, 1.5, c))
+        elif isinstance(m, LayerNorm):
+            fill(m.weight, rng.uniform(0.5, 1.5, m.weight.shape))
+            fill(m.bias, 0.1 * rng.standard_normal(m.bias.shape))
+        table = m._parameters.get("relative_position_bias_table")
+        if table is not None:
+            fill(table, 0.02 * np.clip(rng.standard_normal(table.shape),
+                                       -2.0, 2.0))
     return model

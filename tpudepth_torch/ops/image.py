@@ -14,6 +14,11 @@ import torch
 import torch.nn.functional as F
 
 
+def nhwc(x: torch.Tensor) -> torch.Tensor:
+    """Contiguous NHWC view of an NCHW tensor (free when channels_last)."""
+    return x.contiguous(memory_format=torch.channels_last).permute(0, 2, 3, 1)
+
+
 def resize_bilinear(x: torch.Tensor, size: Tuple[int, int],
                     align_corners: bool = False) -> torch.Tensor:
     """Bilinear resize of ``x`` [B,C,H,W] to (H, W) = ``size``."""
