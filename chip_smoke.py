@@ -4,9 +4,12 @@
 It drives the port's main paths at NYU 480x640: serving (GuideDepth in bf16
 with fused GUB stages), training (``Trainer.fit``, alhashim recipe, bf16,
 batch 8) with plain and with fused GUB stages, the evaluator on the trained
-model, and serving MobileV3SAMDepth (MobileNetV3-Large + four SAM stages at
-full width, bf16) with its blocks fused and paired. It holds every CUDA
-kernel of those paths against its plain PyTorch version. Phases:
+model, serving MobileV3SAMDepth (MobileNetV3-Large + four SAM stages at
+full width, bf16) with its blocks fused, paired and as window rows, and
+serving MobileV3NewCRFDepth (the same encoder + four two-block NewCRF
+stages, the second block of each shifted) with its blocks as window rows,
+fused and paired. It holds every CUDA kernel of those paths against its
+plain PyTorch version. Phases:
 
 1. device: needs CUDA; prints the card's name and power limit; turns TF32
    off for every f32 reference;
@@ -24,7 +27,14 @@ kernel of those paths against its plain PyTorch version. Phases:
    ``gub_conv_dx`` against ``conv_bn_act_dw_reference`` /
    ``conv_bn_act_dx_reference`` at the nine shapes of a batch-8 train step in
    f32 and bf16 and at prelude / skip / ragged / k=1 / multi-part cases,
-   timed beside cuDNN's ``convolution_backward`` of the same conv;
+   timed beside cuDNN's ``convolution_backward`` of the same conv; the SAM
+   kernels (``window_attn_infer``, ``block_epilogue_infer``, ``mlp_infer``)
+   at the four stage shapes; ``crf_rowblock_infer`` (shift 0 and 3) and
+   ``sam_rowblock_infer`` against their plain versions at the four stage
+   shapes of 480x640, B 1 and 8, f32 and bf16, then one B 8 bf16 forward's
+   calls timed beside the bound, the plain version, the library yardstick
+   (the block's cuBLAS products + SDPA) and the port's ``fused``
+   composition of the same block;
 4. serving: 8 single-image requests through ``InferenceEngine`` (bf16,
    flip-TTA, meters), with the kernel's launches counted over exactly that
    run, then the raw outputs against the plain f32 model, then the engine's
@@ -34,7 +44,12 @@ kernel of those paths against its plain PyTorch version. Phases:
    fused and pair, batch 1 and 8, with the SAM kernels' launches counted
    over exactly those requests (4 + 4 per forward), the served maps against
    the f32 plain model, f32 fused and pair against f32 plain, and ms/frame,
-   img/s, peak memory and a profile of each mode;
+   img/s, peak memory and a profile of each mode; the same for SAM's ``row``
+   mode (4 ``sam_rowblock_infer`` calls per forward); then NewCRF serving,
+   ``build_model("newcrf")`` in modes ``row`` (the main path: 8
+   ``crf_rowblock_infer`` calls per forward), ``fused`` (8 + 8
+   ``window_attn_infer`` and ``block_epilogue_infer``) and ``pair`` (8 + 8
+   ``window_attn_infer`` and ``mlp_infer``), the same checks and timings;
 5. training: ``Trainer.fit`` for 2 epochs of 3 steps on seeded synthetic
    uint8 batches with one validation batch and a checkpoint per epoch (the
    seeded model's output bias starts at 3, inside the targets' range), the
@@ -1212,13 +1227,12 @@ def phase_evaluation(tmp, trainer):
     return out, launches
 
 
-# the SAM serving path: MobileV3SAMDepth at NYU 480x640, (name, windows per
-# image, C, heads, padded map, rows M per image) of the four stages, in the
-# order a forward runs them
-SAM_STAGES = [("crf3", 9, 1024, 32, (21, 21), 300),
-              ("crf2", 30, 512, 16, (35, 42), 1200),
-              ("crf1", 108, 256, 8, (63, 84), 4800),
-              ("crf0", 414, 128, 4, (126, 161), 19200)]
+# the attention stages of MobileV3SAMDepth and MobileV3NewCRFDepth at NYU
+# 480x640: (name, C, heads, map h x w) of the four stages, in the order a
+# forward runs them; each map pads to multiples of 7 (21x21, 35x42, 63x84,
+# 126x161), so every stage pads
+ATTN_STAGES = [("crf3", 1024, 32, (15, 20)), ("crf2", 512, 16, (30, 40)),
+               ("crf1", 256, 8, (60, 80)), ("crf0", 128, 4, (120, 160))]
 SAM_BATCH = 8
 # the sigmoid map of the bf16 fused (or pair) engine against the f32 plain
 # model: ||got - ref|| / ||ref|| and max|got - ref| / max|ref|. Each bf16
@@ -1233,6 +1247,14 @@ SAM_BF16_REL_MAX = 6e-2
 # orders than the plain products (a few f32 ulps per product of up to 4096
 # terms), nothing else differs
 SAM_F32_REL_L2 = 1e-4
+# the NewCRF map, bf16 engine against the f32 plain model: eight blocks of
+# LayerNorm, attention and FFN where SAM has four, ~72 rounded layers against
+# ~60. Set at 1.5e-2 / 9e-2 before the first run (SAM's scaled by sqrt 2 for
+# twice the blocks); on an H100 the seeded weights read 2.65e-3 to 2.74e-3 /
+# 1.01e-2 to 1.07e-2 in the three modes (the map's std is a third of SAM's),
+# and the bounds leave about 2.5 times that, as SAM's do
+NEWCRF_BF16_REL_L2 = 7e-3
+NEWCRF_BF16_REL_MAX = 3e-2
 
 
 def _sam_kernel_inputs(seed, bsz, windows, c, hidden, m_rows, dtype):
@@ -1257,6 +1279,39 @@ def _sam_kernel_inputs(seed, bsz, windows, c, hidden, m_rows, dtype):
     return attn, tail
 
 
+def _padded(hw):
+    """The map h x w padded to multiples of the 7 x 7 window."""
+    return -(-hw[0] // 7) * 7, -(-hw[1] // 7) * 7
+
+
+class KernelHold:
+    """Holds kernels' outputs against their plain versions, each within its
+    ``tolerance`` (atol as a fraction of max|ref|, rtol), and keeps per
+    kernel the largest error, absolute and over max|ref| of the same case,
+    and the number of checks."""
+
+    def __init__(self, label, names):
+        self.label = label
+        self.err = {k: 0.0 for k in names}
+        self.err_rel = dict(self.err)
+        self.checks = {k: 0 for k in names}
+
+    def __call__(self, name, got, want, tol, tag):
+        frac, rtol = tol
+        g, w = got.float(), want.float()
+        scale = float(w.abs().max())
+        d = (g - w).abs()
+        ok = bool((d <= frac * scale + rtol * w.abs()).all())
+        e = float(d.max())
+        self.err[name] = max(self.err[name], e)
+        self.err_rel[name] = max(self.err_rel[name], e / scale)
+        self.checks[name] += 1
+        print(f"[{self.label}] {name:<20} {tag:<28} max_abs_err {e:.3e} of "
+              f"max|ref| {scale:.3e} (atol {frac:g} of it, rtol {rtol:g})",
+              flush=True)
+        check(ok, f"{name} {tag} beyond tolerance")
+
+
 def _bound(nbytes, flops):
     """(bound ms, bytes ms, operations ms) of bf16 work on the card."""
     t_b = nbytes / HBM_BYTES_PER_S * 1e3
@@ -1279,28 +1334,13 @@ def phase_sam_kernels():
     from tpudepth_torch.ops.kernels import window_attn_infer as wai
     from tpudepth_torch.ops.window import shifted_window_attention_mask
 
-    err = {"window_attn_infer": 0.0, "block_epilogue_infer": 0.0,
-           "mlp_infer": 0.0}
-    err_rel = dict(err)     # max_abs_err / max|ref| of the same case
-    checks = {k: 0 for k in err}
-
-    def hold(name, got, want, tol, tag):
-        frac, rtol = tol
-        g, w = got.float(), want.float()
-        scale = float(w.abs().max())
-        d = (g - w).abs()
-        ok = bool((d <= frac * scale + rtol * w.abs()).all())
-        e = float(d.max())
-        err[name] = max(err[name], e)
-        err_rel[name] = max(err_rel[name], e / scale)
-        checks[name] += 1
-        print(f"[sam kernel] {name:<20} {tag:<28} max_abs_err {e:.3e} of "
-              f"max|ref| {scale:.3e} (atol {frac:g} of it, rtol {rtol:g})",
-              flush=True)
-        check(ok, f"{name} {tag} beyond tolerance")
-
-    for i, (stage, windows, c, heads, hw, rows) in enumerate(SAM_STAGES):
-        mask = torch.from_numpy(shifted_window_attention_mask(*hw, 7, 3)).to(DEVICE)
+    hold = KernelHold("sam kernel", ("window_attn_infer",
+                                     "block_epilogue_infer", "mlp_infer"))
+    for i, (stage, c, heads, hw) in enumerate(ATTN_STAGES):
+        hp, wp = _padded(hw)
+        windows, rows = hp * wp // 49, hw[0] * hw[1]
+        mask = torch.from_numpy(
+            shifted_window_attention_mask(hp, wp, 7, 3)).to(DEVICE)
         for bsz in (1, SAM_BATCH):
             for dtype in (torch.float32, torch.bfloat16):
                 tag = f"{stage} B{bsz} {str(dtype)[6:]}"
@@ -1328,8 +1368,10 @@ def phase_sam_kernels():
                 torch.cuda.empty_cache()
 
     # device times at batch 8 in bf16, the serving dtype
-    rows = {k: [] for k in err}
-    for i, (stage, windows, c, heads, hw, m_rows) in enumerate(SAM_STAGES):
+    rows = {k: [] for k in hold.err}
+    for i, (stage, c, heads, hw) in enumerate(ATTN_STAGES):
+        hp, wp = _padded(hw)
+        windows, m_rows = hp * wp // 49, hw[0] * hw[1]
         attn, tail = _sam_kernel_inputs(100 + i, SAM_BATCH, windows, c, 4 * c,
                                         m_rows, torch.bfloat16)
         bw, m, hidden = SAM_BATCH * windows, SAM_BATCH * m_rows, 4 * c
@@ -1376,30 +1418,227 @@ def phase_sam_kernels():
                   f"{100 * bound / ms:.1f}% of bound)", flush=True)
         del attn, tail, q4, k4, v4, g, args
         torch.cuda.empty_cache()
-    return rows, err, err_rel, checks
+    return rows, hold.err, hold.err_rel, hold.checks
 
 
-def phase_sam_serving():
-    """The SAM serving path: a seeded ``build_model("sam")`` through
-    ``InferenceEngine`` in bf16 at 480x640, fused and pair, batch 1 and 8,
-    with the three kernels' launches counted over exactly that run; the
-    served sigmoid maps against the f32 plain model; f32 fused and pair
-    against f32 plain (TF32 is off since phase 1); then ms/frame, img/s,
-    peak memory and a profile of each mode at batch 1 and 8."""
+def _rowblock_inputs(seed, bsz, hw, c, heads, shift, dtype, sam=False):
+    """Seeded keyword arguments of one window-row block call on the card: raw
+    x, v zero-padded to multiples of 7 (rolled by -shift), weights [in, out]
+    of std 1/sqrt(fan_in), LayerNorm scales around 1, the bias and the shift
+    mask; and the keyword options (scale, window, valid extent)."""
+    from tpudepth_torch.ops.window import shifted_window_attention_mask
+
+    g = torch.Generator(device=DEVICE).manual_seed(seed)
+
+    def n(*shape, s=1.0, mean=0.0):
+        return mean + s * torch.randn(*shape, generator=g, device=DEVICE)
+
+    h, w = hw
+    hp, wp = _padded(hw)
+    hidden = 4 * c
+    x = torch.zeros(bsz, hp, wp, c, device=DEVICE)
+    v = torch.zeros(bsz, hp, wp, c, device=DEVICE)
+    x[:, :h, :w] = n(bsz, h, w, c)
+    v[:, :h, :w] = n(bsz, h, w, c)
+    if shift:
+        x, v = (torch.roll(t, (-shift, -shift), dims=(1, 2)) for t in (x, v))
+    ln = lambda: (n(c, s=0.2, mean=1.0), n(c, s=0.1))  # noqa: E731
+    a = dict(x=x.to(dtype).contiguous(), v=v.to(dtype).contiguous(), ln1=ln())
+    if sam:
+        a.update(lnv=ln(), wq=n(c, c, s=c ** -0.5), bq=n(c, s=0.1),
+                 wkv=n(c, 2 * c, s=c ** -0.5), bkv=n(2 * c, s=0.1))
+    else:
+        a.update(wqk=n(c, 2 * c, s=c ** -0.5), bqk=n(2 * c, s=0.1))
+    a.update(bias=n(heads, 49, 49, s=0.5), wproj=n(c, c, s=c ** -0.5),
+             bproj=n(c, s=0.1), ln2=ln(), w1=n(c, hidden, s=c ** -0.5),
+             b1=n(hidden, s=0.1), w2=n(hidden, c, s=hidden ** -0.5),
+             b2=n(c, s=0.1))
+    kw = dict(scale=(c // heads) ** -0.5, window_size=7)
+    if sam:
+        kw["valid_hw"] = (h, w)
+    else:
+        a["mask"] = (torch.from_numpy(shifted_window_attention_mask(
+            h, w, 7, shift)).to(DEVICE) if shift else None)
+        kw["valid_hw"] = (h, w, shift)
+    return a, kw
+
+
+def _rowblock_library(a, sam):
+    """The library yardstick of one block: its four cuBLAS bf16 products
+    alone (qk, or q and kv; proj; fc1; fc2) and
+    ``F.scaled_dot_product_attention`` of the head-split windows with bias
+    (and mask) as ``attn_mask``; the operands are cast and laid out
+    beforehand. A lower bound on any unfused composition."""
+    from tpudepth_torch.ops.window import window_partition
+
+    x = a["x"]
+    b, hp, wp, c = x.shape
+    heads = a["bias"].shape[0]
+    m = b * hp * wp
+    bf = torch.bfloat16
+    xf = x.reshape(m, c)
+    wts = ([a["wq"].to(bf), a["wkv"].to(bf)] if sam else [a["wqk"].to(bf)])
+    wp_, w1, w2 = (a[k].to(bf) for k in ("wproj", "w1", "w2"))
+    g = torch.empty(m, w1.shape[1], dtype=bf, device=DEVICE)
+    q4 = (window_partition(x, 7).reshape(-1, 49, heads, c // heads)
+          .transpose(1, 2).contiguous())
+    nw = (hp // 7) * (wp // 7)
+    am = a["bias"][None].expand(nw, -1, -1, -1)
+    if a.get("mask") is not None:
+        am = am + a["mask"][:, None]
+    am = am.repeat(b, 1, 1, 1).to(bf).contiguous()
+
+    def run():
+        for wt in wts:
+            xf @ wt
+        F.scaled_dot_product_attention(q4, q4, q4, attn_mask=am, scale=1.0)
+        xf @ wp_
+        xf @ w1
+        g @ w2
+
+    return run
+
+
+def _rowblock_bound(bsz, hw, c, heads, sam, shift):
+    """(bound ms, bytes ms, operations ms) of one bf16 block call, counting
+    the work that the cropped output needs, over the m = B h w real tokens
+    alone: a pad token's key and value are its projection's bias (its
+    LayerNorm is zeroed) and a pad query's row is cropped. Bytes: x and v
+    read and the output written for the real tokens (bf16), the weights in
+    bf16 as the kernels read them, the bias table (and the shift mask) and
+    the vectors in f32. Operations: 22 C^2 (SAM 24 C^2: q, k v, proj, FFN)
+    a real token, and 4 49 C for its query's attention over one window."""
+    m = bsz * hw[0] * hw[1]
+    hp, wp = _padded(hw)
+    per_token = (24 if sam else 22) * c * c + 4 * 49 * c
+    weights = (12 if sam else 11) * c * c
+    tables = heads * 49 * 49 + (hp * wp if shift else 0) * 49
+    vectors = (15 if sam else 12) * c
+    return _bound(3 * m * c * 2 + 2 * weights + 4 * (tables + vectors),
+                  m * per_token)
+
+
+def phase_rowblock_kernels():
+    """``crf_rowblock_infer`` (shift 0, and shift 3 with rolled inputs, the
+    rolled valid image and the mask) and ``sam_rowblock_infer`` against
+    their plain versions at the four stage shapes of 480x640 (every stage
+    pads), batch 1 and 8, f32 and bf16, each within its ``tolerance``; then
+    at batch 8 in bf16 the time of one forward's calls (CUDA graph replays;
+    NewCRF: the two blocks of each stage, 8 calls; SAM: 4) beside the bound,
+    the plain version, the library yardstick of ``_rowblock_library``, and
+    the port's own ``fused`` composition of the same block (the module in
+    ``fused`` mode on the unpadded map: LN, pad, roll, window partition, qk
+    product, ``window_attn_infer``, reverse, roll, crop,
+    ``block_epilogue_infer``) against the module in ``row`` mode (pad, roll,
+    the kernels, roll, crop)."""
+    from tpudepth_torch.models.newcrf import CRFBlock
+    from tpudepth_torch.models.sam import SAMBlock
+    from tpudepth_torch.ops.kernels import rowblock_infer as rbi
+
+    names = ("crf_rowblock_infer", "sam_rowblock_infer")
+    hold = KernelHold("row kernel", names)
+    fns = {"crf_rowblock_infer": (rbi.crf_rowblock_infer,
+                                  rbi.crf_rowblock_infer_reference),
+           "sam_rowblock_infer": (rbi.sam_rowblock_infer,
+                                  rbi.sam_rowblock_infer_reference)}
+
+    for i, (stage, c, heads, hw) in enumerate(ATTN_STAGES):
+        for bsz in (1, SAM_BATCH):
+            for dtype in (torch.float32, torch.bfloat16):
+                for name, shift in (("crf_rowblock_infer", 0),
+                                    ("crf_rowblock_infer", 3),
+                                    ("sam_rowblock_infer", 0)):
+                    kern, plain = fns[name]
+                    a, kw = _rowblock_inputs(20 * i + bsz + shift, bsz, hw, c,
+                                             heads, shift, dtype,
+                                             sam=name.startswith("sam"))
+                    got = kern(**a, **kw)
+                    torch.cuda.synchronize()
+                    hold(name, got, plain(**a, **kw), rbi.tolerance(dtype),
+                         f"{stage} B{bsz} {str(dtype)[6:]} shift {shift}")
+                    del a, got
+                torch.cuda.empty_cache()
+
+    rows = {k: [] for k in names}
+    for i, (stage, c, heads, hw) in enumerate(ATTN_STAGES):
+        for name, shift in (("crf_rowblock_infer", 0), ("crf_rowblock_infer", 3),
+                            ("sam_rowblock_infer", 0)):
+            sam = name.startswith("sam")
+            kern, plain = fns[name]
+            a, kw = _rowblock_inputs(200 + i + shift, SAM_BATCH, hw, c, heads,
+                                     shift, torch.bfloat16, sam=sam)
+            # the module of the same block, on the unpadded map, row and fused
+            h, w = hw
+            block = {}
+            for mode in ("row", "fused"):
+                blk = (SAMBlock(c, heads, 7, mode=mode) if sam else
+                       CRFBlock(c, heads, 7, shift_size=shift, mode=mode))
+                block[mode] = blk.to(DEVICE).eval()
+            block["fused"].load_state_dict(block["row"].state_dict())
+            xb = torch.randn(SAM_BATCH, h, w, c, device=DEVICE,
+                             dtype=torch.bfloat16)
+            vb = torch.randn(SAM_BATCH, h, w, c, device=DEVICE,
+                             dtype=torch.bfloat16)
+            bound, t_b, t_o = _rowblock_bound(SAM_BATCH, hw, c, heads, sam,
+                                              shift)
+            with torch.inference_mode():
+                ms = time_ms(lambda: kern(**a, **kw), per_graph=4, replays=10)
+                plain_ms = time_ms(lambda: plain(**a, **kw), per_graph=1,
+                                   replays=5)
+                lib_ms = time_ms(_rowblock_library(a, sam), per_graph=4,
+                                 replays=10)
+                row_block_ms = time_ms(lambda: block["row"](xb, vb),
+                                       per_graph=4, replays=10)
+                fused_block_ms = time_ms(lambda: block["fused"](xb, vb),
+                                         per_graph=4, replays=10)
+            rows[name].append({
+                "name": stage, "shift": shift, "C": c, "heads": heads,
+                "tokens": SAM_BATCH * hw[0] * hw[1],
+                "padded_tokens": SAM_BATCH * a["x"].shape[1] * a["x"].shape[2],
+                "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                "bound_ms": bound, "bytes_ms": t_b, "ops_ms": t_o,
+                "row_block_ms": row_block_ms,
+                "fused_block_ms": fused_block_ms})
+            print(f"[row kernel time] {name:<19} {stage} shift {shift} "
+                  f"B{SAM_BATCH} bf16 (C {c}): kernel {ms:.4f} ms, plain "
+                  f"{plain_ms:.4f} ms, library {lib_ms:.4f} ms, bound "
+                  f"{bound:.4f} ms ({'bytes' if t_b >= t_o else 'operations'}"
+                  f"; {100 * bound / ms:.1f}% of bound); the block as a "
+                  f"module: row {row_block_ms:.4f} ms, fused "
+                  f"{fused_block_ms:.4f} ms", flush=True)
+            del a, block, xb, vb
+            torch.cuda.empty_cache()
+    return rows, hold.err, hold.err_rel, hold.checks
+
+
+def serve_attention_model(name, label, blocks, per_forward, bf16_bounds):
+    """The serving path of an attention model: a seeded ``build_model(name)``
+    through ``InferenceEngine`` in bf16 at 480x640 in each kernel mode of
+    ``per_forward`` (the main path first), batch 1 and 8, with the attention
+    kernels' launches counted over exactly the requests of each mode (each
+    kernel that ``per_forward[mode]`` names ``blocks`` times a forward, the
+    others never); the served sigmoid maps against the f32 plain model
+    (``bf16_bounds``: rel L2, max); each mode in f32 against f32 plain (TF32
+    is off since phase 1); then ms/frame, img/s, peak memory and a profile
+    of every mode and plain at batch 1 and 8."""
     from tpudepth_torch.infer.engine import InferenceEngine
     from tpudepth_torch.models.layers import init_random_
     from tpudepth_torch.models.registry import build_model
     from tpudepth_torch.ops.kernels import epilogue_infer as ei
     from tpudepth_torch.ops.kernels import mlp_infer as mi
+    from tpudepth_torch.ops.kernels import rowblock_infer as rbi
     from tpudepth_torch.ops.kernels import window_attn_infer as wai
 
     counters = {"window_attn_infer": wai.window_attention_infer,
                 "block_epilogue_infer": ei.block_epilogue_infer,
-                "mlp_infer": mi.mlp_infer}
-    weights = init_random_(build_model("sam", attn="plain"), seed=0).state_dict()
+                "mlp_infer": mi.mlp_infer,
+                "sam_rowblock_infer": rbi.sam_rowblock_infer,
+                "crf_rowblock_infer": rbi.crf_rowblock_infer}
+    modes = list(per_forward)
+    weights = init_random_(build_model(name, attn="plain"), seed=0).state_dict()
     models = {}
-    for mode in ("fused", "pair", "plain"):
-        models[mode] = build_model("sam", attn=mode)
+    for mode in modes + ["plain"]:
+        models[mode] = build_model(name, attn=mode)
         models[mode].load_state_dict(weights)
     h, w = TRAIN_HW
     images = [np.random.default_rng(400 + i).random((1, 3, h, w), dtype=np.float32)
@@ -1408,17 +1647,17 @@ def phase_sam_serving():
                                               dtype=np.float32)
     engines = {(mode, bs): InferenceEngine(models[mode], (bs, 3, h, w),
                                            compute_dtype=torch.bfloat16)
-               for mode in ("fused", "pair") for bs in (1, SAM_BATCH)}
+               for mode in modes for bs in (1, SAM_BATCH)}
     for (mode, bs), eng in engines.items():   # first calls: cuDNN set-up
         eng(images[0] if bs == 1 else batch)
     torch.cuda.synchronize()
 
-    # the main path, then the pair path: requests through each engine, the
-    # counts set to 0 just before and read just after
+    # the main path, then the other modes: requests through each engine,
+    # the counts set to 0 just before and read just after
     t0 = time.perf_counter()
     served = {}
     per_mode = {}
-    for mode in ("fused", "pair"):
+    for mode in modes:
         for fn in counters.values():
             fn.launches = 0
         served[mode] = ([engines[(mode, 1)](img) for img in images]
@@ -1428,16 +1667,13 @@ def phase_sam_serving():
     t_serve = time.perf_counter() - t0
     launches = {k: sum(c[k] for c in per_mode.values()) for k in counters}
     forwards = len(images) + 1
-    print(f"[sam serve] {len(images)} single-image requests and one batch of "
-          f"{SAM_BATCH} through each of the fused and the pair bf16 engine in "
-          f"{t_serve:.3f} s host clock; launches {launches}, by mode "
-          f"{per_mode}", flush=True)
-    check(per_mode["fused"] == {"window_attn_infer": 4 * forwards,
-                                "block_epilogue_infer": 4 * forwards,
-                                "mlp_infer": 0}, "fused launches")
-    check(per_mode["pair"] == {"window_attn_infer": 4 * forwards,
-                               "block_epilogue_infer": 0,
-                               "mlp_infer": 4 * forwards}, "pair launches")
+    print(f"[{name} serve] {len(images)} single-image requests and one batch "
+          f"of {SAM_BATCH} through each of the {', '.join(modes)} bf16 "
+          f"engines in {t_serve:.3f} s host clock; launches {launches}, by "
+          f"mode {per_mode}", flush=True)
+    for mode, kernels in per_forward.items():
+        check(per_mode[mode] == {k: blocks * forwards if k in kernels else 0
+                                 for k in counters}, f"{mode} launches")
     for outs in served.values():
         for out in outs:
             check(out.dtype == torch.float32 and out.shape[1:] == (1, h, w),
@@ -1456,35 +1692,36 @@ def phase_sam_serving():
         outs = [eng[x.shape[0]](x).float() for x in inputs]
         if mode == "plain":
             check([fn.launches for fn in counters.values()] == before,
-                  "the plain model launched a SAM kernel")
+                  f"the plain {name} model launched an attention kernel")
         return torch.cat([o.reshape(-1) for o in outs])
 
     ref = answers("plain", torch.float32)
     check(float(ref.std()) > 1e-2, "reference output is constant")
     errs = {}
-    for tag, got in (("bf16 fused", torch.cat([o.reshape(-1) for o in served["fused"]])),
-                     ("bf16 pair", torch.cat([o.reshape(-1) for o in served["pair"]])),
-                     ("f32 fused", answers("fused", torch.float32)),
-                     ("f32 pair", answers("pair", torch.float32))):
-        rel_l2 = float((got - ref).norm() / ref.norm())
-        rel_max = float((got - ref).abs().max() / ref.abs().max())
+    got = {f"bf16 {m}": torch.cat([o.reshape(-1) for o in served[m]])
+           for m in modes}
+    del served
+    got.update({f"f32 {m}": answers(m, torch.float32) for m in modes})
+    for tag, g in got.items():
+        rel_l2 = float((g - ref).norm() / ref.norm())
+        rel_max = float((g - ref).abs().max() / ref.abs().max())
         errs[tag] = (rel_l2, rel_max)
-        print(f"[sam serve] sigmoid map, {tag} vs f32 plain: rel L2 "
+        print(f"[{name} serve] sigmoid map, {tag} vs f32 plain: rel L2 "
               f"{rel_l2:.3e}, max abs / max|ref| {rel_max:.3e} (ref std "
               f"{float(ref.std()):.3e})", flush=True)
-    for tag in ("f32 fused", "f32 pair"):
-        check(errs[tag][0] <= SAM_F32_REL_L2,
-              f"{tag} vs f32 plain beyond {SAM_F32_REL_L2} (rel L2)")
-    for tag in ("bf16 fused", "bf16 pair"):
-        check(errs[tag][0] <= SAM_BF16_REL_L2
-              and errs[tag][1] <= SAM_BF16_REL_MAX,
-              f"{tag} vs f32 plain beyond {SAM_BF16_REL_L2} (L2) / "
-              f"{SAM_BF16_REL_MAX} (max)")
-    del served
+    bf16_l2, bf16_max = bf16_bounds
+    for mode in modes:
+        check(errs[f"f32 {mode}"][0] <= SAM_F32_REL_L2,
+              f"f32 {mode} vs f32 plain beyond {SAM_F32_REL_L2} (rel L2)")
+        check(errs[f"bf16 {mode}"][0] <= bf16_l2
+              and errs[f"bf16 {mode}"][1] <= bf16_max,
+              f"bf16 {mode} vs f32 plain beyond {bf16_l2} (L2) / "
+              f"{bf16_max} (max)")
+    del got
 
     perf = {}
     for bs in (1, SAM_BATCH):
-        for mode in ("fused", "pair", "plain"):
+        for mode in modes + ["plain"]:
             eng = InferenceEngine(models[mode], (bs, 3, h, w),
                                   compute_dtype=torch.bfloat16)
             torch.cuda.reset_peak_memory_stats()
@@ -1493,13 +1730,35 @@ def phase_sam_serving():
             perf[f"{mode}_bs{bs}"] = {
                 "ms_per_batch": 1e3 * stats["seconds_per_frame"],
                 "img_per_s": stats["images_per_second"], "peak_mib": mem}
-            print(f"[sam engine] MobileV3SAMDepth 480x640 bf16 {mode:<5} "
+            print(f"[{name} engine] {label} 480x640 bf16 {mode:<5} "
                   f"bs{bs}: {stats['images_per_second']:.1f} img/s, "
                   f"{1e3 * stats['seconds_per_frame']:.3f} ms/batch mean, "
                   f"{1e3 * stats['median_seconds_per_frame']:.3f} ms median, "
                   f"peak memory {mem:.0f} MiB", flush=True)
-            profile_engine(eng, f"sam {mode} bs{bs}", runs=3)
+            profile_engine(eng, f"{name} {mode} bs{bs}", runs=3)
     return launches, per_mode, errs, perf
+
+
+def phase_sam_serving():
+    """SAM serving (four blocks a forward): ``fused`` (the main path), then
+    ``pair`` and ``row``."""
+    return serve_attention_model(
+        "sam", "MobileV3SAMDepth", 4,
+        {"fused": ("window_attn_infer", "block_epilogue_infer"),
+         "pair": ("window_attn_infer", "mlp_infer"),
+         "row": ("sam_rowblock_infer",)},
+        (SAM_BF16_REL_L2, SAM_BF16_REL_MAX))
+
+
+def phase_newcrf_serving():
+    """NewCRF serving (eight blocks a forward, two a stage): ``row`` (the
+    main path), then ``fused`` and ``pair``."""
+    return serve_attention_model(
+        "newcrf", "MobileV3NewCRFDepth", 8,
+        {"row": ("crf_rowblock_infer",),
+         "fused": ("window_attn_infer", "block_epilogue_infer"),
+         "pair": ("window_attn_infer", "mlp_infer")},
+        (NEWCRF_BF16_REL_L2, NEWCRF_BF16_REL_MAX))
 
 
 def main() -> int:
@@ -1515,8 +1774,10 @@ def main() -> int:
     loss_rows, loss_err = phase_loss_kernels()
     bwd_rows, bwd_err, bwd_checks = phase_bwd_kernels()
     sam_rows, sam_err, sam_err_rel, sam_checks = phase_sam_kernels()
+    row_rows, row_err, row_err_rel, row_checks = phase_rowblock_kernels()
     launches, errs, perf = phase_serving()
     sam_launches, sam_per_mode, sam_errs, sam_perf = phase_sam_serving()
+    crf_launches, crf_per_mode, crf_errs, crf_perf = phase_newcrf_serving()
     with tempfile.TemporaryDirectory() as tmp:
         train, plain_trainer, cfg, loaders = phase_training(tmp)
         fused_train, fused_trainer = phase_training_fused(
@@ -1631,8 +1892,10 @@ def main() -> int:
             "replaces": f"tpudepth/ops/pallas/{replaces}",
             "replaces_function": f"tpudepth/ops/pallas/{replaces.split(':')[0]}"
                                  f"::{per}",
-            "launches": sam_launches[name],
-            "launches_by_mode": {m: c[name] for m, c in sam_per_mode.items()},
+            "launches": sam_launches[name] + crf_launches[name],
+            "launches_by_mode": {
+                **{m: c[name] for m, c in sam_per_mode.items()},
+                **{f"newcrf {m}": c[name] for m, c in crf_per_mode.items()}},
             "max_abs_err": sam_err[name],
             "max_rel_err": sam_err_rel[name],
             "checks": sam_checks[name],
@@ -1647,8 +1910,47 @@ def main() -> int:
             "library_ms": total(table, "library_ms"),
             "shapes": table,
         })
+    for name, line, served, per_mode, calls in (
+            ("crf_rowblock_infer", 270, crf_launches, crf_per_mode,
+             "the eight calls of one B8 480x640 bf16 NewCRF forward (two "
+             "blocks a stage, shift 0 and 3; crf3..crf0 summed)"),
+            ("sam_rowblock_infer", 355, sam_launches, sam_per_mode,
+             "the four calls of one B8 480x640 bf16 SAM forward (crf3..crf0 "
+             "summed)")):
+        table = row_rows[name]
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": "tpudepth_torch/csrc/rowblock_infer.cu",
+            "replaces": f"tpudepth/ops/pallas/rowblock_infer.py:{line}",
+            "replaces_function": f"tpudepth/ops/pallas/rowblock_infer.py::{name}",
+            "launches": served[name],
+            "launches_by_mode": {m: c[name] for m, c in per_mode.items()},
+            "max_abs_err": row_err[name],
+            "max_rel_err": row_err_rel[name],
+            "checks": row_checks[name],
+            "ok": True,
+            "timed": f"device time of {calls}, each call its 3 (NewCRF) or 4 "
+                     "(SAM) kernels and the wrapper's weight casts, CUDA "
+                     "graph replays; bound_ms counts the real (cropped) "
+                     "tokens only; library_ms is the block's four cuBLAS "
+                     "bf16 products alone plus F.scaled_dot_product_attention "
+                     "with bias and mask as attn_mask; fused_block_ms is the "
+                     "port's fused composition of the same blocks, "
+                     "row_block_ms the row module around these calls",
+            "ms": total(table, "ms"),
+            "plain_ms": total(table, "plain_ms"),
+            "bound_ms": total(table, "bound_ms"),
+            "bound_by": bound_by(table),
+            "library_ms": total(table, "library_ms"),
+            "row_block_ms": total(table, "row_block_ms"),
+            "fused_block_ms": total(table, "fused_block_ms"),
+            "shapes": table,
+        })
     print(json.dumps({"kernels": kernels, "serve_errors": errs,
                       "sam_serve_errors": sam_errs, "sam_engine": sam_perf,
+                      "newcrf_serve_errors": crf_errs,
+                      "newcrf_engine": crf_perf,
                       "engine_img_per_s": perf, "training": train,
                       "fused_training": fused_train, "evaluation": evaluation,
                       "seconds": time.perf_counter() - t_start}))

@@ -566,3 +566,167 @@ def test_sam_model_on_the_card_matches_the_plain_model(cuda, mode, counts):
     torch.cuda.synchronize()
     assert tuple(f.launches - b for f, b in zip(fns, before)) == counts
     assert float((got - want).norm() / want.norm()) < 1e-5
+
+
+# -- NewCRF serving and SAM's row mode: crf_rowblock_infer, sam_rowblock_infer
+
+from tpudepth_torch.ops.kernels import rowblock_infer as rbi  # noqa: E402
+
+
+def _rowblock_case(seed, bsz, h, w, c, heads, shift, dtype, device, sam=False,
+                   ws=7):
+    """Keyword arguments of one block call: raw x, v zero-padded to window
+    multiples (and rolled by -shift), weights [in, out], vectors, bias, the
+    shift mask and the valid extent."""
+    g = torch.Generator().manual_seed(seed)
+    hp, wp = -(-h // ws) * ws, -(-w // ws) * ws
+    hidden = 4 * c
+
+    def n(*shape, s=1.0, mean=0.0):
+        return (mean + s * torch.randn(*shape, generator=g)).to(device)
+
+    x = torch.zeros(bsz, hp, wp, c, device=device)
+    v = torch.zeros(bsz, hp, wp, c, device=device)
+    x[:, :h, :w] = n(bsz, h, w, c)
+    v[:, :h, :w] = n(bsz, h, w, c)
+    if shift:
+        x, v = (torch.roll(t, (-shift, -shift), dims=(1, 2)) for t in (x, v))
+    ln = lambda: (n(c, s=0.2, mean=1.0), n(c, s=0.1))  # noqa: E731
+    a = dict(x=x.to(dtype).contiguous(), v=v.to(dtype).contiguous(), ln1=ln())
+    if sam:
+        a.update(lnv=ln(), wq=n(c, c, s=c ** -0.5), bq=n(c, s=0.1),
+                 wkv=n(c, 2 * c, s=c ** -0.5), bkv=n(2 * c, s=0.1))
+    else:
+        a.update(wqk=n(c, 2 * c, s=c ** -0.5), bqk=n(2 * c, s=0.1))
+    a.update(bias=n(heads, ws * ws, ws * ws, s=0.5),
+             wproj=n(c, c, s=c ** -0.5), bproj=n(c, s=0.1), ln2=ln(),
+             w1=n(c, hidden, s=c ** -0.5), b1=n(hidden, s=0.1),
+             w2=n(hidden, c, s=hidden ** -0.5), b2=n(c, s=0.1))
+    kw = dict(scale=(c // heads) ** -0.5, window_size=ws)
+    if sam:
+        kw["valid_hw"] = (h, w)
+    else:
+        a["mask"] = (torch.from_numpy(shifted_window_attention_mask(
+            h, w, ws, shift)).to(device) if shift else None)
+        kw["valid_hw"] = (h, w, shift)
+    return a, kw
+
+
+# (B, h, w, C, heads): an odd geometry padded in H and W (14x14, C 32 with
+# head width 8), NewCRF's crf1 and crf3 stages at 480x640 batch 1
+ROW_CASES = [(2, 10, 13, 32, 4), (1, 60, 80, 256, 8), (1, 15, 20, 1024, 32)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("shift", [0, 3], ids=["shift0", "shift3"])
+@pytest.mark.parametrize("case", ROW_CASES, ids=["odd", "crf1", "crf3"])
+def test_crf_rowblock_infer_matches_plain(cuda, case, shift, dtype):
+    a, kw = _rowblock_case(sum(case) + shift, *case, shift, dtype, cuda)
+    before = rbi.crf_rowblock_infer.launches
+    got = rbi.crf_rowblock_infer(**a, **kw)
+    torch.cuda.synchronize()
+    assert rbi.crf_rowblock_infer.launches == before + 1
+    want = rbi.crf_rowblock_infer_reference(**a, **kw)
+    assert got.dtype == dtype and got.shape == a["x"].shape
+    _close(got, want, rbi.tolerance(dtype))
+    assert torch.equal(got, rbi.crf_rowblock_infer(**a, **kw))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", ROW_CASES, ids=["odd", "crf1", "crf3"])
+def test_sam_rowblock_infer_matches_plain(cuda, case, dtype):
+    a, kw = _rowblock_case(sum(case) + 1, *case, 0, dtype, cuda, sam=True)
+    before = rbi.sam_rowblock_infer.launches
+    got = rbi.sam_rowblock_infer(**a, **kw)
+    torch.cuda.synchronize()
+    assert rbi.sam_rowblock_infer.launches == before + 1
+    want = rbi.sam_rowblock_infer_reference(**a, **kw)
+    assert got.dtype == dtype and got.shape == a["x"].shape
+    _close(got, want, rbi.tolerance(dtype))
+    assert torch.equal(got, rbi.sam_rowblock_infer(**a, **kw))
+
+
+def test_rowblock_kernels_take_x_and_v_only_as_whole_rows(cuda):
+    """The kernels read x and v as contiguous rows (the strides live inside,
+    on the q, k, v scratch): x and v as the two halves of one [B, Hp, Wp,
+    2C] tensor are refused, and their contiguous copies give the answer of
+    separate tensors bit for bit."""
+    a, kw = _rowblock_case(9, 2, 10, 13, 64, 2, 3, torch.bfloat16, cuda)
+    xh, vh = torch.cat([a["x"], a["v"]], dim=-1).chunk(2, dim=-1)
+    assert not xh.is_contiguous()
+    with pytest.raises(ValueError, match="contiguous"):
+        rbi.crf_rowblock_infer(**dict(a, x=xh, v=vh), **kw)
+    torch.testing.assert_close(
+        rbi.crf_rowblock_infer(**dict(a, x=xh.contiguous(),
+                                      v=vh.contiguous()), **kw),
+        rbi.crf_rowblock_infer(**a, **kw), atol=0, rtol=0)
+
+
+def test_rowblock_kernels_refuse_what_they_do_not_take(cuda):
+    before = (rbi.crf_rowblock_infer.launches, rbi.sam_rowblock_infer.launches)
+    a, kw = _rowblock_case(10, 1, 10, 13, 48, 2, 0, torch.float32, cuda)
+    with pytest.raises(ValueError, match="multiples of 32"):
+        rbi.crf_rowblock_infer(**a, **kw)           # C 48
+    a, kw = _rowblock_case(11, 1, 10, 13, 96, 8, 0, torch.float32, cuda)
+    with pytest.raises(ValueError, match="head width"):
+        rbi.crf_rowblock_infer(**a, **kw)           # head width 12
+    a, kw = _rowblock_case(12, 1, 10, 13, 64, 2, 0, torch.float32, cuda,
+                           sam=True, ws=9)
+    with pytest.raises(ValueError, match="64 tokens"):
+        rbi.sam_rowblock_infer(**a, **kw)           # 81 tokens a window
+    a, kw = _rowblock_case(13, 1, 10, 13, 64, 2, 0, torch.bfloat16, cuda)
+    x = torch.zeros(a["x"].numel() + 1, dtype=torch.bfloat16, device=cuda)[1:]
+    with pytest.raises(ValueError, match="aligned"):
+        rbi.crf_rowblock_infer(**dict(a, x=x.view(a["x"].shape)), **kw)
+    with pytest.raises(TypeError):
+        rbi.crf_rowblock_infer(**dict(a, x=a["x"].half(), v=a["v"].half()),
+                               **kw)
+    assert (rbi.crf_rowblock_infer.launches,
+            rbi.sam_rowblock_infer.launches) == before   # nothing fell back
+
+
+@pytest.mark.parametrize("mode,counts", [("row", (8, 0, 0, 0)),
+                                         ("fused", (0, 8, 8, 0)),
+                                         ("pair", (0, 8, 0, 8)),
+                                         ("plain", (0, 0, 0, 0))])
+def test_newcrf_model_on_the_card_matches_the_plain_model(cuda, mode, counts):
+    """MobileV3NewCRFDepth at 1x3x64x96 f32, each mode against the plain
+    model on the card (summation order only), and the kernels each forward
+    launches (two blocks a stage)."""
+    from tpudepth_torch.models.layers import init_random_
+    from tpudepth_torch.models.registry import build_model
+
+    plain = init_random_(build_model("newcrf", attn="plain"), seed=0)
+    model = build_model("newcrf", attn=mode)
+    model.load_state_dict(plain.state_dict())
+    x = torch.rand(1, 3, 64, 96, generator=torch.Generator().manual_seed(2))
+    x = x.to(cuda).contiguous(memory_format=torch.channels_last)
+    fns = (rbi.crf_rowblock_infer, wai.window_attention_infer,
+           ei.block_epilogue_infer, mi.mlp_infer)
+    with torch.no_grad():
+        want = plain.to(cuda).eval()(x)
+        before = [f.launches for f in fns]
+        got = model.to(cuda).eval()(x)
+    torch.cuda.synchronize()
+    assert tuple(f.launches - b for f, b in zip(fns, before)) == counts
+    assert float((got - want).norm() / want.norm()) < 1e-5
+
+
+def test_sam_row_model_on_the_card_matches_the_plain_model(cuda):
+    from tpudepth_torch.models.layers import init_random_
+    from tpudepth_torch.models.registry import build_model
+
+    plain = init_random_(build_model("sam", attn="plain"), seed=0)
+    model = build_model("sam", attn="row")
+    model.load_state_dict(plain.state_dict())
+    x = torch.rand(1, 3, 64, 96, generator=torch.Generator().manual_seed(3))
+    x = x.to(cuda).contiguous(memory_format=torch.channels_last)
+    with torch.no_grad():
+        want = plain.to(cuda).eval()(x)
+        before = rbi.sam_rowblock_infer.launches
+        got = model.to(cuda).eval()(x)
+    torch.cuda.synchronize()
+    assert rbi.sam_rowblock_infer.launches - before == 4
+    assert float((got - want).norm() / want.norm()) < 1e-5

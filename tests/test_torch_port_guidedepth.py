@@ -144,6 +144,6 @@ def test_fused_gub_runs_forward_and_backward_in_train_mode():
 
 def test_build_model_rejects_unported_names():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model("newcrf")
+        build_model("densedepth")
     with pytest.raises(ValueError):
         build_model("GuideDepth", gub="packed")

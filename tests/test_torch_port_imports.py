@@ -8,6 +8,11 @@ import sys
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "tpudepth")
+# modules the walk must reach: the serving paths' models and kernel wrappers
+REQUIRED = ("tpudepth_torch.models.sam", "tpudepth_torch.models.newcrf",
+            "tpudepth_torch.ops.kernels.window_attn_infer",
+            "tpudepth_torch.ops.kernels.epilogue_infer",
+            "tpudepth_torch.ops.kernels.rowblock_infer")
 
 
 def _forbidden(name: str) -> bool:
@@ -24,8 +29,9 @@ def test_importing_every_module_loads_no_jax_flax_or_tpudepth():
         "    __import__(n)\n"
         "bad = sorted(m for m in sys.modules\n"
         f"             if m.split('.')[0] in {FORBIDDEN!r})\n"
-        "print(len(names), bad)\n"
-        "sys.exit(1 if bad or len(names) < 30 else 0)\n"
+        f"missing = sorted(set({REQUIRED!r}) - set(names))\n"
+        "print(len(names), bad, missing)\n"
+        "sys.exit(1 if bad or missing or len(names) < 30 else 0)\n"
     )
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                           capture_output=True, text=True, timeout=300)

@@ -1,7 +1,8 @@
 """Port MobileV3SAMDepth (tpudepth_torch) against the JAX package, on the CPU:
 the window ops, ConvBNAct, MobileNetV3 Large and Small, the SAM block and
-stage in the three block modes, the whole model, the weight bridge, and the
-guards of what is not ported.
+stage in the four block modes, the whole model, the JAX package's own fused
+and row-kernel glue, the weight bridge, and the guards of what is not
+ported.
 
 The same weights feed both packages: the JAX model's own tree filled from a
 numpy seed and carried to the port by ``sam_state_dict_from_flax``, or a
@@ -25,6 +26,7 @@ import torch.nn as nn
 
 import tpudepth.models.sam as jax_sam
 import tpudepth.ops.pallas.epilogue_infer as jax_ei
+import tpudepth.ops.pallas.rowblock_infer as jax_rbi
 from tpudepth.models import build_model as jax_build_model
 from tpudepth.models.layers import ConvBNAct as JaxConvBNAct
 from tpudepth.models.mobilenetv3 import MobileNetV3Features as JaxMobileNetV3
@@ -45,7 +47,7 @@ from tpudepth_torch.ops import window as port_window
 
 RTOL, ATOL = 1e-3, 1e-4
 HW = (64, 96)
-MODES = ["plain", "pair", "fused"]
+MODES = ["plain", "pair", "fused", "row"]
 
 
 def _nchw(x):
@@ -193,6 +195,22 @@ def test_sam_block_fused_glue_matches_the_jax_fused_glue(stage, monkeypatch):
     np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)
 
 
+def test_sam_block_row_glue_matches_the_jax_row_glue(stage, monkeypatch):
+    """JAX's own window-row path (pad, the row kernel in interpret mode,
+    crop) against the port's ``row`` mode."""
+    state, params, _, (x, v) = stage
+    monkeypatch.setattr(jax_sam.SAMBlock, "_use_rowblock",
+                        lambda self, c, w: True)
+    monkeypatch.setattr(jax_rbi, "sam_rowblock_infer",
+                        functools.partial(jax_rbi.sam_rowblock_infer,
+                                          interpret=True))
+    want = _jax_block(params, x, v)
+    blk = _port_stage(state, "row").sam_block
+    with torch.no_grad():
+        got = blk(torch.from_numpy(x), torch.from_numpy(v)).numpy()
+    np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)
+
+
 @pytest.mark.parametrize("mode", MODES)
 def test_sam_stage_matches_jax(stage, mode):
     state, params, (e, q), _ = stage
@@ -332,10 +350,22 @@ def test_sam_does_not_train(mode):
 
 
 def test_newcrf_is_not_ported_and_modes_are_checked():
+    """Once a guard that NewCRF raised: NewCRF now builds in each of its
+    modes, a name still to port raises with ROADMAP, and a mode a model
+    lacks raises ``ValueError``."""
+    for mode in ("row", "fused", "pair", "plain"):
+        model = build_model("newcrf", attn=mode)
+        assert type(model).__name__ == "MobileV3NewCRFDepth"
+        assert model.Unet[1].crf3.crf_layer.blocks[0].mode == mode
+    assert build_model("newcrf").Unet[1].crf0.crf_layer.blocks[1].mode == "row"
+    assert build_model("sam").Unet[1].crf0.sam_block.mode == "fused"
+    assert build_model("sam", attn="row").Unet[1].crf0.sam_block.mode == "row"
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model("newcrf")
+        build_model("densedepth")
     with pytest.raises(ValueError, match="attn"):
-        build_model("sam", attn="row")
+        build_model("sam", attn="packed")
+    with pytest.raises(ValueError, match="attn"):
+        build_model("GuideDepth", attn="row")
     for alias in ("mobilev3_sam", "MobileV3_Large_SAM"):
         assert type(build_model(alias)).__name__ == "MobileV3SAMDepth"
 
@@ -346,6 +376,7 @@ def test_cli_parses_sam_and_attn():
     args = get_args(["--model", "sam", "--attn", "pair", "--resolution",
                      "full"])
     assert (args.model, args.attn, args.resolution) == ("sam", "pair", "full")
-    assert get_args([]).attn == "fused"
+    assert get_args([]).attn is None   # each model's own default
+    assert get_args(["--model", "sam", "--attn", "row"]).attn == "row"
     with pytest.raises(SystemExit):
-        get_args(["--attn", "row"])
+        get_args(["--attn", "packed"])

@@ -1,13 +1,15 @@
 """Speedtest CLI of the port: ``python -m tpudepth_torch.inference``.
 
 The speedtest part of the JAX CLI (``inference.py``), on the card, for any
-ported model (``--model GuideDepth|GuideDepth-S|sam``): the model in float32
-and the bfloat16 engine (with the meters conversion), each timed with the
-10-warmup / 200-run protocol. ``--gub fused`` (the default) runs the GUB k=3
-convs of GuideDepth through the ``gub_conv_fwd`` CUDA kernel; ``--attn``
-picks the mode of the SAM blocks (``fused``, the default: the
-``window_attn_infer`` and ``block_epilogue_infer`` kernels; ``pair``:
-``window_attn_infer`` and ``mlp_infer``; ``plain``: no kernel).
+ported model (``--model GuideDepth|GuideDepth-S|sam|newcrf``): the model in
+float32 and the bfloat16 engine (with the meters conversion), each timed with
+the 10-warmup / 200-run protocol. ``--gub fused`` (the default) runs the GUB
+k=3 convs of GuideDepth through the ``gub_conv_fwd`` CUDA kernel; ``--attn``
+picks the mode of the attention blocks of SAM and NewCRF (``row``: the
+window-row block kernels; ``fused``: the ``window_attn_infer`` and
+``block_epilogue_infer`` kernels; ``pair``: ``window_attn_infer`` and
+``mlp_infer``; ``plain``: no kernel), checked against the model; by default
+each model's own (SAM ``fused``, NewCRF ``row``).
 """
 
 from __future__ import annotations
@@ -20,8 +22,7 @@ import torch
 from tpudepth_torch.core.config import MAX_DEPTHS, RESOLUTIONS, image_size
 from tpudepth_torch.infer.engine import InferenceEngine
 from tpudepth_torch.models.layers import init_random_
-from tpudepth_torch.models.registry import GUB_MODES, build_model
-from tpudepth_torch.models.sam import ATTN_MODES
+from tpudepth_torch.models.registry import ATTN_MODES, GUB_MODES, build_model
 
 
 def get_args(argv=None):
@@ -38,7 +39,9 @@ def get_args(argv=None):
     parser.add_argument("--weights_path", type=str, default=None,
                         help="a torch.save'd state_dict of the port's model")
     parser.add_argument("--gub", type=str, default="fused", choices=GUB_MODES)
-    parser.add_argument("--attn", type=str, default="fused", choices=ATTN_MODES)
+    parser.add_argument("--attn", type=str, default=None, choices=ATTN_MODES,
+                        help="block mode of an attention model (default: "
+                             "the model's own)")
     return parser.parse_args(argv)
 
 
@@ -51,7 +54,10 @@ def main(argv=None):
     h, w = image_size(args.dataset, args.resolution)
     shape = (args.batch_size, 3, h, w)
 
-    model = build_model(args.model, gub=args.gub, attn=args.attn)
+    try:
+        model = build_model(args.model, gub=args.gub, attn=args.attn)
+    except ValueError as e:
+        raise SystemExit(str(e))
     if args.weights_path and os.path.exists(args.weights_path):
         model.load_state_dict(torch.load(args.weights_path, map_location="cpu",
                                          weights_only=True))

@@ -1,12 +1,12 @@
 """Weight bridge: a JAX ``{'params', 'batch_stats'}`` tree (nested dicts of
-numpy arrays) of GuideDepth or MobileV3SAMDepth -> the port's
-``state_dict``, and a GuideDepth gradient tree of the same ``params``
+numpy arrays) of GuideDepth, MobileV3SAMDepth or MobileV3NewCRFDepth -> the
+port's ``state_dict``, and a GuideDepth gradient tree of the same ``params``
 structure -> gradients by parameter name.
 
 The inverse of ``tpudepth/models/torch_import.py::convert_guidedepth`` and
-``::convert_attention_model`` (``variant='sam'``), with its own copy of
-their name tables (``_ddrnet``, ``_gub``, ``_mnv3_encoder``, ``_sam_stage``
-there):
+``::convert_attention_model`` (``variant='sam'`` and ``'newcrf'``), with its
+own copy of their name tables (``_ddrnet``, ``_gub``, ``_mnv3_encoder``,
+``_sam_stage``, ``_newcrf_stage`` there):
 
 - conv kernels HWIO -> OIHW (depthwise ``(kh, kw, 1, C)`` -> ``(C, 1, kh,
   kw)`` by the same transpose);
@@ -146,6 +146,22 @@ def _sam_stage(fp: str, tp: str) -> Iterator[Entry]:
     yield "ln", f"{fp}/norm_sam", f"{tp}.norm_sam"
 
 
+def _newcrf_stage(fp: str, tp: str, depth: int = 2) -> Iterator[Entry]:
+    yield "conv", f"{fp}/proj_x", f"{tp}.proj_x"
+    yield "conv", f"{fp}/proj_v", f"{tp}.proj_v"
+    for i in range(depth):
+        fb, tb = f"{fp}/block{i}", f"{tp}.crf_layer.blocks.{i}"
+        yield "ln", f"{fb}/norm1", f"{tb}.norm1"
+        yield "raw", f"{fb}/attn/relative_position_bias_table", \
+            f"{tb}.attn.relative_position_bias_table"
+        for name in ("qk", "proj"):
+            yield "dense", f"{fb}/attn/{name}", f"{tb}.attn.{name}"
+        yield "ln", f"{fb}/norm2", f"{tb}.norm2"
+        yield "dense", f"{fb}/mlp/fc1", f"{tb}.mlp.fc1"
+        yield "dense", f"{fb}/mlp/fc2", f"{tb}.mlp.fc2"
+    yield "ln", f"{fp}/norm_crf", f"{tp}.norm_crf"
+
+
 def _guidedepth_entries() -> List[Entry]:
     entries = list(_ddrnet("feature_extractor", "feature_extractor"))
     for i in (1, 2, 3):
@@ -153,11 +169,13 @@ def _guidedepth_entries() -> List[Entry]:
     return entries
 
 
-def _sam_entries() -> List[Entry]:
+def _attention_entries(stage) -> List[Entry]:
+    """MobileNetV3-Large, the bridge, four stages of ``stage`` and the
+    head."""
     entries = list(_mnv3_large("encoder", "Unet.0.original_model.features"))
     entries.append(("conv", "decoder/conv0", "Unet.1.conv0"))
     for i in range(4):
-        entries += list(_sam_stage(f"decoder/crf{i}", f"Unet.1.crf{i}"))
+        entries += list(stage(f"decoder/crf{i}", f"Unet.1.crf{i}"))
     entries.append(("conv", "decoder/conv1", "Unet.1.conv1"))
     return entries
 
@@ -235,7 +253,16 @@ def sam_state_dict_from_flax(variables: Mapping) -> "OrderedDict[str, torch.Tens
     ``build_model("sam")`` (the inverse of ``convert_attention_model``)."""
     return _convert(_flatten(variables["params"]),
                     _flatten(variables.get("batch_stats", {})),
-                    _sam_entries())
+                    _attention_entries(_sam_stage))
+
+
+def newcrf_state_dict_from_flax(variables: Mapping) -> "OrderedDict[str, torch.Tensor]":
+    """JAX ``MobileV3NewCRFDepth`` variables -> the port's ``state_dict`` of
+    ``build_model("newcrf")`` (the inverse of ``convert_attention_model``
+    with ``variant='newcrf'``)."""
+    return _convert(_flatten(variables["params"]),
+                    _flatten(variables.get("batch_stats", {})),
+                    _attention_entries(_newcrf_stage))
 
 
 def guidedepth_grads_from_flax(grads: Mapping) -> "OrderedDict[str, torch.Tensor]":

@@ -9,7 +9,7 @@ names follow the reference ``state_dict`` (``sam_block.attn.q``,
 conv (``src/SAM.py:271``) is left out, and ``relative_position_index`` is
 not a persistent buffer.
 
-The block runs in one of three modes, with one parameter tree:
+The block runs in one of four modes, with one parameter tree:
 
 - ``fused``: the ``window_attn_infer`` kernel, then the
   ``block_epilogue_infer`` kernel for out-projection, residual, LayerNorm,
@@ -17,6 +17,8 @@ The block runs in one of three modes, with one parameter tree:
 - ``pair``: the ``window_attn_infer`` kernel, the out-projection and
   residual as tensor code, and the FFN through the ``mlp_infer`` kernel
   (``TPUDEPTH_EPILOGUE=xla`` in JAX);
+- ``row``: the whole block through the ``sam_rowblock_infer`` kernels on
+  the zero-padded raw x and v (``TPUDEPTH_BLOCK=row`` in JAX);
 - ``plain``: no kernel, the f32 attention composition (what the JAX package
   computes on the CPU).
 
@@ -34,6 +36,7 @@ from tpudepth_torch.models.layers import Conv, LayerNorm, Linear, Mlp
 from tpudepth_torch.ops.attention import window_cross_attention_packed
 from tpudepth_torch.ops.image import nhwc
 from tpudepth_torch.ops.kernels.epilogue_infer import block_epilogue_infer
+from tpudepth_torch.ops.kernels.rowblock_infer import sam_rowblock_infer
 from tpudepth_torch.ops.window import (
     pad_to_window_multiple,
     relative_position_index,
@@ -41,12 +44,23 @@ from tpudepth_torch.ops.window import (
     window_reverse,
 )
 
-ATTN_MODES = ("plain", "pair", "fused")
+ATTN_MODES = ("plain", "pair", "fused", "row")
 
 
-class WindowCrossAttentionQKV(nn.Module):
-    """q from the decoder windows, k and v from the encoder windows, and
-    the out-projection ``proj``."""
+def raise_if_training(module: nn.Module, what: str):
+    """The attention blocks serve only: on its chip the JAX package trains
+    them through kernels (``window_attn``, ``mlp_train``) not ported yet."""
+    if module.training:
+        raise NotImplementedError(
+            f"{what} blocks do not train yet: the training kernels "
+            "(window_attn, mlp_train) are not ported; see ROADMAP.md "
+            "Queue A. Call .eval() to serve.")
+
+
+class WindowAttention(nn.Module):
+    """The parts of a window attention that SAM and NewCRF share: the
+    relative-position bias table, its index (not a persistent buffer), the
+    scale of the queries and the out-projection ``proj``."""
 
     def __init__(self, dim: int, num_heads: int, window_size: int = 7):
         super().__init__()
@@ -60,9 +74,6 @@ class WindowCrossAttentionQKV(nn.Module):
             "relative_position_index",
             torch.from_numpy(relative_position_index(window_size)),
             persistent=False)
-        self.q = Linear(dim, dim)
-        self.kv = Linear(dim, 2 * dim)
-        self.proj = Linear(dim, dim)
 
     def bias(self) -> torch.Tensor:
         """[heads, N, N] f32 bias, gathered from the table on every call (so
@@ -71,6 +82,17 @@ class WindowCrossAttentionQKV(nn.Module):
         idx = self.relative_position_index.reshape(-1)
         return (self.relative_position_bias_table[idx]
                 .reshape(n, n, self.num_heads).permute(2, 0, 1).contiguous())
+
+
+class WindowCrossAttentionQKV(WindowAttention):
+    """q from the decoder windows, k and v from the encoder windows, and
+    the out-projection ``proj``."""
+
+    def __init__(self, dim: int, num_heads: int, window_size: int = 7):
+        super().__init__(dim, num_heads, window_size)
+        self.q = Linear(dim, dim)
+        self.kv = Linear(dim, 2 * dim)
+        self.proj = Linear(dim, dim)
 
     def forward(self, x_windows: torch.Tensor, v_windows: torch.Tensor,
                 kernel: bool, skip_proj: bool = False) -> torch.Tensor:
@@ -102,11 +124,9 @@ class SAMBlock(nn.Module):
         self.mlp = Mlp(dim, 4 * dim, kernel=mode == "pair")  # MLP ratio 4
 
     def forward(self, x: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-        if self.training:
-            raise NotImplementedError(
-                "SAM blocks do not train yet: the training kernels "
-                "(window_attn, mlp_train) are not ported; see ROADMAP.md "
-                "Queue A. Call .eval() to serve.")
+        raise_if_training(self, "SAM")
+        if self.mode == "row":
+            return self._rowblock(x, v)
         b, h, w, c = x.shape
         ws = self.window_size
         n = ws * ws
@@ -133,6 +153,24 @@ class SAMBlock(nn.Module):
             return out.reshape(b, h, w, c)
         y = attn + x
         return y + self.mlp(self.norm2(y))
+
+    def _rowblock(self, x: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+        """The whole block on the zero-padded raw x and v, cropped after."""
+        _, h, w, _ = x.shape
+        ws = self.window_size
+        xp, _, _ = pad_to_window_multiple(x, ws)
+        vp, _, _ = pad_to_window_multiple(v.to(x.dtype), ws)
+        at, mlp = self.attn, self.mlp
+        y = sam_rowblock_infer(
+            xp.contiguous(), vp.contiguous(),
+            (self.norm1.weight, self.norm1.bias),
+            (self.normv.weight, self.normv.bias), at.q.weight.t(), at.q.bias,
+            at.kv.weight.t(), at.kv.bias, at.bias(), at.proj.weight.t(),
+            at.proj.bias, (self.norm2.weight, self.norm2.bias),
+            mlp.fc1.weight.t(), mlp.fc1.bias,
+            mlp.fc2.weight.t(), mlp.fc2.bias, scale=at.scale, window_size=ws,
+            valid_hw=(h, w))
+        return y[:, :h, :w, :]
 
 
 class SAM(nn.Module):

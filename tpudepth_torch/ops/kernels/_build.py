@@ -1,8 +1,10 @@
 """Build the CUDA sources under ``tpudepth_torch/csrc`` with ``nvcc`` into
 shared libraries with a plain C interface, and load them with ``ctypes``.
 
-A library is named after its source and the hash of the source and flags, in
-``tpudepth_torch/_build/``; it is rebuilt whenever either changes. Nothing is
+A library is named after its source and the hash of the source, of every
+header it includes with quotes (``csrc/*.cuh``, followed recursively), and of
+the flags, in ``tpudepth_torch/_build/``; it is rebuilt whenever any of them
+changes. Nothing is
 built or loaded at import time. A missing ``nvcc`` or a failed build raises:
 there is no fallback.
 """
@@ -12,6 +14,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -49,10 +52,29 @@ def nvcc() -> str:
     return found
 
 
+_INCLUDE = re.compile(r'^[ \t]*#[ \t]*include[ \t]+"([^"]+)"', re.M)
+
+
+def inputs(name: str) -> List[Path]:
+    """``csrc/<name>.cu`` and every file it includes with quotes, followed
+    recursively (the headers of shared device code), in a fixed order."""
+    seen: List[Path] = []
+    todo = [SRC_DIR / f"{name}.cu"]
+    while todo:
+        path = todo.pop(0)
+        if path in seen:
+            continue
+        seen.append(path)
+        todo += [path.parent / inc for inc in _INCLUDE.findall(path.read_text())]
+    return seen
+
+
 def _target(name: str) -> Path:
-    src = (SRC_DIR / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
+    digest = hashlib.sha256()
+    for path in inputs(name):
+        digest.update(path.name.encode() + b"\0" + path.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 
 def _start(name: str, target: Path) -> subprocess.Popen:
