@@ -5,11 +5,12 @@ It drives the port's main paths at NYU 480x640: serving (GuideDepth in bf16
 with fused GUB stages), training (``Trainer.fit``, alhashim recipe, bf16,
 batch 8) with plain and with fused GUB stages, the evaluator on the trained
 model, serving MobileV3SAMDepth (MobileNetV3-Large + four SAM stages at
-full width, bf16) with its blocks fused, paired and as window rows, and
+full width, bf16) with its blocks fused, paired and as window rows,
 serving MobileV3NewCRFDepth (the same encoder + four two-block NewCRF
 stages, the second block of each shifted) with its blocks as window rows,
-fused and paired. It holds every CUDA kernel of those paths against its
-plain PyTorch version. Phases:
+fused and paired, and training both attention models (``Trainer.fit``,
+root recipe, bf16, batch 8) through the training kernels. It holds every
+CUDA kernel of those paths against its plain PyTorch version. Phases:
 
 1. device: needs CUDA; prints the card's name and power limit; turns TF32
    off for every f32 reference;
@@ -34,7 +35,18 @@ plain PyTorch version. Phases:
    shapes of 480x640, B 1 and 8, f32 and bf16, then one B 8 bf16 forward's
    calls timed beside the bound, the plain version, the library yardstick
    (the block's cuBLAS products + SDPA) and the port's ``fused``
-   composition of the same block;
+   composition of the same block; [train kernels]: ``window_attn_train_fwd``
+   / ``_bwd`` (with and without the shift-3 mask) and ``mlp_train_fwd`` /
+   ``_bwd`` (also at an odd row count) against their plain versions at the
+   four stage shapes of a B 8 step, f32 and bf16, every backward run twice
+   and bit-equal, then one B 8 bf16 SAM step's calls timed beside the bound,
+   the plain version and SDPA (forward, autograd backward) or the FFN's
+   cuBLAS products; [root loss kernels]: ``fused_root_loss_fwd`` / ``_bwd``
+   against their plain versions at the training shape and at clip-active,
+   pred == target, flat and ragged cases (the gradient bit-equal), every
+   call rerun bit-equal, then timed at B 8 beside the bound, the plain
+   version and the port's plain ``ssim + l1_loss`` and its autograd
+   backward;
 4. serving: 8 single-image requests through ``InferenceEngine`` (bf16,
    flip-TTA, meters), with the kernel's launches counted over exactly that
    run, then the raw outputs against the plain f32 model, then the engine's
@@ -67,7 +79,17 @@ plain PyTorch version. Phases:
    through ``InferenceEngine`` (bf16, meters) and ``AlhashimEvaluator`` over
    seeded synthetic batches, against the f32 plain model through the same
    evaluator; ``results.txt`` written and read back;
-8. one JSON line on the kernels, and last the JSON line with the device.
+8. [sam train], [newcrf train]: a seeded model in its default block mode
+   through ``Trainer.fit`` (2 epochs x 3 steps, root recipe, bf16, B 8,
+   validation and checkpoints), the training kernels' launches counted over
+   exactly that run and per step (SAM 4 + 4 + 4 + 4, NewCRF 8 + 8 + 8 + 8,
+   and the root loss kernels 1 + 1 a step, the forward once more a
+   validation batch);
+   SAM's encoder bit-unchanged with its BatchNorm statistics moved,
+   NewCRF's encoder moved; the last checkpoint restored; one f32 step
+   against the ``plain`` step; 8 steps on one batch lower the loss;
+   ms/step, img/s, peak memory and a profile of one step;
+9. one JSON line on the kernels, and last the JSON line with the device.
 
 Any failed check raises, and the script exits non-zero without printing a
 result. It imports nothing of JAX.
@@ -1296,19 +1318,24 @@ class KernelHold:
         self.err_rel = dict(self.err)
         self.checks = {k: 0 for k in names}
 
-    def __call__(self, name, got, want, tol, tag):
+    def __call__(self, name, got, want, tol, tag, extra=None):
+        """``extra``: an elementwise atol added to the bound."""
         frac, rtol = tol
         g, w = got.float(), want.float()
         scale = float(w.abs().max())
         d = (g - w).abs()
-        ok = bool((d <= frac * scale + rtol * w.abs()).all())
+        bound = frac * scale + rtol * w.abs()
+        ok = bool((d <= (bound if extra is None else bound + extra)).all())
         e = float(d.max())
+        margin = float((d / (bound if extra is None else bound + extra)
+                        .clamp(min=1e-30)).max())
         self.err[name] = max(self.err[name], e)
         self.err_rel[name] = max(self.err_rel[name], e / scale)
         self.checks[name] += 1
         print(f"[{self.label}] {name:<20} {tag:<28} max_abs_err {e:.3e} of "
-              f"max|ref| {scale:.3e} (atol {frac:g} of it, rtol {rtol:g})",
-              flush=True)
+              f"max|ref| {scale:.3e} (atol {frac:g} of it, rtol {rtol:g}"
+              f"{'' if extra is None else ', + elementwise atol'}; largest "
+              f"err / bound {margin:.3f})", flush=True)
         check(ok, f"{name} {tag} beyond tolerance")
 
 
@@ -1761,6 +1788,540 @@ def phase_newcrf_serving():
         (NEWCRF_BF16_REL_L2, NEWCRF_BF16_REL_MAX))
 
 
+# -- SAM and NewCRF training -----------------------------------------------
+
+# one f32 train step (TF32 off) of an attention model in its default block
+# mode (the training kernels) against the same step in ``plain`` (the f32
+# compositions), same weights and batch; both steps take the root loss
+# kernels. The kernels sum in other orders than cuBLAS and the einsums (a
+# few f32 ulps per product). Three chip runs read the losses equal and the
+# gradients within 1.5e-5 to 3.5e-5 of each tensor's largest, so the bounds
+# are about 3x the largest reading: a backward term wrong by 1e-3 of its
+# size fails them.
+ATTN_STEP_LOSS_RTOL = 1e-6
+ATTN_STEP_GRAD_REL = 1e-4
+ATTN_STEP_GRAD_FLOOR_REL = 1e-4   # of the largest gradient of all
+# the training kernels a step launches per attention block: window
+# attention forward and backward, FFN forward and backward
+TRAIN_KERNELS = ("window_attn_train_fwd", "window_attn_train_bwd",
+                 "mlp_train_fwd", "mlp_train_bwd")
+
+
+def _train_counters():
+    from tpudepth_torch.ops.kernels import mlp_train as mt
+    from tpudepth_torch.ops.kernels import window_attn as wat
+
+    return dict(zip(TRAIN_KERNELS, (wat.window_attention_fwd,
+                                    wat.window_attention_bwd,
+                                    mt.mlp_train_fwd, mt.mlp_train_bwd)))
+
+
+def _train_kernel_inputs(seed, bsz, windows, c, heads, rows, dtype):
+    """Seeded attention inputs (q scaled, k, v, bias, cotangent) and FFN
+    inputs (x, w1 [in, out], b1, w2, b2, cotangent) of one stage."""
+    g = torch.Generator(device=DEVICE).manual_seed(seed)
+
+    def n(*shape, s=1.0, dt=torch.float32):
+        return (s * torch.randn(*shape, generator=g, device=DEVICE)).to(dt)
+
+    bw, m, hidden = bsz * windows, bsz * rows, 4 * c
+    attn = dict(q=n(bw, 49, c, s=32 ** -0.5, dt=dtype), k=n(bw, 49, c, dt=dtype),
+                v=n(bw, 49, c, dt=dtype), bias=n(heads, 49, 49, s=0.5))
+    ga = n(bw, 49, c, dt=dtype)
+    ffn = dict(x=n(m, c, dt=dtype), w1=n(c, hidden, s=c ** -0.5),
+               b1=n(hidden, s=0.1), w2=n(hidden, c, s=hidden ** -0.5),
+               b2=n(c, s=0.1))
+    gf = n(m, c, dt=dtype)
+    return attn, ga, ffn, gf
+
+
+def _attn_train_bounds(bw, c, heads):
+    """(forward, backward) bounds of bf16 window attention: q, k, v, g read
+    once, the outputs written once, bias (and dbias) in f32; 2 (forward) or
+    5 (backward) products of 2 N^2 d a window and head."""
+    io = bw * 49 * c * 2
+    table = heads * 49 * 49 * 4
+    return (_bound(4 * io + table, 4 * bw * 49 * 49 * c),
+            _bound(7 * io + 2 * table, 10 * bw * 49 * 49 * c))
+
+
+def _mlp_train_bounds(m, c, hidden):
+    """(forward, backward) bounds of the bf16 FFN, counting the JAX kernels'
+    own traffic (the hidden activation never leaves the chip): x, the
+    output or g and dx once, bf16 weights read once, f32 weight gradients
+    written once; 2 or 5 products of 2 M C H."""
+    w = 2 * c * hidden
+    return (_bound(2 * m * c * 2 + w * 2 + (hidden + c) * 4, 4 * m * c * hidden),
+            _bound(3 * m * c * 2 + w * 2 + w * 4 + (hidden + c) * 4,
+                   10 * m * c * hidden))
+
+
+def phase_train_kernels():
+    """``window_attn_train_fwd`` / ``_bwd`` and ``mlp_train_fwd`` / ``_bwd``
+    against their plain versions at the four stage shapes of a 480x640
+    batch-8 step, in f32 and bf16, the attention with and without the
+    shift-3 mask, the FFN also at an odd row count; every backward run twice
+    and the reruns bit-equal. Then one B8 bf16 SAM step's calls timed (CUDA
+    graph replays) beside the bound, the plain version and a library
+    yardstick: ``F.scaled_dot_product_attention`` with the bias as
+    ``attn_mask`` (the backward: its autograd backward, eager, less the
+    forward) and the FFN's cuBLAS products (two forward, five backward)."""
+    from tpudepth_torch.ops.kernels import mlp_train as mt
+    from tpudepth_torch.ops.kernels import window_attn as wat
+    from tpudepth_torch.ops.window import shifted_window_attention_mask
+
+    hold = KernelHold("train kernels", TRAIN_KERNELS + ("dbias", "dw"))
+    reruns = 0
+    for i, (stage, c, heads, hw) in enumerate(ATTN_STAGES):
+        hp, wp = _padded(hw)
+        windows, rows = hp * wp // 49, hw[0] * hw[1]
+        mask = torch.from_numpy(
+            shifted_window_attention_mask(hp, wp, 7, 3)).to(DEVICE)
+        for dtype in (torch.float32, torch.bfloat16):
+            tag = f"{stage} B{SAM_BATCH} {str(dtype)[6:]}"
+            attn, ga, ffn, gf = _train_kernel_inputs(20 + i, SAM_BATCH, windows,
+                                                     c, heads, rows, dtype)
+            tol, dbias_tol = wat.bwd_tolerance(dtype)
+            for mk in (None, mask):
+                t = tag + (" shift-3 mask" if mk is not None else "")
+                got = wat.window_attention_fwd(**attn, mask=mk)
+                grads = wat.window_attention_bwd(**attn, mask=mk, g=ga)
+                again = wat.window_attention_bwd(**attn, mask=mk, g=ga)
+                torch.cuda.synchronize()
+                hold("window_attn_train_fwd", got,
+                     wat.window_attention_fwd_reference(**attn, mask=mk),
+                     wat.fwd_tolerance(dtype), t)
+                want = wat.window_attention_bwd_reference(**attn, mask=mk, g=ga)
+                for name, a, b in zip(("dq", "dk", "dv"), grads, want):
+                    hold("window_attn_train_bwd", a, b, tol, f"{t} {name}")
+                hold("dbias", grads[3], want[3], dbias_tol, t)
+                check(all(torch.equal(a, b) for a, b in zip(grads, again)),
+                      f"window_attn_train_bwd {t}: a rerun differs")
+                reruns += 1
+                del got, grads, again, want
+            out_tol, w_tol = mt.tolerance(dtype)
+            odd = {**ffn, "x": ffn["x"][:-3]}   # 8 h w - 3 rows: odd
+            for x_tag, f, g in ((tag, ffn, gf), (f"{tag} odd rows", odd,
+                                                 gf[:-3])):
+                got = mt.mlp_train_fwd(**f)
+                grads = mt.mlp_train_bwd(f["x"], g, f["w1"], f["b1"], f["w2"])
+                again = mt.mlp_train_bwd(f["x"], g, f["w1"], f["b1"], f["w2"])
+                torch.cuda.synchronize()
+                hold("mlp_train_fwd", got, mt.mlp_train_fwd_reference(**f),
+                     out_tol, f"{x_tag} M {f['x'].shape[0]}")
+                want = mt.mlp_train_bwd_reference(f["x"], g, f["w1"], f["b1"],
+                                                  f["w2"])
+                flips = mt.flip_atol(f["x"], g, f["w1"], f["b1"], f["w2"])
+                hold("mlp_train_bwd", grads[0], want[0], out_tol,
+                     f"{x_tag} dx", flips[0])
+                for name, a, b, flip in zip(("dw1", "db1", "dw2", "db2"),
+                                            grads[1:], want[1:], flips[1:]):
+                    hold("dw", a, b, w_tol, f"{x_tag} {name}", flip)
+                del flips
+                check(all(torch.equal(a, b) for a, b in zip(grads, again)),
+                      f"mlp_train_bwd {x_tag}: a rerun differs")
+                reruns += 1
+                del got, grads, again, want
+            del attn, ga, ffn, gf, odd
+            torch.cuda.empty_cache()
+    print(f"[train kernels] {reruns} backward calls rerun, each bit-equal "
+          "(dq, dk, dv, dbias; dx, dw1, db1, dw2, db2)", flush=True)
+
+    # device times of one B8 bf16 SAM train step's calls
+    rows = {k: [] for k in TRAIN_KERNELS}
+    for i, (stage, c, heads, hw) in enumerate(ATTN_STAGES):
+        hp, wp = _padded(hw)
+        windows, m_rows = hp * wp // 49, hw[0] * hw[1]
+        attn, ga, ffn, gf = _train_kernel_inputs(120 + i, SAM_BATCH, windows,
+                                                 c, heads, m_rows,
+                                                 torch.bfloat16)
+        bw, m, hidden = SAM_BATCH * windows, SAM_BATCH * m_rows, 4 * c
+        q4, k4, v4, g4 = (t.reshape(bw, 49, heads, 32).transpose(1, 2)
+                          .contiguous() for t in (attn["q"], attn["k"],
+                                                  attn["v"], ga))
+        amask = attn["bias"][None].to(torch.bfloat16)
+        qg, kg, vg = (t.clone().requires_grad_() for t in (q4, k4, v4))
+
+        def sdpa():
+            return F.scaled_dot_product_attention(q4, k4, v4, attn_mask=amask,
+                                                  scale=1.0)
+
+        def sdpa_fwd_bwd():
+            out = F.scaled_dot_product_attention(qg, kg, vg, attn_mask=amask,
+                                                 scale=1.0)
+            return torch.autograd.grad(out, (qg, kg, vg), g4)
+
+        x, w1b, w2b = ffn["x"], ffn["w1"].bfloat16(), ffn["w2"].bfloat16()
+        hbuf = torch.empty(m, hidden, dtype=torch.bfloat16, device=DEVICE)
+        fwd_bound, bwd_bound = _attn_train_bounds(bw, c, heads)
+        mfwd_bound, mbwd_bound = _mlp_train_bounds(m, c, hidden)
+        lib_attn_fwd = time_eager_ms(sdpa, calls=10)
+        lib_attn_bwd = max(time_eager_ms(sdpa_fwd_bwd, calls=10) - lib_attn_fwd,
+                           0.0)
+        cases = {
+            "window_attn_train_fwd": (
+                lambda: wat.window_attention_fwd(**attn),
+                lambda: wat.window_attention_fwd_reference(**attn),
+                time_ms(sdpa, per_graph=4, replays=10), fwd_bound),
+            "window_attn_train_bwd": (
+                lambda: wat.window_attention_bwd(**attn, mask=None, g=ga),
+                lambda: wat.window_attention_bwd_reference(**attn, mask=None,
+                                                           g=ga),
+                lib_attn_bwd, bwd_bound),
+            "mlp_train_fwd": (
+                lambda: mt.mlp_train_fwd(**ffn),
+                lambda: mt.mlp_train_fwd_reference(**ffn),
+                time_ms(lambda: (x @ w1b, hbuf @ w2b), per_graph=4,
+                        replays=10), mfwd_bound),
+            "mlp_train_bwd": (
+                lambda: mt.mlp_train_bwd(x, gf, ffn["w1"], ffn["b1"],
+                                         ffn["w2"]),
+                lambda: mt.mlp_train_bwd_reference(x, gf, ffn["w1"],
+                                                   ffn["b1"], ffn["w2"]),
+                time_ms(lambda: (x @ w1b, gf @ w2b.t(), hbuf @ w1b.t(),
+                                 x.t() @ hbuf, hbuf.t() @ gf), per_graph=4,
+                        replays=10), mbwd_bound),
+        }
+        for name, (kern, plain, lib_ms, (bound, t_b, t_o)) in cases.items():
+            ms = time_ms(kern, per_graph=4, replays=10)
+            plain_ms = time_ms(plain, per_graph=1, replays=5)
+            rows[name].append({"name": stage, "windows": bw, "rows": m, "C": c,
+                               "heads": heads, "ms": ms, "plain_ms": plain_ms,
+                               "library_ms": lib_ms, "bound_ms": bound,
+                               "bytes_ms": t_b, "ops_ms": t_o})
+            print(f"[train kernel time] {name:<22} {stage} B{SAM_BATCH} bf16 "
+                  f"(windows {bw}, M {m}, C {c}): kernel {ms:.4f} ms, plain "
+                  f"{plain_ms:.4f} ms, library {lib_ms:.4f} ms, bound "
+                  f"{bound:.4f} ms ({'bytes' if t_b >= t_o else 'operations'}"
+                  f"; {100 * bound / ms:.1f}% of bound)", flush=True)
+        del attn, ga, ffn, gf, q4, k4, v4, g4, qg, kg, vg, hbuf
+        torch.cuda.empty_cache()
+    return rows, hold.err, hold.err_rel, hold.checks
+
+
+# -- the root recipe's loss: fused_root_loss_fwd / _bwd ------------------------
+
+# (kind, B, H, W) of tests/torch_port_helpers.py::root_pair: the training
+# shape with a min-max target and a prediction in (0, 1), the same with the
+# clip active, pred == target (the clip's bound), flat patches, ragged tiles
+ROOT_CASES = [("unit", 8, 480, 640), ("anti", 8, 480, 640), ("equal", 2, 40, 40),
+              ("smooth", 2, 34, 46), ("unit", 3, 33, 47)]
+# float operations a pixel: the five 3x3 statistics (3 products, 2 x 15
+# sums and thirds), the SSIM terms, the clipped map and |p - t| (forward);
+# the same statistics, the gated coefficient maps, three adjoint boxes and
+# the sum with the sign term (backward)
+ROOT_FWD_FLOP_PER_PIXEL = 59
+ROOT_BWD_FLOP_PER_PIXEL = 99
+ROOT_KERNELS = ("fused_root_loss_fwd", "fused_root_loss_bwd")
+
+
+def make_root_pair(kind, bsz, h, w, seed=0):
+    """``(pred, target)`` ``[B,H,W]`` f32 on the card, as
+    ``tests/torch_port_helpers.py::root_pair`` makes them."""
+    rng = np.random.default_rng(seed)
+    t = rng.random((bsz, h, w)) * 0.9 + 0.05
+    p = rng.random((bsz, h, w)) * 0.9 + 0.05
+    if kind == "anti":
+        p = 1.0 - t + 0.05 * p
+    elif kind == "equal":
+        p = t.copy()
+    elif kind == "smooth":
+        t = np.repeat(np.repeat(rng.integers(1, 9, (bsz, -(-h // 8), -(-w // 8))),
+                                8, axis=1), 8, axis=2)[:, :h, :w] / 10.0
+        p = t.copy()
+        p[:, : h // 2] += 0.05
+        p[:, h // 2:] -= 0.03
+
+    def put(a):
+        return torch.from_numpy(a.astype(np.float32)).to(DEVICE)
+
+    return put(p), put(t)
+
+
+def _root_counters():
+    from tpudepth_torch.ops.kernels import fused_root_loss as frl
+
+    return dict(zip(ROOT_KERNELS, (frl.root_partials, frl.root_bwd)))
+
+
+def phase_root_loss_kernels():
+    """``fused_root_loss_fwd`` and ``_bwd`` against their plain versions
+    (partials within ``PARTIALS_RTOL``: only the sums over pixels take
+    another order; the gradient bit-equal: the same f32 operations per
+    pixel in the same order), every call run twice and the reruns
+    bit-equal; then both timed at B 8 480x640 (CUDA graph replays) beside
+    the bound, the plain version and the port's plain composition ``1.0 *
+    ssim + 0.1 * l1_loss`` (forward, and its autograd backward less the
+    forward, eager)."""
+    from tpudepth_torch.losses.losses import l1_loss, ssim
+    from tpudepth_torch.ops.kernels import fused_root_loss as frl
+
+    err = {k: 0.0 for k in ROOT_KERNELS}
+    for case in ROOT_CASES:
+        kind, bsz, h, w = case
+        p, t = make_root_pair(kind, bsz, h, w)
+        n = p.numel()
+        scales = torch.tensor([1.0 / n, 0.1 / n], device=DEVICE)
+        got, again = frl.root_partials(p, t), frl.root_partials(p, t)
+        gk, gk2 = frl.root_bwd(p, t, scales), frl.root_bwd(p, t, scales)
+        torch.cuda.synchronize()
+        want = frl.root_partials_reference(p, t)
+        gr = frl.root_bwd_reference(p, t, scales)
+        d = (got - want).abs()
+        e_fwd, e_bwd = float(d.max()), float((gk - gr).abs().max())
+        err["fused_root_loss_fwd"] = max(err["fused_root_loss_fwd"], e_fwd / (h * w))
+        err["fused_root_loss_bwd"] = max(err["fused_root_loss_bwd"], e_bwd)
+        print(f"[root loss kernels] {kind:<6} B{bsz} {h}x{w}: partials "
+              f"max_abs_err {e_fwd:.3e} of {float(want.abs().max()):.3e} "
+              f"(rtol {frl.PARTIALS_RTOL:g}); dL/dp max_abs_err {e_bwd:.3e} "
+              f"of {float(gr.abs().max()):.3e} (bit-equal "
+              f"{torch.equal(gk, gr)}); reruns bit-equal "
+              f"{torch.equal(got, again) and torch.equal(gk, gk2)}", flush=True)
+        check(bool((d <= frl.PARTIALS_RTOL * want.abs()).all()),
+              f"fused_root_loss_fwd {case} beyond tolerance")
+        check(torch.equal(gk, gr), f"fused_root_loss_bwd {case} differs")
+        check(torch.equal(got, again) and torch.equal(gk, gk2),
+              f"fused_root_loss {case}: a rerun differs")
+        if kind == "equal":
+            check(float(got.abs().max()) == 0.0,
+                  "pred == target must give zero partial sums")
+
+    bsz, (h, w) = TRAIN_BATCH, TRAIN_HW
+    p, t = make_root_pair("unit", bsz, h, w, seed=1)
+    pixels = p.numel()
+    scales = torch.tensor([1.0 / pixels, 0.1 / pixels], device=DEVICE)
+    p4, t4 = p[:, None], t[:, None]
+    pg = p4.clone().requires_grad_(True)
+    lib_fwd = time_eager_ms(lambda: 1.0 * ssim(p4, t4) + 0.1 * l1_loss(p4, t4))
+    lib_both = time_eager_ms(lambda: torch.autograd.grad(
+        1.0 * ssim(pg, t4) + 0.1 * l1_loss(pg, t4), pg))
+    rows = {}
+    for name, kern, plain, nbytes, flops, lib in (
+            ("fused_root_loss_fwd", lambda: frl.root_partials(p, t),
+             lambda: frl.root_partials_reference(p, t),
+             2 * pixels * 4 + bsz * 2 * 4, pixels * ROOT_FWD_FLOP_PER_PIXEL,
+             lib_fwd),
+            ("fused_root_loss_bwd", lambda: frl.root_bwd(p, t, scales),
+             lambda: frl.root_bwd_reference(p, t, scales),
+             3 * pixels * 4 + 2 * 4, pixels * ROOT_BWD_FLOP_PER_PIXEL,
+             max(lib_both - lib_fwd, 0.0))):
+        ms, plain_ms = time_ms(kern), time_ms(plain, per_graph=2, replays=10)
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = flops / F32_FLOP_PER_S * 1e3
+        rows[name] = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib,
+                      "bound_ms": max(t_bytes, t_ops), "bytes_ms": t_bytes,
+                      "ops_ms": t_ops,
+                      "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+        print(f"[root loss kernel time] {name} B{bsz} {h}x{w} f32: kernel "
+              f"{ms:.4f} ms, plain {plain_ms:.4f} ms, ssim + l1_loss "
+              f"{'forward' if name.endswith('fwd') else 'autograd backward'} "
+              f"{lib:.4f} ms (eager), bound {max(t_bytes, t_ops):.4f} ms "
+              f"({rows[name]['bound_by']}: bytes {t_bytes:.4f}, operations "
+              f"{t_ops:.4f}; {100 * max(t_bytes, t_ops) / ms:.1f}% of bound)",
+              flush=True)
+    del p, t, p4, t4, pg
+    torch.cuda.empty_cache()
+    return rows, err, len(ROOT_CASES)
+
+
+def train_attention_model(name, tmp, blocks):
+    """The training path of an attention model: a seeded ``build_model(name)``
+    (its default block mode) through ``Trainer.fit`` for 2 epochs of 3 steps
+    at 480x640 B8 bf16 with one validation batch and a checkpoint per epoch,
+    the training kernels' launches counted over exactly that run and checked
+    per step (``blocks`` each); SAM's encoder bit-unchanged while its
+    BatchNorm statistics moved, NewCRF's encoder moved; the last checkpoint
+    restored into a fresh trainer; one f32 step against the same step in
+    ``plain``; 8 steps on one batch lower the loss; ms/step, img/s, peak
+    memory and a profile of one step."""
+    from tpudepth_torch.core.config import TrainConfig
+    from tpudepth_torch.models.layers import init_random_
+    from tpudepth_torch.models.registry import build_model
+    from tpudepth_torch.train.trainer import ENCODER_PREFIX, LossRecipe, Trainer
+
+    label = f"{name} train"
+    cfg = TrainConfig(model=name, dataset="nyu_reduced", resolution="full",
+                      batch_size=SAM_BATCH, compute_dtype="bfloat16",
+                      log_every=1, seed=0,
+                      checkpoint_dir=f"{tmp}/checkpoints_{name}",
+                      results_dir=f"{tmp}/results_{name}")
+    weights = init_random_(build_model(name), seed=0).state_dict()
+    train_loader = SyntheticLoader(3, seed=300, raw_depth=True)
+    val_loader = SyntheticLoader(1, seed=301, raw_depth=False)
+
+    def trainer_for():
+        model = build_model(name)
+        model.load_state_dict(weights)
+        return Trainer(cfg, model=model, device=DEVICE,
+                       train_loader=train_loader, val_loader=val_loader)
+
+    counters = {**_train_counters(), **_root_counters()}
+    trainer = trainer_for()
+    losses, per_step = [], []
+
+    def log_fn(epoch, i, n, loss, dt, it):
+        losses.append(loss)
+        per_step.append({k: fn.launches for k, fn in counters.items()})
+
+    for fn in counters.values():
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    trainer.fit(epochs=2, val_max_batches=1, checkpoint_style="per_epoch",
+                log_fn=log_fn)
+    torch.cuda.synchronize()
+    t_fit = time.perf_counter() - t0
+    counts = {k: fn.launches for k, fn in counters.items()}
+    mem = torch.cuda.max_memory_allocated() / 2**20
+    steps = [{k: s[k] - (per_step[j - 1][k] if j else 0) for k in s}
+             for j, s in enumerate(per_step)]
+    print(f"[{label}] fit: 2 epochs x 3 steps, {name} {TRAIN_HW[0]}x"
+          f"{TRAIN_HW[1]} B{SAM_BATCH} bf16 root recipe, augment on, in "
+          f"{t_fit:.2f} s host clock (first step included); losses "
+          f"{[round(x, 4) for x in losses]}; val losses "
+          f"{[round(x, 4) for x in trainer.val_losses]}; launches over 6 "
+          f"train steps and 2 validation batches {counts}; peak memory "
+          f"{mem:.0f} MiB", flush=True)
+    check(trainer.recipe.kind == "root", f"{name} trains with the root recipe")
+    check(len(losses) == 6 and all(np.isfinite(losses)),
+          f"6 finite train losses expected, got {losses}")
+    check(len(trainer.val_losses) == 2
+          and all(np.isfinite(trainer.val_losses)), "validation losses")
+    # the loss kernels: one of each a train step, and the forward once more
+    # for the validation batch (epoch 0's is counted with step 3, the first
+    # of epoch 1; epoch 1's after the last step)
+    check(all({k: s[k] for k in TRAIN_KERNELS}
+              == {k: blocks for k in TRAIN_KERNELS} for s in steps),
+          f"{name}: launches per step {steps}, expected {blocks} each")
+    check([s["fused_root_loss_bwd"] for s in steps] == [1] * 6
+          and [s["fused_root_loss_fwd"] for s in steps] == [1, 1, 1, 2, 1, 1],
+          f"{name}: loss kernel launches per step {steps}")
+    check(counts == {**{k: 6 * blocks for k in TRAIN_KERNELS},
+                     "fused_root_loss_fwd": 8, "fused_root_loss_bwd": 6},
+          f"{name}: launches over the run {counts}")
+    after = trainer.model.state_dict()
+    enc_params = [n for n, _ in trainer.model.named_parameters()
+                  if n.startswith(ENCODER_PREFIX)]
+    enc_stats = [k for k in after if k.startswith(ENCODER_PREFIX)
+                 and k.endswith("running_mean")]
+    frozen = all(torch.equal(after[k].cpu(), weights[k]) for k in enc_params)
+    stats_moved = all(not torch.equal(after[k].cpu(), weights[k])
+                      for k in enc_stats)
+    check(frozen == (name == "sam"),
+          f"{name}: encoder parameters {'un' if frozen else ''}changed")
+    check(stats_moved and len(enc_stats) > 40,
+          f"{name}: encoder BatchNorm statistics did not move")
+    dec = [n for n, _ in trainer.model.named_parameters()
+           if not n.startswith(ENCODER_PREFIX)]
+    check(all(not torch.equal(after[k].cpu(), weights[k]) for k in dec),
+          f"{name}: a decoder parameter did not move")
+    for n, prm in trainer.model.named_parameters():
+        check(bool(torch.isfinite(prm).all()), f"non-finite {n}")
+    print(f"[{label}] encoder: {len(enc_params)} parameters "
+          f"{'bit-unchanged (frozen by the optimizer)' if frozen else 'moved'}"
+          f", {len(enc_stats)} BatchNorm means moved; {len(dec)} decoder "
+          "parameters moved", flush=True)
+
+    fresh = trainer_for()
+    fresh.init_state()
+    fresh.restore(f"{tmp}/checkpoints_{name}/checkpoint_1")
+    check(fresh.epoch == 2 and fresh.state.step == 6, "restored counters")
+    check(fresh.val_losses == trainer.val_losses, "restored val_losses")
+    for k, v in fresh.model.state_dict().items():
+        check(torch.equal(v, after[k]), f"restored {k} differs")
+    so = trainer.state.optimizer.state_dict()["state"]
+    ro = fresh.state.optimizer.state_dict()["state"]
+    n_opt = len(dec) if name == "sam" else len(dec) + len(enc_params)
+    check(set(so) == set(ro) and len(so) == n_opt,
+          f"optimizer state keys {len(so)}, expected {n_opt}")
+    for k in so:
+        for field in ("exp_avg", "exp_avg_sq", "step"):
+            check(torch.equal(torch.as_tensor(so[k][field]).cpu(),
+                              torch.as_tensor(ro[k][field]).cpu()),
+                  f"restored optimizer state {k}.{field} differs")
+    print(f"[{label}] checkpoint_1 restored into a fresh trainer: model, "
+          f"BatchNorm statistics, Adam moments ({n_opt} parameters), epoch "
+          "and val_losses equal", flush=True)
+    del fresh
+
+    # one f32 step in the default mode (training kernels) against plain
+    batch = train_loader.batches[0]
+    recipe = LossRecipe(kind="root", max_depth=MAX_DEPTH, depth_scale=MAX_DEPTH)
+    results = {}
+    for mode in ("kernels", "plain"):
+        model = build_model(name, attn=None if mode == "kernels" else "plain")
+        model.load_state_dict(after)
+        before = {k: fn.launches for k, fn in counters.items()}
+        results[mode] = one_f32_step(cfg, model, batch, recipe)
+        got = {k: fn.launches - before[k] for k, fn in counters.items()}
+        check(got == {**{k: blocks if mode == "kernels" else 0
+                         for k in TRAIN_KERNELS},
+                      "fused_root_loss_fwd": 1, "fused_root_loss_bwd": 1},
+              f"{name} f32 {mode} step launched {got}")
+        del model
+    g_all = max(float(g.abs().max()) for g in results["plain"][1].values())
+    out = {"launches": counts, "launches_per_step": steps[0],
+           "encoder_frozen": frozen}
+    out["step_loss_rel"], out["step_grad_rel"] = compare_steps(
+        f"{name} training kernels vs plain", results["kernels"],
+        results["plain"], ATTN_STEP_LOSS_RTOL, ATTN_STEP_GRAD_REL,
+        ATTN_STEP_GRAD_FLOOR_REL * g_all)
+    del results
+    torch.cuda.empty_cache()
+
+    # 8 steps on one fixed batch lower the loss (bf16, the root recipe's
+    # learning rate 1e-4, TrainConfig's default: at GuideDepth's 1e-3 the
+    # attention models overshoot, NewCRF's loss alternating step by step);
+    # the plain mode's curve beside it, for comparison
+    cfg8 = TrainConfig(model=name, dataset="nyu_reduced", resolution="full",
+                       batch_size=SAM_BATCH, compute_dtype="bfloat16", seed=1)
+    curves = {}
+    for mode in (None, "plain"):
+        model8 = build_model(name, attn=mode)
+        model8.load_state_dict(weights)
+        fixed = Trainer(cfg8, model=model8, device=DEVICE,
+                        train_loader=train_loader)
+        fixed.init_state()
+        same_draw = torch.Generator(device=DEVICE)
+        curves[mode or "kernels"] = [
+            float(fixed.train_step(batch, same_draw.manual_seed(0)))
+            for _ in range(8)]
+        del fixed, model8
+    curve = curves["kernels"]
+    print(f"[{label}] 8 steps on one batch (bf16, lr {cfg8.learning_rate:g}):"
+          f" {[round(x, 5) for x in curve]}; plain "
+          f"{[round(x, 5) for x in curves['plain']]}", flush=True)
+    check(all(np.isfinite(curve)) and curve[-1] < curve[0],
+          "8 steps on one batch did not lower the loss")
+
+    # step time as Trainer.train_step runs it (host batch in, augment on)
+    for b in train_loader.batches:
+        trainer.train_step(b)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    n_timed = 10
+    start.record()
+    for i in range(n_timed):
+        trainer.train_step(train_loader.batches[i % 3])
+    end.record()
+    end.synchronize()
+    ms = start.elapsed_time(end) / n_timed
+    mem = torch.cuda.max_memory_allocated() / 2**20
+    out.update({"step_ms": ms, "img_per_s": SAM_BATCH / ms * 1e3,
+                "peak_mib": mem, "fit_s": t_fit, "curve": curve,
+                "curve_plain": curves["plain"]})
+    print(f"[{label}] train step {name} {TRAIN_HW[0]}x{TRAIN_HW[1]} "
+          f"B{SAM_BATCH} bf16: {ms:.2f} ms/step, {out['img_per_s']:.1f} img/s "
+          f"({n_timed} steps between CUDA events, warm), peak memory "
+          f"{mem:.0f} MiB, launches per step {steps[0]}", flush=True)
+    profile_window(lambda: trainer.train_step(batch), f"{name} train step", 1)
+    del trainer
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1775,6 +2336,8 @@ def main() -> int:
     bwd_rows, bwd_err, bwd_checks = phase_bwd_kernels()
     sam_rows, sam_err, sam_err_rel, sam_checks = phase_sam_kernels()
     row_rows, row_err, row_err_rel, row_checks = phase_rowblock_kernels()
+    tk_rows, tk_err, tk_err_rel, tk_checks = phase_train_kernels()
+    rl_rows, rl_err, rl_checks = phase_root_loss_kernels()
     launches, errs, perf = phase_serving()
     sam_launches, sam_per_mode, sam_errs, sam_perf = phase_sam_serving()
     crf_launches, crf_per_mode, crf_errs, crf_perf = phase_newcrf_serving()
@@ -1784,6 +2347,12 @@ def main() -> int:
             tmp, plain_trainer, cfg, loaders)
         del plain_trainer
         evaluation, eval_launches = phase_evaluation(tmp, fused_trainer)
+        del fused_trainer
+        torch.cuda.empty_cache()
+        # the main paths of this slice: SAM (4 blocks) and NewCRF (8 blocks)
+        # training, each kernel's count set to 0 just before its fit
+        attn_train = {name: train_attention_model(name, tmp, blocks)
+                      for name, blocks in (("sam", 4), ("newcrf", 8))}
 
     def total(table, key):
         return sum(r[key] for r in table)
@@ -1947,12 +2516,86 @@ def main() -> int:
             "fused_block_ms": total(table, "fused_block_ms"),
             "shapes": table,
         })
+    for name, line, fn, src, yardstick, err_keys in (
+            ("window_attn_train_fwd", 103, "window_attention_pallas",
+             "window_attn.py", "F.scaled_dot_product_attention on the "
+             "head-split tensors, the bias as attn_mask (CUDA graph replays)",
+             ("window_attn_train_fwd",)),
+            ("window_attn_train_bwd", 236, "window_attention_bwd_pallas",
+             "window_attn.py", "the autograd backward of "
+             "F.scaled_dot_product_attention with the bias as attn_mask, "
+             "eager forward + backward less the eager forward",
+             ("window_attn_train_bwd", "dbias")),
+            ("mlp_train_fwd", 132, "_mlp_fwd_pallas", "mlp_train.py",
+             "the two cuBLAS bf16 products alone (x W1, a W2)",
+             ("mlp_train_fwd",)),
+            ("mlp_train_bwd", 163, "_mlp_bwd_pallas", "mlp_train.py",
+             "the five cuBLAS bf16 products alone (h = x W1, da = g W2^T, "
+             "dx = dh W1^T, dw1 = x^T dh, dw2 = a^T g)",
+             ("mlp_train_bwd", "dw"))):
+        table = tk_rows[name]
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": "tpudepth_torch/csrc/"
+                      + ("window_attn_train.cu" if src == "window_attn.py"
+                         else "mlp_train.cu"),
+            "replaces": f"tpudepth/ops/pallas/{src}:{line}",
+            "replaces_function": f"tpudepth/ops/pallas/{src}::{fn}",
+            "launches": sum(a["launches"][name] for a in attn_train.values()),
+            "launches_by_path": {f"{m} training": a["launches"][name]
+                                 for m, a in attn_train.items()},
+            "max_abs_err": max(tk_err[k] for k in err_keys),
+            "max_rel_err": max(tk_err_rel[k] for k in err_keys),
+            "checks": sum(tk_checks[k] for k in err_keys),
+            "ok": True,
+            "timed": f"device time of the four calls of one B{SAM_BATCH} "
+                     "480x640 bf16 SAM train step (crf3..crf0 summed), CUDA "
+                     "graph replays; bound_ms counts the JAX kernel's own "
+                     f"traffic; library_ms is {yardstick}",
+            "ms": total(table, "ms"),
+            "plain_ms": total(table, "plain_ms"),
+            "bound_ms": total(table, "bound_ms"),
+            "bound_by": bound_by(table),
+            "library_ms": total(table, "library_ms"),
+            "shapes": table,
+        })
+    for name, line, fn, what in (
+            ("fused_root_loss_fwd", 148, "_fused_partials", "forward"),
+            ("fused_root_loss_bwd", 189, "_frl_bwd",
+             "forward + autograd backward less its forward")):
+        r = rl_rows[name]
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": "tpudepth_torch/csrc/fused_root_loss.cu",
+            "replaces": f"tpudepth/ops/pallas/fused_root_loss.py:{line}",
+            "replaces_function":
+                f"tpudepth/ops/pallas/fused_root_loss.py::{fn}",
+            "launches": sum(a["launches"][name] for a in attn_train.values()),
+            "launches_by_path": {f"{m} training": a["launches"][name]
+                                 for m, a in attn_train.items()},
+            "max_abs_err": rl_err[name],
+            "checks": rl_checks,
+            "ok": True,
+            "timed": f"device time of one launch at B{TRAIN_BATCH} "
+                     f"{TRAIN_HW[0]}x{TRAIN_HW[1]} f32, CUDA graph replays; "
+                     "max_abs_err of the forward is per pixel of the partial "
+                     "sums; bound_ms counts the JAX kernel's own traffic; "
+                     "library_ms is the port's plain 1.0 * ssim + 0.1 * "
+                     f"l1_loss {what}, eager between CUDA events",
+            "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": r["library_ms"],
+            "bytes_ms": r["bytes_ms"], "ops_ms": r["ops_ms"],
+        })
     print(json.dumps({"kernels": kernels, "serve_errors": errs,
                       "sam_serve_errors": sam_errs, "sam_engine": sam_perf,
                       "newcrf_serve_errors": crf_errs,
                       "newcrf_engine": crf_perf,
                       "engine_img_per_s": perf, "training": train,
                       "fused_training": fused_train, "evaluation": evaluation,
+                      "attention_training": attn_train,
                       "seconds": time.perf_counter() - t_start}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -12,7 +12,10 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "tpudepth")
 REQUIRED = ("tpudepth_torch.models.sam", "tpudepth_torch.models.newcrf",
             "tpudepth_torch.ops.kernels.window_attn_infer",
             "tpudepth_torch.ops.kernels.epilogue_infer",
-            "tpudepth_torch.ops.kernels.rowblock_infer")
+            "tpudepth_torch.ops.kernels.rowblock_infer",
+            "tpudepth_torch.ops.kernels.window_attn",
+            "tpudepth_torch.ops.kernels.mlp_train",
+            "tpudepth_torch.ops.kernels.fused_root_loss")
 
 
 def _forbidden(name: str) -> bool:

@@ -1,6 +1,8 @@
 """Port losses (tpudepth_torch.losses, plain tensor code, NCHW) against the
 JAX package's jnp losses (NHWC) on the same numpy inputs: values and
-gradients (``jax.grad`` against autograd), and the rest of the image ops.
+gradients (``jax.grad`` against autograd) of both recipes' losses (the
+root recipe's min-max normalization, box SSIM and SILog too), and the rest
+of the image ops.
 
 Tolerance: atol 1e-5, rtol 1e-4 in f32 (the same operations, with the sums
 of the gaussian and of the means taken in another order).
@@ -51,6 +53,12 @@ LOSSES = {
     "depth_loss_masked_l1": (
         lambda p, t: jl.DepthLoss(1.0, 0.0, 0.0, 10.0)(p, t),
         lambda p, t: tl.DepthLoss(1.0, 0.0, 0.0, 10.0)(p, t)),
+    # the root recipe's parts: the 3x3 box SSIM with ReflectionPad(1), SILog
+    "ssim_box": (lambda p, t: jl.ssim(p, t), lambda p, t: tl.ssim(p, t)),
+    "silog": (lambda p, t: jl.silog_loss_variance(p, t),
+              lambda p, t: tl.silog_loss_variance(p, t)),
+    "depth_norm_minmax": (lambda p, t: jnp.sum(jl.depth_norm_minmax(p) * t),
+                          lambda p, t: (tl.depth_norm_minmax(p) * t).sum()),
 }
 
 

@@ -34,6 +34,10 @@ from tpudepth.models.torch_import import (
     convert_attention_model,
     state_dict_to_numpy,
 )
+from torch_port_helpers import (
+    check_train_mode_against_plain,
+    train_plain_reference,
+)
 from tpudepth_torch.models.jax_weights import newcrf_state_dict_from_flax
 from tpudepth_torch.models.layers import init_random_
 from tpudepth_torch.models.newcrf import NewCRF
@@ -286,11 +290,17 @@ def test_model_has_the_published_widths():
 
 # -- guards, the registry and the CLI -----------------------------------------
 
+@pytest.fixture(scope="module")
+def trained_plain():
+    return train_plain_reference("newcrf")
+
+
 @pytest.mark.parametrize("mode", MODES)
-def test_newcrf_does_not_train(mode):
-    port = build_model("newcrf", attn=mode).train()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port(torch.rand(1, 3, 32, 32))
+def test_newcrf_does_not_train(trained_plain, mode):
+    """Once a guard that the blocks raised in train mode: now every mode
+    trains (both blocks of a stage, the second with the shift mask), and its
+    train-mode forward and backward match the ``plain`` mode's."""
+    check_train_mode_against_plain(trained_plain, mode)
 
 
 def test_registry_aliases_and_modes():
@@ -299,7 +309,7 @@ def test_registry_aliases_and_modes():
         assert type(build_model(alias)).__name__ == "MobileV3NewCRFDepth"
     for mode in MODES:
         blk = build_model("newcrf", attn=mode).Unet[1].crf2.crf_layer.blocks[1]
-        assert blk.mode == mode and blk.mlp.kernel == (mode == "pair")
+        assert blk.mode == mode and blk.mlp.kernel == (mode != "plain")
     with pytest.raises(ValueError, match="attn"):
         build_model("newcrf", attn="packed")
 

@@ -38,6 +38,10 @@ from tpudepth.models.torch_import import (
     state_dict_to_numpy,
 )
 from tpudepth.ops import window as jax_window
+from torch_port_helpers import (
+    check_train_mode_against_plain,
+    train_plain_reference,
+)
 from tpudepth_torch.models.jax_weights import sam_state_dict_from_flax
 from tpudepth_torch.models.layers import ConvBNAct, init_random_
 from tpudepth_torch.models.mobilenetv3 import MobileNetV3Features
@@ -342,11 +346,17 @@ def test_seeded_model_is_not_degenerate():
 
 # -- guards -------------------------------------------------------------------
 
+@pytest.fixture(scope="module")
+def trained_plain():
+    return train_plain_reference("sam")
+
+
 @pytest.mark.parametrize("mode", MODES)
-def test_sam_does_not_train(mode):
-    port = build_model("sam", attn=mode).train()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port(torch.rand(1, 3, 32, 32))
+def test_sam_does_not_train(trained_plain, mode):
+    """Once a guard that the blocks raised in train mode: now every mode
+    trains, and its train-mode forward and backward match the ``plain``
+    mode's."""
+    check_train_mode_against_plain(trained_plain, mode)
 
 
 def test_newcrf_is_not_ported_and_modes_are_checked():

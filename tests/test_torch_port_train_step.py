@@ -307,17 +307,24 @@ def test_check_grads_turns_a_poisoned_step_into_nan():
 
 
 def test_loss_recipe_kinds():
-    with pytest.raises(NotImplementedError, match="slice 3"):
-        ttr.LossRecipe(kind="root")
+    """The masked L1 and the root recipe (min-max target, box SSIM + 0.1 L1,
+    with and without SILog) against the JAX package's recipes."""
     with pytest.raises(ValueError):
         ttr.LossRecipe(kind="huber")
-    p = torch.rand(1, 1, 16, 16) * 10
-    d = torch.rand(1, 1, 16, 16)
+    p = torch.rand(2, 1, 16, 16, generator=torch.Generator().manual_seed(0))
+    d = torch.rand(2, 1, 16, 16, generator=torch.Generator().manual_seed(1))
     d[0, 0, :4] = 0.0
-    recipe = ttr.LossRecipe(kind="l1", max_depth=10.0, depth_scale=10.0)
-    jrecipe = jtr.LossRecipe(kind="l1", max_depth=10.0, depth_scale=10.0)
-    got = recipe.loss(p, recipe.target(d)).item()
     jd = jnp.asarray(d.permute(0, 2, 3, 1).numpy())
-    want = float(jrecipe.loss(jnp.asarray(p.permute(0, 2, 3, 1).numpy()),
-                              jrecipe.target(jd)))
-    assert got == pytest.approx(want, rel=1e-5)
+    for kwargs, scale in (({"kind": "l1"}, 10.0), ({"kind": "root"}, 1.0),
+                          ({"kind": "root", "silog_weight": 0.5}, 1.0)):
+        recipe = ttr.LossRecipe(max_depth=10.0, depth_scale=10.0, **kwargs)
+        jrecipe = jtr.LossRecipe(max_depth=10.0, depth_scale=10.0, **kwargs)
+        pred = p * scale
+        target = recipe.target(d)
+        np.testing.assert_allclose(target.permute(0, 2, 3, 1).numpy(),
+                                   np.asarray(jrecipe.target(jd)), rtol=1e-6,
+                                   atol=1e-7)
+        got = recipe.loss(pred, target).item()
+        want = float(jrecipe.loss(
+            jnp.asarray(pred.permute(0, 2, 3, 1).numpy()), jrecipe.target(jd)))
+        assert got == pytest.approx(want, rel=1e-5), kwargs

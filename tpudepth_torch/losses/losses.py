@@ -1,11 +1,14 @@
 """Depth losses on NCHW tensors in plain tensor code, float32.
 
-Counterpart of the jnp path of ``tpudepth/losses/losses.py`` for the
-alhashim recipe: L1 (optionally masked), the 11x11-gaussian SSIM
+Counterpart of the jnp path of ``tpudepth/losses/losses.py``. The alhashim
+recipe: L1 (optionally masked), the 11x11-gaussian SSIM
 (``src/GuideDepth/losses.py:41-79``), the forward-difference gradient loss
-and their combination ``DepthLoss``. The root recipe's losses (3x3 box SSIM,
-min-max normalization, SILog) are still to port. The fused CUDA counterpart
-is ``ops/kernels/fused_loss.py``.
+and their combination ``DepthLoss``; its fused CUDA counterpart is
+``ops/kernels/fused_loss.py``. The root recipe: the per-batch min-max
+normalization (``src/utils.py:7-8``), the 3x3 avg-pool SSIM loss with
+ReflectionPad(1) (``src/loss.py:57-88``) and the SILog loss
+(``src/loss.py:116-129``); the fused CUDA counterpart of ``1.0 * ssim + 0.1
+* l1_loss`` is ``ops/kernels/fused_root_loss.py``.
 """
 
 from __future__ import annotations
@@ -18,7 +21,14 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from tpudepth_torch.ops.image import image_gradients
+from tpudepth_torch.ops.image import image_gradients, reflection_pad2d
+
+
+def depth_norm_minmax(depth: torch.Tensor) -> torch.Tensor:
+    """Per-batch min-max normalization: min and max are global over the
+    whole batch tensor, so the target depends on the batch's composition."""
+    dmin, dmax = depth.min(), depth.max()
+    return (depth - dmin) / (dmax - dmin)
 
 
 def l1_loss(pred: torch.Tensor, target: torch.Tensor,
@@ -28,6 +38,44 @@ def l1_loss(pred: torch.Tensor, target: torch.Tensor,
         return diff.mean()
     mask = mask.float()
     return (diff * mask).sum() / mask.sum().clamp(min=1.0)
+
+
+def ssim(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """monodepth2 SSIM loss ``mean(clamp((1 - SSIM) / 2, 0, 1))`` from
+    ReflectionPad(1) and 3x3 average-pool statistics, C1 = 0.01^2,
+    C2 = 0.03^2, in float32."""
+    c1, c2 = 0.01 ** 2, 0.03 ** 2
+    x = reflection_pad2d(x.float(), 1)
+    y = reflection_pad2d(y.float(), 1)
+
+    def pool(t):
+        return F.avg_pool2d(t, 3, 1)
+
+    mu_x, mu_y = pool(x), pool(y)
+    sigma_x = pool(x * x) - mu_x ** 2
+    sigma_y = pool(y * y) - mu_y ** 2
+    sigma_xy = pool(x * y) - mu_x * mu_y
+    ssim_n = (2 * mu_x * mu_y + c1) * (2 * sigma_xy + c2)
+    ssim_d = (mu_x ** 2 + mu_y ** 2 + c1) * (sigma_x + sigma_y + c2)
+    return torch.clamp((1 - ssim_n / ssim_d) / 2, 0, 1).mean()
+
+
+def silog_loss_variance(prediction: torch.Tensor, gt: torch.Tensor,
+                        variance_focus: float = 0.85) -> torch.Tensor:
+    """Scale-invariant log loss: mask ``gt > 1e-3``, clamp the prediction at
+    1e-6, ``d = log(pred) - log(gt)``, ``sqrt(mean(d^2) - 0.85 mean(d)^2) *
+    10`` over the masked pixels, in float32 (logs only where valid, so the
+    masked pixels get no NaN gradient)."""
+    mask = (gt > 1e-3).float()
+    pred = prediction.float().clamp(min=1e-6)
+    valid = mask > 0
+    safe_gt = torch.where(valid, gt.float(), torch.ones_like(pred))
+    safe_pred = torch.where(valid, pred, torch.ones_like(pred))
+    d = torch.log(safe_pred) - torch.log(safe_gt)
+    n = mask.sum().clamp(min=1.0)
+    mean_d = (d * mask).sum() / n
+    mean_d2 = (d * d * mask).sum() / n
+    return torch.sqrt(mean_d2 - variance_focus * mean_d ** 2) * 10.0
 
 
 @functools.lru_cache(maxsize=None)

@@ -1,7 +1,7 @@
 """Weight bridge: a JAX ``{'params', 'batch_stats'}`` tree (nested dicts of
 numpy arrays) of GuideDepth, MobileV3SAMDepth or MobileV3NewCRFDepth -> the
-port's ``state_dict``, and a GuideDepth gradient tree of the same ``params``
-structure -> gradients by parameter name.
+port's ``state_dict``, and a gradient tree of the same ``params`` structure
+-> gradients by parameter name.
 
 The inverse of ``tpudepth/models/torch_import.py::convert_guidedepth`` and
 ``::convert_attention_model`` (``variant='sam'`` and ``'newcrf'``), with its
@@ -270,3 +270,15 @@ def guidedepth_grads_from_flax(grads: Mapping) -> "OrderedDict[str, torch.Tensor
     ``{parameter name: gradient}`` under the same key table and layout
     changes, to hold against ``dict(model.named_parameters())``' ``.grad``."""
     return _convert(_flatten(grads), None, _guidedepth_entries())
+
+
+def sam_grads_from_flax(grads: Mapping) -> "OrderedDict[str, torch.Tensor]":
+    """A ``MobileV3SAMDepth`` gradient tree -> ``{parameter name:
+    gradient}`` of ``build_model("sam")``."""
+    return _convert(_flatten(grads), None, _attention_entries(_sam_stage))
+
+
+def newcrf_grads_from_flax(grads: Mapping) -> "OrderedDict[str, torch.Tensor]":
+    """A ``MobileV3NewCRFDepth`` gradient tree -> ``{parameter name:
+    gradient}`` of ``build_model("newcrf")``."""
+    return _convert(_flatten(grads), None, _attention_entries(_newcrf_stage))

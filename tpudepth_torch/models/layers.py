@@ -17,6 +17,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from tpudepth_torch.ops.kernels.mlp_infer import mlp_infer
+from tpudepth_torch.ops.kernels.mlp_train import mlp_train
 
 BN_MOMENTUM = 0.1
 BN_EPS = 1e-5
@@ -207,12 +208,13 @@ class LayerNorm(nn.Module):
 
 class Mlp(nn.Module):
     """Transformer FFN ``fc2(gelu(fc1(x)))`` with the exact (erf) GELU
-    (``tpudepth/models/layers.py::Mlp``). With ``kernel=True`` the eval
-    forward is the ``mlp_infer`` kernel (``ops/kernels/mlp_infer.py``: the
-    hidden tile never leaves the chip; on CPU tensors its plain version);
-    in train mode that configuration raises, since the training kernels
-    (``mlp_train``) are not ported. ``kernel=False`` is the plain
-    composition, which the JAX package computes on the CPU."""
+    (``tpudepth/models/layers.py::Mlp``). With ``kernel=True`` it runs
+    through the FFN kernels, the hidden activation held on the chip: in
+    eval the ``mlp_infer`` kernel (``ops/kernels/mlp_infer.py``), in train
+    mode the ``mlp_train`` pair with its analytic backward
+    (``ops/kernels/mlp_train.py``), as the JAX package on its chip; on CPU
+    tensors their plain versions. ``kernel=False`` is the plain composition,
+    which the JAX package computes on the CPU."""
 
     def __init__(self, dim: int, hidden: int, kernel: bool = False):
         super().__init__()
@@ -223,12 +225,9 @@ class Mlp(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.kernel:
             return self.fc2(F.gelu(self.fc1(x)))
-        if self.training:
-            raise NotImplementedError(
-                "the FFN's training kernels (mlp_train) are not ported; see "
-                "ROADMAP.md Queue A")
-        y = mlp_infer(x.reshape(-1, x.shape[-1]), self.fc1.weight.t(),
-                      self.fc1.bias, self.fc2.weight.t(), self.fc2.bias)
+        ffn = mlp_train if self.training else mlp_infer
+        y = ffn(x.reshape(-1, x.shape[-1]), self.fc1.weight.t(),
+                self.fc1.bias, self.fc2.weight.t(), self.fc2.bias)
         return y.reshape(*x.shape[:-1], y.shape[-1])
 
 

@@ -25,8 +25,13 @@ The blocks run in one of four modes, with one parameter tree:
 - ``plain``: no kernel, the f32 attention composition with the shift mask
   (what the JAX package computes on the CPU).
 
-On CPU tensors the kernels' wrappers run their plain versions. Training
-raises in every mode, as SAM's blocks do.
+In train mode every mode takes the unfused block, as the JAX package does on
+training traces: LN, pad, [roll], windows, ``qk``, attention with the shift
+mask, reverse, [unroll], crop, out-projection + residual, LN2, FFN +
+residual. In ``row``, ``fused`` and ``pair`` the attention is the training
+kernel pair ``window_attention`` (``ops/kernels/window_attn.py``) and the FFN
+the ``mlp_train`` pair; in ``plain`` both are the f32 compositions under
+autograd. On CPU tensors the kernels' wrappers run their plain versions.
 """
 
 from __future__ import annotations
@@ -37,7 +42,7 @@ import torch
 import torch.nn as nn
 
 from tpudepth_torch.models.layers import Conv, LayerNorm, Linear, Mlp
-from tpudepth_torch.models.sam import WindowAttention, raise_if_training
+from tpudepth_torch.models.sam import WindowAttention
 from tpudepth_torch.ops.attention import window_cross_attention_packed
 from tpudepth_torch.ops.image import nhwc
 from tpudepth_torch.ops.kernels.epilogue_infer import block_epilogue_infer
@@ -76,7 +81,8 @@ class WindowAttentionQKfromX(WindowAttention):
         """x_windows, v_windows: [BW, N, C]; mask None or [nW, N, N]."""
         q, k = self.qk(x_windows).chunk(2, dim=-1)
         out = window_cross_attention_packed(q * self.scale, k, v_windows,
-                                            self.bias(), mask, kernel=kernel)
+                                            self.bias(), mask, kernel=kernel,
+                                            training=self.training)
         return out if skip_proj else self.proj(out)
 
 
@@ -96,17 +102,18 @@ class CRFBlock(nn.Module):
         self.norm1 = LayerNorm(dim)
         self.attn = WindowAttentionQKfromX(dim, num_heads, window_size)
         self.norm2 = LayerNorm(dim)
-        self.mlp = Mlp(dim, 4 * dim, kernel=mode == "pair")  # MLP ratio 4
+        # MLP ratio 4; the FFN kernels serve the pair mode and train every
+        # kernel mode
+        self.mlp = Mlp(dim, 4 * dim, kernel=mode != "plain")
 
     def forward(self, x: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-        raise_if_training(self, "NewCRF")
         b, h, w, c = x.shape
         ws, ss = self.window_size, self.shift_size
         mask = shift_mask(h, w, ws, ss, x.device) if ss else None
-        if self.mode == "row":
+        if self.mode == "row" and not self.training:
             return self._rowblock(x, v, mask)
         n = ws * ws
-        fused = self.mode == "fused"
+        fused = self.mode == "fused" and not self.training
         # pad LN(x) after the LayerNorm and the raw v; roll both
         xn, hp, wp = pad_to_window_multiple(self.norm1(x), ws)
         vp, _, _ = pad_to_window_multiple(v, ws)

@@ -11,6 +11,8 @@ from tpudepth_torch.models import newcrf, sam
 from tpudepth_torch.models.decoders import MobileV3NewCRFDepth, MobileV3SAMDepth
 from tpudepth_torch.models.guidedepth import GuideDepth
 
+# alias (lowercased) -> canonical name; every switch keyed on a model name
+# (loss recipe, frozen encoder) goes through canonical_model_name
 _ALIASES = {
     "guidedepth": "GuideDepth",
     "guidedepth-s": "GuideDepth-S",
@@ -32,6 +34,18 @@ _ATTN_MODELS = {"sam": MobileV3SAMDepth, "newcrf": MobileV3NewCRFDepth}
 
 # every block mode of any attention model; each model checks its own
 ATTN_MODES = tuple(dict.fromkeys(sam.ATTN_MODES + newcrf.ATTN_MODES))
+
+
+def canonical_model_name(name: str, strict: bool = True) -> str:
+    """The canonical name of any accepted alias (``tpudepth/models/
+    registry.py::canonical_model_name``). ``strict=False`` passes an unknown
+    name through, lowercased (a ``Trainer`` handed its own ``model``)."""
+    canon = _ALIASES.get(str(name).lower())
+    if canon is None:
+        if strict:
+            raise ValueError(f"unknown model {name!r}; available: {MODEL_NAMES}")
+        return str(name).lower()
+    return canon
 
 
 def build_model(name: str, gub: str = "plain",

@@ -22,9 +22,13 @@ The block runs in one of four modes, with one parameter tree:
 - ``plain``: no kernel, the f32 attention composition (what the JAX package
   computes on the CPU).
 
-On CPU tensors the kernels' wrappers run their plain versions. Training
-raises in every mode: on its chip JAX trains through the ``window_attn`` and
-``mlp_train`` kernels, which are not ported.
+In train mode every mode takes the unfused block, as the JAX package does on
+training traces: LN, pad, windows, ``q`` / ``kv``, attention, reverse, crop,
+out-projection + residual, LN2, FFN + residual. In ``fused``, ``pair`` and
+``row`` the attention is the training kernel pair ``window_attention``
+(``ops/kernels/window_attn.py``) and the FFN the ``mlp_train`` pair; in
+``plain`` both are the f32 compositions under autograd. On CPU tensors the
+kernels' wrappers run their plain versions.
 """
 
 from __future__ import annotations
@@ -45,16 +49,6 @@ from tpudepth_torch.ops.window import (
 )
 
 ATTN_MODES = ("plain", "pair", "fused", "row")
-
-
-def raise_if_training(module: nn.Module, what: str):
-    """The attention blocks serve only: on its chip the JAX package trains
-    them through kernels (``window_attn``, ``mlp_train``) not ported yet."""
-    if module.training:
-        raise NotImplementedError(
-            f"{what} blocks do not train yet: the training kernels "
-            "(window_attn, mlp_train) are not ported; see ROADMAP.md "
-            "Queue A. Call .eval() to serve.")
 
 
 class WindowAttention(nn.Module):
@@ -101,7 +95,8 @@ class WindowCrossAttentionQKV(WindowAttention):
         q = self.q(x_windows) * self.scale
         k, v = self.kv(v_windows).chunk(2, dim=-1)
         out = window_cross_attention_packed(q, k, v, self.bias(),
-                                            kernel=kernel)
+                                            kernel=kernel,
+                                            training=self.training)
         return out if skip_proj else self.proj(out)
 
 
@@ -121,16 +116,17 @@ class SAMBlock(nn.Module):
         self.normv = LayerNorm(dim)
         self.attn = WindowCrossAttentionQKV(dim, num_heads, window_size)
         self.norm2 = LayerNorm(dim)
-        self.mlp = Mlp(dim, 4 * dim, kernel=mode == "pair")  # MLP ratio 4
+        # MLP ratio 4; the FFN kernels serve the pair mode and train every
+        # kernel mode
+        self.mlp = Mlp(dim, 4 * dim, kernel=mode != "plain")
 
     def forward(self, x: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-        raise_if_training(self, "SAM")
-        if self.mode == "row":
+        if self.mode == "row" and not self.training:
             return self._rowblock(x, v)
         b, h, w, c = x.shape
         ws = self.window_size
         n = ws * ws
-        fused = self.mode == "fused"
+        fused = self.mode == "fused" and not self.training
         # pad AFTER the LayerNorm: pad tokens are zeros there, so their
         # queries, keys and values are the projections' biases alone
         xn, hp, wp = pad_to_window_multiple(self.norm1(x), ws)

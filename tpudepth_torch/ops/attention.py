@@ -11,7 +11,8 @@ entry point of the SAM / NewCRF blocks and the two head-split compositions.
   arithmetic of the eval kernel ``window_attn_infer`` and its plain version.
 
 The JAX package picks between them by backend and by whether a training
-step is being traced; the port's caller says which it wants (``kernel=``).
+step is being traced; the port's caller says which it wants (``kernel=``,
+``training=``).
 """
 
 from __future__ import annotations
@@ -69,13 +70,20 @@ def window_cross_attention_fast(q, k, v, bias, mask=None) -> torch.Tensor:
 def window_cross_attention_packed(q: torch.Tensor, k: torch.Tensor,
                                   v: torch.Tensor, bias: torch.Tensor,
                                   mask: Optional[torch.Tensor] = None, *,
-                                  kernel: bool) -> torch.Tensor:
+                                  kernel: bool,
+                                  training: bool = False) -> torch.Tensor:
     """Channel-packed window attention: q, k, v and the output are
     [BW, N, C], C = heads * head_dim, q pre-scaled; bias [heads, N, N] f32.
 
-    ``kernel=True`` is the eval kernel (``ops/kernels/window_attn_infer.py``;
-    on CPU tensors its plain version); ``kernel=False`` splits heads and runs
-    :func:`window_cross_attention_xla`."""
+    ``kernel=True`` is the eval kernel (``ops/kernels/window_attn_infer.py``)
+    or, with ``training=True``, the differentiable training kernel pair
+    (``ops/kernels/window_attn.py``); on CPU tensors their plain versions.
+    ``kernel=False`` splits heads and runs :func:`window_cross_attention_xla`
+    (under autograd when training)."""
+    if kernel and training:
+        from tpudepth_torch.ops.kernels.window_attn import window_attention
+
+        return window_attention(q, k, v, bias, mask)
     if kernel:
         from tpudepth_torch.ops.kernels.window_attn_infer import (
             window_attention_infer,

@@ -30,6 +30,43 @@ def mlp_infer_reference(x, w1, b1, w2, b2) -> torch.Tensor:
     return _epi.ffn_reference(x, w1, b1, w2, b2).to(x.dtype)
 
 
+def check_widths(name, c, hidden, c2):
+    """Refuse FFN widths the ``block_tail.cuh`` kernels do not take."""
+    if not (_epi.width_ok(c) and _epi.width_ok(hidden)
+            and _epi.width_ok(c2, out=True)):
+        raise ValueError(f"{name} takes widths that are multiples of 32, at "
+                         "most 128 or multiples of 128, and an output width "
+                         f"<= 1024, not {c}, {hidden}, {c2}")
+
+
+def launch_ffn(lib, name, x, w1, b1, w2, b2,
+               round_vectors: bool = False) -> torch.Tensor:
+    """Launch the C entry ``name`` of ``lib()``, an FFN of the
+    ``block_tail.cuh`` device code (``mlp_infer`` here, ``mlp_train_fwd``
+    in ``mlp_train.py``: one C signature), on CUDA tensors and return its
+    ``[M, C2]`` output in x's dtype; ``round_vectors`` rounds the biases to
+    x's dtype first (the training FFN's casts). Raises on a refused input or
+    a failed launch. The caller counts the launch."""
+    m, c = x.shape
+    hidden, c2 = w2.shape
+    if x.device.type != "cuda":
+        raise ValueError(f"no {name} kernel for {x.device}")
+    check_widths(name, c, hidden, c2)
+    w1t, w2t = _epi.check_cuda(name, (x,), (w1, w2), (b1, b2))
+    if round_vectors:
+        b1, b2 = (b.to(x.dtype).float() for b in (b1, b2))
+    out = torch.empty((m, c2), dtype=x.dtype, device=x.device)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        rc = getattr(lib(), name)(
+            x.data_ptr(), w1t.data_ptr(), b1.data_ptr(), w2t.data_ptr(),
+            b2.data_ptr(), out.data_ptr(), m, c, hidden, c2,
+            int(x.dtype == torch.bfloat16), stream)
+    if rc != 0:
+        raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
+    return out
+
+
 def mlp_infer(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
               w2: torch.Tensor, b2: torch.Tensor) -> torch.Tensor:
     """``[M, C2]`` in ``x``'s dtype. CPU tensors run
@@ -42,23 +79,7 @@ def mlp_infer(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
                          f"w1 {tuple(w1.shape)}, w2 {tuple(w2.shape)}")
     if x.device.type == "cpu":
         return mlp_infer_reference(x, w1, b1, w2, b2)
-    if x.device.type != "cuda":
-        raise ValueError(f"no mlp_infer kernel for {x.device}")
-    if not (_epi.width_ok(c) and _epi.width_ok(hidden)
-            and _epi.width_ok(c2, out=True)):
-        raise ValueError("mlp_infer takes widths that are multiples of 32, at "
-                         "most 128 or multiples of 128, and an output width "
-                         f"<= 1024, not {c}, {hidden}, {c2}")
-    w1t, w2t = _epi.check_cuda("mlp_infer", (x,), (w1, w2), (b1, b2))
-    out = torch.empty((m, c2), dtype=x.dtype, device=x.device)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = _epi.lib().mlp_infer(
-            x.data_ptr(), w1t.data_ptr(), b1.data_ptr(), w2t.data_ptr(),
-            b2.data_ptr(), out.data_ptr(), m, c, hidden, c2,
-            int(x.dtype == torch.bfloat16), stream)
-    if rc != 0:
-        raise RuntimeError(f"mlp_infer launch failed: CUDA error {rc}")
+    out = launch_ffn(_epi.lib, "mlp_infer", x, w1, b1, w2, b2)
     mlp_infer.launches += 1
     return out
 

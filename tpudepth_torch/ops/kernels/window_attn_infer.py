@@ -97,6 +97,55 @@ def _check(q, k, v, bias, mask):
                          f"of {n} tokens")
 
 
+def check_cuda(name, q, k, v, bias, mask, extra=()):
+    """Device, dtype and shape checks of a launch of ``name`` on q, k, v
+    (and the ``extra`` row tensors of the same shape, e.g. a cotangent);
+    returns the row strides of q, k, v."""
+    bw, n, c = q.shape
+    heads = bias.shape[0]
+    dt = q.dtype
+    if dt not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"{name} takes float32 or bfloat16, not {dt}")
+    if any(t.dtype != dt for t in (k, v) + tuple(extra)):
+        raise TypeError(f"{name}: q, k, v{', g' if extra else ''} must "
+                        "share one dtype")
+    if n > 64 or (c // heads) % 8 or c // heads > 64:
+        raise ValueError(f"{name} takes N <= 64 and a head_dim that is a "
+                         f"multiple of 8 up to 64, not N={n}, "
+                         f"head_dim={c // heads}")
+    for t in (k, v, bias) + tuple(extra) + ((mask,) if mask is not None else ()):
+        if t.device != q.device:
+            raise ValueError(f"tensor on {t.device}, expected {q.device}")
+    for label, t in (("bias", bias), ("mask", mask)):
+        if t is not None and (t.dtype != torch.float32 or not t.is_contiguous()):
+            raise TypeError(f"{label} must be contiguous float32")
+    return [_row_stride(t, n) for t in (q, k, v)]
+
+
+def launch_forward(lib, name, q, k, v, bias, mask) -> torch.Tensor:
+    """Launch the C entry ``name`` of ``lib()``, a forward of the
+    ``window_attn.cuh`` device code (``window_attn_infer`` here,
+    ``window_attn_train_fwd`` in ``window_attn.py``: one C signature), on
+    CUDA tensors and return its ``[BW, N, C]`` output in q's dtype; raises
+    on a refused input or a failed launch. The caller counts the launch."""
+    if q.device.type != "cuda":
+        raise ValueError(f"no {name} kernel for {q.device}")
+    lds = check_cuda(name, q, k, v, bias, mask)
+    bw, n, c = q.shape
+    heads = bias.shape[0]
+    out = torch.empty((bw, n, c), dtype=q.dtype, device=q.device)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = getattr(lib(), name)(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), *lds, bias.data_ptr(),
+            None if mask is None else mask.data_ptr(), out.data_ptr(),
+            bw, n, c, heads, 0 if mask is None else mask.shape[0],
+            int(q.dtype == torch.bfloat16), stream)
+    if rc != 0:
+        raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
+    return out
+
+
 def window_attention_infer(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            bias: torch.Tensor,
                            mask: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -107,37 +156,7 @@ def window_attention_infer(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _check(q, k, v, bias, mask)
     if q.device.type == "cpu":
         return window_attention_infer_reference(q, k, v, bias, mask)
-    if q.device.type != "cuda":
-        raise ValueError(f"no window_attn_infer kernel for {q.device}")
-    bw, n, c = q.shape
-    heads = bias.shape[0]
-    dt = q.dtype
-    if dt not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"window_attn_infer takes float32 or bfloat16, not {dt}")
-    if k.dtype != dt or v.dtype != dt:
-        raise TypeError("q, k, v must share one dtype")
-    if n > 64 or (c // heads) % 8 or c // heads > 64:
-        raise ValueError(f"window_attn_infer takes N <= 64 and a head_dim that "
-                         f"is a multiple of 8 up to 64, not N={n}, "
-                         f"head_dim={c // heads}")
-    for t in (k, v, bias) + ((mask,) if mask is not None else ()):
-        if t.device != q.device:
-            raise ValueError(f"tensor on {t.device}, expected {q.device}")
-    for name, t in (("bias", bias), ("mask", mask)):
-        if t is not None and (t.dtype != torch.float32
-                              or not t.is_contiguous()):
-            raise TypeError(f"{name} must be contiguous float32")
-    lds = [_row_stride(t, n) for t in (q, k, v)]
-    out = torch.empty((bw, n, c), dtype=dt, device=q.device)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = _lib().window_attn_infer(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), *lds, bias.data_ptr(),
-            None if mask is None else mask.data_ptr(), out.data_ptr(),
-            bw, n, c, heads, 0 if mask is None else mask.shape[0],
-            int(dt == torch.bfloat16), stream)
-    if rc != 0:
-        raise RuntimeError(f"window_attn_infer launch failed: CUDA error {rc}")
+    out = launch_forward(_lib, "window_attn_infer", q, k, v, bias, mask)
     window_attention_infer.launches += 1
     return out
 

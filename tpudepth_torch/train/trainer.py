@@ -1,21 +1,31 @@
-"""Single-device trainer of the port: the alhashim recipe on GuideDepth.
+"""Single-device trainer of the port: the alhashim recipe on GuideDepth and
+the root recipe on every other model.
 
-Counterpart of ``tpudepth/train/trainer.py`` (``src/GuideDepth/training.py``):
+Counterpart of ``tpudepth/train/trainer.py`` (``src/GuideDepth/training.py``,
+``src/train.py``):
 
-- target = inverse depth normalization ``max_depth / clamp(d, max_depth/100,
-  max_depth)`` with zero masking, loss = ``DepthLoss(0.1, 1, 1)``, or the
-  masked L1 ``DepthLoss(1, 0, 0)`` when ``eval_mode != 'alhashim'``;
+- GuideDepth and GuideDepth-S: target = inverse depth normalization
+  ``max_depth / clamp(d, max_depth/100, max_depth)`` with zero masking, loss
+  = ``DepthLoss(0.1, 1, 1)``, or the masked L1 ``DepthLoss(1, 0, 0)`` when
+  ``eval_mode != 'alhashim'``; on a CUDA device the alhashim loss is the
+  fused CUDA kernel pair (``ops/kernels/fused_loss.py``), on the CPU the
+  plain ``DepthLoss``, as the JAX package picks its Pallas kernel by
+  backend;
+- every other model (``sam``, ``newcrf``, by their canonical names): the
+  root recipe, target = the batch's min-max normalization, loss = ``1.0 *
+  ssim + 0.1 * l1`` (+ ``silog_weight * silog``); on a CUDA device without
+  SILog the fused CUDA kernel pair (``ops/kernels/fused_root_loss.py``),
+  else the plain composition, as the JAX package picks its Pallas kernel by
+  backend; ``sam`` trains with its MobileNetV3 encoder frozen by the
+  optimizer alone (its BatchNorm statistics still move);
 - one train step on the device: /255 of raw uint8 input, down-resize,
   augmentation, target, forward in the compute dtype, loss in f32, backward,
-  Adam with StepLR(step_size epochs, gamma) as a schedule over steps;
-- on a CUDA device the alhashim loss is the fused CUDA kernel pair
-  (``ops/kernels/fused_loss.py``), on the CPU the plain ``DepthLoss``, as the
-  JAX package picks its Pallas kernel by backend.
+  Adam with StepLR(step_size epochs, gamma) as a schedule over steps.
 
 Batches come from the loader as the JAX package's loaders deliver them:
 dicts of NHWC arrays, ``image`` ``[B,H,W,3]`` and ``depth`` ``[B,H,W,1]``
-(float, or raw uint8 / uint16). The step views them as NCHW. The root recipe
-and the mesh are not ported: one device, no sharding.
+(float, or raw uint8 / uint16). The step views them as NCHW. The mesh is not
+ported: one device, no sharding.
 """
 
 from __future__ import annotations
@@ -32,9 +42,16 @@ from tpudepth_torch.core.config import TrainConfig
 from tpudepth_torch.core.precision import Precision
 from tpudepth_torch.core.runtime import DeviceLike, resolve_device
 from tpudepth_torch.data.augment import augment_batch
-from tpudepth_torch.losses.losses import DepthLoss
+from tpudepth_torch.losses.losses import (
+    DepthLoss,
+    depth_norm_minmax,
+    l1_loss,
+    silog_loss_variance,
+    ssim,
+)
 from tpudepth_torch.ops.image import resize_bilinear
 from tpudepth_torch.ops.kernels.fused_loss import fused_depth_loss
+from tpudepth_torch.ops.kernels.fused_root_loss import fused_root_loss
 from tpudepth_torch.train.checkpoint import load_checkpoint, save_checkpoint
 
 
@@ -67,6 +84,21 @@ def make_optimizer(config: TrainConfig, params) -> torch.optim.Adam:
     return torch.optim.Adam(params, lr=config.learning_rate)
 
 
+#: prefix of the encoder's parameters in the attention models' reference
+#: layout (``Unet.0.original_model.features.*``)
+ENCODER_PREFIX = "Unet.0."
+
+
+def trainable_parameters(model: torch.nn.Module, freeze_encoder: bool):
+    """The parameters the optimizer updates: all, or all but the encoder's
+    (``tpudepth/train/trainer.py::freeze_encoder_mask``, where
+    ``optax.set_to_zero`` keeps them as they are). Freezing is the
+    optimizer's alone: the encoder still runs in train mode and gets its
+    gradients, and its BatchNorm statistics still move."""
+    return [p for n, p in model.named_parameters()
+            if not (freeze_encoder and n.startswith(ENCODER_PREFIX))]
+
+
 def inverse_depth_norm(depth: torch.Tensor, max_depth: float) -> torch.Tensor:
     """``Trainer.inverse_depth_norm`` (``src/GuideDepth/training.py:191-196``):
     divide first, then clamp; zeros stay zero."""
@@ -86,26 +118,33 @@ def depth_norm(depth: torch.Tensor, max_depth: float) -> torch.Tensor:
 
 @dataclasses.dataclass(frozen=True)
 class LossRecipe:
-    """Target transform and loss of the GuideDepth stack: ``kind`` is
-    ``'alhashim'`` (``DepthLoss(0.1, 1, 1)``) or ``'l1'`` (masked L1)."""
+    """Target transform and loss: ``kind`` is ``'root'`` (min-max target,
+    ``1.0 * ssim + 0.1 * l1`` plus ``silog_weight * silog``), ``'alhashim'``
+    (``DepthLoss(0.1, 1, 1)``) or ``'l1'`` (masked L1)."""
 
     kind: str = "alhashim"
     max_depth: float = 10.0
     depth_scale: float = 1.0  # loader units -> meters (8-bit maps: max_depth)
+    silog_weight: float = 0.0
 
     def __post_init__(self):
-        if self.kind == "root":
-            raise NotImplementedError(
-                "the root recipe (min-max target, 3x3 box SSIM + L1) is not "
-                "ported yet: it comes with the root stack, slice 3 of "
-                "ROADMAP.md Queue A")
-        if self.kind not in ("alhashim", "l1"):
+        if self.kind not in ("root", "alhashim", "l1"):
             raise ValueError(f"unknown loss recipe {self.kind!r}")
 
     def target(self, depth: torch.Tensor) -> torch.Tensor:
+        if self.kind == "root":
+            return depth_norm_minmax(depth)
         return depth_norm(depth * self.depth_scale, self.max_depth)
 
     def loss(self, pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+        if self.kind == "root":
+            if pred.is_cuda and not self.silog_weight:
+                return fused_root_loss(pred, target, 1.0, 0.1)
+            total = 1.0 * ssim(pred, target) + 0.1 * l1_loss(pred, target)
+            if self.silog_weight:
+                total = total + self.silog_weight * silog_loss_variance(
+                    pred, target)
+            return total
         if self.kind == "alhashim":
             if pred.is_cuda:
                 return fused_depth_loss(pred, target, 0.1, 1.0, 1.0,
@@ -165,7 +204,9 @@ def make_train_step(
             # a decoder may answer at half resolution: align the target
             target = resize_bilinear(target, pred.shape[2:])
         loss = recipe.loss(pred, target)
-        state.optimizer.zero_grad(set_to_none=True)
+        # every gradient of the model, frozen parameters' too, so that none
+        # piles up across steps and check_grads sees this step's alone
+        model.zero_grad(set_to_none=True)
         loss.backward()
         loss = loss.detach()
         if check_grads:
@@ -204,8 +245,8 @@ def _step_seed(seed: int, step: int) -> int:
 
 
 class Trainer:
-    """Training loop of the GuideDepth stack (capability parity with
-    ``src/GuideDepth/training.py`` Trainer) on one device.
+    """Training loop (capability parity with ``src/GuideDepth/training.py``
+    Trainer and ``src/train.py``) on one device.
 
     ``device=None`` means the CUDA card. A ``model`` passed in keeps its
     parameters; one built here is initialized from ``config.seed`` by
@@ -216,12 +257,19 @@ class Trainer:
     def __init__(self, config: TrainConfig, model=None,
                  device: DeviceLike = None, train_loader=None,
                  val_loader=None):
-        from tpudepth_torch.models.registry import build_model
+        from tpudepth_torch.models.registry import (
+            build_model,
+            canonical_model_name,
+        )
 
         self.config = config
         self.device = resolve_device(device)
         self._own_model = model is None
-        self.model = model if model is not None else build_model(config.model)
+        # every switch keyed on the model's name (loss recipe, frozen
+        # encoder) reads the canonical name, so aliases cannot dodge it
+        self.model_name = canonical_model_name(config.model,
+                                               strict=model is None)
+        self.model = model if model is not None else build_model(self.model_name)
         self.train_loader = train_loader
         self.val_loader = val_loader
         self.epoch = 0
@@ -229,6 +277,12 @@ class Trainer:
         self.steps_per_epoch = len(train_loader) if train_loader is not None else 1
 
         recipe_kind = "alhashim" if config.eval_mode == "alhashim" else "l1"
+        if self.model_name not in ("GuideDepth", "GuideDepth-S"):
+            # root-stack models train with the root recipe (src/train.py:94-100)
+            recipe_kind = "root"
+        # the reference freezes the MobileNetV3 encoder of the SAM model only
+        # (src/model_mobileV3_large_SAM.py:168-169)
+        self.freeze_encoder = self.model_name == "sam"
         # 8-bit NYU depth arrives in [0,1] -> scale by max_depth to meters;
         # the kitti reader already yields meters (16-bit png / 256).
         depth_scale = 1.0 if config.dataset == "kitti" else config.max_depth
@@ -250,8 +304,8 @@ class Trainer:
                     if hasattr(m, "reset_parameters"):
                         m.reset_parameters()
         self.model.to(self.device, memory_format=torch.channels_last)
-        self.state = TrainState(
-            self.model, make_optimizer(cfg, self.model.parameters()))
+        self.state = TrainState(self.model, make_optimizer(
+            cfg, trainable_parameters(self.model, self.freeze_encoder)))
         raw_depth_scale = 1.0
         if self.train_loader is not None:
             ds = getattr(self.train_loader, "dataset", None)
