@@ -5,12 +5,14 @@ It drives the port's main paths at NYU 480x640: serving (GuideDepth in bf16
 with fused GUB stages), training (``Trainer.fit``, alhashim recipe, bf16,
 batch 8) with plain and with fused GUB stages, the evaluator on the trained
 model, serving MobileV3SAMDepth (MobileNetV3-Large + four SAM stages at
-full width, bf16) with its blocks fused, paired and as window rows,
-serving MobileV3NewCRFDepth (the same encoder + four two-block NewCRF
-stages, the second block of each shifted) with its blocks as window rows,
-fused and paired, and training both attention models (``Trainer.fit``,
-root recipe, bf16, batch 8) through the training kernels. It holds every
-CUDA kernel of those paths against its plain PyTorch version. Phases:
+full width, bf16) with its blocks fused, paired, as window rows and as
+whole blocks over raw windows, serving MobileV3NewCRFDepth (the same
+encoder + four two-block NewCRF stages, the second block of each shifted)
+with its blocks as window rows, fused, paired and as whole blocks, both
+scored by the root protocol's ``RootEvaluator``, and training both
+attention models (``Trainer.fit``, root recipe, bf16, batch 8) through the
+training kernels. It holds every CUDA kernel of those paths against its
+plain PyTorch version. Phases:
 
 1. device: needs CUDA; prints the card's name and power limit; turns TF32
    off for every f32 reference;
@@ -32,15 +34,19 @@ CUDA kernel of those paths against its plain PyTorch version. Phases:
    kernels (``window_attn_infer``, ``block_epilogue_infer``, ``mlp_infer``)
    at the four stage shapes; ``crf_rowblock_infer`` (shift 0 and 3) and
    ``sam_rowblock_infer`` against their plain versions at the four stage
-   shapes of 480x640, B 1 and 8, f32 and bf16, then one B 8 bf16 forward's
-   calls timed beside the bound, the plain version, the library yardstick
-   (the block's cuBLAS products + SDPA) and the port's ``fused``
-   composition of the same block; [train kernels]: ``window_attn_train_fwd``
-   / ``_bwd`` (with and without the shift-3 mask) and ``mlp_train_fwd`` /
-   ``_bwd`` (also at an odd row count) against their plain versions at the
-   four stage shapes of a B 8 step, f32 and bf16, every backward run twice
-   and bit-equal, then one B 8 bf16 SAM step's calls timed beside the bound,
-   the plain version and SDPA (forward, autograd backward) or the FFN's
+   shapes of 480x640, B 1 and 8, f32 and bf16, every call rerun bit-equal,
+   then one B 8 bf16 forward's calls timed beside the bound, the plain
+   version, the library yardstick (the block's cuBLAS products + SDPA) and
+   the port's ``row`` module and ``fused`` composition of the same block;
+   [block kernels]: ``crf_block_infer`` (shift 0 and 3) and
+   ``sam_block_infer`` the same way, on the windows of the same maps,
+   beside the ``block``, ``row`` and ``fused`` modules; [train kernels]:
+   ``window_attn_train_fwd`` / ``_bwd`` (with and without the shift-3 mask)
+   and ``mlp_train_fwd`` / ``_bwd`` (also at an odd row count) against their
+   plain versions at the four stage shapes of a B 8 step, f32 and bf16,
+   every backward run twice and bit-equal, then one B 8 bf16 SAM step's
+   calls timed beside the bound, the plain version and SDPA (forward,
+   autograd backward) or the FFN's
    cuBLAS products; [root loss kernels]: ``fused_root_loss_fwd`` / ``_bwd``
    against their plain versions at the training shape and at clip-active,
    pred == target, flat and ragged cases (the gradient bit-equal), every
@@ -57,11 +63,16 @@ CUDA kernel of those paths against its plain PyTorch version. Phases:
    over exactly those requests (4 + 4 per forward), the served maps against
    the f32 plain model, f32 fused and pair against f32 plain, and ms/frame,
    img/s, peak memory and a profile of each mode; the same for SAM's ``row``
-   mode (4 ``sam_rowblock_infer`` calls per forward); then NewCRF serving,
-   ``build_model("newcrf")`` in modes ``row`` (the main path: 8
-   ``crf_rowblock_infer`` calls per forward), ``fused`` (8 + 8
-   ``window_attn_infer`` and ``block_epilogue_infer``) and ``pair`` (8 + 8
-   ``window_attn_infer`` and ``mlp_infer``), the same checks and timings;
+   mode (4 ``sam_rowblock_infer`` calls per forward) and its ``block`` mode
+   (4 ``sam_block_infer``); then NewCRF serving, ``build_model("newcrf")``
+   in modes ``row`` (the default: 8 ``crf_rowblock_infer`` calls per
+   forward), ``fused`` (8 + 8 ``window_attn_infer`` and
+   ``block_epilogue_infer``), ``pair`` (8 + 8 ``window_attn_infer`` and
+   ``mlp_infer``) and ``block`` (8 ``crf_block_infer``), the same checks
+   and timings; [root eval]: each attention model's bf16 ``block`` engine
+   through ``RootEvaluator`` over seeded synthetic batches against the f32
+   plain model through the same evaluator (5 % + 5e-3 per metric), the
+   whole-block launches counted;
 5. training: ``Trainer.fit`` for 2 epochs of 3 steps on seeded synthetic
    uint8 batches with one validation batch and a checkpoint per epoch (the
    seeded model's output bias starts at 3, inside the targets' range), the
@@ -1545,63 +1556,72 @@ def _rowblock_bound(bsz, hw, c, heads, sam, shift):
                   m * per_token)
 
 
-def phase_rowblock_kernels():
-    """``crf_rowblock_infer`` (shift 0, and shift 3 with rolled inputs, the
-    rolled valid image and the mask) and ``sam_rowblock_infer`` against
-    their plain versions at the four stage shapes of 480x640 (every stage
-    pads), batch 1 and 8, f32 and bf16, each within its ``tolerance``; then
-    at batch 8 in bf16 the time of one forward's calls (CUDA graph replays;
-    NewCRF: the two blocks of each stage, 8 calls; SAM: 4) beside the bound,
-    the plain version, the library yardstick of ``_rowblock_library``, and
-    the port's own ``fused`` composition of the same block (the module in
-    ``fused`` mode on the unpadded map: LN, pad, roll, window partition, qk
-    product, ``window_attn_infer``, reverse, roll, crop,
-    ``block_epilogue_infer``) against the module in ``row`` mode (pad, roll,
-    the kernels, roll, crop)."""
+def _block_inputs(seed, bsz, hw, c, heads, shift, dtype, sam=False):
+    """The arguments of ``_rowblock_inputs`` as those of one whole-block
+    call: the raw windows of the padded (and rolled) x and v, and the valid
+    table of the map. Returns (arguments, options, the image-layout
+    arguments)."""
+    from tpudepth_torch.ops.window import (window_partition,
+                                           window_valid_mask_on)
+
+    a, kw = _rowblock_inputs(seed, bsz, hw, c, heads, shift, dtype, sam=sam)
+    wa = {k: t for k, t in a.items() if k not in ("x", "v")}
+    wa["xw"], wa["vw"] = (window_partition(a[k], 7).reshape(-1, 49, c)
+                          .contiguous() for k in ("x", "v"))
+    wa["valid"] = window_valid_mask_on(*hw, 7, shift, DEVICE)
+    return wa, dict(scale=kw["scale"]), a
+
+
+def _whole_block_phase(label, fns, tolerance, inputs, modes, seeds):
+    """A NewCRF and a SAM whole-block kernel (``fns``: name -> (kernel,
+    plain version), NewCRF's first) against their plain versions at the
+    four stage shapes of 480x640 (every stage pads), batch 1 and 8, f32 and
+    bf16, NewCRF at shift 0 and 3 (rolled inputs, the rolled valid
+    geometry, the mask), each within ``tolerance`` and every call rerun
+    bit-equal; then at batch 8 in bf16 the time of one forward's calls
+    (CUDA graph replays; NewCRF: the two blocks of each stage, 8 calls;
+    SAM: 4) beside the bound, the plain version, the library yardstick of
+    ``_rowblock_library`` and the port's block module of the same block on
+    the unpadded map in each of ``modes``. ``inputs`` is
+    ``_block_inputs``' signature; ``seeds`` the seed bases of the checks
+    and of the timing."""
     from tpudepth_torch.models.newcrf import CRFBlock
     from tpudepth_torch.models.sam import SAMBlock
-    from tpudepth_torch.ops.kernels import rowblock_infer as rbi
 
-    names = ("crf_rowblock_infer", "sam_rowblock_infer")
-    hold = KernelHold("row kernel", names)
-    fns = {"crf_rowblock_infer": (rbi.crf_rowblock_infer,
-                                  rbi.crf_rowblock_infer_reference),
-           "sam_rowblock_infer": (rbi.sam_rowblock_infer,
-                                  rbi.sam_rowblock_infer_reference)}
-
+    crf, sam_name = fns
+    cases = ((crf, 0), (crf, 3), (sam_name, 0))
+    hold = KernelHold(label, fns)
     for i, (stage, c, heads, hw) in enumerate(ATTN_STAGES):
         for bsz in (1, SAM_BATCH):
             for dtype in (torch.float32, torch.bfloat16):
-                for name, shift in (("crf_rowblock_infer", 0),
-                                    ("crf_rowblock_infer", 3),
-                                    ("sam_rowblock_infer", 0)):
+                for name, shift in cases:
                     kern, plain = fns[name]
-                    a, kw = _rowblock_inputs(20 * i + bsz + shift, bsz, hw, c,
-                                             heads, shift, dtype,
-                                             sam=name.startswith("sam"))
+                    a, kw, _ = inputs(seeds[0] * i + bsz + shift, bsz, hw, c,
+                                      heads, shift, dtype,
+                                      sam=name == sam_name)
+                    tag = f"{stage} B{bsz} {str(dtype)[6:]} shift {shift}"
                     got = kern(**a, **kw)
                     torch.cuda.synchronize()
-                    hold(name, got, plain(**a, **kw), rbi.tolerance(dtype),
-                         f"{stage} B{bsz} {str(dtype)[6:]} shift {shift}")
+                    hold(name, got, plain(**a, **kw), tolerance(dtype), tag)
+                    check(torch.equal(got, kern(**a, **kw)),
+                          f"{name} {tag}: a rerun is not bit-equal")
                     del a, got
                 torch.cuda.empty_cache()
 
-    rows = {k: [] for k in names}
+    rows = {k: [] for k in fns}
     for i, (stage, c, heads, hw) in enumerate(ATTN_STAGES):
-        for name, shift in (("crf_rowblock_infer", 0), ("crf_rowblock_infer", 3),
-                            ("sam_rowblock_infer", 0)):
-            sam = name.startswith("sam")
+        for name, shift in cases:
+            sam = name == sam_name
             kern, plain = fns[name]
-            a, kw = _rowblock_inputs(200 + i + shift, SAM_BATCH, hw, c, heads,
-                                     shift, torch.bfloat16, sam=sam)
-            # the module of the same block, on the unpadded map, row and fused
+            a, kw, image = inputs(seeds[1] + i + shift, SAM_BATCH, hw, c,
+                                  heads, shift, torch.bfloat16, sam=sam)
             h, w = hw
             block = {}
-            for mode in ("row", "fused"):
+            for mode in modes:
                 blk = (SAMBlock(c, heads, 7, mode=mode) if sam else
                        CRFBlock(c, heads, 7, shift_size=shift, mode=mode))
                 block[mode] = blk.to(DEVICE).eval()
-            block["fused"].load_state_dict(block["row"].state_dict())
+                block[mode].load_state_dict(block[modes[0]].state_dict())
             xb = torch.randn(SAM_BATCH, h, w, c, device=DEVICE,
                              dtype=torch.bfloat16)
             vb = torch.randn(SAM_BATCH, h, w, c, device=DEVICE,
@@ -1612,30 +1632,67 @@ def phase_rowblock_kernels():
                 ms = time_ms(lambda: kern(**a, **kw), per_graph=4, replays=10)
                 plain_ms = time_ms(lambda: plain(**a, **kw), per_graph=1,
                                    replays=5)
-                lib_ms = time_ms(_rowblock_library(a, sam), per_graph=4,
+                lib_ms = time_ms(_rowblock_library(image, sam), per_graph=4,
                                  replays=10)
-                row_block_ms = time_ms(lambda: block["row"](xb, vb),
-                                       per_graph=4, replays=10)
-                fused_block_ms = time_ms(lambda: block["fused"](xb, vb),
-                                         per_graph=4, replays=10)
+                module_ms = {mode: time_ms(lambda: blk(xb, vb), per_graph=4,
+                                           replays=10)
+                             for mode, blk in block.items()}
             rows[name].append({
                 "name": stage, "shift": shift, "C": c, "heads": heads,
-                "tokens": SAM_BATCH * hw[0] * hw[1],
-                "padded_tokens": SAM_BATCH * a["x"].shape[1] * a["x"].shape[2],
+                "tokens": SAM_BATCH * h * w,
+                "padded_tokens": image["x"].shape[:3].numel(),
                 "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
                 "bound_ms": bound, "bytes_ms": t_b, "ops_ms": t_o,
-                "row_block_ms": row_block_ms,
-                "fused_block_ms": fused_block_ms})
-            print(f"[row kernel time] {name:<19} {stage} shift {shift} "
+                **{f"{mode}_module_ms": t for mode, t in module_ms.items()}})
+            print(f"[{label} time] {name:<19} {stage} shift {shift} "
                   f"B{SAM_BATCH} bf16 (C {c}): kernel {ms:.4f} ms, plain "
                   f"{plain_ms:.4f} ms, library {lib_ms:.4f} ms, bound "
                   f"{bound:.4f} ms ({'bytes' if t_b >= t_o else 'operations'}"
                   f"; {100 * bound / ms:.1f}% of bound); the block as a "
-                  f"module: row {row_block_ms:.4f} ms, fused "
-                  f"{fused_block_ms:.4f} ms", flush=True)
-            del a, block, xb, vb
+                  "module: " + ", ".join(f"{m} {t:.4f} ms"
+                                         for m, t in module_ms.items()),
+                  flush=True)
+            del a, image, block, xb, vb
             torch.cuda.empty_cache()
     return rows, hold.err, hold.err_rel, hold.checks
+
+
+def phase_rowblock_kernels():
+    """[row kernel]: ``crf_rowblock_infer`` and ``sam_rowblock_infer`` by
+    ``_whole_block_phase``, beside the port's ``row`` module (pad, roll,
+    the kernels, roll, crop) and its ``fused`` composition of the same
+    block (LN, pad, roll, window partition, qk product,
+    ``window_attn_infer``, reverse, roll, crop, ``block_epilogue_infer``)."""
+    from tpudepth_torch.ops.kernels import rowblock_infer as rbi
+
+    def inputs(*args, sam):
+        a, kw = _rowblock_inputs(*args, sam=sam)
+        return a, kw, a
+
+    return _whole_block_phase(
+        "row kernel",
+        {"crf_rowblock_infer": (rbi.crf_rowblock_infer,
+                                rbi.crf_rowblock_infer_reference),
+         "sam_rowblock_infer": (rbi.sam_rowblock_infer,
+                                rbi.sam_rowblock_infer_reference)},
+        rbi.tolerance, inputs, ("row", "fused"), (20, 200))
+
+
+def phase_block_kernels():
+    """[block kernel]: ``crf_block_infer`` and ``sam_block_infer`` by
+    ``_whole_block_phase`` on the windows of the same maps and the valid
+    table, beside the port's ``block`` module (pad, roll, partition, the
+    kernels, reverse, roll, crop), its ``row`` module and its ``fused``
+    composition of the same block."""
+    from tpudepth_torch.ops.kernels import block_infer as bi
+
+    return _whole_block_phase(
+        "block kernel",
+        {"crf_block_infer": (bi.crf_block_infer,
+                             bi.crf_block_infer_reference),
+         "sam_block_infer": (bi.sam_block_infer,
+                             bi.sam_block_infer_reference)},
+        bi.tolerance, _block_inputs, ("block", "row", "fused"), (30, 300))
 
 
 def serve_attention_model(name, label, blocks, per_forward, bf16_bounds):
@@ -1651,6 +1708,7 @@ def serve_attention_model(name, label, blocks, per_forward, bf16_bounds):
     from tpudepth_torch.infer.engine import InferenceEngine
     from tpudepth_torch.models.layers import init_random_
     from tpudepth_torch.models.registry import build_model
+    from tpudepth_torch.ops.kernels import block_infer as bi
     from tpudepth_torch.ops.kernels import epilogue_infer as ei
     from tpudepth_torch.ops.kernels import mlp_infer as mi
     from tpudepth_torch.ops.kernels import rowblock_infer as rbi
@@ -1660,7 +1718,9 @@ def serve_attention_model(name, label, blocks, per_forward, bf16_bounds):
                 "block_epilogue_infer": ei.block_epilogue_infer,
                 "mlp_infer": mi.mlp_infer,
                 "sam_rowblock_infer": rbi.sam_rowblock_infer,
-                "crf_rowblock_infer": rbi.crf_rowblock_infer}
+                "crf_rowblock_infer": rbi.crf_rowblock_infer,
+                "sam_block_infer": bi.sam_block_infer,
+                "crf_block_infer": bi.crf_block_infer}
     modes = list(per_forward)
     weights = init_random_(build_model(name, attn="plain"), seed=0).state_dict()
     models = {}
@@ -1767,25 +1827,93 @@ def serve_attention_model(name, label, blocks, per_forward, bf16_bounds):
 
 
 def phase_sam_serving():
-    """SAM serving (four blocks a forward): ``fused`` (the main path), then
-    ``pair`` and ``row``."""
+    """SAM serving (four blocks a forward): ``fused`` (the default), then
+    ``pair``, ``row`` and ``block``."""
     return serve_attention_model(
         "sam", "MobileV3SAMDepth", 4,
         {"fused": ("window_attn_infer", "block_epilogue_infer"),
          "pair": ("window_attn_infer", "mlp_infer"),
-         "row": ("sam_rowblock_infer",)},
+         "row": ("sam_rowblock_infer",),
+         "block": ("sam_block_infer",)},
         (SAM_BF16_REL_L2, SAM_BF16_REL_MAX))
 
 
 def phase_newcrf_serving():
     """NewCRF serving (eight blocks a forward, two a stage): ``row`` (the
-    main path), then ``fused`` and ``pair``."""
+    default), then ``fused``, ``pair`` and ``block``."""
     return serve_attention_model(
         "newcrf", "MobileV3NewCRFDepth", 8,
         {"row": ("crf_rowblock_infer",),
          "fused": ("window_attn_infer", "block_epilogue_infer"),
-         "pair": ("window_attn_infer", "mlp_infer")},
+         "pair": ("window_attn_infer", "mlp_infer"),
+         "block": ("crf_block_infer",)},
         (NEWCRF_BF16_REL_L2, NEWCRF_BF16_REL_MAX))
+
+
+def phase_root_eval():
+    """Each attention model in ``block`` mode through the bf16
+    ``InferenceEngine`` and ``RootEvaluator`` over seeded synthetic NYU-like
+    batches, against the f32 plain model on the same weights through the
+    same evaluator, each metric within EVAL_BF16_REL + EVAL_BF16_ABS (as
+    [eval] holds ``AlhashimEvaluator``); the whole-block kernel's launches
+    counted over exactly the evaluation (a block each a forward)."""
+    from tpudepth_torch.core.config import EvalConfig
+    from tpudepth_torch.eval.evaluator import RootEvaluator
+    from tpudepth_torch.eval.metrics import METRIC_NAMES
+    from tpudepth_torch.infer.engine import InferenceEngine
+    from tpudepth_torch.models.layers import init_random_
+    from tpudepth_torch.models.registry import build_model
+    from tpudepth_torch.ops.kernels import block_infer as bi
+
+    rng = np.random.default_rng(500)
+    h, w = TRAIN_HW
+    loader = [{"image": rng.random((SAM_BATCH, h, w, 3), dtype=np.float32),
+               "depth": rng.random((SAM_BATCH, h, w, 1), dtype=np.float32)
+               * 0.9 + 0.05} for _ in range(2)]
+    out = {}
+    for name, blocks, kernel in (("sam", 4, bi.sam_block_infer),
+                                 ("newcrf", 8, bi.crf_block_infer)):
+        cfg = EvalConfig(model=name, dataset="nyu_reduced", resolution="full",
+                         batch_size=SAM_BATCH)
+        weights = init_random_(build_model(name, attn="plain"),
+                               seed=0).state_dict()
+        models = {}
+        for mode in ("block", "plain"):
+            models[mode] = build_model(name, attn=mode)
+            models[mode].load_state_dict(weights)
+        engine = InferenceEngine(models["block"], (SAM_BATCH, 3, h, w),
+                                 compute_dtype=torch.bfloat16)
+        kernel.launches = 0
+        t0 = time.perf_counter()
+        got = RootEvaluator(engine, cfg).evaluate(loader)
+        t_eval = time.perf_counter() - t0
+        launches = kernel.launches
+        check(launches == blocks * len(loader),
+              f"{name} root evaluation launched {kernel.__name__} "
+              f"{launches} times")
+        ref = RootEvaluator(InferenceEngine(models["plain"],
+                                            (SAM_BATCH, 3, h, w),
+                                            compute_dtype=torch.float32),
+                            cfg).evaluate(loader)
+        print(f"[root eval] {name}: RootEvaluator, {len(loader)} batches of "
+              f"{SAM_BATCH}, Garg crop, block bf16 engine in {t_eval:.2f} s "
+              f"host clock ({kernel.__name__} launches {launches}); "
+              + RootEvaluator.format_report(got, SAM_BATCH * len(loader))
+              .replace("\n", " | "), flush=True)
+        for k in METRIC_NAMES:
+            a, b = got[k], ref[k]
+            check(np.isfinite(a) and np.isfinite(b), f"{name} {k} not finite")
+            print(f"[root eval] {name} {k:<8} block bf16 engine {a:.6f}   "
+                  f"plain f32 model {b:.6f}")
+            check(abs(a - b) <= EVAL_BF16_REL * abs(b) + EVAL_BF16_ABS,
+                  f"{name} metric {k}: {a} against {b}")
+        check(0.0 <= got["d1"] <= got["d2"] <= got["d3"] <= 1.0,
+              f"{name} delta order")
+        out[name] = {"metrics": got, "plain_f32": ref, "launches": launches,
+                     "seconds": t_eval}
+        del models, engine
+        torch.cuda.empty_cache()
+    return out
 
 
 # -- SAM and NewCRF training -----------------------------------------------
@@ -2335,12 +2463,14 @@ def main() -> int:
     loss_rows, loss_err = phase_loss_kernels()
     bwd_rows, bwd_err, bwd_checks = phase_bwd_kernels()
     sam_rows, sam_err, sam_err_rel, sam_checks = phase_sam_kernels()
-    row_rows, row_err, row_err_rel, row_checks = phase_rowblock_kernels()
+    row_phase = phase_rowblock_kernels()
+    blk_phase = phase_block_kernels()
     tk_rows, tk_err, tk_err_rel, tk_checks = phase_train_kernels()
     rl_rows, rl_err, rl_checks = phase_root_loss_kernels()
     launches, errs, perf = phase_serving()
     sam_launches, sam_per_mode, sam_errs, sam_perf = phase_sam_serving()
     crf_launches, crf_per_mode, crf_errs, crf_perf = phase_newcrf_serving()
+    root_eval = phase_root_eval()
     with tempfile.TemporaryDirectory() as tmp:
         train, plain_trainer, cfg, loaders = phase_training(tmp)
         fused_train, fused_trainer = phase_training_fused(
@@ -2479,41 +2609,50 @@ def main() -> int:
             "library_ms": total(table, "library_ms"),
             "shapes": table,
         })
-    for name, line, served, per_mode, calls in (
-            ("crf_rowblock_infer", 270, crf_launches, crf_per_mode,
-             "the eight calls of one B8 480x640 bf16 NewCRF forward (two "
-             "blocks a stage, shift 0 and 3; crf3..crf0 summed)"),
-            ("sam_rowblock_infer", 355, sam_launches, sam_per_mode,
-             "the four calls of one B8 480x640 bf16 SAM forward (crf3..crf0 "
-             "summed)")):
-        table = row_rows[name]
+    newcrf_calls = ("the eight calls of one B8 480x640 bf16 NewCRF forward "
+                    "(two blocks a stage, shift 0 and 3; crf3..crf0 summed)")
+    sam_calls = ("the four calls of one B8 480x640 bf16 SAM forward "
+                 "(crf3..crf0 summed)")
+    for name, module, line, served, per_mode, calls, (table, err, err_rel,
+                                                      checks), modes in (
+            ("crf_rowblock_infer", "rowblock_infer", 270, crf_launches,
+             crf_per_mode, newcrf_calls, row_phase, ("row", "fused")),
+            ("sam_rowblock_infer", "rowblock_infer", 355, sam_launches,
+             sam_per_mode, sam_calls, row_phase, ("row", "fused")),
+            ("sam_block_infer", "block_infer", 201, sam_launches,
+             sam_per_mode, sam_calls, blk_phase, ("block", "row", "fused")),
+            ("crf_block_infer", "block_infer", 279, crf_launches,
+             crf_per_mode, newcrf_calls, blk_phase,
+             ("block", "row", "fused"))):
+        table = table[name]
         kernels.append({
             "name": name,
             "route": "cuda",
-            "source": "tpudepth_torch/csrc/rowblock_infer.cu",
-            "replaces": f"tpudepth/ops/pallas/rowblock_infer.py:{line}",
-            "replaces_function": f"tpudepth/ops/pallas/rowblock_infer.py::{name}",
+            "source": f"tpudepth_torch/csrc/{module}.cu",
+            "replaces": f"tpudepth/ops/pallas/{module}.py:{line}",
+            "replaces_function": f"tpudepth/ops/pallas/{module}.py::{name}",
             "launches": served[name],
             "launches_by_mode": {m: c[name] for m, c in per_mode.items()},
-            "max_abs_err": row_err[name],
-            "max_rel_err": row_err_rel[name],
-            "checks": row_checks[name],
+            "max_abs_err": err[name],
+            "max_rel_err": err_rel[name],
+            "checks": checks[name],
             "ok": True,
             "timed": f"device time of {calls}, each call its 3 (NewCRF) or 4 "
                      "(SAM) kernels and the wrapper's weight casts, CUDA "
                      "graph replays; bound_ms counts the real (cropped) "
                      "tokens only; library_ms is the block's four cuBLAS "
                      "bf16 products alone plus F.scaled_dot_product_attention "
-                     "with bias and mask as attn_mask; fused_block_ms is the "
-                     "port's fused composition of the same blocks, "
-                     "row_block_ms the row module around these calls",
+                     "with bias and mask as attn_mask; "
+                     + ", ".join(f"{m}_module_ms" for m in modes)
+                     + " are the port's block module of the same blocks in "
+                       "those modes",
             "ms": total(table, "ms"),
             "plain_ms": total(table, "plain_ms"),
             "bound_ms": total(table, "bound_ms"),
             "bound_by": bound_by(table),
             "library_ms": total(table, "library_ms"),
-            "row_block_ms": total(table, "row_block_ms"),
-            "fused_block_ms": total(table, "fused_block_ms"),
+            **{f"{m}_module_ms": total(table, f"{m}_module_ms")
+               for m in modes},
             "shapes": table,
         })
     for name, line, fn, src, yardstick, err_keys in (
@@ -2592,7 +2731,7 @@ def main() -> int:
     print(json.dumps({"kernels": kernels, "serve_errors": errs,
                       "sam_serve_errors": sam_errs, "sam_engine": sam_perf,
                       "newcrf_serve_errors": crf_errs,
-                      "newcrf_engine": crf_perf,
+                      "newcrf_engine": crf_perf, "root_eval": root_eval,
                       "engine_img_per_s": perf, "training": train,
                       "fused_training": fused_train, "evaluation": evaluation,
                       "attention_training": attn_train,

@@ -1008,3 +1008,126 @@ def test_attention_models_train_on_the_card_like_the_plain_model(
     for n, t in g.items():
         assert float((t - g0[n]).abs().max()) <= max(
             1e-3 * float(g0[n].abs().max()), floor), n
+
+
+# -- the whole-block mode of SAM and NewCRF: crf_block_infer, sam_block_infer
+
+from tpudepth_torch.ops.kernels import block_infer as bi  # noqa: E402
+from tpudepth_torch.ops.window import (  # noqa: E402
+    window_partition,
+    window_valid_mask_on,
+)
+
+
+def _block_case(seed, bsz, h, w, c, heads, shift, dtype, device, sam=False,
+                ws=7):
+    """Keyword arguments of one whole-block call: the raw windows of
+    ``_rowblock_case``'s padded (and rolled) x and v, its weights, bias and
+    mask, and the valid table of the map (None without pad)."""
+    a, kw = _rowblock_case(seed, bsz, h, w, c, heads, shift, dtype, device,
+                           sam=sam, ws=ws)
+    n = ws * ws
+    a["xw"], a["vw"] = (window_partition(a.pop(k), ws).reshape(-1, n, c)
+                        .contiguous() for k in ("x", "v"))
+    a["valid"] = window_valid_mask_on(h, w, ws, shift, device)
+    return a, dict(scale=kw["scale"])
+
+
+# (B, h, w, C, heads): the four stages at 480x640, B 1 and 8, every one
+# padded; an odd geometry padded in H and W (C 32, head width 8); and a map
+# without pad (valid None)
+BLOCK_CASES = [(bsz, *hw, c, heads) for c, heads, hw in
+               ((1024, 32, (15, 20)), (512, 16, (30, 40)), (256, 8, (60, 80)),
+                (128, 4, (120, 160))) for bsz in (1, 8)] + [
+                   (2, 10, 13, 32, 4), (1, 14, 21, 64, 2)]
+BLOCK_IDS = [f"{s}-B{b}" for s in ("crf3", "crf2", "crf1", "crf0")
+             for b in (1, 8)] + ["odd", "nopad"]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("shift", [0, 3], ids=["shift0", "shift3"])
+@pytest.mark.parametrize("case", BLOCK_CASES, ids=BLOCK_IDS)
+def test_crf_block_infer_matches_plain(cuda, case, shift, dtype):
+    a, kw = _block_case(sum(case) + shift, *case, shift, dtype, cuda)
+    before = bi.crf_block_infer.launches
+    got = bi.crf_block_infer(**a, **kw)
+    torch.cuda.synchronize()
+    assert bi.crf_block_infer.launches == before + 1
+    want = bi.crf_block_infer_reference(**a, **kw)
+    assert got.dtype == dtype and got.shape == a["xw"].shape
+    _close(got, want, bi.tolerance(dtype))
+    assert torch.equal(got, bi.crf_block_infer(**a, **kw))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", BLOCK_CASES, ids=BLOCK_IDS)
+def test_sam_block_infer_matches_plain(cuda, case, dtype):
+    a, kw = _block_case(sum(case) + 1, *case, 0, dtype, cuda, sam=True)
+    before = bi.sam_block_infer.launches
+    got = bi.sam_block_infer(**a, **kw)
+    torch.cuda.synchronize()
+    assert bi.sam_block_infer.launches == before + 1
+    want = bi.sam_block_infer_reference(**a, **kw)
+    assert got.dtype == dtype and got.shape == a["xw"].shape
+    _close(got, want, bi.tolerance(dtype))
+    assert torch.equal(got, bi.sam_block_infer(**a, **kw))
+
+
+def test_block_kernels_refuse_what_they_do_not_take(cuda):
+    before = (bi.crf_block_infer.launches, bi.sam_block_infer.launches)
+    a, kw = _block_case(10, 1, 10, 13, 48, 2, 0, torch.float32, cuda)
+    with pytest.raises(ValueError, match="multiples of 32"):
+        bi.crf_block_infer(**a, **kw)           # C 48
+    a, kw = _block_case(11, 1, 10, 13, 96, 8, 0, torch.float32, cuda)
+    with pytest.raises(ValueError, match="head width"):
+        bi.crf_block_infer(**a, **kw)           # head width 12
+    a, kw = _block_case(12, 1, 10, 13, 64, 2, 0, torch.float32, cuda,
+                        sam=True, ws=9)
+    with pytest.raises(ValueError, match="64 tokens"):
+        bi.sam_block_infer(**a, **kw)           # 81 tokens a window
+    a, kw = _block_case(13, 1, 10, 13, 64, 2, 3, torch.bfloat16, cuda)
+    x = torch.zeros(a["xw"].numel() + 1, dtype=torch.bfloat16, device=cuda)[1:]
+    with pytest.raises(ValueError, match="aligned"):
+        bi.crf_block_infer(**dict(a, xw=x.view(a["xw"].shape)), **kw)
+    xh, vh = torch.cat([a["xw"], a["vw"]], dim=-1).chunk(2, dim=-1)
+    with pytest.raises(ValueError, match="contiguous"):
+        bi.crf_block_infer(**dict(a, xw=xh, vw=vh), **kw)
+    valid = torch.cat([a["valid"], a["valid"]], dim=-1)[:, ::2]
+    with pytest.raises(ValueError, match="valid"):
+        bi.crf_block_infer(**dict(a, valid=valid), **kw)
+    with pytest.raises(ValueError, match="valid"):
+        bi.crf_block_infer(**dict(a, valid=a["valid"].cpu()), **kw)
+    with pytest.raises(TypeError):
+        bi.crf_block_infer(**dict(a, xw=a["xw"].half(), vw=a["vw"].half()),
+                           **kw)
+    assert (bi.crf_block_infer.launches,
+            bi.sam_block_infer.launches) == before   # nothing fell back
+
+
+@pytest.mark.parametrize("name,blocks", [("sam", 4), ("newcrf", 8)])
+def test_block_mode_model_on_the_card_matches_the_plain_model(cuda, name,
+                                                              blocks):
+    """SAM and NewCRF at 1x3x64x96 f32 in ``block`` mode against the plain
+    model on the card (summation order only): one whole-block call a block
+    and no other attention kernel."""
+    from tpudepth_torch.models.layers import init_random_
+    from tpudepth_torch.models.registry import build_model
+
+    plain = init_random_(build_model(name, attn="plain"), seed=0)
+    model = build_model(name, attn="block")
+    model.load_state_dict(plain.state_dict())
+    x = torch.rand(1, 3, 64, 96, generator=torch.Generator().manual_seed(4))
+    x = x.to(cuda).contiguous(memory_format=torch.channels_last)
+    fns = (bi.sam_block_infer if name == "sam" else bi.crf_block_infer,
+           rbi.crf_rowblock_infer, rbi.sam_rowblock_infer,
+           wai.window_attention_infer, ei.block_epilogue_infer, mi.mlp_infer)
+    with torch.no_grad():
+        want = plain.to(cuda).eval()(x)
+        before = [f.launches for f in fns]
+        got = model.to(cuda).eval()(x)
+    torch.cuda.synchronize()
+    assert tuple(f.launches - b for f, b in zip(fns, before)) == (
+        blocks, 0, 0, 0, 0, 0)
+    assert float((got - want).norm() / want.norm()) < 1e-5

@@ -13,9 +13,13 @@ REQUIRED = ("tpudepth_torch.models.sam", "tpudepth_torch.models.newcrf",
             "tpudepth_torch.ops.kernels.window_attn_infer",
             "tpudepth_torch.ops.kernels.epilogue_infer",
             "tpudepth_torch.ops.kernels.rowblock_infer",
+            "tpudepth_torch.ops.kernels.block_infer",
             "tpudepth_torch.ops.kernels.window_attn",
             "tpudepth_torch.ops.kernels.mlp_train",
-            "tpudepth_torch.ops.kernels.fused_root_loss")
+            "tpudepth_torch.ops.kernels.fused_root_loss",
+            "tpudepth_torch.eval.evaluator")
+# (module, name): what those modules must define
+REQUIRED_NAMES = (("tpudepth_torch.eval.evaluator", "RootEvaluator"),)
 
 
 def _forbidden(name: str) -> bool:
@@ -33,6 +37,8 @@ def test_importing_every_module_loads_no_jax_flax_or_tpudepth():
         "bad = sorted(m for m in sys.modules\n"
         f"             if m.split('.')[0] in {FORBIDDEN!r})\n"
         f"missing = sorted(set({REQUIRED!r}) - set(names))\n"
+        f"missing += [m + '.' + c for m, c in {REQUIRED_NAMES!r}\n"
+        "            if not hasattr(sys.modules.get(m), c)]\n"
         "print(len(names), bad, missing)\n"
         "sys.exit(1 if bad or missing or len(names) < 30 else 0)\n"
     )

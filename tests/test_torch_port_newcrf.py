@@ -1,15 +1,15 @@
 """Port MobileV3NewCRFDepth (tpudepth_torch) against the JAX package, on the
-CPU: the CRF block (unshifted and shifted) and the NewCRF stage in the four
-block modes, the whole model, the JAX package's own row-kernel and fused
-glue, the weight bridge, the guards, the registry and the CLI.
+CPU: the CRF block (unshifted and shifted) and the NewCRF stage in the five
+block modes, the whole model, the JAX package's own row-kernel, fused and
+whole-block glue, the weight bridge, the guards, the registry and the CLI.
 
 The same weights feed both packages: a port module filled by
 ``init_random_`` and carried to JAX by ``tpudepth.models.torch_import``, or
 the JAX model's own tree filled from a numpy seed and carried to the port by
 ``newcrf_state_dict_from_flax``. On the CPU the port's kernel wrappers run
-their plain versions, so the ``row``, ``fused`` and ``pair`` modes hold the
-glue around the kernels (padding, the roll and its mask, windows, the crop,
-the order of the residuals). Tolerance: rtol 1e-3, atol 1e-4 in f32 (what
+their plain versions, so the ``row``, ``fused``, ``pair`` and ``block``
+modes hold the glue around the kernels (padding, the roll and its mask,
+windows, the crop, the order of the residuals). Tolerance: rtol 1e-3, atol 1e-4 in f32 (what
 ``tests/test_models.py`` holds the JAX model to against the reference
 PyTorch model).
 """
@@ -25,6 +25,7 @@ import torch
 import torch.nn as nn
 
 import tpudepth.models.newcrf as jax_newcrf
+import tpudepth.ops.pallas.block_infer as jax_bi
 import tpudepth.ops.pallas.epilogue_infer as jax_ei
 import tpudepth.ops.pallas.rowblock_infer as jax_rbi
 from tpudepth.models import build_model as jax_build_model
@@ -46,7 +47,7 @@ from tpudepth_torch.ops import window as port_window
 
 RTOL, ATOL = 1e-3, 1e-4
 HW = (64, 96)
-MODES = ["plain", "pair", "fused", "row"]
+MODES = ["plain", "pair", "fused", "row", "block"]
 SHIFTS = [0, 3]
 
 
@@ -148,6 +149,24 @@ def test_crf_block_fused_glue_matches_the_jax_fused_glue(stage, shift,
     # 2*10*12 = 240 rows: a multiple of 8, which the JAX kernel's tiles need
     want = _jax_block(params, shift, x, v)
     got = _port_block(state, "fused", shift, x, v)
+    np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("shift", SHIFTS, ids=["shift0", "shift3"])
+def test_crf_block_whole_block_glue_matches_the_jax_fused_block_glue(
+        stage, shift, monkeypatch):
+    """JAX's own whole-block path (``TPUDEPTH_BLOCK=fused``: pad, roll, the
+    shift mask and the rolled valid table, windows, the block kernel in
+    interpret mode, reverse, unroll, crop) against the port's ``block``
+    mode."""
+    state, params, _, (x, v) = stage
+    monkeypatch.setattr(jax_newcrf.CRFBlock, "_use_fused_block",
+                        lambda self, c: True)
+    monkeypatch.setattr(jax_bi, "crf_block_infer",
+                        functools.partial(jax_bi.crf_block_infer,
+                                          interpret=True))
+    want = _jax_block(params, shift, x, v)
+    got = _port_block(state, "block", shift, x, v)
     np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)
 
 

@@ -213,4 +213,5 @@ def test_every_source_of_the_package_finds_its_headers():
         for path in _build.inputs(name):
             assert path.is_file(), path
     assert [p.name for p in _build.inputs("rowblock_infer")] == [
-        "rowblock_infer.cu", "block_tail.cuh", "window_attn.cuh"]
+        "rowblock_infer.cu", "block_tail.cuh", "ln_proj.cuh",
+        "window_attn.cuh"]

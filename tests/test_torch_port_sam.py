@@ -1,15 +1,16 @@
 """Port MobileV3SAMDepth (tpudepth_torch) against the JAX package, on the CPU:
 the window ops, ConvBNAct, MobileNetV3 Large and Small, the SAM block and
-stage in the four block modes, the whole model, the JAX package's own fused
-and row-kernel glue, the weight bridge, and the guards of what is not
-ported.
+stage in the five block modes, the whole model, the JAX package's own
+fused, row-kernel and whole-block glue, the weight bridge, and the guards
+of what is not ported.
 
 The same weights feed both packages: the JAX model's own tree filled from a
 numpy seed and carried to the port by ``sam_state_dict_from_flax``, or a
 port module filled by ``init_random_`` and carried to JAX by
 ``tpudepth.models.torch_import``. On the CPU the port's kernel wrappers run
-their plain versions, so the ``pair`` and ``fused`` modes hold the glue
-around the kernels (padding, windows, crop, the order of the residuals).
+their plain versions, so the ``pair``, ``fused``, ``row`` and ``block``
+modes hold the glue around the kernels (padding, windows, crop, the order
+of the residuals).
 Tolerance: rtol 1e-3, atol 1e-4 in f32 (what ``tests/test_models.py`` holds
 the JAX model to against the reference PyTorch model).
 """
@@ -25,6 +26,7 @@ import torch
 import torch.nn as nn
 
 import tpudepth.models.sam as jax_sam
+import tpudepth.ops.pallas.block_infer as jax_bi
 import tpudepth.ops.pallas.epilogue_infer as jax_ei
 import tpudepth.ops.pallas.rowblock_infer as jax_rbi
 from tpudepth.models import build_model as jax_build_model
@@ -51,7 +53,7 @@ from tpudepth_torch.ops import window as port_window
 
 RTOL, ATOL = 1e-3, 1e-4
 HW = (64, 96)
-MODES = ["plain", "pair", "fused", "row"]
+MODES = ["plain", "pair", "fused", "row", "block"]
 
 
 def _nchw(x):
@@ -210,6 +212,24 @@ def test_sam_block_row_glue_matches_the_jax_row_glue(stage, monkeypatch):
                                           interpret=True))
     want = _jax_block(params, x, v)
     blk = _port_stage(state, "row").sam_block
+    with torch.no_grad():
+        got = blk(torch.from_numpy(x), torch.from_numpy(v)).numpy()
+    np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)
+
+
+def test_sam_block_whole_block_glue_matches_the_jax_fused_block_glue(
+        stage, monkeypatch):
+    """JAX's own whole-block path (``TPUDEPTH_BLOCK=fused``: pad, windows,
+    the valid table, the block kernel in interpret mode, reverse, crop)
+    against the port's ``block`` mode."""
+    state, params, _, (x, v) = stage
+    monkeypatch.setattr(jax_sam.SAMBlock, "_use_fused_block",
+                        lambda self, c: True)
+    monkeypatch.setattr(jax_bi, "sam_block_infer",
+                        functools.partial(jax_bi.sam_block_infer,
+                                          interpret=True))
+    want = _jax_block(params, x, v)
+    blk = _port_stage(state, "block").sam_block
     with torch.no_grad():
         got = blk(torch.from_numpy(x), torch.from_numpy(v)).numpy()
     np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)

@@ -1,0 +1,216 @@
+// Whole transformer blocks of SAM and NewCRF for inference, for Hopper
+// (sm_90a), over raw padded windows [BW, N, C] (window-major: token i of
+// window w is row w N + i):
+//
+//   crf_block_infer:  q, k = LN1(x) valid Wqk + bqk;  values v (raw)
+//   sam_block_infer:  q = LN1(x) valid Wq + bq;  k, v = LNv(v) valid Wkv + bkv
+//   both:             o = window attention (+ bias, + shift mask)
+//                     y = x + o Wp + bp;  out = y + fc2(gelu(fc1(LN2(y))))
+//
+// The windows are not normalized, zero-padded to multiples of the window
+// and, for a shifted NewCRF block, already rolled by (-shift, -shift).
+// valid [nW, N] is 1 on the real tokens and 0 on the pad (window w takes
+// row w % nW; absent when the map has no pad), so a pad token's query, key
+// and value are the projections' biases alone, as where the reference pads
+// after its LayerNorm. The output's pad rows hold garbage the caller crops.
+//
+// Replaces tpudepth/ops/pallas/block_infer.py::sam_block_infer (:201, body
+// _sam_kernel :114-138) and ::crf_block_infer (:279, body _crf_kernel
+// :141-171), the Pallas TPU kernels. Same arithmetic, in this order:
+//   * LN1(x) (and LNv(v)) in f32 with flax's fast variance, times valid,
+//     rounded to the IO dtype; weights rounded to the IO dtype, products
+//     summed in f32;
+//   * q = (LN1(x) Wq + bq) * scale in f32, rounded once; k (and SAM's
+//     projected values) rounded; NewCRF's values are the raw v;
+//   * the window attention of window_attn.cuh: f32 scores plus bias (plus
+//     mask), f32 softmax, probabilities rounded, p v summed in f32, o
+//     rounded;
+//   * the tail, unlike block_epilogue_infer's and the row kernels': y =
+//     x + (o Wp + bp) stays f32 and so does m = g W2 + b2 (the TPU kernel's
+//     _ffn_residual); only LN2(y), h = LN2(y) W1 + b1, g = gelu(h) (native
+//     erff; the TPU kernel's erf polynomial was a Mosaic workaround) and
+//     out = y + m are rounded.
+//
+// What bounds it: per real token 2 C (2C + C + 8C) = 22 C^2 operations for
+// NewCRF (24 C^2 for SAM: q, kv, proj, FFN) and 4 49 C for the attention,
+// against 3 C IO elements (x, v in, out): 1,500 to 7,500 operations per
+// bf16 byte at C 128..1024, far above the card's ~295: the bound is
+// operations. Pad tokens need none of it, though the kernels run every
+// padded token.
+//
+// Design. The TPU kernel held a tile of windows and every weight in VMEM.
+// A Hopper block has 227 KB of shared memory: one window's 49 x 1024 bf16
+// rows are 100 KB and SAM's weights 25 MB at C 1024. So the weights are
+// streamed from the 50 MB L2, and one entry launches a fixed number of
+// kernels on the caller's stream over the flat window-major rows
+// [M, C], M = BW N, whose products get full-height tiles:
+//   1. LayerNorm times valid and the projection (ln_proj.cuh), the row's
+//      valid entry valid[(row / N) % nW][row % N]: q scale and k (SAM: q;
+//      then k and v by a second launch) into an IO-dtype scratch;
+//   2. the attention, one block per (window, head) on wattn::WindowMajor
+//      rows, the mask of window w % nW added; o into the output buffer;
+//   3. the tail over the flat rows of o and x (block_tail.cuh, Mode
+//      kBlock), in place: each tail block reads its row tile of o into
+//      shared memory before it writes the same rows. bf16 keeps y as f32
+//      [BM, C] in shared memory; the tail's accumulator (64 floats a
+//      thread, BM = 16 .. 128 rows as C falls from 1024 to 128) already
+//      caps BM C at 16,384, so y takes at most 64 KB and no smaller tiles
+//      than block_epilogue_infer's are needed.
+// Launches per call: 3 for NewCRF, 4 for SAM. Scratch (allocated by the
+// caller): NewCRF 2 M C IO elements (q, k), SAM 3 M C (q, k, v); the output
+// buffer M C doubles as o. Fusing the projection into the attention would
+// need a window's 49 x C rows and their weight tiles in one block: a later
+// design.
+
+#include "block_tail.cuh"
+#include "ln_proj.cuh"
+#include "window_attn.cuh"
+
+namespace {
+
+// Token row `row` of the window-major rows is real (not pad):
+// valid[(row / n) % nw][row % n] != 0; every token when there is no table.
+struct TableValid {
+  const float* tab;
+  int n, nw;
+  __device__ __forceinline__ bool operator()(int row) const {
+    if (tab == nullptr) return true;
+    const int win = row / n;
+    return tab[(win % nw) * n + (row - win * n)] != 0.f;
+  }
+};
+
+// The geometry both blocks take: BW windows of n <= 64 tokens, BW a
+// multiple of the period nw of the mask and valid tables, C a width of the
+// tail (a multiple of 32, at most 128 or a multiple of 128, at most 1024),
+// heads of a width that is a multiple of 8 up to 64.
+bool geometry_ok(int bw, int n, int C, int heads, int hidden, int nw) {
+  return bw >= 1 && n >= 1 && n <= wattn::kMaxN && nw >= 1 && bw % nw == 0 &&
+         tail::width_ok(C) && C <= 1024 && tail::width_ok(hidden) &&
+         wattn::shape_ok(n, C, heads) &&
+         static_cast<long long>(bw) * n * 3 * C < (1LL << 31);
+}
+
+// The attention over the window-major rows, o written into out [M, C].
+cudaError_t attend(const void* q, const void* k, const void* v,
+                   long long ldq, long long ldk, long long ldv,
+                   const void* bias, const void* mask, void* out, int bw,
+                   int n, int C, int heads, int nw, bool bf16,
+                   cudaStream_t st) {
+  wattn::Params p = {};
+  p.q = q;
+  p.k = k;
+  p.v = v;
+  p.ldq = ldq;
+  p.ldk = ldk;
+  p.ldv = ldv;
+  p.ldo = C;
+  p.bias = static_cast<const float*>(bias);
+  p.mask = static_cast<const float*>(mask);
+  p.out = out;
+  p.N = n;
+  p.C = C;
+  p.heads = heads;
+  p.nW = nw;
+  const wattn::WindowMajor rows = {n};
+  return bf16 ? wattn::launch<__nv_bfloat16>(p, rows, bw, st)
+              : wattn::launch<float>(p, rows, bw, st);
+}
+
+// The tail in place on out (o in, block output out) with x as the
+// shortcut, y kept in f32.
+cudaError_t tail_in_place(const void* x, const void* wproj, const void* bproj,
+                          const void* ln2s, const void* ln2b, const void* w1,
+                          const void* b1, const void* w2, const void* b2,
+                          void* out, int M, int C, int hidden, int is_bf16,
+                          void* stream) {
+  tail::Params p = {};
+  p.o = out;
+  p.x = x;
+  p.wp = wproj;
+  p.bp = static_cast<const float*>(bproj);
+  p.lns = static_cast<const float*>(ln2s);
+  p.lnb = static_cast<const float*>(ln2b);
+  p.w1 = w1;
+  p.b1 = static_cast<const float*>(b1);
+  p.w2 = w2;
+  p.b2 = static_cast<const float*>(b2);
+  p.out = out;
+  p.M = M;
+  p.cin = C;
+  p.hidden = hidden;
+  p.cout = C;
+  return tail::run<tail::kBlock>(p, is_bf16, stream);
+}
+
+const void* offset(const void* base, int elems, int is_bf16) {
+  return static_cast<const char*>(base) +
+         static_cast<size_t>(elems) * (is_bf16 ? 2 : 4);
+}
+
+}  // namespace
+
+// The NewCRF block. x, v, out: contiguous [BW, n, C] of the IO dtype (x and
+// out 16-byte aligned); qk: scratch [BW, n, 2C] of the IO dtype. Weights in
+// the IO dtype in torch layout [out, in], contiguous; vectors, bias
+// [heads, n, n], mask (null, or [nw, n, n]) and valid (null, or [nw, n])
+// f32. nw is the period of the mask and valid tables (1 without them).
+// Returns a cudaError_t.
+extern "C" int crf_block_infer(
+    const void* x, const void* v, const void* ln1s, const void* ln1b,
+    const void* wqk, const void* bqk, const void* bias, const void* mask,
+    const void* wproj, const void* bproj, const void* ln2s, const void* ln2b,
+    const void* w1, const void* b1, const void* w2, const void* b2,
+    const void* valid, void* qk, void* out, int bw, int n, int C, int heads,
+    int hidden, int nw, float scale, int is_bf16, void* stream) {
+  if (!geometry_ok(bw, n, C, heads, hidden, nw)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int M = bw * n;
+  const TableValid tv = {static_cast<const float*>(valid), n, nw};
+  cudaError_t err = lnproj::run(
+      lnproj::params(x, ln1s, ln1b, wqk, bqk, qk, 2 * C, 2 * C, C, scale, M,
+                     C),
+      tv, is_bf16, st);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = attend(qk, offset(qk, C, is_bf16), v, 2 * C, 2 * C, C, bias, mask,
+               out, bw, n, C, heads, nw, is_bf16, st);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(tail_in_place(x, wproj, bproj, ln2s, ln2b, w1, b1,
+                                        w2, b2, out, M, C, hidden, is_bf16,
+                                        stream));
+}
+
+// The SAM block (never shifted). As crf_block_infer, with LNv and the q and
+// kv projections; qkv: scratch [BW, n, 3C] of the IO dtype.
+extern "C" int sam_block_infer(
+    const void* x, const void* v, const void* ln1s, const void* ln1b,
+    const void* lnvs, const void* lnvb, const void* wq, const void* bq,
+    const void* wkv, const void* bkv, const void* bias, const void* wproj,
+    const void* bproj, const void* ln2s, const void* ln2b, const void* w1,
+    const void* b1, const void* w2, const void* b2, const void* valid,
+    void* qkv, void* out, int bw, int n, int C, int heads, int hidden, int nw,
+    float scale, int is_bf16, void* stream) {
+  if (!geometry_ok(bw, n, C, heads, hidden, nw)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int M = bw * n;
+  const TableValid tv = {static_cast<const float*>(valid), n, nw};
+  cudaError_t err = lnproj::run(
+      lnproj::params(x, ln1s, ln1b, wq, bq, qkv, 3 * C, C, C, scale, M, C),
+      tv, is_bf16, st);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  void* kv = const_cast<void*>(offset(qkv, C, is_bf16));
+  err = lnproj::run(
+      lnproj::params(v, lnvs, lnvb, wkv, bkv, kv, 3 * C, 2 * C, 0, 1.0f, M, C),
+      tv, is_bf16, st);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = attend(qkv, kv, offset(qkv, 2 * C, is_bf16), 3 * C, 3 * C, 3 * C,
+               bias, nullptr, out, bw, n, C, heads, nw, is_bf16, st);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(tail_in_place(x, wproj, bproj, ln2s, ln2b, w1, b1,
+                                        w2, b2, out, M, C, hidden, is_bf16,
+                                        stream));
+}

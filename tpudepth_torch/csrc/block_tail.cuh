@@ -1,8 +1,10 @@
 // Device code of the transformer block tail and FFN for inference, shared
-// by epilogue_infer.cu (block_epilogue_infer, mlp_infer) and
-// rowblock_infer.cu (the tail of crf_rowblock_infer and sam_rowblock_infer,
-// and its LayerNorm-and-projection pass). The arithmetic, the design and
-// what bounds it are described at the top of epilogue_infer.cu.
+// by epilogue_infer.cu (block_epilogue_infer, mlp_infer), rowblock_infer.cu
+// and block_infer.cu (the tails of the whole-block kernels), and
+// ln_proj.cuh (the LayerNorm-and-projection pass in front of their
+// attention). The arithmetic, the design and what bounds it are described
+// at the top of epilogue_infer.cu; the tail of the whole-block kernels
+// (Mode kBlock) keeps y in f32, as the top of block_infer.cu describes.
 //
 // Everything is in namespace tail inside an unnamed namespace: each source
 // that includes it gets its own copy with internal linkage, and the names do
@@ -25,6 +27,15 @@ constexpr int kNC = 128;    // widest output (or hidden) chunk
 constexpr size_t kSmemLimit = 232448;  // 227 KB: the most a block may have
 constexpr float kInvSqrt2 = 0.70710678118654752f;
 
+// What a tail computes from the rows o (and the shortcut x):
+//   kFfn       out = round(fc2(gelu(fc1(o))))                  (mlp_infer)
+//   kEpilogue  z = round(o Wp + bp), y = round(x + z), m = round(fc2(...)),
+//              out = round(y + m)    (block_epilogue_infer, the row kernels)
+//   kBlock     y = x + (o Wp + bp) and m = fc2(...) kept in f32,
+//              out = round(y + m)                 (the whole-block kernels)
+// LN(y), h and gelu(h) are rounded to the IO dtype in every mode.
+enum Mode { kFfn, kEpilogue, kBlock };
+
 struct Params {
   const void* o;      // epilogue: attention output [M, C]; mlp: x [M, Cin]
   const void* x;      // epilogue: shortcut [M, C]; mlp: unused
@@ -44,6 +55,30 @@ __host__ __device__ inline int chunk_of(int n) { return n < kNC ? n : kNC; }
 
 __device__ __forceinline__ float bf16r(float v) {
   return __bfloat162float(__float2bfloat16(v));
+}
+
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+
+// y += z: a bf16 y takes z rounded and is rounded (kEpilogue); an f32 y
+// takes z as it is (kBlock).
+__device__ __forceinline__ void add_z(__nv_bfloat16* y, float z) {
+  *y = __float2bfloat16(__bfloat162float(*y) + bf16r(z));
+}
+__device__ __forceinline__ void add_z(float* y, float z) { *y += z; }
+
+// Eight bf16 values (one 16-byte piece) into y.
+__device__ __forceinline__ void store8(__nv_bfloat16* y, uint4 v) {
+  *reinterpret_cast<uint4*>(y) = v;
+}
+__device__ __forceinline__ void store8(float* y, uint4 v) {
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v);
+  const float2 a = __bfloat1622float2(h[0]), b = __bfloat1622float2(h[1]);
+  const float2 c = __bfloat1622float2(h[2]), d = __bfloat1622float2(h[3]);
+  reinterpret_cast<float4*>(y)[0] = make_float4(a.x, a.y, b.x, b.y);
+  reinterpret_cast<float4*>(y)[1] = make_float4(c.x, c.y, d.x, d.y);
 }
 
 __device__ __forceinline__ float gelu(float h) {
@@ -158,18 +193,33 @@ __device__ __forceinline__ void zero(float (&acc)[MT][NT][4]) {
 // in distinct banks.
 __host__ __device__ inline int padded(int n) { return n + (96 - n % 64) % 64; }
 
-__host__ __device__ inline size_t mma_smem_bytes(int mt, int cin, int hidden,
-                                                 bool epilogue) {
-  const size_t bm = 16 * static_cast<size_t>(mt);
-  return 2 * bm * (padded(cin) + (epilogue ? cin : 0) + padded(chunk_of(hidden)));
+// Bytes of y's row tile: bf16 (kEpilogue), f32 (kBlock) or none (kFfn).
+__host__ __device__ inline size_t y_bytes(Mode mode) {
+  return mode == kFfn ? 0 : mode == kEpilogue ? 2 : 4;
 }
+
+__host__ __device__ inline size_t mma_smem_bytes(int mt, int cin, int hidden,
+                                                 Mode mode) {
+  const size_t bm = 16 * static_cast<size_t>(mt);
+  return 2 * bm * (padded(cin) + padded(chunk_of(hidden))) +
+         y_bytes(mode) * bm * cin;
+}
+
+// The element type of y's row tile in shared memory.
+template <Mode kMode>
+struct YType { using T = __nv_bfloat16; };
+template <>
+struct YType<kBlock> { using T = float; };
 
 // NT = 16 / MT: the accumulator holds 64 floats per thread, which covers
 // Cout <= 1024 at MT = 1 (16 tiles per warp) down to Cout <= 128 at MT = 8.
-template <int MT, bool kEpilogue>
+// With it the f32 y of kBlock is at most 16 x 1024 floats (64 KB).
+template <int MT, Mode kMode>
 __global__ void __launch_bounds__(kThreads, 1) tail_mma_kernel(const Params p) {
   constexpr int NT = 16 / MT;
   constexpr int BM = 16 * MT;
+  constexpr bool kEpilogue = kMode != kFfn;
+  using Y = typename YType<kMode>::T;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
@@ -181,8 +231,10 @@ __global__ void __launch_bounds__(kThreads, 1) tail_mma_kernel(const Params p) {
   const int hc = chunk_of(p.hidden);
   const int ldg = padded(hc);
   __nv_bfloat16* a_s = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* y_s = a_s + BM * lda;                      // [BM][C]
-  __nv_bfloat16* g_s = y_s + (kEpilogue ? BM * C : 0);      // [BM][ldg]
+  Y* y_s = reinterpret_cast<Y*>(a_s + BM * lda);            // [BM][C]
+  __nv_bfloat16* g_s =
+      reinterpret_cast<__nv_bfloat16*>(y_s + (kEpilogue ? BM * C : 0));
+                                                            // [BM][ldg]
 
   // the row tile, 8 bf16 at a time; rows past M are zeros, never written
   const __nv_bfloat16* o = static_cast<const __nv_bfloat16*>(p.o);
@@ -197,8 +249,8 @@ __global__ void __launch_bounds__(kThreads, 1) tail_mma_kernel(const Params p) {
     *reinterpret_cast<uint4*>(a_s + r * lda + k) =
         in ? *reinterpret_cast<const uint4*>(o + gi) : zero4;
     if (kEpilogue) {
-      *reinterpret_cast<uint4*>(y_s + r * C + k) =
-          in ? *reinterpret_cast<const uint4*>(x + gi) : zero4;
+      store8(y_s + r * C + k,
+             in ? *reinterpret_cast<const uint4*>(x + gi) : zero4);
     }
   }
   __syncthreads();
@@ -206,8 +258,8 @@ __global__ void __launch_bounds__(kThreads, 1) tail_mma_kernel(const Params p) {
   float acc[MT][NT][4];
   const int ntiles = p.cout / 8;
   if (kEpilogue) {
-    // y = x + round(o Wp + bp), rounded, in place in y_s (each element is
-    // owned by one thread)
+    // y = x + z in place in y_s (each element is owned by one thread):
+    // add_z rounds z and y for a bf16 y, not for an f32 one
     zero(acc);
     mma_gemm<MT, NT>(acc, a_s, lda, static_cast<const __nv_bfloat16*>(p.wp),
                      C, C, ntiles);
@@ -220,9 +272,7 @@ __global__ void __launch_bounds__(kThreads, 1) tail_mma_kernel(const Params p) {
           for (int c = 0; c < 4; ++c) {
             const int r = m * 16 + g + (c >> 1) * 8;
             const int n = (warp + kWarps * i) * 8 + 2 * t + (c & 1);
-            const float z = bf16r(acc[m][i][c] + p.bp[n]);
-            __nv_bfloat16* yv = y_s + r * C + n;
-            *yv = __float2bfloat16(__bfloat162float(*yv) + z);
+            add_z(y_s + r * C + n, acc[m][i][c] + p.bp[n]);
           }
     __syncthreads();
     layer_norm_rows(y_s, C, a_s, lda, BM, C, p.lns, p.lnb);
@@ -268,11 +318,15 @@ __global__ void __launch_bounds__(kThreads, 1) tail_mma_kernel(const Params p) {
           const int r = m * 16 + g + (c >> 1) * 8;
           if (row0 + r >= p.M) continue;
           const int n = (warp + kWarps * i) * 8 + 2 * t;
-          float v0 = bf16r(acc[m][i][c] + p.b2[n]);
-          float v1 = bf16r(acc[m][i][c + 1] + p.b2[n + 1]);
+          float v0 = acc[m][i][c] + p.b2[n];
+          float v1 = acc[m][i][c + 1] + p.b2[n + 1];
+          if (kMode != kBlock) {
+            v0 = bf16r(v0);
+            v1 = bf16r(v1);
+          }
           if (kEpilogue) {
-            v0 += __bfloat162float(y_s[r * C + n]);
-            v1 += __bfloat162float(y_s[r * C + n + 1]);
+            v0 += to_f32(y_s[r * C + n]);
+            v1 += to_f32(y_s[r * C + n + 1]);
           }
           *reinterpret_cast<__nv_bfloat162*>(
               out + static_cast<size_t>(row0 + r) * p.cout + n) =
@@ -451,14 +505,14 @@ cudaError_t opt_in(K kern, bool& done) {
   return err;
 }
 
-template <int MT, bool kEpilogue>
+template <int MT, Mode kMode>
 cudaError_t launch_mma(const Params& p, cudaStream_t st) {
   static bool done = false;
-  auto kern = tail_mma_kernel<MT, kEpilogue>;
+  auto kern = tail_mma_kernel<MT, kMode>;
   const cudaError_t err = opt_in(kern, done);
   if (err != cudaSuccess) return err;
   const int blocks = (p.M + 16 * MT - 1) / (16 * MT);
-  kern<<<blocks, kThreads, mma_smem_bytes(MT, p.cin, p.hidden, kEpilogue), st>>>(p);
+  kern<<<blocks, kThreads, mma_smem_bytes(MT, p.cin, p.hidden, kMode), st>>>(p);
   return cudaGetLastError();
 }
 
@@ -482,14 +536,15 @@ bool width_ok(int n) { return n >= 32 && n % 32 == 0 && (n <= kNC || n % kNC == 
 // Row tile in rows for the bf16 kernel (16 MT) or the f32 kernel: the
 // largest that fits (registers, shared memory), halved while the grid would
 // leave SMs idle. 0 when nothing fits.
-int pick_rows(int M, int cin, int hidden, int cout, bool epilogue, bool bf16) {
+int pick_rows(int M, int cin, int hidden, int cout, Mode mode, bool bf16) {
+  const bool epilogue = mode != kFfn;
   if (bf16) {
     const int nt = (cout / 8 + kWarps - 1) / kWarps;   // tiles per warp
     int mt = 8;
     while (mt > 1 && (mt * nt > 16 ||
-                      mma_smem_bytes(mt, cin, hidden, epilogue) > kSmemLimit))
+                      mma_smem_bytes(mt, cin, hidden, mode) > kSmemLimit))
       mt /= 2;
-    if (mt * nt > 16 || mma_smem_bytes(mt, cin, hidden, epilogue) > kSmemLimit)
+    if (mt * nt > 16 || mma_smem_bytes(mt, cin, hidden, mode) > kSmemLimit)
       return 0;
     while (mt > 1 && (M + 16 * mt - 1) / (16 * mt) < 132) mt /= 2;
     return 16 * mt;
@@ -505,14 +560,23 @@ int pick_rows(int M, int cin, int hidden, int cout, bool epilogue, bool bf16) {
   return bm;
 }
 
-template <bool kEpilogue>
-cudaError_t dispatch(const Params& p, int rows, bool bf16, cudaStream_t st) {
-  if (bf16) {
+// One launch of the tail in mode kMode. In f32 kBlock is kEpilogue: the
+// IO dtype rounds nothing.
+template <Mode kMode>
+cudaError_t run(const Params& p, int is_bf16, void* stream) {
+  constexpr bool kEpilogue = kMode != kFfn;
+  if (p.M < 1 || !width_ok(p.cin) || !width_ok(p.hidden) ||
+      !width_ok(p.cout) || p.cout > 1024 || (kEpilogue && p.cout != p.cin)) {
+    return cudaErrorInvalidValue;
+  }
+  const int rows = pick_rows(p.M, p.cin, p.hidden, p.cout, kMode, is_bf16);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (is_bf16) {
     switch (rows) {
-      case 16: return launch_mma<1, kEpilogue>(p, st);
-      case 32: return launch_mma<2, kEpilogue>(p, st);
-      case 64: return launch_mma<4, kEpilogue>(p, st);
-      case 128: return launch_mma<8, kEpilogue>(p, st);
+      case 16: return launch_mma<1, kMode>(p, st);
+      case 32: return launch_mma<2, kMode>(p, st);
+      case 64: return launch_mma<4, kMode>(p, st);
+      case 128: return launch_mma<8, kMode>(p, st);
       default: return cudaErrorInvalidValue;
     }
   }
@@ -523,18 +587,6 @@ cudaError_t dispatch(const Params& p, int rows, bool bf16, cudaStream_t st) {
     case 64: return launch_f32<64, kEpilogue>(p, st);
     default: return cudaErrorInvalidValue;
   }
-}
-
-cudaError_t run(const Params& p, int is_bf16, bool epilogue, void* stream) {
-  if (p.M < 1 || !width_ok(p.cin) || !width_ok(p.hidden) ||
-      !width_ok(p.cout) || p.cout > 1024 || (epilogue && p.cout != p.cin)) {
-    return cudaErrorInvalidValue;
-  }
-  const int rows = pick_rows(p.M, p.cin, p.hidden, p.cout, epilogue, is_bf16);
-  if (rows == 0) return cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return epilogue ? dispatch<true>(p, rows, is_bf16, st)
-                  : dispatch<false>(p, rows, is_bf16, st);
 }
 
 }  // namespace tail

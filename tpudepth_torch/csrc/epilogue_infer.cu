@@ -48,7 +48,8 @@
 //     shared memory; each thread owns (BM / 8) rows x 4 columns of a
 //     128-column chunk.
 //
-// The device code lives in block_tail.cuh, which rowblock_infer.cu shares.
+// The device code lives in block_tail.cuh, which rowblock_infer.cu and
+// block_infer.cu share.
 
 #include "block_tail.cuh"
 
@@ -81,7 +82,7 @@ extern "C" int block_epilogue_infer(const void* o, const void* x,
   p.cin = C;
   p.hidden = hidden;
   p.cout = C;
-  return static_cast<int>(run(p, is_bf16, true, stream));
+  return static_cast<int>(run<tail::kEpilogue>(p, is_bf16, stream));
 }
 
 // out = fc2(gelu(fc1(x))): x [M, cin], w1 [hidden, cin], w2 [cout, hidden]
@@ -101,5 +102,5 @@ extern "C" int mlp_infer(const void* x, const void* w1, const void* b1,
   p.cin = cin;
   p.hidden = hidden;
   p.cout = cout;
-  return static_cast<int>(run(p, is_bf16, false, stream));
+  return static_cast<int>(run<tail::kFfn>(p, is_bf16, stream));
 }

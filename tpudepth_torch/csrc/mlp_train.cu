@@ -464,7 +464,7 @@ extern "C" int mlp_train_fwd(const void* x, const void* w1t, const void* b1,
   p.cin = cin;
   p.hidden = hidden;
   p.cout = cout;
-  return static_cast<int>(tail::run(p, is_bf16, false, stream));
+  return static_cast<int>(tail::run<tail::kFfn>(p, is_bf16, stream));
 }
 
 // The backward: x [M, C], g [M, C2], w1t [H, C], w1 [C, H], w2 [H, C2] in

@@ -1,37 +1,115 @@
-"""Evaluator of the GuideDepth stack.
+"""Evaluators of both reference protocols.
 
-Counterpart of ``tpudepth/eval/evaluator.py::AlhashimEvaluator``
-(``src/GuideDepth/evaluate.py:81-157``): flip-TTA with the flipped image
-evaluated as an extra sample, the model run at its reduced resolution and the
-predictions upscaled to the ground truth's size (``:95-116``), the fixed Eigen
-crop [20,460,24,616] for NYU and the fractional crop for KITTI (``:118-132``),
-FastDepth ``Result`` / ``AverageMeter`` metrics and ``results.txt``
-(``:159-171``).
+Counterparts of ``tpudepth/eval/evaluator.py``:
+
+- :class:`RootEvaluator` (``src/test.py:84-198``), how the root stack
+  scores SAM and NewCRF: per-batch min-max ground truth, the prediction
+  resized to it and clamped to [min_depth_eval, max_depth_eval] with inf
+  and nan scrubbed (``:105-108``), the validity mask AND the fractional
+  Garg crop (``:110-123``), the 9 ``compute_errors`` metrics averaged over
+  batches;
+- :class:`AlhashimEvaluator` (``src/GuideDepth/evaluate.py:81-157``), the
+  GuideDepth stack's: flip-TTA with the flipped image evaluated as an extra
+  sample, the model run at its reduced resolution and the predictions
+  upscaled to the ground truth's size (``:95-116``), the fixed Eigen crop
+  [20,460,24,616] for NYU and the fractional crop for KITTI (``:118-132``),
+  FastDepth ``Result`` / ``AverageMeter`` metrics and ``results.txt``
+  (``:159-171``).
 
 Batches come from the loader as dicts of NHWC arrays (``image``
 ``[B,H,W,3]`` float in [0, 1], ``depth`` ``[B,H,W,1]`` or ``[B,H,W]``). The
 ``forward`` callable has the port's model layout: it takes ``[B,3,H,W]``
 float32 on the evaluator's device and returns ``[B,1,H,W]`` there, so a model
 wrapped by ``make_eval_step`` or an ``InferenceEngine`` serves as it is.
-Resizes and the meters conversion run on the device; the metrics are float64
-numpy on the host, as :class:`~tpudepth_torch.eval.metrics.Result` computes
-them. ``RootEvaluator`` belongs to the root recipe and is not ported yet.
+Resizes, the ground truth's normalization and the meters conversion run on
+the device; the metrics are float64 numpy on the host, as the JAX package
+computes them.
 """
 
 from __future__ import annotations
 
 import os
 import time
-from typing import Callable, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
-from tpudepth_torch.core.config import EvalConfig, kitti_alhashim_crop
+from tpudepth_torch.core.config import (
+    EvalConfig,
+    garg_crop,
+    kitti_alhashim_crop,
+)
 from tpudepth_torch.core.runtime import DeviceLike, resolve_device
-from tpudepth_torch.eval.metrics import AverageMeter, Result
+from tpudepth_torch.eval.metrics import (
+    METRIC_NAMES,
+    AverageMeter,
+    Result,
+    compute_errors,
+)
+from tpudepth_torch.losses.losses import depth_norm_minmax
 from tpudepth_torch.ops.image import resize_bilinear
 from tpudepth_torch.train.trainer import inverse_depth_norm
+
+
+def _nchw(array: np.ndarray, device: torch.device) -> torch.Tensor:
+    """Float32 NCHW tensor on ``device`` of an NHWC (or ``[B,H,W]``)
+    array."""
+    t = torch.as_tensor(np.asarray(array, np.float32)).to(device)
+    if t.dim() == 3:
+        t = t[..., None]
+    return t.permute(0, 3, 1, 2)
+
+
+class RootEvaluator:
+    """``src/test.py`` protocol over ``forward`` (``[B,3,H,W]`` ->
+    ``[B,1,h,w]``, resized to the ground truth when h, w differ).
+    ``device=None`` means the CUDA card."""
+
+    def __init__(self, forward: Callable[[torch.Tensor], torch.Tensor],
+                 config: EvalConfig, device: DeviceLike = None):
+        self.forward = forward
+        self.config = config
+        self.device = resolve_device(device)
+
+    @torch.no_grad()
+    def evaluate(self, loader, progress: bool = False) -> Dict[str, float]:
+        cfg = self.config
+        lo, hi = cfg.min_depth_eval, cfg.max_depth_eval
+        measures = np.zeros(10, dtype=np.float64)
+        for i, batch in enumerate(loader):
+            gt = depth_norm_minmax(_nchw(batch["depth"], self.device))
+            pred = self.forward(_nchw(batch["image"], self.device)).float()
+            pred = resize_bilinear(pred, gt.shape[2:])
+            gt = gt[:, 0].cpu().numpy()
+            pred = pred[:, 0].cpu().numpy()
+            # the reference's order: clamp, then inf to max, nan to min
+            pred[pred < lo] = lo
+            pred[pred > hi] = hi
+            pred[np.isinf(pred)] = hi
+            pred[np.isnan(pred)] = lo
+
+            mask = np.logical_and(gt > lo, gt < hi)
+            top, bottom, left, right = garg_crop(*gt.shape[1:])
+            crop_mask = np.zeros_like(mask)
+            crop_mask[:, top:bottom, left:right] = True
+            mask = np.logical_and(mask, crop_mask)
+
+            measures[:9] += np.asarray(compute_errors(gt[mask], pred[mask]))
+            measures[9] += 1
+            if progress and i % 5 == 0:
+                print(f"Step: [{i}/{len(loader)}]")
+        measures[:9] /= measures[9]
+        return dict(zip(METRIC_NAMES, measures[:9].tolist()))
+
+    @staticmethod
+    def format_report(metrics: Dict[str, float], count: int) -> str:
+        """The reference's eval printout layout (``src/test.py:192-198``)."""
+        header = ", ".join(f"{n:>7}" for n in METRIC_NAMES)
+        values = ", ".join(f"{metrics[n]:7.4f}" for n in METRIC_NAMES)
+        return (
+            f"Computing errors for {count} eval samples\n{header}\n{values}"
+        )
 
 
 class AlhashimEvaluator:
@@ -63,13 +141,6 @@ class AlhashimEvaluator:
         # InferenceEngine with max_depth fuses the meters conversion)
         self.forward_returns_meters = forward_returns_meters
 
-    def _nchw(self, array: np.ndarray) -> torch.Tensor:
-        """Float32 NCHW device tensor of an NHWC (or ``[B,H,W]``) array."""
-        t = torch.as_tensor(np.asarray(array, np.float32)).to(self.device)
-        if t.dim() == 3:
-            t = t[..., None]
-        return t.permute(0, 3, 1, 2)
-
     @staticmethod
     def _like(t: torch.Tensor, ref: np.ndarray) -> np.ndarray:
         """NCHW tensor ``t`` as float32 numpy in the layout of ``ref``
@@ -86,7 +157,7 @@ class AlhashimEvaluator:
 
         for i, batch in enumerate(loader):
             t0 = time.time()
-            image = self._nchw(batch["image"])
+            image = _nchw(batch["image"], self.device)
             gt = np.asarray(batch["depth"], np.float32) * np.float32(
                 self.depth_scale)  # meters
             if (cfg.eval_mode != "alhashim"
@@ -94,8 +165,8 @@ class AlhashimEvaluator:
                 # 'tu' mode evaluates AT the model resolution: no prediction
                 # upscale, no crop; image and ground truth are resized to it
                 image = resize_bilinear(image, cfg.image_size)
-                gt = self._like(
-                    resize_bilinear(self._nchw(gt), cfg.image_size), gt)
+                gt = self._like(resize_bilinear(_nchw(gt, self.device),
+                                                cfg.image_size), gt)
             image_flip = torch.flip(image, dims=(3,))
             gt_flip = gt[:, :, ::-1]
 

@@ -6,10 +6,12 @@ float32 and the bfloat16 engine (with the meters conversion), each timed with
 the 10-warmup / 200-run protocol. ``--gub fused`` (the default) runs the GUB
 k=3 convs of GuideDepth through the ``gub_conv_fwd`` CUDA kernel; ``--attn``
 picks the mode of the attention blocks of SAM and NewCRF (``row``: the
-window-row block kernels; ``fused``: the ``window_attn_infer`` and
-``block_epilogue_infer`` kernels; ``pair``: ``window_attn_infer`` and
-``mlp_infer``; ``plain``: no kernel), checked against the model; by default
-each model's own (SAM ``fused``, NewCRF ``row``).
+window-row block kernels; ``block``: the whole-block kernels over raw
+windows, ``TPUDEPTH_BLOCK=fused`` in JAX; ``fused``: the
+``window_attn_infer`` and ``block_epilogue_infer`` kernels; ``pair``:
+``window_attn_infer`` and ``mlp_infer``; ``plain``: no kernel), checked
+against the model; by default each model's own (SAM ``fused``, NewCRF
+``row``).
 """
 
 from __future__ import annotations

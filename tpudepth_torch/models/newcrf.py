@@ -10,7 +10,7 @@ names follow the reference ``state_dict`` (``proj_x``, ``proj_v``,
 ``crf_layer.blocks.{i}.attn.qk``, ``...mlp.fc1``, ``norm_crf``), which
 ``tpudepth/models/torch_import.py::_newcrf_stage`` reads.
 
-The blocks run in one of four modes, with one parameter tree:
+The blocks run in one of five modes, with one parameter tree:
 
 - ``row`` (the default, as the JAX package's eval default on its chip): the
   whole block through the ``crf_rowblock_infer`` kernels on the zero-padded
@@ -22,16 +22,20 @@ The blocks run in one of four modes, with one parameter tree:
 - ``pair``: the ``window_attn_infer`` kernel, the out-projection and
   residual as tensor code, and the FFN through the ``mlp_infer`` kernel
   (``TPUDEPTH_BLOCK=pair TPUDEPTH_EPILOGUE=xla``);
+- ``block``: the whole block through the ``crf_block_infer`` kernels on the
+  raw windows of the zero-padded (and rolled) x and v, reversed, unrolled
+  and cropped after (``TPUDEPTH_BLOCK=fused`` in JAX);
 - ``plain``: no kernel, the f32 attention composition with the shift mask
   (what the JAX package computes on the CPU).
 
 In train mode every mode takes the unfused block, as the JAX package does on
 training traces: LN, pad, [roll], windows, ``qk``, attention with the shift
 mask, reverse, [unroll], crop, out-projection + residual, LN2, FFN +
-residual. In ``row``, ``fused`` and ``pair`` the attention is the training
-kernel pair ``window_attention`` (``ops/kernels/window_attn.py``) and the FFN
-the ``mlp_train`` pair; in ``plain`` both are the f32 compositions under
-autograd. On CPU tensors the kernels' wrappers run their plain versions.
+residual. In ``row``, ``fused``, ``pair`` and ``block`` the attention is the
+training kernel pair ``window_attention`` (``ops/kernels/window_attn.py``)
+and the FFN the ``mlp_train`` pair; in ``plain`` both are the f32
+compositions under autograd. On CPU tensors the kernels' wrappers run their
+plain versions.
 """
 
 from __future__ import annotations
@@ -45,6 +49,7 @@ from tpudepth_torch.models.layers import Conv, LayerNorm, Linear, Mlp
 from tpudepth_torch.models.sam import WindowAttention
 from tpudepth_torch.ops.attention import window_cross_attention_packed
 from tpudepth_torch.ops.image import nhwc
+from tpudepth_torch.ops.kernels.block_infer import crf_block_infer
 from tpudepth_torch.ops.kernels.epilogue_infer import block_epilogue_infer
 from tpudepth_torch.ops.kernels.rowblock_infer import crf_rowblock_infer
 from tpudepth_torch.ops.window import (
@@ -52,9 +57,10 @@ from tpudepth_torch.ops.window import (
     shifted_window_attention_mask,
     window_partition,
     window_reverse,
+    window_valid_mask_on,
 )
 
-ATTN_MODES = ("plain", "pair", "fused", "row")
+ATTN_MODES = ("plain", "pair", "fused", "row", "block")
 
 
 @functools.lru_cache(maxsize=None)
@@ -112,6 +118,8 @@ class CRFBlock(nn.Module):
         mask = shift_mask(h, w, ws, ss, x.device) if ss else None
         if self.mode == "row" and not self.training:
             return self._rowblock(x, v, mask)
+        if self.mode == "block" and not self.training:
+            return self._block(x, v, mask)
         n = ws * ws
         fused = self.mode == "fused" and not self.training
         # pad LN(x) after the LayerNorm and the raw v; roll both
@@ -163,6 +171,33 @@ class CRFBlock(nn.Module):
             (self.norm2.weight, self.norm2.bias), mlp.fc1.weight.t(),
             mlp.fc1.bias, mlp.fc2.weight.t(), mlp.fc2.bias, mask,
             scale=at.scale, window_size=ws, valid_hw=(h, w, ss))
+        if ss:
+            y = torch.roll(y, (ss, ss), dims=(1, 2))
+        return y[:, :h, :w, :]
+
+    def _block(self, x: torch.Tensor, v: torch.Tensor,
+               mask) -> torch.Tensor:
+        """The whole block on the raw windows of the zero-padded x and v,
+        rolled by (-shift, -shift) for the shifted block; reversed, unrolled
+        and cropped after (the JAX package's ``_fused_block``)."""
+        _, h, w, c = x.shape
+        ws, ss = self.window_size, self.shift_size
+        n = ws * ws
+        xp, hp, wp = pad_to_window_multiple(x, ws)
+        vp, _, _ = pad_to_window_multiple(v.to(x.dtype), ws)
+        if ss:
+            xp = torch.roll(xp, (-ss, -ss), dims=(1, 2))
+            vp = torch.roll(vp, (-ss, -ss), dims=(1, 2))
+        at, mlp = self.attn, self.mlp
+        yw = crf_block_infer(
+            window_partition(xp, ws).reshape(-1, n, c),
+            window_partition(vp, ws).reshape(-1, n, c),
+            (self.norm1.weight, self.norm1.bias), at.qk.weight.t(), at.qk.bias,
+            at.bias(), at.proj.weight.t(), at.proj.bias,
+            (self.norm2.weight, self.norm2.bias), mlp.fc1.weight.t(),
+            mlp.fc1.bias, mlp.fc2.weight.t(), mlp.fc2.bias, mask,
+            window_valid_mask_on(h, w, ws, ss, x.device), scale=at.scale)
+        y = window_reverse(yw.reshape(-1, ws, ws, c), ws, hp, wp)
         if ss:
             y = torch.roll(y, (ss, ss), dims=(1, 2))
         return y[:, :h, :w, :]

@@ -55,9 +55,10 @@ def build_model(name: str, gub: str = "plain",
     ``gub_conv_fwd`` in eval and train mode, ``gub_conv_dw`` and
     ``gub_conv_dx`` in the backward); ``'plain'`` through conv, BatchNorm and
     ReLU modules. ``attn`` is the mode of the attention blocks of ``'sam'``
-    (``models/sam.py``: ``'fused'``, the default, ``'pair'``, ``'row'`` or
-    ``'plain'``) and ``'newcrf'`` (``models/newcrf.py``: ``'row'``, the
-    default, ``'fused'``, ``'pair'`` or ``'plain'``); None takes the model's
+    (``models/sam.py``: ``'fused'``, the default, ``'pair'``, ``'row'``,
+    ``'block'`` or ``'plain'``) and ``'newcrf'`` (``models/newcrf.py``:
+    ``'row'``, the default, ``'fused'``, ``'pair'``, ``'block'`` or
+    ``'plain'``); None takes the model's
     default, and a mode the model lacks raises ``ValueError``. Each model has
     one parameter tree whatever its modes."""
     if gub not in GUB_MODES:

@@ -9,7 +9,7 @@ names follow the reference ``state_dict`` (``sam_block.attn.q``,
 conv (``src/SAM.py:271``) is left out, and ``relative_position_index`` is
 not a persistent buffer.
 
-The block runs in one of four modes, with one parameter tree:
+The block runs in one of five modes, with one parameter tree:
 
 - ``fused``: the ``window_attn_infer`` kernel, then the
   ``block_epilogue_infer`` kernel for out-projection, residual, LayerNorm,
@@ -19,14 +19,17 @@ The block runs in one of four modes, with one parameter tree:
   (``TPUDEPTH_EPILOGUE=xla`` in JAX);
 - ``row``: the whole block through the ``sam_rowblock_infer`` kernels on
   the zero-padded raw x and v (``TPUDEPTH_BLOCK=row`` in JAX);
+- ``block``: the whole block through the ``sam_block_infer`` kernels on the
+  raw windows of the zero-padded x and v (``TPUDEPTH_BLOCK=fused`` in JAX);
 - ``plain``: no kernel, the f32 attention composition (what the JAX package
   computes on the CPU).
 
 In train mode every mode takes the unfused block, as the JAX package does on
 training traces: LN, pad, windows, ``q`` / ``kv``, attention, reverse, crop,
-out-projection + residual, LN2, FFN + residual. In ``fused``, ``pair`` and
-``row`` the attention is the training kernel pair ``window_attention``
-(``ops/kernels/window_attn.py``) and the FFN the ``mlp_train`` pair; in
+out-projection + residual, LN2, FFN + residual. In ``fused``, ``pair``,
+``row`` and ``block`` the attention is the training kernel pair
+``window_attention`` (``ops/kernels/window_attn.py``) and the FFN the
+``mlp_train`` pair; in
 ``plain`` both are the f32 compositions under autograd. On CPU tensors the
 kernels' wrappers run their plain versions.
 """
@@ -39,6 +42,7 @@ import torch.nn as nn
 from tpudepth_torch.models.layers import Conv, LayerNorm, Linear, Mlp
 from tpudepth_torch.ops.attention import window_cross_attention_packed
 from tpudepth_torch.ops.image import nhwc
+from tpudepth_torch.ops.kernels.block_infer import sam_block_infer
 from tpudepth_torch.ops.kernels.epilogue_infer import block_epilogue_infer
 from tpudepth_torch.ops.kernels.rowblock_infer import sam_rowblock_infer
 from tpudepth_torch.ops.window import (
@@ -46,9 +50,10 @@ from tpudepth_torch.ops.window import (
     relative_position_index,
     window_partition,
     window_reverse,
+    window_valid_mask_on,
 )
 
-ATTN_MODES = ("plain", "pair", "fused", "row")
+ATTN_MODES = ("plain", "pair", "fused", "row", "block")
 
 
 class WindowAttention(nn.Module):
@@ -123,6 +128,8 @@ class SAMBlock(nn.Module):
     def forward(self, x: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
         if self.mode == "row" and not self.training:
             return self._rowblock(x, v)
+        if self.mode == "block" and not self.training:
+            return self._block(x, v)
         b, h, w, c = x.shape
         ws = self.window_size
         n = ws * ws
@@ -166,6 +173,28 @@ class SAMBlock(nn.Module):
             mlp.fc1.weight.t(), mlp.fc1.bias,
             mlp.fc2.weight.t(), mlp.fc2.bias, scale=at.scale, window_size=ws,
             valid_hw=(h, w))
+        return y[:, :h, :w, :]
+
+    def _block(self, x: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+        """The whole block on the raw windows of the zero-padded x and v,
+        reversed and cropped after (the JAX package's ``_fused_block``)."""
+        _, h, w, c = x.shape
+        ws = self.window_size
+        n = ws * ws
+        xp, hp, wp = pad_to_window_multiple(x, ws)
+        vp, _, _ = pad_to_window_multiple(v.to(x.dtype), ws)
+        at, mlp = self.attn, self.mlp
+        yw = sam_block_infer(
+            window_partition(xp, ws).reshape(-1, n, c),
+            window_partition(vp, ws).reshape(-1, n, c),
+            (self.norm1.weight, self.norm1.bias),
+            (self.normv.weight, self.normv.bias), at.q.weight.t(), at.q.bias,
+            at.kv.weight.t(), at.kv.bias, at.bias(), at.proj.weight.t(),
+            at.proj.bias, (self.norm2.weight, self.norm2.bias),
+            mlp.fc1.weight.t(), mlp.fc1.bias, mlp.fc2.weight.t(),
+            mlp.fc2.bias, window_valid_mask_on(h, w, ws, 0, x.device),
+            scale=at.scale)
+        y = window_reverse(yw.reshape(-1, ws, ws, c), ws, hp, wp)
         return y[:, :h, :w, :]
 
 

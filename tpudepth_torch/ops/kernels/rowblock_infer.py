@@ -187,6 +187,16 @@ def _check(name, x, v, bias, mask, window_size, norms, projections, tail):
     if mask is not None and tuple(mask.shape) != ((hp // ws) * (wp // ws), n, n):
         raise ValueError(f"{name}: mask {tuple(mask.shape)} does not fit the "
                          f"{(hp // ws) * (wp // ws)} windows of the map")
+    hidden = check_weights(name, c, norms, projections, tail, (bias, mask))
+    return b, hp, wp, c, heads, hidden
+
+
+def check_weights(name, c, norms, projections, tail, tables):
+    """Shapes and dtypes of a whole-block call's parameters (here and in
+    ``block_infer``): ``norms`` the LayerNorm pairs in front of the
+    projections, ``projections`` (weight, bias, output width) triples,
+    ``tail`` the block tail's arguments, ``tables`` the bias, mask (and
+    valid) tensors or None. Returns the hidden width."""
     wproj, bproj, ln2, w1, b1, w2, b2 = tail
     hidden = w1.shape[1]
     pairs = [(wproj, (c, c)), (w1, (c, hidden)), (w2, (hidden, c)),
@@ -198,15 +208,17 @@ def _check(name, x, v, bias, mask, window_size, norms, projections, tail):
         raise ValueError(f"{name}: weight shapes do not fit C={c}, "
                          f"H={hidden}")
     if any(t.dtype != torch.float32 for t, _ in pairs) or any(
-            t is not None and t.dtype != torch.float32 for t in (bias, mask)):
-        raise TypeError(f"{name}: weights, vectors, bias and mask must be "
-                        "float32")
-    return b, hp, wp, c, heads, hidden
+            t is not None and t.dtype != torch.float32 for t in tables):
+        raise TypeError(f"{name}: weights, vectors and tables (bias, mask, "
+                        "valid) must be float32")
+    return hidden
 
 
-def _cuda_args(name, x, v, bias, mask, window_size, weights, vectors):
-    """Device, dtype and width checks of a launch; returns the weights in
-    the kernel's layout ([out, in] contiguous in the IO dtype)."""
+def cuda_args(name, x, v, bias, mask, tokens, weights, vectors):
+    """Device, dtype and width checks of a launch of a whole-block kernel
+    (here and in ``block_infer``) with windows of ``tokens`` tokens; returns
+    the weights in the kernel's layout ([out, in] contiguous in the IO
+    dtype)."""
     if x.device.type != "cuda":
         raise ValueError(f"no {name} kernel for {x.device}")
     c = x.shape[-1]
@@ -216,10 +228,10 @@ def _cuda_args(name, x, v, bias, mask, window_size, weights, vectors):
         raise ValueError(f"{name} takes widths that are multiples of 32, at "
                          f"most 128 or multiples of 128, and C <= 1024, not "
                          f"C={c}, H={hidden}")
-    if (window_size ** 2 > 64 or (c // heads) % 8 or c // heads > 64):
+    if (tokens > 64 or (c // heads) % 8 or c // heads > 64):
         raise ValueError(f"{name} takes windows of at most 64 tokens and a "
                          f"head width that is a multiple of 8 up to 64, not "
-                         f"window {window_size}, head width {c // heads}")
+                         f"{tokens} tokens, head width {c // heads}")
     for t, what in ((bias, "bias"), (mask, "mask")):
         if t is not None and (t.device != x.device or not t.is_contiguous()):
             raise ValueError(f"{name}: {what} must be contiguous on "
@@ -247,8 +259,8 @@ def crf_rowblock_infer(x: torch.Tensor, v: torch.Tensor, ln1: tuple,
         return crf_rowblock_infer_reference(
             x, v, ln1, wqk, bqk, bias, wproj, bproj, ln2, w1, b1, w2, b2,
             mask, scale=scale, window_size=window_size, valid_hw=(h, w, shift))
-    wqk_t, wp_t, w1_t, w2_t = _cuda_args(
-        "crf_rowblock_infer", x, v, bias, mask, window_size,
+    wqk_t, wp_t, w1_t, w2_t = cuda_args(
+        "crf_rowblock_infer", x, v, bias, mask, window_size ** 2,
         (wqk, wproj, w1, w2), (*ln1, bqk, bproj, *ln2, b1, b2))
     qk = torch.empty((b, hp, wp, 2 * c), dtype=x.dtype, device=x.device)
     out = torch.empty_like(x)
@@ -293,8 +305,8 @@ def sam_rowblock_infer(x: torch.Tensor, v: torch.Tensor, ln1: tuple,
         return sam_rowblock_infer_reference(
             x, v, ln1, lnv, wq, bq, wkv, bkv, bias, wproj, bproj, ln2, w1, b1,
             w2, b2, scale=scale, window_size=window_size, valid_hw=(h, w))
-    wq_t, wkv_t, wp_t, w1_t, w2_t = _cuda_args(
-        "sam_rowblock_infer", x, v, bias, None, window_size,
+    wq_t, wkv_t, wp_t, w1_t, w2_t = cuda_args(
+        "sam_rowblock_infer", x, v, bias, None, window_size ** 2,
         (wq, wkv, wproj, w1, w2), (*ln1, *lnv, bq, bkv, bproj, *ln2, b1, b2))
     qkv = torch.empty((b, hp, wp, 3 * c), dtype=x.dtype, device=x.device)
     out = torch.empty_like(x)

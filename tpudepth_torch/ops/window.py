@@ -91,6 +91,16 @@ def window_valid_mask(h: int, w: int, window_size: int,
     return m.reshape(-1, ws * ws)
 
 
+@functools.lru_cache(maxsize=None)
+def window_valid_mask_on(h: int, w: int, window_size: int, shift_size: int,
+                         device: torch.device) -> Optional[torch.Tensor]:
+    """:func:`window_valid_mask` as a float32 tensor on ``device``, made
+    once per shape (so that a captured CUDA graph copies nothing from the
+    host); None without padding."""
+    m = window_valid_mask(h, w, window_size, shift_size)
+    return None if m is None else torch.from_numpy(m).to(device)
+
+
 def pad_to_window_multiple(x: torch.Tensor, window_size: int
                            ) -> Tuple[torch.Tensor, int, int]:
     """Zero-pad NHWC at the bottom and right to window multiples
