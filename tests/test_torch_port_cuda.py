@@ -595,6 +595,48 @@ def test_mlp_infer_matches_plain(cuda, case, dtype):
     _close(got, want, mi.tolerance(dtype))
 
 
+# (M, C, H) of the bf16 chain on the wgmma core (csrc/gemm_sm90.cuh): the four
+# stages of a 480x640 batch-8 forward, row counts below one 128-row tile,
+# ragged row counts, widths of 32 and 96, and a hidden that is no multiple
+# of the 64-wide k-block
+CORE_EPI_CASES = [(2400, 1024, 4096), (9600, 512, 2048), (38400, 256, 1024),
+                  (153600, 128, 512), (37, 128, 512), (37, 512, 2048),
+                  (1000, 256, 1024), (77, 32, 128), (333, 96, 384),
+                  (130, 128, 96)]
+
+
+@pytest.mark.parametrize("case", CORE_EPI_CASES,
+                         ids=lambda c: "x".join(map(str, c)))
+def test_block_epilogue_infer_bf16_on_the_gemm_core(cuda, case):
+    """The bf16 chain against the plain version at the unchanged tolerance;
+    a rerun bit-equal; one counted launch a call."""
+    m, c, hidden = case
+    a = _epilogue_case(m + c, m, c, hidden, torch.bfloat16, cuda)
+    before = ei.block_epilogue_infer.launches
+    got = ei.block_epilogue_infer(**a)
+    again = ei.block_epilogue_infer(**a)
+    torch.cuda.synchronize()
+    assert ei.block_epilogue_infer.launches == before + 2
+    assert got.dtype == torch.bfloat16 and got.shape == (m, c)
+    _close(got, ei.block_epilogue_infer_reference(**a),
+           ei.tolerance(torch.bfloat16))
+    assert torch.equal(got, again)
+
+
+def test_block_epilogue_infer_takes_unaligned_layer_norm_vectors(cuda):
+    """LayerNorm scale and bias one float off a 16-byte boundary: the bf16
+    chain's LayerNorm reads them one at a time, with the same result."""
+    a = _epilogue_case(11, 300, 256, 1024, torch.bfloat16, cuda)
+    views = {}
+    for k in ("lns", "lnb"):
+        buf = torch.empty(257, device=cuda)
+        buf[1:] = a[k]
+        views[k] = buf[1:]
+    assert views["lns"].data_ptr() % 16
+    torch.testing.assert_close(ei.block_epilogue_infer(**dict(a, **views)),
+                               ei.block_epilogue_infer(**a), atol=0, rtol=0)
+
+
 def test_epilogue_kernels_take_linear_weights_without_a_copy(cuda):
     """The ``.t()`` view of a Linear weight [out, in] is the JAX [in, out]
     layout; a contiguous [in, out] tensor gives the same answer."""
@@ -941,6 +983,42 @@ def test_mlp_train_matches_plain(cuda, case, dtype):
         assert got.dtype == torch.float32 and got.shape == ref.shape
         _close(got, ref, w_tol, flip)
     again = mt.mlp_train_bwd(x, g, w1, b1, w2)
+    assert all(torch.equal(a, b) for a, b in zip(grads, again))
+
+
+# (M, C, H, C2) of the bf16 backward on the wgmma core: the four stages of a
+# 480x640 batch-8 step, a row count below one 128-row tile, ragged row
+# counts (also past one 64-row k-block of the weight-gradient chunks),
+# widths of 32 and 96 and a narrower output
+CORE_MLP_CASES = [(2400, 1024, 4096, 1024), (9600, 512, 2048, 512),
+                  (38400, 256, 1024, 256), (153600, 128, 512, 128),
+                  (37, 128, 512, 128), (1000, 256, 1024, 256),
+                  (77, 32, 128, 32), (333, 96, 384, 96),
+                  (4999, 128, 512, 96)]
+
+
+@pytest.mark.parametrize("case", CORE_MLP_CASES,
+                         ids=lambda c: "x".join(map(str, c)))
+def test_mlp_train_bwd_bf16_on_the_gemm_core(cuda, case):
+    """The bf16 backward against the plain version at the unchanged
+    tolerance and flip_atol; a rerun bit-equal; one counted launch a
+    call."""
+    m, c, hidden, c2 = case
+    x, w1, b1, w2, _, g = _mlp_case(m + hidden, m, c, hidden, torch.bfloat16,
+                                    cuda, c2=c2)
+    before = mt.mlp_train_bwd.launches
+    grads = mt.mlp_train_bwd(x, g, w1, b1, w2)
+    again = mt.mlp_train_bwd(x, g, w1, b1, w2)
+    torch.cuda.synchronize()
+    assert mt.mlp_train_bwd.launches == before + 2
+    out_tol, w_tol = mt.tolerance(torch.bfloat16)
+    want = mt.mlp_train_bwd_reference(x, g, w1, b1, w2)
+    flips = mt.flip_atol(x, g, w1, b1, w2)
+    assert grads[0].dtype == torch.bfloat16 and grads[0].shape == (m, c)
+    _close(grads[0], want[0], out_tol, flips[0])
+    for got, ref, flip in zip(grads[1:], want[1:], flips[1:]):
+        assert got.dtype == torch.float32 and got.shape == ref.shape
+        _close(got, ref, w_tol, flip)
     assert all(torch.equal(a, b) for a, b in zip(grads, again))
 
 

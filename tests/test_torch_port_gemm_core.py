@@ -1,0 +1,95 @@
+"""What the wrappers of the kernels on the wgmma GEMM core
+(``tpudepth_torch/csrc/gemm_sm90.cuh``) compute in Python, on the CPU: the
+row chunks of ``mlp_train_bwd``'s weight gradients, the scratch both
+wrappers allocate, and the constants they share with the CUDA sources. The
+kernels themselves run only on the card (``tests/test_torch_port_cuda.py``).
+"""
+
+import re
+
+import pytest
+
+from tpudepth_torch.ops.kernels import _build
+from tpudepth_torch.ops.kernels import epilogue_infer as ei
+from tpudepth_torch.ops.kernels import mlp_train as mt
+
+# (M, rows, cols) of the weight gradients: dw1 [C, 4C] and dw2 [4C, C] of the
+# four stages of a 480x640 batch-8 step, batch 1, and small or ragged M
+WGRAD_SHAPES = [(m * b, r, c)
+                for m, cc in ((300, 1024), (1200, 512), (4800, 256),
+                              (19200, 128))
+                for b in (1, 8)
+                for r, c in ((cc, 4 * cc), (4 * cc, cc))] + [
+    (1, 64, 256), (37, 32, 128), (4999, 128, 512), (64, 96, 384),
+    (65, 96, 384)]
+
+
+def _source(name: str) -> str:
+    return (_build.SRC_DIR / name).read_text()
+
+
+@pytest.mark.parametrize("m,rows,cols", WGRAD_SHAPES,
+                         ids=lambda v: str(v))
+def test_wgrad_chunk_covers_the_rows_in_whole_k_blocks(m, rows, cols):
+    k = mt.wgrad_chunk(m, rows, cols)
+    chunks = -(-m // k)
+    tiles = -(-rows // 128) * -(-cols // 128)
+    # whole 64-row k-blocks (so also multiples of 32); every row in one chunk
+    assert k % mt.K_BLOCK == 0 and k % 32 == 0 and k > 0
+    assert (chunks - 1) * k < m <= chunks * k
+    # one chunk once the product alone fills the SMs; never more tiles than
+    # SMs from splitting
+    if tiles >= mt.SMS:
+        assert chunks == 1
+    assert chunks == 1 or chunks * tiles <= mt.SMS
+    # a function of the shape alone
+    assert mt.wgrad_chunk(m, rows, cols) == k
+
+
+@pytest.mark.parametrize("m", [1, 37, 63, 64])
+def test_wgrad_chunk_takes_small_m_in_one_chunk(m):
+    """Up to one k-block of rows there is nothing to split."""
+    for rows, cols in ((1024, 4096), (128, 512), (32, 128)):
+        assert mt.wgrad_chunk(m, rows, cols) == mt.K_BLOCK
+
+
+@pytest.mark.parametrize("m,c,hidden,c2", [
+    (2400, 1024, 4096, 1024), (153600, 128, 512, 128), (37, 32, 128, 32),
+    (4999, 128, 512, 96)])
+def test_bwd_scratch_shapes(m, c, hidden, c2):
+    shapes = mt.bwd_scratch_shapes(m, c, hidden, c2)
+    assert shapes["a"] == shapes["dh"] == (m, hidden)
+    assert shapes["db1_part"] == (-(-m // mt.ROW_TILE), hidden)
+    assert shapes["db2_part"] == (-(-m // mt.COLSUM_ROWS), c2)
+    for key, (r, n) in (("dw1_part", (c, hidden)), ("dw2_part", (hidden, c2))):
+        chunks = -(-m // mt.wgrad_chunk(m, r, n))
+        assert shapes[key] == ((chunks, r, n) if chunks > 1 else None)
+
+
+def test_bwd_scratch_has_partials_only_where_the_rows_are_split():
+    # crf3 at batch 8: 256 tiles of dw1 fill the SMs, one chunk
+    assert mt.bwd_scratch_shapes(2400, 1024, 4096, 1024)["dw1_part"] is None
+    # crf0 at batch 8: 4 tiles, 33 chunks of rows
+    assert mt.bwd_scratch_shapes(153600, 128, 512, 128)["dw1_part"] == (
+        33, 128, 512)
+
+
+@pytest.mark.parametrize("m,c,hidden", [
+    (2400, 1024, 4096), (9600, 512, 2048), (38400, 256, 1024),
+    (153600, 128, 512), (37, 32, 128), (200, 96, 384)])
+def test_epilogue_scratch_shapes(m, c, hidden):
+    shapes = ei.epilogue_scratch_shapes(m, c, hidden)
+    assert list(shapes) == ["y", "yn", "g"]
+    assert shapes["y"] == shapes["yn"] == (m, c)
+    assert shapes["g"] == (m, hidden)
+
+
+def test_python_constants_match_the_cuda_sources():
+    core = _source("gemm_sm90.cuh")
+    assert int(re.search(r"constexpr int kBK = (\d+);", core).group(1)) == (
+        mt.K_BLOCK)
+    assert int(re.search(r"constexpr int kBM = (\d+);", core).group(1)) == (
+        mt.ROW_TILE)
+    mlp = _source("mlp_train.cu")
+    assert int(re.search(r"constexpr int kColsumRows = (\d+);", mlp).group(1)
+               ) == mt.COLSUM_ROWS

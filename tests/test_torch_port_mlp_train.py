@@ -204,6 +204,6 @@ def test_wrappers_check_shapes_and_chunk_the_rows():
                          _t(p["w2"]))
     # 153,600 rows of crf0 at B 8: 33 chunks for a 128 x 512 weight
     k = mt.wgrad_chunk(153600, 128, 512)
-    assert k % 32 == 0 and -(-153600 // k) == 33
+    assert k % 64 == 0 and -(-153600 // k) == 33
     assert mt.wgrad_chunk(2400, 1024, 4096) >= 2400
-    assert mt.wgrad_chunk(1, 64, 256) == 32
+    assert mt.wgrad_chunk(1, 64, 256) == 64

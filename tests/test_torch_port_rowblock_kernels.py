@@ -215,3 +215,7 @@ def test_every_source_of_the_package_finds_its_headers():
     assert [p.name for p in _build.inputs("rowblock_infer")] == [
         "rowblock_infer.cu", "block_tail.cuh", "ln_proj.cuh",
         "window_attn.cuh"]
+    # the two kernels on the wgmma GEMM core rebuild when the core changes
+    for name in ("mlp_train", "epilogue_infer"):
+        assert [p.name for p in _build.inputs(name)] == [
+            f"{name}.cu", "block_tail.cuh", "gemm_sm90.cuh"]

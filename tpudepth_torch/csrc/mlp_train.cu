@@ -17,43 +17,61 @@
 // under the custom VJP mlp_train (:205-237). Same arithmetic, in this
 // order; products of IO-dtype operands sum in f32; the exact GELU
 // 0.5 h (1 + erf(h / sqrt 2)) and its derivative 0.5 (1 + erf(h / sqrt 2))
-// + h exp(-h^2 / 2) / sqrt(2 pi) with the native erff (the TPU kernel used a
-// rational erf within 1.5e-7 of it); db1 sums the unrounded f32 dh1.
+// + h exp(-h^2 / 2) / sqrt(2 pi); db1 sums the unrounded f32 dh1. erf: the
+// bf16 backward evaluates the TPU kernel's degree-16 polynomial
+// (tpudepth/ops/pallas/mlp_infer.py::_erf, gemm::erf_poly), the forward and
+// the f32 backward the native erff, within 2.1e-7 of it.
 //
 // What bounds it: the forward does 2 products of 2 M C H operations, the
 // backward five (h, da, dx, dw1, dw2), against M (2 C + C2) IO elements and
 // the weights: at C = 128..1024, H = 4 C that is 500..4000 operations per
-// bf16 byte, above the card's ~295: operations bound both.
+// bf16 byte, above the card's ~295: operations bound both. The backward
+// also writes a and dh1d ([M, H] bf16 each) once and reads them three
+// times in all (dx, dw1, dw2): summed over the four stages of a 480x640
+// batch-8 step (sum M H = 147.5 M elements) about 1.47 GB, 0.44 ms at
+// 3.35 TB/s, which the five products in cuBLAS pay as well (the TPU kernel
+// kept the hidden in VMEM); part of it stays in the 50 MB L2 at C 512-1024.
+// Measured (NVIDIA H100 80GB HBM3, scripts/torch_ffn_stage_times.py): the
+// weight gradients run at 280 (C 128) to 550 (C 1024) TFLOP/s; the hidden step, whose epilogue
+// evaluates erf and exp on every element of [M, 4C] and writes a and dh1d,
+// takes 1/3 (C 1024) to 1/2 (C 128) of the backward.
 //
 // Design.
 //   * forward: the FFN device code of block_tail.cuh (mlp_infer's), the 4C
 //     hidden activation held on the chip, under its own entry;
-//   * backward: five kernels, one entry.
+//   * backward, bf16 (the training path): the products on the pipelined
+//     wgmma core of gemm_sm90.cuh (TMA ring of 64-deep k-blocks, two
+//     consumer warpgroups, persistent blocks two an SM, bf16 outputs stored
+//     by TMA), one kernel per step:
 //       1. hidden: per tile of 128 rows x 64 hidden columns, h = x W1 and
-//          da = g W2^T, then a, dh1 in registers; writes a and dh1d to
-//          scratch [M, H] in the IO dtype, and the tile's column sums of the
-//          unrounded dh1 to a partial [row tiles, H];
-//       2. dx = dh1d W1^T per tile of 128 rows x 64 columns;
-//       3. dw1 = x^T dh1d and dw2 = a^T g, each per tile of 128 x 64 of the
-//          weight and per chunk of rows, into partials [chunks, ., .] (or
-//          straight into the gradient when there is one chunk);
+//          da = g W2^T into two accumulators; the epilogue rounds h, takes
+//          gelu and gelu' in f32, writes a and dh1d to the scratch [M, H]
+//          and the tile's column sums of the unrounded dh1 to a partial
+//          [row tiles, H];
+//       2. dx = dh1d W1^T, rounded;
+//       3. dw1 = x^T dh1d and dw2 = a^T g with both operands MN-major
+//          (wgmma's transpose bits: nothing is transposed element by
+//          element), per tile of 128 x 128 of the weight and per chunk of
+//          rows (a multiple of 64), into partials [chunks, ., .] (or
+//          straight into the gradient for one chunk);
 //       4. db2: column sums of g per chunk of 256 rows;
 //       5. the partials of dw1, dw2, db1, db2 added over their chunks in a
-//          fixed order.
-//     No atomics: the chunking depends on the shape alone, so a rerun is
-//     bit-equal. The scratch a and dh1d ([M, 4C] each, written once and
-//     read twice) is the hidden round trip through device memory that the
-//     TPU kernel kept in VMEM; fusing it away is left to a later version.
-//   * products: one GEMM main loop for all four product kinds, tiles of
-//     128 x 64 x 32 staged through shared memory (operands stored with
-//     their contraction index contiguous or, for the weight gradients,
-//     with their rows contiguous: those are transposed while staging).
-//     bf16: the tensor cores, mma.sync m16n8k16 (bf16 in, f32 accumulate),
-//     each of 8 warps a 32 x 32 piece of the tile. f32 (held against the
-//     plain version in full f32, as the JAX package's HIGHEST): the CUDA
-//     cores, each thread an 8 x 4 piece of the tile.
+//          fixed order (beyond 32 chunks as 32 strided partial sums, then
+//          those in order).
+//     No atomics: the tiles and chunks depend on the shape alone, so a
+//     rerun is bit-equal. The first design ran these products on mma.sync
+//     from synchronously staged 128 x 64 x 32 tiles, the weight gradients'
+//     operands transposed element by element while staging: 9.36 ms per
+//     B 8 SAM step, ~10x the same products in cuBLAS.
+//   * backward, f32 (held against the plain version in full f32, as the
+//     JAX package's HIGHEST): the same five steps on the CUDA cores, tiles
+//     of 128 x 64 x 32 staged through shared memory (the weight gradients'
+//     operands transposed while staging), each thread an 8 x 4 piece.
 
 #include "block_tail.cuh"
+#include "gemm_sm90.cuh"
+
+#include <type_traits>
 
 namespace {
 namespace mlpt {
@@ -78,22 +96,16 @@ template <typename T>
 __device__ __forceinline__ T from_f(float v);
 template <>
 __device__ __forceinline__ float from_f<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);
-}
 
 template <typename T>
 __device__ __forceinline__ float round_io(float v) {
   return to_f(from_f<T>(v));
 }
 
-// Row stride of a staged tile in elements: bf16 rows of 40 (80 bytes) put
-// the 32-bit fragment loads of a warp in 32 distinct banks; f32 rows of 33.
+// Row stride of a staged f32 tile in elements: rows of 33 put a warp's
+// loads in distinct banks.
 template <typename T>
 __host__ __device__ constexpr int lds() { return 33; }
-template <>
-__host__ __device__ constexpr int lds<__nv_bfloat16>() { return kBK + 8; }
 
 // 8 consecutive elements from 16-byte aligned device memory
 __device__ __forceinline__ void load8(const float* src, float (&v)[8]) {
@@ -101,10 +113,6 @@ __device__ __forceinline__ void load8(const float* src, float (&v)[8]) {
   const float4 b = *reinterpret_cast<const float4*>(src + 4);
   v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
   v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
-}
-__device__ __forceinline__ void load8(const __nv_bfloat16* src,
-                                      __nv_bfloat16 (&v)[8]) {
-  *reinterpret_cast<uint4*>(v) = *reinterpret_cast<const uint4*>(src);
 }
 
 // Stage the R x kBK block (rows r0.., contraction index k0..) of an operand
@@ -147,68 +155,10 @@ __device__ __forceinline__ void stage(const T* src, long long ld, int r0,
   }
 }
 
-// One k-block of the tile product acc += As Bs^T, and where a thread's
-// accumulators lie in the kBM x kBN tile.
+// One k-block of the f32 tile product acc += As Bs^T, and where a
+// thread's accumulators lie in the kBM x kBN tile.
 template <typename T>
 struct Mma;
-
-template <>
-struct Mma<__nv_bfloat16> {
-  // warp w: rows 32 (w >> 1).., columns 32 (w & 1)..; accumulator
-  // (mi, ni, c) = acc[(mi * 4 + ni) * 4 + c] of the m16 tile mi and the n8
-  // tile ni, in mma.sync's C layout
-  static __device__ __forceinline__ void compute(float (&acc)[kAcc],
-                                                 const __nv_bfloat16* As,
-                                                 const __nv_bfloat16* Bs) {
-    constexpr int LDS = lds<__nv_bfloat16>();
-    const int lane = threadIdx.x & 31;
-    const int warp = threadIdx.x >> 5;
-    const int g = lane >> 2;
-    const int t = lane & 3;
-    const __nv_bfloat16* a_base = As + (warp >> 1) * 32 * LDS;
-    const __nv_bfloat16* b_base = Bs + (warp & 1) * 32 * LDS;
-#pragma unroll
-    for (int kk = 0; kk < kBK; kk += 16) {
-      uint32_t a[2][4], b[4][2];
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi) {
-        const __nv_bfloat16* r0 = a_base + (mi * 16 + g) * LDS + kk + 2 * t;
-        const __nv_bfloat16* r1 = r0 + 8 * LDS;
-        a[mi][0] = *reinterpret_cast<const uint32_t*>(r0);
-        a[mi][1] = *reinterpret_cast<const uint32_t*>(r1);
-        a[mi][2] = *reinterpret_cast<const uint32_t*>(r0 + 8);
-        a[mi][3] = *reinterpret_cast<const uint32_t*>(r1 + 8);
-      }
-#pragma unroll
-      for (int ni = 0; ni < 4; ++ni) {
-        const __nv_bfloat16* c0 = b_base + (ni * 8 + g) * LDS + kk + 2 * t;
-        b[ni][0] = *reinterpret_cast<const uint32_t*>(c0);
-        b[ni][1] = *reinterpret_cast<const uint32_t*>(c0 + 8);
-      }
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-        for (int ni = 0; ni < 4; ++ni) {
-          float* c = acc + (mi * 4 + ni) * 4;
-          asm volatile(
-              "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-              "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-              : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-              : "r"(a[mi][0]), "r"(a[mi][1]), "r"(a[mi][2]), "r"(a[mi][3]),
-                "r"(b[ni][0]), "r"(b[ni][1]));
-        }
-    }
-  }
-  static __device__ __forceinline__ void coord(int idx, int& r, int& c) {
-    const int lane = threadIdx.x & 31;
-    const int warp = threadIdx.x >> 5;
-    const int mi = idx >> 4;
-    const int ni = (idx >> 2) & 3;
-    const int e = idx & 3;
-    r = (warp >> 1) * 32 + mi * 16 + (lane >> 2) + (e >> 1) * 8;
-    c = (warp & 1) * 32 + ni * 8 + 2 * (lane & 3) + (e & 1);
-  }
-};
 
 template <>
 struct Mma<float> {
@@ -391,26 +341,203 @@ __global__ void chunk_sum_kernel(const float* part, int chunks, int n,
   out[e] = s;
 }
 
+// out[e] = sum over chunks z of part[z, e] in a fixed order: 32 strided
+// partial sums (z = g, g + 32, ...), then added in the order g = 0..31.
+// Block (32, 32): 32 elements, 32 groups.
+__global__ void chunk_sum_tree_kernel(const float* part, int chunks, int n,
+                                      float* out) {
+  __shared__ float s[32][33];
+  const int e = blockIdx.x * 32 + threadIdx.x;
+  float v = 0.f;
+  if (e < n)
+    for (int z = threadIdx.y; z < chunks; z += 32)
+      v += part[static_cast<size_t>(z) * n + e];
+  s[threadIdx.y][threadIdx.x] = v;
+  __syncthreads();
+  if (threadIdx.y == 0 && e < n) {
+    float t = 0.f;
+    for (int g = 0; g < 32; ++g) t += s[g][threadIdx.x];
+    out[e] = t;
+  }
+}
+
 inline int cdiv(int a, int b) { return (a + b - 1) / b; }
 
+// The chunk sums: in order (f32, and bf16 up to 32 chunks), or as a tree.
 cudaError_t chunk_sum(const float* part, int chunks, int n, float* out,
-                      cudaStream_t st) {
-  chunk_sum_kernel<<<cdiv(n, 256), 256, 0, st>>>(part, chunks, n, out);
+                      bool tree, cudaStream_t st) {
+  if (tree && chunks > 32) {
+    chunk_sum_tree_kernel<<<cdiv(n, 32), dim3(32, 32), 0, st>>>(part, chunks,
+                                                                n, out);
+  } else {
+    chunk_sum_kernel<<<cdiv(n, 256), 256, 0, st>>>(part, chunks, n, out);
+  }
   return cudaGetLastError();
 }
 
 // dw (R x N) over K rows in chunks of kchunk: straight into dw for one
-// chunk, else through part [chunks, R, N] and a fixed-order sum
-template <typename T>
-cudaError_t wgrad(const T* A, int R, const T* B, int N, int K, int kchunk,
-                  float* dw, float* part, cudaStream_t st) {
+// chunk, else through part [chunks, R, N] and a fixed-order sum (f32)
+cudaError_t wgrad_f32(const float* A, int R, const float* B, int N, int K,
+                      int kchunk, float* dw, float* part, cudaStream_t st) {
   const int chunks = cdiv(K, kchunk);
   const dim3 grid(cdiv(R, kBM), cdiv(N, kBN), chunks);
-  wgrad_kernel<T><<<grid, kThreads, 0, st>>>(A, R, B, N, K, kchunk,
-                                             chunks == 1 ? dw : part);
+  wgrad_kernel<float><<<grid, kThreads, 0, st>>>(A, R, B, N, K, kchunk,
+                                                 chunks == 1 ? dw : part);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || chunks == 1) return err;
-  return chunk_sum(part, chunks, R * N, dw, st);
+  return chunk_sum(part, chunks, R * N, dw, false, st);
+}
+
+// Steps 1-3 in f32 on the CUDA cores.
+cudaError_t products_f32(const BwdParams& p, float* dw1, float* dw2,
+                         float* dw1_part, float* dw2_part, int kchunk1,
+                         int kchunk2, cudaStream_t st) {
+  const int row_tiles = cdiv(p.M, kBM);
+  hidden_kernel<float><<<dim3(row_tiles, cdiv(p.H, kBN)), kThreads, 0, st>>>(
+      p);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  rows_kernel<float><<<dim3(row_tiles, cdiv(p.C, kBN)), kThreads, 0, st>>>(
+      static_cast<const float*>(p.dh), p.H, static_cast<const float*>(p.w1),
+      static_cast<float*>(p.dx), p.M, p.C);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  err = wgrad_f32(static_cast<const float*>(p.x), p.C,
+                  static_cast<const float*>(p.dh), p.H, p.M, kchunk1, dw1,
+                  dw1_part, st);
+  if (err != cudaSuccess) return err;
+  return wgrad_f32(static_cast<const float*>(p.a), p.H,
+                   static_cast<const float*>(p.g), p.C2, p.M, kchunk2, dw2,
+                   dw2_part, st);
+}
+
+// The hidden tile's epilogue (bf16): h = round(x W1 + b1); gelu(h) and
+// gelu'(h) in f32 (erf as the TPU kernel's polynomial); a = round(gelu(h))
+// and dh1d = round(da gelu'(h)) into the scratch; the tile's column sums of
+// the unrounded dh1 (each warp's 16 rows by shuffles, then the 8 warps in
+// order) into db1_part[row tile]. Rows past M read x and g as zeros: their
+// da, and so dh1, is 0. (Looking gelu and gelu' up by h's bits, as
+// epilogue_infer.cu does, measured no faster here: this epilogue is held by
+// its two outputs' stores and the column sums.)
+struct HiddenEpi {
+  static constexpr int kProducts = 2;
+  static constexpr int kTiles = 2;                  // a, dh1d
+  static constexpr int kSmemBytes = 8 * 128 * 4;   // [warp][column] sums
+  struct Params {
+    const float* b1;
+    float* db1_part;
+    int M, H;
+  };
+  template <int BN>
+  static __device__ __forceinline__ void apply(const Params& p,
+                                               float (&acc)[2][BN / 2],
+                                               const gemm::Tile& t,
+                                               unsigned char* smem,
+                                               const CUtensorMap* c_maps,
+                                               unsigned char* staging,
+                                               uint32_t) {
+    float* cs = reinterpret_cast<float*>(smem);
+    const int c0 = t.n0 + gemm::frag_col();
+    const int lane = threadIdx.x & 31;
+    uint32_t wa[BN / 8][2], wd[BN / 8][2];
+    gemm::consumers_sync();   // the previous tile's sums have been read
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) {
+      const int col = c0 + 8 * j;
+      const bool in = col < p.H;
+      const float bias[2] = {in ? p.b1[col] : 0.f, in ? p.b1[col + 1] : 0.f};
+      float sum[2] = {0.f, 0.f};
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float av[2], dv[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int i = 4 * j + 2 * h + e;
+          const float hv = gemm::bf16r(acc[0][i] + bias[e]);
+          const float cdf = gemm::normal_cdf(hv);
+          av[e] = hv * cdf;
+          dv[e] = acc[1][i] *
+                  (cdf + hv * (expf(-0.5f * hv * hv) * kInvSqrt2Pi));
+          sum[e] += dv[e];
+        }
+        wa[j][h] = gemm::pack2(av[0], av[1]);
+        wd[j][h] = gemm::pack2(dv[0], dv[1]);
+      }
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        float v = sum[e];
+        v += __shfl_xor_sync(0xffffffffu, v, 4);
+        v += __shfl_xor_sync(0xffffffffu, v, 8);
+        v += __shfl_xor_sync(0xffffffffu, v, 16);
+        if (lane < 4)
+          cs[(threadIdx.x >> 5) * BN + gemm::frag_col() + 8 * j + e] = v;
+      }
+    }
+    gemm::store_words<BN>(wa, &c_maps[0], staging, t.m0, t.n0);
+    gemm::store_words<BN>(wd, &c_maps[1], staging, t.m0, t.n0);
+    gemm::consumers_sync();
+    const int c = threadIdx.x;
+    if (c < BN && t.n0 + c < p.H) {
+      float v = 0.f;
+      for (int w = 0; w < gemm::kConsumers / 32; ++w) v += cs[w * BN + c];
+      p.db1_part[static_cast<size_t>(t.mt) * p.H + t.n0 + c] = v;
+    }
+  }
+};
+
+// dw (R x N) = sum over the K rows of A [K, R]^T B [K, N] (bf16, both
+// MN-major), in chunks of kchunk rows (a multiple of 64): straight into dw
+// for one chunk, else through part [chunks, R, N] and a fixed-order sum.
+cudaError_t wgrad_bf16(const void* A, int R, const void* B, int N, int K,
+                       int kchunk, float* dw, float* part, cudaStream_t st) {
+  const int chunks = cdiv(K, kchunk);
+  const gemm::F32Store::Params e = {chunks == 1 ? dw : part, R, N};
+  const void* a[1] = {A};
+  const void* b[1] = {B};
+  const long long lda[1] = {R}, ldb[1] = {N};
+  const int k[1] = {K};
+  cudaError_t err = gemm::run_bn<gemm::F32Store, gemm::kMN>(
+      gemm::tile_n(N), e, a, lda, b, ldb, k, R, N, chunks,
+      kchunk / gemm::kBK, st);
+  if (err != cudaSuccess || chunks == 1) return err;
+  return chunk_sum(part, chunks, R * N, dw, true, st);
+}
+
+// Steps 1-3 in bf16 on the wgmma core.
+cudaError_t products_bf16(const BwdParams& p, float* dw1, float* dw2,
+                          float* dw1_part, float* dw2_part, int kchunk1,
+                          int kchunk2, cudaStream_t st) {
+  constexpr int kAll = 1 << 30;   // k-blocks of one split: all of them
+  __nv_bfloat16* a = static_cast<__nv_bfloat16*>(p.a);
+  __nv_bfloat16* dh = static_cast<__nv_bfloat16*>(p.dh);
+  {
+    // h = x W1 from W1^T [H, C]; da = g W2^T from W2 [H, C2]
+    const HiddenEpi::Params e = {p.b1, p.db1_part, p.M, p.H};
+    const void* A[2] = {p.x, p.g};
+    const void* B[2] = {p.w1t, p.w2};
+    void* out[2] = {a, dh};
+    const long long lda[2] = {p.C, p.C2}, ldb[2] = {p.C, p.C2};
+    const int k[2] = {p.C, p.C2};
+    const cudaError_t err = gemm::run<HiddenEpi, gemm::kK, 64>(
+        e, A, lda, B, ldb, k, p.M, p.H, 1, kAll, st, out);
+    if (err != cudaSuccess) return err;
+  }
+  {
+    // dx = dh1d W1^T from W1 [C, H]
+    const void* A[1] = {dh};
+    const void* B[1] = {p.w1};
+    void* out[1] = {p.dx};
+    const long long lda[1] = {p.H}, ldb[1] = {p.H};
+    const int k[1] = {p.H};
+    const cudaError_t err = gemm::run_bn<gemm::RoundStore, gemm::kK>(
+        gemm::tile_n(p.C), {}, A, lda, B, ldb, k, p.M, p.C, 1, kAll, st,
+        out);
+    if (err != cudaSuccess) return err;
+  }
+  const cudaError_t err =
+      wgrad_bf16(p.x, p.C, dh, p.H, p.M, kchunk1, dw1, dw1_part, st);
+  if (err != cudaSuccess) return err;
+  return wgrad_bf16(a, p.H, p.g, p.C2, p.M, kchunk2, dw2, dw2_part, st);
 }
 
 template <typename T>
@@ -418,29 +545,21 @@ cudaError_t backward(const BwdParams& p, float* dw1, float* db1, float* dw2,
                      float* db2, float* dw1_part, float* dw2_part,
                      float* db2_part, int kchunk1, int kchunk2,
                      cudaStream_t st) {
-  const int row_tiles = cdiv(p.M, kBM);
-  hidden_kernel<T><<<dim3(row_tiles, cdiv(p.H, kBN)), kThreads, 0, st>>>(p);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  rows_kernel<T><<<dim3(row_tiles, cdiv(p.C, kBN)), kThreads, 0, st>>>(
-      static_cast<const T*>(p.dh), p.H, static_cast<const T*>(p.w1),
-      static_cast<T*>(p.dx), p.M, p.C);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  err = wgrad<T>(static_cast<const T*>(p.x), p.C, static_cast<const T*>(p.dh),
-                 p.H, p.M, kchunk1, dw1, dw1_part, st);
-  if (err != cudaSuccess) return err;
-  err = wgrad<T>(static_cast<const T*>(p.a), p.H, static_cast<const T*>(p.g),
-                 p.C2, p.M, kchunk2, dw2, dw2_part, st);
+  cudaError_t err =
+      std::is_same<T, float>::value
+          ? products_f32(p, dw1, dw2, dw1_part, dw2_part, kchunk1, kchunk2, st)
+          : products_bf16(p, dw1, dw2, dw1_part, dw2_part, kchunk1, kchunk2,
+                          st);
   if (err != cudaSuccess) return err;
   const int rchunks = cdiv(p.M, kColsumRows);
   colsum_kernel<T><<<dim3(rchunks, cdiv(p.C2, 256)), 256, 0, st>>>(
       static_cast<const T*>(p.g), p.M, p.C2, db2_part);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  err = chunk_sum(db2_part, rchunks, p.C2, db2, st);
+  constexpr bool kTree = !std::is_same<T, float>::value;
+  err = chunk_sum(db2_part, rchunks, p.C2, db2, kTree, st);
   if (err != cudaSuccess) return err;
-  return chunk_sum(p.db1_part, row_tiles, p.H, db1, st);
+  return chunk_sum(p.db1_part, cdiv(p.M, kBM), p.H, db1, kTree, st);
 }
 
 }  // namespace mlpt
@@ -474,7 +593,7 @@ extern "C" int mlp_train_fwd(const void* x, const void* w1t, const void* b1,
 // [ceil(M / 128), H]; db2_part [ceil(M / 256), C2]; dw1_part
 // [ceil(M / kchunk1), C, H] and dw2_part [ceil(M / kchunk2), H, C2] (unused
 // for one chunk). C, H, C2 multiples of 32; kchunk1, kchunk2 multiples of
-// 32. Returns a cudaError_t.
+// 64 (the bf16 products' k-block). Returns a cudaError_t.
 extern "C" int mlp_train_bwd(const void* x, const void* g, const void* w1t,
                              const void* w1, const void* b1, const void* w2,
                              void* dx, void* dw1, void* db1, void* dw2,
@@ -483,7 +602,7 @@ extern "C" int mlp_train_bwd(const void* x, const void* g, const void* w1t,
                              int M, int C, int H, int C2, int kchunk1,
                              int kchunk2, int is_bf16, void* stream) {
   if (M < 1 || C < 32 || H < 32 || C2 < 32 || C % 32 || H % 32 || C2 % 32 ||
-      kchunk1 < 32 || kchunk1 % 32 || kchunk2 < 32 || kchunk2 % 32) {
+      kchunk1 < 64 || kchunk1 % 64 || kchunk2 < 64 || kchunk2 % 64) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   mlpt::BwdParams p = {};

@@ -4,11 +4,16 @@
 Counterpart of ``tpudepth/ops/pallas/epilogue_infer.py::block_epilogue_infer``.
 The kernel is ``tpudepth_torch/csrc/epilogue_infer.cu``
 (``block_epilogue_infer``), CUDA C++ for ``sm_90a`` built by ``_build``; its
-header says what bounds it and how it is laid out. It shares its FFN device
+header says what bounds it and how it is laid out. It shares its f32 device
 code with ``mlp_infer`` (``ops/kernels/mlp_infer.py``), which is why both
-live in one source. The wrapper :func:`block_epilogue_infer` counts its
-launches; the plain version :func:`block_epilogue_infer_reference` has the
-kernel's rounding order. CPU tensors run the plain version; CUDA tensors
+live in one source. In bf16 one call runs a chain of four CUDA kernels,
+three products on the pipelined ``wgmma`` core of ``csrc/gemm_sm90.cuh``
+and a LayerNorm, through bf16 scratch that the wrapper allocates
+(:func:`epilogue_scratch_shapes`): ``y`` and ``LN(y)`` ``[M, C]`` and the
+hidden ``gelu(h)`` ``[M, H]``, each a tensor the kernel rounds to bf16
+anyway. The wrapper :func:`block_epilogue_infer` counts its launches; the
+plain version :func:`block_epilogue_infer_reference` has the kernel's
+rounding order. CPU tensors run the plain version; CUDA tensors
 launch the kernel or raise. The boundary keeps the JAX layout:
 
 - ``o``, ``x``: ``[M, C]`` in one dtype (float32 or bfloat16);
@@ -101,7 +106,7 @@ def tolerance(dtype: torch.dtype) -> Tuple[float, float]:
 def lib() -> ctypes.CDLL:
     """The loaded ``epilogue_infer`` library (both entry points)."""
     so = _build.load("epilogue_infer")
-    so.block_epilogue_infer.argtypes = [_VP] * 11 + [_I32] * 4 + [_VP]
+    so.block_epilogue_infer.argtypes = [_VP] * 14 + [_I32] * 4 + [_VP]
     so.mlp_infer.argtypes = [_VP] * 6 + [_I32] * 5 + [_VP]
     for fn in (so.block_epilogue_infer, so.mlp_infer):
         fn.restype = _I32
@@ -113,6 +118,13 @@ def width_ok(n: int, out: bool = False) -> bool:
     take."""
     return (n >= 32 and n % 32 == 0 and (n <= 128 or n % 128 == 0)
             and (not out or n <= 1024))
+
+
+def epilogue_scratch_shapes(m: int, c: int, hidden: int) -> dict:
+    """Shapes of the bf16 chain's scratch (bf16): ``y`` and ``yn`` (LN(y))
+    ``[M, C]``, ``g`` (gelu(h)) ``[M, H]``. f32 runs one kernel and needs
+    none."""
+    return {"y": (m, c), "yn": (m, c), "g": (m, hidden)}
 
 
 def check_cuda(name, rows, weights, vectors):
@@ -172,13 +184,20 @@ def block_epilogue_infer(o: torch.Tensor, x: torch.Tensor,
     wp, w1t, w2t = check_cuda("block_epilogue_infer", (o, x),
                               (wproj, w1, w2), (bproj, lns, lnb, b1, b2))
     out = torch.empty_like(o)
+    bf16 = o.dtype == torch.bfloat16
+    # kept alive until the launch is queued (the allocator reuses freed
+    # memory in stream order)
+    scratch = [torch.empty(shape, dtype=o.dtype, device=o.device)
+               if bf16 else None
+               for shape in epilogue_scratch_shapes(m, c, hidden).values()]
     with torch.cuda.device(o.device):
         stream = torch.cuda.current_stream(o.device).cuda_stream
         rc = lib().block_epilogue_infer(
             o.data_ptr(), x.data_ptr(), wp.data_ptr(), bproj.data_ptr(),
             lns.data_ptr(), lnb.data_ptr(), w1t.data_ptr(), b1.data_ptr(),
-            w2t.data_ptr(), b2.data_ptr(), out.data_ptr(), m, c, hidden,
-            int(o.dtype == torch.bfloat16), stream)
+            w2t.data_ptr(), b2.data_ptr(), out.data_ptr(),
+            *(t if t is None else t.data_ptr() for t in scratch), m, c,
+            hidden, int(bf16), stream)
     if rc != 0:
         raise RuntimeError(f"block_epilogue_infer launch failed: CUDA error {rc}")
     block_epilogue_infer.launches += 1

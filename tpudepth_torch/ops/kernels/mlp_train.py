@@ -6,7 +6,11 @@ VJP over the forward ``_mlp_fwd_pallas`` and the backward
 ``_mlp_bwd_pallas``. The kernels are the two C entries of
 ``tpudepth_torch/csrc/mlp_train.cu``, ``mlp_train_fwd`` and
 ``mlp_train_bwd``, CUDA C++ for ``sm_90a`` built by ``_build``; the source's
-header says what bounds them and how they are laid out. The wrappers
+header says what bounds them and how they are laid out. The bf16 backward
+runs its products on the pipelined ``wgmma`` core of ``csrc/gemm_sm90.cuh``
+and spills ``a = gelu(h)`` and ``dh1`` to ``[M, H]`` scratch that the
+wrapper allocates (:func:`bwd_scratch_shapes`), with the f32 partial sums
+of the bias and weight gradients. The wrappers
 :func:`mlp_train_fwd` and :func:`mlp_train_bwd` count their launches; the
 plain versions :func:`mlp_train_fwd_reference` and
 :func:`mlp_train_bwd_reference` have the kernels' rounding order. CPU
@@ -39,10 +43,13 @@ _VP, _I32 = ctypes.c_void_p, ctypes.c_int
 
 INV_SQRT2 = 0.7071067811865476
 INV_SQRT_2PI = 0.3989422804014327
-#: the backward's row tile (db1 partials) and column-sum chunk (db2)
-ROW_TILE, COLSUM_ROWS = 128, 256
-#: blocks a weight-gradient product aims at: the card's 132 SMs twice
-WGRAD_BLOCKS = 264
+#: the backward's row tile (db1 partials), column-sum chunk (db2) and the
+#: depth of a k-block of its bf16 products (weight-gradient chunks are
+#: whole k-blocks)
+ROW_TILE, COLSUM_ROWS, K_BLOCK = 128, 256, 64
+#: the H100's SMs: a weight-gradient product with fewer tiles of 128 x 128
+#: is split over chunks of rows until it has about one tile an SM
+SMS = 132
 
 
 def _acc(dtype: torch.dtype) -> torch.dtype:
@@ -164,12 +171,28 @@ def _lib() -> ctypes.CDLL:
 
 def wgrad_chunk(m: int, rows: int, cols: int) -> int:
     """Rows of x a block of a weight-gradient product (``rows x cols``)
-    sums: enough chunks for about :data:`WGRAD_BLOCKS` blocks, in multiples
-    of 32 (a function of the shape alone, so the partial sums add up in the
-    same order on every run)."""
-    tiles = -(-rows // 128) * -(-cols // 64)
-    chunks = max(1, min(-(-WGRAD_BLOCKS // tiles), -(-m // 32)))
-    return -(-(-(-m // chunks)) // 32) * 32
+    sums: all of them when the product has at least :data:`SMS` tiles of
+    128 x 128, else as many chunks as fit :data:`SMS` tiles, in multiples of
+    :data:`K_BLOCK` (a function of the shape alone, so the partial sums add
+    up in the same order on every run)."""
+    tiles = -(-rows // 128) * -(-cols // 128)
+    chunks = max(1, min(SMS // tiles, -(-m // K_BLOCK)))
+    return -(-(-(-m // chunks)) // K_BLOCK) * K_BLOCK
+
+
+def bwd_scratch_shapes(m: int, c: int, hidden: int, c2: int) -> dict:
+    """Shapes of the backward's scratch: ``a`` and ``dh`` ``[M, H]`` in the
+    IO dtype; f32 partials ``db1_part`` (one row a row tile of
+    :data:`ROW_TILE`), ``db2_part`` (a chunk of :data:`COLSUM_ROWS`),
+    ``dw1_part`` and ``dw2_part`` (a chunk of :func:`wgrad_chunk` rows; None
+    for one chunk, which the kernel sums straight into the gradient)."""
+    n1 = -(-m // wgrad_chunk(m, c, hidden))
+    n2 = -(-m // wgrad_chunk(m, hidden, c2))
+    return {"a": (m, hidden), "dh": (m, hidden),
+            "db1_part": (-(-m // ROW_TILE), hidden),
+            "db2_part": (-(-m // COLSUM_ROWS), c2),
+            "dw1_part": (n1, c, hidden) if n1 > 1 else None,
+            "dw2_part": (n2, hidden, c2) if n2 > 1 else None}
 
 
 def _shapes(x, w1, b1, w2, b2=None):
@@ -224,14 +247,13 @@ def mlp_train_bwd(x: torch.Tensor, g: torch.Tensor, w1: torch.Tensor,
         return torch.empty(shape, dtype=torch.float32, device=dev)
 
     k1, k2 = wgrad_chunk(m, c, hidden), wgrad_chunk(m, hidden, c2)
-    n1, n2 = -(-m // k1), -(-m // k2)
+    shapes = bwd_scratch_shapes(m, c, hidden, c2)
     dx = torch.empty((m, c), dtype=dt, device=dev)
     dw1, db1, dw2, db2 = f32(c, hidden), f32(hidden), f32(hidden, c2), f32(c2)
-    a, dh = (torch.empty((m, hidden), dtype=dt, device=dev) for _ in range(2))
-    db1_part = f32(-(-m // ROW_TILE), hidden)
-    db2_part = f32(-(-m // COLSUM_ROWS), c2)
-    dw1_part = f32(n1, c, hidden) if n1 > 1 else dw1
-    dw2_part = f32(n2, hidden, c2) if n2 > 1 else dw2
+    a, dh = (torch.empty(shapes[k], dtype=dt, device=dev) for k in ("a", "dh"))
+    db1_part, db2_part = f32(*shapes["db1_part"]), f32(*shapes["db2_part"])
+    dw1_part = f32(*shapes["dw1_part"]) if shapes["dw1_part"] else dw1
+    dw2_part = f32(*shapes["dw2_part"]) if shapes["dw2_part"] else dw2
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = _lib().mlp_train_bwd(
