@@ -32,7 +32,8 @@ plain PyTorch version. Phases:
    f32 and bf16 and at prelude / skip / ragged / k=1 / multi-part cases,
    timed beside cuDNN's ``convolution_backward`` of the same conv; the SAM
    kernels (``window_attn_infer``, ``block_epilogue_infer``, ``mlp_infer``)
-   at the four stage shapes; ``crf_rowblock_infer`` (shift 0 and 3) and
+   at the four stage shapes (``mlp_infer`` also at an odd row count, each
+   call rerun bit-equal); ``crf_rowblock_infer`` (shift 0 and 3) and
    ``sam_rowblock_infer`` against their plain versions at the four stage
    shapes of 480x640, B 1 and 8, f32 and bf16, every call rerun bit-equal,
    then one B 8 bf16 forward's calls timed beside the bound, the plain
@@ -42,9 +43,10 @@ plain PyTorch version. Phases:
    ``sam_block_infer`` the same way, on the windows of the same maps,
    beside the ``block``, ``row`` and ``fused`` modules; [train kernels]:
    ``window_attn_train_fwd`` / ``_bwd`` (with and without the shift-3 mask)
-   and ``mlp_train_fwd`` / ``_bwd`` (also at an odd row count) against their
-   plain versions at the four stage shapes of a B 8 step, f32 and bf16,
-   every backward run twice and bit-equal, then one B 8 bf16 SAM step's
+   and ``mlp_train_fwd`` / ``_bwd`` (also at an odd row count, the forward
+   also at B 1) against their plain versions at the four stage shapes of a
+   B 8 step, f32 and bf16, every backward and FFN forward run twice and
+   bit-equal, then one B 8 bf16 SAM step's
    calls timed beside the bound, the plain version and SDPA (forward,
    autograd backward) or the FFN's
    cuBLAS products; [root loss kernels]: ``fused_root_loss_fwd`` / ``_bwd``
@@ -1361,7 +1363,8 @@ def phase_sam_kernels():
     """``window_attn_infer`` (also with the shift-3 mask),
     ``block_epilogue_infer`` and ``mlp_infer`` against their plain versions
     at the four SAM stage shapes, batch 1 and 8, f32 and bf16, each within
-    its ``tolerance``; then their times at batch 8 in bf16 (CUDA graph
+    its ``tolerance`` (``mlp_infer`` also at 8 h w - 3 rows, each call
+    rerun bit-equal); then their times at batch 8 in bf16 (CUDA graph
     replays) beside the bound, the plain version and one library yardstick:
     ``F.scaled_dot_product_attention`` on the head-split tensors with the
     bias as ``attn_mask``; the block tail's and the FFN's products alone in
@@ -1398,11 +1401,18 @@ def phase_sam_kernels():
                      ei.tolerance(dtype), tag)
                 args = (tail["o"], tail["w1"], tail["b1"], tail["w2"],
                         tail["b2"])
-                got = mi.mlp_infer(*args)
-                torch.cuda.synchronize()
-                hold("mlp_infer", got, mi.mlp_infer_reference(*args),
-                     mi.tolerance(dtype), tag)
-                del attn, tail, got, args
+                # at batch 8 also 8 h w - 3 rows: odd, ragged in every tile
+                odd = (tail["o"][:-3],) + args[1:]
+                for x_tag, a in ((tag, args), (f"{tag} odd rows", odd)):
+                    if a is odd and bsz != SAM_BATCH:
+                        continue
+                    got, again = mi.mlp_infer(*a), mi.mlp_infer(*a)
+                    torch.cuda.synchronize()
+                    hold("mlp_infer", got, mi.mlp_infer_reference(*a),
+                         mi.tolerance(dtype), f"{x_tag} M {a[0].shape[0]}")
+                    check(torch.equal(got, again),
+                          f"mlp_infer {x_tag}: a rerun differs")
+                del attn, tail, got, again, args, odd
                 torch.cuda.empty_cache()
 
     # device times at batch 8 in bf16, the serving dtype
@@ -1988,8 +1998,8 @@ def phase_train_kernels():
     """``window_attn_train_fwd`` / ``_bwd`` and ``mlp_train_fwd`` / ``_bwd``
     against their plain versions at the four stage shapes of a 480x640
     batch-8 step, in f32 and bf16, the attention with and without the
-    shift-3 mask, the FFN also at an odd row count; every backward run twice
-    and the reruns bit-equal. Then one B8 bf16 SAM step's calls timed (CUDA
+    shift-3 mask, the FFN also at an odd row count and its forward at batch
+    1; every backward and FFN forward run twice and the reruns bit-equal. Then one B8 bf16 SAM step's calls timed (CUDA
     graph replays) beside the bound, the plain version and a library
     yardstick: ``F.scaled_dot_product_attention`` with the bias as
     ``attn_mask`` (the backward: its autograd backward, eager, less the
@@ -2029,14 +2039,25 @@ def phase_train_kernels():
                 del got, grads, again, want
             out_tol, w_tol = mt.tolerance(dtype)
             odd = {**ffn, "x": ffn["x"][:-3]}   # 8 h w - 3 rows: odd
+            # the forward also at batch 1 (its first h w rows)
+            one = {**ffn, "x": ffn["x"][:rows]}
+            got, again = mt.mlp_train_fwd(**one), mt.mlp_train_fwd(**one)
+            torch.cuda.synchronize()
+            hold("mlp_train_fwd", got, mt.mlp_train_fwd_reference(**one),
+                 out_tol, f"{stage} B1 {str(dtype)[6:]} M {rows}")
+            check(torch.equal(got, again),
+                  f"mlp_train_fwd {stage} B1: a rerun differs")
             for x_tag, f, g in ((tag, ffn, gf), (f"{tag} odd rows", odd,
                                                  gf[:-3])):
                 got = mt.mlp_train_fwd(**f)
+                fwd_again = mt.mlp_train_fwd(**f)
                 grads = mt.mlp_train_bwd(f["x"], g, f["w1"], f["b1"], f["w2"])
                 again = mt.mlp_train_bwd(f["x"], g, f["w1"], f["b1"], f["w2"])
                 torch.cuda.synchronize()
                 hold("mlp_train_fwd", got, mt.mlp_train_fwd_reference(**f),
                      out_tol, f"{x_tag} M {f['x'].shape[0]}")
+                check(torch.equal(got, fwd_again),
+                      f"mlp_train_fwd {x_tag}: a rerun differs")
                 want = mt.mlp_train_bwd_reference(f["x"], g, f["w1"], f["b1"],
                                                   f["w2"])
                 flips = mt.flip_atol(f["x"], g, f["w1"], f["b1"], f["w2"])
@@ -2049,11 +2070,12 @@ def phase_train_kernels():
                 check(all(torch.equal(a, b) for a, b in zip(grads, again)),
                       f"mlp_train_bwd {x_tag}: a rerun differs")
                 reruns += 1
-                del got, grads, again, want
-            del attn, ga, ffn, gf, odd
+                del got, fwd_again, grads, again, want
+            del attn, ga, ffn, gf, odd, one
             torch.cuda.empty_cache()
     print(f"[train kernels] {reruns} backward calls rerun, each bit-equal "
-          "(dq, dk, dv, dbias; dx, dw1, db1, dw2, db2)", flush=True)
+          "(dq, dk, dv, dbias; dx, dw1, db1, dw2, db2); every FFN forward "
+          "rerun bit-equal", flush=True)
 
     # device times of one B8 bf16 SAM train step's calls
     rows = {k: [] for k in TRAIN_KERNELS}

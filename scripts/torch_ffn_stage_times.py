@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""Per-stage device times of ``mlp_train_bwd`` and ``block_epilogue_infer``
-of tpudepth_torch on one NVIDIA GPU, with the split of each call into its
-CUDA kernels.
+"""Per-stage device times of the bf16 kernels of tpudepth_torch on the
+``wgmma`` core (``mlp_infer``, ``mlp_train_fwd``, ``mlp_train_bwd``,
+``block_epilogue_infer``) on one NVIDIA GPU, with the split of each call
+into its CUDA kernels.
 
     python3 scripts/torch_ffn_stage_times.py [--check] [--tag NAME]
         [--json PATH]
@@ -104,7 +105,8 @@ def close(got, want, tol, extra=None):
 
 
 def inputs(seed, m, c, dev):
-    """Seeded rows, weights [in, out] of std 1/sqrt(fan_in), vectors."""
+    """Seeded rows, weights [in, out] of std 1/sqrt(fan_in), vectors (the
+    FFN's b2 drawn last, so the rest are the inputs of earlier runs)."""
     g = torch.Generator(device=dev).manual_seed(seed)
 
     def n(*shape, s=1.0, mean=0.0, dt=torch.float32):
@@ -118,7 +120,36 @@ def inputs(seed, m, c, dev):
                 lns=n(c, s=0.2, mean=1.0), lnb=n(c, s=0.1),
                 w1=n(c, h, s=c ** -0.5), b1=n(h, s=0.1),
                 w2=n(h, c, s=h ** -0.5), b2=n(c, s=0.1))
+    ffn["b2"] = n(c, s=0.1)
     return ffn, tail
+
+
+def check_call(name, kern, ffn, tail, x, gy):
+    """(the kernel's errors against its plain version, each within the
+    module's tolerance?, a rerun bit-equal?)"""
+    from tpudepth_torch.ops.kernels import epilogue_infer as ei
+    from tpudepth_torch.ops.kernels import mlp_infer as mi
+    from tpudepth_torch.ops.kernels import mlp_train as mt
+
+    got, again = kern(), kern()
+    args = (x, ffn["w1"], ffn["b1"], ffn["w2"], ffn["b2"])
+    if name == "mlp_train_bwd":
+        want = mt.mlp_train_bwd_reference(x, gy, *args[1:4])
+        flips = mt.flip_atol(x, gy, *args[1:4])
+        out_tol, w_tol = mt.tolerance(torch.bfloat16)
+        oks = [close(got[0], want[0], out_tol, flips[0])]
+        oks += [close(a, b, w_tol, f) for a, b, f in
+                zip(got[1:], want[1:], flips[1:])]
+        return oks, all(torch.equal(a, b) for a, b in zip(got, again))
+    if name == "mlp_infer":
+        want, tol = mi.mlp_infer_reference(*args), mi.tolerance(torch.bfloat16)
+    elif name == "mlp_train_fwd":
+        want = mt.mlp_train_fwd_reference(*args)
+        tol = mt.tolerance(torch.bfloat16)[0]
+    else:
+        want = ei.block_epilogue_infer_reference(**tail)
+        tol = ei.tolerance(torch.bfloat16)
+    return [close(got, want, tol)], torch.equal(got, again)
 
 
 def main() -> int:
@@ -132,6 +163,7 @@ def main() -> int:
         return 1
     sys.path.insert(0, os.getcwd())
     from tpudepth_torch.ops.kernels import epilogue_infer as ei
+    from tpudepth_torch.ops.kernels import mlp_infer as mi
     from tpudepth_torch.ops.kernels import mlp_train as mt
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -153,44 +185,34 @@ def main() -> int:
         wpb = tail["wproj"].bfloat16()
         hbuf = torch.empty(m, h, dtype=torch.bfloat16, device=dev)
 
-        def bwd():
-            return mt.mlp_train_bwd(x, gy, ffn["w1"], ffn["b1"], ffn["w2"])
-
-        def epi():
-            return ei.block_epilogue_infer(**tail)
-
+        args_ffn = (x, ffn["w1"], ffn["b1"], ffn["w2"], ffn["b2"])
         w = 2 * c * h
         cases = {
+            "mlp_infer": (
+                lambda: mi.mlp_infer(*args_ffn),
+                lambda: (x @ w1b, hbuf @ w2b),
+                bound(2 * m * c * 2 + w * 4 + (c + h) * 4, 4 * m * c * h)),
+            "mlp_train_fwd": (
+                lambda: mt.mlp_train_fwd(*args_ffn),
+                lambda: (x @ w1b, hbuf @ w2b),
+                bound(2 * m * c * 2 + w * 2 + (h + c) * 4, 4 * m * c * h)),
             "mlp_train_bwd": (
-                bwd, lambda: (x @ w1b, gy @ w2b.t(), hbuf @ w1b.t(),
-                              x.t() @ hbuf, hbuf.t() @ gy),
+                lambda: mt.mlp_train_bwd(x, gy, ffn["w1"], ffn["b1"],
+                                         ffn["w2"]),
+                lambda: (x @ w1b, gy @ w2b.t(), hbuf @ w1b.t(),
+                         x.t() @ hbuf, hbuf.t() @ gy),
                 bound(3 * m * c * 2 + w * 2 + w * 4 + (h + c) * 4,
                       10 * m * c * h)),
             "block_epilogue_infer": (
-                epi, lambda: (o @ wpb, x @ w1b, hbuf @ w2b),
+                lambda: ei.block_epilogue_infer(**tail),
+                lambda: (o @ wpb, x @ w1b, hbuf @ w2b),
                 bound(3 * m * c * 2 + (c * c + 2 * c * h) * 4
                       + (4 * c + h) * 4, 2 * m * c * (c + 2 * h))),
         }
         for name, (kern, lib, (bnd, by)) in cases.items():
             row = {"kernel": name, "stage": stage, "M": m, "C": c}
             if args.check:
-                if name == "mlp_train_bwd":
-                    got, again = kern(), kern()
-                    want = mt.mlp_train_bwd_reference(x, gy, ffn["w1"],
-                                                      ffn["b1"], ffn["w2"])
-                    flips = mt.flip_atol(x, gy, ffn["w1"], ffn["b1"],
-                                         ffn["w2"])
-                    out_tol, w_tol = mt.tolerance(torch.bfloat16)
-                    oks = [close(got[0], want[0], out_tol, flips[0])]
-                    oks += [close(a, b, w_tol, f) for a, b, f in
-                            zip(got[1:], want[1:], flips[1:])]
-                    same = all(torch.equal(a, b) for a, b in zip(got, again))
-                    del want, flips
-                else:
-                    got, again = kern(), kern()
-                    want = ei.block_epilogue_infer_reference(**tail)
-                    oks = [close(got, want, ei.tolerance(torch.bfloat16))]
-                    same = torch.equal(got, again)
+                oks, same = check_call(name, kern, ffn, tail, x, gy)
                 torch.cuda.synchronize()
                 ok = all(o_ for o_, _ in oks) and same
                 ok_all &= ok
@@ -200,7 +222,6 @@ def main() -> int:
                       f"{'ok' if ok else 'FAILED'}, max abs err "
                       f"{[f'{e:.3g}' for _, e in oks]}, rerun "
                       f"{'bit-equal' if same else 'DIFFERS'}", flush=True)
-                del got, again
             ms, lib_ms = time_ms(kern), time_ms(lib)
             row.update(ms=ms, library_ms=lib_ms, bound_ms=bnd, bound_by=by)
             print(f"[stage time] {name:<20} {stage} B8 bf16 (M {m}, C {c}): "
@@ -214,7 +235,7 @@ def main() -> int:
             result["stages"].append(row)
         del ffn, tail, hbuf
         torch.cuda.empty_cache()
-    for name in ("mlp_train_bwd", "block_epilogue_infer"):
+    for name in dict.fromkeys(r["kernel"] for r in result["stages"]):
         rows = [r for r in result["stages"] if r["kernel"] == name]
         print(f"[stage total] {name:<20} 4 stages: kernel "
               f"{sum(r['ms'] for r in rows):.4f} ms, cuBLAS "

@@ -623,6 +623,25 @@ def test_block_epilogue_infer_bf16_on_the_gemm_core(cuda, case):
     assert torch.equal(got, again)
 
 
+@pytest.mark.parametrize("case", CORE_EPI_CASES,
+                         ids=lambda c: "x".join(map(str, c)))
+def test_mlp_infer_bf16_on_the_gemm_core(cuda, case):
+    """The bf16 FFN chain (two products through the bf16 hidden) against
+    the plain version at the unchanged tolerance; a rerun bit-equal; one
+    counted launch a call."""
+    m, c, hidden = case
+    a = _epilogue_case(m + hidden, m, c, hidden, torch.bfloat16, cuda)
+    args = (a["o"], a["w1"], a["b1"], a["w2"], a["b2"])
+    before = mi.mlp_infer.launches
+    got = mi.mlp_infer(*args)
+    again = mi.mlp_infer(*args)
+    torch.cuda.synchronize()
+    assert mi.mlp_infer.launches == before + 2
+    assert got.dtype == torch.bfloat16 and got.shape == (m, c)
+    _close(got, mi.mlp_infer_reference(*args), mi.tolerance(torch.bfloat16))
+    assert torch.equal(got, again)
+
+
 def test_block_epilogue_infer_takes_unaligned_layer_norm_vectors(cuda):
     """LayerNorm scale and bias one float off a 16-byte boundary: the bf16
     chain's LayerNorm reads them one at a time, with the same result."""
@@ -1020,6 +1039,63 @@ def test_mlp_train_bwd_bf16_on_the_gemm_core(cuda, case):
         assert got.dtype == torch.float32 and got.shape == ref.shape
         _close(got, ref, w_tol, flip)
     assert all(torch.equal(a, b) for a, b in zip(grads, again))
+
+
+@pytest.mark.parametrize("case", CORE_MLP_CASES,
+                         ids=lambda c: "x".join(map(str, c)))
+def test_mlp_train_fwd_bf16_on_the_gemm_core(cuda, case):
+    """The bf16 forward (mlp_infer's chain, the biases rounded to bf16)
+    against the plain version at the unchanged tolerance, also where
+    C2 != C; a rerun bit-equal; one counted launch a call."""
+    m, c, hidden, c2 = case
+    x, w1, b1, w2, b2, _ = _mlp_case(m + c2, m, c, hidden, torch.bfloat16,
+                                     cuda, c2=c2)
+    before = mt.mlp_train_fwd.launches
+    got = mt.mlp_train_fwd(x, w1, b1, w2, b2)
+    again = mt.mlp_train_fwd(x, w1, b1, w2, b2)
+    torch.cuda.synchronize()
+    assert mt.mlp_train_fwd.launches == before + 2
+    assert got.dtype == torch.bfloat16 and got.shape == (m, c2)
+    _close(got, mt.mlp_train_fwd_reference(x, w1, b1, w2, b2),
+           mt.tolerance(torch.bfloat16)[0])
+    assert torch.equal(got, again)
+
+
+_FRESH_FORWARD = """
+import torch
+from tpudepth_torch.ops.kernels import mlp_train as mt
+g = torch.Generator().manual_seed(3)
+x = torch.randn(300, 256, generator=g).cuda().bfloat16()
+w1 = (torch.randn(256, 1024, generator=g) / 16).cuda()
+b1 = (0.1 * torch.randn(1024, generator=g)).cuda()
+w2 = (torch.randn(1024, 256, generator=g) / 32).cuda()
+b2 = (0.1 * torch.randn(256, generator=g)).cuda()
+got = mt.mlp_train_fwd(x, w1, b1, w2, b2)
+torch.cuda.synchronize()
+want = mt.mlp_train_fwd_reference(x, w1, b1, w2, b2)
+frac, rtol = mt.tolerance(torch.bfloat16)[0]
+d = (got.float() - want.float()).abs()
+ok = bool((d <= frac * want.float().abs().max() + rtol * want.float().abs())
+          .all())
+print("fresh forward", "ok" if ok else "FAILED", float(d.max()))
+"""
+
+
+def test_mlp_train_fwd_bf16_fills_its_own_gelu_table(cuda):
+    """Each library holds its own GELU table: a bf16 mlp_train_fwd in a
+    fresh process, before any other bf16 kernel of the package, fills its
+    table before its first product reads it."""
+    import os
+    import subprocess
+    import sys
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [root] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    run = subprocess.run([sys.executable, "-c", _FRESH_FORWARD], cwd=root,
+                         env=env, capture_output=True, text=True, timeout=600)
+    assert run.returncode == 0, run.stderr[-2000:]
+    assert "fresh forward ok" in run.stdout, run.stdout
 
 
 def test_mlp_train_takes_a_narrower_output_and_linear_weights(cuda):

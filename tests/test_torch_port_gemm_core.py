@@ -1,10 +1,12 @@
 """What the wrappers of the kernels on the wgmma GEMM core
 (``tpudepth_torch/csrc/gemm_sm90.cuh``) compute in Python, on the CPU: the
-row chunks of ``mlp_train_bwd``'s weight gradients, the scratch both
-wrappers allocate, and the constants they share with the CUDA sources. The
-kernels themselves run only on the card (``tests/test_torch_port_cuda.py``).
+row chunks of ``mlp_train_bwd``'s weight gradients, the scratch the
+wrappers allocate, the constants they share with the CUDA sources, and the
+ctypes signatures they give the C entries. The kernels themselves run only
+on the card (``tests/test_torch_port_cuda.py``).
 """
 
+import ctypes
 import re
 
 import pytest
@@ -82,6 +84,65 @@ def test_epilogue_scratch_shapes(m, c, hidden):
     assert list(shapes) == ["y", "yn", "g"]
     assert shapes["y"] == shapes["yn"] == (m, c)
     assert shapes["g"] == (m, hidden)
+
+
+@pytest.mark.parametrize("m,hidden", [
+    (2400, 4096), (9600, 2048), (38400, 1024), (153600, 512), (153597, 512),
+    (1, 128), (37, 128), (333, 384), (130, 96)])
+def test_ffn_scratch_shapes(m, hidden):
+    """The bf16 FFN chain's one scratch, the rounded hidden; the block tail's
+    chain holds the same tensor as its g."""
+    shapes = ei.ffn_scratch_shapes(m, hidden)
+    assert shapes == {"g": (m, hidden)}
+    assert ei.epilogue_scratch_shapes(m, 64, hidden)["g"] == shapes["g"]
+
+
+_C_TYPES = {"void*": ctypes.c_void_p, "int": ctypes.c_int,
+            "float": ctypes.c_float}
+
+
+def _c_entries(source: str) -> dict:
+    """``{name: [ctypes type of each parameter]}`` of the ``extern "C"``
+    functions of a CUDA source, read from their declarations."""
+    out = {}
+    for name, params in re.findall(r'extern "C" int (\w+)\(([^)]*)\)',
+                                   _source(source)):
+        types = []
+        for param in params.split(","):
+            decl = " ".join(param.replace("const ", "").split()[:-1])
+            if "*" in param:
+                decl = "void*"
+            types.append(_C_TYPES[decl])
+        out[name] = types
+    return out
+
+
+@pytest.mark.parametrize("source,module", [("epilogue_infer.cu", ei),
+                                           ("mlp_train.cu", mt)],
+                         ids=["epilogue_infer", "mlp_train"])
+def test_every_c_entry_has_a_ctypes_signature(source, module):
+    assert sorted(_c_entries(source)) == sorted(module.ARGTYPES)
+
+
+@pytest.mark.parametrize("source,module,name", [
+    ("epilogue_infer.cu", ei, "block_epilogue_infer"),
+    ("epilogue_infer.cu", ei, "mlp_infer"),
+    ("mlp_train.cu", mt, "mlp_train_fwd"),
+    ("mlp_train.cu", mt, "mlp_train_bwd")], ids=lambda v: (
+        v if isinstance(v, str) else ""))
+def test_ctypes_signature_matches_the_c_entry(source, module, name):
+    """Parameter for parameter: a pointer is a c_void_p, an int a c_int (a
+    mismatch shows only on the card, as a wrong argument)."""
+    assert list(module.ARGTYPES[name]) == _c_entries(source)[name]
+
+
+def test_ffn_entries_share_one_signature_with_the_bf16_scratch():
+    """``mlp_infer`` and ``mlp_train_fwd`` take x, w1, b1, w2, b2, out and
+    the bf16 scratch g: seven pointers, five ints, the stream."""
+    assert ei.ARGTYPES["mlp_infer"] == mt.ARGTYPES["mlp_train_fwd"] == (
+        ei.FFN_ARGTYPES)
+    assert ei.FFN_ARGTYPES == (ctypes.c_void_p,) * 7 + (ctypes.c_int,) * 5 + (
+        ctypes.c_void_p,)
 
 
 def test_python_constants_match_the_cuda_sources():

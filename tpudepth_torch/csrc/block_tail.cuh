@@ -1,10 +1,14 @@
-// Device code of the transformer block tail and FFN for inference, shared
-// by epilogue_infer.cu (block_epilogue_infer, mlp_infer), rowblock_infer.cu
-// and block_infer.cu (the tails of the whole-block kernels), and
-// ln_proj.cuh (the LayerNorm-and-projection pass in front of their
-// attention). The arithmetic, the design and what bounds it are described
-// at the top of epilogue_infer.cu; the tail of the whole-block kernels
-// (Mode kBlock) keeps y in f32, as the top of block_infer.cu describes.
+// Device code of the transformer block tail and FFN on mma.sync and the
+// CUDA cores, shared by epilogue_infer.cu (the f32 block_epilogue_infer and
+// mlp_infer), mlp_train.cu (the f32 mlp_train_fwd), rowblock_infer.cu and
+// block_infer.cu (the tails of the row and whole-block kernels, bf16 and
+// f32), and ln_proj.cuh (the LayerNorm-and-projection pass in front of
+// their attention). The arithmetic, the design and what bounds it are
+// described at the top of epilogue_infer.cu; the tail of the whole-block
+// kernels (Mode kBlock) keeps y in f32, as the top of block_infer.cu
+// describes. The bf16 FFN alone (mlp_infer, mlp_train_fwd) and the bf16
+// block_epilogue_infer run on the wgmma core of gemm_sm90.cuh instead: the
+// FFN mode here is f32 only.
 //
 // Everything is in namespace tail inside an unnamed namespace: each source
 // that includes it gets its own copy with internal linkage, and the names do
@@ -28,7 +32,7 @@ constexpr size_t kSmemLimit = 232448;  // 227 KB: the most a block may have
 constexpr float kInvSqrt2 = 0.70710678118654752f;
 
 // What a tail computes from the rows o (and the shortcut x):
-//   kFfn       out = round(fc2(gelu(fc1(o))))                  (mlp_infer)
+//   kFfn       out = fc2(gelu(fc1(o))), f32 only (mlp_infer, mlp_train_fwd)
 //   kEpilogue  z = round(o Wp + bp), y = round(x + z), m = round(fc2(...)),
 //              out = round(y + m)    (block_epilogue_infer, the row kernels)
 //   kBlock     y = x + (o Wp + bp) and m = fc2(...) kept in f32,
@@ -193,9 +197,9 @@ __device__ __forceinline__ void zero(float (&acc)[MT][NT][4]) {
 // in distinct banks.
 __host__ __device__ inline int padded(int n) { return n + (96 - n % 64) % 64; }
 
-// Bytes of y's row tile: bf16 (kEpilogue), f32 (kBlock) or none (kFfn).
+// Bytes of an element of y's row tile: bf16 (kEpilogue) or f32 (kBlock).
 __host__ __device__ inline size_t y_bytes(Mode mode) {
-  return mode == kFfn ? 0 : mode == kEpilogue ? 2 : 4;
+  return mode == kEpilogue ? 2 : 4;
 }
 
 __host__ __device__ inline size_t mma_smem_bytes(int mt, int cin, int hidden,
@@ -211,14 +215,15 @@ struct YType { using T = __nv_bfloat16; };
 template <>
 struct YType<kBlock> { using T = float; };
 
+// The bf16 tail of the row and whole-block kernels (kEpilogue, kBlock).
 // NT = 16 / MT: the accumulator holds 64 floats per thread, which covers
 // Cout <= 1024 at MT = 1 (16 tiles per warp) down to Cout <= 128 at MT = 8.
 // With it the f32 y of kBlock is at most 16 x 1024 floats (64 KB).
 template <int MT, Mode kMode>
 __global__ void __launch_bounds__(kThreads, 1) tail_mma_kernel(const Params p) {
+  static_assert(kMode != kFfn, "the bf16 FFN runs on gemm_sm90.cuh");
   constexpr int NT = 16 / MT;
   constexpr int BM = 16 * MT;
-  constexpr bool kEpilogue = kMode != kFfn;
   using Y = typename YType<kMode>::T;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int lane = threadIdx.x & 31;
@@ -232,8 +237,7 @@ __global__ void __launch_bounds__(kThreads, 1) tail_mma_kernel(const Params p) {
   const int ldg = padded(hc);
   __nv_bfloat16* a_s = reinterpret_cast<__nv_bfloat16*>(smem_raw);
   Y* y_s = reinterpret_cast<Y*>(a_s + BM * lda);            // [BM][C]
-  __nv_bfloat16* g_s =
-      reinterpret_cast<__nv_bfloat16*>(y_s + (kEpilogue ? BM * C : 0));
+  __nv_bfloat16* g_s = reinterpret_cast<__nv_bfloat16*>(y_s + BM * C);
                                                             // [BM][ldg]
 
   // the row tile, 8 bf16 at a time; rows past M are zeros, never written
@@ -248,36 +252,32 @@ __global__ void __launch_bounds__(kThreads, 1) tail_mma_kernel(const Params p) {
     const uint4 zero4 = make_uint4(0, 0, 0, 0);
     *reinterpret_cast<uint4*>(a_s + r * lda + k) =
         in ? *reinterpret_cast<const uint4*>(o + gi) : zero4;
-    if (kEpilogue) {
-      store8(y_s + r * C + k,
-             in ? *reinterpret_cast<const uint4*>(x + gi) : zero4);
-    }
+    store8(y_s + r * C + k,
+           in ? *reinterpret_cast<const uint4*>(x + gi) : zero4);
   }
   __syncthreads();
 
+  // y = x + z in place in y_s (each element is owned by one thread): add_z
+  // rounds z and y for a bf16 y, not for an f32 one
   float acc[MT][NT][4];
   const int ntiles = p.cout / 8;
-  if (kEpilogue) {
-    // y = x + z in place in y_s (each element is owned by one thread):
-    // add_z rounds z and y for a bf16 y, not for an f32 one
-    zero(acc);
-    mma_gemm<MT, NT>(acc, a_s, lda, static_cast<const __nv_bfloat16*>(p.wp),
-                     C, C, ntiles);
+  zero(acc);
+  mma_gemm<MT, NT>(acc, a_s, lda, static_cast<const __nv_bfloat16*>(p.wp), C,
+                   C, ntiles);
 #pragma unroll
-    for (int m = 0; m < MT; ++m)
+  for (int m = 0; m < MT; ++m)
 #pragma unroll
-      for (int i = 0; i < NT; ++i)
-        if (warp + kWarps * i < ntiles)
+    for (int i = 0; i < NT; ++i)
+      if (warp + kWarps * i < ntiles)
 #pragma unroll
-          for (int c = 0; c < 4; ++c) {
-            const int r = m * 16 + g + (c >> 1) * 8;
-            const int n = (warp + kWarps * i) * 8 + 2 * t + (c & 1);
-            add_z(y_s + r * C + n, acc[m][i][c] + p.bp[n]);
-          }
-    __syncthreads();
-    layer_norm_rows(y_s, C, a_s, lda, BM, C, p.lns, p.lnb);
-    __syncthreads();
-  }
+        for (int c = 0; c < 4; ++c) {
+          const int r = m * 16 + g + (c >> 1) * 8;
+          const int n = (warp + kWarps * i) * 8 + 2 * t + (c & 1);
+          add_z(y_s + r * C + n, acc[m][i][c] + p.bp[n]);
+        }
+  __syncthreads();
+  layer_norm_rows(y_s, C, a_s, lda, BM, C, p.lns, p.lnb);
+  __syncthreads();
 
   // FFN: acc = g W2 over the hidden chunks, g = gelu(round(a W1 + b1))
   zero(acc);
@@ -324,10 +324,8 @@ __global__ void __launch_bounds__(kThreads, 1) tail_mma_kernel(const Params p) {
             v0 = bf16r(v0);
             v1 = bf16r(v1);
           }
-          if (kEpilogue) {
-            v0 += to_f32(y_s[r * C + n]);
-            v1 += to_f32(y_s[r * C + n + 1]);
-          }
+          v0 += to_f32(y_s[r * C + n]);
+          v1 += to_f32(y_s[r * C + n + 1]);
           *reinterpret_cast<__nv_bfloat162*>(
               out + static_cast<size_t>(row0 + r) * p.cout + n) =
               __floats2bfloat162_rn(v0, v1);
@@ -560,24 +558,33 @@ int pick_rows(int M, int cin, int hidden, int cout, Mode mode, bool bf16) {
   return bm;
 }
 
-// One launch of the tail in mode kMode. In f32 kBlock is kEpilogue: the
-// IO dtype rounds nothing.
+// The shapes a tail takes: M >= 1, widths width_ok, Cout <= 1024, and
+// Cout = Cin outside kFfn.
+inline bool shape_ok(const Params& p, Mode mode) {
+  return p.M >= 1 && width_ok(p.cin) && width_ok(p.hidden) &&
+         width_ok(p.cout) && p.cout <= 1024 &&
+         (mode == kFfn || p.cout == p.cin);
+}
+
+// One launch of the tail in mode kMode (kFfn: f32 only). In f32 kBlock is
+// kEpilogue: the IO dtype rounds nothing.
 template <Mode kMode>
 cudaError_t run(const Params& p, int is_bf16, void* stream) {
   constexpr bool kEpilogue = kMode != kFfn;
-  if (p.M < 1 || !width_ok(p.cin) || !width_ok(p.hidden) ||
-      !width_ok(p.cout) || p.cout > 1024 || (kEpilogue && p.cout != p.cin)) {
-    return cudaErrorInvalidValue;
-  }
+  if (!shape_ok(p, kMode)) return cudaErrorInvalidValue;
   const int rows = pick_rows(p.M, p.cin, p.hidden, p.cout, kMode, is_bf16);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (is_bf16) {
-    switch (rows) {
-      case 16: return launch_mma<1, kMode>(p, st);
-      case 32: return launch_mma<2, kMode>(p, st);
-      case 64: return launch_mma<4, kMode>(p, st);
-      case 128: return launch_mma<8, kMode>(p, st);
-      default: return cudaErrorInvalidValue;
+    if constexpr (kMode == kFfn) {
+      return cudaErrorInvalidValue;
+    } else {
+      switch (rows) {
+        case 16: return launch_mma<1, kMode>(p, st);
+        case 32: return launch_mma<2, kMode>(p, st);
+        case 64: return launch_mma<4, kMode>(p, st);
+        case 128: return launch_mma<8, kMode>(p, st);
+        default: return cudaErrorInvalidValue;
+      }
     }
   }
   switch (rows) {

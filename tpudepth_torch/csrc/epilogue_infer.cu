@@ -19,9 +19,10 @@
 //     erf, 0.5 h (1 + erf(h / sqrt 2)), rounded;
 //   * m = g W2 + b2 in f32, rounded; out = y + m, rounded.
 // mlp_infer is the FFN part alone (out = m). The TPU kernel evaluated erf by
-// a degree-16 polynomial (Mosaic has no erf); the bf16 block_epilogue_infer
-// evaluates that polynomial (gemm::erf_poly), mlp_infer and the f32 paths
-// the native erff, which differs from it by at most 2.1e-7.
+// a degree-16 polynomial (Mosaic has no erf); both bf16 paths look gelu(h)
+// up by h's bits in a table that polynomial fills (gemm::erf_poly,
+// gemm::gelu_table), the f32 paths evaluate the native erff, which differs
+// from it by at most 2.1e-7.
 //
 // What bounds it: 2 M C (C + 8 C) = 18 M C^2 operations against ~3 M C IO
 // elements: at C = 128..1024 that is 384..3072 operations per bf16 byte,
@@ -57,17 +58,24 @@
 //     memory, weight tiles of 32 x 128 staged through shared memory; each
 //     thread owns (BM / 8) rows x 4 columns of a 128-column chunk.
 //
-// Design of mlp_infer: one block of 256 threads (8 warps) per tile of BM
-// rows; the hidden dimension is walked in chunks of 128: h = x W1[:, chunk],
-// gelu into shared memory, then acc += g W2[chunk, :], the 4C hidden held
-// on the chip. bf16: mma.sync m16n8k16, the [BM, Cout] f32 accumulator in
-// registers (BM = 16 MT rows, 64 floats a thread), A fragments from shared
-// memory, B fragments straight from the bf16 weights in L2, 16 bytes a
-// lane (within a k-block of 32 the lanes take k in the order 8t..8t+7, the
-// same permutation for A and B). f32: as the tail above.
+// Design of mlp_infer.
+//   * bf16 (the pair serving path): steps 3-4 of the chain above on the same
+//     core, two products through the bf16 scratch g [M, H] that the wrapper
+//     allocates (gemm::ffn_bf16): g = round(gelu(round(x W1 + b1))), then
+//     out = round(g W2 + b2). The first design (one block of 256 threads
+//     per 16-128 rows walking the 4C hidden in chunks of 128 on mma.sync,
+//     the [rows, Cout] accumulator in registers, B fragments straight from
+//     L2 in every k-block; block_tail.cuh) took 2.511 ms for the calls of a
+//     B 8 SAM forward on an NVIDIA H100 80GB HBM3 at 700 W, 6.5 % of the
+//     bound and 6.75x the two cuBLAS products; the chain takes 0.692 ms
+//     there (chip_smoke.py), 1.9x cuBLAS; 0.08 of crf3's 0.19 ms are the
+//     wrapper's transposing weight casts.
+//   * f32: the CUDA-core tail of block_tail.cuh in its FFN mode, as above.
 //
-// The mma.sync and CUDA-core device code lives in block_tail.cuh, which
-// rowblock_infer.cu and block_infer.cu share.
+// The f32 paths' CUDA-core device code lives in block_tail.cuh, which
+// mlp_train.cu and the row and whole-block kernels share; the wgmma core,
+// its epilogues and the FFN chain live in gemm_sm90.cuh, which mlp_train.cu
+// shares.
 
 #include "block_tail.cuh"
 #include "gemm_sm90.cuh"
@@ -108,52 +116,6 @@ struct BiasResidual {
           return gemm::pack2(r.x + gemm::bf16r(v0 + b0),
                              r.y + gemm::bf16r(v1 + b1));
         });
-  }
-};
-
-// round(gelu(h)) for every bf16 h, by its bits: h * normal_cdf(h) in f32,
-// the arithmetic of the formula, so looking it up gives the same bits.
-// Filled once a device (gemm::fill_once) before the first chain runs.
-__device__ unsigned short gelu_table[65536];
-
-__global__ void gelu_table_kernel() {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  const float h = gemm::bf16_of_bits(i);
-  const __nv_bfloat16 g = __float2bfloat16(h * gemm::normal_cdf(h));
-  gelu_table[i] = *reinterpret_cast<const unsigned short*>(&g);
-}
-
-// out[r, c] = round(gelu(round(acc + bias[c]))): step 3, erf as the TPU
-// kernel's polynomial. h is a bf16 value, so gelu is looked up by h's bits
-// (gelu_table): a load a value in place of ~25 ALU operations, which held
-// this epilogue (on an NVIDIA H100, 1.15 -> 1.06 ms for the calls of a B 8
-// SAM forward).
-struct BiasGelu {
-  static constexpr int kProducts = 1;
-  static constexpr int kTiles = 1;
-  static constexpr int kSmemBytes = 0;
-  struct Params {
-    const float* bias;
-    int N;
-  };
-  template <int BN>
-  static __device__ __forceinline__ void apply(const Params& p,
-                                               float (&acc)[1][BN / 2],
-                                               const gemm::Tile& t,
-                                               unsigned char*,
-                                               const CUtensorMap* c,
-                                               unsigned char* staging,
-                                               uint32_t) {
-    gemm::store_pairs<BN>(acc[0], c, staging, t.m0, t.n0,
-                          [&](int, int c, float v0, float v1) {
-      const int col = t.n0 + c;
-      if (col >= p.N) return 0u;
-      const __nv_bfloat162 h =
-          __floats2bfloat162_rn(v0 + p.bias[col], v1 + p.bias[col + 1]);
-      const uint32_t bits = *reinterpret_cast<const uint32_t*>(&h);
-      return static_cast<uint32_t>(__ldg(gelu_table + (bits & 0xffffu))) |
-             (static_cast<uint32_t>(__ldg(gelu_table + (bits >> 16))) << 16);
-    });
   }
 };
 
@@ -275,30 +237,17 @@ cudaError_t layer_norm_rows(const __nv_bfloat16* y, __nv_bfloat16* yn, int M,
   }
 }
 
-// One product of the chain: out [M, N] from rows a [M, K] and a weight w
-// [N, K] (torch layout), both K-major.
-template <class Epi>
-cudaError_t product(const typename Epi::Params& e, const void* a,
-                    const void* w, void* out, const void* res, int M, int N,
-                    int K, cudaStream_t st) {
-  const void* A[1] = {a};
-  const void* B[1] = {w};
-  void* T[2] = {out, const_cast<void*>(res)};
-  const long long ld[1] = {K};
-  const int k[1] = {K};
-  return gemm::run_bn<Epi, gemm::kK>(gemm::tile_n(N), e, A, ld, B, ld, k,
-                                     M, N, 1, 1 << 30, st, T);
-}
-
 cudaError_t chain_bf16(const Params& p, __nv_bfloat16* y, __nv_bfloat16* yn,
                        __nv_bfloat16* g, cudaStream_t st) {
+  using gemm::product;
   const int M = p.M, C = p.cin, H = p.hidden;
-  cudaError_t err = gemm::fill_once<gelu_table_kernel>(st);
+  cudaError_t err = gemm::fill_once<gemm::gelu_table_kernel>(st);
   if (err == cudaSuccess)
     err = product<BiasResidual>({p.bp, C}, p.o, p.wp, y, p.x, M, C, C, st);
   if (err == cudaSuccess) err = layer_norm_rows(y, yn, M, C, p.lns, p.lnb, st);
   if (err == cudaSuccess)
-    err = product<BiasGelu>({p.b1, H}, yn, p.w1, g, nullptr, M, H, C, st);
+    err = product<gemm::BiasGelu>({p.b1, H}, yn, p.w1, g, nullptr, M, H, C,
+                                  st);
   if (err != cudaSuccess) return err;
   return product<BiasResidual>({p.b2, C}, g, p.w2, p.out, y, M, C, H, st);
 }
@@ -345,10 +294,12 @@ extern "C" int block_epilogue_infer(const void* o, const void* x,
 }
 
 // out = fc2(gelu(fc1(x))): x [M, cin], w1 [hidden, cin], w2 [cout, hidden]
-// in the IO dtype.
+// in the IO dtype (torch layout, contiguous), b1, b2 f32; x and out
+// contiguous and 16-byte aligned. bf16 takes the scratch g [M, hidden]
+// (bf16; unused in f32). Returns a cudaError_t.
 extern "C" int mlp_infer(const void* x, const void* w1, const void* b1,
-                         const void* w2, const void* b2, void* out, int M,
-                         int cin, int hidden, int cout, int is_bf16,
+                         const void* w2, const void* b2, void* out, void* g,
+                         int M, int cin, int hidden, int cout, int is_bf16,
                          void* stream) {
   Params p = {};
   p.o = x;
@@ -361,5 +312,10 @@ extern "C" int mlp_infer(const void* x, const void* w1, const void* b1,
   p.cin = cin;
   p.hidden = hidden;
   p.cout = cout;
-  return static_cast<int>(run<tail::kFfn>(p, is_bf16, stream));
+  if (!is_bf16) return static_cast<int>(run<tail::kFfn>(p, 0, stream));
+  if (!tail::shape_ok(p, tail::kFfn) || g == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(gemm::ffn_bf16(x, w1, p.b1, w2, p.b2, g, out, M,
+                                         cin, hidden, cout,
+                                         static_cast<cudaStream_t>(stream)));
 }

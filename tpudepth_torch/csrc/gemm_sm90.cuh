@@ -1,6 +1,6 @@
 // One pipelined tensor-core GEMM core for Hopper (sm_90a), shared by the
-// bf16 paths of mlp_train_bwd (mlp_train.cu) and block_epilogue_infer
-// (epilogue_infer.cu):
+// bf16 paths of mlp_train_fwd and mlp_train_bwd (mlp_train.cu) and of
+// mlp_infer and block_epilogue_infer (epilogue_infer.cu):
 //
 //   acc[128 x BN] (+)= sum over k of A(m, k) B(n, k)      bf16 in, f32 out
 //
@@ -10,14 +10,18 @@
 // share one kind, and wgmma reads either natively (its transpose bits), so
 // no operand is transposed element by element.
 //
-// It serves two TPU kernels: tpudepth/ops/pallas/mlp_train.py::
-// _mlp_bwd_pallas (:163) and tpudepth/ops/pallas/epilogue_infer.py::
+// It serves four TPU kernels: tpudepth/ops/pallas/mlp_train.py::
+// _mlp_fwd_pallas (:132) and ::_mlp_bwd_pallas (:163), tpudepth/ops/pallas/
+// mlp_infer.py::mlp_infer (:135) and tpudepth/ops/pallas/epilogue_infer.py::
 // block_epilogue_infer (:92). Their products hold 380..4000 operations per
 // bf16 byte moved, above the card's ~295: operations bound them, and on this
-// card that means the tensor cores kept fed. The first designs of both
+// card that means the tensor cores kept fed. The first designs of all four
 // (mma.sync fed by synchronous loads: fragments through registers and two
-// barriers per k-block, B fragments straight from L2) reached 4-6 % of that
-// bound.
+// barriers per k-block, B fragments straight from L2) reached 4-7 % of that
+// bound. The FFN forward (mlp_train_fwd, mlp_infer) is a chain of two
+// products through a bf16 hidden in device memory (ffn_bf16, at the end);
+// block_epilogue_infer's chain runs the same products as its steps 3-4,
+// with a residual added in step 4.
 //
 // Design (the hopper-kernels guide, section 1):
 //   * tensor cores through wgmma.mma_async m64nBNk16 (BN 64 or 128), both
@@ -43,12 +47,15 @@
 // CUDA graph replays them as captured); cuTensorMapEncodeTiled comes from
 // the runtime's driver entry point, so the build links nothing new.
 //
-// What bounds it now (NVIDIA H100 80GB HBM3, scripts/torch_ffn_stage_times.py):
+// What bounds it now (NVIDIA H100 80GB HBM3 at 700 W; the stage script
+// scripts/torch_ffn_stage_times.py):
 // products with a long K loop run at 350-550 TFLOP/s (the weight gradients
 // over 2400 rows); tiles with a short K loop (64-256) and an epilogue that
 // evaluates GELU on every element run at 150-350 TFLOP/s, held by that
 // epilogue's ALU work and by the L2 traffic of 128-wide tiles, which stage
-// each weight tile again for every 128 rows.
+// each weight tile again for every 128 rows. The FFN chain (ffn_bf16) takes
+// 0.05-0.13 ms a product at the SAM stages of a B 8 forward, 0.70 ms for
+// the four calls with the wrappers' weight casts: 1.9x cuBLAS.
 //
 // Sums run in a fixed order that depends on the shape alone: no atomics, a
 // rerun is bit-equal.
@@ -640,7 +647,7 @@ cudaError_t run_bn(int bn, const typename Epi::Params& p,
 }
 
 // ---------------------------------------------------------------------------
-// Epilogues shared by both users
+// Epilogues shared by the users
 // ---------------------------------------------------------------------------
 
 __device__ __forceinline__ float bf16r(float v) {
@@ -849,6 +856,113 @@ struct F32Store {
     });
   }
 };
+
+// out = round(acc + bias[c]) for c < N: the FFN's second product.
+struct BiasRound {
+  static constexpr int kProducts = 1;
+  static constexpr int kTiles = 1;
+  static constexpr int kSmemBytes = 0;
+  struct Params {
+    const float* bias;
+    int N;
+  };
+  template <int BN>
+  static __device__ __forceinline__ void apply(const Params& p,
+                                               float (&acc)[1][BN / 2],
+                                               const Tile& t, unsigned char*,
+                                               const CUtensorMap* c,
+                                               unsigned char* staging,
+                                               uint32_t) {
+    store_pairs<BN>(acc[0], c, staging, t.m0, t.n0,
+                    [&](int, int c, float v0, float v1) {
+      const int col = t.n0 + c;
+      if (col >= p.N) return 0u;
+      return pack2(v0 + p.bias[col], v1 + p.bias[col + 1]);
+    });
+  }
+};
+
+// round(gelu(h)) for every bf16 h, by its bits: h * normal_cdf(h) in f32,
+// the arithmetic of the formula, so looking it up gives the same bits.
+// Each library that includes this header holds its own table (the unnamed
+// namespace), filled once a device (fill_once) before its first product
+// that reads it.
+__device__ unsigned short gelu_table[65536];
+
+__global__ void gelu_table_kernel() {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  const float h = bf16_of_bits(i);
+  const __nv_bfloat16 g = __float2bfloat16(h * normal_cdf(h));
+  gelu_table[i] = *reinterpret_cast<const unsigned short*>(&g);
+}
+
+// out = round(gelu(round(acc + bias[c]))), erf as the TPU kernel's
+// polynomial. h is a bf16 value, so gelu is looked up by h's bits
+// (gelu_table): a load a value in place of ~25 ALU operations, which held
+// this epilogue (NVIDIA H100 80GB HBM3, 700 W: 1.15 -> 1.06 ms for the
+// block_epilogue_infer calls of a B 8 SAM forward).
+struct BiasGelu {
+  static constexpr int kProducts = 1;
+  static constexpr int kTiles = 1;
+  static constexpr int kSmemBytes = 0;
+  struct Params {
+    const float* bias;
+    int N;
+  };
+  template <int BN>
+  static __device__ __forceinline__ void apply(const Params& p,
+                                               float (&acc)[1][BN / 2],
+                                               const Tile& t, unsigned char*,
+                                               const CUtensorMap* c,
+                                               unsigned char* staging,
+                                               uint32_t) {
+    store_pairs<BN>(acc[0], c, staging, t.m0, t.n0,
+                    [&](int, int c, float v0, float v1) {
+      const int col = t.n0 + c;
+      if (col >= p.N) return 0u;
+      const __nv_bfloat162 h =
+          __floats2bfloat162_rn(v0 + p.bias[col], v1 + p.bias[col + 1]);
+      const uint32_t bits = *reinterpret_cast<const uint32_t*>(&h);
+      return static_cast<uint32_t>(__ldg(gelu_table + (bits & 0xffffu))) |
+             (static_cast<uint32_t>(__ldg(gelu_table + (bits >> 16))) << 16);
+    });
+  }
+};
+
+// ---------------------------------------------------------------------------
+// The FFN as a chain of products, shared by its users
+// ---------------------------------------------------------------------------
+
+// One product of a chain: out [M, N] from rows a [M, K] and a weight w
+// [N, K] (torch layout), both K-major; res: an [M, N] bf16 residual that
+// the epilogue reads (BiasResidual), or nullptr.
+template <class Epi>
+cudaError_t product(const typename Epi::Params& e, const void* a,
+                    const void* w, void* out, const void* res, int M, int N,
+                    int K, cudaStream_t st) {
+  const void* A[1] = {a};
+  const void* B[1] = {w};
+  void* T[2] = {out, const_cast<void*>(res)};
+  const long long ld[1] = {K};
+  const int k[1] = {K};
+  return run_bn<Epi, kK>(tile_n(N), e, A, ld, B, ld, k, M, N, 1, 1 << 30, st,
+                         T);
+}
+
+// out = round(round(gelu(round(x W1 + b1))) W2 + b2) in bf16, sums in f32:
+// x [M, C], w1 [H, C], w2 [C2, H] (torch layout), b1, b2 f32; g [M, H] bf16
+// scratch for the rounded hidden. Three kernels on st: the table (first
+// call on a device only), then the two products.
+inline cudaError_t ffn_bf16(const void* x, const void* w1, const float* b1,
+                            const void* w2, const float* b2, void* g,
+                            void* out, int M, int C, int H, int C2,
+                            cudaStream_t st) {
+  cudaError_t err = fill_once<gelu_table_kernel>(st);
+  if (err == cudaSuccess)
+    err = product<BiasGelu>({b1, H}, x, w1, g, nullptr, M, H, C, st);
+  if (err != cudaSuccess) return err;
+  return product<BiasRound>({b2, C2}, g, w2, out, nullptr, M, C2, H, st);
+}
 
 }  // namespace gemm
 }  // namespace

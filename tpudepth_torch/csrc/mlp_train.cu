@@ -18,9 +18,11 @@
 // order; products of IO-dtype operands sum in f32; the exact GELU
 // 0.5 h (1 + erf(h / sqrt 2)) and its derivative 0.5 (1 + erf(h / sqrt 2))
 // + h exp(-h^2 / 2) / sqrt(2 pi); db1 sums the unrounded f32 dh1. erf: the
-// bf16 backward evaluates the TPU kernel's degree-16 polynomial
-// (tpudepth/ops/pallas/mlp_infer.py::_erf, gemm::erf_poly), the forward and
-// the f32 backward the native erff, within 2.1e-7 of it.
+// bf16 paths evaluate the TPU kernel's degree-16 polynomial
+// (tpudepth/ops/pallas/mlp_infer.py::_erf, gemm::erf_poly; the forward
+// looks gelu(h) up by h's bits in a table that it fills, gemm::gelu_table),
+// so the bf16 forward and its backward agree on a; the f32 paths evaluate
+// the native erff, within 2.1e-7 of it.
 //
 // What bounds it: the forward does 2 products of 2 M C H operations, the
 // backward five (h, da, dx, dw1, dw2), against M (2 C + C2) IO elements and
@@ -37,8 +39,16 @@
 // takes 1/3 (C 1024) to 1/2 (C 128) of the backward.
 //
 // Design.
-//   * forward: the FFN device code of block_tail.cuh (mlp_infer's), the 4C
-//     hidden activation held on the chip, under its own entry;
+//   * forward, bf16 (the training path): mlp_infer's chain on the wgmma core
+//     of gemm_sm90.cuh (gemm::ffn_bf16): a = round(gelu(round(x W1 + b1)))
+//     into the bf16 scratch [M, H] that the wrapper allocates, then
+//     out = round(a W2 + b2). a is not kept for the backward, which
+//     recomputes it as the TPU kernel does. The first design (block_tail.cuh's
+//     FFN on mma.sync, the hidden held on the chip) took 2.556 ms for the
+//     calls of a B 8 SAM step on an NVIDIA H100 80GB HBM3 at 700 W, 6.4 % of
+//     the bound and 6.71x the two cuBLAS products; the chain takes 0.723 ms
+//     there (chip_smoke.py), 1.9x cuBLAS;
+//   * forward, f32: the CUDA-core FFN of block_tail.cuh (mlp_infer's);
 //   * backward, bf16 (the training path): the products on the pipelined
 //     wgmma core of gemm_sm90.cuh (TMA ring of 64-deep k-blocks, two
 //     consumer warpgroups, persistent blocks two an SM, bf16 outputs stored
@@ -416,9 +426,9 @@ cudaError_t products_f32(const BwdParams& p, float* dw1, float* dw2,
 // and dh1d = round(da gelu'(h)) into the scratch; the tile's column sums of
 // the unrounded dh1 (each warp's 16 rows by shuffles, then the 8 warps in
 // order) into db1_part[row tile]. Rows past M read x and g as zeros: their
-// da, and so dh1, is 0. (Looking gelu and gelu' up by h's bits, as
-// epilogue_infer.cu does, measured no faster here: this epilogue is held by
-// its two outputs' stores and the column sums.)
+// da, and so dh1, is 0. (Looking gelu and gelu' up by h's bits, as the
+// forward's gemm::BiasGelu does, measured no faster here: this epilogue is
+// held by its two outputs' stores and the column sums.)
 struct HiddenEpi {
   static constexpr int kProducts = 2;
   static constexpr int kTiles = 2;                  // a, dh1d
@@ -567,10 +577,11 @@ cudaError_t backward(const BwdParams& p, float* dw1, float* db1, float* dw2,
 
 // The forward: out = fc2(gelu(fc1(x))), x [M, cin], w1t [hidden, cin] and
 // w2t [cout, hidden] (torch layout) in the IO dtype, b1, b2 f32 vectors of
-// IO-dtype values. Returns a cudaError_t.
+// IO-dtype values; x and out contiguous and 16-byte aligned. bf16 takes the
+// scratch a [M, hidden] (bf16; unused in f32). Returns a cudaError_t.
 extern "C" int mlp_train_fwd(const void* x, const void* w1t, const void* b1,
                              const void* w2t, const void* b2, void* out,
-                             int M, int cin, int hidden, int cout,
+                             void* a, int M, int cin, int hidden, int cout,
                              int is_bf16, void* stream) {
   tail::Params p = {};
   p.o = x;
@@ -583,7 +594,12 @@ extern "C" int mlp_train_fwd(const void* x, const void* w1t, const void* b1,
   p.cin = cin;
   p.hidden = hidden;
   p.cout = cout;
-  return static_cast<int>(tail::run<tail::kFfn>(p, is_bf16, stream));
+  if (!is_bf16) return static_cast<int>(tail::run<tail::kFfn>(p, 0, stream));
+  if (!tail::shape_ok(p, tail::kFfn) || a == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(gemm::ffn_bf16(x, w1t, p.b1, w2t, p.b2, a, out, M,
+                                         cin, hidden, cout,
+                                         static_cast<cudaStream_t>(stream)));
 }
 
 // The backward: x [M, C], g [M, C2], w1t [H, C], w1 [C, H], w2 [H, C2] in

@@ -5,10 +5,11 @@ Counterpart of ``tpudepth/ops/pallas/epilogue_infer.py::block_epilogue_infer``.
 The kernel is ``tpudepth_torch/csrc/epilogue_infer.cu``
 (``block_epilogue_infer``), CUDA C++ for ``sm_90a`` built by ``_build``; its
 header says what bounds it and how it is laid out. It shares its f32 device
-code with ``mlp_infer`` (``ops/kernels/mlp_infer.py``), which is why both
-live in one source. In bf16 one call runs a chain of four CUDA kernels,
-three products on the pipelined ``wgmma`` core of ``csrc/gemm_sm90.cuh``
-and a LayerNorm, through bf16 scratch that the wrapper allocates
+code and its bf16 FFN products with ``mlp_infer``
+(``ops/kernels/mlp_infer.py``), which is why both live in one source. In
+bf16 one call runs a chain of four CUDA kernels, three products on the
+pipelined ``wgmma`` core of ``csrc/gemm_sm90.cuh`` and a LayerNorm,
+through bf16 scratch that the wrapper allocates
 (:func:`epilogue_scratch_shapes`): ``y`` and ``LN(y)`` ``[M, C]`` and the
 hidden ``gelu(h)`` ``[M, H]``, each a tensor the kernel rounds to bf16
 anyway. The wrapper :func:`block_epilogue_infer` counts its launches; the
@@ -102,15 +103,29 @@ def tolerance(dtype: torch.dtype) -> Tuple[float, float]:
     return 1e-5, 1e-5
 
 
+#: ctypes signature of the FFN entries (``mlp_infer`` here,
+#: ``mlp_train_fwd`` in ``mlp_train.py``): x, w1, b1, w2, b2, out, the bf16
+#: scratch g; M, C, H, C2, is_bf16; the stream
+FFN_ARGTYPES = (_VP,) * 7 + (_I32,) * 5 + (_VP,)
+#: ctypes signature of each C entry of ``csrc/epilogue_infer.cu``
+ARGTYPES = {"block_epilogue_infer": (_VP,) * 14 + (_I32,) * 4 + (_VP,),
+            "mlp_infer": FFN_ARGTYPES}
+
+
+def bind(so: ctypes.CDLL, argtypes: dict) -> ctypes.CDLL:
+    """Set the signature of each named entry of ``so`` (each returns a
+    ``cudaError_t`` as an int)."""
+    for name, types in argtypes.items():
+        fn = getattr(so, name)
+        fn.argtypes = list(types)
+        fn.restype = _I32
+    return so
+
+
 @functools.lru_cache(maxsize=None)
 def lib() -> ctypes.CDLL:
     """The loaded ``epilogue_infer`` library (both entry points)."""
-    so = _build.load("epilogue_infer")
-    so.block_epilogue_infer.argtypes = [_VP] * 14 + [_I32] * 4 + [_VP]
-    so.mlp_infer.argtypes = [_VP] * 6 + [_I32] * 5 + [_VP]
-    for fn in (so.block_epilogue_infer, so.mlp_infer):
-        fn.restype = _I32
-    return so
+    return bind(_build.load("epilogue_infer"), ARGTYPES)
 
 
 def width_ok(n: int, out: bool = False) -> bool:
@@ -124,7 +139,14 @@ def epilogue_scratch_shapes(m: int, c: int, hidden: int) -> dict:
     """Shapes of the bf16 chain's scratch (bf16): ``y`` and ``yn`` (LN(y))
     ``[M, C]``, ``g`` (gelu(h)) ``[M, H]``. f32 runs one kernel and needs
     none."""
-    return {"y": (m, c), "yn": (m, c), "g": (m, hidden)}
+    return {"y": (m, c), "yn": (m, c), **ffn_scratch_shapes(m, hidden)}
+
+
+def ffn_scratch_shapes(m: int, hidden: int) -> dict:
+    """Shapes of the bf16 FFN chain's scratch (bf16) in ``mlp_infer`` and
+    ``mlp_train_fwd``: the rounded hidden ``g`` (gelu(h)) ``[M, H]``. f32
+    runs one kernel and needs none."""
+    return {"g": (m, hidden)}
 
 
 def check_cuda(name, rows, weights, vectors):

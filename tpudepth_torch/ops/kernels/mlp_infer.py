@@ -1,11 +1,15 @@
-"""Transformer FFN for inference over rows: ``fc2(gelu(fc1(x)))`` with the
-hidden activation held on the chip.
+"""Transformer FFN for inference over rows: ``fc2(gelu(fc1(x)))``.
 
 Counterpart of ``tpudepth/ops/pallas/mlp_infer.py::mlp_infer``. The kernel
 is the ``mlp_infer`` entry of ``tpudepth_torch/csrc/epilogue_infer.cu``,
 which shares its FFN device code with ``block_epilogue_infer``
 (``ops/kernels/epilogue_infer.py``); the header there says what bounds it
-and how it is laid out. The wrapper :func:`mlp_infer` counts its launches;
+and how it is laid out. In bf16 one call runs two products on the pipelined
+``wgmma`` core of ``csrc/gemm_sm90.cuh`` (and, on a device's first call, the
+kernel that fills their GELU table) through the bf16 hidden ``gelu(h)``
+``[M, H]``, scratch that :func:`launch_ffn` allocates
+(``epilogue_infer.ffn_scratch_shapes``); f32 runs one CUDA-core kernel.
+The wrapper :func:`mlp_infer` counts its launches, one a call;
 the plain version :func:`mlp_infer_reference` has the kernel's rounding
 order (``h`` and ``gelu(h)`` rounded to the IO dtype). CPU tensors run the
 plain version; CUDA tensors launch the kernel or raise. The boundary keeps
@@ -31,7 +35,8 @@ def mlp_infer_reference(x, w1, b1, w2, b2) -> torch.Tensor:
 
 
 def check_widths(name, c, hidden, c2):
-    """Refuse FFN widths the ``block_tail.cuh`` kernels do not take."""
+    """Refuse FFN widths the kernels do not take: the rule of the f32
+    CUDA-core FFN (``block_tail.cuh``), held in both dtypes."""
     if not (_epi.width_ok(c) and _epi.width_ok(hidden)
             and _epi.width_ok(c2, out=True)):
         raise ValueError(f"{name} takes widths that are multiples of 32, at "
@@ -41,12 +46,13 @@ def check_widths(name, c, hidden, c2):
 
 def launch_ffn(lib, name, x, w1, b1, w2, b2,
                round_vectors: bool = False) -> torch.Tensor:
-    """Launch the C entry ``name`` of ``lib()``, an FFN of the
-    ``block_tail.cuh`` device code (``mlp_infer`` here, ``mlp_train_fwd``
-    in ``mlp_train.py``: one C signature), on CUDA tensors and return its
+    """Launch the C entry ``name`` of ``lib()``, an FFN (``mlp_infer``
+    here, ``mlp_train_fwd`` in ``mlp_train.py``: one C signature,
+    ``epilogue_infer.FFN_ARGTYPES``), on CUDA tensors and return its
     ``[M, C2]`` output in x's dtype; ``round_vectors`` rounds the biases to
-    x's dtype first (the training FFN's casts). Raises on a refused input or
-    a failed launch. The caller counts the launch."""
+    x's dtype first (the training FFN's casts). bf16 gets the scratch of
+    ``epilogue_infer.ffn_scratch_shapes``. Raises on a refused input or a
+    failed launch. The caller counts the launch."""
     m, c = x.shape
     hidden, c2 = w2.shape
     if x.device.type != "cuda":
@@ -56,12 +62,17 @@ def launch_ffn(lib, name, x, w1, b1, w2, b2,
     if round_vectors:
         b1, b2 = (b.to(x.dtype).float() for b in (b1, b2))
     out = torch.empty((m, c2), dtype=x.dtype, device=x.device)
+    bf16 = x.dtype == torch.bfloat16
+    # kept alive until the launch is queued (the allocator reuses freed
+    # memory in stream order)
+    g = (torch.empty(_epi.ffn_scratch_shapes(m, hidden)["g"], dtype=x.dtype,
+                     device=x.device) if bf16 else None)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = getattr(lib(), name)(
             x.data_ptr(), w1t.data_ptr(), b1.data_ptr(), w2t.data_ptr(),
-            b2.data_ptr(), out.data_ptr(), m, c, hidden, c2,
-            int(x.dtype == torch.bfloat16), stream)
+            b2.data_ptr(), out.data_ptr(), g if g is None else g.data_ptr(),
+            m, c, hidden, c2, int(bf16), stream)
     if rc != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
     return out

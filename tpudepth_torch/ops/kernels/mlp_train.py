@@ -6,11 +6,14 @@ VJP over the forward ``_mlp_fwd_pallas`` and the backward
 ``_mlp_bwd_pallas``. The kernels are the two C entries of
 ``tpudepth_torch/csrc/mlp_train.cu``, ``mlp_train_fwd`` and
 ``mlp_train_bwd``, CUDA C++ for ``sm_90a`` built by ``_build``; the source's
-header says what bounds them and how they are laid out. The bf16 backward
-runs its products on the pipelined ``wgmma`` core of ``csrc/gemm_sm90.cuh``
-and spills ``a = gelu(h)`` and ``dh1`` to ``[M, H]`` scratch that the
+header says what bounds them and how they are laid out. In bf16 both run
+their products on the pipelined ``wgmma`` core of ``csrc/gemm_sm90.cuh``:
+the forward is ``mlp_infer``'s chain of two products through the rounded
+hidden ``a = gelu(h)`` ``[M, H]`` (scratch from
+``epilogue_infer.ffn_scratch_shapes``, not kept: the backward recomputes
+it); the backward spills ``a`` and ``dh1`` to ``[M, H]`` scratch that the
 wrapper allocates (:func:`bwd_scratch_shapes`), with the f32 partial sums
-of the bias and weight gradients. The wrappers
+of the bias and weight gradients. f32 runs on the CUDA cores. The wrappers
 :func:`mlp_train_fwd` and :func:`mlp_train_bwd` count their launches; the
 plain versions :func:`mlp_train_fwd_reference` and
 :func:`mlp_train_bwd_reference` have the kernels' rounding order. CPU
@@ -159,14 +162,14 @@ def flip_atol(x, g, w1, b1, w2):
                 torch.zeros_like(gm))
 
 
+#: ctypes signature of each C entry of ``csrc/mlp_train.cu``
+ARGTYPES = {"mlp_train_fwd": _epi.FFN_ARGTYPES,
+            "mlp_train_bwd": (_VP,) * 17 + (_I32,) * 7 + (_VP,)}
+
+
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
-    lib = _build.load("mlp_train")
-    lib.mlp_train_fwd.argtypes = [_VP] * 6 + [_I32] * 5 + [_VP]
-    lib.mlp_train_bwd.argtypes = [_VP] * 17 + [_I32] * 7 + [_VP]
-    for fn in (lib.mlp_train_fwd, lib.mlp_train_bwd):
-        fn.restype = _I32
-    return lib
+    return _epi.bind(_build.load("mlp_train"), ARGTYPES)
 
 
 def wgrad_chunk(m: int, rows: int, cols: int) -> int:
