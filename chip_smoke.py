@@ -30,7 +30,8 @@ plain PyTorch version. Phases:
    ``gub_conv_dx`` against ``conv_bn_act_dw_reference`` /
    ``conv_bn_act_dx_reference`` at the nine shapes of a batch-8 train step in
    f32 and bf16 and at prelude / skip / ragged / k=1 / multi-part cases,
-   timed beside cuDNN's ``convolution_backward`` of the same conv; the SAM
+   timed beside cuDNN's ``convolution_backward`` of the same conv and the
+   bound (each row's share of it; a total line a kernel); the SAM
    kernels (``window_attn_infer``, ``block_epilogue_infer``, ``mlp_infer``)
    at the four stage shapes (``mlp_infer`` also at an odd row count, each
    call rerun bit-equal); ``crf_rowblock_infer`` (shift 0 and 3) and
@@ -575,6 +576,8 @@ def phase_bwd_kernels():
             row["dx_library_ms"] = time_ms(lambda: lib([True, False, False]),
                                            per_graph=4, replays=10)
         rows.append(row)
+        dx_share = (f"{100 * row['dx_bound_ms'] / row['dx_ms']:.1f}%"
+                    if dx_parts else "-")
         print(f"[kernel time] {name:<20} {'+'.join(map(str, cins))}->{cout} "
               f"@{h}x{w} B{TRAIN_BATCH} bf16: gub_conv_dw {row['dw_ms']:.4f} "
               f"ms (plain {row['dw_plain_ms']:.3f}, cuDNN dw+db "
@@ -582,9 +585,17 @@ def phase_bwd_kernels():
               f"{100 * row['dw_bound_ms'] / row['dw_ms']:.1f}%); gub_conv_dx "
               f"x{len(dx_parts)} {row['dx_ms']:.4f} ms (plain "
               f"{row['dx_plain_ms']:.3f}, cuDNN dx {row['dx_library_ms']:.4f}, "
-              f"bound {row['dx_bound_ms']:.4f})", flush=True)
+              f"bound {row['dx_bound_ms']:.4f}: {dx_share})", flush=True)
         del parts, y, dy, cot, x_lib, g_lib
         torch.cuda.empty_cache()
+    for which, lib_name in (("dw", "cuDNN dw+db"), ("dx", "cuDNN dx")):
+        ms, lib, bound = (sum(r[f"{which}_{key}"] for r in rows)
+                          for key in ("ms", "library_ms", "bound_ms"))
+        print(f"[kernel time] gub_conv_{which} total, one B{TRAIN_BATCH} bf16 "
+              f"train step ({sum(1 if which == 'dw' else r['dx_launches'] for r in rows)} "
+              f"launches): {ms:.4f} ms, {lib_name} {lib:.4f} ms "
+              f"({ms / lib:.2f}x), bound {bound:.4f} ms "
+              f"({100 * bound / ms:.1f}%)", flush=True)
     return rows, err, n_checks
 
 

@@ -155,14 +155,13 @@ BWD_CASES = [c + (i % 2 == 0,) for i, c in enumerate(CASES)] + [
 ]
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
-                         ids=["f32", "bf16"])
-@pytest.mark.parametrize("case", BWD_CASES,
-                         ids=[str(i) for i in range(len(BWD_CASES))])
-def test_gub_conv_dw_matches_plain(cuda, case, dtype):
+def _dw_against_plain(case, dtype, device):
+    """``gub_conv_dw`` on ``case`` against its plain version: one counted
+    launch a call, the f32 sums within :func:`gc.sum_tolerance`, a rerun
+    bit-equal."""
     bsz, h, w, cins, cout, k, prelude, skip, stats = case
     parts, wt, b, pre, sk = _case(0, bsz, h, w, cins, cout, k, prelude, skip,
-                                  dtype, cuda)
+                                  dtype, device)
     y = conv_bn_act(parts, wt, b, preludes=pre, skip=sk)
     dy, cot = _cotangents(0, y, stats)
     before = gc.conv_bn_act_dw.launches
@@ -182,17 +181,18 @@ def test_gub_conv_dw_matches_plain(cuda, case, dtype):
                                atol=gc.sum_tolerance(n, g_rms))
     # partial sums are added in a fixed order: the same bits every time
     dw2, db2 = gc.conv_bn_act_dw(parts, dy, wt, preludes=pre, skip=sk, **cot)
+    assert gc.conv_bn_act_dw.launches == before + 2
     assert torch.equal(dw, dw2) and torch.equal(db, db2)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
-                         ids=["f32", "bf16"])
-@pytest.mark.parametrize("case", BWD_CASES,
-                         ids=[str(i) for i in range(len(BWD_CASES))])
-def test_gub_conv_dx_matches_plain(cuda, case, dtype):
+def _dx_against_plain(case, dtype, device):
+    """``gub_conv_dx`` on each part of ``case`` against its plain version:
+    one counted launch a call, ``dx`` and ``dskip`` within
+    :func:`tolerance`, ``dA`` and ``dC`` within :func:`gc.sum_tolerance`, a
+    rerun bit-equal."""
     bsz, h, w, cins, cout, k, prelude, skip, stats = case
     parts, wt, b, pre, sk = _case(0, bsz, h, w, cins, cout, k, prelude, skip,
-                                  dtype, cuda)
+                                  dtype, device)
     y = conv_bn_act(parts, wt, b, preludes=pre, skip=sk)
     dy, cot = _cotangents(0, y, stats)
     atol, rtol = tolerance(dtype)
@@ -207,6 +207,7 @@ def test_gub_conv_dx_matches_plain(cuda, case, dtype):
         cin = x.shape[-1]
         want = gc.conv_bn_act_dx_reference(x, wt[:, :, off:off + cin], dy, **kw)
         again = gc.conv_bn_act_dx(x, wt, off, dy, **kw)
+        assert gc.conv_bn_act_dx.launches == before + 2
         for name, g, r, g2 in zip(("dx", "dA", "dC", "dskip"), got, want,
                                   again):
             assert (g is None) == (r is None), name
@@ -227,6 +228,52 @@ def test_gub_conv_dx_matches_plain(cuda, case, dtype):
                     atol=gc.sum_tolerance(h * w, term),
                     msg=name)
         off += cin
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", BWD_CASES,
+                         ids=[str(i) for i in range(len(BWD_CASES))])
+def test_gub_conv_dw_matches_plain(cuda, case, dtype):
+    _dw_against_plain(case, dtype, cuda)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", BWD_CASES,
+                         ids=[str(i) for i in range(len(BWD_CASES))])
+def test_gub_conv_dx_matches_plain(cuda, case, dtype):
+    _dx_against_plain(case, dtype, cuda)
+
+
+# The bf16 k=3 kernels on the tensor cores: GuideDepth's nine GUB convs at
+# full size, B 2, with statistics (as a train step launches them), then the
+# k=3 backward cases (a ragged 33x47 tile edge, more tiles than blocks,
+# three parts of 4, 2, 3 channels into 40, widths below 8 and the RGB guide)
+# and one wider than 64 both ways (dx walks Cout in two K chunks and splits
+# Cin over two blocks; dw takes three channel chunks and two slabs)
+TC_CASES = [(2, h, w, cins, cout, 3, prelude, False, True)
+            for cins, cout, h, w, prelude in (
+                ((64,), 64, 120, 160, False), ((3,), 64, 120, 160, False),
+                ((32, 32), 64, 120, 160, True), ((32,), 32, 240, 320, False),
+                ((3,), 32, 240, 320, False), ((16, 16), 32, 240, 320, True),
+                ((16,), 16, 480, 640, False), ((3,), 16, 480, 640, False),
+                ((8, 8), 16, 480, 640, True))] + [
+    c for c in BWD_CASES if c[5] == 3] + [
+    (1, 17, 33, (80,), 72, 3, True, False, True)]
+TC_IDS = [f"up_{s}.{conv}" for s in (1, 2, 3)
+          for conv in ("feature", "guide", "comb")] + [
+    f"bwd{i}" for i, c in enumerate(BWD_CASES) if c[5] == 3] + ["wide"]
+
+
+@pytest.mark.parametrize("case", TC_CASES, ids=TC_IDS)
+def test_gub_conv_dx_bf16_on_the_tensor_cores(cuda, case):
+    _dx_against_plain(case, torch.bfloat16, cuda)
+
+
+@pytest.mark.parametrize("case", TC_CASES, ids=TC_IDS)
+def test_gub_conv_dw_bf16_on_the_tensor_cores(cuda, case):
+    _dw_against_plain(case, torch.bfloat16, cuda)
 
 
 def test_conv_bn_act_backward_on_the_card_matches_the_plain_backward(cuda):

@@ -1,9 +1,9 @@
 """What the wrappers of the kernels on the wgmma GEMM core
-(``tpudepth_torch/csrc/gemm_sm90.cuh``) compute in Python, on the CPU: the
-row chunks of ``mlp_train_bwd``'s weight gradients, the scratch the
-wrappers allocate, the constants they share with the CUDA sources, and the
-ctypes signatures they give the C entries. The kernels themselves run only
-on the card (``tests/test_torch_port_cuda.py``).
+(``tpudepth_torch/csrc/gemm_sm90.cuh``) and of the GUB conv kernels compute
+in Python, on the CPU: the row chunks of ``mlp_train_bwd``'s weight
+gradients, the scratch the wrappers allocate, the constants they share with
+the CUDA sources, and the ctypes signatures they give the C entries. The
+kernels themselves run only on the card (``tests/test_torch_port_cuda.py``).
 """
 
 import ctypes
@@ -13,6 +13,7 @@ import pytest
 
 from tpudepth_torch.ops.kernels import _build
 from tpudepth_torch.ops.kernels import epilogue_infer as ei
+from tpudepth_torch.ops.kernels import gub_conv as gc
 from tpudepth_torch.ops.kernels import mlp_train as mt
 
 # (M, rows, cols) of the weight gradients: dw1 [C, 4C] and dw2 [4C, C] of the
@@ -98,42 +99,69 @@ def test_ffn_scratch_shapes(m, hidden):
 
 
 _C_TYPES = {"void*": ctypes.c_void_p, "int": ctypes.c_int,
-            "float": ctypes.c_float}
+            "float": ctypes.c_float,
+            # arrays: one pointer a part, one int a part, strides
+            "void**": ctypes.POINTER(ctypes.c_void_p),
+            "int*": ctypes.POINTER(ctypes.c_int),
+            "long long*": ctypes.POINTER(ctypes.c_longlong)}
 
 
 def _c_entries(source: str) -> dict:
     """``{name: [ctypes type of each parameter]}`` of the ``extern "C"``
-    functions of a CUDA source, read from their declarations."""
+    functions of a CUDA source, read from their declarations. A pointer to
+    data (void, float, ...) is a c_void_p; a pointer to pointers, to ints or
+    to long longs is a ctypes pointer of that type."""
     out = {}
     for name, params in re.findall(r'extern "C" int (\w+)\(([^)]*)\)',
                                    _source(source)):
         types = []
         for param in params.split(","):
-            decl = " ".join(param.replace("const ", "").split()[:-1])
-            if "*" in param:
-                decl = "void*"
+            words = param.replace("const", " ").replace("*", " * ").split()
+            stars = words.count("*")
+            decl = " ".join(w for w in words[:-1] if w != "*")
+            if stars == 2:
+                decl = "void**"
+            elif stars == 1:
+                decl = f"{decl}*" if decl in ("int", "long long") else "void*"
             types.append(_C_TYPES[decl])
         out[name] = types
     return out
 
 
-@pytest.mark.parametrize("source,module", [("epilogue_infer.cu", ei),
-                                           ("mlp_train.cu", mt)],
-                         ids=["epilogue_infer", "mlp_train"])
-def test_every_c_entry_has_a_ctypes_signature(source, module):
-    assert sorted(_c_entries(source)) == sorted(module.ARGTYPES)
+# (CUDA source, the ctypes signatures its wrapper module sets)
+_SIGNATURES = {
+    "epilogue_infer": ("epilogue_infer.cu", ei.ARGTYPES),
+    "mlp_train": ("mlp_train.cu", mt.ARGTYPES),
+    "gub_conv_fwd": ("gub_conv_fwd.cu", gc.ARGTYPES["gub_conv_fwd"]),
+    "gub_conv_bwd": ("gub_conv_bwd.cu", gc.ARGTYPES["gub_conv_bwd"]),
+}
 
 
-@pytest.mark.parametrize("source,module,name", [
-    ("epilogue_infer.cu", ei, "block_epilogue_infer"),
-    ("epilogue_infer.cu", ei, "mlp_infer"),
-    ("mlp_train.cu", mt, "mlp_train_fwd"),
-    ("mlp_train.cu", mt, "mlp_train_bwd")], ids=lambda v: (
-        v if isinstance(v, str) else ""))
-def test_ctypes_signature_matches_the_c_entry(source, module, name):
-    """Parameter for parameter: a pointer is a c_void_p, an int a c_int (a
-    mismatch shows only on the card, as a wrong argument)."""
-    assert list(module.ARGTYPES[name]) == _c_entries(source)[name]
+@pytest.mark.parametrize("source,argtypes", list(_SIGNATURES.values()),
+                         ids=list(_SIGNATURES))
+def test_every_c_entry_has_a_ctypes_signature(source, argtypes):
+    assert sorted(_c_entries(source)) == sorted(argtypes)
+
+
+_ENTRIES = [("epilogue_infer", "block_epilogue_infer"),
+            ("epilogue_infer", "mlp_infer"),
+            ("mlp_train", "mlp_train_fwd"),
+            ("mlp_train", "mlp_train_bwd"),
+            ("gub_conv_fwd", "gub_conv_fwd"),
+            ("gub_conv_bwd", "gub_conv_bwd_tiles"),
+            ("gub_conv_bwd", "gub_conv_dw_blocks"),
+            ("gub_conv_bwd", "gub_conv_dw"),
+            ("gub_conv_bwd", "gub_conv_dx")]
+
+
+@pytest.mark.parametrize("library,name", _ENTRIES, ids=[
+    f"{_SIGNATURES[lib][0]}--{name}" for lib, name in _ENTRIES])
+def test_ctypes_signature_matches_the_c_entry(library, name):
+    """Parameter for parameter: a pointer to data is a c_void_p, an int a
+    c_int, an array a ctypes pointer of its type (a mismatch shows only on
+    the card, as a wrong argument)."""
+    source, argtypes = _SIGNATURES[library]
+    assert list(argtypes[name]) == _c_entries(source)[name]
 
 
 def test_ffn_entries_share_one_signature_with_the_bf16_scratch():

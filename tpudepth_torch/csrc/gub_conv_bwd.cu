@@ -23,36 +23,78 @@
 // the halo of g outside the image is 0 (not ds); weights are f32 in device
 // memory and rounded to the IO dtype when staged; products sum in f32.
 //
-// What bounds them: like the forward, 2*9*Cin*Cout FLOPs per pixel against
-// (Cin + 2*Cout) * 2 bytes in bf16 at Cin, Cout <= 64 is far below the card's
-// ridge, so the bound is bytes. Neither kernel writes an activated tensor or
-// g to device memory: both are recomputed on load and live in shared memory.
+// What bounds them: 2*9*Cin*Cout FLOPs per pixel against (Cin + 2*Cout) * 2
+// bytes in bf16 at Cin, Cout <= 64 is below the card's ridge on the tensor
+// cores (989 TFLOP/s), so the bound is bytes; on the CUDA cores in f32 (67
+// TFLOP/s) the same work is bound by operations at Cin, Cout >= 32. Neither
+// kernel writes an activated tensor or g to device memory: both are
+// recomputed on load and live in shared memory.
 //
-// Design. The TPU kernels walk the batch in grid order and carry dw, db, dA
-// and dC in VMEM from step to step; blocks here run in no order, so every
-// cross-block sum is two passes: blocks write partial sums, a second small
-// kernel adds them in a fixed order. There is no atomicAdd in this file:
-// the same inputs at the same shapes give the same bits on every run.
+// Cross-block sums. The TPU kernels walk the batch in grid order and carry
+// dw, db, dA and dC in VMEM from step to step; blocks here run in no order,
+// so every cross-block sum is two passes: blocks write partial sums, a
+// second small kernel adds them in a fixed order. There is no atomicAdd in
+// this file: the same inputs at the same shapes give the same bits on every
+// run.
 //
-// * gub_conv_dw: the parallelism is over pixels (2.46 M of them at 480x640,
-//   B 8, into as few as 9*16*16 outputs). A block owns 16 input channels, a
-//   slab of <= 32 output channels and every tap: thread (ci, cg) keeps
-//   9 * slab/8 sums in registers. It walks 8x16 pixel tiles t = blockIdx.x,
-//   blockIdx.x + gridDim.x, ...; per tile it stages xa (with halo) and r(g)
-//   in shared memory. gridDim.x is chosen so that about kDwBlocks blocks run;
-//   each writes one partial dw. db comes from the blocks of the first
-//   channel chunk, summed while g is staged.
-// * gub_conv_dx: the forward's layout with the roles swapped: one block per
-//   (image, 8x16 tile, slab of <= 32 INPUT channels), one pixel per thread,
-//   g staged 16 output channels at a time with its halo, the weights staged
-//   flipped. The epilogue gates, stores dx (and dskip) and reduces dp*x and dp
-//   over the tile (warp shuffles, then the four warps in order); a second
-//   kernel adds the tiles of an image in order.
-// The products run on the CUDA cores in f32; tensor cores and TMA are later
-// work.
+// bf16, k = 3 (every GUB conv of GuideDepth's train step): implicit GEMMs on
+// the tensor cores, mma.sync.m16n8k16 bf16 -> f32 fed by ldmatrix. A tap of
+// the 3x3 conv is a shifted window of a tile staged once in shared memory,
+// so each lane of an ldmatrix gives its own row address; the halo breaks the
+// uniform core-matrix stride a wgmma shared-memory descriptor of A needs, and
+// at these widths the products are a fifth of the time or less (the bound
+// is bytes). Blocks are persistent and walk 8x16-pixel tiles t =
+// blockIdx.x, + gridDim.x, ...; each tile's raw dy, y (and x, skip, A, C)
+// are copied by cp.async into the other of two stage buffers while the
+// current tile is transformed and multiplied (rows whose width or offset
+// is no multiple of 8 elements, such as the RGB guide's 3 channels, by
+// plain loads), then transformed once, 8 channels a thread and step, into
+// bf16 [pixel][channel] tiles whose row stride is an odd number of 16-byte
+// units (no ldmatrix bank conflicts; K and N padded with zeros). The
+// transform masks
+// by image coordinates: a halo pixel of g is 0 (not ds) and of xa 0 (not
+// relu(C)). The transform, not the products, is what costs most.
+// * gub_conv_dx_tc: M = the tile's 128 pixels, N = the part's input
+//   channels (one block takes up to 64, so g is read and recomputed once),
+//   K = 9 taps x Cout. The part's weights are flipped, transposed to
+//   [tap][ci][co], rounded and staged once per block (up to 72 KB of
+//   dynamic shared memory; Cout above 64 is walked in chunks of 64 that
+//   restage them). Four warps split the tile rows, two groups of four split
+//   N at 32-64 channels. The epilogue is the CUDA-core kernel's.
+// * gub_conv_dw_tc: M = (tap, ci), N = Cout, K = pixels, split over the
+//   blocks. Warp w of nine owns tap w for a chunk of up to 64 (ci, co)
+//   pairs and keeps its sums in registers over all the block's tiles;
+//   ldmatrix.trans reads both pixel-major tiles as K-major operands. The
+//   tensor cores do not round their f32 sums to nearest, so a long chain
+//   drifts (about 40 ulps of dw over 144 steps, where the check against
+//   the plain version allows 16): each chain is four k16 steps from 0,
+//   added to the sums in f32 (gub_conv_dw_tc_rgb: one). The RGB guide (Cin <= 3) packs its 27
+//   (tap, ci) rows into M = 32 in gub_conv_dw_tc_rgb, whose eight warps
+//   take one tile row each and add their sums in warp order at the end. One
+//   partial per block; the count of partials is a function of the shape.
+//
+// f32, and k = 1: the CUDA-core kernels below, f32 FMAs. The f32 checks
+// hold them at 1e-4 against the plain version, which TF32 products would
+// not meet, and k = 1 runs on no path of the GuideDepth step.
+// * gub_conv_dw_kernel: a block owns 16 input channels, a slab of <= 32
+//   output channels and every tap: thread (ci, cg) keeps 9 * slab/8 sums in
+//   registers. It walks 8x16 pixel tiles t = blockIdx.x, blockIdx.x +
+//   gridDim.x, ...; per tile it stages xa (with halo) and r(g) in shared
+//   memory. gridDim.x is chosen so that about kDwBlocks blocks run; each
+//   writes one partial dw. db comes from the blocks of the first channel
+//   chunk, summed while g is staged.
+// * gub_conv_dx_kernel: the forward's layout with the roles swapped: one
+//   block per (image, 8x16 tile, slab of <= 32 INPUT channels), one pixel
+//   per thread, g staged 16 output channels at a time with its halo, the
+//   weights staged flipped.
+// Both gub_conv_dx kernels gate, store dx (and dskip) and reduce dp*x and dp
+// over the tile (warp shuffles, then the warps in order); a second kernel
+// adds the tiles of an image in order.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <cstdint>
 
 namespace {
 
@@ -309,7 +351,7 @@ int dw_chunks(int nparts, const int* cin) {
   return n;
 }
 
-int tiles_per_image(int H, int W) {
+__host__ __device__ inline int tiles_per_image(int H, int W) {
   return ((H + kTileH - 1) / kTileH) * ((W + kTileW - 1) / kTileW);
 }
 
@@ -534,6 +576,1071 @@ cudaError_t launch_dx_slab(const DxParams& p, cudaStream_t stream) {
   return launch_dx<T, K, 32>(p, stream);
 }
 
+// ---------------------------------------------------------------------------
+// bf16, k = 3: implicit GEMMs on the tensor cores
+// ---------------------------------------------------------------------------
+
+namespace tc {
+
+using bf16 = __nv_bfloat16;
+
+constexpr int kHaloH = kTileH + 2;
+constexpr int kHaloW = kTileW + 2;
+constexpr int kHalo = kHaloH * kHaloW;  // pixels of a tile and its halo
+constexpr int kPix = kTileH * kTileW;   // pixels of a tile
+constexpr int kSms = 132;               // partials of gub_conv_dw: 1-2 an SM
+constexpr int kSmemMax = 232448;        // dynamic shared memory of a block
+constexpr int kDwThreads = 9 * 32;      // one warp a tap
+constexpr int kRgbThreads = kTileH * 32;  // one warp a tile row
+constexpr int kChain = 4;  // k16 steps summed on the tensor cores alone
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const bf16* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+
+__device__ __forceinline__ void ldsm_x2(uint32_t (&r)[2], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0,%1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(smem_u32(p)));
+}
+
+// c += a b: A 16x16 row-major, B 16x8 column-major, bf16 in, f32 sums
+__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4],
+                                    uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t pack(bf16 lo, bf16 hi) {
+  return static_cast<uint32_t>(__bfloat16_as_ushort(lo)) |
+         (static_cast<uint32_t>(__bfloat16_as_ushort(hi)) << 16);
+}
+
+// VW bf16 values (VW 4 or 8, 8 or 16 bytes) to and from f32.
+template <int VW>
+struct Vec;
+template <>
+struct Vec<4> {
+  using T = uint2;
+};
+template <>
+struct Vec<8> {
+  using T = uint4;
+};
+
+template <int VW>
+__device__ __forceinline__ void load_vec(const bf16* p, float (&f)[VW]) {
+  using T = typename Vec<VW>::T;
+  const T u = *reinterpret_cast<const T*>(p);
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
+#pragma unroll
+  for (int i = 0; i < VW / 2; ++i) {
+    const float2 t = __bfloat1622float2(h[i]);
+    f[2 * i] = t.x;
+    f[2 * i + 1] = t.y;
+  }
+}
+
+template <int VW>
+__device__ __forceinline__ void store_vec(bf16* p, const float (&f)[VW]) {
+  typename Vec<VW>::T u;
+  __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&u);
+#pragma unroll
+  for (int i = 0; i < VW / 2; ++i) {
+    h[i] = __floats2bfloat162_rn(f[2 * i], f[2 * i + 1]);
+  }
+  *reinterpret_cast<typename Vec<VW>::T*>(p) = u;
+}
+
+// Copies channels [cs, cs + n) of the NHWC rows (C wide) of image bi, for the
+// R x CW pixels whose first is (y0, x0), to dst[pix * ds + cd + c], pix in
+// row-major order; pixels outside the image are left alone. 16-byte cp.async
+// where the base and every offset allow it, else plain loads.
+template <int R, int CW, int NTHR>
+__device__ __forceinline__ void stage_rows(bf16* dst, int ds, int cd,
+                                           const bf16* src, int C, int cs,
+                                           int n, int bi, int y0, int x0,
+                                           int H, int W) {
+  const int tid = threadIdx.x;
+  if (((C | cs | n | cd | ds) & 7) == 0 &&
+      (reinterpret_cast<uintptr_t>(src) & 15) == 0) {
+    const int q8 = n >> 3;
+    for (int i = tid; i < R * CW * q8; i += NTHR) {
+      const int pix = i / q8;
+      const int q = i - pix * q8;
+      const int iy = y0 + pix / CW;
+      const int ix = x0 + pix % CW;
+      if (iy < 0 || iy >= H || ix < 0 || ix >= W) continue;
+      cp_async16(dst + pix * ds + cd + q * 8,
+                 src + (((long long)bi * H + iy) * W + ix) * C + cs + q * 8);
+    }
+  } else {
+    for (int i = tid; i < R * CW * n; i += NTHR) {
+      const int pix = i / n;
+      const int c = i - pix * n;
+      const int iy = y0 + pix / CW;
+      const int ix = x0 + pix % CW;
+      if (iy < 0 || iy >= H || ix < 0 || ix >= W) continue;
+      dst[pix * ds + cd + c] =
+          src[(((long long)bi * H + iy) * W + ix) * C + cs + c];
+    }
+  }
+}
+
+struct Tile {
+  int bi, y0, x0;  // image and first pixel
+  int index;       // tile within the image
+};
+
+__device__ __forceinline__ Tile tile_of(int t, int H, int W) {
+  const int tiles_w = (W + kTileW - 1) / kTileW;
+  const int per_img = ((H + kTileH - 1) / kTileH) * tiles_w;
+  Tile r;
+  r.bi = t / per_img;
+  r.index = t - r.bi * per_img;
+  r.y0 = (r.index / tiles_w) * kTileH;
+  r.x0 = (r.index % tiles_w) * kTileW;
+  return r;
+}
+
+// Tiles that block blockIdx.x walks: blockIdx.x, + gridDim.x, ...
+__device__ __forceinline__ int my_tiles(int total) {
+  const int b = blockIdx.x;
+  const int g = gridDim.x;
+  return b < total ? (total - b + g - 1) / g : 0;
+}
+
+int sm_count() {
+  int dev = 0;
+  int n = kSms;
+  if (cudaGetDevice(&dev) == cudaSuccess) {
+    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+  }
+  return n;
+}
+
+// Raises the kernel's dynamic shared memory limit to `bytes` the first time
+// a launch needs more than the last setting (checks run before any graph is
+// captured), and returns the blocks of `threads` that fit on an SM.
+template <typename Kernel>
+cudaError_t prepare(Kernel kern, int* set, int bytes, int threads,
+                    int* per_sm) {
+  if (bytes > kSmemMax) return cudaErrorInvalidValue;
+  if (bytes > *set) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (err != cudaSuccess) return err;
+    *set = bytes;
+  }
+  const cudaError_t err =
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, kern, threads,
+                                                    bytes);
+  if (err == cudaSuccess && *per_sm < 1) return cudaErrorInvalidConfiguration;
+  return err;
+}
+
+// --- dx ---------------------------------------------------------------------
+
+// Elements of one stage buffer of gub_conv_dx_tc: raw dy [and y] of the tile
+// and halo [kHalo][kp], [raw x of the tile [kPix][nch]].
+__host__ __device__ inline int dx_stage(int kp, int nch, bool has_y,
+                                        bool has_x) {
+  return (has_y ? 2 : 1) * kHalo * kp + (has_x ? kPix * nch : 0);
+}
+
+// Dynamic shared memory of gub_conv_dx_tc: weights [9][nch][kp + 8], g
+// [kHalo][kp + 8], two stages, and the warp rows' sums of dp*x and dp.
+__host__ __device__ inline int dx_smem(int kp, int nch, bool has_y,
+                                       bool has_x) {
+  return 2 * ((9 * nch + kHalo) * (kp + 8) +
+              2 * dx_stage(kp, nch, has_y, has_x)) +
+         4 * 2 * 4 * nch;
+}
+
+// KS k16 steps a tap (a K chunk of KP = 16 KS output channels), NT n8 tiles
+// a warp, WN groups of four warps along N (N = 8 NT WN input channels).
+template <int KS, int NT, int WN>
+__global__ void __launch_bounds__(128 * WN, 1)
+gub_conv_dx_tc(const DxParams p) {
+  constexpr int kThr = 128 * WN;
+  constexpr int KP = 16 * KS;
+  constexpr int GS = KP + 8;  // an odd number of 16-byte units
+  constexpr int NCH = 8 * NT * WN;
+  constexpr int KG = KP / 8;
+  static_assert(kThr % KG == 0, "a thread keeps one group of g");
+  extern __shared__ __align__(16) unsigned char smem[];
+  const bool has_y = p.cot.y != nullptr;
+  const bool has_x = p.a != nullptr;
+  bf16* ws = reinterpret_cast<bf16*>(smem);  // [9][NCH][GS], flipped
+  bf16* gs = ws + 9 * NCH * GS;              // [kHalo][GS]
+  bf16* raw = gs + kHalo * GS;               // two stages
+  const int stage = dx_stage(KP, NCH, has_y, has_x);
+  float* red_a = reinterpret_cast<float*>(raw + 2 * stage);  // [4][NCH]
+  float* red_c = red_a + 4 * NCH;
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int wm = (tid >> 5) & 3;  // tile rows 2 wm, 2 wm + 1
+  const int wn = tid >> 7;        // n8 tiles wn NT .. wn NT + NT - 1
+  const int ci0 = blockIdx.y * NCH;
+  const int nci = min(NCH, p.cin - ci0);
+  const int nkc = (p.cout + KP - 1) / KP;
+  const int tiles_img = tiles_per_image(p.H, p.W);
+  const int steps = my_tiles(p.B * tiles_img) * nkc;  // (tile, K chunk)
+  const bf16* dy = static_cast<const bf16*>(p.cot.dy);
+  const bf16* yv = static_cast<const bf16*>(p.cot.y);
+  const bf16* x = static_cast<const bf16*>(p.x);
+
+  // Flipped weights of K chunk kc, rounded: tap (u, v) reads
+  // w[2-u, 2-v, off + ci, co], stored [tap][ci][co]; eight loads in flight
+  // a thread.
+  auto stage_weights = [&](int kc) {
+    constexpr int kAll = 9 * NCH * KP;
+    for (int i0 = tid; i0 < kAll; i0 += 8 * kThr) {
+      float v[8];
+#pragma unroll
+      for (int q = 0; q < 8; ++q) {
+        const int i = i0 + q * kThr;
+        const int k = i % KP;
+        const int n = (i / KP) % NCH;
+        const int tap = i / (KP * NCH);
+        const int co = kc * KP + k;
+        v[q] = 0.f;
+        if (i < kAll && n < nci && co < p.cout) {
+          v[q] = p.w[(2 - tap / 3) * p.w_stride[0] +
+                     (2 - tap % 3) * p.w_stride[1] +
+                     (long long)(p.off + ci0 + n) * p.w_stride[2] +
+                     (long long)co * p.w_stride[3]];
+        }
+      }
+#pragma unroll
+      for (int q = 0; q < 8; ++q) {
+        const int i = i0 + q * kThr;
+        if (i < kAll) {
+          ws[((i / (KP * NCH)) * NCH + (i / KP) % NCH) * GS + i % KP] =
+              __float2bfloat16(v[q]);
+        }
+      }
+    }
+  };
+  auto tile_at = [&](int s) {
+    return tile_of(blockIdx.x + (s / nkc) * gridDim.x, p.H, p.W);
+  };
+  auto issue = [&](int s) {
+    const Tile t = tile_at(s);
+    const int kc = s % nkc;
+    const int cc = min(KP, p.cout - kc * KP);
+    bf16* st = raw + (s & 1) * stage;
+    stage_rows<kHaloH, kHaloW, kThr>(st, KP, 0, dy, p.cout, kc * KP, cc, t.bi,
+                                     t.y0 - 1, t.x0 - 1, p.H, p.W);
+    if (has_y) {
+      stage_rows<kHaloH, kHaloW, kThr>(st + kHalo * KP, KP, 0, yv, p.cout,
+                                       kc * KP, cc, t.bi, t.y0 - 1, t.x0 - 1,
+                                       p.H, p.W);
+    }
+    if (has_x && kc == nkc - 1) {
+      stage_rows<kTileH, kTileW, kThr>(st + (has_y ? 2 : 1) * kHalo * KP, NCH,
+                                       0, x, p.cin, ci0, nci, t.bi, t.y0,
+                                       t.x0, p.H, p.W);
+    }
+  };
+
+  // ds and 2 dq of the thread's eight channels cg.. of K chunk kc
+  const int cg = 8 * (tid % KG);
+  float ds8[8], dq8[8];
+  auto load_dsq = [&](int kc) {
+    const int left = min(KP, p.cout - kc * KP) - cg;
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      const bool ok = has_y && e < left;
+      ds8[e] = ok ? p.cot.ds[kc * KP + cg + e] : 0.f;
+      dq8[e] = ok ? __fmul_rn(2.f, p.cot.dq[kc * KP + cg + e]) : 0.f;
+    }
+  };
+  if (nkc == 1) {
+    stage_weights(0);
+    load_dsq(0);
+  }
+  if (steps > 0) issue(0);
+  cp_async_commit();
+  float acc[2][NT][4];
+  for (int s = 0; s < steps; ++s) {
+    cp_async_wait_all();
+    __syncthreads();  // this step's stage landed; the last step is done
+    if (s + 1 < steps) issue(s + 1);
+    cp_async_commit();
+    const Tile t = tile_at(s);
+    const int kc = s % nkc;
+    const int cc = min(KP, p.cout - kc * KP);
+    const bf16* st = raw + (s & 1) * stage;
+
+    // r(g) of the tile and halo in g's order (cot_at): 0 outside the image
+    // and beyond cc; eight channels a thread and step.
+    if (nkc > 1) load_dsq(kc);
+    for (int pix = tid / KG; pix < kHalo; pix += kThr / KG) {
+      const int iy = t.y0 - 1 + pix / kHaloW;
+      const int ix = t.x0 - 1 + pix % kHaloW;
+      float g[8] = {};
+      if (iy >= 0 && iy < p.H && ix >= 0 && ix < p.W) {
+        float yv[8] = {};
+        load_vec<8>(st + pix * KP + cg, g);
+        if (has_y) load_vec<8>(st + kHalo * KP + pix * KP + cg, yv);
+#pragma unroll
+        for (int e = 0; e < 8; ++e) {
+          if (has_y) {
+            g[e] = __fadd_rn(__fadd_rn(g[e], ds8[e]), __fmul_rn(dq8[e], yv[e]));
+          }
+          if (cg + e >= cc) g[e] = 0.f;
+        }
+      }
+      store_vec<8>(gs + pix * GS + cg, g);
+    }
+    if (nkc > 1) stage_weights(kc);
+    if (kc == 0) {
+#pragma unroll
+      for (int m = 0; m < 2; ++m)
+#pragma unroll
+        for (int j = 0; j < NT; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[m][j][e] = 0.f;
+    }
+    __syncthreads();
+
+    // dxa[pix, ci] += sum over taps and co of g[pix + tap, co] w~[tap, ci, co]
+#pragma unroll 3
+    for (int tap = 0; tap < 9; ++tap) {
+      const int u = tap / 3;
+      const int v = tap % 3;
+#pragma unroll
+      for (int ks = 0; ks < KS; ++ks) {
+        uint32_t a[2][4];
+#pragma unroll
+        for (int m = 0; m < 2; ++m) {
+          const int hp = (2 * wm + m + u) * kHaloW + (lane & 15) + v;
+          ldsm_x4(a[m], gs + hp * GS + ks * 16 + (lane >> 4) * 8);
+        }
+        uint32_t b[NT][2];
+        const int k = ks * 16 + ((lane >> 3) & 1) * 8;
+#pragma unroll
+        for (int j = 0; j + 1 < NT; j += 2) {
+          uint32_t r[4];
+          const int n = (wn * NT + j + (lane >> 4)) * 8 + (lane & 7);
+          ldsm_x4(r, ws + (tap * NCH + n) * GS + k);
+          b[j][0] = r[0];
+          b[j][1] = r[1];
+          b[j + 1][0] = r[2];
+          b[j + 1][1] = r[3];
+        }
+        if (NT & 1) {
+          uint32_t r[2];
+          const int n = (wn * NT + NT - 1) * 8 + (lane & 7);
+          ldsm_x2(r, ws + (tap * NCH + n) * GS + k);
+          b[NT - 1][0] = r[0];
+          b[NT - 1][1] = r[1];
+        }
+#pragma unroll
+        for (int m = 0; m < 2; ++m)
+#pragma unroll
+          for (int j = 0; j < NT; ++j) mma(acc[m][j], a[m], b[j][0], b[j][1]);
+      }
+    }
+    if (kc != nkc - 1) continue;
+
+    // Epilogue, gub_conv_dx_kernel's arithmetic: dskip before the gate; the
+    // gate with the forward's p; dx; the tile's sums of dp * x and dp.
+    const bf16* xs = st + (has_y ? 2 : 1) * kHalo * KP;
+    bf16* dx = static_cast<bf16*>(p.dx);
+    bf16* dskip = static_cast<bf16*>(p.dskip);
+    const bool pairs = (p.cin & 1) == 0;
+    float sa[NT][2], sc[NT][2];
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      sa[j][0] = sa[j][1] = sc[j][0] = sc[j][1] = 0.f;
+    }
+#pragma unroll
+    for (int m = 0; m < 2; ++m) {
+      const int r = 2 * wm + m;
+      const int oy = t.y0 + r;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int px = (lane >> 2) + 8 * h;
+        const int ox = t.x0 + px;
+        if (oy >= p.H || ox >= p.W) continue;
+        const long long e0 = (((long long)t.bi * p.H + oy) * p.W + ox) * p.cin;
+#pragma unroll
+        for (int j = 0; j < NT; ++j) {
+          const int n = (wn * NT + j) * 8 + (lane & 3) * 2;
+          const int ci = ci0 + n;
+          if (n >= nci) continue;
+          const bool two = n + 1 < nci;
+          float v0 = acc[m][j][2 * h];
+          float v1 = acc[m][j][2 * h + 1];
+          if (dskip != nullptr) {
+            if (two && pairs) {
+              *reinterpret_cast<__nv_bfloat162*>(dskip + e0 + ci) =
+                  __floats2bfloat162_rn(v0, v1);
+            } else {
+              dskip[e0 + ci] = __float2bfloat16(v0);
+              if (two) dskip[e0 + ci + 1] = __float2bfloat16(v1);
+            }
+          }
+          if (has_x) {
+            const int ch = t.bi * p.cin + ci;
+            const bf16* xp = xs + (r * kTileW + px) * NCH + n;
+            const float x0 = to_f(xp[0]);
+            const float a0 = p.a[ch];
+            const float dp0 =
+                __fadd_rn(__fmul_rn(x0, a0), p.c[ch]) > 0.f ? v0 : 0.f;
+            v0 = __fmul_rn(dp0, a0);
+            sa[j][0] += __fmul_rn(dp0, x0);
+            sc[j][0] += dp0;
+            if (two) {
+              const float x1 = to_f(xp[1]);
+              const float a1 = p.a[ch + 1];
+              const float dp1 =
+                  __fadd_rn(__fmul_rn(x1, a1), p.c[ch + 1]) > 0.f ? v1 : 0.f;
+              v1 = __fmul_rn(dp1, a1);
+              sa[j][1] += __fmul_rn(dp1, x1);
+              sc[j][1] += dp1;
+            }
+          }
+          if (two && pairs) {
+            *reinterpret_cast<__nv_bfloat162*>(dx + e0 + ci) =
+                __floats2bfloat162_rn(v0, v1);
+          } else {
+            dx[e0 + ci] = __float2bfloat16(v0);
+            if (two) dx[e0 + ci + 1] = __float2bfloat16(v1);
+          }
+        }
+      }
+    }
+    if (!has_x) continue;
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+#pragma unroll
+      for (int q = 0; q < 2; ++q) {
+        float av = sa[j][q];
+        float cv = sc[j][q];
+#pragma unroll
+        for (int o = 4; o < 32; o <<= 1) {
+          av += __shfl_xor_sync(0xffffffffu, av, o);
+          cv += __shfl_xor_sync(0xffffffffu, cv, o);
+        }
+        if (lane < 4) {
+          const int n = (wn * NT + j) * 8 + lane * 2 + q;
+          red_a[wm * NCH + n] = av;
+          red_c[wm * NCH + n] = cv;
+        }
+      }
+    }
+    __syncthreads();
+    for (int n = tid; n < nci; n += kThr) {
+      float av = 0.f;
+      float cv = 0.f;
+#pragma unroll
+      for (int w = 0; w < 4; ++w) {
+        av += red_a[w * NCH + n];
+        cv += red_c[w * NCH + n];
+      }
+      const long long o =
+          ((long long)t.bi * tiles_img + t.index) * p.cin + ci0 + n;
+      p.part_da[o] = av;
+      p.part_dc[o] = cv;
+    }
+  }
+}
+
+template <int KS, int NT, int WN>
+cudaError_t launch_dx(const DxParams& p, cudaStream_t stream) {
+  static int set = 0;
+  constexpr int kThr = 128 * WN;
+  constexpr int NCH = 8 * NT * WN;
+  auto kern = gub_conv_dx_tc<KS, NT, WN>;
+  const int smem = dx_smem(16 * KS, NCH, p.cot.y != nullptr, p.a != nullptr);
+  int per_sm = 0;
+  const cudaError_t err = prepare(kern, &set, smem, kThr, &per_sm);
+  if (err != cudaSuccess) return err;
+  const int chunks = (p.cin + NCH - 1) / NCH;
+  const long long total = (long long)tiles_per_image(p.H, p.W) * p.B;
+  long long nb = (long long)per_sm * sm_count() / chunks;
+  nb = nb < 1 ? 1 : (nb > total ? total : nb);
+  kern<<<dim3(static_cast<unsigned>(nb), chunks), kThr, smem, stream>>>(p);
+  return cudaGetLastError();
+}
+
+template <int KS>
+cudaError_t launch_dx_n(const DxParams& p, cudaStream_t stream) {
+  if (p.cin <= 8) return launch_dx<KS, 1, 1>(p, stream);
+  if (p.cin <= 16) return launch_dx<KS, 2, 1>(p, stream);
+  if (p.cin <= 32 ||
+      dx_smem(16 * KS, 64, p.cot.y != nullptr, p.a != nullptr) > kSmemMax) {
+    return launch_dx<KS, 2, 2>(p, stream);
+  }
+  return launch_dx<KS, 4, 2>(p, stream);
+}
+
+cudaError_t launch_dx(const DxParams& p, cudaStream_t stream) {
+  if (p.cout <= 16) return launch_dx_n<1>(p, stream);
+  if (p.cout <= 32) return launch_dx_n<2>(p, stream);
+  return launch_dx_n<4>(p, stream);
+}
+
+// --- dw ---------------------------------------------------------------------
+
+// The chunking of gub_conv_dw_tc: MT m16 tiles of input channels a tap, NT
+// n8 tiles of output channels; MT 0 is gub_conv_dw_tc_rgb.
+struct DwCfg {
+  int mt, nt;
+};
+
+DwCfg dw_cfg(int cin, int cout) {
+  DwCfg c;
+  c.nt = cout <= 16 ? 2 : (cout <= 32 ? 4 : 8);
+  const int need = (cin + 15) / 16;
+  c.mt = cin <= 3 ? 0 : (need <= 1 ? 1 : ((need <= 2 || c.nt == 8) ? 2 : 4));
+  return c;
+}
+
+int dw_grid_y(int cin, DwCfg c) {
+  return c.mt == 0 ? 1 : (cin + 16 * c.mt - 1) / (16 * c.mt);
+}
+
+int dw_grid_z(int cout, DwCfg c) { return (cout + 8 * c.nt - 1) / (8 * c.nt); }
+
+// Partials of one launch: about one block an SM over the chunks at 16 tiles
+// of m16 x n8 a warp, two below that; a function of the shape alone.
+int dw_blocks(int cin, int cout, int B, int H, int W) {
+  const DwCfg c = dw_cfg(cin, cout);
+  const int per_sm = c.mt * c.nt >= 16 ? 1 : 2;
+  long long nb = (long long)kSms * per_sm /
+                 (dw_grid_y(cin, c) * dw_grid_z(cout, c));
+  const long long total = (long long)tiles_per_image(H, W) * B;
+  nb = nb < 1 ? 1 : (nb > total ? total : nb);
+  return static_cast<int>(nb);
+}
+
+// Elements of one stage buffer: raw x [and skip] of the tile and halo
+// [kHalo][xc], raw dy [and y] of the tile [kPix][nc], [A and C of the
+// chunk's columns for the tile's image, f32 [2][xc]].
+__host__ __device__ inline int dw_stage(int xc, int nc, bool has_skip,
+                                        bool has_y, bool has_pre) {
+  return (has_skip ? 2 : 1) * kHalo * xc + (has_y ? 2 : 1) * kPix * nc +
+         (has_pre ? 4 * xc : 0);
+}
+
+// xa [kHalo][xs], r(g) [kPix][nc + 8], two stages, then f32: the threads'
+// db sums [8][threads], ds and 2 dq of the slab [2][nc] and, for the RGB
+// kernel, one set of a warp's sums.
+__host__ __device__ inline int dw_smem(int xc, int xs, int nc, bool has_skip,
+                                       bool has_y, bool has_pre, int threads,
+                                       bool rgb) {
+  return 2 * (kHalo * xs + kPix * (nc + 8) +
+              2 * dw_stage(xc, nc, has_skip, has_y, has_pre)) +
+         4 * (8 * threads + 2 * nc + (rgb ? 2 * (nc / 8) * 4 * 32 : 0));
+}
+
+// The stage of one tile: the parts' channels of the chunk and part 0's skip
+// with the halo, dy and y of the slab, and the chunk's A and C for the
+// tile's image, all by cp.async where the layout allows.
+template <int NTHR>
+__device__ __forceinline__ void dw_issue(const DwParams& p, bf16* st, int xc,
+                                         int nc, int c0, int cc, int co0,
+                                         int ncv, Tile t) {
+  const bool has_skip = p.skip != nullptr;
+  const bool has_y = p.cot.y != nullptr;
+  int off = 0;
+  for (int j = 0; j < p.nparts; ++j) {
+    const int lo = max(c0, off);
+    const int hi = min(c0 + cc, off + p.cin[j]);
+    if (lo < hi) {
+      stage_rows<kHaloH, kHaloW, NTHR>(st, xc, lo - c0,
+                                       static_cast<const bf16*>(p.x[j]),
+                                       p.cin[j], lo - off, hi - lo, t.bi,
+                                       t.y0 - 1, t.x0 - 1, p.H, p.W);
+      if (j == 0 && has_skip) {
+        stage_rows<kHaloH, kHaloW, NTHR>(st + kHalo * xc, xc, lo - c0,
+                                         static_cast<const bf16*>(p.skip),
+                                         p.cin[0], lo, hi - lo, t.bi,
+                                         t.y0 - 1, t.x0 - 1, p.H, p.W);
+      }
+    }
+    off += p.cin[j];
+  }
+  bf16* sg = st + (has_skip ? 2 : 1) * kHalo * xc;
+  stage_rows<kTileH, kTileW, NTHR>(sg, nc, 0,
+                                   static_cast<const bf16*>(p.cot.dy), p.cout,
+                                   co0, ncv, t.bi, t.y0, t.x0, p.H, p.W);
+  if (has_y) {
+    stage_rows<kTileH, kTileW, NTHR>(sg + kPix * nc, nc, 0,
+                                     static_cast<const bf16*>(p.cot.y),
+                                     p.cout, co0, ncv, t.bi, t.y0, t.x0, p.H,
+                                     p.W);
+  }
+  if (p.a[0] != nullptr) {
+    float* ac = reinterpret_cast<float*>(sg + (has_y ? 2 : 1) * kPix * nc);
+    for (int c = threadIdx.x; c < cc; c += NTHR) {
+      int j = 0;
+      int ch = c0 + c;
+      while (j + 1 < p.nparts && ch >= p.cin[j]) ch -= p.cin[j++];
+      const int e = t.bi * p.cin[j] + ch;
+      cp_async4(ac + c, p.a[j] + e);
+      cp_async4(ac + xc + c, p.c[j] + e);
+    }
+  }
+}
+
+// The tile's xa = r(relu(x A + C) [+ skip]) with its halo into xa[pix * XS
+// + c] (0 outside the image and beyond the chunk's cc columns), VW columns
+// a thread and step; and r(g) into gsm[pix * (NC + 8) + c], 8 channels a
+// thread, whose unrounded values the thread adds to its db sums db[e NTHR]
+// (its own column of red [8][NTHR] in shared memory).
+template <int NTHR, int XC, int XS, int VW, int NC>
+__device__ __forceinline__ void dw_transform(const DwParams& p,
+                                             const bf16* st, bf16* xa,
+                                             bf16* gsm, int c0, int cc,
+                                             int ncv, Tile t,
+                                             const float* dsq, float* db) {
+  const bool has_skip = p.skip != nullptr;
+  const bool has_y = p.cot.y != nullptr;
+  const bool has_pre = p.a[0] != nullptr;
+  const int tid = threadIdx.x;
+  const bf16* sd = st + (has_skip ? 2 : 1) * kHalo * XC;
+  const bf16* sy = sd + kPix * NC;
+  constexpr int G = XS / VW;  // column groups of a pixel, the padding's too
+  constexpr int R = NTHR / G;
+  if (tid < G * R) {
+    const int col = VW * (tid % G);
+    const float* ac =
+        reinterpret_cast<const float*>(sy + (has_y ? kPix * NC : 0));
+    const int skip_end = has_skip ? p.cin[0] - c0 : 0;  // part 0's columns
+    for (int pix = tid / G; pix < kHalo; pix += R) {
+      const int iy = t.y0 - 1 + pix / kHaloW;
+      const int ix = t.x0 - 1 + pix % kHaloW;
+      float v[VW] = {};
+      if (col < cc && iy >= 0 && iy < p.H && ix >= 0 && ix < p.W) {
+        load_vec<VW>(st + pix * XC + col, v);
+        if (has_pre) {
+          float s[VW] = {};
+          if (col < skip_end) load_vec<VW>(st + kHalo * XC + pix * XC + col, s);
+#pragma unroll
+          for (int e = 0; e < VW; ++e) {
+            v[e] = fmaxf(__fadd_rn(__fmul_rn(v[e], ac[col + e]),
+                                   ac[XC + col + e]),
+                         0.f);
+            if (col + e < skip_end) v[e] = __fadd_rn(v[e], s[e]);
+          }
+        }
+#pragma unroll
+        for (int e = 0; e < VW; ++e) {
+          if (col + e >= cc) v[e] = 0.f;
+        }
+      }
+      store_vec<VW>(xa + pix * XS + col, v);
+    }
+  }
+  constexpr int GG = NC / 8;
+  static_assert(NTHR % GG == 0, "a thread keeps one group of g");
+  const int cg = 8 * (tid % GG);
+  for (int pix = tid / GG; pix < kPix; pix += NTHR / GG) {
+    const int oy = t.y0 + pix / kTileW;
+    const int ox = t.x0 + pix % kTileW;
+    float g[8] = {};
+    if (oy < p.H && ox < p.W) {
+      float yv[8] = {};
+      load_vec<8>(sd + pix * NC + cg, g);
+      if (has_y) load_vec<8>(sy + pix * NC + cg, yv);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        if (has_y) {
+          g[e] = __fadd_rn(__fadd_rn(g[e], dsq[cg + e]),
+                           __fmul_rn(dsq[NC + cg + e], yv[e]));
+        }
+        if (cg + e >= ncv) g[e] = 0.f;
+        db[e * NTHR] += g[e];
+      }
+    }
+    store_vec<8>(gsm + pix * (NC + 8) + cg, g);
+  }
+}
+
+// ds and 2 dq of the slab's channels into dsq [2][NC] (0 beyond ncv, and
+// without statistics), and the thread's db sums red[e NTHR + tid] to 0;
+// read after the next __syncthreads.
+template <int NTHR, int NC>
+__device__ __forceinline__ void dw_load_dsq(const Cot& cot, int co0, int ncv,
+                                            float* dsq, float* red) {
+  const int c = threadIdx.x;
+#pragma unroll
+  for (int e = 0; e < 8; ++e) red[e * NTHR + c] = 0.f;
+  if (c < NC) {
+    const bool ok = cot.y != nullptr && c < ncv;
+    dsq[c] = ok ? cot.ds[co0 + c] : 0.f;
+    dsq[NC + c] = ok ? __fmul_rn(2.f, cot.dq[co0 + c]) : 0.f;
+  }
+}
+
+// db of the slab from the threads' sums red [8][NTHR], in thread order
+// within a channel.
+template <int NTHR, int NC>
+__device__ __forceinline__ void dw_write_db(const DwParams& p,
+                                            const float* red, int co0,
+                                            int ncv) {
+  constexpr int GG = NC / 8;
+  const int tid = threadIdx.x;
+  __syncthreads();
+  if (tid < ncv) {
+    float s = 0.f;
+    for (int r = 0; r < NTHR / GG; ++r) {
+      s += red[(tid % 8) * NTHR + r * GG + tid / 8];
+    }
+    p.part_db[(long long)blockIdx.x * p.cout + co0 + tid] = s;
+  }
+}
+
+// MT m16 tiles of input channels (a chunk of 16 MT), NT n8 tiles of output
+// channels (a slab of 8 NT), all nine taps: warp w owns tap w.
+template <int MT, int NT>
+__global__ void __launch_bounds__(kDwThreads, 1)
+gub_conv_dw_tc(const DwParams p) {
+  constexpr int CC = 16 * MT;
+  constexpr int NC = 8 * NT;
+  constexpr int XS = CC + 8;  // odd numbers of 16-byte units
+  constexpr int GS = NC + 8;
+  static_assert(NT % 2 == 0, "n8 tiles in pairs");
+  extern __shared__ __align__(16) unsigned char smem[];
+  const bool has_skip = p.skip != nullptr;
+  const bool has_y = p.cot.y != nullptr;
+  bf16* xa = reinterpret_cast<bf16*>(smem);  // [kHalo][XS]
+  bf16* gsm = xa + kHalo * XS;               // [kPix][GS]
+  bf16* raw = gsm + kPix * GS;
+  const int stage = dw_stage(CC, NC, has_skip, has_y, p.a[0] != nullptr);
+  float* red = reinterpret_cast<float*>(raw + 2 * stage);
+  float* dsq = red + 8 * kDwThreads;
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int tap = tid >> 5;
+  const int u = tap / 3;
+  const int v = tap % 3;
+  const int c0 = blockIdx.y * CC;
+  const int cc = min(CC, p.cin_total - c0);
+  const int co0 = blockIdx.z * NC;
+  const int ncv = min(NC, p.cout - co0);
+  const int total = tiles_per_image(p.H, p.W) * p.B;
+  const int steps = my_tiles(total);
+  dw_load_dsq<kDwThreads, NC>(p.cot, co0, ncv, dsq, red);
+
+  float acc[MT][NT][4];
+#pragma unroll
+  for (int m = 0; m < MT; ++m)
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[m][j][e] = 0.f;
+
+  auto tile_at = [&](int s) {
+    return tile_of(blockIdx.x + s * gridDim.x, p.H, p.W);
+  };
+  if (steps > 0) {
+    dw_issue<kDwThreads>(p, raw, CC, NC, c0, cc, co0, ncv, tile_at(0));
+  }
+  cp_async_commit();
+  for (int s = 0; s < steps; ++s) {
+    cp_async_wait_all();
+    __syncthreads();  // this tile's stage landed; the last tile is done
+    if (s + 1 < steps) {
+      dw_issue<kDwThreads>(p, raw + ((s + 1) & 1) * stage, CC, NC, c0, cc,
+                           co0, ncv, tile_at(s + 1));
+    }
+    cp_async_commit();
+    dw_transform<kDwThreads, CC, XS, 8, NC>(p, raw + (s & 1) * stage,
+                                            xa, gsm, c0, cc, ncv, tile_at(s),
+                                            dsq, red + tid);
+    __syncthreads();
+    // K runs over the tile's pixels, a tile row (16 pixels) a k16 step. The
+    // tensor cores do not round their f32 sums to nearest, and the error of
+    // each step adds up along a chain: chains of kChain steps start from 0
+    // and are added to acc in f32, rounded to nearest. A chain holds the A
+    // fragments of its steps and the sums of two n8 tiles.
+#pragma unroll 1
+    for (int py0 = 0; py0 < kTileH; py0 += kChain) {
+#pragma unroll
+      for (int m = 0; m < MT; ++m) {
+        uint32_t a[kChain][4];
+#pragma unroll
+        for (int c = 0; c < kChain; ++c) {
+          const int hp =
+              (py0 + c + u) * kHaloW + (lane & 7) + (lane >> 4) * 8 + v;
+          ldsm_x4_t(a[c], xa + hp * XS + m * 16 + ((lane >> 3) & 1) * 8);
+        }
+#pragma unroll
+        for (int j = 0; j < NT; j += 2) {
+          float d0[4] = {}, d1[4] = {};
+#pragma unroll
+          for (int c = 0; c < kChain; ++c) {
+            uint32_t b[4];
+            const int pix =
+                (py0 + c) * kTileW + (lane & 7) + ((lane >> 3) & 1) * 8;
+            ldsm_x4_t(b, gsm + pix * GS + (j + (lane >> 4)) * 8);
+            mma(d0, a[c], b[0], b[1]);
+            mma(d1, a[c], b[2], b[3]);
+          }
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            acc[m][j][e] += d0[e];
+            acc[m][j + 1][e] += d1[e];
+          }
+        }
+      }
+    }
+  }
+
+  // One partial [tap][c0 + ci][co0 + co] per block.
+#pragma unroll
+  for (int m = 0; m < MT; ++m)
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int ci = m * 16 + (lane >> 2) + (e >> 1) * 8;
+        const int co = j * 8 + (lane & 3) * 2 + (e & 1);
+        if (ci < cc && co < ncv) {
+          p.part_dw[(((long long)blockIdx.x * 9 + tap) * p.cin_total + c0 +
+                     ci) * p.cout + co0 + co] = acc[m][j][e];
+        }
+      }
+  if (blockIdx.y == 0) dw_write_db<kDwThreads, NC>(p, red, co0, ncv);
+}
+
+// The RGB guide (cin_total <= 3): its 9 cin (tap, ci) rows packed into M =
+// 32 and A read element by element; warp w takes tile row w, and the eight
+// warps add their sums in warp order at the end.
+template <int NT>
+__global__ void __launch_bounds__(kRgbThreads, 1)
+gub_conv_dw_tc_rgb(const DwParams p) {
+  constexpr int XC = 4;  // channels of a staged pixel
+  constexpr int NC = 8 * NT;
+  constexpr int GS = NC + 8;
+  static_assert(NT % 2 == 0, "n8 tiles in pairs");
+  extern __shared__ __align__(16) unsigned char smem[];
+  const bool has_skip = p.skip != nullptr;
+  const bool has_y = p.cot.y != nullptr;
+  bf16* xa = reinterpret_cast<bf16*>(smem);  // [kHalo][XC]
+  bf16* gsm = xa + kHalo * XC;               // [kPix][GS]
+  bf16* raw = gsm + kPix * GS;
+  const int stage = dw_stage(XC, NC, has_skip, has_y, p.a[0] != nullptr);
+  float* red = reinterpret_cast<float*>(raw + 2 * stage);
+  float* dsq = red + 8 * kRgbThreads;
+  float* sums = dsq + 2 * NC;  // [2][NT][4][32]
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int py = tid >> 5;
+  const int cin = p.cin_total;
+  const int co0 = blockIdx.z * NC;
+  const int ncv = min(NC, p.cout - co0);
+  const int total = tiles_per_image(p.H, p.W) * p.B;
+  const int steps = my_tiles(total);
+  dw_load_dsq<kRgbThreads, NC>(p.cot, co0, ncv, dsq, red);
+  // rows (lane / 4) + 8 q of M: their offsets in the halo tile
+  int off[4];
+  bool row_ok[4];
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    const int m = (lane >> 2) + 8 * q;
+    row_ok[q] = m < 9 * cin;
+    const int tp = row_ok[q] ? m / cin : 0;
+    off[q] = ((tp / 3) * kHaloW + tp % 3) * XC + (row_ok[q] ? m % cin : 0);
+  }
+
+  float acc[2][NT][4];
+#pragma unroll
+  for (int m = 0; m < 2; ++m)
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[m][j][e] = 0.f;
+
+  auto tile_at = [&](int s) {
+    return tile_of(blockIdx.x + s * gridDim.x, p.H, p.W);
+  };
+  if (steps > 0) {
+    dw_issue<kRgbThreads>(p, raw, XC, NC, 0, cin, co0, ncv, tile_at(0));
+  }
+  cp_async_commit();
+  for (int s = 0; s < steps; ++s) {
+    cp_async_wait_all();
+    __syncthreads();
+    if (s + 1 < steps) {
+      dw_issue<kRgbThreads>(p, raw + ((s + 1) & 1) * stage, XC, NC, 0, cin,
+                            co0, ncv, tile_at(s + 1));
+    }
+    cp_async_commit();
+    dw_transform<kRgbThreads, XC, XC, 4, NC>(p, raw + (s & 1) * stage,
+                                             xa, gsm, 0, cin, ncv, tile_at(s),
+                                             dsq, red + tid);
+    __syncthreads();
+    // A[m][k] = xa[py + tap / 3, k + tap % 3, ci] of row m = tap cin + ci:
+    // register i of m16 tile m holds row 16 m + lane / 4 (+ 8 for odd i) at
+    // k = 2 (lane % 4) (+ 8 for i >= 2) and the next k
+    const bf16* row = xa + (py * kHaloW + (lane & 3) * 2) * XC;
+    uint32_t a[2][4];
+#pragma unroll
+    for (int m = 0; m < 2; ++m) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int q = 2 * m + (i & 1);
+        const bf16* r = row + (i >> 1) * 8 * XC + off[q];
+        a[m][i] = row_ok[q] ? pack(r[0], r[XC]) : 0u;
+      }
+    }
+    // one k16 step a tile from 0, added to acc rounded to nearest (as in
+    // gub_conv_dw_tc)
+#pragma unroll
+    for (int j = 0; j < NT; j += 2) {
+      uint32_t b[4];
+      const int pix = py * kTileW + (lane & 7) + ((lane >> 3) & 1) * 8;
+      ldsm_x4_t(b, gsm + pix * GS + (j + (lane >> 4)) * 8);
+#pragma unroll
+      for (int m = 0; m < 2; ++m) {
+        float d0[4] = {}, d1[4] = {};
+        mma(d0, a[m], b[0], b[1]);
+        mma(d1, a[m], b[2], b[3]);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          acc[m][j][i] += d0[i];
+          acc[m][j + 1][i] += d1[i];
+        }
+      }
+    }
+  }
+
+  // The warps' sums, added in warp order.
+  for (int w = 0; w < kTileH; ++w) {
+    if (py == w) {
+#pragma unroll
+      for (int m = 0; m < 2; ++m)
+#pragma unroll
+        for (int j = 0; j < NT; ++j)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            float* sp = sums + ((m * NT + j) * 4 + i) * 32 + lane;
+            *sp = w == 0 ? acc[m][j][i] : *sp + acc[m][j][i];
+          }
+    }
+    __syncthreads();
+  }
+  for (int i = tid; i < 2 * NT * 4 * 32; i += kRgbThreads) {
+    const int l = i & 31;
+    const int q = (i >> 5) & 3;
+    const int j = (i >> 7) % NT;
+    const int m = (i >> 7) / NT;
+    const int r = m * 16 + (l >> 2) + (q >> 1) * 8;
+    const int co = j * 8 + (l & 3) * 2 + (q & 1);
+    if (r < 9 * cin && co < ncv) {
+      p.part_dw[(((long long)blockIdx.x * 9 + r / cin) * cin + r % cin) *
+                    p.cout + co0 + co] = sums[i];
+    }
+  }
+  dw_write_db<kRgbThreads, NC>(p, red, co0, ncv);
+}
+
+// Shared memory of a dw launch.
+int dw_launch_smem(const DwParams& p, int xc, int xs, int nc, int threads,
+                   bool rgb) {
+  return dw_smem(xc, xs, nc, p.skip != nullptr, p.cot.y != nullptr,
+                 p.a[0] != nullptr, threads, rgb);
+}
+
+template <int MT, int NT>
+cudaError_t launch_dw(const DwParams& p, int nb, cudaStream_t stream) {
+  static int set = 0;
+  auto kern = gub_conv_dw_tc<MT, NT>;
+  const int smem =
+      dw_launch_smem(p, 16 * MT, 16 * MT + 8, 8 * NT, kDwThreads, false);
+  int per_sm = 0;
+  const cudaError_t err = prepare(kern, &set, smem, kDwThreads, &per_sm);
+  if (err != cudaSuccess) return err;
+  const DwCfg c{MT, NT};
+  kern<<<dim3(nb, dw_grid_y(p.cin_total, c), dw_grid_z(p.cout, c)),
+         kDwThreads, smem, stream>>>(p);
+  return cudaGetLastError();
+}
+
+template <int NT>
+cudaError_t launch_dw_rgb(const DwParams& p, int nb, cudaStream_t stream) {
+  static int set = 0;
+  auto kern = gub_conv_dw_tc_rgb<NT>;
+  const int smem = dw_launch_smem(p, 4, 4, 8 * NT, kRgbThreads, true);
+  int per_sm = 0;
+  const cudaError_t err = prepare(kern, &set, smem, kRgbThreads, &per_sm);
+  if (err != cudaSuccess) return err;
+  kern<<<dim3(nb, 1, dw_grid_z(p.cout, DwCfg{0, NT})), kRgbThreads, smem,
+         stream>>>(p);
+  return cudaGetLastError();
+}
+
+template <int NT>
+cudaError_t launch_dw_n(const DwParams& p, int mt, int nb,
+                        cudaStream_t stream) {
+  switch (mt) {
+    case 0: return launch_dw_rgb<NT>(p, nb, stream);
+    case 1: return launch_dw<1, NT>(p, nb, stream);
+    case 2: return launch_dw<2, NT>(p, nb, stream);
+    default: return launch_dw<(NT == 8 ? 2 : 4), NT>(p, nb, stream);
+  }
+}
+
+cudaError_t launch_dw(const DwParams& p, int nb, cudaStream_t stream) {
+  const DwCfg c = dw_cfg(p.cin_total, p.cout);
+  switch (c.nt) {
+    case 2: return launch_dw_n<2>(p, c.mt, nb, stream);
+    case 4: return launch_dw_n<4>(p, c.mt, nb, stream);
+    default: return launch_dw_n<8>(p, c.mt, nb, stream);
+  }
+}
+
+}  // namespace tc
+
 bool bad_shape(int B, int H, int W, int cin, int cout, int k) {
   return (k != 1 && k != 3) || B < 1 || B > 65535 || H < 1 || W < 1 ||
          cin < 1 || cout < 1;
@@ -550,7 +1657,12 @@ extern "C" int gub_conv_bwd_tiles(int H, int W) { return tiles_per_image(H, W); 
 // Partial sums that one gub_conv_dw launch writes: the leading extent of its
 // scratch part_dw [nb, k*k*cin_total*cout] and part_db [nb, cout].
 extern "C" int gub_conv_dw_blocks(int nparts, const int* cin, int cout, int B,
-                                  int H, int W) {
+                                  int H, int W, int k, int is_bf16) {
+  if (is_bf16 && k == 3) {
+    int cin_total = 0;
+    for (int j = 0; j < nparts; ++j) cin_total += cin[j];
+    return tc::dw_blocks(cin_total, cout, B, H, W);
+  }
   return dw_blocks(nparts, cin, cout, B, H, W);
 }
 
@@ -584,12 +1696,12 @@ extern "C" int gub_conv_dw(int nparts, void* const* x, void* const* a,
   p.H = H;
   p.W = W;
   p.cout = cout;
-  const int nb = dw_blocks(nparts, cin, cout, B, H, W);
+  const int nb = gub_conv_dw_blocks(nparts, cin, cout, B, H, W, k, is_bf16);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (is_bf16) {
     err = k == 1 ? launch_dw_slab<__nv_bfloat16, 1>(p, nb, st)
-                 : launch_dw_slab<__nv_bfloat16, 3>(p, nb, st);
+                 : tc::launch_dw(p, nb, st);
   } else {
     err = k == 1 ? launch_dw_slab<float, 1>(p, nb, st)
                  : launch_dw_slab<float, 3>(p, nb, st);
@@ -636,7 +1748,7 @@ extern "C" int gub_conv_dx(const void* dy, const void* y, const void* ds,
   cudaError_t err;
   if (is_bf16) {
     err = k == 1 ? launch_dx_slab<__nv_bfloat16, 1>(p, st)
-                 : launch_dx_slab<__nv_bfloat16, 3>(p, st);
+                 : tc::launch_dx(p, st);
   } else {
     err = k == 1 ? launch_dx_slab<float, 1>(p, st)
                  : launch_dx_slab<float, 3>(p, st);

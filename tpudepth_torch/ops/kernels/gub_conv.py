@@ -248,36 +248,46 @@ SUM_RTOL = 16 * torch.finfo(torch.float32).eps
 
 
 _VP, _I32 = ctypes.c_void_p, ctypes.c_int
+_PVP, _PI32 = ctypes.POINTER(_VP), ctypes.POINTER(_I32)
+_PLL = ctypes.POINTER(ctypes.c_longlong)
+
+#: ctypes signature of each C entry, by library (``csrc/<library>.cu``):
+#: per-part arrays are pointers to pointers or to ints, the weight strides a
+#: pointer to long longs
+ARGTYPES = {
+    "gub_conv_fwd": {
+        "gub_conv_fwd": (_I32, _PVP, _PVP, _PVP, _PI32, _VP, _VP, _PLL)
+                        + (_VP,) * 4 + (_I32,) * 6 + (_VP,),
+    },
+    "gub_conv_bwd": {
+        "gub_conv_bwd_tiles": (_I32, _I32),
+        "gub_conv_dw_blocks": (_I32, _PI32) + (_I32,) * 6,
+        "gub_conv_dw": (_I32, _PVP, _PVP, _PVP, _PI32) + (_VP,) * 8
+                       + (_PLL, _VP) + (_I32,) * 6 + (_VP,),
+        "gub_conv_dx": (_VP,) * 8 + (_PLL, _I32) + (_VP,) * 6 + (_I32,) * 7
+                       + (_VP,),
+    },
+}
+
+
+def _bind(name: str) -> ctypes.CDLL:
+    """Load library ``name`` and set the signature of each of its entries
+    (each returns an int: a ``cudaError_t`` or a count)."""
+    lib = _build.load(name)
+    for fn, types in ARGTYPES[name].items():
+        getattr(lib, fn).argtypes = list(types)
+        getattr(lib, fn).restype = _I32
+    return lib
 
 
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
-    lib = _build.load("gub_conv_fwd")
-    lib.gub_conv_fwd.argtypes = [
-        _I32, ctypes.POINTER(_VP), ctypes.POINTER(_VP), ctypes.POINTER(_VP),
-        ctypes.POINTER(_I32), _VP, _VP, ctypes.POINTER(ctypes.c_longlong), _VP,
-        _VP, _VP, _VP, _I32, _I32, _I32, _I32, _I32, _I32, _VP,
-    ]
-    lib.gub_conv_fwd.restype = _I32
-    return lib
+    return _bind("gub_conv_fwd")
 
 
 @functools.lru_cache(maxsize=None)
 def _lib_bwd() -> ctypes.CDLL:
-    lib = _build.load("gub_conv_bwd")
-    pvp, pi32 = ctypes.POINTER(_VP), ctypes.POINTER(_I32)
-    pll = ctypes.POINTER(ctypes.c_longlong)
-    lib.gub_conv_bwd_tiles.argtypes = [_I32, _I32]
-    lib.gub_conv_dw_blocks.argtypes = [_I32, pi32] + [_I32] * 4
-    lib.gub_conv_dw.argtypes = (
-        [_I32, pvp, pvp, pvp, pi32] + [_VP] * 8 + [pll, _VP] + [_I32] * 6
-        + [_VP])
-    lib.gub_conv_dx.argtypes = (
-        [_VP] * 8 + [pll, _I32] + [_VP] * 6 + [_I32] * 7 + [_VP])
-    for fn in (lib.gub_conv_bwd_tiles, lib.gub_conv_dw_blocks,
-               lib.gub_conv_dw, lib.gub_conv_dx):
-        fn.restype = _I32
-    return lib
+    return _bind("gub_conv_bwd")
 
 
 def _check_cuda(parts, w, b, preludes, skip, kernel="gub_conv_fwd"):
@@ -421,7 +431,8 @@ def conv_bn_act_dw(
     dev = dy.device
     lib = _lib_bwd()
     xs, a_ptrs, c_ptrs, cins = _part_arrays(parts, preludes)
-    nb = lib.gub_conv_dw_blocks(len(parts), cins, cout, bsz, h, wd)
+    nb = lib.gub_conv_dw_blocks(len(parts), cins, cout, bsz, h, wd, k,
+                                int(dy.dtype == torch.bfloat16))
     part_dw = torch.empty((nb, w.numel()), dtype=torch.float32, device=dev)
     part_db = torch.empty((nb, cout), dtype=torch.float32, device=dev)
     dw = torch.empty_like(w)  # w's strides when w is dense, else contiguous
