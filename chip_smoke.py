@@ -26,10 +26,11 @@ plain PyTorch version. Phases:
    training path's shape and at ragged, zero-target, pred == target and flat
    cases; per shape the device time of the kernel, of the plain version and
    of a library yardstick (one cuDNN ``F.conv2d``; the port's ``DepthLoss``
-   and its autograd backward) beside the bound; ``gub_conv_dw`` and
-   ``gub_conv_dx`` against ``conv_bn_act_dw_reference`` /
-   ``conv_bn_act_dx_reference`` at the nine shapes of a batch-8 train step in
-   f32 and bf16 and at prelude / skip / ragged / k=1 / multi-part cases,
+   and its autograd backward) beside the bound, ``gub_conv_fwd`` also at
+   batch 8 with statistics beside cuDNN and ``torch.batch_norm_stats``;
+   ``gub_conv_dw`` and ``gub_conv_dx`` against ``conv_bn_act_dw_reference``
+   / ``conv_bn_act_dx_reference`` at the nine shapes of a batch-8 train step
+   in f32 and bf16 and at prelude / skip / ragged / k=1 / multi-part cases,
    timed beside cuDNN's ``convolution_backward`` of the same conv and the
    bound (each row's share of it; a total line a kernel); the SAM
    kernels (``window_attn_infer``, ``block_epilogue_infer``, ``mlp_infer``)
@@ -39,7 +40,9 @@ plain PyTorch version. Phases:
    shapes of 480x640, B 1 and 8, f32 and bf16, every call rerun bit-equal,
    then one B 8 bf16 forward's calls timed beside the bound, the plain
    version, the library yardstick (the block's cuBLAS products + SDPA) and
-   the port's ``row`` module and ``fused`` composition of the same block;
+   the port's ``row`` module and ``fused`` composition of the same block,
+   and one B 8 bf16 ``sam_rowblock_infer`` call a stage split into its CUDA
+   kernels by ``torch.profiler`` ([row kernel split]);
    [block kernels]: ``crf_block_infer`` (shift 0 and 3) and
    ``sam_block_infer`` the same way, on the windows of the same maps,
    beside the ``block``, ``row`` and ``fused`` modules; [train kernels]:
@@ -276,6 +279,47 @@ def _bound_ms(bsz, h, w, cins, cout, prelude):
     return max(t_bytes, t_ops), t_bytes, t_ops
 
 
+def fwd_train_step_times():
+    """Device times of ``gub_conv_fwd`` in bf16 at the nine ``PATH_SHAPES``
+    as a train step launches them: batch 8 with statistics, beside cuDNN's
+    ``F.conv2d`` and the per-channel statistics of its output in one pass
+    (``torch.batch_norm_stats``, f32 sums, no copy written) and the bound:
+    [{"name", "ms", "library_ms", "bound_ms"}]."""
+    from tpudepth_torch.ops.kernels.gub_conv import _activate, conv_bn_act
+
+    dtype = torch.bfloat16
+    out = []
+    for i, (name, cins, cout, h, w, prelude) in enumerate(PATH_SHAPES):
+        parts, wt, b, pre, _ = make_case(i, TRAIN_BATCH, h, w, cins, cout,
+                                         prelude, False, dtype, DEVICE)
+        x_lib = torch.cat(_activate(parts, pre, None), dim=-1).permute(
+            0, 3, 1, 2)
+        w_lib = wt.to(dtype).permute(3, 2, 0, 1).contiguous(
+            memory_format=torch.channels_last)
+        b_lib = b.to(dtype)
+
+        def lib():
+            return torch.batch_norm_stats(
+                F.conv2d(x_lib, w_lib, b_lib, padding=1), 1e-5)
+
+        r = {"name": name,
+             "ms": time_ms(lambda: conv_bn_act(parts, wt, b, preludes=pre,
+                                               stats=True),
+                           per_graph=4, replays=10),
+             "library_ms": time_ms(lib, per_graph=4, replays=10),
+             "bound_ms": _bound_ms(TRAIN_BATCH, h, w, cins, cout,
+                                   prelude)[0]}
+        out.append(r)
+        print(f"[kernel time] {name:<20} {'+'.join(map(str, cins))}->{cout} "
+              f"@{h}x{w} B{TRAIN_BATCH} bf16 stats: kernel {r['ms']:.4f} ms, "
+              f"F.conv2d + batch_norm_stats {r['library_ms']:.4f} ms, bound "
+              f"{r['bound_ms']:.4f} ms "
+              f"({100 * r['bound_ms'] / r['ms']:.1f}% of bound)", flush=True)
+        del parts, x_lib
+        torch.cuda.empty_cache()
+    return out
+
+
 def phase_kernels():
     from tpudepth_torch.ops.kernels.gub_conv import (
         conv_bn_act,
@@ -369,6 +413,17 @@ def phase_kernels():
               f"F.conv2d {lib_ms:.4f} ms, bound {bound:.4f} ms "
               f"({'bytes' if t_bytes >= t_ops else 'operations'}; "
               f"{100 * bound / ms:.1f}% of bound)", flush=True)
+    for r, t in zip(rows, fwd_train_step_times()):
+        r.update({"b8_" + k: t[k] for k in ("ms", "library_ms", "bound_ms")})
+    for key, what, lib_name in (
+            ("", "bs-1 forward", "cuDNN"),
+            ("b8_", f"B{TRAIN_BATCH} train step with statistics",
+             "cuDNN + batch_norm_stats")):
+        ms, lib = (sum(r[key + k] for r in rows) for k in ("ms",
+                                                           "library_ms"))
+        print(f"[kernel time] gub_conv_fwd total, one {what} (nine convs): "
+              f"{ms:.4f} ms, {lib_name} {lib:.4f} ms ({ms / lib:.2f}x)",
+              flush=True)
     return rows, max_err, n_checks
 
 
@@ -1678,25 +1733,69 @@ def _whole_block_phase(label, fns, tolerance, inputs, modes, seeds):
     return rows, hold.err, hold.err_rel, hold.checks
 
 
+def split_ms(fn, calls: int = 3):
+    """Device ms per call of each CUDA kernel ``fn`` launches, by name, from
+    a ``torch.profiler`` trace of ``calls`` calls: [(name, ms, count)]."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out = [(e.key, e.self_device_time_total / calls / 1e3, e.count // calls)
+           for e in prof.key_averages()
+           if e.device_type == torch.autograd.DeviceType.CUDA
+           and e.self_device_time_total > 0]
+    return sorted(out, key=lambda r: -r[1])
+
+
+def sam_row_split():
+    """One B 8 bf16 ``sam_rowblock_infer`` call a SAM stage split into its
+    CUDA kernels by ``split_ms`` ([row kernel split]): {stage: split}."""
+    from tpudepth_torch.ops.kernels import rowblock_infer as rbi
+
+    out = {}
+    for i, (stage, c, heads, hw) in enumerate(ATTN_STAGES):
+        a, kw = _rowblock_inputs(200 + i, SAM_BATCH, hw, c, heads, 0,
+                                 torch.bfloat16, sam=True)
+        with torch.inference_mode():
+            out[stage] = split_ms(lambda: rbi.sam_rowblock_infer(**a, **kw))
+        for kname, ms, count in out[stage]:
+            print(f"[row kernel split] sam_rowblock_infer {stage} "
+                  f"B{SAM_BATCH} bf16: {ms:.4f} ms x{count} {kname[:100]}",
+                  flush=True)
+        del a
+        torch.cuda.empty_cache()
+    return out
+
+
 def phase_rowblock_kernels():
     """[row kernel]: ``crf_rowblock_infer`` and ``sam_rowblock_infer`` by
     ``_whole_block_phase``, beside the port's ``row`` module (pad, roll,
     the kernels, roll, crop) and its ``fused`` composition of the same
     block (LN, pad, roll, window partition, qk product,
-    ``window_attn_infer``, reverse, roll, crop, ``block_epilogue_infer``)."""
+    ``window_attn_infer``, reverse, roll, crop, ``block_epilogue_infer``);
+    then one B 8 bf16 ``sam_rowblock_infer`` call a stage split into its
+    CUDA kernels ([row kernel split]: LayerNorm passes, the products on the
+    wgmma core by epilogue, the attention, the wrapper's weight casts)."""
     from tpudepth_torch.ops.kernels import rowblock_infer as rbi
 
     def inputs(*args, sam):
         a, kw = _rowblock_inputs(*args, sam=sam)
         return a, kw, a
 
-    return _whole_block_phase(
+    result = _whole_block_phase(
         "row kernel",
         {"crf_rowblock_infer": (rbi.crf_rowblock_infer,
                                 rbi.crf_rowblock_infer_reference),
          "sam_rowblock_infer": (rbi.sam_rowblock_infer,
                                 rbi.sam_rowblock_infer_reference)},
         rbi.tolerance, inputs, ("row", "fused"), (20, 200))
+    sam_row_split()
+    return result
 
 
 def phase_block_kernels():
@@ -2540,8 +2639,13 @@ def main() -> int:
         "checks": n_checks,
         "ok": True,
         "timed": "device time of one bs-1 480x640 bf16 forward: the nine "
-                 "k=3 GUB convs summed, CUDA graph replays",
+                 "k=3 GUB convs summed, CUDA graph replays; train_step_ms "
+                 "the same convs at batch 8 with statistics, "
+                 "train_step_library_ms cuDNN and batch_norm_stats",
         "ms": total(rows, "ms"),
+        "train_step_ms": total(rows, "b8_ms"),
+        "train_step_library_ms": total(rows, "b8_library_ms"),
+        "train_step_bound_ms": total(rows, "b8_bound_ms"),
         "plain_ms": total(rows, "plain_ms"),
         "bound_ms": total(rows, "bound_ms"),
         "bound_by": bound_by(rows),

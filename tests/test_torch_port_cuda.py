@@ -108,6 +108,79 @@ def test_gub_conv_fwd_statistics_keep_f32_accuracy_over_a_large_batch(cuda):
     _check_statistics(y, s, q)
 
 
+# The bf16 k=3 forward on the tensor cores: GuideDepth's nine GUB convs at
+# full size, batch 1 (a served forward, no statistics; up_1's 150 tiles of
+# 8 rows run as 300 of 4) and batch 8 (a train step, statistics), each the
+# other way too; then a ragged map with part 0's skip, the RGB guide with a
+# prelude, two parts of 8 channels with the skip, three parts of 4, 2, 3
+# channels, and widths that are no multiple of 8 on either side
+FWD_TC_CASES = [(bsz, h, w, cins, cout, 3, prelude, False, stats)
+                for bsz in (1, 8) for stats in (False, True)
+                for cins, cout, h, w, prelude in (
+                    ((64,), 64, 120, 160, False), ((3,), 64, 120, 160, False),
+                    ((32, 32), 64, 120, 160, True),
+                    ((32,), 32, 240, 320, False), ((3,), 32, 240, 320, False),
+                    ((16, 16), 32, 240, 320, True),
+                    ((16,), 16, 480, 640, False), ((3,), 16, 480, 640, False),
+                    ((8, 8), 16, 480, 640, True))] + [
+    (2, 33, 47, (16,), 8, 3, True, True, True),
+    (2, 37, 45, (3,), 16, 3, True, True, True),
+    (2, 29, 50, (8, 8), 16, 3, True, True, True),
+    (3, 9, 18, (4, 2, 3), 40, 3, True, False, True),
+    (1, 40, 48, (2, 2), 4, 3, True, False, False),
+    (2, 21, 35, (24, 36), 60, 3, True, True, True)]
+FWD_TC_IDS = [f"B{bsz}-{'stats' if stats else 'y'}-up_{s}.{conv}"
+              for bsz in (1, 8) for stats in (False, True)
+              for s in (1, 2, 3) for conv in ("feature", "guide", "comb")] + [
+    "ragged-skip", "rgb-pre-skip", "8+8-skip", "4+2+3", "2+2->4", "24+36->60"]
+
+
+@pytest.mark.parametrize("case", FWD_TC_CASES, ids=FWD_TC_IDS)
+def test_gub_conv_fwd_bf16_on_the_tensor_cores(cuda, case):
+    """One counted launch, the output within :func:`tolerance` of the plain
+    version, the statistics against f64 sums of the kernel's own output."""
+    bsz, h, w, cins, cout, k, prelude, skip, stats = case
+    parts, wt, b, pre, sk = _case(5, bsz, h, w, cins, cout, k, prelude, skip,
+                                  torch.bfloat16, cuda)
+    before = conv_bn_act.launches
+    out = conv_bn_act(parts, wt, b, preludes=pre, skip=sk, stats=stats)
+    torch.cuda.synchronize()
+    assert conv_bn_act.launches == before + 1
+    y = out[0] if stats else out
+    ry = conv_bn_act_reference(parts, wt, b, preludes=pre, skip=sk)
+    atol, rtol = tolerance(torch.bfloat16)
+    assert y.dtype == torch.bfloat16 and y.shape == (bsz, h, w, cout)
+    torch.testing.assert_close(y.float(), ry.float(), atol=atol, rtol=rtol)
+    if stats:
+        _check_statistics(*out)
+    else:
+        # the same output with and without statistics
+        assert torch.equal(y, conv_bn_act(parts, wt, b, preludes=pre, skip=sk,
+                                          stats=True)[0])
+
+
+@pytest.mark.parametrize("cins,cout", [((64,), 64), ((3,), 32), ((8, 8), 16)],
+                         ids=["64->64", "rgb", "8+8->16"])
+def test_gub_conv_fwd_bf16_gives_the_same_bits_for_every_weight_layout(
+        cuda, cins, cout):
+    """The tensor-core kernel stages the weights along whichever index lies
+    contiguous (HWIO: n; a served OIHW parameter: the tap; a trained
+    channels_last one: k); the staged values, and so the output, are the
+    same bits."""
+    parts, wt, b, pre, _ = _case(6, 2, 24, 40, cins, cout, 3, True, False,
+                                 torch.bfloat16, cuda)
+    oihw = wt.permute(3, 2, 0, 1).contiguous()
+    views = [wt, oihw.permute(2, 3, 1, 0),
+             oihw.contiguous(memory_format=torch.channels_last)
+             .permute(2, 3, 1, 0)]
+    ys = [conv_bn_act(parts, w, b, preludes=pre) for w in views]
+    torch.testing.assert_close(
+        ys[0].float(), conv_bn_act_reference(parts, wt, b, preludes=pre)
+        .float(), atol=tolerance(torch.bfloat16)[0],
+        rtol=tolerance(torch.bfloat16)[1])
+    assert all(torch.equal(ys[0], y) for y in ys[1:])
+
+
 def test_gub_conv_fwd_accepts_an_oihw_weight_view(cuda):
     parts, wt, b, pre, _ = _case(1, 1, 20, 24, (8,), 16, 3, True, False,
                                  torch.float32, cuda)
@@ -829,6 +902,34 @@ def test_sam_rowblock_infer_matches_plain(cuda, case, dtype):
     want = rbi.sam_rowblock_infer_reference(**a, **kw)
     assert got.dtype == dtype and got.shape == a["x"].shape
     _close(got, want, rbi.tolerance(dtype))
+    assert torch.equal(got, rbi.sam_rowblock_infer(**a, **kw))
+
+
+# (B, h, w, C, heads) of SAM's four stages at 480x640, batch 1 and 8: every
+# map pads (21x21 .. 126x161)
+SAM_STAGE_CASES = [(bsz, *hw, c, heads) for bsz in (1, 8)
+                   for c, heads, hw in ((1024, 32, (15, 20)),
+                                        (512, 16, (30, 40)),
+                                        (256, 8, (60, 80)),
+                                        (128, 4, (120, 160)))]
+SAM_STAGE_IDS = [f"{s}-B{b}" for b in (1, 8)
+                 for s in ("crf3", "crf2", "crf1", "crf0")]
+
+
+@pytest.mark.parametrize("case", SAM_STAGE_CASES, ids=SAM_STAGE_IDS)
+def test_sam_rowblock_infer_bf16_on_the_gemm_core(cuda, case):
+    """The bf16 route (projections and tail on the wgmma core, the tail's
+    GELU by table) against the plain version at the stage shapes, one
+    counted call, a rerun bit-equal."""
+    a, kw = _rowblock_case(sum(case) + 7, *case, 0, torch.bfloat16, cuda,
+                           sam=True)
+    before = rbi.sam_rowblock_infer.launches
+    got = rbi.sam_rowblock_infer(**a, **kw)
+    torch.cuda.synchronize()
+    assert rbi.sam_rowblock_infer.launches == before + 1
+    want = rbi.sam_rowblock_infer_reference(**a, **kw)
+    assert got.dtype == torch.bfloat16 and got.shape == a["x"].shape
+    _close(got, want, rbi.tolerance(torch.bfloat16))
     assert torch.equal(got, rbi.sam_rowblock_infer(**a, **kw))
 
 

@@ -93,7 +93,7 @@ def test_cli_parses_the_speedtest_surface_and_needs_the_card(monkeypatch):
                          "--batch_size", "2", "--gub", "plain"])
     assert (args.model, args.resolution, args.batch_size, args.gub) == (
         "GuideDepth-S", "mini", 2, "plain")
-    assert cli.get_args([]).gub == "fused"
+    assert cli.get_args([]).gub == "plain"
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         cli.main(["--model", "GuideDepth-S", "--resolution", "mini"])

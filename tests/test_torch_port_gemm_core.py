@@ -1,9 +1,11 @@
 """What the wrappers of the kernels on the wgmma GEMM core
 (``tpudepth_torch/csrc/gemm_sm90.cuh``) and of the GUB conv kernels compute
 in Python, on the CPU: the row chunks of ``mlp_train_bwd``'s weight
-gradients, the scratch the wrappers allocate, the constants they share with
-the CUDA sources, and the ctypes signatures they give the C entries. The
-kernels themselves run only on the card (``tests/test_torch_port_cuda.py``).
+gradients, the scratch the wrappers allocate (``sam_rowblock_infer``'s
+too, whose bf16 projections and tail run on the core), the constants they
+share with the CUDA sources, and the ctypes signatures they give the C
+entries. The kernels themselves run only on the card
+(``tests/test_torch_port_cuda.py``).
 """
 
 import ctypes
@@ -15,6 +17,7 @@ from tpudepth_torch.ops.kernels import _build
 from tpudepth_torch.ops.kernels import epilogue_infer as ei
 from tpudepth_torch.ops.kernels import gub_conv as gc
 from tpudepth_torch.ops.kernels import mlp_train as mt
+from tpudepth_torch.ops.kernels import rowblock_infer as rbi
 
 # (M, rows, cols) of the weight gradients: dw1 [C, 4C] and dw2 [4C, C] of the
 # four stages of a 480x640 batch-8 step, batch 1, and small or ragged M
@@ -134,6 +137,7 @@ _SIGNATURES = {
     "mlp_train": ("mlp_train.cu", mt.ARGTYPES),
     "gub_conv_fwd": ("gub_conv_fwd.cu", gc.ARGTYPES["gub_conv_fwd"]),
     "gub_conv_bwd": ("gub_conv_bwd.cu", gc.ARGTYPES["gub_conv_bwd"]),
+    "rowblock_infer": ("rowblock_infer.cu", rbi.ARGTYPES),
 }
 
 
@@ -151,7 +155,9 @@ _ENTRIES = [("epilogue_infer", "block_epilogue_infer"),
             ("gub_conv_bwd", "gub_conv_bwd_tiles"),
             ("gub_conv_bwd", "gub_conv_dw_blocks"),
             ("gub_conv_bwd", "gub_conv_dw"),
-            ("gub_conv_bwd", "gub_conv_dx")]
+            ("gub_conv_bwd", "gub_conv_dx"),
+            ("rowblock_infer", "crf_rowblock_infer"),
+            ("rowblock_infer", "sam_rowblock_infer")]
 
 
 @pytest.mark.parametrize("library,name", _ENTRIES, ids=[
@@ -182,3 +188,31 @@ def test_python_constants_match_the_cuda_sources():
     mlp = _source("mlp_train.cu")
     assert int(re.search(r"constexpr int kColsumRows = (\d+);", mlp).group(1)
                ) == mt.COLSUM_ROWS
+
+
+# (B, Hp, Wp, C) of SAM's four stages at 480x640, batch 1 and 8 (the maps
+# padded to multiples of 7), and an odd geometry (M = 2 * 14 * 21 = 588)
+SAM_ROW_SHAPES = [(b, -(-h // 7) * 7, -(-w // 7) * 7, c)
+                  for b in (1, 8)
+                  for c, (h, w) in ((1024, (15, 20)), (512, (30, 40)),
+                                    (256, (60, 80)), (128, (120, 160)))] + [
+    (2, 14, 21, 32)]
+
+
+@pytest.mark.parametrize("bf16", [True, False], ids=["bf16", "f32"])
+@pytest.mark.parametrize("b,hp,wp,c", SAM_ROW_SHAPES, ids=lambda v: str(v))
+def test_sam_row_scratch_shapes(b, hp, wp, c, bf16):
+    """q, k and v side by side; in bf16 the tail chain's y and yn fit in
+    their first 2 M C elements and its hidden g [M, 4C] has its own."""
+    shapes = rbi.sam_scratch_shapes(b, hp, wp, c, 4 * c, bf16)
+    assert list(shapes) == ["qkv", "g"]
+    assert shapes["qkv"] == (b, hp, wp, 3 * c)
+    m = b * hp * wp
+    if not bf16:
+        assert shapes["g"] is None
+        return
+    assert shapes["g"] == (m, 4 * c)
+    assert ei.epilogue_scratch_shapes(m, c, 4 * c)["g"] == shapes["g"]
+    y_yn = sum(s[0] * s[1] for k, s in
+               ei.epilogue_scratch_shapes(m, c, 4 * c).items() if k != "g")
+    assert y_yn == 2 * m * c <= m * 3 * c

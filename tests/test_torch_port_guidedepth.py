@@ -147,3 +147,19 @@ def test_build_model_rejects_unported_names():
         build_model("densedepth")
     with pytest.raises(ValueError):
         build_model("GuideDepth", gub="packed")
+
+
+def test_cli_serves_the_plain_gub_unless_asked_as_the_reference_does(
+        monkeypatch):
+    """The JAX package takes its fused GUB stages only when
+    ``TPUDEPTH_GUB=fused`` is set; the port's CLI takes them only when
+    ``--gub fused`` is given."""
+    from tpudepth.models.guidedepth import gub_fused_enabled
+    from tpudepth_torch import inference as cli
+
+    monkeypatch.delenv("TPUDEPTH_GUB", raising=False)
+    assert not gub_fused_enabled()
+    assert cli.get_args([]).gub == "plain"
+    monkeypatch.setenv("TPUDEPTH_GUB", "fused")
+    assert gub_fused_enabled() and cli.get_args(["--gub", "fused"]).gub == (
+        "fused")

@@ -214,8 +214,14 @@ def test_every_source_of_the_package_finds_its_headers():
             assert path.is_file(), path
     assert [p.name for p in _build.inputs("rowblock_infer")] == [
         "rowblock_infer.cu", "block_tail.cuh", "ln_proj.cuh",
-        "window_attn.cuh"]
-    # the two kernels on the wgmma GEMM core rebuild when the core changes
-    for name in ("mlp_train", "epilogue_infer"):
+        "tail_chain.cuh", "window_attn.cuh", "gemm_sm90.cuh"]
+    # the kernels on the wgmma GEMM core rebuild when the core changes
+    assert [p.name for p in _build.inputs("mlp_train")] == [
+        "mlp_train.cu", "block_tail.cuh", "gemm_sm90.cuh"]
+    assert [p.name for p in _build.inputs("epilogue_infer")] == [
+        "epilogue_infer.cu", "block_tail.cuh", "gemm_sm90.cuh",
+        "tail_chain.cuh"]
+    # both directions of the GUB conv rebuild when their shared pieces change
+    for name in ("gub_conv_fwd", "gub_conv_bwd"):
         assert [p.name for p in _build.inputs(name)] == [
-            f"{name}.cu", "block_tail.cuh", "gemm_sm90.cuh"]
+            f"{name}.cu", "gub_conv_tc.cuh"]

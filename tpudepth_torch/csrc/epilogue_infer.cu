@@ -75,185 +75,17 @@
 // The f32 paths' CUDA-core device code lives in block_tail.cuh, which
 // mlp_train.cu and the row and whole-block kernels share; the wgmma core,
 // its epilogues and the FFN chain live in gemm_sm90.cuh, which mlp_train.cu
-// shares.
+// shares; block_epilogue_infer's bf16 chain (chain::tail_bf16, its
+// BiasResidual epilogue and LayerNorm pass) lives in tail_chain.cuh, which
+// rowblock_infer.cu shares.
 
 #include "block_tail.cuh"
 #include "gemm_sm90.cuh"
+#include "tail_chain.cuh"
 
 using tail::Params;
 using tail::run;
 
-namespace {
-namespace epi {
-
-// out[r, c] = round(res[r, c] + round(acc + bias[c])): steps 1 and 4. The
-// residual tile comes in by TMA into the staging slot, and the output is
-// written over it there (tile maps: out, res).
-struct BiasResidual {
-  static constexpr int kProducts = 1;
-  static constexpr int kTiles = 2;
-  static constexpr int kSmemBytes = 0;
-  struct Params {
-    const float* bias;
-    int N;
-  };
-  template <int BN>
-  static __device__ __forceinline__ void apply(const Params& p,
-                                               float (&acc)[1][BN / 2],
-                                               const gemm::Tile& t,
-                                               unsigned char*,
-                                               const CUtensorMap* c,
-                                               unsigned char* staging,
-                                               uint32_t bar) {
-    gemm::store_pairs_res<BN>(
-        acc[0], &c[0], &c[1], staging, bar, t.iter & 1, t.m0, t.n0,
-        [&](int c, float v0, float v1, uint32_t res) {
-          const int col = t.n0 + c;
-          const float b0 = col < p.N ? p.bias[col] : 0.f;
-          const float b1 = col < p.N ? p.bias[col + 1] : 0.f;
-          const float2 r = __bfloat1622float2(
-              *reinterpret_cast<const __nv_bfloat162*>(&res));
-          return gemm::pack2(r.x + gemm::bf16r(v0 + b0),
-                             r.y + gemm::bf16r(v1 + b1));
-        });
-  }
-};
-
-// P bf16 values (P = 8, 4, 2 or 1) from (to) 2P-byte aligned memory.
-template <int P>
-__device__ __forceinline__ void copy_piece(const __nv_bfloat16* src,
-                                           __nv_bfloat16* dst) {
-  if constexpr (P == 8) {
-    *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(src);
-  } else if constexpr (P == 4) {
-    *reinterpret_cast<uint2*>(dst) = *reinterpret_cast<const uint2*>(src);
-  } else if constexpr (P == 2) {
-    *reinterpret_cast<uint32_t*>(dst) =
-        *reinterpret_cast<const uint32_t*>(src);
-  } else {
-    *dst = *src;
-  }
-}
-
-// yn = round(LN(y)) over rows of C = 32 V: step 2. One warp a row, read
-// once into registers and written once, in pieces of P = 8, 4, 2 or 1
-// values (the widest that divides V): piece j of lane l holds the values
-// (32 j + l) P.., so each load instruction covers 32 P contiguous values.
-// layer_norm_row's f32 arithmetic (flax's fast variance, eps 1e-5), its
-// sums added in another order. kVec: scale and bias are 16-byte aligned and
-// read 4 floats at a time.
-template <int V, bool kVec>
-__global__ void __launch_bounds__(tail::kThreads)
-    layer_norm_kernel(const __nv_bfloat16* y, __nv_bfloat16* yn, int M,
-                      const float* scale, const float* bias) {
-  constexpr int C = 32 * V;
-  constexpr int P = V % 8 == 0 ? 8 : V % 4 == 0 ? 4 : V % 2 == 0 ? 2 : 1;
-  const int row = blockIdx.x * tail::kWarps + (threadIdx.x >> 5);
-  if (row >= M) return;
-  const int lane = threadIdx.x & 31;
-  const __nv_bfloat16* yr = y + static_cast<size_t>(row) * C;
-  __nv_bfloat16* ynr = yn + static_cast<size_t>(row) * C;
-  __nv_bfloat16 b[V];
-#pragma unroll
-  for (int j = 0; j < V / P; ++j)
-    copy_piece<P>(yr + (32 * j + lane) * P, b + j * P);
-  float v[V];
-  float s = 0.f, s2 = 0.f;
-#pragma unroll
-  for (int i = 0; i < V; ++i) {
-    v[i] = __bfloat162float(b[i]);
-    s += v[i];
-    s2 += v[i] * v[i];
-  }
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    s += __shfl_xor_sync(0xffffffffu, s, off);
-    s2 += __shfl_xor_sync(0xffffffffu, s2, off);
-  }
-  const float mean = s * (1.0f / C);
-  const float var = fmaxf(s2 * (1.0f / C) - mean * mean, 0.f);
-  const float rs = rsqrtf(var + 1e-5f);
-#pragma unroll
-  for (int j = 0; j < V / P; ++j) {
-    // the piece's scale and bias, 16 bytes at a time where P allows
-    const int k0 = (32 * j + lane) * P;
-    float sc[P], bi[P];
-#pragma unroll
-    for (int i = 0; i < P; i += (kVec && P % 4 == 0 ? 4 : 1)) {
-      if constexpr (kVec && P % 4 == 0) {
-        *reinterpret_cast<float4*>(sc + i) =
-            *reinterpret_cast<const float4*>(scale + k0 + i);
-        *reinterpret_cast<float4*>(bi + i) =
-            *reinterpret_cast<const float4*>(bias + k0 + i);
-      } else {
-        sc[i] = scale[k0 + i];
-        bi[i] = bias[k0 + i];
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < P; ++i)
-      b[j * P + i] = __float2bfloat16((v[j * P + i] - mean) * (rs * sc[i]) +
-                                      bi[i]);
-  }
-#pragma unroll
-  for (int j = 0; j < V / P; ++j)
-    copy_piece<P>(b + j * P, ynr + (32 * j + lane) * P);
-}
-
-template <int V>
-cudaError_t layer_norm(const __nv_bfloat16* y, __nv_bfloat16* yn, int M,
-                       const float* scale, const float* bias,
-                       cudaStream_t st) {
-  const int blocks = (M + tail::kWarps - 1) / tail::kWarps;
-  if ((reinterpret_cast<uintptr_t>(scale) |
-       reinterpret_cast<uintptr_t>(bias)) % 16 == 0) {
-    layer_norm_kernel<V, true><<<blocks, tail::kThreads, 0, st>>>(
-        y, yn, M, scale, bias);
-  } else {
-    layer_norm_kernel<V, false><<<blocks, tail::kThreads, 0, st>>>(
-        y, yn, M, scale, bias);
-  }
-  return cudaGetLastError();
-}
-
-// yn = round(LN(y)) for the widths the kernel takes (tail::width_ok, at
-// most 1024).
-cudaError_t layer_norm_rows(const __nv_bfloat16* y, __nv_bfloat16* yn, int M,
-                            int C, const float* scale, const float* bias,
-                            cudaStream_t st) {
-  switch (C / 32) {
-    case 1: return layer_norm<1>(y, yn, M, scale, bias, st);
-    case 2: return layer_norm<2>(y, yn, M, scale, bias, st);
-    case 3: return layer_norm<3>(y, yn, M, scale, bias, st);
-    case 4: return layer_norm<4>(y, yn, M, scale, bias, st);
-    case 8: return layer_norm<8>(y, yn, M, scale, bias, st);
-    case 12: return layer_norm<12>(y, yn, M, scale, bias, st);
-    case 16: return layer_norm<16>(y, yn, M, scale, bias, st);
-    case 20: return layer_norm<20>(y, yn, M, scale, bias, st);
-    case 24: return layer_norm<24>(y, yn, M, scale, bias, st);
-    case 28: return layer_norm<28>(y, yn, M, scale, bias, st);
-    case 32: return layer_norm<32>(y, yn, M, scale, bias, st);
-    default: return cudaErrorInvalidValue;
-  }
-}
-
-cudaError_t chain_bf16(const Params& p, __nv_bfloat16* y, __nv_bfloat16* yn,
-                       __nv_bfloat16* g, cudaStream_t st) {
-  using gemm::product;
-  const int M = p.M, C = p.cin, H = p.hidden;
-  cudaError_t err = gemm::fill_once<gemm::gelu_table_kernel>(st);
-  if (err == cudaSuccess)
-    err = product<BiasResidual>({p.bp, C}, p.o, p.wp, y, p.x, M, C, C, st);
-  if (err == cudaSuccess) err = layer_norm_rows(y, yn, M, C, p.lns, p.lnb, st);
-  if (err == cudaSuccess)
-    err = product<gemm::BiasGelu>({p.b1, H}, yn, p.w1, g, nullptr, M, H, C,
-                                  st);
-  if (err != cudaSuccess) return err;
-  return product<BiasResidual>({p.b2, C}, g, p.w2, p.out, y, M, C, H, st);
-}
-
-}  // namespace epi
-}  // namespace
 
 // out = y + fc2(gelu(fc1(LN(y)))), y = x + (o wp^T + bp). Weights in the IO
 // dtype in torch layout [out, in], contiguous; vectors f32; o, x, out
@@ -288,7 +120,7 @@ extern "C" int block_epilogue_infer(const void* o, const void* x,
       y == nullptr || yn == nullptr || g == nullptr) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(epi::chain_bf16(
+  return static_cast<int>(chain::tail_bf16(
       p, static_cast<__nv_bfloat16*>(y), static_cast<__nv_bfloat16*>(yn),
       static_cast<__nv_bfloat16*>(g), static_cast<cudaStream_t>(stream)));
 }

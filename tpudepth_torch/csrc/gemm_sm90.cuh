@@ -1,6 +1,8 @@
 // One pipelined tensor-core GEMM core for Hopper (sm_90a), shared by the
-// bf16 paths of mlp_train_fwd and mlp_train_bwd (mlp_train.cu) and of
-// mlp_infer and block_epilogue_infer (epilogue_infer.cu):
+// bf16 paths of mlp_train_fwd and mlp_train_bwd (mlp_train.cu), of
+// mlp_infer and block_epilogue_infer (epilogue_infer.cu) and of
+// sam_rowblock_infer's projections and tail (rowblock_infer.cu, through
+// tail_chain.cuh):
 //
 //   acc[128 x BN] (+)= sum over k of A(m, k) B(n, k)      bf16 in, f32 out
 //
@@ -10,10 +12,11 @@
 // share one kind, and wgmma reads either natively (its transpose bits), so
 // no operand is transposed element by element.
 //
-// It serves four TPU kernels: tpudepth/ops/pallas/mlp_train.py::
+// It serves five TPU kernels: tpudepth/ops/pallas/mlp_train.py::
 // _mlp_fwd_pallas (:132) and ::_mlp_bwd_pallas (:163), tpudepth/ops/pallas/
-// mlp_infer.py::mlp_infer (:135) and tpudepth/ops/pallas/epilogue_infer.py::
-// block_epilogue_infer (:92). Their products hold 380..4000 operations per
+// mlp_infer.py::mlp_infer (:135), tpudepth/ops/pallas/epilogue_infer.py::
+// block_epilogue_infer (:92) and, for its projections and tail,
+// tpudepth/ops/pallas/rowblock_infer.py::sam_rowblock_infer (:355). Their products hold 380..4000 operations per
 // bf16 byte moved, above the card's ~295: operations bound them, and on this
 // card that means the tensor cores kept fed. The first designs of all four
 // (mma.sync fed by synchronous loads: fragments through registers and two
@@ -603,18 +606,20 @@ cudaError_t launch(const Args<Epi>& args, cudaStream_t st) {
 // The products of Epi (all operands of one kind) over an output of m rows
 // and n columns, in `splits` splits of split_kblocks k-blocks: fills the
 // maps (product i: A from a[i] with R = m rows over depth k[i], B from b[i]
-// with R = n rows; the epilogue's [m, n] bf16 tensors from tiles[]) and
-// launches with column tiles of BN.
+// with R = n rows; the epilogue's [m, n] bf16 tensors from tiles[], at row
+// strides ldt[] or n) and launches with column tiles of BN.
 template <class Epi, Major kMajor, int BN>
 cudaError_t run(const typename Epi::Params& p, const void* const* a,
                 const long long* lda, const void* const* b,
                 const long long* ldb, const int* k, int m, int n, int splits,
                 int split_kblocks, cudaStream_t st,
-                void* const* tiles = nullptr) {
+                void* const* tiles = nullptr,
+                const long long* ldt = nullptr) {
   Args<Epi> args;
   for (int i = 0; i < Epi::kTiles; ++i) {
     // bf16 [m, n] tensors, in boxes of 64 x 64
-    const cudaError_t err = make_map(&args.c[i], tiles[i], n, m, n, kBox);
+    const cudaError_t err = make_map(&args.c[i], tiles[i], n, m,
+                                     ldt != nullptr ? ldt[i] : n, kBox);
     if (err != cudaSuccess) return err;
   }
   for (int i = 0; i < Epi::kProducts; ++i) {
@@ -639,11 +644,12 @@ cudaError_t run_bn(int bn, const typename Epi::Params& p,
                    const void* const* a, const long long* lda,
                    const void* const* b, const long long* ldb, const int* k,
                    int m, int n, int splits, int split_kblocks,
-                   cudaStream_t st, void* const* tiles = nullptr) {
+                   cudaStream_t st, void* const* tiles = nullptr,
+                   const long long* ldt = nullptr) {
   return bn == 64 ? run<Epi, kMajor, 64>(p, a, lda, b, ldb, k, m, n, splits,
-                                         split_kblocks, st, tiles)
+                                         split_kblocks, st, tiles, ldt)
                   : run<Epi, kMajor, 128>(p, a, lda, b, ldb, k, m, n, splits,
-                                          split_kblocks, st, tiles);
+                                          split_kblocks, st, tiles, ldt);
 }
 
 // ---------------------------------------------------------------------------
@@ -933,20 +939,21 @@ struct BiasGelu {
 // The FFN as a chain of products, shared by its users
 // ---------------------------------------------------------------------------
 
-// One product of a chain: out [M, N] from rows a [M, K] and a weight w
-// [N, K] (torch layout), both K-major; res: an [M, N] bf16 residual that
-// the epilogue reads (BiasResidual), or nullptr.
+// One product of a chain: out [M, N] (row stride ldo, or N) from rows a
+// [M, K] and a weight w [N, K] (torch layout), both K-major; res: an [M, N]
+// bf16 residual that the epilogue reads (BiasResidual), or nullptr.
 template <class Epi>
 cudaError_t product(const typename Epi::Params& e, const void* a,
                     const void* w, void* out, const void* res, int M, int N,
-                    int K, cudaStream_t st) {
+                    int K, cudaStream_t st, long long ldo = 0) {
   const void* A[1] = {a};
   const void* B[1] = {w};
   void* T[2] = {out, const_cast<void*>(res)};
   const long long ld[1] = {K};
+  const long long ldt[2] = {ldo > 0 ? ldo : N, N};
   const int k[1] = {K};
   return run_bn<Epi, kK>(tile_n(N), e, A, ld, B, ld, k, M, N, 1, 1 << 30, st,
-                         T);
+                         T, ldt);
 }
 
 // out = round(round(gelu(round(x W1 + b1))) W2 + b2) in bf16, sums in f32:

@@ -61,9 +61,27 @@
 // caller): NewCRF 2 M C IO elements (q, k), SAM 3 M C (q, k, v), M = B Hp Wp;
 // the output buffer M C doubles as o. A thread-block cluster holding a
 // window row in distributed shared memory is a later design.
+//
+// SAM in bf16 runs steps 1 and 3 on the pipelined wgmma core instead
+// (tail_chain.cuh, gemm_sm90.cuh): 1 becomes a LayerNorm pass (one warp a
+// row, pad rows zero) into the output buffer and a product whose epilogue
+// adds the bias, scales in f32 and rounds once, storing q into the first C
+// columns of the scratch at row stride 3C (then the same for k and v); 3
+// becomes block_epilogue_infer's chain of four kernels in place, its y and
+// yn in the scratch's first 2 M C elements (dead once the attention is
+// done), its hidden in a bf16 scratch g [M, 4C]: 9 kernels a call. The
+// chain spills only tensors the TPU kernel rounds to bf16 anyway, so the
+// rounding order is kEpilogue's; its GELU is looked up in the table the
+// erf polynomial fills (at most 2.1e-7 from erff before rounding). On an
+// NVIDIA H100 80GB HBM3 at 700 W the calls of a batch-8 SAM forward take
+// 3.0 ms this way, half of it the attention; through the passes above they
+// take 6.4, 3.3 of it the tail and 1.3 the two LN projections (chip_smoke.py
+// [row kernel time], [row kernel split]; the passes' split by
+// scripts/torch_kernel_ab.py). NewCRF and f32 keep the passes above.
 
 #include "block_tail.cuh"
 #include "ln_proj.cuh"
+#include "tail_chain.cuh"
 #include "window_attn.cuh"
 
 namespace {
@@ -119,12 +137,12 @@ cudaError_t attend(const void* q, const void* k, const void* v,
               : wattn::launch<float>(p, rows, B * nw, st);
 }
 
-// The tail in place on out (o in, block output out) with x as the shortcut.
-cudaError_t tail_in_place(const void* x, const void* wproj, const void* bproj,
-                          const void* ln2s, const void* ln2b, const void* w1,
-                          const void* b1, const void* w2, const void* b2,
-                          void* out, int M, int C, int hidden, int is_bf16,
-                          void* stream) {
+// The tail's arguments, in place on out (o in, block output out) with x as
+// the shortcut.
+tail::Params tail_params(const void* x, const void* wproj, const void* bproj,
+                         const void* ln2s, const void* ln2b, const void* w1,
+                         const void* b1, const void* w2, const void* b2,
+                         void* out, int M, int C, int hidden) {
   tail::Params p = {};
   p.o = out;
   p.x = x;
@@ -141,7 +159,7 @@ cudaError_t tail_in_place(const void* x, const void* wproj, const void* bproj,
   p.cin = C;
   p.hidden = hidden;
   p.cout = C;
-  return tail::run<tail::kEpilogue>(p, is_bf16, stream);
+  return p;
 }
 
 const void* offset(const void* base, int elems, int is_bf16) {
@@ -178,41 +196,70 @@ extern "C" int crf_rowblock_infer(
   err = attend(qk, offset(qk, C, is_bf16), v, 2 * C, 2 * C, C, bias, mask,
                out, B, hp, wp, C, heads, ws, is_bf16, st);
   if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(tail_in_place(x, wproj, bproj, ln2s, ln2b, w1, b1,
-                                        w2, b2, out, M, C, hidden,
-                                        is_bf16, stream));
+  return static_cast<int>(tail::run<tail::kEpilogue>(
+      tail_params(x, wproj, bproj, ln2s, ln2b, w1, b1, w2, b2, out, M, C,
+                  hidden),
+      is_bf16, st));
 }
 
 // The SAM block (never shifted). As crf_rowblock_infer, with LNv and the
-// q and kv projections; qkv: scratch [B, Hp, Wp, 3C] of the IO dtype.
+// q and kv projections; qkv: scratch [B, Hp, Wp, 3C] of the IO dtype; g:
+// bf16 scratch [B Hp Wp, hidden] (bf16 only; unused in f32).
+//
+// bf16 runs the projections and the tail on the wgmma core (tail_chain.cuh):
+//   1. LN1(x) valid, rounded, into out (free until the attention writes o);
+//   2. q = round((. Wq + bq) scale) into qkv[:, 0:C] (row stride 3C);
+//   3. LNv(v) valid into out; 4. kv = round(. Wkv + bkv) into qkv[:, C:3C];
+//   5. the attention, o into out;
+//   6-9. the tail chain in place on out, its y and yn in qkv's first 2 M C
+//        elements (dead once the attention is done), its hidden in g.
+// (The gelu table is filled once a device before the first, as in
+// epilogue_infer.cu.) f32 keeps the CUDA-core passes (lnproj, tail).
 extern "C" int sam_rowblock_infer(
     const void* x, const void* v, const void* ln1s, const void* ln1b,
     const void* lnvs, const void* lnvb, const void* wq, const void* bq,
     const void* wkv, const void* bkv, const void* bias, const void* wproj,
     const void* bproj, const void* ln2s, const void* ln2b, const void* w1,
-    const void* b1, const void* w2, const void* b2, void* qkv, void* out,
-    int B, int hp, int wp, int C, int heads, int hidden, int ws, int h, int w,
-    float scale, int is_bf16, void* stream) {
-  if (!geometry_ok(B, hp, wp, C, heads, hidden, ws)) {
+    const void* b1, const void* w2, const void* b2, void* qkv, void* g,
+    void* out, int B, int hp, int wp, int C, int heads, int hidden, int ws,
+    int h, int w, float scale, int is_bf16, void* stream) {
+  if (!geometry_ok(B, hp, wp, C, heads, hidden, ws) ||
+      (is_bf16 && g == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int M = B * hp * wp;
   const ImageValid valid = {hp, wp, h, w, 0};
-  cudaError_t err = lnproj::run(
-      lnproj::params(x, ln1s, ln1b, wq, bq, qkv, 3 * C, C, C, scale, M, C),
-      valid, is_bf16, st);
-  if (err != cudaSuccess) return static_cast<int>(err);
   void* kv = const_cast<void*>(offset(qkv, C, is_bf16));
-  err = lnproj::run(
-      lnproj::params(v, lnvs, lnvb, wkv, bkv, kv, 3 * C, 2 * C, 0, 1.0f, M,
-                     C),
-      valid, is_bf16, st);
+  cudaError_t err;
+  if (is_bf16) {
+    err = chain::ln_project(x, static_cast<const float*>(ln1s),
+                            static_cast<const float*>(ln1b), wq,
+                            static_cast<const float*>(bq), scale, C, out,
+                            qkv, 3 * C, M, C, C, valid, st);
+    if (err == cudaSuccess)
+      err = chain::ln_project(v, static_cast<const float*>(lnvs),
+                              static_cast<const float*>(lnvb), wkv,
+                              static_cast<const float*>(bkv), 1.0f, 0, out,
+                              kv, 3 * C, M, C, 2 * C, valid, st);
+  } else {
+    err = lnproj::run(
+        lnproj::params(x, ln1s, ln1b, wq, bq, qkv, 3 * C, C, C, scale, M, C),
+        valid, false, st);
+    if (err == cudaSuccess)
+      err = lnproj::run(lnproj::params(v, lnvs, lnvb, wkv, bkv, kv, 3 * C,
+                                       2 * C, 0, 1.0f, M, C),
+                        valid, false, st);
+  }
   if (err != cudaSuccess) return static_cast<int>(err);
   err = attend(qkv, kv, offset(qkv, 2 * C, is_bf16), 3 * C, 3 * C, 3 * C,
                bias, nullptr, out, B, hp, wp, C, heads, ws, is_bf16, st);
   if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(tail_in_place(x, wproj, bproj, ln2s, ln2b, w1, b1,
-                                        w2, b2, out, M, C, hidden,
-                                        is_bf16, stream));
+  const tail::Params p = tail_params(x, wproj, bproj, ln2s, ln2b, w1, b1, w2,
+                                     b2, out, M, C, hidden);
+  if (!is_bf16) return static_cast<int>(tail::run<tail::kEpilogue>(p, 0, st));
+  __nv_bfloat16* y = static_cast<__nv_bfloat16*>(qkv);
+  return static_cast<int>(chain::tail_bf16(
+      p, y, y + static_cast<size_t>(M) * C, static_cast<__nv_bfloat16*>(g),
+      st));
 }

@@ -3,8 +3,10 @@
 The speedtest part of the JAX CLI (``inference.py``), on the card, for any
 ported model (``--model GuideDepth|GuideDepth-S|sam|newcrf``): the model in
 float32 and the bfloat16 engine (with the meters conversion), each timed with
-the 10-warmup / 200-run protocol. ``--gub fused`` (the default) runs the GUB
-k=3 convs of GuideDepth through the ``gub_conv_fwd`` CUDA kernel; ``--attn``
+the 10-warmup / 200-run protocol. ``--gub plain`` (the default, as the JAX
+package's ``TPUDEPTH_GUB`` is off unless set to ``fused``) runs GuideDepth's
+GUB stages as plain tensor code; ``--gub fused`` runs their k=3 convs
+through the ``gub_conv_fwd`` CUDA kernel; ``--attn``
 picks the mode of the attention blocks of SAM and NewCRF (``row``: the
 window-row block kernels; ``block``: the whole-block kernels over raw
 windows, ``TPUDEPTH_BLOCK=fused`` in JAX; ``fused``: the
@@ -40,7 +42,7 @@ def get_args(argv=None):
     parser.add_argument("--warm_up_runs", type=int, default=10)
     parser.add_argument("--weights_path", type=str, default=None,
                         help="a torch.save'd state_dict of the port's model")
-    parser.add_argument("--gub", type=str, default="fused", choices=GUB_MODES)
+    parser.add_argument("--gub", type=str, default="plain", choices=GUB_MODES)
     parser.add_argument("--attn", type=str, default=None, choices=ATTN_MODES,
                         help="block mode of an attention model (default: "
                              "the model's own)")

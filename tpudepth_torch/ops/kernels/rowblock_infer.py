@@ -7,9 +7,10 @@ Counterpart of ``tpudepth/ops/pallas/rowblock_infer.py::crf_rowblock_infer``
 and ``::sam_rowblock_infer``. The kernels are ``tpudepth_torch/csrc/
 rowblock_infer.cu``, CUDA C++ for ``sm_90a`` built by ``_build``, on the
 device code of ``window_attn_infer`` (``csrc/window_attn.cuh``) and of
-``block_epilogue_infer`` (``csrc/block_tail.cuh``); the source's header says
-what bounds them, how they are laid out and how many launches and scratch
-bytes a call takes. The wrappers :func:`crf_rowblock_infer` and
+``block_epilogue_infer`` (``csrc/block_tail.cuh``; for SAM in bf16 its
+projections and tail run on the ``wgmma`` core, ``csrc/tail_chain.cuh``);
+the source's header says what bounds them, how they are laid out and how
+many launches and scratch bytes a call takes (:func:`sam_scratch_shapes`). The wrappers :func:`crf_rowblock_infer` and
 :func:`sam_rowblock_infer` count their calls; the plain versions
 :func:`crf_rowblock_infer_reference` and :func:`sam_rowblock_infer_reference`
 have the kernels' rounding order. CPU tensors run the plain version; CUDA
@@ -151,15 +152,30 @@ def tolerance(dtype: torch.dtype) -> Tuple[float, float]:
     return 1e-5, 1e-5
 
 
+#: ctypes signature of each C entry of ``csrc/rowblock_infer.cu``
+ARGTYPES = {
+    "crf_rowblock_infer": (_VP,) * 18 + (_I32,) * 10 + (_F32, _I32, _VP),
+    "sam_rowblock_infer": (_VP,) * 22 + (_I32,) * 9 + (_F32, _I32, _VP),
+}
+
+
+def sam_scratch_shapes(b: int, hp: int, wp: int, c: int, hidden: int,
+                       bf16: bool) -> dict:
+    """The scratch of one ``sam_rowblock_infer`` call, by name: ``qkv``
+    ``[B, Hp, Wp, 3C]`` in the IO dtype (q, k and v; in bf16 the tail
+    chain's y and yn then take its first ``2 M C`` elements, M = B Hp Wp)
+    and, in bf16, ``g`` ``[M, hidden]`` for the tail's hidden (None in
+    f32)."""
+    return {"qkv": (b, hp, wp, 3 * c),
+            "g": (b * hp * wp, hidden) if bf16 else None}
+
+
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
     lib = _build.load("rowblock_infer")
-    lib.crf_rowblock_infer.argtypes = [_VP] * 18 + [_I32] * 10 + [_F32, _I32,
-                                                                  _VP]
-    lib.sam_rowblock_infer.argtypes = [_VP] * 21 + [_I32] * 9 + [_F32, _I32,
-                                                                 _VP]
-    lib.crf_rowblock_infer.restype = _I32
-    lib.sam_rowblock_infer.restype = _I32
+    for fn, types in ARGTYPES.items():
+        getattr(lib, fn).argtypes = list(types)
+        getattr(lib, fn).restype = _I32
     return lib
 
 
@@ -308,7 +324,11 @@ def sam_rowblock_infer(x: torch.Tensor, v: torch.Tensor, ln1: tuple,
     wq_t, wkv_t, wp_t, w1_t, w2_t = cuda_args(
         "sam_rowblock_infer", x, v, bias, None, window_size ** 2,
         (wq, wkv, wproj, w1, w2), (*ln1, *lnv, bq, bkv, bproj, *ln2, b1, b2))
-    qkv = torch.empty((b, hp, wp, 3 * c), dtype=x.dtype, device=x.device)
+    bf16 = x.dtype == torch.bfloat16
+    shapes = sam_scratch_shapes(b, hp, wp, c, hidden, bf16)
+    qkv = torch.empty(shapes["qkv"], dtype=x.dtype, device=x.device)
+    g = (torch.empty(shapes["g"], dtype=torch.bfloat16, device=x.device)
+         if bf16 else None)
     out = torch.empty_like(x)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
@@ -318,9 +338,10 @@ def sam_rowblock_infer(x: torch.Tensor, v: torch.Tensor, ln1: tuple,
             bq.data_ptr(), wkv_t.data_ptr(), bkv.data_ptr(), bias.data_ptr(),
             wp_t.data_ptr(), bproj.data_ptr(), ln2[0].data_ptr(),
             ln2[1].data_ptr(), w1_t.data_ptr(), b1.data_ptr(),
-            w2_t.data_ptr(), b2.data_ptr(), qkv.data_ptr(), out.data_ptr(),
-            b, hp, wp, c, heads, hidden, window_size, h, w, float(scale),
-            int(x.dtype == torch.bfloat16), stream)
+            w2_t.data_ptr(), b2.data_ptr(), qkv.data_ptr(),
+            None if g is None else g.data_ptr(), out.data_ptr(), b, hp, wp,
+            c, heads, hidden, window_size, h, w, float(scale), int(bf16),
+            stream)
     if rc != 0:
         raise RuntimeError(f"sam_rowblock_infer launch failed: CUDA error {rc}")
     sam_rowblock_infer.launches += 1
