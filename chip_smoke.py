@@ -40,12 +40,14 @@ plain PyTorch version. Phases:
    shapes of 480x640, B 1 and 8, f32 and bf16, every call rerun bit-equal,
    then one B 8 bf16 forward's calls timed beside the bound, the plain
    version, the library yardstick (the block's cuBLAS products + SDPA) and
-   the port's ``row`` module and ``fused`` composition of the same block,
-   and one B 8 bf16 ``sam_rowblock_infer`` call a stage split into its CUDA
-   kernels by ``torch.profiler`` ([row kernel split]);
+   the port's ``row`` module and ``fused`` composition of the same block;
    [block kernels]: ``crf_block_infer`` (shift 0 and 3) and
    ``sam_block_infer`` the same way, on the windows of the same maps,
-   beside the ``block``, ``row`` and ``fused`` modules; [train kernels]:
+   beside the ``block``, ``row`` and ``fused`` modules; then one B 8 bf16
+   call a stage of ``sam_rowblock_infer``, ``crf_rowblock_infer`` (shift 0
+   and 3) and ``sam_block_infer`` split into its CUDA kernels by
+   ``torch.profiler`` ([row kernel split], [block kernel split]);
+   [train kernels]:
    ``window_attn_train_fwd`` / ``_bwd`` (with and without the shift-3 mask)
    and ``mlp_train_fwd`` / ``_bwd`` (also at an odd row count, the forward
    also at B 1) against their plain versions at the four stage shapes of a
@@ -1752,23 +1754,36 @@ def split_ms(fn, calls: int = 3):
     return sorted(out, key=lambda r: -r[1])
 
 
-def sam_row_split():
-    """One B 8 bf16 ``sam_rowblock_infer`` call a SAM stage split into its
-    CUDA kernels by ``split_ms`` ([row kernel split]): {stage: split}."""
+def kernel_splits():
+    """One B 8 bf16 call a SAM / NewCRF stage of ``sam_rowblock_infer``,
+    ``crf_rowblock_infer`` (shift 0 and 3) and ``sam_block_infer`` split
+    into its CUDA kernels by ``split_ms`` ([row kernel split], [block kernel
+    split]: the LayerNorm passes, the products on the wgmma core by
+    epilogue, the attention, the wrapper's weight casts): {"kernel[ shift
+    s]": {stage: split}}."""
+    from tpudepth_torch.ops.kernels import block_infer as bi
     from tpudepth_torch.ops.kernels import rowblock_infer as rbi
 
+    cases = (("row", rbi.sam_rowblock_infer, 0, True, 200),
+             ("row", rbi.crf_rowblock_infer, 0, False, 210),
+             ("row", rbi.crf_rowblock_infer, 3, False, 220),
+             ("block", bi.sam_block_infer, 0, True, 230))
     out = {}
-    for i, (stage, c, heads, hw) in enumerate(ATTN_STAGES):
-        a, kw = _rowblock_inputs(200 + i, SAM_BATCH, hw, c, heads, 0,
-                                 torch.bfloat16, sam=True)
-        with torch.inference_mode():
-            out[stage] = split_ms(lambda: rbi.sam_rowblock_infer(**a, **kw))
-        for kname, ms, count in out[stage]:
-            print(f"[row kernel split] sam_rowblock_infer {stage} "
-                  f"B{SAM_BATCH} bf16: {ms:.4f} ms x{count} {kname[:100]}",
-                  flush=True)
-        del a
-        torch.cuda.empty_cache()
+    for label, kern, shift, sam, seed in cases:
+        key = kern.__name__ + ("" if sam else f" shift {shift}")
+        out[key] = {}
+        for i, (stage, c, heads, hw) in enumerate(ATTN_STAGES):
+            inputs = _rowblock_inputs if label == "row" else _block_inputs
+            a, kw = inputs(seed + i, SAM_BATCH, hw, c, heads, shift,
+                           torch.bfloat16, sam=sam)[:2]
+            with torch.inference_mode():
+                split = split_ms(lambda: kern(**a, **kw))
+            out[key][stage] = split
+            for kname, ms, count in split:
+                print(f"[{label} kernel split] {key} {stage} B{SAM_BATCH} "
+                      f"bf16: {ms:.4f} ms x{count} {kname[:100]}", flush=True)
+            del a
+            torch.cuda.empty_cache()
     return out
 
 
@@ -1777,25 +1792,20 @@ def phase_rowblock_kernels():
     ``_whole_block_phase``, beside the port's ``row`` module (pad, roll,
     the kernels, roll, crop) and its ``fused`` composition of the same
     block (LN, pad, roll, window partition, qk product,
-    ``window_attn_infer``, reverse, roll, crop, ``block_epilogue_infer``);
-    then one B 8 bf16 ``sam_rowblock_infer`` call a stage split into its
-    CUDA kernels ([row kernel split]: LayerNorm passes, the products on the
-    wgmma core by epilogue, the attention, the wrapper's weight casts)."""
+    ``window_attn_infer``, reverse, roll, crop, ``block_epilogue_infer``)."""
     from tpudepth_torch.ops.kernels import rowblock_infer as rbi
 
     def inputs(*args, sam):
         a, kw = _rowblock_inputs(*args, sam=sam)
         return a, kw, a
 
-    result = _whole_block_phase(
+    return _whole_block_phase(
         "row kernel",
         {"crf_rowblock_infer": (rbi.crf_rowblock_infer,
                                 rbi.crf_rowblock_infer_reference),
          "sam_rowblock_infer": (rbi.sam_rowblock_infer,
                                 rbi.sam_rowblock_infer_reference)},
         rbi.tolerance, inputs, ("row", "fused"), (20, 200))
-    sam_row_split()
-    return result
 
 
 def phase_block_kernels():
@@ -2597,6 +2607,7 @@ def main() -> int:
     sam_rows, sam_err, sam_err_rel, sam_checks = phase_sam_kernels()
     row_phase = phase_rowblock_kernels()
     blk_phase = phase_block_kernels()
+    splits = kernel_splits()
     tk_rows, tk_err, tk_err_rel, tk_checks = phase_train_kernels()
     rl_rows, rl_err, rl_checks = phase_root_loss_kernels()
     launches, errs, perf = phase_serving()
@@ -2774,8 +2785,8 @@ def main() -> int:
             "max_rel_err": err_rel[name],
             "checks": checks[name],
             "ok": True,
-            "timed": f"device time of {calls}, each call its 3 (NewCRF) or 4 "
-                     "(SAM) kernels and the wrapper's weight casts, CUDA "
+            "timed": f"device time of {calls}, each call its kernels "
+                     "(kernel_splits) and the wrapper's weight casts, CUDA "
                      "graph replays; bound_ms counts the real (cropped) "
                      "tokens only; library_ms is the block's four cuBLAS "
                      "bf16 products alone plus F.scaled_dot_product_attention "
@@ -2872,6 +2883,7 @@ def main() -> int:
                       "engine_img_per_s": perf, "training": train,
                       "fused_training": fused_train, "evaluation": evaluation,
                       "attention_training": attn_train,
+                      "kernel_splits": splits,
                       "seconds": time.perf_counter() - t_start}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

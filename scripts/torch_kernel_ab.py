@@ -1,25 +1,28 @@
 #!/usr/bin/env python3
 """What ``chip_smoke.py`` does not print for a tree it is not part of: the
 B 8 train-step times of ``gub_conv_fwd`` with statistics, the split of
-``sam_rowblock_infer`` into its CUDA kernels, and digests of the outputs
-that must stay bit-equal from tree to tree, on one NVIDIA GPU.
+``sam_rowblock_infer``, ``crf_rowblock_infer`` and ``sam_block_infer`` into
+their CUDA kernels, and digests of the outputs that must stay bit-equal
+from tree to tree, on one NVIDIA GPU.
 
     python3 scripts/torch_kernel_ab.py [--tag NAME] [--json PATH]
-        [--skip conv,row,digest]
+        [--skip conv,split,digest]
 
-It runs ``chip_smoke``'s own ``fwd_train_step_times`` and ``sam_row_split``
+It runs ``chip_smoke``'s own ``fwd_train_step_times`` and ``kernel_splits``
 (from the ``chip_smoke.py`` beside this script's directory) on the
 ``tpudepth_torch`` of the current directory, so one call of this script
 from another tree's root times that tree by the same code: e.g. an
 unpacked parent under a git-ignored directory, ``cd .smoke_tree/parent &&
 python3 ../../scripts/torch_kernel_ab.py --tag parent``. It prints
-``chip_smoke``'s [kernel time] B 8 and [row kernel split] lines, then
-``[digest]``: sha256 of the outputs of ``gub_conv_dw``, ``gub_conv_dx``
-(bf16 at the nine conv shapes, batch 2, statistics on, cotangents and the
-forward output drawn from a seed, not computed) and of
-``block_epilogue_infer`` (bf16, the four SAM stages, batch 1). The card's
-name and power limit come first; ``--json`` writes every number to PATH.
-It needs a card.
+``chip_smoke``'s [kernel time] B 8 and [row kernel split] / [block kernel
+split] lines, then ``[digest]``: sha256 of the outputs of ``gub_conv_dw``,
+``gub_conv_dx`` (bf16 at the nine conv shapes, batch 2, statistics on,
+cotangents and the forward output drawn from a seed, not computed), of
+``block_epilogue_infer`` and ``window_attn_infer`` (bf16, the four SAM
+stages, batch 1; the attention over a stage's padded map, with and without
+the shift-3 mask) and of ``crf_block_infer`` (bf16, the four stages, batch
+1, shift 0 and 3). The card's name and power limit come first; ``--json``
+writes every number to PATH. It needs a card.
 """
 
 from __future__ import annotations
@@ -57,8 +60,11 @@ def digest(*tensors) -> str:
 
 
 def digests(cs):
+    from tpudepth_torch.ops.kernels import block_infer as bi
     from tpudepth_torch.ops.kernels import epilogue_infer as ei
     from tpudepth_torch.ops.kernels import gub_conv as gc
+    from tpudepth_torch.ops.kernels import window_attn_infer as wai
+    from tpudepth_torch.ops.window import shifted_window_attention_mask
 
     bf = torch.bfloat16
     out = {}
@@ -89,12 +95,25 @@ def digests(cs):
         del parts, y, dy, dw, dxs
         torch.cuda.empty_cache()
     for i, (stage, c, heads, hw) in enumerate(cs.ATTN_STAGES):
-        _, tail = cs._sam_kernel_inputs(10 * i + 1, 1, 1, c, 4 * c,
-                                        hw[0] * hw[1], bf)
-        d = digest(ei.block_epilogue_infer(**tail))
-        out[f"block_epilogue_infer {stage}"] = d
-        print(f"[digest] block_epilogue_infer {stage} B1 bf16 {d}",
-              flush=True)
+        hp, wp = cs._padded(hw)
+        attn, tail = cs._sam_kernel_inputs(10 * i + 1, 1, hp * wp // 49, c,
+                                           4 * c, hw[0] * hw[1], bf)
+        mask = torch.from_numpy(
+            shifted_window_attention_mask(hp, wp, 7, 3)).to(cs.DEVICE)
+        found = {"block_epilogue_infer": ei.block_epilogue_infer(**tail),
+                 "window_attn_infer": wai.window_attention_infer(**attn),
+                 "window_attn_infer shift-3 mask":
+                     wai.window_attention_infer(**attn, mask=mask)}
+        for shift in (0, 3):
+            a, kw, _ = cs._block_inputs(40 + i + shift, 1, hw, c, heads,
+                                        shift, bf)
+            found[f"crf_block_infer shift {shift}"] = bi.crf_block_infer(
+                **a, **kw)
+        for name, t in found.items():
+            out[f"{name} {stage}"] = d = digest(t)
+            print(f"[digest] {name} {stage} B1 bf16 {d}", flush=True)
+        del attn, tail, found, a
+        torch.cuda.empty_cache()
     return out
 
 
@@ -113,7 +132,7 @@ def main() -> int:
     skip = set(filter(None, args.skip.split(",")))
     result = {"tag": args.tag}
     for section, fn in (("conv", cs.fwd_train_step_times),
-                        ("row", cs.sam_row_split),
+                        ("split", cs.kernel_splits),
                         ("digest", lambda: digests(cs))):
         if section not in skip:
             result[section] = fn()

@@ -933,6 +933,24 @@ def test_sam_rowblock_infer_bf16_on_the_gemm_core(cuda, case):
     assert torch.equal(got, rbi.sam_rowblock_infer(**a, **kw))
 
 
+@pytest.mark.parametrize("shift", [0, 3], ids=["shift0", "shift3"])
+@pytest.mark.parametrize("case", SAM_STAGE_CASES, ids=SAM_STAGE_IDS)
+def test_crf_rowblock_infer_bf16_on_the_gemm_core(cuda, case, shift):
+    """NewCRF's bf16 route (LN + qk product and the tail chain on the wgmma
+    core, the shifted block's rolled validity) against the plain version at
+    the stage shapes, one counted call, a rerun bit-equal."""
+    a, kw = _rowblock_case(sum(case) + 11 + shift, *case, shift,
+                           torch.bfloat16, cuda)
+    before = rbi.crf_rowblock_infer.launches
+    got = rbi.crf_rowblock_infer(**a, **kw)
+    torch.cuda.synchronize()
+    assert rbi.crf_rowblock_infer.launches == before + 1
+    want = rbi.crf_rowblock_infer_reference(**a, **kw)
+    assert got.dtype == torch.bfloat16 and got.shape == a["x"].shape
+    _close(got, want, rbi.tolerance(torch.bfloat16))
+    assert torch.equal(got, rbi.crf_rowblock_infer(**a, **kw))
+
+
 def test_rowblock_kernels_take_x_and_v_only_as_whole_rows(cuda):
     """The kernels read x and v as contiguous rows (the strides live inside,
     on the q, k, v scratch): x and v as the two halves of one [B, Hp, Wp,
@@ -1375,6 +1393,44 @@ def test_sam_block_infer_matches_plain(cuda, case, dtype):
     assert got.dtype == dtype and got.shape == a["xw"].shape
     _close(got, want, bi.tolerance(dtype))
     assert torch.equal(got, bi.sam_block_infer(**a, **kw))
+
+
+def _sam_block_bf16_holds(a, kw):
+    """One counted bf16 ``sam_block_infer`` call against the plain version
+    within the unchanged tolerance, a rerun bit-equal."""
+    before = bi.sam_block_infer.launches
+    got = bi.sam_block_infer(**a, **kw)
+    torch.cuda.synchronize()
+    assert bi.sam_block_infer.launches == before + 1
+    want = bi.sam_block_infer_reference(**a, **kw)
+    assert got.dtype == torch.bfloat16 and got.shape == a["xw"].shape
+    _close(got, want, bi.tolerance(torch.bfloat16))
+    assert torch.equal(got, bi.sam_block_infer(**a, **kw))
+
+
+@pytest.mark.parametrize("table", [True, False], ids=["valid", "novalid"])
+@pytest.mark.parametrize("case", SAM_STAGE_CASES, ids=SAM_STAGE_IDS)
+def test_sam_block_infer_bf16_on_the_gemm_core(cuda, case, table):
+    """SAM's bf16 whole-block route (projections and the f32-y tail chain on
+    the wgmma core) at the stage shapes, with the valid table of the padded
+    map and without one (every token real)."""
+    a, kw = _block_case(sum(case) + 13, *case, 0, torch.bfloat16, cuda,
+                        sam=True)
+    if not table:
+        a["valid"] = None
+    _sam_block_bf16_holds(a, kw)
+
+
+# (B, h, w, C, heads): row counts that are not multiples of the core's 128-row
+# tile (392, 196, 147 rows) at C 32, 96 and 64
+@pytest.mark.parametrize("case", [(2, 10, 13, 32, 4), (1, 10, 13, 96, 3),
+                                  (3, 7, 7, 64, 2)],
+                         ids=["C32", "C96", "C64"])
+def test_sam_block_infer_bf16_ragged_rows_and_narrow_widths(cuda, case):
+    a, kw = _block_case(sum(case) + 17, *case, 0, torch.bfloat16, cuda,
+                        sam=True)
+    assert a["xw"].shape[0] * a["xw"].shape[1] % 128
+    _sam_block_bf16_holds(a, kw)
 
 
 def test_block_kernels_refuse_what_they_do_not_take(cuda):

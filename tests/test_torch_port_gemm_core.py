@@ -1,10 +1,10 @@
 """What the wrappers of the kernels on the wgmma GEMM core
 (``tpudepth_torch/csrc/gemm_sm90.cuh``) and of the GUB conv kernels compute
 in Python, on the CPU: the row chunks of ``mlp_train_bwd``'s weight
-gradients, the scratch the wrappers allocate (``sam_rowblock_infer``'s
-too, whose bf16 projections and tail run on the core), the constants they
-share with the CUDA sources, and the ctypes signatures they give the C
-entries. The kernels themselves run only on the card
+gradients, the scratch the wrappers allocate (that of the row kernels and
+of ``sam_block_infer`` too, whose bf16 projections and tails run on the
+core), the constants they share with the CUDA sources, and the ctypes
+signatures they give the C entries. The kernels themselves run only on the card
 (``tests/test_torch_port_cuda.py``).
 """
 
@@ -14,6 +14,7 @@ import re
 import pytest
 
 from tpudepth_torch.ops.kernels import _build
+from tpudepth_torch.ops.kernels import block_infer as bi
 from tpudepth_torch.ops.kernels import epilogue_infer as ei
 from tpudepth_torch.ops.kernels import gub_conv as gc
 from tpudepth_torch.ops.kernels import mlp_train as mt
@@ -138,6 +139,7 @@ _SIGNATURES = {
     "gub_conv_fwd": ("gub_conv_fwd.cu", gc.ARGTYPES["gub_conv_fwd"]),
     "gub_conv_bwd": ("gub_conv_bwd.cu", gc.ARGTYPES["gub_conv_bwd"]),
     "rowblock_infer": ("rowblock_infer.cu", rbi.ARGTYPES),
+    "block_infer": ("block_infer.cu", bi.ARGTYPES),
 }
 
 
@@ -157,7 +159,9 @@ _ENTRIES = [("epilogue_infer", "block_epilogue_infer"),
             ("gub_conv_bwd", "gub_conv_dw"),
             ("gub_conv_bwd", "gub_conv_dx"),
             ("rowblock_infer", "crf_rowblock_infer"),
-            ("rowblock_infer", "sam_rowblock_infer")]
+            ("rowblock_infer", "sam_rowblock_infer"),
+            ("block_infer", "crf_block_infer"),
+            ("block_infer", "sam_block_infer")]
 
 
 @pytest.mark.parametrize("library,name", _ENTRIES, ids=[
@@ -216,3 +220,44 @@ def test_sam_row_scratch_shapes(b, hp, wp, c, bf16):
     y_yn = sum(s[0] * s[1] for k, s in
                ei.epilogue_scratch_shapes(m, c, 4 * c).items() if k != "g")
     assert y_yn == 2 * m * c <= m * 3 * c
+
+
+@pytest.mark.parametrize("bf16", [True, False], ids=["bf16", "f32"])
+@pytest.mark.parametrize("b,hp,wp,c", SAM_ROW_SHAPES, ids=lambda v: str(v))
+def test_crf_row_scratch_shapes(b, hp, wp, c, bf16):
+    """q and k side by side; in bf16 the tail chain's y and yn take all of
+    their 2 M C elements and its hidden g [M, 4C] has its own."""
+    shapes = rbi.crf_scratch_shapes(b, hp, wp, c, 4 * c, bf16)
+    assert list(shapes) == ["qk", "g"]
+    assert shapes["qk"] == (b, hp, wp, 2 * c)
+    m = b * hp * wp
+    if not bf16:
+        assert shapes["g"] is None
+        return
+    chain = ei.epilogue_scratch_shapes(m, c, 4 * c)
+    assert shapes["g"] == chain["g"] == (m, 4 * c)
+    y_yn = sum(s[0] * s[1] for k, s in chain.items() if k != "g")
+    assert y_yn == shapes["qk"][0] * hp * wp * shapes["qk"][3]
+
+
+@pytest.mark.parametrize("bf16", [True, False], ids=["bf16", "f32"])
+@pytest.mark.parametrize("b,hp,wp,c", SAM_ROW_SHAPES, ids=lambda v: str(v))
+def test_sam_block_scratch_shapes(b, hp, wp, c, bf16):
+    """The same map as window-major rows (BW windows of 49 tokens): q, k and
+    v side by side; in bf16 the whole-block chain's f32 y (4 M C bytes) and
+    bf16 yn (2 M C) fill qkv's 6 M C bytes, yn starting 16-byte aligned,
+    and its hidden g [M, 4C] in bf16 has its own."""
+    bw = b * (hp // 7) * (wp // 7)
+    shapes = bi.sam_scratch_shapes(bw, 49, c, 4 * c, bf16)
+    assert list(shapes) == ["qkv", "g"]
+    assert shapes["qkv"] == (bw, 49, 3 * c)
+    m = bw * 49
+    assert m == b * hp * wp
+    if not bf16:
+        assert shapes["g"] is None
+        return
+    assert shapes["g"] == (m, 4 * c)
+    qkv_bytes = 2 * bw * 49 * shapes["qkv"][2]
+    y_bytes, yn_bytes = 4 * m * c, 2 * m * c
+    assert y_bytes + yn_bytes == qkv_bytes
+    assert y_bytes % 16 == 0

@@ -61,9 +61,25 @@
 // buffer M C doubles as o. Fusing the projection into the attention would
 // need a window's 49 x C rows and their weight tiles in one block: a later
 // design.
+//
+// SAM in bf16 runs steps 1 and 3 on the pipelined wgmma core instead
+// (tail_chain.cuh, gemm_sm90.cuh), as sam_rowblock_infer does: 1 becomes a
+// LayerNorm pass (one warp a row, pad rows zero) into the output buffer and
+// a product whose epilogue adds the bias, scales in f32 and rounds once,
+// storing q into the first C columns of the scratch at row stride 3C (then
+// the same for k and v); 3 becomes the chain tail_block_bf16, in place,
+// which keeps this kernel's rounding: y = x + (o Wp + bp) is spilled in f32
+// (a float2 a lane from the fragment, x read in the same epilogue), LN2
+// reads it in f32, and the last product's epilogue adds m = g W2 + b2 to
+// the f32 y unrounded and rounds once. y (f32, 4 M C bytes) and yn (bf16,
+// 2 M C bytes) fill the scratch's 6 M C bytes, dead once the attention is
+// done; the hidden goes into a bf16 scratch g [M, 4C]: 9 kernels a call.
+// Its GELU is looked up in the table the erf polynomial fills (at most
+// 2.1e-7 from erff before rounding). f32 and NewCRF keep the passes above.
 
 #include "block_tail.cuh"
 #include "ln_proj.cuh"
+#include "tail_chain.cuh"
 #include "window_attn.cuh"
 
 namespace {
@@ -117,32 +133,6 @@ cudaError_t attend(const void* q, const void* k, const void* v,
               : wattn::launch<float>(p, rows, bw, st);
 }
 
-// The tail in place on out (o in, block output out) with x as the
-// shortcut, y kept in f32.
-cudaError_t tail_in_place(const void* x, const void* wproj, const void* bproj,
-                          const void* ln2s, const void* ln2b, const void* w1,
-                          const void* b1, const void* w2, const void* b2,
-                          void* out, int M, int C, int hidden, int is_bf16,
-                          void* stream) {
-  tail::Params p = {};
-  p.o = out;
-  p.x = x;
-  p.wp = wproj;
-  p.bp = static_cast<const float*>(bproj);
-  p.lns = static_cast<const float*>(ln2s);
-  p.lnb = static_cast<const float*>(ln2b);
-  p.w1 = w1;
-  p.b1 = static_cast<const float*>(b1);
-  p.w2 = w2;
-  p.b2 = static_cast<const float*>(b2);
-  p.out = out;
-  p.M = M;
-  p.cin = C;
-  p.hidden = hidden;
-  p.cout = C;
-  return tail::run<tail::kBlock>(p, is_bf16, stream);
-}
-
 const void* offset(const void* base, int elems, int is_bf16) {
   return static_cast<const char*>(base) +
          static_cast<size_t>(elems) * (is_bf16 ? 2 : 4);
@@ -177,40 +167,71 @@ extern "C" int crf_block_infer(
   err = attend(qk, offset(qk, C, is_bf16), v, 2 * C, 2 * C, C, bias, mask,
                out, bw, n, C, heads, nw, is_bf16, st);
   if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(tail_in_place(x, wproj, bproj, ln2s, ln2b, w1, b1,
-                                        w2, b2, out, M, C, hidden, is_bf16,
-                                        stream));
+  // the CUDA-core tail in place, y kept in f32
+  return static_cast<int>(tail::run<tail::kBlock>(
+      tail::block_params(out, x, wproj, bproj, ln2s, ln2b, w1, b1, w2, b2,
+                         out, M, C, hidden),
+      is_bf16, st));
 }
 
 // The SAM block (never shifted). As crf_block_infer, with LNv and the q and
-// kv projections; qkv: scratch [BW, n, 3C] of the IO dtype.
+// kv projections; qkv: scratch [BW, n, 3C] of the IO dtype; g: bf16 scratch
+// [BW n, hidden] (bf16 only; unused in f32).
+//
+// bf16 runs the projections and the tail on the wgmma core (tail_chain.cuh):
+//   1. LN1(x) valid, rounded, into out (free until the attention writes o);
+//   2. q = round((. Wq + bq) scale) into qkv[:, 0:C] (row stride 3C);
+//   3. LNv(v) valid into out; 4. kv = round(. Wkv + bkv) into qkv[:, C:3C];
+//   5. the attention, o into out;
+//   6-9. the tail chain in place on out, its f32 y in qkv's first 4 M C
+//        bytes and yn in the 2 M C after them, its hidden in g.
+// (The gelu table is filled once a device before the first.) f32 keeps the
+// CUDA-core passes (lnproj, tail).
 extern "C" int sam_block_infer(
     const void* x, const void* v, const void* ln1s, const void* ln1b,
     const void* lnvs, const void* lnvb, const void* wq, const void* bq,
     const void* wkv, const void* bkv, const void* bias, const void* wproj,
     const void* bproj, const void* ln2s, const void* ln2b, const void* w1,
     const void* b1, const void* w2, const void* b2, const void* valid,
-    void* qkv, void* out, int bw, int n, int C, int heads, int hidden, int nw,
-    float scale, int is_bf16, void* stream) {
-  if (!geometry_ok(bw, n, C, heads, hidden, nw)) {
+    void* qkv, void* g, void* out, int bw, int n, int C, int heads,
+    int hidden, int nw, float scale, int is_bf16, void* stream) {
+  if (!geometry_ok(bw, n, C, heads, hidden, nw) ||
+      (is_bf16 && g == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int M = bw * n;
   const TableValid tv = {static_cast<const float*>(valid), n, nw};
-  cudaError_t err = lnproj::run(
-      lnproj::params(x, ln1s, ln1b, wq, bq, qkv, 3 * C, C, C, scale, M, C),
-      tv, is_bf16, st);
-  if (err != cudaSuccess) return static_cast<int>(err);
   void* kv = const_cast<void*>(offset(qkv, C, is_bf16));
-  err = lnproj::run(
-      lnproj::params(v, lnvs, lnvb, wkv, bkv, kv, 3 * C, 2 * C, 0, 1.0f, M, C),
-      tv, is_bf16, st);
+  cudaError_t err;
+  if (is_bf16) {
+    err = chain::ln_project(x, static_cast<const float*>(ln1s),
+                            static_cast<const float*>(ln1b), wq,
+                            static_cast<const float*>(bq), scale, C, out,
+                            qkv, 3 * C, M, C, C, tv, st);
+    if (err == cudaSuccess)
+      err = chain::ln_project(v, static_cast<const float*>(lnvs),
+                              static_cast<const float*>(lnvb), wkv,
+                              static_cast<const float*>(bkv), 1.0f, 0, out,
+                              kv, 3 * C, M, C, 2 * C, tv, st);
+  } else {
+    err = lnproj::run(
+        lnproj::params(x, ln1s, ln1b, wq, bq, qkv, 3 * C, C, C, scale, M, C),
+        tv, false, st);
+    if (err == cudaSuccess)
+      err = lnproj::run(lnproj::params(v, lnvs, lnvb, wkv, bkv, kv, 3 * C,
+                                       2 * C, 0, 1.0f, M, C),
+                        tv, false, st);
+  }
   if (err != cudaSuccess) return static_cast<int>(err);
   err = attend(qkv, kv, offset(qkv, 2 * C, is_bf16), 3 * C, 3 * C, 3 * C,
                bias, nullptr, out, bw, n, C, heads, nw, is_bf16, st);
   if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(tail_in_place(x, wproj, bproj, ln2s, ln2b, w1, b1,
-                                        w2, b2, out, M, C, hidden, is_bf16,
-                                        stream));
+  const tail::Params p = tail::block_params(
+      out, x, wproj, bproj, ln2s, ln2b, w1, b1, w2, b2, out, M, C, hidden);
+  if (!is_bf16) return static_cast<int>(tail::run<tail::kBlock>(p, 0, st));
+  float* y = static_cast<float*>(qkv);
+  return static_cast<int>(chain::tail_block_bf16(
+      p, y, reinterpret_cast<__nv_bfloat16*>(y + static_cast<size_t>(M) * C),
+      static_cast<__nv_bfloat16*>(g), st));
 }

@@ -1,14 +1,14 @@
 // Device code of the transformer block tail and FFN on mma.sync and the
 // CUDA cores, shared by epilogue_infer.cu (the f32 block_epilogue_infer and
 // mlp_infer), mlp_train.cu (the f32 mlp_train_fwd), rowblock_infer.cu and
-// block_infer.cu (the tails of the row and whole-block kernels, bf16 and
-// f32), and ln_proj.cuh (the LayerNorm-and-projection pass in front of
-// their attention). The arithmetic, the design and what bounds it are
-// described at the top of epilogue_infer.cu; the tail of the whole-block
-// kernels (Mode kBlock) keeps y in f32, as the top of block_infer.cu
-// describes. The bf16 FFN alone (mlp_infer, mlp_train_fwd) and the bf16
-// block_epilogue_infer run on the wgmma core of gemm_sm90.cuh instead: the
-// FFN mode here is f32 only.
+// block_infer.cu (the f32 tails of the row and whole-block kernels, and
+// crf_block_infer's bf16 tail), and ln_proj.cuh (the LayerNorm-and-
+// projection pass in front of their attention). The arithmetic, the design
+// and what bounds it are described at the top of epilogue_infer.cu; the
+// tail of the whole-block kernels (Mode kBlock) keeps y in f32, as the top
+// of block_infer.cu describes. Every other bf16 tail and FFN runs on the
+// wgmma core of gemm_sm90.cuh (tail_chain.cuh) instead: the bf16 kernel
+// here is kBlock's alone, the FFN mode f32 only.
 //
 // Everything is in namespace tail inside an unnamed namespace: each source
 // that includes it gets its own copy with internal linkage, and the names do
@@ -33,11 +33,11 @@ constexpr float kInvSqrt2 = 0.70710678118654752f;
 
 // What a tail computes from the rows o (and the shortcut x):
 //   kFfn       out = fc2(gelu(fc1(o))), f32 only (mlp_infer, mlp_train_fwd)
-//   kEpilogue  z = round(o Wp + bp), y = round(x + z), m = round(fc2(...)),
-//              out = round(y + m)    (block_epilogue_infer, the row kernels)
+//   kEpilogue  y = x + (o Wp + bp), out = y + fc2(gelu(fc1(LN(y)))), f32
+//              only (block_epilogue_infer, the row kernels)
 //   kBlock     y = x + (o Wp + bp) and m = fc2(...) kept in f32,
 //              out = round(y + m)                 (the whole-block kernels)
-// LN(y), h and gelu(h) are rounded to the IO dtype in every mode.
+// LN(y), h and gelu(h) are rounded to the IO dtype in kBlock.
 enum Mode { kFfn, kEpilogue, kBlock };
 
 struct Params {
@@ -55,6 +55,33 @@ struct Params {
   int M, cin, hidden, cout;
 };
 
+// The arguments of a block tail (kEpilogue, kBlock, and the chains of
+// tail_chain.cuh): o the attention output and x the shortcut, [M, C]; the
+// projection, LayerNorm and FFN parameters; out [M, C] (may be o).
+inline Params block_params(const void* o, const void* x, const void* wp,
+                           const void* bp, const void* lns, const void* lnb,
+                           const void* w1, const void* b1, const void* w2,
+                           const void* b2, void* out, int M, int C,
+                           int hidden) {
+  Params p = {};
+  p.o = o;
+  p.x = x;
+  p.wp = wp;
+  p.bp = static_cast<const float*>(bp);
+  p.lns = static_cast<const float*>(lns);
+  p.lnb = static_cast<const float*>(lnb);
+  p.w1 = w1;
+  p.b1 = static_cast<const float*>(b1);
+  p.w2 = w2;
+  p.b2 = static_cast<const float*>(b2);
+  p.out = out;
+  p.M = M;
+  p.cin = C;
+  p.hidden = hidden;
+  p.cout = C;
+  return p;
+}
+
 __host__ __device__ inline int chunk_of(int n) { return n < kNC ? n : kNC; }
 
 __device__ __forceinline__ float bf16r(float v) {
@@ -66,17 +93,7 @@ __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
   return __bfloat162float(v);
 }
 
-// y += z: a bf16 y takes z rounded and is rounded (kEpilogue); an f32 y
-// takes z as it is (kBlock).
-__device__ __forceinline__ void add_z(__nv_bfloat16* y, float z) {
-  *y = __float2bfloat16(__bfloat162float(*y) + bf16r(z));
-}
-__device__ __forceinline__ void add_z(float* y, float z) { *y += z; }
-
-// Eight bf16 values (one 16-byte piece) into y.
-__device__ __forceinline__ void store8(__nv_bfloat16* y, uint4 v) {
-  *reinterpret_cast<uint4*>(y) = v;
-}
+// Eight bf16 values (one 16-byte piece) into f32 y.
 __device__ __forceinline__ void store8(float* y, uint4 v) {
   const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v);
   const float2 a = __bfloat1622float2(h[0]), b = __bfloat1622float2(h[1]);
@@ -197,34 +214,21 @@ __device__ __forceinline__ void zero(float (&acc)[MT][NT][4]) {
 // in distinct banks.
 __host__ __device__ inline int padded(int n) { return n + (96 - n % 64) % 64; }
 
-// Bytes of an element of y's row tile: bf16 (kEpilogue) or f32 (kBlock).
-__host__ __device__ inline size_t y_bytes(Mode mode) {
-  return mode == kEpilogue ? 2 : 4;
-}
-
-__host__ __device__ inline size_t mma_smem_bytes(int mt, int cin, int hidden,
-                                                 Mode mode) {
+// a [BM][lda] and g [BM][ldg] in bf16, y [BM][C] in f32.
+__host__ __device__ inline size_t mma_smem_bytes(int mt, int cin,
+                                                 int hidden) {
   const size_t bm = 16 * static_cast<size_t>(mt);
-  return 2 * bm * (padded(cin) + padded(chunk_of(hidden))) +
-         y_bytes(mode) * bm * cin;
+  return 2 * bm * (padded(cin) + padded(chunk_of(hidden))) + 4 * bm * cin;
 }
 
-// The element type of y's row tile in shared memory.
-template <Mode kMode>
-struct YType { using T = __nv_bfloat16; };
-template <>
-struct YType<kBlock> { using T = float; };
-
-// The bf16 tail of the row and whole-block kernels (kEpilogue, kBlock).
+// The bf16 tail of the whole-block kernels (kBlock; crf_block_infer).
 // NT = 16 / MT: the accumulator holds 64 floats per thread, which covers
 // Cout <= 1024 at MT = 1 (16 tiles per warp) down to Cout <= 128 at MT = 8.
-// With it the f32 y of kBlock is at most 16 x 1024 floats (64 KB).
-template <int MT, Mode kMode>
+// With it the f32 y is at most 16 x 1024 floats (64 KB).
+template <int MT>
 __global__ void __launch_bounds__(kThreads, 1) tail_mma_kernel(const Params p) {
-  static_assert(kMode != kFfn, "the bf16 FFN runs on gemm_sm90.cuh");
   constexpr int NT = 16 / MT;
   constexpr int BM = 16 * MT;
-  using Y = typename YType<kMode>::T;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
@@ -236,7 +240,7 @@ __global__ void __launch_bounds__(kThreads, 1) tail_mma_kernel(const Params p) {
   const int hc = chunk_of(p.hidden);
   const int ldg = padded(hc);
   __nv_bfloat16* a_s = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  Y* y_s = reinterpret_cast<Y*>(a_s + BM * lda);            // [BM][C]
+  float* y_s = reinterpret_cast<float*>(a_s + BM * lda);    // [BM][C]
   __nv_bfloat16* g_s = reinterpret_cast<__nv_bfloat16*>(y_s + BM * C);
                                                             // [BM][ldg]
 
@@ -257,8 +261,7 @@ __global__ void __launch_bounds__(kThreads, 1) tail_mma_kernel(const Params p) {
   }
   __syncthreads();
 
-  // y = x + z in place in y_s (each element is owned by one thread): add_z
-  // rounds z and y for a bf16 y, not for an f32 one
+  // y = x + z in f32 in place in y_s (each element is owned by one thread)
   float acc[MT][NT][4];
   const int ntiles = p.cout / 8;
   zero(acc);
@@ -273,7 +276,7 @@ __global__ void __launch_bounds__(kThreads, 1) tail_mma_kernel(const Params p) {
         for (int c = 0; c < 4; ++c) {
           const int r = m * 16 + g + (c >> 1) * 8;
           const int n = (warp + kWarps * i) * 8 + 2 * t + (c & 1);
-          add_z(y_s + r * C + n, acc[m][i][c] + p.bp[n]);
+          y_s[r * C + n] += acc[m][i][c] + p.bp[n];
         }
   __syncthreads();
   layer_norm_rows(y_s, C, a_s, lda, BM, C, p.lns, p.lnb);
@@ -318,14 +321,9 @@ __global__ void __launch_bounds__(kThreads, 1) tail_mma_kernel(const Params p) {
           const int r = m * 16 + g + (c >> 1) * 8;
           if (row0 + r >= p.M) continue;
           const int n = (warp + kWarps * i) * 8 + 2 * t;
-          float v0 = acc[m][i][c] + p.b2[n];
-          float v1 = acc[m][i][c + 1] + p.b2[n + 1];
-          if (kMode != kBlock) {
-            v0 = bf16r(v0);
-            v1 = bf16r(v1);
-          }
-          v0 += to_f32(y_s[r * C + n]);
-          v1 += to_f32(y_s[r * C + n + 1]);
+          const float v0 = y_s[r * C + n] + (acc[m][i][c] + p.b2[n]);
+          const float v1 =
+              y_s[r * C + n + 1] + (acc[m][i][c + 1] + p.b2[n + 1]);
           *reinterpret_cast<__nv_bfloat162*>(
               out + static_cast<size_t>(row0 + r) * p.cout + n) =
               __floats2bfloat162_rn(v0, v1);
@@ -503,14 +501,14 @@ cudaError_t opt_in(K kern, bool& done) {
   return err;
 }
 
-template <int MT, Mode kMode>
+template <int MT>
 cudaError_t launch_mma(const Params& p, cudaStream_t st) {
   static bool done = false;
-  auto kern = tail_mma_kernel<MT, kMode>;
+  auto kern = tail_mma_kernel<MT>;
   const cudaError_t err = opt_in(kern, done);
   if (err != cudaSuccess) return err;
   const int blocks = (p.M + 16 * MT - 1) / (16 * MT);
-  kern<<<blocks, kThreads, mma_smem_bytes(MT, p.cin, p.hidden, kMode), st>>>(p);
+  kern<<<blocks, kThreads, mma_smem_bytes(MT, p.cin, p.hidden), st>>>(p);
   return cudaGetLastError();
 }
 
@@ -540,9 +538,9 @@ int pick_rows(int M, int cin, int hidden, int cout, Mode mode, bool bf16) {
     const int nt = (cout / 8 + kWarps - 1) / kWarps;   // tiles per warp
     int mt = 8;
     while (mt > 1 && (mt * nt > 16 ||
-                      mma_smem_bytes(mt, cin, hidden, mode) > kSmemLimit))
+                      mma_smem_bytes(mt, cin, hidden) > kSmemLimit))
       mt /= 2;
-    if (mt * nt > 16 || mma_smem_bytes(mt, cin, hidden, mode) > kSmemLimit)
+    if (mt * nt > 16 || mma_smem_bytes(mt, cin, hidden) > kSmemLimit)
       return 0;
     while (mt > 1 && (M + 16 * mt - 1) / (16 * mt) < 132) mt /= 2;
     return 16 * mt;
@@ -566,8 +564,8 @@ inline bool shape_ok(const Params& p, Mode mode) {
          (mode == kFfn || p.cout == p.cin);
 }
 
-// One launch of the tail in mode kMode (kFfn: f32 only). In f32 kBlock is
-// kEpilogue: the IO dtype rounds nothing.
+// One launch of the tail in mode kMode (bf16: kBlock only). In f32 kBlock
+// is kEpilogue: the IO dtype rounds nothing.
 template <Mode kMode>
 cudaError_t run(const Params& p, int is_bf16, void* stream) {
   constexpr bool kEpilogue = kMode != kFfn;
@@ -575,14 +573,14 @@ cudaError_t run(const Params& p, int is_bf16, void* stream) {
   const int rows = pick_rows(p.M, p.cin, p.hidden, p.cout, kMode, is_bf16);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (is_bf16) {
-    if constexpr (kMode == kFfn) {
+    if constexpr (kMode != kBlock) {
       return cudaErrorInvalidValue;
     } else {
       switch (rows) {
-        case 16: return launch_mma<1, kMode>(p, st);
-        case 32: return launch_mma<2, kMode>(p, st);
-        case 64: return launch_mma<4, kMode>(p, st);
-        case 128: return launch_mma<8, kMode>(p, st);
+        case 16: return launch_mma<1>(p, st);
+        case 32: return launch_mma<2>(p, st);
+        case 64: return launch_mma<4>(p, st);
+        case 128: return launch_mma<8>(p, st);
         default: return cudaErrorInvalidValue;
       }
     }

@@ -99,22 +99,8 @@ extern "C" int block_epilogue_infer(const void* o, const void* x,
                                     const void* w2, const void* b2, void* out,
                                     void* y, void* yn, void* g, int M, int C,
                                     int hidden, int is_bf16, void* stream) {
-  Params p = {};
-  p.o = o;
-  p.x = x;
-  p.wp = wp;
-  p.bp = static_cast<const float*>(bp);
-  p.lns = static_cast<const float*>(lns);
-  p.lnb = static_cast<const float*>(lnb);
-  p.w1 = w1;
-  p.b1 = static_cast<const float*>(b1);
-  p.w2 = w2;
-  p.b2 = static_cast<const float*>(b2);
-  p.out = out;
-  p.M = M;
-  p.cin = C;
-  p.hidden = hidden;
-  p.cout = C;
+  const Params p = tail::block_params(o, x, wp, bp, lns, lnb, w1, b1, w2, b2,
+                                      out, M, C, hidden);
   if (!is_bf16) return static_cast<int>(run<tail::kEpilogue>(p, 0, stream));
   if (M < 1 || !tail::width_ok(C) || !tail::width_ok(hidden) || C > 1024 ||
       y == nullptr || yn == nullptr || g == nullptr) {

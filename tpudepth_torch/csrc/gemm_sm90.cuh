@@ -1,8 +1,9 @@
 // One pipelined tensor-core GEMM core for Hopper (sm_90a), shared by the
 // bf16 paths of mlp_train_fwd and mlp_train_bwd (mlp_train.cu), of
-// mlp_infer and block_epilogue_infer (epilogue_infer.cu) and of
-// sam_rowblock_infer's projections and tail (rowblock_infer.cu, through
-// tail_chain.cuh):
+// mlp_infer and block_epilogue_infer (epilogue_infer.cu) and of the
+// projections and tails of crf_rowblock_infer, sam_rowblock_infer
+// (rowblock_infer.cu) and sam_block_infer (block_infer.cu), through
+// tail_chain.cuh:
 //
 //   acc[128 x BN] (+)= sum over k of A(m, k) B(n, k)      bf16 in, f32 out
 //
@@ -12,11 +13,13 @@
 // share one kind, and wgmma reads either natively (its transpose bits), so
 // no operand is transposed element by element.
 //
-// It serves five TPU kernels: tpudepth/ops/pallas/mlp_train.py::
+// It serves seven TPU kernels: tpudepth/ops/pallas/mlp_train.py::
 // _mlp_fwd_pallas (:132) and ::_mlp_bwd_pallas (:163), tpudepth/ops/pallas/
 // mlp_infer.py::mlp_infer (:135), tpudepth/ops/pallas/epilogue_infer.py::
-// block_epilogue_infer (:92) and, for its projections and tail,
-// tpudepth/ops/pallas/rowblock_infer.py::sam_rowblock_infer (:355). Their products hold 380..4000 operations per
+// block_epilogue_infer (:92) and, for their projections and tails,
+// tpudepth/ops/pallas/rowblock_infer.py::crf_rowblock_infer (:270) and
+// ::sam_rowblock_infer (:355) and tpudepth/ops/pallas/block_infer.py::
+// sam_block_infer (:201). Their products hold 380..4000 operations per
 // bf16 byte moved, above the card's ~295: operations bound them, and on this
 // card that means the tensor cores kept fed. The first designs of all four
 // (mma.sync fed by synchronous loads: fragments through registers and two

@@ -43,13 +43,12 @@
 // bf16 at every stage at 480x640) and every weight in VMEM; a Hopper block
 // has 227 KB of shared memory, and a single window's x, q and k come to
 // ~300 KB at C 1024. So one C entry launches a fixed number of kernels on
-// the caller's stream, each reading and writing the image layout:
+// the caller's stream, each reading and writing the image layout (f32;
+// bf16 below):
 //   1. LayerNorm times valid and the projection on flat rows (ln_proj.cuh,
-//      shared with block_infer.cu), on the tensor cores for bf16 (mma.sync
-//      m16n8k16 with the weights streamed from L2, the A tile in shared
-//      memory, block_tail.cuh's mma_gemm) and on the CUDA cores in f32
-//      (f32_gemm); it writes q scale and k (SAM: q; then k and v by a
-//      second launch) to an IO-dtype scratch of the image layout;
+//      shared with block_infer.cu) on the CUDA cores (f32_gemm); it writes
+//      q scale and k (SAM: q; then k and v by a second launch) to a
+//      scratch of the image layout;
 //   2. the attention, one block per (window, head), each token's row found
 //      by wattn::ImageRows (token (r, s) of window (i, j) is image row
 //      (i ws + r) Wp + j ws + s), the mask of window i nWw + j added; o is
@@ -57,27 +56,29 @@
 //   3. the block tail over the flat rows of o and x, in place: each tail
 //      block reads its row tile of o into shared memory before it writes
 //      the same rows of the output, and no block touches another's rows.
-// Launches per call: 3 for NewCRF, 4 for SAM. Scratch (allocated by the
-// caller): NewCRF 2 M C IO elements (q, k), SAM 3 M C (q, k, v), M = B Hp Wp;
-// the output buffer M C doubles as o. A thread-block cluster holding a
-// window row in distributed shared memory is a later design.
+// Launches per call in f32: 3 for NewCRF, 4 for SAM. Scratch (allocated by
+// the caller): NewCRF 2 M C IO elements (q, k), SAM 3 M C (q, k, v), M =
+// B Hp Wp; the output buffer M C doubles as o. A thread-block cluster
+// holding a window row in distributed shared memory is a later design.
 //
-// SAM in bf16 runs steps 1 and 3 on the pipelined wgmma core instead
+// bf16 runs steps 1 and 3 on the pipelined wgmma core instead
 // (tail_chain.cuh, gemm_sm90.cuh): 1 becomes a LayerNorm pass (one warp a
 // row, pad rows zero) into the output buffer and a product whose epilogue
-// adds the bias, scales in f32 and rounds once, storing q into the first C
-// columns of the scratch at row stride 3C (then the same for k and v); 3
-// becomes block_epilogue_infer's chain of four kernels in place, its y and
-// yn in the scratch's first 2 M C elements (dead once the attention is
-// done), its hidden in a bf16 scratch g [M, 4C]: 9 kernels a call. The
-// chain spills only tensors the TPU kernel rounds to bf16 anyway, so the
-// rounding order is kEpilogue's; its GELU is looked up in the table the
-// erf polynomial fills (at most 2.1e-7 from erff before rounding). On an
-// NVIDIA H100 80GB HBM3 at 700 W the calls of a batch-8 SAM forward take
-// 3.0 ms this way, half of it the attention; through the passes above they
-// take 6.4, 3.3 of it the tail and 1.3 the two LN projections (chip_smoke.py
-// [row kernel time], [row kernel split]; the passes' split by
-// scripts/torch_kernel_ab.py). NewCRF and f32 keep the passes above.
+// adds the bias, scales the q columns in f32 and rounds once, storing q and
+// k side by side into the scratch (NewCRF: one product at row stride 2C;
+// SAM: q into the first C columns at row stride 3C, then the same for k and
+// v); 3 becomes block_epilogue_infer's chain of four kernels in place, its
+// y and yn in the scratch's first 2 M C elements (dead once the attention
+// is done), its hidden in a bf16 scratch g [M, 4C]: 7 kernels a NewCRF
+// call, 9 a SAM call. The chain spills only tensors the TPU kernel rounds
+// to bf16 anyway, so the rounding order is kEpilogue's; its GELU is looked
+// up in the table the erf polynomial fills (at most 2.1e-7 from erff
+// before rounding). On an NVIDIA H100 80GB HBM3 at 700 W the calls of a
+// batch-8 SAM forward take 3.0 ms this way, half of it the attention;
+// through the passes above they took 6.4, 3.3 of it the tail and 1.3 the
+// two LN projections (chip_smoke.py [row kernel time], [row kernel split];
+// the passes' split by scripts/torch_kernel_ab.py on the parent tree). f32
+// keeps the passes above.
 
 #include "block_tail.cuh"
 #include "ln_proj.cuh"
@@ -137,31 +138,6 @@ cudaError_t attend(const void* q, const void* k, const void* v,
               : wattn::launch<float>(p, rows, B * nw, st);
 }
 
-// The tail's arguments, in place on out (o in, block output out) with x as
-// the shortcut.
-tail::Params tail_params(const void* x, const void* wproj, const void* bproj,
-                         const void* ln2s, const void* ln2b, const void* w1,
-                         const void* b1, const void* w2, const void* b2,
-                         void* out, int M, int C, int hidden) {
-  tail::Params p = {};
-  p.o = out;
-  p.x = x;
-  p.wp = wproj;
-  p.bp = static_cast<const float*>(bproj);
-  p.lns = static_cast<const float*>(ln2s);
-  p.lnb = static_cast<const float*>(ln2b);
-  p.w1 = w1;
-  p.b1 = static_cast<const float*>(b1);
-  p.w2 = w2;
-  p.b2 = static_cast<const float*>(b2);
-  p.out = out;
-  p.M = M;
-  p.cin = C;
-  p.hidden = hidden;
-  p.cout = C;
-  return p;
-}
-
 const void* offset(const void* base, int elems, int is_bf16) {
   return static_cast<const char*>(base) +
          static_cast<size_t>(elems) * (is_bf16 ? 2 : 4);
@@ -170,36 +146,55 @@ const void* offset(const void* base, int elems, int is_bf16) {
 }  // namespace
 
 // The NewCRF block. x, v, out: contiguous [B, Hp, Wp, C] of the IO dtype
-// (x and out 16-byte aligned); qk: scratch [B, Hp, Wp, 2C] of the IO dtype.
-// Weights in the IO dtype in torch layout [out, in], contiguous; vectors,
-// bias [heads, ws^2, ws^2] and mask (null, or [nW, ws^2, ws^2]) f32. (h, w)
-// is the real extent of the map before the roll by (-shift, -shift).
-// Returns a cudaError_t.
+// (x and out 16-byte aligned); qk: scratch [B, Hp, Wp, 2C] of the IO dtype;
+// g: bf16 scratch [B Hp Wp, hidden] (bf16 only; unused in f32). Weights in
+// the IO dtype in torch layout [out, in], contiguous; vectors, bias [heads,
+// ws^2, ws^2] and mask (null, or [nW, ws^2, ws^2]) f32. (h, w) is the real
+// extent of the map before the roll by (-shift, -shift). Returns a
+// cudaError_t.
+//
+// bf16 runs the projection and the tail on the wgmma core (tail_chain.cuh):
+//   1. LN1(x) valid (the rolled validity), rounded, into out (free until
+//      the attention writes o);
+//   2. q = round((. Wq + bq) scale), k = round(. Wk + bk) into qk (one
+//      product, the columns below C scaled);
+//   3. the attention, o into out;
+//   4-7. the tail chain in place on out, its y and yn in qk (dead once the
+//        attention is done), its hidden in g.
+// f32 keeps the CUDA-core passes (lnproj, tail).
 extern "C" int crf_rowblock_infer(
     const void* x, const void* v, const void* ln1s, const void* ln1b,
     const void* wqk, const void* bqk, const void* bias, const void* mask,
     const void* wproj, const void* bproj, const void* ln2s, const void* ln2b,
     const void* w1, const void* b1, const void* w2, const void* b2, void* qk,
-    void* out, int B, int hp, int wp, int C, int heads, int hidden, int ws,
-    int h, int w, int shift, float scale, int is_bf16, void* stream) {
-  if (!geometry_ok(B, hp, wp, C, heads, hidden, ws) || shift < 0) {
+    void* g, void* out, int B, int hp, int wp, int C, int heads, int hidden,
+    int ws, int h, int w, int shift, float scale, int is_bf16, void* stream) {
+  if (!geometry_ok(B, hp, wp, C, heads, hidden, ws) || shift < 0 ||
+      (is_bf16 && g == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int M = B * hp * wp;
   const ImageValid valid = {hp, wp, h, w, shift};
-  cudaError_t err = lnproj::run(
-      lnproj::params(x, ln1s, ln1b, wqk, bqk, qk, 2 * C, 2 * C, C, scale, M,
-                     C),
-      valid, is_bf16, st);
+  cudaError_t err =
+      is_bf16 ? chain::ln_project(x, static_cast<const float*>(ln1s),
+                                  static_cast<const float*>(ln1b), wqk,
+                                  static_cast<const float*>(bqk), scale, C,
+                                  out, qk, 2 * C, M, C, 2 * C, valid, st)
+              : lnproj::run(lnproj::params(x, ln1s, ln1b, wqk, bqk, qk, 2 * C,
+                                           2 * C, C, scale, M, C),
+                            valid, false, st);
   if (err != cudaSuccess) return static_cast<int>(err);
   err = attend(qk, offset(qk, C, is_bf16), v, 2 * C, 2 * C, C, bias, mask,
                out, B, hp, wp, C, heads, ws, is_bf16, st);
   if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(tail::run<tail::kEpilogue>(
-      tail_params(x, wproj, bproj, ln2s, ln2b, w1, b1, w2, b2, out, M, C,
-                  hidden),
-      is_bf16, st));
+  const tail::Params p = tail::block_params(
+      out, x, wproj, bproj, ln2s, ln2b, w1, b1, w2, b2, out, M, C, hidden);
+  if (!is_bf16) return static_cast<int>(tail::run<tail::kEpilogue>(p, 0, st));
+  __nv_bfloat16* y = static_cast<__nv_bfloat16*>(qk);
+  return static_cast<int>(chain::tail_bf16(
+      p, y, y + static_cast<size_t>(M) * C, static_cast<__nv_bfloat16*>(g),
+      st));
 }
 
 // The SAM block (never shifted). As crf_rowblock_infer, with LNv and the
@@ -255,8 +250,8 @@ extern "C" int sam_rowblock_infer(
   err = attend(qkv, kv, offset(qkv, 2 * C, is_bf16), 3 * C, 3 * C, 3 * C,
                bias, nullptr, out, B, hp, wp, C, heads, ws, is_bf16, st);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const tail::Params p = tail_params(x, wproj, bproj, ln2s, ln2b, w1, b1, w2,
-                                     b2, out, M, C, hidden);
+  const tail::Params p = tail::block_params(
+      out, x, wproj, bproj, ln2s, ln2b, w1, b1, w2, b2, out, M, C, hidden);
   if (!is_bf16) return static_cast<int>(tail::run<tail::kEpilogue>(p, 0, st));
   __nv_bfloat16* y = static_cast<__nv_bfloat16*>(qkv);
   return static_cast<int>(chain::tail_bf16(

@@ -1,21 +1,27 @@
-// The bf16 block tail as a chain of products on the wgmma core
+// The bf16 block tails as chains of products on the wgmma core
 // (gemm_sm90.cuh), and the LayerNorm-and-projection pass in front of a
 // window attention on the same core, shared by epilogue_infer.cu
-// (block_epilogue_infer) and rowblock_infer.cu (sam_rowblock_infer):
+// (block_epilogue_infer), rowblock_infer.cu (crf_rowblock_infer,
+// sam_rowblock_infer) and block_infer.cu (sam_block_infer):
 //
 //   tail_bf16:   y = round(x + round(o Wp + bp)); yn = round(LN(y));
 //                g = round(gelu(round(yn W1 + b1)));
 //                out = round(y + round(g W2 + b2))
+//   tail_block_bf16 (the whole-block kernels' rounding):
+//                y = x + (o Wp + bp) in f32; yn = round(LN(y));
+//                g = round(gelu(round(yn W1 + b1)));
+//                out = round(y + (g W2 + b2))
 //   ln_project:  out[:, 0:N] = round((round(LN(x) valid) W^T + b), the
 //                columns below nscale times scale before the rounding)
 //
 // over rows [M, C] in bf16, sums in f32. Each tensor that a chain spills to
-// device memory is one its TPU kernel rounds to bf16 anyway, so a chain
-// keeps the rounding order exactly; only the order of the f32 sums
-// differs. The LayerNorm passes take a validity functor (valid(row) false:
-// a pad token, whose LN row is zeros and whose projection is the bias
-// alone), and a projection writes its output at a row stride of its own
-// (the q and kv columns of one [M, 3C] tensor).
+// device memory is one its TPU kernel rounds to bf16 anyway, or (the f32 y
+// of tail_block_bf16) one it keeps in f32, spilled in f32, so a chain keeps
+// the rounding order exactly; only the order of the f32 sums differs. The
+// LayerNorm passes take a validity functor (valid(row) false: a pad token,
+// whose LN row is zeros and whose projection is the bias alone), and a
+// projection writes its output at a row stride of its own (the q and kv
+// columns of one [M, 3C] tensor).
 //
 // Everything is in namespace chain inside an unnamed namespace, as in the
 // other headers.
@@ -61,15 +67,19 @@ struct BiasResidual {
   }
 };
 
-// P bf16 values (P = 8, 4, 2 or 1) from (to) 2P-byte aligned memory.
-template <int P>
-__device__ __forceinline__ void copy_piece(const __nv_bfloat16* src,
-                                           __nv_bfloat16* dst) {
-  if constexpr (P == 8) {
-    *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(src);
-  } else if constexpr (P == 4) {
+// P values of type T from (to) P sizeof(T)-byte aligned memory, 16 bytes a
+// load where P allows.
+template <int P, typename T>
+__device__ __forceinline__ void copy_piece(const T* src, T* dst) {
+  constexpr int kBytes = P * static_cast<int>(sizeof(T));
+  if constexpr (kBytes % 16 == 0) {
+#pragma unroll
+    for (int i = 0; i < kBytes / 16; ++i)
+      reinterpret_cast<uint4*>(dst)[i] =
+          reinterpret_cast<const uint4*>(src)[i];
+  } else if constexpr (kBytes == 8) {
     *reinterpret_cast<uint2*>(dst) = *reinterpret_cast<const uint2*>(src);
-  } else if constexpr (P == 2) {
+  } else if constexpr (kBytes == 4) {
     *reinterpret_cast<uint32_t*>(dst) =
         *reinterpret_cast<const uint32_t*>(src);
   } else {
@@ -78,16 +88,17 @@ __device__ __forceinline__ void copy_piece(const __nv_bfloat16* src,
 }
 
 // yn = round(LN(y) valid) over rows of C = 32 V: step 2, and the
-// LayerNorm in front of a projection (ln_rows). One warp a row, read once
-// into registers and written once, in pieces of P = 8, 4, 2 or 1 values
-// (the widest that divides V): piece j of lane l holds the values
-// (32 j + l) P.., so each load instruction covers 32 P contiguous values.
-// layer_norm_row's f32 arithmetic (flax's fast variance, eps 1e-5), its
-// sums added in another order. kVec: scale and bias are 16-byte aligned and
-// read 4 floats at a time. valid(row) false (a pad token): a row of zeros.
-template <int V, bool kVec, typename Valid>
+// LayerNorm in front of a projection (ln_rows). y is bf16, or f32 (the
+// whole-block tail's y). One warp a row, read once into registers and
+// written once, in pieces of P = 8, 4, 2 or 1 values (the widest that
+// divides V): piece j of lane l holds the values (32 j + l) P.., so each
+// load instruction covers 32 P contiguous values. layer_norm_row's f32
+// arithmetic (flax's fast variance, eps 1e-5), its sums added in another
+// order. kVec: scale and bias are 16-byte aligned and read 4 floats at a
+// time. valid(row) false (a pad token): a row of zeros.
+template <int V, bool kVec, typename T, typename Valid>
 __global__ void __launch_bounds__(tail::kThreads)
-    layer_norm_kernel(const __nv_bfloat16* y, __nv_bfloat16* yn, int M,
+    layer_norm_kernel(const T* y, __nv_bfloat16* yn, int M,
                       const float* scale, const float* bias,
                       const Valid valid) {
   constexpr int C = 32 * V;
@@ -95,7 +106,7 @@ __global__ void __launch_bounds__(tail::kThreads)
   const int row = blockIdx.x * tail::kWarps + (threadIdx.x >> 5);
   if (row >= M) return;
   const int lane = threadIdx.x & 31;
-  const __nv_bfloat16* yr = y + static_cast<size_t>(row) * C;
+  const T* yr = y + static_cast<size_t>(row) * C;
   __nv_bfloat16* ynr = yn + static_cast<size_t>(row) * C;
   __nv_bfloat16 b[V];
   if (!valid(row)) {
@@ -106,14 +117,15 @@ __global__ void __launch_bounds__(tail::kThreads)
       copy_piece<P>(b + j * P, ynr + (32 * j + lane) * P);
     return;
   }
+  T in[V];
 #pragma unroll
   for (int j = 0; j < V / P; ++j)
-    copy_piece<P>(yr + (32 * j + lane) * P, b + j * P);
+    copy_piece<P>(yr + (32 * j + lane) * P, in + j * P);
   float v[V];
   float s = 0.f, s2 = 0.f;
 #pragma unroll
   for (int i = 0; i < V; ++i) {
-    v[i] = __bfloat162float(b[i]);
+    v[i] = tail::to_f32(in[i]);
     s += v[i];
     s2 += v[i] * v[i];
   }
@@ -157,8 +169,8 @@ struct AllValid {
   __device__ __forceinline__ bool operator()(int) const { return true; }
 };
 
-template <int V, typename Valid>
-cudaError_t layer_norm(const __nv_bfloat16* y, __nv_bfloat16* yn, int M,
+template <int V, typename T, typename Valid>
+cudaError_t layer_norm(const T* y, __nv_bfloat16* yn, int M,
                        const float* scale, const float* bias,
                        const Valid& valid, cudaStream_t st) {
   const int blocks = (M + tail::kWarps - 1) / tail::kWarps;
@@ -173,10 +185,10 @@ cudaError_t layer_norm(const __nv_bfloat16* y, __nv_bfloat16* yn, int M,
   return cudaGetLastError();
 }
 
-// yn = round(LN(y) valid) for the widths the kernel takes (tail::width_ok,
-// at most 1024).
-template <typename Valid = AllValid>
-cudaError_t layer_norm_rows(const __nv_bfloat16* y, __nv_bfloat16* yn, int M,
+// yn = round(LN(y) valid) of bf16 or f32 rows y for the widths the kernel
+// takes (tail::width_ok, at most 1024).
+template <typename T, typename Valid = AllValid>
+cudaError_t layer_norm_rows(const T* y, __nv_bfloat16* yn, int M,
                             int C, const float* scale, const float* bias,
                             cudaStream_t st, const Valid& valid = Valid()) {
   switch (C / 32) {
@@ -213,6 +225,100 @@ cudaError_t tail_bf16(const tail::Params& p, __nv_bfloat16* y,
                                   st);
   if (err != cudaSuccess) return err;
   return product<BiasResidual>({p.b2, C}, g, p.w2, p.out, y, M, C, H, st);
+}
+
+// y[r, c] = x[r, c] + (acc + bias[c]) in f32, for r < M, c < N: step 1 of
+// the whole-block tail. Both x (bf16) and y (f32) are [M, N] rows; each
+// lane reads its pairs of x and writes its pairs of y from the fragment, a
+// float2 a pair, so a quad of lanes writes one whole 32-byte sector (a
+// 128-wide f32 tile would not fit the staging slot). The loads are
+// read-only (__ldg), so they may run ahead of the stores.
+struct BiasResidualToF32 {
+  static constexpr int kProducts = 1;
+  static constexpr int kTiles = 0;
+  static constexpr int kSmemBytes = 0;
+  struct Params {
+    const float* bias;
+    const __nv_bfloat16* x;
+    float* y;
+    int M, N;
+  };
+  template <int BN>
+  static __device__ __forceinline__ void apply(const Params& p,
+                                               float (&acc)[1][BN / 2],
+                                               const gemm::Tile& t,
+                                               unsigned char*,
+                                               const CUtensorMap*,
+                                               unsigned char*, uint32_t) {
+    gemm::for_pairs<BN>(acc[0], [&](int r, int c, float v0, float v1) {
+      const int row = t.m0 + r, col = t.n0 + c;
+      if (row >= p.M || col >= p.N) return;
+      const size_t i = static_cast<size_t>(row) * p.N + col;
+      const float2 x = __bfloat1622float2(
+          __ldg(reinterpret_cast<const __nv_bfloat162*>(p.x + i)));
+      *reinterpret_cast<float2*>(p.y + i) =
+          make_float2(x.x + (v0 + p.bias[col]), x.y + (v1 + p.bias[col + 1]));
+    });
+  }
+};
+
+// out[r, c] = round(y[r, c] + (acc + bias[c])) with y f32 [M, N], for c < N:
+// step 4 of the whole-block tail (m = g W2 + b2 not rounded before the
+// add). y is read a float2 a pair (a quad of lanes: one 32-byte sector); the
+// output leaves through the staging slot by TMA (tile map: out).
+struct BiasResidualF32 {
+  static constexpr int kProducts = 1;
+  static constexpr int kTiles = 1;
+  static constexpr int kSmemBytes = 0;
+  struct Params {
+    const float* bias;
+    const float* y;
+    int M, N;
+  };
+  template <int BN>
+  static __device__ __forceinline__ void apply(const Params& p,
+                                               float (&acc)[1][BN / 2],
+                                               const gemm::Tile& t,
+                                               unsigned char*,
+                                               const CUtensorMap* c,
+                                               unsigned char* staging,
+                                               uint32_t) {
+    gemm::store_pairs<BN>(acc[0], c, staging, t.m0, t.n0,
+                          [&](int r, int c, float v0, float v1) {
+      const int row = t.m0 + r, col = t.n0 + c;
+      if (row >= p.M || col >= p.N) return 0u;
+      const float2 y = __ldg(reinterpret_cast<const float2*>(
+          p.y + static_cast<size_t>(row) * p.N + col));
+      return gemm::pack2(y.x + (v0 + p.bias[col]),
+                         y.y + (v1 + p.bias[col + 1]));
+    });
+  }
+};
+
+// The whole-block tail (block_infer.cu, the TPU kernel's _ffn_residual) as
+// a chain of four kernels: out = round(y + (g W2 + b2)) with y = x + (o Wp +
+// bp) in f32, yn = round(LN(y)), g = round(gelu(round(yn W1 + b1))), through
+// the scratch y f32 [M, C], yn bf16 [M, C] and g bf16 [M, hidden]. p.out may
+// be p.o (in place): o is read by step 1 alone.
+cudaError_t tail_block_bf16(const tail::Params& p, float* y,
+                            __nv_bfloat16* yn, __nv_bfloat16* g,
+                            cudaStream_t st) {
+  using gemm::product;
+  const int M = p.M, C = p.cin, H = p.hidden;
+  cudaError_t err = gemm::fill_once<gemm::gelu_table_kernel>(st);
+  if (err == cudaSuccess)
+    err = product<BiasResidualToF32>(
+        {p.bp, static_cast<const __nv_bfloat16*>(p.x), y, M, C}, p.o, p.wp,
+        nullptr, nullptr, M, C, C, st);
+  if (err == cudaSuccess)
+    err = layer_norm_rows(static_cast<const float*>(y), yn, M, C, p.lns,
+                          p.lnb, st);
+  if (err == cudaSuccess)
+    err = product<gemm::BiasGelu>({p.b1, H}, yn, p.w1, g, nullptr, M, H, C,
+                                  st);
+  if (err != cudaSuccess) return err;
+  return product<BiasResidualF32>({p.b2, y, M, C}, g, p.w2, p.out, nullptr, M,
+                                  C, H, st);
 }
 
 // out[r, c] = round((acc + bias[c]) * scale) for c < nscale, round(acc +

@@ -5,16 +5,17 @@ per block on window-major ``[BW, N, C]`` rows.
 Counterpart of ``tpudepth/ops/pallas/block_infer.py::sam_block_infer`` and
 ``::crf_block_infer`` (``TPUDEPTH_BLOCK=fused`` in JAX). The kernels are
 ``tpudepth_torch/csrc/block_infer.cu``, CUDA C++ for ``sm_90a`` built by
-``_build``, on the device code of the row kernels (``csrc/ln_proj.cuh``),
-of ``window_attn_infer`` (``csrc/window_attn.cuh``) and of
+``_build``, on the device code of the row kernels (``csrc/ln_proj.cuh``,
+``csrc/tail_chain.cuh``: SAM's bf16 projections and tail run on the
+``wgmma`` core), of ``window_attn_infer`` (``csrc/window_attn.cuh``) and of
 ``block_epilogue_infer`` (``csrc/block_tail.cuh``); the source's header says
 what bounds them, how they are laid out and how many launches and scratch
-bytes a call takes. The wrappers :func:`sam_block_infer` and
-:func:`crf_block_infer` count their calls; the plain versions
-:func:`sam_block_infer_reference` and :func:`crf_block_infer_reference` have
-the kernels' rounding order, which is the TPU kernels' and not the row
-kernels': ``y = x + o Wp + bp`` and ``z = g W2 + b2`` stay f32 and the
-output is rounded once. CPU tensors run the plain version; CUDA tensors
+bytes a call takes (:func:`sam_scratch_shapes`). The wrappers
+:func:`sam_block_infer` and :func:`crf_block_infer` count their calls; the
+plain versions :func:`sam_block_infer_reference` and
+:func:`crf_block_infer_reference` have the kernels' rounding order, which is
+the TPU kernels' and not the row kernels': ``y = x + o Wp + bp`` and ``z =
+g W2 + b2`` stay f32 and the output is rounded once. CPU tensors run the plain version; CUDA tensors
 launch the kernels or raise. The boundary keeps the JAX layout:
 
 - ``xw``, ``vw``: ``[BW, N, C]`` RAW (not normalized) windows in one dtype
@@ -53,7 +54,11 @@ from tpudepth_torch.ops.kernels.epilogue_infer import (
     layer_norm_f32,
     linear_f32,
 )
-from tpudepth_torch.ops.kernels.rowblock_infer import check_weights, cuda_args
+from tpudepth_torch.ops.kernels.rowblock_infer import (
+    alloc_scratch,
+    check_weights,
+    cuda_args,
+)
 from tpudepth_torch.ops.kernels.window_attn_infer import (
     window_attention_infer_reference,
 )
@@ -133,13 +138,29 @@ def tolerance(dtype: torch.dtype) -> Tuple[float, float]:
     return 1e-5, 1e-5
 
 
+#: ctypes signature of each C entry of ``csrc/block_infer.cu``
+ARGTYPES = {
+    "crf_block_infer": (_VP,) * 19 + (_I32,) * 6 + (_F32, _I32, _VP),
+    "sam_block_infer": (_VP,) * 23 + (_I32,) * 6 + (_F32, _I32, _VP),
+}
+
+
+def sam_scratch_shapes(bw: int, n: int, c: int, hidden: int,
+                       bf16: bool) -> dict:
+    """The scratch of one ``sam_block_infer`` call, by name: ``qkv``
+    ``[BW, N, 3C]`` in the IO dtype (q, k and v; in bf16 the tail chain then
+    keeps its f32 y, ``4 M C`` bytes, M = BW N, at its start and its bf16
+    yn in the ``2 M C`` bytes after them) and, in bf16, ``g`` ``[M,
+    hidden]`` for the tail's hidden (None in f32)."""
+    return {"qkv": (bw, n, 3 * c), "g": (bw * n, hidden) if bf16 else None}
+
+
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
     lib = _build.load("block_infer")
-    lib.crf_block_infer.argtypes = [_VP] * 19 + [_I32] * 6 + [_F32, _I32, _VP]
-    lib.sam_block_infer.argtypes = [_VP] * 22 + [_I32] * 6 + [_F32, _I32, _VP]
-    lib.crf_block_infer.restype = _I32
-    lib.sam_block_infer.restype = _I32
+    for fn, types in ARGTYPES.items():
+        getattr(lib, fn).argtypes = list(types)
+        getattr(lib, fn).restype = _I32
     return lib
 
 
@@ -178,19 +199,17 @@ def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
 
 
-def _launch(name, xw, vw, bias, mask, valid, weights, vectors, scratch_width,
+def _launch(name, xw, vw, bias, mask, valid, weights, vectors, scratch,
             call):
-    """Checks of a launch, the scratch and output buffers, and ``call(lib,
-    weights in the kernel's layout, scratch, out, stream)``; raises on a
-    CUDA error."""
+    """Checks of a launch, the scratch (``scratch``: shapes by name) and
+    output buffers, and ``call(lib, weights in the kernel's layout, scratch
+    tensors by name, out, stream)``; raises on a CUDA error."""
     if valid is not None and (valid.device != xw.device
                               or not valid.is_contiguous()):
         raise ValueError(f"{name}: valid must be contiguous on {xw.device}")
     kernel_weights = cuda_args(name, xw, vw, bias, mask, xw.shape[1], weights,
                                vectors)
-    bw, n, c = xw.shape
-    scratch = torch.empty((bw, n, scratch_width * c), dtype=xw.dtype,
-                          device=xw.device)
+    scratch = alloc_scratch(scratch, xw.dtype, xw.device)
     out = torch.empty_like(xw)
     with torch.cuda.device(xw.device):
         stream = torch.cuda.current_stream(xw.device).cuda_stream
@@ -220,7 +239,9 @@ def sam_block_infer(xw: torch.Tensor, vw: torch.Tensor, ln1: tuple,
             xw, vw, ln1, lnv, wq, bq, wkv, bkv, bias, wproj, bproj, ln2, w1,
             b1, w2, b2, valid, scale=scale)
 
-    def call(lib, wts, qkv, out, stream):
+    bf16 = xw.dtype == torch.bfloat16
+
+    def call(lib, wts, scratch, out, stream):
         wq_t, wkv_t, wp_t, w1_t, w2_t = wts
         return lib.sam_block_infer(
             xw.data_ptr(), vw.data_ptr(), ln1[0].data_ptr(),
@@ -229,12 +250,13 @@ def sam_block_infer(xw: torch.Tensor, vw: torch.Tensor, ln1: tuple,
             bias.data_ptr(), wp_t.data_ptr(), bproj.data_ptr(),
             ln2[0].data_ptr(), ln2[1].data_ptr(), w1_t.data_ptr(),
             b1.data_ptr(), w2_t.data_ptr(), b2.data_ptr(), _ptr(valid),
-            qkv.data_ptr(), out.data_ptr(), bw, n, c, heads, hidden, nw,
-            float(scale), int(xw.dtype == torch.bfloat16), stream)
+            scratch["qkv"].data_ptr(), _ptr(scratch["g"]), out.data_ptr(), bw,
+            n, c, heads, hidden, nw, float(scale), int(bf16), stream)
 
     out = _launch("sam_block_infer", xw, vw, bias, None, valid,
                   (wq, wkv, wproj, w1, w2),
-                  (*ln1, *lnv, bq, bkv, bproj, *ln2, b1, b2), 3, call)
+                  (*ln1, *lnv, bq, bkv, bproj, *ln2, b1, b2),
+                  sam_scratch_shapes(bw, n, c, hidden, bf16), call)
     sam_block_infer.launches += 1
     return out
 
@@ -261,7 +283,7 @@ def crf_block_infer(xw: torch.Tensor, vw: torch.Tensor, ln1: tuple,
             xw, vw, ln1, wqk, bqk, bias, wproj, bproj, ln2, w1, b1, w2, b2,
             mask, valid, scale=scale)
 
-    def call(lib, wts, qk, out, stream):
+    def call(lib, wts, scratch, out, stream):
         wqk_t, wp_t, w1_t, w2_t = wts
         return lib.crf_block_infer(
             xw.data_ptr(), vw.data_ptr(), ln1[0].data_ptr(),
@@ -269,12 +291,12 @@ def crf_block_infer(xw: torch.Tensor, vw: torch.Tensor, ln1: tuple,
             bias.data_ptr(), _ptr(mask), wp_t.data_ptr(), bproj.data_ptr(),
             ln2[0].data_ptr(), ln2[1].data_ptr(), w1_t.data_ptr(),
             b1.data_ptr(), w2_t.data_ptr(), b2.data_ptr(), _ptr(valid),
-            qk.data_ptr(), out.data_ptr(), bw, n, c, heads, hidden, nw,
-            float(scale), int(xw.dtype == torch.bfloat16), stream)
+            scratch["qk"].data_ptr(), out.data_ptr(), bw, n, c, heads, hidden,
+            nw, float(scale), int(xw.dtype == torch.bfloat16), stream)
 
     out = _launch("crf_block_infer", xw, vw, bias, mask, valid,
-                  (wqk, wproj, w1, w2), (*ln1, bqk, bproj, *ln2, b1, b2), 2,
-                  call)
+                  (wqk, wproj, w1, w2), (*ln1, bqk, bproj, *ln2, b1, b2),
+                  {"qk": (bw, n, 2 * c)}, call)
     crf_block_infer.launches += 1
     return out
 

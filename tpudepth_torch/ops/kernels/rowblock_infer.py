@@ -7,10 +7,11 @@ Counterpart of ``tpudepth/ops/pallas/rowblock_infer.py::crf_rowblock_infer``
 and ``::sam_rowblock_infer``. The kernels are ``tpudepth_torch/csrc/
 rowblock_infer.cu``, CUDA C++ for ``sm_90a`` built by ``_build``, on the
 device code of ``window_attn_infer`` (``csrc/window_attn.cuh``) and of
-``block_epilogue_infer`` (``csrc/block_tail.cuh``; for SAM in bf16 its
-projections and tail run on the ``wgmma`` core, ``csrc/tail_chain.cuh``);
+``block_epilogue_infer`` (``csrc/block_tail.cuh``; in bf16 their
+projections and tails run on the ``wgmma`` core, ``csrc/tail_chain.cuh``);
 the source's header says what bounds them, how they are laid out and how
-many launches and scratch bytes a call takes (:func:`sam_scratch_shapes`). The wrappers :func:`crf_rowblock_infer` and
+many launches and scratch bytes a call takes (:func:`crf_scratch_shapes`,
+:func:`sam_scratch_shapes`). The wrappers :func:`crf_rowblock_infer` and
 :func:`sam_rowblock_infer` count their calls; the plain versions
 :func:`crf_rowblock_infer_reference` and :func:`sam_rowblock_infer_reference`
 have the kernels' rounding order. CPU tensors run the plain version; CUDA
@@ -154,9 +155,19 @@ def tolerance(dtype: torch.dtype) -> Tuple[float, float]:
 
 #: ctypes signature of each C entry of ``csrc/rowblock_infer.cu``
 ARGTYPES = {
-    "crf_rowblock_infer": (_VP,) * 18 + (_I32,) * 10 + (_F32, _I32, _VP),
+    "crf_rowblock_infer": (_VP,) * 19 + (_I32,) * 10 + (_F32, _I32, _VP),
     "sam_rowblock_infer": (_VP,) * 22 + (_I32,) * 9 + (_F32, _I32, _VP),
 }
+
+
+def crf_scratch_shapes(b: int, hp: int, wp: int, c: int, hidden: int,
+                       bf16: bool) -> dict:
+    """The scratch of one ``crf_rowblock_infer`` call, by name: ``qk``
+    ``[B, Hp, Wp, 2C]`` in the IO dtype (q and k; in bf16 the tail chain's
+    y and yn then take its ``2 M C`` elements, M = B Hp Wp) and, in bf16,
+    ``g`` ``[M, hidden]`` for the tail's hidden (None in f32)."""
+    return {"qk": (b, hp, wp, 2 * c),
+            "g": (b * hp * wp, hidden) if bf16 else None}
 
 
 def sam_scratch_shapes(b: int, hp: int, wp: int, c: int, hidden: int,
@@ -168,6 +179,20 @@ def sam_scratch_shapes(b: int, hp: int, wp: int, c: int, hidden: int,
     f32)."""
     return {"qkv": (b, hp, wp, 3 * c),
             "g": (b * hp * wp, hidden) if bf16 else None}
+
+
+def alloc_scratch(shapes: dict, dtype: torch.dtype,
+                  device: torch.device) -> dict:
+    """The tensors of a call's scratch ``shapes`` (here and in
+    ``block_infer``), by name: ``g`` in bf16, the others in the IO dtype
+    ``dtype``; a shape of None stays None."""
+    return {k: None if shape is None else torch.empty(
+        shape, dtype=torch.bfloat16 if k == "g" else dtype, device=device)
+        for k, shape in shapes.items()}
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
 
 
 @functools.lru_cache(maxsize=None)
@@ -278,19 +303,20 @@ def crf_rowblock_infer(x: torch.Tensor, v: torch.Tensor, ln1: tuple,
     wqk_t, wp_t, w1_t, w2_t = cuda_args(
         "crf_rowblock_infer", x, v, bias, mask, window_size ** 2,
         (wqk, wproj, w1, w2), (*ln1, bqk, bproj, *ln2, b1, b2))
-    qk = torch.empty((b, hp, wp, 2 * c), dtype=x.dtype, device=x.device)
+    bf16 = x.dtype == torch.bfloat16
+    scratch = alloc_scratch(crf_scratch_shapes(b, hp, wp, c, hidden, bf16),
+                            x.dtype, x.device)
     out = torch.empty_like(x)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = _lib().crf_rowblock_infer(
             x.data_ptr(), v.data_ptr(), ln1[0].data_ptr(), ln1[1].data_ptr(),
-            wqk_t.data_ptr(), bqk.data_ptr(), bias.data_ptr(),
-            None if mask is None else mask.data_ptr(), wp_t.data_ptr(),
-            bproj.data_ptr(), ln2[0].data_ptr(), ln2[1].data_ptr(),
-            w1_t.data_ptr(), b1.data_ptr(), w2_t.data_ptr(), b2.data_ptr(),
-            qk.data_ptr(), out.data_ptr(), b, hp, wp, c, heads, hidden,
-            window_size, h, w, shift, float(scale),
-            int(x.dtype == torch.bfloat16), stream)
+            wqk_t.data_ptr(), bqk.data_ptr(), bias.data_ptr(), _ptr(mask),
+            wp_t.data_ptr(), bproj.data_ptr(), ln2[0].data_ptr(),
+            ln2[1].data_ptr(), w1_t.data_ptr(), b1.data_ptr(),
+            w2_t.data_ptr(), b2.data_ptr(), scratch["qk"].data_ptr(),
+            _ptr(scratch["g"]), out.data_ptr(), b, hp, wp, c, heads, hidden,
+            window_size, h, w, shift, float(scale), int(bf16), stream)
     if rc != 0:
         raise RuntimeError(f"crf_rowblock_infer launch failed: CUDA error {rc}")
     crf_rowblock_infer.launches += 1
@@ -325,10 +351,8 @@ def sam_rowblock_infer(x: torch.Tensor, v: torch.Tensor, ln1: tuple,
         "sam_rowblock_infer", x, v, bias, None, window_size ** 2,
         (wq, wkv, wproj, w1, w2), (*ln1, *lnv, bq, bkv, bproj, *ln2, b1, b2))
     bf16 = x.dtype == torch.bfloat16
-    shapes = sam_scratch_shapes(b, hp, wp, c, hidden, bf16)
-    qkv = torch.empty(shapes["qkv"], dtype=x.dtype, device=x.device)
-    g = (torch.empty(shapes["g"], dtype=torch.bfloat16, device=x.device)
-         if bf16 else None)
+    scratch = alloc_scratch(sam_scratch_shapes(b, hp, wp, c, hidden, bf16),
+                            x.dtype, x.device)
     out = torch.empty_like(x)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
@@ -338,10 +362,9 @@ def sam_rowblock_infer(x: torch.Tensor, v: torch.Tensor, ln1: tuple,
             bq.data_ptr(), wkv_t.data_ptr(), bkv.data_ptr(), bias.data_ptr(),
             wp_t.data_ptr(), bproj.data_ptr(), ln2[0].data_ptr(),
             ln2[1].data_ptr(), w1_t.data_ptr(), b1.data_ptr(),
-            w2_t.data_ptr(), b2.data_ptr(), qkv.data_ptr(),
-            None if g is None else g.data_ptr(), out.data_ptr(), b, hp, wp,
-            c, heads, hidden, window_size, h, w, float(scale), int(bf16),
-            stream)
+            w2_t.data_ptr(), b2.data_ptr(), scratch["qkv"].data_ptr(),
+            _ptr(scratch["g"]), out.data_ptr(), b, hp, wp, c, heads, hidden,
+            window_size, h, w, float(scale), int(bf16), stream)
     if rc != 0:
         raise RuntimeError(f"sam_rowblock_infer launch failed: CUDA error {rc}")
     sam_rowblock_infer.launches += 1
