@@ -45,8 +45,10 @@ plain PyTorch version. Phases:
    ``sam_block_infer`` the same way, on the windows of the same maps,
    beside the ``block``, ``row`` and ``fused`` modules; then one B 8 bf16
    call a stage of ``sam_rowblock_infer``, ``crf_rowblock_infer`` (shift 0
-   and 3) and ``sam_block_infer`` split into its CUDA kernels by
-   ``torch.profiler`` ([row kernel split], [block kernel split]);
+   and 3), ``sam_block_infer``, ``crf_block_infer`` (shift 0 and 3) and
+   ``window_attn_train_bwd`` split into its CUDA kernels by
+   ``torch.profiler`` ([row kernel split], [block kernel split], [train
+   kernel split]);
    [train kernels]:
    ``window_attn_train_fwd`` / ``_bwd`` (with and without the shift-3 mask)
    and ``mlp_train_fwd`` / ``_bwd`` (also at an odd row count, the forward
@@ -1756,26 +1758,40 @@ def split_ms(fn, calls: int = 3):
 
 def kernel_splits():
     """One B 8 bf16 call a SAM / NewCRF stage of ``sam_rowblock_infer``,
-    ``crf_rowblock_infer`` (shift 0 and 3) and ``sam_block_infer`` split
-    into its CUDA kernels by ``split_ms`` ([row kernel split], [block kernel
-    split]: the LayerNorm passes, the products on the wgmma core by
-    epilogue, the attention, the wrapper's weight casts): {"kernel[ shift
-    s]": {stage: split}}."""
+    ``crf_rowblock_infer`` (shift 0 and 3), ``sam_block_infer`` and
+    ``crf_block_infer`` (shift 0 and 3) split into its CUDA kernels by
+    ``split_ms`` ([row kernel split], [block kernel split]: the LayerNorm
+    passes, the products on the wgmma core by epilogue, the attention, the
+    wrapper's weight casts), and one of ``window_attn_train_bwd`` (the
+    backward kernel and ``dbias_sum_kernel``, [train kernel split]): {"kernel[
+    shift s]": {stage: split}}."""
     from tpudepth_torch.ops.kernels import block_infer as bi
     from tpudepth_torch.ops.kernels import rowblock_infer as rbi
+    from tpudepth_torch.ops.kernels import window_attn as wat
+
+    def attn_bwd(seed, bsz, hw, c, heads, shift, dtype, sam):
+        hp, wp = _padded(hw)
+        attn, ga = _train_kernel_inputs(seed, bsz, hp * wp // 49, c, heads,
+                                        1, dtype)[:2]
+        return dict(attn, mask=None, g=ga), {}
 
     cases = (("row", rbi.sam_rowblock_infer, 0, True, 200),
              ("row", rbi.crf_rowblock_infer, 0, False, 210),
              ("row", rbi.crf_rowblock_infer, 3, False, 220),
-             ("block", bi.sam_block_infer, 0, True, 230))
+             ("block", bi.sam_block_infer, 0, True, 230),
+             ("block", bi.crf_block_infer, 0, False, 240),
+             ("block", bi.crf_block_infer, 3, False, 250),
+             ("train", wat.window_attention_bwd, 0, True, 260))
+    inputs = {"row": _rowblock_inputs, "block": _block_inputs,
+              "train": attn_bwd}
     out = {}
     for label, kern, shift, sam, seed in cases:
-        key = kern.__name__ + ("" if sam else f" shift {shift}")
+        key = {"train": "window_attn_train_bwd"}.get(
+            label, kern.__name__ + ("" if sam else f" shift {shift}"))
         out[key] = {}
         for i, (stage, c, heads, hw) in enumerate(ATTN_STAGES):
-            inputs = _rowblock_inputs if label == "row" else _block_inputs
-            a, kw = inputs(seed + i, SAM_BATCH, hw, c, heads, shift,
-                           torch.bfloat16, sam=sam)[:2]
+            a, kw = inputs[label](seed + i, SAM_BATCH, hw, c, heads, shift,
+                                  torch.bfloat16, sam=sam)[:2]
             with torch.inference_mode():
                 split = split_ms(lambda: kern(**a, **kw))
             out[key][stage] = split

@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """What ``chip_smoke.py`` does not print for a tree it is not part of: the
 B 8 train-step times of ``gub_conv_fwd`` with statistics, the split of
-``sam_rowblock_infer``, ``crf_rowblock_infer`` and ``sam_block_infer`` into
-their CUDA kernels, and digests of the outputs that must stay bit-equal
+``sam_rowblock_infer``, ``crf_rowblock_infer``, ``sam_block_infer``,
+``crf_block_infer`` and ``window_attn_train_bwd`` into their CUDA kernels,
+and digests of the outputs that must stay bit-equal
 from tree to tree, on one NVIDIA GPU.
 
     python3 scripts/torch_kernel_ab.py [--tag NAME] [--json PATH]
@@ -15,7 +16,7 @@ from another tree's root times that tree by the same code: e.g. an
 unpacked parent under a git-ignored directory, ``cd .smoke_tree/parent &&
 python3 ../../scripts/torch_kernel_ab.py --tag parent``. It prints
 ``chip_smoke``'s [kernel time] B 8 and [row kernel split] / [block kernel
-split] lines, then ``[digest]``: sha256 of the outputs of ``gub_conv_dw``,
+split] / [train kernel split] lines, then ``[digest]``: sha256 of the outputs of ``gub_conv_dw``,
 ``gub_conv_dx`` (bf16 at the nine conv shapes, batch 2, statistics on,
 cotangents and the forward output drawn from a seed, not computed), of
 ``block_epilogue_infer`` and ``window_attn_infer`` (bf16, the four SAM

@@ -1109,6 +1109,90 @@ def test_window_attention_function_on_the_card(cuda):
         assert torch.equal(t.grad, w)
 
 
+def _bwd_holds(q, k, v, bias, mask, g):
+    """One counted backward against the plain version within the unchanged
+    ``bwd_tolerance`` (dq, dk, dv in q's dtype; dbias f32), a rerun
+    bit-equal, dbias included."""
+    before = wat.window_attention_bwd.launches
+    grads = wat.window_attention_bwd(q, k, v, bias, mask, g)
+    torch.cuda.synchronize()
+    assert wat.window_attention_bwd.launches == before + 1
+    want = wat.window_attention_bwd_reference(q, k, v, bias, mask, g)
+    tol, dbias_tol = wat.bwd_tolerance(q.dtype)
+    for got, ref in zip(grads[:3], want[:3]):
+        assert got.dtype == q.dtype and got.shape == q.shape
+        _close(got, ref, tol)
+    assert grads[3].dtype == torch.float32
+    _close(grads[3], want[3], dbias_tol)
+    again = wat.window_attention_bwd(q, k, v, bias, mask, g)
+    assert all(torch.equal(a, b) for a, b in zip(grads, again))
+
+
+# 259 windows (7 an image) of 8 heads: bwd_chunk gives chunks of 3 windows,
+# the last one of 1
+@pytest.mark.parametrize("masked", [False, True], ids=["plain", "mask"])
+@pytest.mark.parametrize("d", [8, 16, 24, 32, 64])
+@pytest.mark.parametrize("n", [16, 33, 49, 64])
+def test_window_attn_train_bwd_bf16_on_the_tensor_cores(cuda, n, d, masked):
+    """The bf16 backward at every token count and head width class the
+    kernel takes (d rounded up to 16, 16 .. 64 tokens), with and without a
+    mask of 7 windows, over a chunking whose last chunk is short."""
+    bw, heads = 259, 8
+    chunk = wat.bwd_chunk(bw, heads)
+    assert bw % chunk
+    q, k, v, bias = _attn_case(n + d, bw, n, heads * d, heads,
+                               torch.bfloat16, cuda)
+    g = torch.randn(q.shape, generator=torch.Generator().manual_seed(n)).to(
+        cuda, torch.bfloat16)
+    mask = None
+    if masked:
+        gen = torch.Generator().manual_seed(d)
+        mask = ((torch.rand(7, n, n, generator=gen) > 0.6).float()
+                * -100.0).to(cuda)
+    _bwd_holds(q, k, v, bias, mask, g)
+
+
+def test_window_attn_train_bwd_bf16_reads_strided_and_unaligned_rows(cuda):
+    """k and v as the halves of one projection (rows 2C apart, 16-byte
+    aligned: copied by cp.async) and q as C of C + 4 columns (rows not
+    16-byte aligned: copied by plain loads)."""
+    bw, n, c, heads = 21, 49, 64, 2
+    q, k, v, bias = _attn_case(3, bw, n, c, heads, torch.bfloat16, cuda)
+    kh, vh = torch.cat([k, v], dim=-1).chunk(2, dim=-1)
+    wide = torch.zeros(bw, n, c + 4, dtype=torch.bfloat16, device=cuda)
+    wide[..., :c] = q
+    qw = wide[..., :c]
+    assert qw.stride(1) == c + 4
+    g = torch.randn_like(q)
+    _bwd_holds(qw, kh, vh, bias, None, g)
+    want = wat.window_attention_bwd(q, k, v, bias, None, g)
+    got = wat.window_attention_bwd(qw, kh, vh, bias, None, g)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+def test_window_attention_function_with_the_mask_on_the_card(cuda):
+    """One bf16 step through ``window_attention`` with the shift-3 mask of
+    the crf1 map: the gradients autograd hands back are the backward
+    kernel's, the mask gets none."""
+    from tpudepth_torch.ops.window import shifted_window_attention_mask
+
+    q, k, v, bias = _attn_case(7, 108, 49, 256, 8, torch.bfloat16, cuda)
+    mask = torch.from_numpy(shifted_window_attention_mask(63, 84, 7, 3)).to(
+        cuda)
+    q, k, v = (t.requires_grad_() for t in (q, k, v))
+    b = bias.clone().requires_grad_()
+    g = torch.randn_like(q)
+    before = (wat.window_attention_fwd.launches,
+              wat.window_attention_bwd.launches)
+    wat.window_attention(q, k, v, b, mask).backward(g)
+    assert (wat.window_attention_fwd.launches - before[0],
+            wat.window_attention_bwd.launches - before[1]) == (1, 1)
+    want = wat.window_attention_bwd(q.detach(), k.detach(), v.detach(),
+                                    bias, mask, g)
+    for t, w in zip((q, k, v, b), want):
+        assert torch.equal(t.grad, w)
+
+
 def test_window_attn_train_refuses_what_it_does_not_take(cuda):
     q, k, v, bias = _attn_case(4, 4, 49, 60, 3, torch.float32, cuda)
     with pytest.raises(ValueError, match="multiple of 8"):
@@ -1431,6 +1515,49 @@ def test_sam_block_infer_bf16_ragged_rows_and_narrow_widths(cuda, case):
                         sam=True)
     assert a["xw"].shape[0] * a["xw"].shape[1] % 128
     _sam_block_bf16_holds(a, kw)
+
+
+def _crf_block_bf16_holds(a, kw):
+    """One counted bf16 ``crf_block_infer`` call against the plain version
+    within the unchanged tolerance, a rerun bit-equal."""
+    before = bi.crf_block_infer.launches
+    got = bi.crf_block_infer(**a, **kw)
+    torch.cuda.synchronize()
+    assert bi.crf_block_infer.launches == before + 1
+    want = bi.crf_block_infer_reference(**a, **kw)
+    assert got.dtype == torch.bfloat16 and got.shape == a["xw"].shape
+    _close(got, want, bi.tolerance(torch.bfloat16))
+    assert torch.equal(got, bi.crf_block_infer(**a, **kw))
+
+
+@pytest.mark.parametrize("table", [True, False], ids=["valid", "novalid"])
+@pytest.mark.parametrize("shift", [0, 3], ids=["shift0", "shift3"])
+@pytest.mark.parametrize("case", SAM_STAGE_CASES, ids=SAM_STAGE_IDS)
+def test_crf_block_infer_bf16_on_the_gemm_core(cuda, case, shift, table):
+    """NewCRF's bf16 whole-block route (LN + qk product and the f32-y tail
+    chain on the wgmma core, its yn in the output buffer) at the stage
+    shapes, both shifts, with the valid table of the padded map and without
+    one (every token real)."""
+    a, kw = _block_case(sum(case) + 19 + shift, *case, shift, torch.bfloat16,
+                        cuda)
+    if not table:
+        a["valid"] = None
+    _crf_block_bf16_holds(a, kw)
+
+
+# (B, h, w, C, heads): row counts that are not multiples of the core's
+# 128-row tile (392, 196, 147 rows) at C 32, 96 and 64, and a map without
+# pad (14x21, valid None)
+@pytest.mark.parametrize("shift", [0, 3], ids=["shift0", "shift3"])
+@pytest.mark.parametrize("case", [(2, 10, 13, 32, 4), (1, 10, 13, 96, 3),
+                                  (3, 7, 7, 64, 2), (1, 14, 21, 64, 2)],
+                         ids=["C32", "C96", "C64", "nopad"])
+def test_crf_block_infer_bf16_ragged_rows_and_narrow_widths(cuda, case,
+                                                            shift):
+    a, kw = _block_case(sum(case) + 23 + shift, *case, shift, torch.bfloat16,
+                        cuda)
+    assert a["xw"].shape[0] * a["xw"].shape[1] % 128
+    _crf_block_bf16_holds(a, kw)
 
 
 def test_block_kernels_refuse_what_they_do_not_take(cuda):

@@ -1,10 +1,10 @@
 """What the wrappers of the kernels on the wgmma GEMM core
-(``tpudepth_torch/csrc/gemm_sm90.cuh``) and of the GUB conv kernels compute
-in Python, on the CPU: the row chunks of ``mlp_train_bwd``'s weight
-gradients, the scratch the wrappers allocate (that of the row kernels and
-of ``sam_block_infer`` too, whose bf16 projections and tails run on the
-core), the constants they share with the CUDA sources, and the ctypes
-signatures they give the C entries. The kernels themselves run only on the card
+(``tpudepth_torch/csrc/gemm_sm90.cuh``), of the GUB conv kernels and of the
+training attention compute in Python, on the CPU: the row chunks of
+``mlp_train_bwd``'s weight gradients, the scratch the wrappers allocate
+(that of the row kernels and of both whole-block kernels too, whose bf16
+projections and tails run on the core), the constants they share with the
+CUDA sources, and the ctypes signatures they give the C entries. The kernels themselves run only on the card
 (``tests/test_torch_port_cuda.py``).
 """
 
@@ -19,6 +19,7 @@ from tpudepth_torch.ops.kernels import epilogue_infer as ei
 from tpudepth_torch.ops.kernels import gub_conv as gc
 from tpudepth_torch.ops.kernels import mlp_train as mt
 from tpudepth_torch.ops.kernels import rowblock_infer as rbi
+from tpudepth_torch.ops.kernels import window_attn as wat
 
 # (M, rows, cols) of the weight gradients: dw1 [C, 4C] and dw2 [4C, C] of the
 # four stages of a 480x640 batch-8 step, batch 1, and small or ragged M
@@ -103,7 +104,7 @@ def test_ffn_scratch_shapes(m, hidden):
 
 
 _C_TYPES = {"void*": ctypes.c_void_p, "int": ctypes.c_int,
-            "float": ctypes.c_float,
+            "float": ctypes.c_float, "long long": ctypes.c_longlong,
             # arrays: one pointer a part, one int a part, strides
             "void**": ctypes.POINTER(ctypes.c_void_p),
             "int*": ctypes.POINTER(ctypes.c_int),
@@ -140,6 +141,7 @@ _SIGNATURES = {
     "gub_conv_bwd": ("gub_conv_bwd.cu", gc.ARGTYPES["gub_conv_bwd"]),
     "rowblock_infer": ("rowblock_infer.cu", rbi.ARGTYPES),
     "block_infer": ("block_infer.cu", bi.ARGTYPES),
+    "window_attn_train": ("window_attn_train.cu", wat.ARGTYPES),
 }
 
 
@@ -161,7 +163,9 @@ _ENTRIES = [("epilogue_infer", "block_epilogue_infer"),
             ("rowblock_infer", "crf_rowblock_infer"),
             ("rowblock_infer", "sam_rowblock_infer"),
             ("block_infer", "crf_block_infer"),
-            ("block_infer", "sam_block_infer")]
+            ("block_infer", "sam_block_infer"),
+            ("window_attn_train", "window_attn_train_fwd"),
+            ("window_attn_train", "window_attn_train_bwd")]
 
 
 @pytest.mark.parametrize("library,name", _ENTRIES, ids=[
@@ -261,3 +265,35 @@ def test_sam_block_scratch_shapes(b, hp, wp, c, bf16):
     y_bytes, yn_bytes = 4 * m * c, 2 * m * c
     assert y_bytes + yn_bytes == qkv_bytes
     assert y_bytes % 16 == 0
+
+
+@pytest.mark.parametrize("bf16", [True, False], ids=["bf16", "f32"])
+@pytest.mark.parametrize("b,hp,wp,c", SAM_ROW_SHAPES, ids=lambda v: str(v))
+def test_crf_block_scratch_shapes(b, hp, wp, c, bf16):
+    """The same map as window-major rows: q and k side by side; in bf16 the
+    whole-block chain's f32 y (4 M C bytes) fills all of qk's bytes, its
+    bf16 yn (2 M C) fits the output buffer [BW, 49, C], and its hidden g
+    [M, 4C] in bf16 has its own."""
+    bw = b * (hp // 7) * (wp // 7)
+    shapes = bi.crf_scratch_shapes(bw, 49, c, 4 * c, bf16)
+    assert list(shapes) == ["qk", "g"]
+    assert shapes["qk"] == (bw, 49, 2 * c)
+    m = bw * 49
+    if not bf16:
+        assert shapes["g"] is None
+        return
+    assert shapes["g"] == (m, 4 * c)
+    assert 4 * m * c == 2 * bw * 49 * shapes["qk"][2]
+    assert 2 * m * c == 2 * bw * 49 * c
+
+
+def test_crf_block_entry_takes_the_hidden_scratch():
+    """``crf_block_infer`` takes g beside qk: one pointer more than before
+    the tail moved onto the core, in the place ``sam_block_infer`` has it
+    (just before out)."""
+    params = re.search(r'extern "C" int crf_block_infer\(([^)]*)\)',
+                       _source("block_infer.cu")).group(1)
+    names = [p.split()[-1].lstrip("*") for p in params.split(",")]
+    assert names[names.index("qk"):names.index("out") + 1] == [
+        "qk", "g", "out"]
+    assert bi.ARGTYPES["crf_block_infer"][:20] == (ctypes.c_void_p,) * 20

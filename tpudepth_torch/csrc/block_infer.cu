@@ -27,9 +27,9 @@
 //     rounded;
 //   * the tail, unlike block_epilogue_infer's and the row kernels': y =
 //     x + (o Wp + bp) stays f32 and so does m = g W2 + b2 (the TPU kernel's
-//     _ffn_residual); only LN2(y), h = LN2(y) W1 + b1, g = gelu(h) (native
-//     erff; the TPU kernel's erf polynomial was a Mosaic workaround) and
-//     out = y + m are rounded.
+//     _ffn_residual); only LN2(y), h = LN2(y) W1 + b1, g = gelu(h) (f32:
+//     native erff; bf16: the erf polynomial's table) and out = y + m are
+//     rounded.
 //
 // What bounds it: per real token 2 C (2C + C + 8C) = 22 C^2 operations for
 // NewCRF (24 C^2 for SAM: q, kv, proj, FFN) and 4 49 C for the attention,
@@ -43,39 +43,43 @@
 // rows are 100 KB and SAM's weights 25 MB at C 1024. So the weights are
 // streamed from the 50 MB L2, and one entry launches a fixed number of
 // kernels on the caller's stream over the flat window-major rows
-// [M, C], M = BW N, whose products get full-height tiles:
-//   1. LayerNorm times valid and the projection (ln_proj.cuh), the row's
-//      valid entry valid[(row / N) % nW][row % N]: q scale and k (SAM: q;
-//      then k and v by a second launch) into an IO-dtype scratch;
+// [M, C], M = BW N, whose products get full-height tiles.
+//
+// bf16 runs the projections and the tail on the pipelined wgmma core
+// (tail_chain.cuh, gemm_sm90.cuh), as the row kernels do:
+//   1. a LayerNorm pass (one warp a row, times the row's valid entry
+//      valid[(row / N) % nW][row % N], pad rows zero) into the output
+//      buffer, and a product whose epilogue adds the bias, scales the q
+//      columns in f32 and rounds once (NewCRF: q and k from one product of
+//      width 2C at row stride 2C; SAM: q into the first C columns at row
+//      stride 3C, then the same for k and v);
 //   2. the attention, one block per (window, head) on wattn::WindowMajor
 //      rows, the mask of window w % nW added; o into the output buffer;
-//   3. the tail over the flat rows of o and x (block_tail.cuh, Mode
-//      kBlock), in place: each tail block reads its row tile of o into
-//      shared memory before it writes the same rows. bf16 keeps y as f32
-//      [BM, C] in shared memory; the tail's accumulator (64 floats a
-//      thread, BM = 16 .. 128 rows as C falls from 1024 to 128) already
-//      caps BM C at 16,384, so y takes at most 64 KB and no smaller tiles
-//      than block_epilogue_infer's are needed.
-// Launches per call: 3 for NewCRF, 4 for SAM. Scratch (allocated by the
-// caller): NewCRF 2 M C IO elements (q, k), SAM 3 M C (q, k, v); the output
-// buffer M C doubles as o. Fusing the projection into the attention would
-// need a window's 49 x C rows and their weight tiles in one block: a later
-// design.
+//   3. the chain tail_block_bf16, in place, which keeps this kernel's
+//      rounding: y = x + (o Wp + bp) is spilled in f32 (a float2 a lane
+//      from the fragment, x read in the same epilogue), LN2 reads it in
+//      f32, and the last product's epilogue adds m = g W2 + b2 to the f32
+//      y unrounded and rounds once.
+// The f32 y (4 M C bytes) goes into the q, k (and v) scratch, dead once
+// the attention is done: NewCRF's 2 M C bf16 elements hold it exactly, and
+// its yn (2 M C bytes) goes into the output buffer, dead between the
+// chain's first product, which reads o, and its last, which writes out;
+// SAM's qkv holds y and yn in its 6 M C bytes. The hidden goes into a bf16
+// scratch g [M, 4C]. 7 kernels a NewCRF call, 9 a SAM call. The GELU is
+// looked up in the table the erf polynomial fills (at most 2.1e-7 from
+// erff before rounding). On an NVIDIA H100 80GB HBM3 at 700 W the eight
+// calls of a batch-8 NewCRF forward take 5.69 ms this way, half of it the
+// attention; through the CUDA-core passes below they took 11.45, 6.68 of
+// it the tail (chip_smoke.py [block kernel time], [block kernel split]).
 //
-// SAM in bf16 runs steps 1 and 3 on the pipelined wgmma core instead
-// (tail_chain.cuh, gemm_sm90.cuh), as sam_rowblock_infer does: 1 becomes a
-// LayerNorm pass (one warp a row, pad rows zero) into the output buffer and
-// a product whose epilogue adds the bias, scales in f32 and rounds once,
-// storing q into the first C columns of the scratch at row stride 3C (then
-// the same for k and v); 3 becomes the chain tail_block_bf16, in place,
-// which keeps this kernel's rounding: y = x + (o Wp + bp) is spilled in f32
-// (a float2 a lane from the fragment, x read in the same epilogue), LN2
-// reads it in f32, and the last product's epilogue adds m = g W2 + b2 to
-// the f32 y unrounded and rounds once. y (f32, 4 M C bytes) and yn (bf16,
-// 2 M C bytes) fill the scratch's 6 M C bytes, dead once the attention is
-// done; the hidden goes into a bf16 scratch g [M, 4C]: 9 kernels a call.
-// Its GELU is looked up in the table the erf polynomial fills (at most
-// 2.1e-7 from erff before rounding). f32 and NewCRF keep the passes above.
+// f32 keeps the passes on the CUDA cores: LayerNorm times valid and the
+// projection (ln_proj.cuh), the attention, and the tail over the flat rows
+// of o and x (block_tail.cuh, Mode kBlock), in place: each tail block reads
+// its row tile of o into shared memory before it writes the same rows.
+// Launches per f32 call: 3 for NewCRF, 4 for SAM; scratch NewCRF 2 M C
+// (q, k), SAM 3 M C (q, k, v); the output buffer M C doubles as o. Fusing
+// the projection into the attention would need a window's 49 x C rows and
+// their weight tiles in one block: a later design.
 
 #include "block_tail.cuh"
 #include "ln_proj.cuh"
@@ -141,37 +145,54 @@ const void* offset(const void* base, int elems, int is_bf16) {
 }  // namespace
 
 // The NewCRF block. x, v, out: contiguous [BW, n, C] of the IO dtype (x and
-// out 16-byte aligned); qk: scratch [BW, n, 2C] of the IO dtype. Weights in
-// the IO dtype in torch layout [out, in], contiguous; vectors, bias
-// [heads, n, n], mask (null, or [nw, n, n]) and valid (null, or [nw, n])
-// f32. nw is the period of the mask and valid tables (1 without them).
-// Returns a cudaError_t.
+// out 16-byte aligned); qk: scratch [BW, n, 2C] of the IO dtype; g: bf16
+// scratch [BW n, hidden] (bf16 only; unused in f32). Weights in the IO
+// dtype in torch layout [out, in], contiguous; vectors, bias [heads, n, n],
+// mask (null, or [nw, n, n]) and valid (null, or [nw, n]) f32. nw is the
+// period of the mask and valid tables (1 without them). Returns a
+// cudaError_t.
+//
+// bf16 runs the projection and the tail on the wgmma core (tail_chain.cuh):
+//   1. LN1(x) valid, rounded, into out (free until the attention writes o);
+//   2. q = round((. Wq + bq) scale), k = round(. Wk + bk) into qk (one
+//      product, the columns below C scaled);
+//   3. the attention, o into out;
+//   4-7. the tail chain in place on out, its f32 y in qk's 4 M C bytes,
+//        its yn in out (o is read by the chain's first product alone), its
+//        hidden in g.
+// f32 keeps the CUDA-core passes (lnproj, tail).
 extern "C" int crf_block_infer(
     const void* x, const void* v, const void* ln1s, const void* ln1b,
     const void* wqk, const void* bqk, const void* bias, const void* mask,
     const void* wproj, const void* bproj, const void* ln2s, const void* ln2b,
     const void* w1, const void* b1, const void* w2, const void* b2,
-    const void* valid, void* qk, void* out, int bw, int n, int C, int heads,
-    int hidden, int nw, float scale, int is_bf16, void* stream) {
-  if (!geometry_ok(bw, n, C, heads, hidden, nw)) {
+    const void* valid, void* qk, void* g, void* out, int bw, int n, int C,
+    int heads, int hidden, int nw, float scale, int is_bf16, void* stream) {
+  if (!geometry_ok(bw, n, C, heads, hidden, nw) ||
+      (is_bf16 && g == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int M = bw * n;
   const TableValid tv = {static_cast<const float*>(valid), n, nw};
-  cudaError_t err = lnproj::run(
-      lnproj::params(x, ln1s, ln1b, wqk, bqk, qk, 2 * C, 2 * C, C, scale, M,
-                     C),
-      tv, is_bf16, st);
+  cudaError_t err =
+      is_bf16 ? chain::ln_project(x, static_cast<const float*>(ln1s),
+                                  static_cast<const float*>(ln1b), wqk,
+                                  static_cast<const float*>(bqk), scale, C,
+                                  out, qk, 2 * C, M, C, 2 * C, tv, st)
+              : lnproj::run(lnproj::params(x, ln1s, ln1b, wqk, bqk, qk, 2 * C,
+                                           2 * C, C, scale, M, C),
+                            tv, st);
   if (err != cudaSuccess) return static_cast<int>(err);
   err = attend(qk, offset(qk, C, is_bf16), v, 2 * C, 2 * C, C, bias, mask,
                out, bw, n, C, heads, nw, is_bf16, st);
   if (err != cudaSuccess) return static_cast<int>(err);
-  // the CUDA-core tail in place, y kept in f32
-  return static_cast<int>(tail::run<tail::kBlock>(
-      tail::block_params(out, x, wproj, bproj, ln2s, ln2b, w1, b1, w2, b2,
-                         out, M, C, hidden),
-      is_bf16, st));
+  const tail::Params p = tail::block_params(
+      out, x, wproj, bproj, ln2s, ln2b, w1, b1, w2, b2, out, M, C, hidden);
+  if (!is_bf16) return static_cast<int>(tail::run<tail::kBlock>(p, st));
+  return static_cast<int>(chain::tail_block_bf16(
+      p, static_cast<float*>(qk), static_cast<__nv_bfloat16*>(out),
+      static_cast<__nv_bfloat16*>(g), st));
 }
 
 // The SAM block (never shifted). As crf_block_infer, with LNv and the q and
@@ -217,11 +238,11 @@ extern "C" int sam_block_infer(
   } else {
     err = lnproj::run(
         lnproj::params(x, ln1s, ln1b, wq, bq, qkv, 3 * C, C, C, scale, M, C),
-        tv, false, st);
+        tv, st);
     if (err == cudaSuccess)
       err = lnproj::run(lnproj::params(v, lnvs, lnvb, wkv, bkv, kv, 3 * C,
                                        2 * C, 0, 1.0f, M, C),
-                        tv, false, st);
+                        tv, st);
   }
   if (err != cudaSuccess) return static_cast<int>(err);
   err = attend(qkv, kv, offset(qkv, 2 * C, is_bf16), 3 * C, 3 * C, 3 * C,
@@ -229,7 +250,7 @@ extern "C" int sam_block_infer(
   if (err != cudaSuccess) return static_cast<int>(err);
   const tail::Params p = tail::block_params(
       out, x, wproj, bproj, ln2s, ln2b, w1, b1, w2, b2, out, M, C, hidden);
-  if (!is_bf16) return static_cast<int>(tail::run<tail::kBlock>(p, 0, st));
+  if (!is_bf16) return static_cast<int>(tail::run<tail::kBlock>(p, st));
   float* y = static_cast<float*>(qkv);
   return static_cast<int>(chain::tail_block_bf16(
       p, y, reinterpret_cast<__nv_bfloat16*>(y + static_cast<size_t>(M) * C),

@@ -1,14 +1,12 @@
-// Device code of the transformer block tail and FFN on mma.sync and the
-// CUDA cores, shared by epilogue_infer.cu (the f32 block_epilogue_infer and
-// mlp_infer), mlp_train.cu (the f32 mlp_train_fwd), rowblock_infer.cu and
-// block_infer.cu (the f32 tails of the row and whole-block kernels, and
-// crf_block_infer's bf16 tail), and ln_proj.cuh (the LayerNorm-and-
-// projection pass in front of their attention). The arithmetic, the design
-// and what bounds it are described at the top of epilogue_infer.cu; the
-// tail of the whole-block kernels (Mode kBlock) keeps y in f32, as the top
-// of block_infer.cu describes. Every other bf16 tail and FFN runs on the
-// wgmma core of gemm_sm90.cuh (tail_chain.cuh) instead: the bf16 kernel
-// here is kBlock's alone, the FFN mode f32 only.
+// Device code of the f32 transformer block tail and FFN on the CUDA cores,
+// shared by epilogue_infer.cu (the f32 block_epilogue_infer and mlp_infer),
+// mlp_train.cu (the f32 mlp_train_fwd), rowblock_infer.cu and
+// block_infer.cu (the f32 tails of the row and whole-block kernels), and
+// ln_proj.cuh (the f32 LayerNorm-and-projection pass in front of their
+// attention). The arithmetic, the design and what bounds it are described
+// at the top of epilogue_infer.cu. Every bf16 tail and FFN runs on the
+// wgmma core of gemm_sm90.cuh (tail_chain.cuh) instead; the LayerNorm
+// helpers and the argument block here are shared with it.
 //
 // Everything is in namespace tail inside an unnamed namespace: each source
 // that includes it gets its own copy with internal linkage, and the names do
@@ -31,13 +29,13 @@ constexpr int kNC = 128;    // widest output (or hidden) chunk
 constexpr size_t kSmemLimit = 232448;  // 227 KB: the most a block may have
 constexpr float kInvSqrt2 = 0.70710678118654752f;
 
-// What a tail computes from the rows o (and the shortcut x):
-//   kFfn       out = fc2(gelu(fc1(o))), f32 only (mlp_infer, mlp_train_fwd)
-//   kEpilogue  y = x + (o Wp + bp), out = y + fc2(gelu(fc1(LN(y)))), f32
-//              only (block_epilogue_infer, the row kernels)
-//   kBlock     y = x + (o Wp + bp) and m = fc2(...) kept in f32,
-//              out = round(y + m)                 (the whole-block kernels)
-// LN(y), h and gelu(h) are rounded to the IO dtype in kBlock.
+// What a tail computes from the rows o (and the shortcut x), in f32:
+//   kFfn       out = fc2(gelu(fc1(o)))          (mlp_infer, mlp_train_fwd)
+//   kEpilogue  y = x + (o Wp + bp), out = y + fc2(gelu(fc1(LN(y))))
+//                                   (block_epilogue_infer, the row kernels)
+//   kBlock     the same                        (the whole-block kernels)
+// kEpilogue and kBlock differ in the rounding of bf16 alone, which the
+// chains of tail_chain.cuh keep (tail_bf16, tail_block_bf16).
 enum Mode { kFfn, kEpilogue, kBlock };
 
 struct Params {
@@ -84,39 +82,25 @@ inline Params block_params(const void* o, const void* x, const void* wp,
 
 __host__ __device__ inline int chunk_of(int n) { return n < kNC ? n : kNC; }
 
-__device__ __forceinline__ float bf16r(float v) {
-  return __bfloat162float(__float2bfloat16(v));
-}
-
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
   return __bfloat162float(v);
-}
-
-// Eight bf16 values (one 16-byte piece) into f32 y.
-__device__ __forceinline__ void store8(float* y, uint4 v) {
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v);
-  const float2 a = __bfloat1622float2(h[0]), b = __bfloat1622float2(h[1]);
-  const float2 c = __bfloat1622float2(h[2]), d = __bfloat1622float2(h[3]);
-  reinterpret_cast<float4*>(y)[0] = make_float4(a.x, a.y, b.x, b.y);
-  reinterpret_cast<float4*>(y)[1] = make_float4(c.x, c.y, d.x, d.y);
 }
 
 __device__ __forceinline__ float gelu(float h) {
   return 0.5f * h * (1.0f + erff(h * kInvSqrt2));
 }
 
-// LN of one row yr into ar by the calling warp; Y and A are float or
-// __nv_bfloat16 (then rounded).
-template <typename Y, typename A>
-__device__ __forceinline__ void layer_norm_row(const Y* yr, A* ar, int C,
-                                               const float* scale,
+// LN of one row yr into ar by the calling warp (flax's fast variance, eps
+// 1e-5).
+__device__ __forceinline__ void layer_norm_row(const float* yr, float* ar,
+                                               int C, const float* scale,
                                                const float* bias) {
   const int lane = threadIdx.x & 31;
   const float inv_c = 1.0f / static_cast<float>(C);
   float s = 0.f, s2 = 0.f;
   for (int k = lane; k < C; k += 32) {
-    const float v = static_cast<float>(yr[k]);
+    const float v = yr[k];
     s += v;
     s2 += v * v;
   }
@@ -129,210 +113,19 @@ __device__ __forceinline__ void layer_norm_row(const Y* yr, A* ar, int C,
   const float var = fmaxf(s2 * inv_c - mean * mean, 0.f);
   const float rs = rsqrtf(var + 1e-5f);
   for (int k = lane; k < C; k += 32) {
-    const float v = (static_cast<float>(yr[k]) - mean) * (rs * scale[k]) +
-                    bias[k];
-    ar[k] = static_cast<A>(v);
+    ar[k] = (yr[k] - mean) * (rs * scale[k]) + bias[k];
   }
 }
 
 // LN of the rows of y (row stride ldy) into a (row stride lda), one warp
 // per row.
-template <typename Y, typename A>
-__device__ void layer_norm_rows(const Y* y, int ldy, A* a, int lda, int rows,
-                                int C, const float* scale, const float* bias) {
+__device__ void layer_norm_rows(const float* y, int ldy, float* a, int lda,
+                                int rows, int C, const float* scale,
+                                const float* bias) {
   for (int r = threadIdx.x >> 5; r < rows; r += kWarps) {
     layer_norm_row(y + r * ldy, a + r * lda, C, scale, bias);
   }
 }
-
-// ---------------------------------------------------------------------------
-// bf16: tensor cores (mma.sync m16n8k16)
-// ---------------------------------------------------------------------------
-
-__device__ __forceinline__ void mma_bf16(float (&c)[4], uint32_t a0,
-                                         uint32_t a1, uint32_t a2, uint32_t a3,
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
-}
-
-// acc[m][i] (8-column tile warp + 8 i of the output, rows 16 m .. 16 m + 15)
-// += A[:, 0:kdim] W[tile rows, 0:kdim]^T, for the tiles < ntiles. A is bf16
-// in shared memory (row stride lda, a multiple of 8); W is bf16 [n][k] in
-// device memory (row stride ldw, a multiple of 8).
-template <int MT, int NT>
-__device__ __forceinline__ void mma_gemm(float (&acc)[MT][NT][4],
-                                         const __nv_bfloat16* a, int lda,
-                                         const __nv_bfloat16* w, int ldw,
-                                         int kdim, int ntiles) {
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int g = lane >> 2;
-  const int t = lane & 3;
-  for (int k0 = 0; k0 < kdim; k0 += kBK) {
-    uint4 bf[NT];
-#pragma unroll
-    for (int i = 0; i < NT; ++i) {
-      const int nt = warp + kWarps * i;
-      if (nt < ntiles) {
-        bf[i] = __ldg(reinterpret_cast<const uint4*>(
-            w + static_cast<size_t>(nt * 8 + g) * ldw + k0 + 8 * t));
-      }
-    }
-#pragma unroll
-    for (int m = 0; m < MT; ++m) {
-      const uint4 r0 = *reinterpret_cast<const uint4*>(
-          a + (m * 16 + g) * lda + k0 + 8 * t);
-      const uint4 r1 = *reinterpret_cast<const uint4*>(
-          a + (m * 16 + g + 8) * lda + k0 + 8 * t);
-#pragma unroll
-      for (int i = 0; i < NT; ++i) {
-        if (warp + kWarps * i < ntiles) {
-          mma_bf16(acc[m][i], r0.x, r1.x, r0.y, r1.y, bf[i].x, bf[i].y);
-          mma_bf16(acc[m][i], r0.z, r1.z, r0.w, r1.w, bf[i].z, bf[i].w);
-        }
-      }
-    }
-  }
-}
-
-template <int MT, int NT>
-__device__ __forceinline__ void zero(float (&acc)[MT][NT][4]) {
-#pragma unroll
-  for (int m = 0; m < MT; ++m)
-#pragma unroll
-    for (int i = 0; i < NT; ++i)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) acc[m][i][c] = 0.f;
-}
-
-// Row padding (in bf16 elements) that makes the row stride 32 mod 64: the
-// 16-byte A loads of one quarter warp (two rows, four lanes each) then fall
-// in distinct banks.
-__host__ __device__ inline int padded(int n) { return n + (96 - n % 64) % 64; }
-
-// a [BM][lda] and g [BM][ldg] in bf16, y [BM][C] in f32.
-__host__ __device__ inline size_t mma_smem_bytes(int mt, int cin,
-                                                 int hidden) {
-  const size_t bm = 16 * static_cast<size_t>(mt);
-  return 2 * bm * (padded(cin) + padded(chunk_of(hidden))) + 4 * bm * cin;
-}
-
-// The bf16 tail of the whole-block kernels (kBlock; crf_block_infer).
-// NT = 16 / MT: the accumulator holds 64 floats per thread, which covers
-// Cout <= 1024 at MT = 1 (16 tiles per warp) down to Cout <= 128 at MT = 8.
-// With it the f32 y is at most 16 x 1024 floats (64 KB).
-template <int MT>
-__global__ void __launch_bounds__(kThreads, 1) tail_mma_kernel(const Params p) {
-  constexpr int NT = 16 / MT;
-  constexpr int BM = 16 * MT;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int g = lane >> 2;
-  const int t = lane & 3;
-  const int row0 = blockIdx.x * BM;
-  const int C = p.cin;
-  const int lda = padded(C);
-  const int hc = chunk_of(p.hidden);
-  const int ldg = padded(hc);
-  __nv_bfloat16* a_s = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  float* y_s = reinterpret_cast<float*>(a_s + BM * lda);    // [BM][C]
-  __nv_bfloat16* g_s = reinterpret_cast<__nv_bfloat16*>(y_s + BM * C);
-                                                            // [BM][ldg]
-
-  // the row tile, 8 bf16 at a time; rows past M are zeros, never written
-  const __nv_bfloat16* o = static_cast<const __nv_bfloat16*>(p.o);
-  const __nv_bfloat16* x = static_cast<const __nv_bfloat16*>(p.x);
-  const int c8 = C / 8;
-  for (int e = threadIdx.x; e < BM * c8; e += kThreads) {
-    const int r = e / c8;
-    const int k = (e - r * c8) * 8;
-    const bool in = row0 + r < p.M;
-    const size_t gi = static_cast<size_t>(row0 + r) * C + k;
-    const uint4 zero4 = make_uint4(0, 0, 0, 0);
-    *reinterpret_cast<uint4*>(a_s + r * lda + k) =
-        in ? *reinterpret_cast<const uint4*>(o + gi) : zero4;
-    store8(y_s + r * C + k,
-           in ? *reinterpret_cast<const uint4*>(x + gi) : zero4);
-  }
-  __syncthreads();
-
-  // y = x + z in f32 in place in y_s (each element is owned by one thread)
-  float acc[MT][NT][4];
-  const int ntiles = p.cout / 8;
-  zero(acc);
-  mma_gemm<MT, NT>(acc, a_s, lda, static_cast<const __nv_bfloat16*>(p.wp), C,
-                   C, ntiles);
-#pragma unroll
-  for (int m = 0; m < MT; ++m)
-#pragma unroll
-    for (int i = 0; i < NT; ++i)
-      if (warp + kWarps * i < ntiles)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          const int r = m * 16 + g + (c >> 1) * 8;
-          const int n = (warp + kWarps * i) * 8 + 2 * t + (c & 1);
-          y_s[r * C + n] += acc[m][i][c] + p.bp[n];
-        }
-  __syncthreads();
-  layer_norm_rows(y_s, C, a_s, lda, BM, C, p.lns, p.lnb);
-  __syncthreads();
-
-  // FFN: acc = g W2 over the hidden chunks, g = gelu(round(a W1 + b1))
-  zero(acc);
-  const __nv_bfloat16* w1 = static_cast<const __nv_bfloat16*>(p.w1);
-  const __nv_bfloat16* w2 = static_cast<const __nv_bfloat16*>(p.w2);
-  for (int j0 = 0; j0 < p.hidden; j0 += hc) {
-    float h[MT][2][4];
-    zero(h);
-    mma_gemm<MT, 2>(h, a_s, lda, w1 + static_cast<size_t>(j0) * C, C, C,
-                    hc / 8);
-#pragma unroll
-    for (int m = 0; m < MT; ++m)
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-        if (warp + kWarps * i < hc / 8)
-#pragma unroll
-          for (int c = 0; c < 4; c += 2) {
-            const int r = m * 16 + g + (c >> 1) * 8;
-            const int j = (warp + kWarps * i) * 8 + 2 * t;
-            const float h0 = bf16r(h[m][i][c] + p.b1[j0 + j]);
-            const float h1 = bf16r(h[m][i][c + 1] + p.b1[j0 + j + 1]);
-            *reinterpret_cast<__nv_bfloat162*>(g_s + r * ldg + j) =
-                __floats2bfloat162_rn(gelu(h0), gelu(h1));
-          }
-    __syncthreads();
-    mma_gemm<MT, NT>(acc, g_s, ldg, w2 + j0, p.hidden, hc, ntiles);
-    __syncthreads();
-  }
-
-  __nv_bfloat16* out = static_cast<__nv_bfloat16*>(p.out);
-#pragma unroll
-  for (int m = 0; m < MT; ++m)
-#pragma unroll
-    for (int i = 0; i < NT; ++i)
-      if (warp + kWarps * i < ntiles)
-#pragma unroll
-        for (int c = 0; c < 4; c += 2) {
-          const int r = m * 16 + g + (c >> 1) * 8;
-          if (row0 + r >= p.M) continue;
-          const int n = (warp + kWarps * i) * 8 + 2 * t;
-          const float v0 = y_s[r * C + n] + (acc[m][i][c] + p.b2[n]);
-          const float v1 =
-              y_s[r * C + n + 1] + (acc[m][i][c + 1] + p.b2[n + 1]);
-          *reinterpret_cast<__nv_bfloat162*>(
-              out + static_cast<size_t>(row0 + r) * p.cout + n) =
-              __floats2bfloat162_rn(v0, v1);
-        }
-}
-
-// ---------------------------------------------------------------------------
-// f32: CUDA cores
-// ---------------------------------------------------------------------------
 
 // Shared-memory layout in floats: a [BM, cin], y [BM, cin] (epilogue only),
 // acc [BM, cout], g [BM, hc], w [kBK, kNC + 1].
@@ -501,17 +294,6 @@ cudaError_t opt_in(K kern, bool& done) {
   return err;
 }
 
-template <int MT>
-cudaError_t launch_mma(const Params& p, cudaStream_t st) {
-  static bool done = false;
-  auto kern = tail_mma_kernel<MT>;
-  const cudaError_t err = opt_in(kern, done);
-  if (err != cudaSuccess) return err;
-  const int blocks = (p.M + 16 * MT - 1) / (16 * MT);
-  kern<<<blocks, kThreads, mma_smem_bytes(MT, p.cin, p.hidden), st>>>(p);
-  return cudaGetLastError();
-}
-
 template <int BM, bool kEpilogue>
 cudaError_t launch_f32(const Params& p, cudaStream_t st) {
   static bool done = false;
@@ -524,27 +306,14 @@ cudaError_t launch_f32(const Params& p, cudaStream_t st) {
   return cudaGetLastError();
 }
 
-// Widths the kernels take: a multiple of 32, at most 128 or a multiple of
-// 128 (the chunks are 128 wide, or the whole width below that); Cout at
-// most 1024 (the bf16 accumulator).
+// Widths the kernels (and the chains of tail_chain.cuh) take: a multiple of
+// 32, at most 128 or a multiple of 128 (the chunks are 128 wide, or the
+// whole width below that); Cout at most 1024.
 bool width_ok(int n) { return n >= 32 && n % 32 == 0 && (n <= kNC || n % kNC == 0); }
 
-// Row tile in rows for the bf16 kernel (16 MT) or the f32 kernel: the
-// largest that fits (registers, shared memory), halved while the grid would
-// leave SMs idle. 0 when nothing fits.
-int pick_rows(int M, int cin, int hidden, int cout, Mode mode, bool bf16) {
-  const bool epilogue = mode != kFfn;
-  if (bf16) {
-    const int nt = (cout / 8 + kWarps - 1) / kWarps;   // tiles per warp
-    int mt = 8;
-    while (mt > 1 && (mt * nt > 16 ||
-                      mma_smem_bytes(mt, cin, hidden) > kSmemLimit))
-      mt /= 2;
-    if (mt * nt > 16 || mma_smem_bytes(mt, cin, hidden) > kSmemLimit)
-      return 0;
-    while (mt > 1 && (M + 16 * mt - 1) / (16 * mt) < 132) mt /= 2;
-    return 16 * mt;
-  }
+// Row tile in rows: the largest that fits in shared memory, halved while
+// the grid would leave SMs idle. 0 when nothing fits.
+int pick_rows(int M, int cin, int hidden, int cout, bool epilogue) {
   int bm = 64;
   while (bm > 8 && f32_smem_floats(bm, cin, hidden, cout, epilogue) *
                            sizeof(float) > kSmemLimit)
@@ -564,27 +333,14 @@ inline bool shape_ok(const Params& p, Mode mode) {
          (mode == kFfn || p.cout == p.cin);
 }
 
-// One launch of the tail in mode kMode (bf16: kBlock only). In f32 kBlock
-// is kEpilogue: the IO dtype rounds nothing.
+// One launch of the f32 tail in mode kMode (the bf16 tails are the chains
+// of tail_chain.cuh).
 template <Mode kMode>
-cudaError_t run(const Params& p, int is_bf16, void* stream) {
+cudaError_t run(const Params& p, void* stream) {
   constexpr bool kEpilogue = kMode != kFfn;
   if (!shape_ok(p, kMode)) return cudaErrorInvalidValue;
-  const int rows = pick_rows(p.M, p.cin, p.hidden, p.cout, kMode, is_bf16);
+  const int rows = pick_rows(p.M, p.cin, p.hidden, p.cout, kEpilogue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (is_bf16) {
-    if constexpr (kMode != kBlock) {
-      return cudaErrorInvalidValue;
-    } else {
-      switch (rows) {
-        case 16: return launch_mma<1>(p, st);
-        case 32: return launch_mma<2>(p, st);
-        case 64: return launch_mma<4>(p, st);
-        case 128: return launch_mma<8>(p, st);
-        default: return cudaErrorInvalidValue;
-      }
-    }
-  }
   switch (rows) {
     case 8: return launch_f32<8, kEpilogue>(p, st);
     case 16: return launch_f32<16, kEpilogue>(p, st);

@@ -101,7 +101,7 @@ extern "C" int block_epilogue_infer(const void* o, const void* x,
                                     int hidden, int is_bf16, void* stream) {
   const Params p = tail::block_params(o, x, wp, bp, lns, lnb, w1, b1, w2, b2,
                                       out, M, C, hidden);
-  if (!is_bf16) return static_cast<int>(run<tail::kEpilogue>(p, 0, stream));
+  if (!is_bf16) return static_cast<int>(run<tail::kEpilogue>(p, stream));
   if (M < 1 || !tail::width_ok(C) || !tail::width_ok(hidden) || C > 1024 ||
       y == nullptr || yn == nullptr || g == nullptr) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -130,7 +130,7 @@ extern "C" int mlp_infer(const void* x, const void* w1, const void* b1,
   p.cin = cin;
   p.hidden = hidden;
   p.cout = cout;
-  if (!is_bf16) return static_cast<int>(run<tail::kFfn>(p, 0, stream));
+  if (!is_bf16) return static_cast<int>(run<tail::kFfn>(p, stream));
   if (!tail::shape_ok(p, tail::kFfn) || g == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(gemm::ffn_bf16(x, w1, p.b1, w2, p.b2, g, out, M,

@@ -5,6 +5,8 @@
 // mma.sync.m16n8k16 (bf16 in, f32 sums), bf16 vectors to and from f32, and
 // the launch preparation (dynamic shared memory set on a first launch,
 // blocks an SM). How each kernel uses them is in its source's header.
+// window_attn_train.cu's bf16 backward uses the cp.async, ldmatrix and
+// mma.sync wrappers alone.
 //
 // Everything is in namespace tc inside an unnamed namespace, as in the other
 // headers.

@@ -594,7 +594,7 @@ extern "C" int mlp_train_fwd(const void* x, const void* w1t, const void* b1,
   p.cin = cin;
   p.hidden = hidden;
   p.cout = cout;
-  if (!is_bf16) return static_cast<int>(tail::run<tail::kFfn>(p, 0, stream));
+  if (!is_bf16) return static_cast<int>(tail::run<tail::kFfn>(p, stream));
   if (!tail::shape_ok(p, tail::kFfn) || a == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(gemm::ffn_bf16(x, w1t, p.b1, w2t, p.b2, a, out, M,

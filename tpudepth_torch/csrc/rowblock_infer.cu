@@ -183,14 +183,14 @@ extern "C" int crf_rowblock_infer(
                                   out, qk, 2 * C, M, C, 2 * C, valid, st)
               : lnproj::run(lnproj::params(x, ln1s, ln1b, wqk, bqk, qk, 2 * C,
                                            2 * C, C, scale, M, C),
-                            valid, false, st);
+                            valid, st);
   if (err != cudaSuccess) return static_cast<int>(err);
   err = attend(qk, offset(qk, C, is_bf16), v, 2 * C, 2 * C, C, bias, mask,
                out, B, hp, wp, C, heads, ws, is_bf16, st);
   if (err != cudaSuccess) return static_cast<int>(err);
   const tail::Params p = tail::block_params(
       out, x, wproj, bproj, ln2s, ln2b, w1, b1, w2, b2, out, M, C, hidden);
-  if (!is_bf16) return static_cast<int>(tail::run<tail::kEpilogue>(p, 0, st));
+  if (!is_bf16) return static_cast<int>(tail::run<tail::kEpilogue>(p, st));
   __nv_bfloat16* y = static_cast<__nv_bfloat16*>(qk);
   return static_cast<int>(chain::tail_bf16(
       p, y, y + static_cast<size_t>(M) * C, static_cast<__nv_bfloat16*>(g),
@@ -240,11 +240,11 @@ extern "C" int sam_rowblock_infer(
   } else {
     err = lnproj::run(
         lnproj::params(x, ln1s, ln1b, wq, bq, qkv, 3 * C, C, C, scale, M, C),
-        valid, false, st);
+        valid, st);
     if (err == cudaSuccess)
       err = lnproj::run(lnproj::params(v, lnvs, lnvb, wkv, bkv, kv, 3 * C,
                                        2 * C, 0, 1.0f, M, C),
-                        valid, false, st);
+                        valid, st);
   }
   if (err != cudaSuccess) return static_cast<int>(err);
   err = attend(qkv, kv, offset(qkv, 2 * C, is_bf16), 3 * C, 3 * C, 3 * C,
@@ -252,7 +252,7 @@ extern "C" int sam_rowblock_infer(
   if (err != cudaSuccess) return static_cast<int>(err);
   const tail::Params p = tail::block_params(
       out, x, wproj, bproj, ln2s, ln2b, w1, b1, w2, b2, out, M, C, hidden);
-  if (!is_bf16) return static_cast<int>(tail::run<tail::kEpilogue>(p, 0, st));
+  if (!is_bf16) return static_cast<int>(tail::run<tail::kEpilogue>(p, st));
   __nv_bfloat16* y = static_cast<__nv_bfloat16*>(qkv);
   return static_cast<int>(chain::tail_bf16(
       p, y, y + static_cast<size_t>(M) * C, static_cast<__nv_bfloat16*>(g),

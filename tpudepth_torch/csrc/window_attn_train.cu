@@ -30,28 +30,57 @@
 // operations per element (35 per bf16 byte): far below the card's ~295 per
 // byte, so bytes bound it (q, k, v, g read once; dq, dk, dv written once).
 //
-// Design. One block of 128 threads per (chunk of windows, head). The head's
-// N x d slices of q, k, v and g and the N x N f32 probabilities and ds live
-// in shared memory only (N <= 64, d <= 64: about 55 KB at N 49, d 32); the
-// block walks its chunk's windows one after another. Scores and dp: one
-// (i, j) per thread pass; softmax, the row sums of dp P and ds: one warp per
-// row; dq, dk, dv: one (row, channel) per thread pass. The products run on
-// the CUDA cores in f32 (the products of bf16 values are exact there).
-//
-// dbias without atomics: each block adds its windows' ds into an N x N f32
-// accumulator in shared memory (each element owned by one thread, windows
-// in order) and writes it to its chunk's slot of a partial buffer
+// Design of the bf16 backward (namespace wtc). The products go on the
+// tensor cores: mma.sync m16n8k16 with bf16 operands and f32 sums, fed by
+// ldmatrix, which maps the rounding order exactly (q, k, v, g are bf16; dv
+// takes Pd = round(P), dq and dk take dsd = round(ds); every sum is f32).
+// One block of 4 warps per (chunk of windows, head) walks its chunk's
+// windows in order:
+//   1. the window's N x d slices of q, k, v and g are copied by cp.async,
+//      16 bytes a thread, into bf16 tiles in shared memory [64][KD + 8]
+//      (KD: d rounded up to 16; rows and columns past N and d stay zero),
+//      two sets of them, so the next window's copy runs under this
+//      window's products;
+//   2. each warp owns 16 query rows: S = q k^T and dP = g v^T in registers
+//      (KD / 16 k16 steps), bias then mask added in f32, the f32 softmax
+//      and rowsum(dP P) with quad shuffles (columns past N at -inf), ds =
+//      P (dP - rowsum), and dq = dsd k with the A fragments taken straight
+//      from the accumulator layout (k read by ldmatrix.trans); Pd and dsd
+//      go to [64][72] bf16 tiles;
+//   3. after one barrier each warp owns 16 key rows: dv = Pd^T g and dk =
+//      dsd^T q, both operands read by ldmatrix.trans;
+//   4. dq, dk and dv are staged in the warp's own rows of the window's
+//      dead k and v tiles and leave as 16-byte stores.
+// No chain sums more than four k16 steps on the tensor cores (K = KD <= 64
+// for S and dP, K = 64 keys for the rest): their f32 sums are not rounded
+// to nearest, and chains that short stay within the f32 tolerance.
+// dbias: each thread adds the unrounded ds of the fragment elements it
+// owns, over its windows in order, into an f32 [64][68] tile in shared
+// memory (registers would hold them at the cost of a third block an SM),
+// which the block writes to its chunk's slot of the partial buffer
 // [chunks, heads, N, N]; a second kernel adds the chunks in a fixed order.
-// The chunking depends on the shape alone, so a rerun is bit-equal.
+// The chunking depends on the shape alone, so a rerun is bit-equal. Each
+// thread reads the head's bias at its fragment elements once, into
+// registers, for all its windows, so a window's softmax loads nothing but
+// the mask. At d 32 a block takes 75 KB of shared memory and at most 168
+// registers a thread: 3 blocks an SM. The f32 softmax and its division,
+// not the products, take most of the instructions; on an NVIDIA H100 80GB
+// HBM3 at 700 W the four calls of a batch-8 SAM step take 0.716 ms this
+// way, 3.838 on the CUDA cores (chip_smoke.py [train kernel time]).
+//
+// The f32 backward (namespace wtrain) stays on the CUDA cores: one block of
+// 128 threads per (chunk of windows, head), the head's N x d slices and the
+// N x N f32 probabilities and ds in shared memory (about 55 KB at N 49, d
+// 32); scores and dp one (i, j) per thread pass; softmax, the row sums of
+// dp P and ds one warp per row; dq, dk, dv one (row, channel) per thread
+// pass, products in f32; dbias from an N x N f32 accumulator in shared
+// memory per block into the same partial buffer.
 
+#include "gub_conv_tc.cuh"
 #include "window_attn.cuh"
 
 namespace {
 namespace wtrain {
-
-using wattn::from_f;
-using wattn::round_io;
-using wattn::to_f;
 
 constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
@@ -78,7 +107,7 @@ __host__ __device__ inline size_t bwd_smem_bytes(int n, int d) {
                           static_cast<size_t>(n) * n);
 }
 
-template <typename T>
+// The f32 backward (bf16 runs wtc::bwd_tc_kernel below).
 __global__ void __launch_bounds__(kThreads) bwd_kernel(const BwdParams p) {
   extern __shared__ float smem[];
   const int n = p.N;
@@ -97,13 +126,13 @@ __global__ void __launch_bounds__(kThreads) bwd_kernel(const BwdParams p) {
   float* acc = ds + n * lp;  // [n * n]: this chunk's sum of ds
   for (int e = tid; e < n * n; e += kThreads) acc[e] = 0.f;
 
-  const T* q = static_cast<const T*>(p.q);
-  const T* k = static_cast<const T*>(p.k);
-  const T* v = static_cast<const T*>(p.v);
-  const T* g = static_cast<const T*>(p.g);
-  T* dq = static_cast<T*>(p.dq);
-  T* dk = static_cast<T*>(p.dk);
-  T* dv = static_cast<T*>(p.dv);
+  const float* q = static_cast<const float*>(p.q);
+  const float* k = static_cast<const float*>(p.k);
+  const float* v = static_cast<const float*>(p.v);
+  const float* g = static_cast<const float*>(p.g);
+  float* dq = static_cast<float*>(p.dq);
+  float* dk = static_cast<float*>(p.dk);
+  float* dv = static_cast<float*>(p.dv);
   const float* bias = p.bias + static_cast<size_t>(h) * n * n;
   const int w0 = blockIdx.x * p.chunk;
   const int w1 = min(w0 + p.chunk, p.bw);
@@ -115,10 +144,10 @@ __global__ void __launch_bounds__(kThreads) bwd_kernel(const BwdParams p) {
       const int c = e - i * d;
       const int col = h * d + c;
       const long long row = static_cast<long long>(win) * n + i;
-      qs[i * ld + c] = to_f(q[row * p.ldq + col]);
-      ks[i * ld + c] = to_f(k[row * p.ldk + col]);
-      vs[i * ld + c] = to_f(v[row * p.ldv + col]);
-      gs[i * ld + c] = to_f(g[row * p.C + col]);
+      qs[i * ld + c] = q[row * p.ldq + col];
+      ks[i * ld + c] = k[row * p.ldk + col];
+      vs[i * ld + c] = v[row * p.ldv + col];
+      gs[i * ld + c] = g[row * p.C + col];
     }
     __syncthreads();
 
@@ -194,15 +223,15 @@ __global__ void __launch_bounds__(kThreads) bwd_kernel(const BwdParams p) {
       const int c = e - r * d;
       float a_dv = 0.f, a_dk = 0.f, a_dq = 0.f;
       for (int t = 0; t < n; ++t) {
-        a_dv = fmaf(round_io<T>(ps[t * lp + r]), gs[t * ld + c], a_dv);
-        a_dk = fmaf(round_io<T>(ds[t * lp + r]), qs[t * ld + c], a_dk);
-        a_dq = fmaf(round_io<T>(ds[r * lp + t]), ks[t * ld + c], a_dq);
+        a_dv = fmaf(ps[t * lp + r], gs[t * ld + c], a_dv);
+        a_dk = fmaf(ds[t * lp + r], qs[t * ld + c], a_dk);
+        a_dq = fmaf(ds[r * lp + t], ks[t * ld + c], a_dq);
       }
       const long long o =
           (static_cast<long long>(win) * n + r) * p.C + h * d + c;
-      dq[o] = from_f<T>(a_dq);
-      dk[o] = from_f<T>(a_dk);
-      dv[o] = from_f<T>(a_dv);
+      dq[o] = a_dq;
+      dk[o] = a_dk;
+      dv[o] = a_dv;
     }
   }
   float* part =
@@ -221,19 +250,18 @@ __global__ void dbias_sum_kernel(const float* partial, int chunks, int total,
   dbias[e] = s;
 }
 
-template <typename T>
 cudaError_t launch_bwd(const BwdParams& p, int chunks, float* dbias,
                        cudaStream_t st) {
   static bool opted_in = false;  // once, before any graph capture
   if (!opted_in) {
     const cudaError_t err = cudaFuncSetAttribute(
-        bwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(bwd_smem_bytes(wattn::kMaxN, wattn::kMaxD)));
     if (err != cudaSuccess) return err;
     opted_in = true;
   }
   const dim3 grid(chunks, p.heads);
-  bwd_kernel<T><<<grid, kThreads, bwd_smem_bytes(p.N, p.C / p.heads), st>>>(p);
+  bwd_kernel<<<grid, kThreads, bwd_smem_bytes(p.N, p.C / p.heads), st>>>(p);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const int total = p.heads * p.N * p.N;
@@ -243,6 +271,376 @@ cudaError_t launch_bwd(const BwdParams& p, int chunks, float* dbias,
 }
 
 }  // namespace wtrain
+
+namespace wtc {
+
+using tc::bf16;
+using tc::cp_async16;
+using tc::ldsm_x4;
+using tc::ldsm_x4_t;
+using tc::mma;
+using wtrain::BwdParams;
+
+constexpr int kThreads = 128;       // 4 warps of 16 query (then key) rows
+constexpr int kRows = 64;           // a window's tokens, padded
+constexpr int kLdP = kRows + 8;     // row stride of the Pd and dsd tiles
+constexpr int kLdB = kRows + 4;     // row stride of the f32 dbias sums
+
+// Shared memory of the kernel for heads KD wide (d rounded up to 16): two
+// sets of the q, k, v, g tiles [kRows][KD + 8], then Pd and dsd
+// [kRows][kLdP], all bf16, then the f32 dbias sums [kRows][kLdB]. The 8
+// extra columns make ldmatrix's eight row addresses fall in distinct
+// 16-byte bank groups.
+template <int KD>
+struct Layout {
+  static constexpr int kLd = KD + 8;
+  static constexpr int kTile = kRows * kLd;
+  static constexpr int kSet = 4 * kTile;
+  static constexpr int kBytes =
+      2 * (2 * kSet + 2 * kRows * kLdP) + 4 * kRows * kLdB;
+};
+
+__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// The N x d slices of head h of window win of q, k, v and g into the tiles
+// of `set` (rows i < n, columns c < d; the rest is left alone), 16 bytes a
+// copy: by cp.async (kVec: every row 16-byte aligned) or by plain loads.
+// Piece e of a tile is row e / (KD / 8), columns 8 (e % (KD / 8)) ..
+template <int KD, bool kVec>
+__device__ __forceinline__ void load_window(bf16* set, const BwdParams& p,
+                                            int win, int h, int n, int d) {
+  using L = Layout<KD>;
+  constexpr int kPieces = KD / 8;
+  const long long row0 = static_cast<long long>(win) * n;
+#pragma unroll
+  for (int t = 0; t < 4; ++t) {
+    const bf16* src = static_cast<const bf16*>(
+        t == 0 ? p.q : t == 1 ? p.k : t == 2 ? p.v : p.g);
+    const long long ld =
+        t == 0 ? p.ldq : t == 1 ? p.ldk : t == 2 ? p.ldv : p.C;
+    src += row0 * ld + h * d;
+    bf16* tile = set + t * L::kTile;
+    for (int e = threadIdx.x; e < n * kPieces; e += kThreads) {
+      const int i = e / kPieces;
+      const int c = (e - i * kPieces) * 8;
+      if (c >= d) continue;
+      const bf16* from = src + i * ld + c;
+      bf16* to = tile + i * L::kLd + c;
+      if constexpr (kVec) {
+        cp_async16(to, from);
+      } else {
+#pragma unroll
+        for (int j = 0; j < 8; ++j) to[j] = from[j];
+      }
+    }
+  }
+}
+
+// The warp's 16 rows (r0 ..) of an output staged in `tile` (row stride
+// kLd, columns < d) to out [BW, N, C], 16 bytes a store, rows < n.
+template <int KD>
+__device__ __forceinline__ void store_rows(const bf16* tile, bf16* out,
+                                           int r0, int win, int h, int n,
+                                           int d, int C) {
+  constexpr int kPieces = KD / 8;
+  const int lane = threadIdx.x & 31;
+  out += (static_cast<long long>(win) * n + r0) * C + h * d;
+  tile += r0 * Layout<KD>::kLd;
+#pragma unroll
+  for (int e = lane; e < 16 * kPieces; e += 32) {
+    const int i = e / kPieces;
+    const int c = (e - i * kPieces) * 8;
+    if (c >= d || r0 + i >= n) continue;
+    *reinterpret_cast<uint4*>(out + static_cast<long long>(i) * C + c) =
+        *reinterpret_cast<const uint4*>(tile + i * Layout<KD>::kLd + c);
+  }
+}
+
+// acc (rows r0 + g and r0 + g + 8, columns 8 j + 2 t ..) rounded into the
+// staging tile, columns < d and rows < n only (the tile's pad stays zero).
+template <int KD>
+__device__ __forceinline__ void stage(bf16* tile, const float (&acc)[KD / 8][4],
+                                      int r0, int n, int d) {
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int j = 0; j < KD / 8; ++j) {
+    const int col = 8 * j + 2 * t;
+    if (col >= d) continue;
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int row = r0 + g + 8 * half;
+      if (row < n)
+        *reinterpret_cast<uint32_t*>(tile + row * Layout<KD>::kLd + col) =
+            pack2(acc[j][2 * half], acc[j][2 * half + 1]);
+    }
+  }
+}
+
+template <int KD, bool kVec>
+__global__ void __launch_bounds__(kThreads, 3) bwd_tc_kernel(const BwdParams p) {
+  using L = Layout<KD>;
+  constexpr int kLd = L::kLd;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* sets = reinterpret_cast<bf16*>(smem_raw);
+  bf16* pd_s = sets + 2 * L::kSet;      // [kRows][kLdP]
+  bf16* ds_s = pd_s + kRows * kLdP;     // [kRows][kLdP]
+  float* db_s = reinterpret_cast<float*>(ds_s + kRows * kLdP);
+                                        // [kRows][kLdB]: this chunk's dbias
+  const int n = p.N;
+  const int d = p.C / p.heads;
+  const int h = blockIdx.y;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int r0 = 16 * warp;
+  const int w0 = blockIdx.x * p.chunk;
+  const int w1 = min(w0 + p.chunk, p.bw);
+  const float* bias = p.bias + static_cast<size_t>(h) * n * n;
+  bf16* dq_g = static_cast<bf16*>(p.dq);
+  bf16* dk_g = static_cast<bf16*>(p.dk);
+  bf16* dv_g = static_cast<bf16*>(p.dv);
+
+  // zero both sets once: rows past n and columns past d stay zero
+  for (int e = threadIdx.x; e < 2 * L::kSet / 8; e += kThreads)
+    reinterpret_cast<uint4*>(sets)[e] = make_uint4(0, 0, 0, 0);
+  for (int e = threadIdx.x; e < kRows * kLdB; e += kThreads) db_s[e] = 0.f;
+  __syncthreads();
+  load_window<KD, kVec>(sets, p, w0, h, n, d);
+  tc::cp_async_commit();
+
+  // the head's bias at the fragment elements the thread owns (rows r0 + g
+  // (+ 8), columns 8 j + 2 t (+ 1)), read once for all windows
+  float bv[8][4];
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int row = r0 + g + 8 * (e >> 1), col = 8 * j + 2 * t + (e & 1);
+      bv[j][e] = row < n && col < n ? __ldg(bias + row * n + col) : 0.f;
+    }
+
+  for (int win = w0; win < w1; ++win) {
+    bf16* cur = sets + ((win - w0) & 1) * L::kSet;
+    const bf16* qs = cur;
+    bf16* ks = cur + L::kTile;
+    bf16* vs = cur + 2 * L::kTile;
+    const bf16* gs = cur + 3 * L::kTile;
+    tc::cp_async_wait_all();
+    __syncthreads();  // the window is in; every warp is done with the last
+    if (win + 1 < w1)
+      load_window<KD, kVec>(sets + ((win + 1 - w0) & 1) * L::kSet, p,
+                            win + 1, h, n, d);
+    tc::cp_async_commit();
+
+    // S = q k^T and dP = g v^T for the warp's 16 query rows, 64 keys
+    float s[8][4] = {}, dp[8][4] = {};
+#pragma unroll
+    for (int kk = 0; kk < KD / 16; ++kk) {
+      uint32_t aq[4], ag[4];
+      const int ao = (r0 + (lane & 15)) * kLd + 16 * kk + (lane >> 4) * 8;
+      ldsm_x4(aq, qs + ao);
+      ldsm_x4(ag, gs + ao);
+#pragma unroll
+      for (int np = 0; np < 4; ++np) {
+        uint32_t b[4];
+        const int bo = (16 * np + (lane & 7) + (lane >> 4) * 8) * kLd +
+                       16 * kk + ((lane >> 3) & 1) * 8;
+        ldsm_x4(b, ks + bo);
+        mma(s[2 * np], aq, b[0], b[1]);
+        mma(s[2 * np + 1], aq, b[2], b[3]);
+        ldsm_x4(b, vs + bo);
+        mma(dp[2 * np], ag, b[0], b[1]);
+        mma(dp[2 * np + 1], ag, b[2], b[3]);
+      }
+    }
+
+    // P = softmax(S + bias [+ mask]) unrounded, ds = P (dP - rowsum(dP P));
+    // rows past n are zeros. A quad holds one row: its shuffles stay inside
+    // it, and every lane runs them (rows past n too).
+    const float* mask =
+        p.mask ? p.mask + static_cast<size_t>(win % p.nW) * n * n : nullptr;
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int row = r0 + g + 8 * half;
+      const bool rin = row < n;
+      float m = -CUDART_INF_F;
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int col = 8 * j + 2 * t + e;
+          float v = -CUDART_INF_F;
+          if (rin && col < n) {
+            v = s[j][2 * half + e] + bv[j][2 * half + e];
+            if (mask) v = v + __ldg(mask + row * n + col);
+          }
+          s[j][2 * half + e] = v;
+          m = fmaxf(m, v);
+        }
+      m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 1));
+      m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 2));
+      float sum = 0.f;
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int col = 8 * j + 2 * t + e;
+          const float x =
+              rin && col < n ? expf(s[j][2 * half + e] - m) : 0.f;
+          s[j][2 * half + e] = x;
+          sum += x;
+        }
+      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+      float r = 0.f;
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float pv = rin ? s[j][2 * half + e] / sum : 0.f;
+          s[j][2 * half + e] = pv;
+          r += dp[j][2 * half + e] * pv;
+        }
+      r += __shfl_xor_sync(0xffffffffu, r, 1);
+      r += __shfl_xor_sync(0xffffffffu, r, 2);
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float pv = s[j][2 * half + e];
+          dp[j][2 * half + e] = rin ? pv * (dp[j][2 * half + e] - r) : 0.f;
+        }
+    }
+
+    // dbias (unrounded ds; each element always by the same thread); Pd and
+    // dsd into their tiles and, as the A fragments of dq = dsd k, into
+    // registers
+    uint32_t da[4][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        db_s[(r0 + g + 8 * (e >> 1)) * kLdB + 8 * j + 2 * t + (e & 1)] +=
+            dp[j][e];
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int o = (r0 + g + 8 * half) * kLdP + 8 * j + 2 * t;
+        const uint32_t pp = pack2(s[j][2 * half], s[j][2 * half + 1]);
+        const uint32_t dd = pack2(dp[j][2 * half], dp[j][2 * half + 1]);
+        *reinterpret_cast<uint32_t*>(pd_s + o) = pp;
+        *reinterpret_cast<uint32_t*>(ds_s + o) = dd;
+        da[j >> 1][(j & 1) * 2 + half] = dd;
+      }
+    }
+    float acc[KD / 8][4] = {};
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int np = 0; np < KD / 16; ++np) {
+        uint32_t b[4];
+        ldsm_x4_t(b, ks + (16 * kk + (lane & 15)) * kLd + 16 * np +
+                         (lane >> 4) * 8);
+        mma(acc[2 * np], da[kk], b[0], b[1]);
+        mma(acc[2 * np + 1], da[kk], b[2], b[3]);
+      }
+    __syncthreads();  // Pd and dsd are whole; k and v are dead
+
+    // dq through the warp's rows of the k tile
+    stage<KD>(ks, acc, r0, n, d);
+    __syncwarp();
+    store_rows<KD>(ks, dq_g, r0, win, h, n, d, p.C);
+    __syncwarp();
+
+    // dv = Pd^T g and dk = dsd^T q for the warp's 16 key rows
+    float dv[KD / 8][4] = {}, dk[KD / 8][4] = {};
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      uint32_t ap[4], ad[4];
+      const int ao = (16 * kk + (lane & 7) + (lane >> 4) * 8) * kLdP + r0 +
+                     ((lane >> 3) & 1) * 8;
+      ldsm_x4_t(ap, pd_s + ao);
+      ldsm_x4_t(ad, ds_s + ao);
+#pragma unroll
+      for (int np = 0; np < KD / 16; ++np) {
+        uint32_t b[4];
+        const int bo = (16 * kk + (lane & 15)) * kLd + 16 * np +
+                       (lane >> 4) * 8;
+        ldsm_x4_t(b, gs + bo);
+        mma(dv[2 * np], ap, b[0], b[1]);
+        mma(dv[2 * np + 1], ap, b[2], b[3]);
+        ldsm_x4_t(b, qs + bo);
+        mma(dk[2 * np], ad, b[0], b[1]);
+        mma(dk[2 * np + 1], ad, b[2], b[3]);
+      }
+    }
+    stage<KD>(ks, dk, r0, n, d);
+    stage<KD>(vs, dv, r0, n, d);
+    __syncwarp();
+    store_rows<KD>(ks, dk_g, r0, win, h, n, d, p.C);
+    store_rows<KD>(vs, dv_g, r0, win, h, n, d, p.C);
+  }
+
+  __syncthreads();
+  float* part =
+      p.partial + (static_cast<size_t>(blockIdx.x) * p.heads + h) * n * n;
+  for (int e = threadIdx.x; e < n * n; e += kThreads) {
+    const int row = e / n;
+    part[e] = db_s[row * kLdB + e - row * n];
+  }
+}
+
+template <int KD, bool kVec>
+cudaError_t launch_kernel(const BwdParams& p, int chunks, cudaStream_t st) {
+  static bool opted_in = false;  // once, before any graph capture
+  auto kern = bwd_tc_kernel<KD, kVec>;
+  if (!opted_in) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, Layout<KD>::kBytes);
+    if (err != cudaSuccess) return err;
+    opted_in = true;
+  }
+  kern<<<dim3(chunks, p.heads), kThreads, Layout<KD>::kBytes, st>>>(p);
+  return cudaGetLastError();
+}
+
+template <bool kVec>
+cudaError_t launch_width(const BwdParams& p, int chunks, cudaStream_t st) {
+  switch ((p.C / p.heads + 15) / 16) {
+    case 1: return launch_kernel<16, kVec>(p, chunks, st);
+    case 2: return launch_kernel<32, kVec>(p, chunks, st);
+    case 3: return launch_kernel<48, kVec>(p, chunks, st);
+    case 4: return launch_kernel<64, kVec>(p, chunks, st);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+bool aligned16(const void* ptr) {
+  return reinterpret_cast<uintptr_t>(ptr) % 16 == 0;
+}
+
+// The bf16 backward: the tensor-core kernel, then the chunks' dbias sums.
+// q, k, v and g are copied 16 bytes at a time when every token row is
+// 16-byte aligned (else by plain loads); dq, dk and dv must be.
+cudaError_t launch(const BwdParams& p, int chunks, float* dbias,
+                   cudaStream_t st) {
+  if (!aligned16(p.dq) || !aligned16(p.dk) || !aligned16(p.dv))
+    return cudaErrorInvalidValue;
+  const bool vec = aligned16(p.q) && aligned16(p.k) && aligned16(p.v) &&
+                   aligned16(p.g) && (p.ldq | p.ldk | p.ldv) % 8 == 0;
+  cudaError_t err = vec ? launch_width<true>(p, chunks, st)
+                        : launch_width<false>(p, chunks, st);
+  if (err != cudaSuccess) return err;
+  const int total = p.heads * p.N * p.N;
+  wtrain::dbias_sum_kernel<<<(total + 255) / 256, 256, 0, st>>>(
+      p.partial, chunks, total, dbias);
+  return cudaGetLastError();
+}
+
+}  // namespace wtc
 }  // namespace
 
 // The forward: q, k, v [BW, N, C] with token rows ldq / ldk / ldv elements
@@ -322,8 +720,7 @@ extern "C" int window_attn_train_bwd(const void* q, const void* k,
   const int chunks = (bw + chunk - 1) / chunk;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* db = static_cast<float*>(dbias);
-  const cudaError_t err =
-      is_bf16 ? wtrain::launch_bwd<__nv_bfloat16>(p, chunks, db, st)
-              : wtrain::launch_bwd<float>(p, chunks, db, st);
+  const cudaError_t err = is_bf16 ? wtc::launch(p, chunks, db, st)
+                                  : wtrain::launch_bwd(p, chunks, db, st);
   return static_cast<int>(err);
 }

@@ -5,12 +5,14 @@ per block on window-major ``[BW, N, C]`` rows.
 Counterpart of ``tpudepth/ops/pallas/block_infer.py::sam_block_infer`` and
 ``::crf_block_infer`` (``TPUDEPTH_BLOCK=fused`` in JAX). The kernels are
 ``tpudepth_torch/csrc/block_infer.cu``, CUDA C++ for ``sm_90a`` built by
-``_build``, on the device code of the row kernels (``csrc/ln_proj.cuh``,
-``csrc/tail_chain.cuh``: SAM's bf16 projections and tail run on the
-``wgmma`` core), of ``window_attn_infer`` (``csrc/window_attn.cuh``) and of
-``block_epilogue_infer`` (``csrc/block_tail.cuh``); the source's header says
-what bounds them, how they are laid out and how many launches and scratch
-bytes a call takes (:func:`sam_scratch_shapes`). The wrappers
+``_build``: in bf16 both run their LayerNorm and projections and their
+tail on the ``wgmma`` core (``csrc/tail_chain.cuh``, the tail the chain
+that keeps ``y`` in f32) and the attention of ``window_attn_infer``
+(``csrc/window_attn.cuh``); in f32 the LayerNorm and projections of
+``csrc/ln_proj.cuh`` and the tail of ``csrc/block_tail.cuh`` on the CUDA
+cores. The source's header says what bounds them, how they are laid out
+and how many launches a call takes; :func:`crf_scratch_shapes` and
+:func:`sam_scratch_shapes` give the scratch. The wrappers
 :func:`sam_block_infer` and :func:`crf_block_infer` count their calls; the
 plain versions :func:`sam_block_infer_reference` and
 :func:`crf_block_infer_reference` have the kernels' rounding order, which is
@@ -140,9 +142,19 @@ def tolerance(dtype: torch.dtype) -> Tuple[float, float]:
 
 #: ctypes signature of each C entry of ``csrc/block_infer.cu``
 ARGTYPES = {
-    "crf_block_infer": (_VP,) * 19 + (_I32,) * 6 + (_F32, _I32, _VP),
+    "crf_block_infer": (_VP,) * 20 + (_I32,) * 6 + (_F32, _I32, _VP),
     "sam_block_infer": (_VP,) * 23 + (_I32,) * 6 + (_F32, _I32, _VP),
 }
+
+
+def crf_scratch_shapes(bw: int, n: int, c: int, hidden: int,
+                       bf16: bool) -> dict:
+    """The scratch of one ``crf_block_infer`` call, by name: ``qk``
+    ``[BW, N, 2C]`` in the IO dtype (q and k; in bf16 the tail chain then
+    keeps its f32 y, ``4 M C`` bytes, M = BW N, in all of it, and its bf16
+    yn in the output buffer) and, in bf16, ``g`` ``[M, hidden]`` for the
+    tail's hidden (None in f32)."""
+    return {"qk": (bw, n, 2 * c), "g": (bw * n, hidden) if bf16 else None}
 
 
 def sam_scratch_shapes(bw: int, n: int, c: int, hidden: int,
@@ -283,6 +295,8 @@ def crf_block_infer(xw: torch.Tensor, vw: torch.Tensor, ln1: tuple,
             xw, vw, ln1, wqk, bqk, bias, wproj, bproj, ln2, w1, b1, w2, b2,
             mask, valid, scale=scale)
 
+    bf16 = xw.dtype == torch.bfloat16
+
     def call(lib, wts, scratch, out, stream):
         wqk_t, wp_t, w1_t, w2_t = wts
         return lib.crf_block_infer(
@@ -291,12 +305,12 @@ def crf_block_infer(xw: torch.Tensor, vw: torch.Tensor, ln1: tuple,
             bias.data_ptr(), _ptr(mask), wp_t.data_ptr(), bproj.data_ptr(),
             ln2[0].data_ptr(), ln2[1].data_ptr(), w1_t.data_ptr(),
             b1.data_ptr(), w2_t.data_ptr(), b2.data_ptr(), _ptr(valid),
-            scratch["qk"].data_ptr(), out.data_ptr(), bw, n, c, heads, hidden,
-            nw, float(scale), int(xw.dtype == torch.bfloat16), stream)
+            scratch["qk"].data_ptr(), _ptr(scratch["g"]), out.data_ptr(), bw,
+            n, c, heads, hidden, nw, float(scale), int(bf16), stream)
 
     out = _launch("crf_block_infer", xw, vw, bias, mask, valid,
                   (wqk, wproj, w1, w2), (*ln1, bqk, bproj, *ln2, b1, b2),
-                  {"qk": (bw, n, 2 * c)}, call)
+                  crf_scratch_shapes(bw, n, c, hidden, bf16), call)
     crf_block_infer.launches += 1
     return out
 

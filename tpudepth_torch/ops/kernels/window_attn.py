@@ -6,8 +6,9 @@ Counterpart of ``tpudepth/ops/pallas/window_attn.py::window_attention``, the
 custom VJP over the forward ``window_attention_pallas`` and the backward
 ``window_attention_bwd_pallas``. The kernels are the two C entries of
 ``tpudepth_torch/csrc/window_attn_train.cu``, ``window_attn_train_fwd`` and
-``window_attn_train_bwd``, CUDA C++ for ``sm_90a`` built by ``_build``; the
-source's header says what bounds them and how they are laid out. The
+``window_attn_train_bwd``, CUDA C++ for ``sm_90a`` built by ``_build`` (the
+bf16 backward runs its five products on the tensor cores); the source's
+header says what bounds them and how they are laid out. The
 wrappers :func:`window_attention_fwd` and :func:`window_attention_bwd`
 count their launches; the plain versions
 :func:`window_attention_fwd_reference` and
@@ -51,8 +52,9 @@ _VP, _I32, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 fwd_tolerance = _wai.tolerance
 
 #: the backward kernel's blocks: about this many (chunk of windows, head)
-#: blocks a call, each walking its chunk's windows in order
-BWD_BLOCKS = 1024
+#: blocks a call, each walking its chunk's windows in order (two rounds of
+#: the bf16 kernel's 3 blocks an SM on the H100's 132 SMs)
+BWD_BLOCKS = 792
 
 
 def _acc(dtype: torch.dtype) -> torch.dtype:
@@ -124,22 +126,30 @@ def bwd_tolerance(dtype: torch.dtype) -> Tuple[Tuple[float, float],
     bf16 boundary rounds the other way on one side, moving one of 49 terms
     by a bf16 ulp of itself, and the output's own rounding can then land on
     the neighbouring bf16 value: 2^-8 of the largest value and 2^-7
-    relative, as the forward; dbias is summed from the unrounded f32 ds on
-    both sides and keeps the f32 bound."""
+    relative, as the forward (the bf16 kernel sums on the tensor cores,
+    whose f32 sums are not rounded to nearest, in chains of at most four
+    k16 steps: a few ulps of f32, far inside it); dbias is summed from the
+    unrounded f32 ds on both sides and keeps the f32 bound."""
     if dtype == torch.bfloat16:
         return (2.0 ** -8, 2.0 ** -7), (1e-4, 1e-4)
     return (1e-5, 1e-5), (1e-4, 1e-4)
 
 
+#: ctypes signature of each C entry of ``csrc/window_attn_train.cu``
+ARGTYPES = {
+    "window_attn_train_fwd": (_VP,) * 3 + (_I64,) * 3 + (_VP,) * 3
+                             + (_I32,) * 6 + (_VP,),
+    "window_attn_train_bwd": (_VP,) * 3 + (_I64,) * 3 + (_VP,) * 8
+                             + (_I32,) * 7 + (_VP,),
+}
+
+
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
     lib = _build.load("window_attn_train")
-    lib.window_attn_train_fwd.argtypes = (
-        [_VP] * 3 + [_I64] * 3 + [_VP] * 3 + [_I32] * 6 + [_VP])
-    lib.window_attn_train_bwd.argtypes = (
-        [_VP] * 3 + [_I64] * 3 + [_VP] * 8 + [_I32] * 7 + [_VP])
-    for fn in (lib.window_attn_train_fwd, lib.window_attn_train_bwd):
-        fn.restype = _I32
+    for fn, types in ARGTYPES.items():
+        getattr(lib, fn).argtypes = list(types)
+        getattr(lib, fn).restype = _I32
     return lib
 
 
