@@ -1433,13 +1433,14 @@ def phase_sam_kernels():
     """``window_attn_infer`` (also with the shift-3 mask),
     ``block_epilogue_infer`` and ``mlp_infer`` against their plain versions
     at the four SAM stage shapes, batch 1 and 8, f32 and bf16, each within
-    its ``tolerance`` (``mlp_infer`` also at 8 h w - 3 rows, each call
-    rerun bit-equal); then their times at batch 8 in bf16 (CUDA graph
-    replays) beside the bound, the plain version and one library yardstick:
-    ``F.scaled_dot_product_attention`` on the head-split tensors with the
-    bias as ``attn_mask``; the block tail's and the FFN's products alone in
-    cuBLAS (bf16, the weights cast beforehand), a lower bound on any
-    unfused composition."""
+    its ``tolerance`` (``mlp_infer`` also at 8 h w - 3 rows; the attention
+    and ``mlp_infer`` rerun bit-equal); then their times at batch 8 in bf16
+    (CUDA graph replays) beside the bound, the plain version and one library
+    yardstick: ``F.scaled_dot_product_attention`` on the head-split tensors
+    with the bias as ``attn_mask`` (the attention also with the shift-3
+    mask, bias + mask as ``attn_mask``); the block tail's and the FFN's
+    products alone in cuBLAS (bf16, the weights cast beforehand), a lower
+    bound on any unfused composition."""
     from tpudepth_torch.ops.kernels import epilogue_infer as ei
     from tpudepth_torch.ops.kernels import mlp_infer as mi
     from tpudepth_torch.ops.kernels import window_attn_infer as wai
@@ -1459,11 +1460,14 @@ def phase_sam_kernels():
                                                 4 * c, rows, dtype)
                 for mk in (None, mask):
                     got = wai.window_attention_infer(**attn, mask=mk)
+                    again = wai.window_attention_infer(**attn, mask=mk)
                     torch.cuda.synchronize()
                     want = wai.window_attention_infer_reference(**attn, mask=mk)
                     hold("window_attn_infer", got, want, wai.tolerance(dtype),
                          tag + (" shift-3 mask" if mk is not None else ""))
-                    del got, want
+                    check(torch.equal(got, again),
+                          f"window_attn_infer {tag}: a rerun differs")
+                    del got, again, want
                 got = ei.block_epilogue_infer(**tail)
                 torch.cuda.synchronize()
                 hold("block_epilogue_infer", got,
@@ -1490,6 +1494,8 @@ def phase_sam_kernels():
     for i, (stage, c, heads, hw) in enumerate(ATTN_STAGES):
         hp, wp = _padded(hw)
         windows, m_rows = hp * wp // 49, hw[0] * hw[1]
+        mask = torch.from_numpy(
+            shifted_window_attention_mask(hp, wp, 7, 3)).to(DEVICE)
         attn, tail = _sam_kernel_inputs(100 + i, SAM_BATCH, windows, c, 4 * c,
                                         m_rows, torch.bfloat16)
         bw, m, hidden = SAM_BATCH * windows, SAM_BATCH * m_rows, 4 * c
@@ -1534,7 +1540,27 @@ def phase_sam_kernels():
                   f"ms, library {lib_ms:.4f} ms, bound {bound:.4f} ms "
                   f"({'bytes' if t_b >= t_o else 'operations'}; "
                   f"{100 * bound / ms:.1f}% of bound)", flush=True)
-        del attn, tail, q4, k4, v4, g, args
+        # the same attention with NewCRF's shift-3 mask (its shifted blocks'
+        # calls); SDPA takes bias + mask per window as attn_mask
+        amask = (attn["bias"][None] + mask.repeat(SAM_BATCH, 1, 1)[:, None]
+                 ).to(torch.bfloat16)
+        bound, t_b, t_o = _bound(4 * bw * 49 * c * 2 + heads * 49 * 49 * 4
+                                 + mask.numel() * 4, 4 * bw * 49 * 49 * c)
+        ms = time_ms(lambda: wai.window_attention_infer(**attn, mask=mask),
+                     per_graph=4, replays=10)
+        plain_ms = time_ms(lambda: wai.window_attention_infer_reference(
+            **attn, mask=mask), per_graph=1, replays=5)
+        lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
+            q4, k4, v4, attn_mask=amask, scale=1.0), per_graph=4, replays=10)
+        rows["window_attn_infer"][-1].update(
+            mask_ms=ms, mask_plain_ms=plain_ms, mask_library_ms=lib_ms,
+            mask_bound_ms=bound)
+        print(f"[sam kernel time] window_attn_infer    {stage} B{SAM_BATCH} "
+              f"bf16 shift-3 mask: kernel {ms:.4f} ms, plain {plain_ms:.4f} "
+              f"ms, library {lib_ms:.4f} ms, bound {bound:.4f} ms "
+              f"({'bytes' if t_b >= t_o else 'operations'}; "
+              f"{100 * bound / ms:.1f}% of bound)", flush=True)
+        del attn, tail, q4, k4, v4, g, args, mask, amask
         torch.cuda.empty_cache()
     return rows, hold.err, hold.err_rel, hold.checks
 
@@ -2135,7 +2161,8 @@ def phase_train_kernels():
     against their plain versions at the four stage shapes of a 480x640
     batch-8 step, in f32 and bf16, the attention with and without the
     shift-3 mask, the FFN also at an odd row count and its forward at batch
-    1; every backward and FFN forward run twice and the reruns bit-equal. Then one B8 bf16 SAM step's calls timed (CUDA
+    1; every attention call and FFN forward run twice and the reruns
+    bit-equal. Then one B8 bf16 SAM step's calls timed (CUDA
     graph replays) beside the bound, the plain version and a library
     yardstick: ``F.scaled_dot_product_attention`` with the bias as
     ``attn_mask`` (the backward: its autograd backward, eager, less the
@@ -2159,9 +2186,12 @@ def phase_train_kernels():
             for mk in (None, mask):
                 t = tag + (" shift-3 mask" if mk is not None else "")
                 got = wat.window_attention_fwd(**attn, mask=mk)
+                got_again = wat.window_attention_fwd(**attn, mask=mk)
                 grads = wat.window_attention_bwd(**attn, mask=mk, g=ga)
                 again = wat.window_attention_bwd(**attn, mask=mk, g=ga)
                 torch.cuda.synchronize()
+                check(torch.equal(got, got_again),
+                      f"window_attn_train_fwd {t}: a rerun differs")
                 hold("window_attn_train_fwd", got,
                      wat.window_attention_fwd_reference(**attn, mask=mk),
                      wat.fwd_tolerance(dtype), t)
@@ -2172,7 +2202,7 @@ def phase_train_kernels():
                 check(all(torch.equal(a, b) for a, b in zip(grads, again)),
                       f"window_attn_train_bwd {t}: a rerun differs")
                 reruns += 1
-                del got, grads, again, want
+                del got, got_again, grads, again, want
             out_tol, w_tol = mt.tolerance(dtype)
             odd = {**ffn, "x": ffn["x"][:-3]}   # 8 h w - 3 rows: odd
             # the forward also at batch 1 (its first h w rows)
@@ -2771,6 +2801,10 @@ def main() -> int:
             "bound_ms": total(table, "bound_ms"),
             "bound_by": bound_by(table),
             "library_ms": total(table, "library_ms"),
+            **({f"shift3_{k}": total(table, k)
+                for k in ("mask_ms", "mask_plain_ms", "mask_library_ms",
+                          "mask_bound_ms")}
+               if name == "window_attn_infer" else {}),
             "shapes": table,
         })
     newcrf_calls = ("the eight calls of one B8 480x640 bf16 NewCRF forward "

@@ -16,14 +16,28 @@ from another tree's root times that tree by the same code: e.g. an
 unpacked parent under a git-ignored directory, ``cd .smoke_tree/parent &&
 python3 ../../scripts/torch_kernel_ab.py --tag parent``. It prints
 ``chip_smoke``'s [kernel time] B 8 and [row kernel split] / [block kernel
-split] / [train kernel split] lines, then ``[digest]``: sha256 of the outputs of ``gub_conv_dw``,
-``gub_conv_dx`` (bf16 at the nine conv shapes, batch 2, statistics on,
-cotangents and the forward output drawn from a seed, not computed), of
-``block_epilogue_infer`` and ``window_attn_infer`` (bf16, the four SAM
-stages, batch 1; the attention over a stage's padded map, with and without
-the shift-3 mask) and of ``crf_block_infer`` (bf16, the four stages, batch
-1, shift 0 and 3). The card's name and power limit come first; ``--json``
-writes every number to PATH. It needs a card.
+split] / [train kernel split] lines, then ``[digest]``: sha256 of the
+outputs of, on seeded inputs:
+
+- ``gub_conv_dw``, ``gub_conv_dx`` (bf16 at the nine conv shapes, batch 2,
+  statistics on, cotangents and the forward output drawn from a seed, not
+  computed);
+- at the four SAM stages, batch 1, over a stage's padded map:
+  ``block_epilogue_infer`` (bf16); ``window_attn_infer`` in bf16 and in
+  f32, with and without the shift-3 mask; ``window_attn_train_bwd`` (bf16,
+  dq, dk, dv and dbias, with and without the mask); ``crf_block_infer``
+  (bf16, shift 0 and 3).
+
+Equal digests in two trees are bit-equal outputs. Which must be equal
+between a tree and its parent depends on what the change touched: since
+the bf16 forward attention moved onto the tensor cores (its sum order
+changed), the bf16 ``window_attn_infer`` and ``crf_block_infer`` digests
+differ from the trees before it, while ``gub_conv_dw`` / ``_dx``,
+``block_epilogue_infer``, the f32 ``window_attn_infer`` and the bf16
+``window_attn_train_bwd`` (which shares the attention's tile code) do not.
+Every digest is equal between two runs of one tree. The card's name and
+power limit come first; ``--json`` writes every number to PATH. It needs a
+card.
 """
 
 from __future__ import annotations
@@ -64,6 +78,7 @@ def digests(cs):
     from tpudepth_torch.ops.kernels import block_infer as bi
     from tpudepth_torch.ops.kernels import epilogue_infer as ei
     from tpudepth_torch.ops.kernels import gub_conv as gc
+    from tpudepth_torch.ops.kernels import window_attn as wat
     from tpudepth_torch.ops.kernels import window_attn_infer as wai
     from tpudepth_torch.ops.window import shifted_window_attention_mask
 
@@ -97,23 +112,34 @@ def digests(cs):
         torch.cuda.empty_cache()
     for i, (stage, c, heads, hw) in enumerate(cs.ATTN_STAGES):
         hp, wp = cs._padded(hw)
-        attn, tail = cs._sam_kernel_inputs(10 * i + 1, 1, hp * wp // 49, c,
+        windows = hp * wp // 49
+        attn, tail = cs._sam_kernel_inputs(10 * i + 1, 1, windows, c,
                                            4 * c, hw[0] * hw[1], bf)
+        attn32 = cs._sam_kernel_inputs(10 * i + 1, 1, windows, c, 4 * c,
+                                       hw[0] * hw[1], torch.float32)[0]
+        tattn, ga = cs._train_kernel_inputs(60 + i, 1, windows, c, heads,
+                                            hw[0] * hw[1], bf)[:2]
         mask = torch.from_numpy(
             shifted_window_attention_mask(hp, wp, 7, 3)).to(cs.DEVICE)
-        found = {"block_epilogue_infer": ei.block_epilogue_infer(**tail),
-                 "window_attn_infer": wai.window_attention_infer(**attn),
-                 "window_attn_infer shift-3 mask":
-                     wai.window_attention_infer(**attn, mask=mask)}
+        found = {"block_epilogue_infer": ei.block_epilogue_infer(**tail)}
+        for mname, mk in (("", None), (" shift-3 mask", mask)):
+            found["window_attn_infer" + mname] = wai.window_attention_infer(
+                **attn, mask=mk)
+            found["window_attn_infer f32" + mname] = (
+                wai.window_attention_infer(**attn32, mask=mk))
+            found["window_attn_train_bwd" + mname] = wat.window_attention_bwd(
+                **tattn, mask=mk, g=ga)
         for shift in (0, 3):
             a, kw, _ = cs._block_inputs(40 + i + shift, 1, hw, c, heads,
                                         shift, bf)
             found[f"crf_block_infer shift {shift}"] = bi.crf_block_infer(
                 **a, **kw)
         for name, t in found.items():
-            out[f"{name} {stage}"] = d = digest(t)
-            print(f"[digest] {name} {stage} B1 bf16 {d}", flush=True)
-        del attn, tail, found, a
+            out[f"{name} {stage}"] = d = digest(
+                *(t if isinstance(t, tuple) else (t,)))
+            print(f"[digest] {name} {stage} B1 "
+                  f"{'f32' if ' f32' in name else 'bf16'} {d}", flush=True)
+        del attn, attn32, tattn, ga, tail, found, a
         torch.cuda.empty_cache()
     return out
 

@@ -263,9 +263,9 @@ def test_wrappers_refuse_shapes_and_dtypes_they_do_not_take():
 
 def test_the_block_source_is_built_from_its_shared_headers():
     """The library's name hashes every header of the device code it
-    shares with the row kernels, the tail chain and the wgmma core among
-    them."""
+    shares with the row kernels, the tail chain, the wgmma core and the
+    mma.sync pieces of the attention among them."""
     assert "block_infer" in _build.sources()
     assert [p.name for p in _build.inputs("block_infer")] == [
         "block_infer.cu", "block_tail.cuh", "ln_proj.cuh", "tail_chain.cuh",
-        "window_attn.cuh", "gemm_sm90.cuh"]
+        "window_attn.cuh", "gemm_sm90.cuh", "gub_conv_tc.cuh"]

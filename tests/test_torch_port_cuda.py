@@ -1170,6 +1170,71 @@ def test_window_attn_train_bwd_bf16_reads_strided_and_unaligned_rows(cuda):
     assert all(torch.equal(a, b) for a, b in zip(got, want))
 
 
+# the two C entries of the bf16 forward on the tensor cores (window_attn.cuh):
+# (wrapper, plain version, tolerance)
+FWD_ENTRIES = {
+    "infer": (wai.window_attention_infer,
+              wai.window_attention_infer_reference, wai.tolerance),
+    "train": (wat.window_attention_fwd, wat.window_attention_fwd_reference,
+              wat.fwd_tolerance),
+}
+
+
+def _fwd_holds(entry, q, k, v, bias, mask):
+    """One counted bf16 forward of ``entry`` against its plain version
+    within the unchanged tolerance, a rerun bit-equal; returns the
+    output."""
+    fn, plain, tol = FWD_ENTRIES[entry]
+    before = fn.launches
+    got = fn(q, k, v, bias, mask)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    assert got.dtype == q.dtype and got.shape == q.shape
+    _close(got, plain(q, k, v, bias, mask), tol(q.dtype))
+    assert torch.equal(got, fn(q, k, v, bias, mask))
+    return got
+
+
+# 259 windows (7 an image) of 8 heads: fwd_chunk gives chunks of 2 windows,
+# the last one of 1
+@pytest.mark.parametrize("entry", sorted(FWD_ENTRIES))
+@pytest.mark.parametrize("masked", [False, True], ids=["plain", "mask"])
+@pytest.mark.parametrize("d", [8, 16, 24, 32, 64])
+@pytest.mark.parametrize("n", [16, 33, 49, 64])
+def test_window_attn_fwd_bf16_on_the_tensor_cores(cuda, n, d, masked, entry):
+    """Both bf16 forwards at every token count and head width class the
+    kernel takes (d rounded up to 16, 16 .. 64 tokens), with and without a
+    mask of 7 windows, over a chunking whose last chunk is short."""
+    bw, heads = 259, 8
+    assert bw % wai.fwd_chunk(bw, heads)
+    q, k, v, bias = _attn_case(n + d + 1, bw, n, heads * d, heads,
+                               torch.bfloat16, cuda)
+    mask = None
+    if masked:
+        gen = torch.Generator().manual_seed(d + 1)
+        mask = ((torch.rand(7, n, n, generator=gen) > 0.6).float()
+                * -100.0).to(cuda)
+    _fwd_holds(entry, q, k, v, bias, mask)
+
+
+@pytest.mark.parametrize("entry", sorted(FWD_ENTRIES))
+def test_window_attn_fwd_bf16_reads_strided_and_unaligned_rows(cuda, entry):
+    """k and v as the halves of one projection (rows 2C apart, 16-byte
+    aligned: copied by cp.async) and q as C of C + 4 columns (rows not
+    16-byte aligned: copied by plain loads) give the bits of contiguous
+    inputs."""
+    bw, n, c, heads = 21, 49, 64, 2
+    q, k, v, bias = _attn_case(4, bw, n, c, heads, torch.bfloat16, cuda)
+    kh, vh = torch.cat([k, v], dim=-1).chunk(2, dim=-1)
+    wide = torch.zeros(bw, n, c + 4, dtype=torch.bfloat16, device=cuda)
+    wide[..., :c] = q
+    qw = wide[..., :c]
+    assert qw.stride(1) == c + 4
+    want = _fwd_holds(entry, q, k, v, bias, None)
+    assert torch.equal(_fwd_holds(entry, q, kh, vh, bias, None), want)
+    assert torch.equal(_fwd_holds(entry, qw, kh, vh, bias, None), want)
+
+
 def test_window_attention_function_with_the_mask_on_the_card(cuda):
     """One bf16 step through ``window_attention`` with the shift-3 mask of
     the crf1 map: the gradients autograd hands back are the backward

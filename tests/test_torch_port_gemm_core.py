@@ -4,7 +4,8 @@ training attention compute in Python, on the CPU: the row chunks of
 ``mlp_train_bwd``'s weight gradients, the scratch the wrappers allocate
 (that of the row kernels and of both whole-block kernels too, whose bf16
 projections and tails run on the core), the constants they share with the
-CUDA sources, and the ctypes signatures they give the C entries. The kernels themselves run only on the card
+CUDA sources (the bf16 forward attention's blocks a call too), and the
+ctypes signatures they give the C entries. The kernels themselves run only on the card
 (``tests/test_torch_port_cuda.py``).
 """
 
@@ -20,6 +21,7 @@ from tpudepth_torch.ops.kernels import gub_conv as gc
 from tpudepth_torch.ops.kernels import mlp_train as mt
 from tpudepth_torch.ops.kernels import rowblock_infer as rbi
 from tpudepth_torch.ops.kernels import window_attn as wat
+from tpudepth_torch.ops.kernels import window_attn_infer as wai
 
 # (M, rows, cols) of the weight gradients: dw1 [C, 4C] and dw2 [4C, C] of the
 # four stages of a 480x640 batch-8 step, batch 1, and small or ragged M
@@ -196,6 +198,22 @@ def test_python_constants_match_the_cuda_sources():
     mlp = _source("mlp_train.cu")
     assert int(re.search(r"constexpr int kColsumRows = (\d+);", mlp).group(1)
                ) == mt.COLSUM_ROWS
+
+
+def test_forward_attention_blocks_match_the_cuda_source():
+    """The bf16 forward's launch computes its chunk of windows in C
+    (``wattn::fwd_chunk``); the wrapper's mirror has its constant, and
+    chunks are the shortest that keep the blocks within ``FWD_BLOCKS``."""
+    attn = _source("window_attn.cuh")
+    assert int(re.search(r"constexpr int kFwdBlocks = (\d+);", attn).group(1)
+               ) == wai.FWD_BLOCKS
+    for bw, heads in ((3312, 4), (864, 8), (240, 16), (72, 32), (9, 32),
+                      (259, 8), (1, 1)):
+        chunk = wai.fwd_chunk(bw, heads)
+        blocks = -(-bw // chunk) * heads
+        assert 1 <= chunk <= bw
+        assert blocks <= max(wai.FWD_BLOCKS, heads)
+        assert chunk == 1 or -(-bw // (chunk - 1)) * heads > wai.FWD_BLOCKS
 
 
 # (B, Hp, Wp, C) of SAM's four stages at 480x640, batch 1 and 8 (the maps

@@ -214,7 +214,13 @@ def test_every_source_of_the_package_finds_its_headers():
             assert path.is_file(), path
     assert [p.name for p in _build.inputs("rowblock_infer")] == [
         "rowblock_infer.cu", "block_tail.cuh", "ln_proj.cuh",
-        "tail_chain.cuh", "window_attn.cuh", "gemm_sm90.cuh"]
+        "tail_chain.cuh", "window_attn.cuh", "gemm_sm90.cuh",
+        "gub_conv_tc.cuh"]
+    # every forward of the attention and the training backward rebuild when
+    # the shared attention code or its mma.sync pieces change
+    for name in ("window_attn_infer", "window_attn_train"):
+        assert [p.name for p in _build.inputs(name)] == [
+            f"{name}.cu", "window_attn.cuh", "gub_conv_tc.cuh"]
     # the kernels on the wgmma GEMM core rebuild when the core changes
     assert [p.name for p in _build.inputs("mlp_train")] == [
         "mlp_train.cu", "block_tail.cuh", "gemm_sm90.cuh"]

@@ -53,8 +53,9 @@
 //      columns in f32 and rounds once (NewCRF: q and k from one product of
 //      width 2C at row stride 2C; SAM: q into the first C columns at row
 //      stride 3C, then the same for k and v);
-//   2. the attention, one block per (window, head) on wattn::WindowMajor
-//      rows, the mask of window w % nW added; o into the output buffer;
+//   2. the attention (window_attn.cuh: on the tensor cores, one block per
+//      (chunk of windows, head)) on wattn::WindowMajor rows, the mask of
+//      window w % nW added; o into the output buffer;
 //   3. the chain tail_block_bf16, in place, which keeps this kernel's
 //      rounding: y = x + (o Wp + bp) is spilled in f32 (a float2 a lane
 //      from the fragment, x read in the same epilogue), LN2 reads it in
@@ -68,9 +69,10 @@
 // scratch g [M, 4C]. 7 kernels a NewCRF call, 9 a SAM call. The GELU is
 // looked up in the table the erf polynomial fills (at most 2.1e-7 from
 // erff before rounding). On an NVIDIA H100 80GB HBM3 at 700 W the eight
-// calls of a batch-8 NewCRF forward take 5.69 ms this way, half of it the
-// attention; through the CUDA-core passes below they took 11.45, 6.68 of
-// it the tail (chip_smoke.py [block kernel time], [block kernel split]).
+// calls of a batch-8 NewCRF forward take 3.68 ms this way, 0.82 of it the
+// attention on the tensor cores (2.83 on the CUDA cores); through the
+// CUDA-core passes below they took 11.45, 6.68 of it the tail
+// (chip_smoke.py [block kernel time], [block kernel split]).
 //
 // f32 keeps the passes on the CUDA cores: LayerNorm times valid and the
 // projection (ln_proj.cuh), the attention, and the tail over the flat rows

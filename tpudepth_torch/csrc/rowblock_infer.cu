@@ -49,8 +49,9 @@
 //      shared with block_infer.cu) on the CUDA cores (f32_gemm); it writes
 //      q scale and k (SAM: q; then k and v by a second launch) to a
 //      scratch of the image layout;
-//   2. the attention, one block per (window, head), each token's row found
-//      by wattn::ImageRows (token (r, s) of window (i, j) is image row
+//   2. the attention (window_attn.cuh; bf16 on the tensor cores, one block
+//      per (chunk of windows, head)), each token's row found by
+//      wattn::ImageRows (token (r, s) of window (i, j) is image row
 //      (i ws + r) Wp + j ws + s), the mask of window i nWw + j added; o is
 //      written into the output buffer;
 //   3. the block tail over the flat rows of o and x, in place: each tail
@@ -74,11 +75,12 @@
 // to bf16 anyway, so the rounding order is kEpilogue's; its GELU is looked
 // up in the table the erf polynomial fills (at most 2.1e-7 from erff
 // before rounding). On an NVIDIA H100 80GB HBM3 at 700 W the calls of a
-// batch-8 SAM forward take 3.0 ms this way, half of it the attention;
-// through the passes above they took 6.4, 3.3 of it the tail and 1.3 the
-// two LN projections (chip_smoke.py [row kernel time], [row kernel split];
-// the passes' split by scripts/torch_kernel_ab.py on the parent tree). f32
-// keeps the passes above.
+// batch-8 SAM forward take 1.83 ms this way, 0.36 of it the attention on
+// the tensor cores (1.54 on the CUDA cores); through the passes above they
+// took 6.4, 3.3 of it the tail and 1.3 the two LN projections
+// (chip_smoke.py [row kernel time], [row kernel split]; the passes' split
+// by scripts/torch_kernel_ab.py on the parent tree). f32 keeps the passes
+// above.
 
 #include "block_tail.cuh"
 #include "ln_proj.cuh"

@@ -19,16 +19,25 @@
 // below the card's ~295 per byte: the bound is bytes (q, k, v read once,
 // the output written once).
 //
-// Design: one block of 128 threads per (window, head). The head's N x d
-// slices of q, k and v (read through a row stride, so k and v may be views
-// of one [BW, N, 2C] projection) and the N x N f32 scores live in shared
-// memory only (N <= 64, d <= 64 and a multiple of 8: under 70 KB; a whole
-// 49 x C row set would be 300 KB at C = 1024). Scores: one (i, j) per
-// thread pass, rows padded by one float so neighbouring j fall in different
-// banks. Softmax: one warp per row, two columns per lane. Output: one
-// (i, c) per thread pass, written channel-packed. The products run on the
-// CUDA cores in f32. The device code lives in window_attn.cuh, which
-// rowblock_infer.cu shares with its own map from windows to image rows.
+// Design (window_attn.cuh). bf16 runs on the tensor cores: one block of 4
+// warps per (chunk of consecutive windows, head), q, k, v tiles double
+// buffered by cp.async (read through a row stride, so k and v may be views
+// of one [BW, N, 2C] projection; rows that are not 16-byte aligned by plain
+// loads), S = q k^T and O = P v by mma.sync from ldmatrix fragments, the
+// f32 softmax in registers with quad shuffles, the bias read into
+// registers once a block and each window's mask staged by cp.async beside
+// its tiles; the division by the row sum is the IEEE quotient, from one
+// reciprocal a row and two remainder corrections an element (wattn::
+// div_rn), where the division's own fast path leaves for a slow path on
+// the mask's tiny quotients. The instructions of the f32 softmax, not the
+// bytes or the products, bound it: on an NVIDIA H100 80GB HBM3 at 700 W the
+// four calls of a batch-8 SAM forward take 0.32 ms this way (chip_smoke.py
+// [sam kernel time]), 1.38 on the CUDA cores, and 0.51 with NewCRF's
+// shift-3 mask. f32 keeps the CUDA cores (on the tensor cores it
+// would be TF32): one block of 128 threads per (window, head), the head's
+// N x d slices and the N x N f32 scores in shared memory, products in f32.
+// rowblock_infer.cu and block_infer.cu launch the same device code on their
+// own row maps.
 
 #include "window_attn.cuh"
 

@@ -19,7 +19,8 @@
 //     summed in f32, bias then mask added in f32, f32 softmax, the
 //     probabilities ROUNDED to the IO dtype before P v, which sums in f32,
 //     the output rounded); this entry launches the same device code
-//     (window_attn.cuh) under its own name;
+//     (window_attn.cuh: bf16 on the tensor cores, f32 on the CUDA cores)
+//     under its own name;
 //   * backward: P recomputed in f32 and kept unrounded; Pd = round(P) for
 //     dv; dp = g v^T summed in f32; ds in f32; dsd = round(ds) for dq and
 //     dk; dq, dk, dv rounded to the IO dtype; dbias summed in f32 from the
@@ -51,6 +52,8 @@
 //      dsd^T q, both operands read by ldmatrix.trans;
 //   4. dq, dk and dv are staged in the warp's own rows of the window's
 //      dead k and v tiles and leave as 16-byte stores.
+// The tiles, their loader, the staging and the row stores are those of the
+// bf16 forward (window_attn.cuh).
 // No chain sums more than four k16 steps on the tensor cores (K = KD <= 64
 // for S and dP, K = 64 keys for the rest): their f32 sums are not rounded
 // to nearest, and chains that short stay within the f32 tolerance.
@@ -76,7 +79,6 @@
 // pass, products in f32; dbias from an N x N f32 accumulator in shared
 // memory per block into the same partial buffer.
 
-#include "gub_conv_tc.cuh"
 #include "window_attn.cuh"
 
 namespace {
@@ -275,109 +277,44 @@ cudaError_t launch_bwd(const BwdParams& p, int chunks, float* dbias,
 namespace wtc {
 
 using tc::bf16;
-using tc::cp_async16;
 using tc::ldsm_x4;
 using tc::ldsm_x4_t;
 using tc::mma;
+using wattn::aligned16;
+using wattn::kRows;
+using wattn::pack2;
+using wattn::stage;
+using wattn::store_rows;
+using wattn::Tile;
 using wtrain::BwdParams;
 
-constexpr int kThreads = 128;       // 4 warps of 16 query (then key) rows
-constexpr int kRows = 64;           // a window's tokens, padded
-constexpr int kLdP = kRows + 8;     // row stride of the Pd and dsd tiles
-constexpr int kLdB = kRows + 4;     // row stride of the f32 dbias sums
+using wattn::kThreads;          // 4 warps of 16 query (then key) rows
+constexpr int kLdP = kRows + 8;  // row stride of the Pd and dsd tiles
+constexpr int kLdB = kRows + 4;  // row stride of the f32 dbias sums
 
 // Shared memory of the kernel for heads KD wide (d rounded up to 16): two
-// sets of the q, k, v, g tiles [kRows][KD + 8], then Pd and dsd
-// [kRows][kLdP], all bf16, then the f32 dbias sums [kRows][kLdB]. The 8
-// extra columns make ldmatrix's eight row addresses fall in distinct
-// 16-byte bank groups.
+// sets of the q, k, v, g tiles (wattn::Tile<KD>), then Pd and dsd
+// [kRows][kLdP], all bf16, then the f32 dbias sums [kRows][kLdB].
 template <int KD>
 struct Layout {
-  static constexpr int kLd = KD + 8;
-  static constexpr int kTile = kRows * kLd;
+  static constexpr int kLd = Tile<KD>::kLd;
+  static constexpr int kTile = Tile<KD>::kSize;
   static constexpr int kSet = 4 * kTile;
   static constexpr int kBytes =
       2 * (2 * kSet + 2 * kRows * kLdP) + 4 * kRows * kLdB;
 };
 
-__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
 // The N x d slices of head h of window win of q, k, v and g into the tiles
-// of `set` (rows i < n, columns c < d; the rest is left alone), 16 bytes a
-// copy: by cp.async (kVec: every row 16-byte aligned) or by plain loads.
-// Piece e of a tile is row e / (KD / 8), columns 8 (e % (KD / 8)) ..
+// of `set` (wattn::load_tiles on window-major rows; g's rows are C apart).
 template <int KD, bool kVec>
 __device__ __forceinline__ void load_window(bf16* set, const BwdParams& p,
                                             int win, int h, int n, int d) {
-  using L = Layout<KD>;
-  constexpr int kPieces = KD / 8;
-  const long long row0 = static_cast<long long>(win) * n;
-#pragma unroll
-  for (int t = 0; t < 4; ++t) {
-    const bf16* src = static_cast<const bf16*>(
-        t == 0 ? p.q : t == 1 ? p.k : t == 2 ? p.v : p.g);
-    const long long ld =
-        t == 0 ? p.ldq : t == 1 ? p.ldk : t == 2 ? p.ldv : p.C;
-    src += row0 * ld + h * d;
-    bf16* tile = set + t * L::kTile;
-    for (int e = threadIdx.x; e < n * kPieces; e += kThreads) {
-      const int i = e / kPieces;
-      const int c = (e - i * kPieces) * 8;
-      if (c >= d) continue;
-      const bf16* from = src + i * ld + c;
-      bf16* to = tile + i * L::kLd + c;
-      if constexpr (kVec) {
-        cp_async16(to, from);
-      } else {
-#pragma unroll
-        for (int j = 0; j < 8; ++j) to[j] = from[j];
-      }
-    }
-  }
-}
-
-// The warp's 16 rows (r0 ..) of an output staged in `tile` (row stride
-// kLd, columns < d) to out [BW, N, C], 16 bytes a store, rows < n.
-template <int KD>
-__device__ __forceinline__ void store_rows(const bf16* tile, bf16* out,
-                                           int r0, int win, int h, int n,
-                                           int d, int C) {
-  constexpr int kPieces = KD / 8;
-  const int lane = threadIdx.x & 31;
-  out += (static_cast<long long>(win) * n + r0) * C + h * d;
-  tile += r0 * Layout<KD>::kLd;
-#pragma unroll
-  for (int e = lane; e < 16 * kPieces; e += 32) {
-    const int i = e / kPieces;
-    const int c = (e - i * kPieces) * 8;
-    if (c >= d || r0 + i >= n) continue;
-    *reinterpret_cast<uint4*>(out + static_cast<long long>(i) * C + c) =
-        *reinterpret_cast<const uint4*>(tile + i * Layout<KD>::kLd + c);
-  }
-}
-
-// acc (rows r0 + g and r0 + g + 8, columns 8 j + 2 t ..) rounded into the
-// staging tile, columns < d and rows < n only (the tile's pad stays zero).
-template <int KD>
-__device__ __forceinline__ void stage(bf16* tile, const float (&acc)[KD / 8][4],
-                                      int r0, int n, int d) {
-  const int lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int j = 0; j < KD / 8; ++j) {
-    const int col = 8 * j + 2 * t;
-    if (col >= d) continue;
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int row = r0 + g + 8 * half;
-      if (row < n)
-        *reinterpret_cast<uint32_t*>(tile + row * Layout<KD>::kLd + col) =
-            pack2(acc[j][2 * half], acc[j][2 * half + 1]);
-    }
-  }
+  const bf16* const src[4] = {
+      static_cast<const bf16*>(p.q), static_cast<const bf16*>(p.k),
+      static_cast<const bf16*>(p.v), static_cast<const bf16*>(p.g)};
+  const long long ld[4] = {p.ldq, p.ldk, p.ldv, p.C};
+  wattn::load_tiles<KD, kVec>(set, src, ld, wattn::WindowMajor{n}.window(win),
+                              h, n, d);
 }
 
 template <int KD, bool kVec>
@@ -392,6 +329,7 @@ __global__ void __launch_bounds__(kThreads, 3) bwd_tc_kernel(const BwdParams p) 
                                         // [kRows][kLdB]: this chunk's dbias
   const int n = p.N;
   const int d = p.C / p.heads;
+  const wattn::WindowMajor rows = {n};
   const int h = blockIdx.y;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
@@ -552,7 +490,7 @@ __global__ void __launch_bounds__(kThreads, 3) bwd_tc_kernel(const BwdParams p) 
     // dq through the warp's rows of the k tile
     stage<KD>(ks, acc, r0, n, d);
     __syncwarp();
-    store_rows<KD>(ks, dq_g, r0, win, h, n, d, p.C);
+    store_rows<KD>(ks, dq_g, p.C, rows.window(win), r0, h, n, d);
     __syncwarp();
 
     // dv = Pd^T g and dk = dsd^T q for the warp's 16 key rows
@@ -580,8 +518,8 @@ __global__ void __launch_bounds__(kThreads, 3) bwd_tc_kernel(const BwdParams p) 
     stage<KD>(ks, dk, r0, n, d);
     stage<KD>(vs, dv, r0, n, d);
     __syncwarp();
-    store_rows<KD>(ks, dk_g, r0, win, h, n, d, p.C);
-    store_rows<KD>(vs, dv_g, r0, win, h, n, d, p.C);
+    store_rows<KD>(ks, dk_g, p.C, rows.window(win), r0, h, n, d);
+    store_rows<KD>(vs, dv_g, p.C, rows.window(win), r0, h, n, d);
   }
 
   __syncthreads();
@@ -616,10 +554,6 @@ cudaError_t launch_width(const BwdParams& p, int chunks, cudaStream_t st) {
     case 4: return launch_kernel<64, kVec>(p, chunks, st);
     default: return cudaErrorInvalidValue;
   }
-}
-
-bool aligned16(const void* ptr) {
-  return reinterpret_cast<uintptr_t>(ptr) % 16 == 0;
 }
 
 // The bf16 backward: the tensor-core kernel, then the chunks' dbias sums.

@@ -4,7 +4,9 @@
 Counterpart of ``tpudepth/ops/pallas/window_attn_infer.py::
 window_attention_infer``. The kernel is ``tpudepth_torch/csrc/
 window_attn_infer.cu`` (``window_attn_infer``), CUDA C++ for ``sm_90a`` built
-by ``_build``; its header says what bounds it and how it is laid out. The
+by ``_build`` (bf16 on the tensor cores, f32 on the CUDA cores; the device
+code is ``csrc/window_attn.cuh``); its header says what bounds it and how it
+is laid out. The
 wrapper :func:`window_attention_infer` counts its launches; the plain
 version :func:`window_attention_infer_reference` has the kernel's rounding
 order. CPU tensors run the plain version; CUDA tensors launch the kernel or
@@ -37,6 +39,19 @@ from tpudepth_torch.ops.attention import (
 from tpudepth_torch.ops.kernels import _build
 
 _VP, _I32, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+
+#: the bf16 forward kernel's blocks (``kFwdBlocks`` of ``csrc/
+#: window_attn.cuh``, whose launch computes the chunk itself): about this
+#: many (chunk of windows, head) blocks a call, each walking its chunk's
+#: windows in order (two rounds of 4 blocks an SM on the H100's 132 SMs)
+FWD_BLOCKS = 1056
+
+
+def fwd_chunk(bw: int, heads: int) -> int:
+    """Windows a bf16 forward block walks (``wattn::fwd_chunk``): about
+    :data:`FWD_BLOCKS` blocks a call, a function of the shape alone."""
+    want = -(-FWD_BLOCKS // heads)
+    return -(-bw // min(bw, want))
 
 
 def window_attention_infer_reference(q, k, v, bias, mask=None):
