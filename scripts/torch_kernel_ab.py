@@ -3,11 +3,11 @@
 B 8 train-step times of ``gub_conv_fwd`` with statistics, the split of
 ``sam_rowblock_infer``, ``crf_rowblock_infer``, ``sam_block_infer``,
 ``crf_block_infer`` and ``window_attn_train_bwd`` into their CUDA kernels,
-and digests of the outputs that must stay bit-equal
-from tree to tree, on one NVIDIA GPU.
+the four loss kernels' times and CUDA kernels a call, and digests of the
+outputs that must stay bit-equal from tree to tree, on one NVIDIA GPU.
 
     python3 scripts/torch_kernel_ab.py [--tag NAME] [--json PATH]
-        [--skip conv,split,digest]
+        [--skip conv,split,loss,digest]
 
 It runs ``chip_smoke``'s own ``fwd_train_step_times`` and ``kernel_splits``
 (from the ``chip_smoke.py`` beside this script's directory) on the
@@ -16,8 +16,10 @@ from another tree's root times that tree by the same code: e.g. an
 unpacked parent under a git-ignored directory, ``cd .smoke_tree/parent &&
 python3 ../../scripts/torch_kernel_ab.py --tag parent``. It prints
 ``chip_smoke``'s [kernel time] B 8 and [row kernel split] / [block kernel
-split] / [train kernel split] lines, then ``[digest]``: sha256 of the
-outputs of, on seeded inputs:
+split] / [train kernel split] lines, ``chip_smoke``'s two loss phases
+(``loss``: the four loss kernels against their plain versions, then timed
+at B 8 480x640 f32 with their CUDA kernels a call), then ``[digest]``:
+sha256 of the outputs of, on seeded inputs:
 
 - ``gub_conv_dw``, ``gub_conv_dx`` (bf16 at the nine conv shapes, batch 2,
   statistics on, cotangents and the forward output drawn from a seed, not
@@ -26,7 +28,9 @@ outputs of, on seeded inputs:
   ``block_epilogue_infer`` (bf16); ``window_attn_infer`` in bf16 and in
   f32, with and without the shift-3 mask; ``window_attn_train_bwd`` (bf16,
   dq, dk, dv and dbias, with and without the mask); ``crf_block_infer``
-  (bf16, shift 0 and 3).
+  (bf16, shift 0 and 3);
+- at B 8 480x640 f32, ``chip_smoke``'s seeded training pairs:
+  ``fused_loss_fwd`` / ``_bwd`` and ``fused_root_loss_fwd`` / ``_bwd``.
 
 Equal digests in two trees are bit-equal outputs. Which must be equal
 between a tree and its parent depends on what the change touched: since
@@ -35,6 +39,8 @@ changed), the bf16 ``window_attn_infer`` and ``crf_block_infer`` digests
 differ from the trees before it, while ``gub_conv_dw`` / ``_dx``,
 ``block_epilogue_infer``, the f32 ``window_attn_infer`` and the bf16
 ``window_attn_train_bwd`` (which shares the attention's tile code) do not.
+The one-kernel loss backwards keep every output's operations and their
+order, so the four loss digests equal the two-kernel trees' too.
 Every digest is equal between two runs of one tree. The card's name and
 power limit come first; ``--json`` writes every number to PATH. It needs a
 card.
@@ -141,7 +147,44 @@ def digests(cs):
                   f"{'f32' if ' f32' in name else 'bf16'} {d}", flush=True)
         del attn, attn32, tattn, ga, tail, found, a
         torch.cuda.empty_cache()
+    out.update(loss_digests(cs))
     return out
+
+
+def loss_digests(cs):
+    """The four loss kernels' outputs at the training shape, B 8 480x640
+    f32, on ``chip_smoke``'s seeded pairs: the alhashim partials and dL/dp
+    (``fused_loss_fwd`` / ``_bwd``) and the root recipe's
+    (``fused_root_loss_fwd`` / ``_bwd``)."""
+    from tpudepth_torch.ops.kernels import fused_loss as fl
+    from tpudepth_torch.ops.kernels import fused_root_loss as frl
+
+    bsz, (h, w) = cs.TRAIN_BATCH, cs.TRAIN_HW
+    n = bsz * h * w
+    p, t = cs.make_loss_pair("norm", bsz, h, w, cs.DEVICE)
+    scales = torch.tensor([0.1 / n, -0.5 / n, 1.0 / n], device=cs.DEVICE)
+    found = {"fused_loss_fwd": fl.fused_partials(p, t, cs.MAX_DEPTH),
+             "fused_loss_bwd": fl.fused_bwd(p, t, cs.MAX_DEPTH, scales)}
+    p, t = cs.make_root_pair("unit", bsz, h, w, seed=1)
+    scales = torch.tensor([1.0 / n, 0.1 / n], device=cs.DEVICE)
+    found["fused_root_loss_fwd"] = frl.root_partials(p, t)
+    found["fused_root_loss_bwd"] = frl.root_bwd(p, t, scales)
+    out = {}
+    for name, v in found.items():
+        out[f"{name} B{bsz} {h}x{w}"] = d = digest(v)
+        print(f"[digest] {name} B{bsz} {h}x{w} f32 {d}", flush=True)
+    return out
+
+
+def loss_times(cs):
+    """``chip_smoke``'s two loss phases on this tree's kernels: each case
+    against the plain version, then the four kernels timed at B 8 480x640
+    beside the bound, the plain version and the library yardstick, with
+    their CUDA kernels a call ([kernel time], [root loss kernel time],
+    [loss kernel count])."""
+    rows = cs.phase_loss_kernels()[0]
+    rows.update(cs.phase_root_loss_kernels()[0])
+    return rows
 
 
 def main() -> int:
@@ -160,6 +203,7 @@ def main() -> int:
     result = {"tag": args.tag}
     for section, fn in (("conv", cs.fwd_train_step_times),
                         ("split", cs.kernel_splits),
+                        ("loss", lambda: loss_times(cs)),
                         ("digest", lambda: digests(cs))):
         if section not in skip:
             result[section] = fn()

@@ -429,9 +429,15 @@ def loss_pair(kind, bsz, h, w, device, seed=0):
     return dev(p), dev(t)
 
 
+# the backward's 32x64 output tile: one row and column below and above one
+# and two tiles, images narrower than its 10-pixel halo on one axis, a width
+# that is even but not a multiple of 4 (no 16-byte loads)
 LOSS_CASES = [("random", 3, 48, 64), ("norm", 8, 240, 320),
               ("norm", 2, 33, 47), ("zeros", 2, 64, 96), ("equal", 2, 40, 40),
-              ("smooth", 2, 50, 70), ("norm", 1, 7, 5), ("norm", 8, 480, 640)]
+              ("smooth", 2, 50, 70), ("norm", 1, 7, 5), ("norm", 8, 480, 640),
+              ("norm", 2, 31, 63), ("norm", 2, 33, 65), ("norm", 1, 63, 129),
+              ("zeros", 1, 65, 127), ("norm", 1, 11, 70), ("norm", 1, 70, 11),
+              ("random", 2, 32, 66)]
 
 
 @pytest.mark.parametrize("case", LOSS_CASES, ids=lambda c: "-".join(map(str, c)))
@@ -508,9 +514,13 @@ from torch_port_helpers import root_pair  # noqa: E402
 from tpudepth_torch.ops.kernels import fused_root_loss as frl  # noqa: E402
 
 # the SAM / NewCRF training shape; ragged tiles; the clip active; pred ==
-# target (the clip's bound); flat patches; the smallest image
+# target (the clip's bound); flat patches; the smallest image; the
+# backward's warp strip of 16 rows x 60 columns one below and above one and
+# two strips, images of 2 rows or columns (narrower than its 2-pixel halo)
 ROOT_CASES = [("unit", 8, 480, 640), ("unit", 2, 33, 47), ("anti", 2, 64, 96),
-              ("equal", 2, 40, 40), ("smooth", 2, 34, 46), ("unit", 1, 2, 3)]
+              ("equal", 2, 40, 40), ("smooth", 2, 34, 46), ("unit", 1, 2, 3),
+              ("unit", 2, 15, 59), ("anti", 2, 17, 61), ("unit", 1, 31, 121),
+              ("unit", 1, 33, 119), ("unit", 1, 2, 65), ("anti", 1, 65, 2)]
 
 
 @pytest.mark.parametrize("case", ROOT_CASES, ids=lambda c: "-".join(map(str, c)))
@@ -545,6 +555,39 @@ def test_fused_root_loss_bwd_matches_plain(cuda, case):
     assert got.shape == want.shape == p.shape
     assert torch.equal(got, want), float((got - want).abs().max())
     assert float(want.abs().max()) > 0 or case[0] == "equal"
+
+
+def _cuda_kernels_a_call(fn) -> list:
+    """Names of the CUDA kernels one call of ``fn`` runs, from a
+    ``torch.profiler`` trace (a warm-up call first)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+@pytest.mark.parametrize("recipe", ["alhashim", "root"])
+def test_loss_backward_is_one_cuda_kernel(cuda, recipe):
+    """Each backward is one CUDA kernel and no scratch: the coefficient maps
+    stay on the chip."""
+    if recipe == "alhashim":
+        p, t = loss_pair("norm", 2, 96, 128, cuda)
+        scales = torch.tensor([0.1, -0.5, 1.0], device=cuda) / p.numel()
+        before = fl.fused_bwd.launches
+        names = _cuda_kernels_a_call(lambda: fl.fused_bwd(p, t, 10.0, scales))
+        assert fl.fused_bwd.launches == before + 2
+    else:
+        p, t = root_pair("unit", 2, 96, 128, cuda)
+        scales = torch.tensor([1.0, 0.1], device=cuda) / p.numel()
+        before = frl.root_bwd.launches
+        names = _cuda_kernels_a_call(lambda: frl.root_bwd(p, t, scales))
+        assert frl.root_bwd.launches == before + 2
+    assert len(names) == 1, names
 
 
 def test_fused_root_loss_on_the_card_matches_the_plain_composition(cuda):

@@ -5,7 +5,7 @@ training attention compute in Python, on the CPU: the row chunks of
 (that of the row kernels and of both whole-block kernels too, whose bf16
 projections and tails run on the core), the constants they share with the
 CUDA sources (the bf16 forward attention's blocks a call too), and the
-ctypes signatures they give the C entries. The kernels themselves run only on the card
+ctypes signatures they give the C entries (the loss kernels' too). The kernels themselves run only on the card
 (``tests/test_torch_port_cuda.py``).
 """
 
@@ -17,6 +17,8 @@ import pytest
 from tpudepth_torch.ops.kernels import _build
 from tpudepth_torch.ops.kernels import block_infer as bi
 from tpudepth_torch.ops.kernels import epilogue_infer as ei
+from tpudepth_torch.ops.kernels import fused_loss as fl
+from tpudepth_torch.ops.kernels import fused_root_loss as frl
 from tpudepth_torch.ops.kernels import gub_conv as gc
 from tpudepth_torch.ops.kernels import mlp_train as mt
 from tpudepth_torch.ops.kernels import rowblock_infer as rbi
@@ -117,12 +119,12 @@ def _c_entries(source: str) -> dict:
     """``{name: [ctypes type of each parameter]}`` of the ``extern "C"``
     functions of a CUDA source, read from their declarations. A pointer to
     data (void, float, ...) is a c_void_p; a pointer to pointers, to ints or
-    to long longs is a ctypes pointer of that type."""
+    to long longs is a ctypes pointer of that type; ``()`` takes none."""
     out = {}
     for name, params in re.findall(r'extern "C" int (\w+)\(([^)]*)\)',
                                    _source(source)):
         types = []
-        for param in params.split(","):
+        for param in filter(str.strip, params.split(",")):
             words = param.replace("const", " ").replace("*", " * ").split()
             stars = words.count("*")
             decl = " ".join(w for w in words[:-1] if w != "*")
@@ -144,6 +146,8 @@ _SIGNATURES = {
     "rowblock_infer": ("rowblock_infer.cu", rbi.ARGTYPES),
     "block_infer": ("block_infer.cu", bi.ARGTYPES),
     "window_attn_train": ("window_attn_train.cu", wat.ARGTYPES),
+    "fused_loss": ("fused_loss.cu", fl.ARGTYPES),
+    "fused_root_loss": ("fused_root_loss.cu", frl.ARGTYPES),
 }
 
 
@@ -167,7 +171,13 @@ _ENTRIES = [("epilogue_infer", "block_epilogue_infer"),
             ("block_infer", "crf_block_infer"),
             ("block_infer", "sam_block_infer"),
             ("window_attn_train", "window_attn_train_fwd"),
-            ("window_attn_train", "window_attn_train_bwd")]
+            ("window_attn_train", "window_attn_train_bwd"),
+            ("fused_loss", "fused_loss_tile"),
+            ("fused_loss", "fused_loss_fwd"),
+            ("fused_loss", "fused_loss_bwd"),
+            ("fused_root_loss", "fused_root_loss_tile"),
+            ("fused_root_loss", "fused_root_loss_fwd"),
+            ("fused_root_loss", "fused_root_loss_bwd")]
 
 
 @pytest.mark.parametrize("library,name", _ENTRIES, ids=[

@@ -9,44 +9,70 @@
 //       forward-difference sign terms, and the SSIM adjoint (the gaussian of
 //       the three coefficient maps Cmu1, Ce11, Ce12), scaled by scales[3].
 //
-// The TPU kernels hold one whole image (~14 float32 buffers) in VMEM per grid
-// step. A block here has 227 KB of shared memory at most, so the image is cut
-// into 32x32 output tiles. A block stages its tile of p and t with a 5-pixel
-// halo (zero outside the image), forms the five products after the zero fill
-// (so they are zero outside too), runs the gaussian down the columns and then
-// along the rows through shared memory, and finishes on the tile's interior.
-//
-// Forward: every block writes its three sums to tile_partials[B][tiles][3];
-// a second small kernel adds each image's tiles in a fixed order, so the loss
-// repeats bit for bit from run to run (no atomics).
-//
-// Backward: two kernels with three maps through device memory. The first
-// recomputes the statistics per tile and writes Cmu1, Ce11, Ce12 for the
-// pixels of the image; the second stages those maps with a 5-pixel halo that
-// is ZERO outside the image (the adjoint convolution is zero-padded too: the
-// formulas do not give zero for p = t = 0 there), runs the gaussian over them
-// and adds the L1 and forward-difference sign terms. The alternative, one
-// kernel with a 10-pixel halo, recomputes the five statistics on 1.7x the
-// pixels; three maps through device memory cost 59 MB of traffic at B 8,
-// 480x640 and keep both kernels at a 5-pixel halo.
-//
 // What bounds it: the forward reads 2*B*H*W*4 bytes and does about 250 float
 // operations per pixel (22 multiply-adds for each of 5 maps, plus the
 // pointwise formulas); the backward reads the same, writes B*H*W*4 and does
 // about 410 (8 maps). On the CUDA cores (67 TFLOP/s in float32; there is no
 // tensor-core form of a shifted-window sum) the operations take longer than
 // the bytes at 3.35 TB/s, so both directions are bound by operations: 0.0092
-// and 0.0151 ms at B 8, 480x640. Every multiply-add of the two passes takes
-// one shared-memory load, and an SM loads 32 floats per clock against 128
-// multiply-adds, which holds this layout to a quarter of that peak at best;
-// on an H100 80GB HBM3 at 700 W it takes 0.052 ms forward and 0.120 ms
-// backward (17 % and 13 % of the bound). Keeping a column of taps in
-// registers across neighbouring outputs is the next step.
+// and 0.0151 ms at B 8, 480x640.
 //
-// The gaussian taps use fused multiply-adds; every formula after them (SSIM
-// map, coefficients, the final sum) uses the non-contracting intrinsics, so
-// that with equal statistics it is bit-equal to the plain PyTorch version,
-// and pred == target gives an SSIM of exactly 1.
+// Forward: the TPU kernel holds one whole image (~14 float32 buffers) in
+// VMEM per grid step; here the image is cut into 32x32 output tiles. A block
+// stages its tile of p and t with a 5-pixel halo (zero outside the image),
+// forms the five products after the zero fill (so they are zero outside
+// too), runs the gaussian down the columns and then along the rows through
+// shared memory, one shared load a multiply-add, and finishes on the tile's
+// interior. Every block writes its three sums to tile_partials[B][tiles][3];
+// a second small kernel adds each image's tiles in a fixed order, so the
+// loss repeats bit for bit from run to run (no atomics).
+//
+// Backward: one kernel a 32x64 output tile, and the coefficient maps never
+// leave the chip (a two-kernel split writes three maps to device memory and
+// reads them back with a halo: 59 MB at B 8, 480x640, more than the whole
+// bound's worth). A block of 384 threads (namespace bwd):
+//   0. stages p and t with a 10-pixel halo, zero outside the image, by
+//      16-byte loads when W is a multiple of 4 (52 x 88 floats each);
+//   A. runs the statistics' gaussian down the columns for the 42 x 84
+//      pixels the ring needs: a thread slides the 11 taps down 6 rows of one
+//      column and keeps the 5 maps' 6 sums in registers (16 shared loads of
+//      p and t for 330 multiply-adds);
+//   B. along the rows for the 42 x 74 pixels of the tile and its 5-pixel
+//      ring, 8 pixels of a row a thread (18 shared loads a map for 88
+//      multiply-adds; the last 2 columns a thread of their own), then forms
+//      the coefficient maps there, 0 outside the image (the adjoint is
+//      zero-padded and the formulas do not give 0 at p = t = 0);
+//   C. runs the adjoint gaussian down the columns of the three maps, 8 rows
+//      a thread, and stages p and t of the tile and a 1-pixel ring (loaded
+//      before the column pass, stored after it);
+//   D. along the rows, 8 outputs a thread, adds the L1 and forward-
+//      difference sign terms, and writes dL/dp through shared memory, so
+//      that consecutive threads store consecutive 16-byte pieces of a row
+//      (a thread's own 8 outputs in a row of their own cost a warp 32 L1
+//      wavefronts a store).
+// Phase 0's staging shares its memory with B's maps, C's results and the
+// ring with A's; 109,208 bytes of dynamic shared memory and at most 85
+// registers a thread keep two blocks, 24 warps, on an SM. The ring costs
+// 1.72x the statistics' column pass and 1.52x their row pass and the
+// coefficient formulas (four IEEE divisions a pixel), 1.16x the adjoint's
+// column pass: about 250 multiply-adds a pixel where the function needs 176,
+// and 163 instructions of coefficients where it needs 107. What holds it
+// is the instruction count (about 560 a pixel) and the instruction slots the
+// four barriers leave idle, which the SM's second block fills in part.
+// Tried and dropped: a division without its per-element branch, checked by
+// its exact remainder (more instructions, no gain); the sign terms as
+// bytes made by phase A's spare threads (more instructions in all);
+// persistent blocks that walk down a strip and keep the maps' last 10 rows
+// for the next tile (fewer instructions, but no room left to stage p and
+// t, and phase A reading them through L1 lost more than the ring saved).
+
+// The gaussian taps use fused multiply-adds, tap 0's product first and
+// taps 1..10 added in order, columns before rows; every formula after them
+// (SSIM map, coefficients, the final sum) uses the non-contracting
+// intrinsics, so that with equal statistics it is bit-equal to the plain
+// PyTorch version, and pred == target gives an SSIM of exactly 1. Every
+// output's operations are those of the two-kernel backward this replaced,
+// in the same order, so its bits did not move.
 //
 // sign(0) is 0, as in jnp.sign. The forward-difference terms leave out the
 // last column (x) and the last row (y).
@@ -70,7 +96,7 @@ struct Taps {
 };
 
 __device__ __forceinline__ float sgn(float v) {
-    return static_cast<float>((v > 0.0f) - (v < 0.0f));
+    return v > 0.0f ? 1.0f : (v < 0.0f ? -1.0f : 0.0f);
 }
 
 // Stage a PH x PW window of one image whose interior starts at (y0, x0);
@@ -259,126 +285,352 @@ fwd_reduce_kernel(const float* __restrict__ tile_partials,
     }
 }
 
-// Backward, first kernel: the coefficient maps on the pixels of the image.
-// coef is [3][B][H][W].
-__global__ void __launch_bounds__(NT)
-bwd_coef_kernel(const float* __restrict__ pred, const float* __restrict__ tgt,
-                float* __restrict__ coef, int B, int H, int W, float c1,
-                float c2, Taps taps) {
-    __shared__ float sp[PH][PWS];
-    __shared__ float st[PH][PWS];
-    __shared__ float col[5][TH][PWS];
+namespace bwd {
 
-    const int b = blockIdx.z;
-    const int y0 = blockIdx.y * TH, x0 = blockIdx.x * TW;
-    const size_t img = (size_t)b * H * W;
-    const size_t plane = (size_t)B * H * W;
-    stage_tile(pred + img, H, W, y0, x0, sp);
-    stage_tile(tgt + img, H, W, y0, x0, st);
-    __syncthreads();
-    column_pass5(taps, sp, st, col);
-    __syncthreads();
+constexpr int TH = 32;                 // output tile
+constexpr int TW = 64;
+constexpr int RH = TH + 2 * HALF;      // 42 rows of statistics and maps
+constexpr int RW = TW + 2 * HALF;      // 74 columns
+constexpr int SH = TH + 4 * HALF;      // 52 staged rows of p and t
+constexpr int CW = TW + 4 * HALF;      // 84 columns of the statistics' column pass
+constexpr int SX = 2;                  // staged column of image column x0 - 10
+constexpr int SWS = 88;                // staged columns x0 - 12 .. x0 + 75
+constexpr int AS = CW + 1;             // row stride of A's sums (odd: B's rows)
+constexpr int CS = RW + 1;             // row stride of the maps and of C's sums
+constexpr int NT = 384;                // 12 warps, two blocks an SM
+constexpr int RA = 6;                  // rows a thread in A (RH = 7 RA)
+constexpr int RB = 8;                  // columns a thread in B and D
+constexpr int RC = 8;                  // rows a thread in C (TH = 4 RC)
+constexpr int B_FULL = RW / RB;        // 9 strips of RB columns in B ...
+constexpr int RB_LAST = RW - B_FULL * RB;      // ... and one of 2
+constexpr int C_STRIPS = TH / RC;
+constexpr int QH = TH + 2, QW = TW + 2, QS = QW + 1;  // p, t with a 1-pixel ring
+constexpr int Q_TRIPS = (QH * QW + NT - 1) / NT;     // its elements a thread
+constexpr int OS = TW + 4;             // row stride of D's outputs
 
+// Dynamic shared memory, in floats: region 1 holds A's sums, then C's and
+// the p, t ring; region 2 holds the staged p and t, then the maps, then D's
+// outputs on their way to device memory.
+constexpr int R1 = (5 * RH * AS + 3) / 4 * 4;   // region 2 16-byte aligned
+constexpr int R2 = 3 * RH * CS;
+constexpr int RING = 3 * TH * CS;      // the p, t ring in region 1
+constexpr int SMEM_BYTES = (R1 + R2) * 4;
+static_assert(RING + 2 * QH * QS <= R1, "region 1 too small");
+static_assert(2 * SH * SWS <= R2 && TH * OS <= R2, "region 2 too small");
+static_assert(RH % RA == 0 && RW % RB != 0 && TH % RC == 0, "strips");
+static_assert(C_STRIPS * RW <= NT && (TW / RB) * TH <= NT,
+              "one item a thread in C and D");
+
+// 0: p and t of rows y0-10 .. y0+41, columns x0-12 .. x0+75, zero outside:
+// a thread keeps one 4-column group and steps down the rows.
+__device__ __forceinline__ void stage(const float* __restrict__ pred,
+                                      const float* __restrict__ tgt, int H,
+                                      int W, int y0, int x0, bool vec,
+                                      float* __restrict__ sp,
+                                      float* __restrict__ st) {
+    constexpr int Q4 = SWS / 4;          // 22 groups a row
+    constexpr int STEP = NT / Q4;        // 11 rows at a time
+    const int q = threadIdx.x % Q4, r0 = threadIdx.x / Q4;
+    if (r0 >= STEP) return;
+    const int x = x0 - 12 + 4 * q;
+    const bool in[4] = {x >= 0 && x < W, x + 1 >= 0 && x + 1 < W,
+                        x + 2 >= 0 && x + 2 < W, x + 3 >= 0 && x + 3 < W};
 #pragma unroll
-    for (int n = 0; n < PER_THREAD; ++n) {
-        const int idx = threadIdx.x + n * NT;
-        const int r = idx / TW, c = idx - r * TW;
-        const int y = y0 + r, x = x0 + c;
-        if (y >= H || x >= W) continue;
-        const float mu1 = row_pass(taps, col[0], r, c);
-        const float mu2 = row_pass(taps, col[1], r, c);
-        const float e11 = row_pass(taps, col[2], r, c);
-        const float e22 = row_pass(taps, col[3], r, c);
-        const float e12 = row_pass(taps, col[4], r, c);
-        const Ssim s = ssim_terms(mu1, mu2, e11, e22, e12, c1, c2);
-        // R = 1/(D1*D2), M = N1*N2*R
-        const float rr = __fdiv_rn(1.0f, __fmul_rn(s.d1, s.d2));
-        const float m = __fmul_rn(__fmul_rn(s.n1, s.n2), rr);
-        // Cmu1 = 2*mu2*R*(N2 - N1) - 2*mu1*M*(1/D1 - 1/D2)
-        const float ta = __fmul_rn(__fmul_rn(__fmul_rn(2.0f, s.m2), rr),
-                                   __fsub_rn(s.n2, s.n1));
-        const float tb = __fmul_rn(
-            __fmul_rn(__fmul_rn(2.0f, s.m1), m),
-            __fsub_rn(__fdiv_rn(1.0f, s.d1), __fdiv_rn(1.0f, s.d2)));
-        const size_t at = img + (size_t)y * W + x;
-        coef[at] = __fsub_rn(ta, tb);
-        coef[plane + at] = __fdiv_rn(-m, s.d2);                 // Ce11
-        coef[2 * plane + at] = __fmul_rn(__fmul_rn(2.0f, s.n1), rr);  // Ce12
+    for (int k = 0; k < (SH + STEP - 1) / STEP; ++k) {
+        const int r = r0 + k * STEP;
+        if (r >= SH) break;
+        const int y = y0 - 2 * HALF + r;
+        float4 vp = make_float4(0.0f, 0.0f, 0.0f, 0.0f), vt = vp;
+        if (y >= 0 && y < H) {
+            const size_t at = (size_t)y * W + x;
+            if (vec) {
+                // W % 4 == 0 and x % 4 == 0: all four inside or all outside
+                if (in[0]) {
+                    vp = *reinterpret_cast<const float4*>(pred + at);
+                    vt = *reinterpret_cast<const float4*>(tgt + at);
+                }
+            } else {
+                if (in[0]) vp.x = pred[at], vt.x = tgt[at];
+                if (in[1]) vp.y = pred[at + 1], vt.y = tgt[at + 1];
+                if (in[2]) vp.z = pred[at + 2], vt.z = tgt[at + 2];
+                if (in[3]) vp.w = pred[at + 3], vt.w = tgt[at + 3];
+            }
+        }
+        *reinterpret_cast<float4*>(sp + r * SWS + 4 * q) = vp;
+        *reinterpret_cast<float4*>(st + r * SWS + 4 * q) = vt;
     }
 }
 
-// Backward, second kernel: gaussian of the three coefficient maps (zero
-// outside the image), then the sum with the L1 and forward-difference terms.
-__global__ void __launch_bounds__(NT)
-bwd_out_kernel(const float* __restrict__ pred, const float* __restrict__ tgt,
-               const float* __restrict__ coef,
-               const float* __restrict__ scales, float* __restrict__ dout,
-               int B, int H, int W, Taps taps) {
-    __shared__ float sc[3][PH][PWS];
-    __shared__ float col[3][TH][PWS];
+// A: the column pass of p, t, p*p, t*t, p*t for RA rows of one column c
+// (of CW), rows r0 .. r0 + RA - 1 of RH. acc = g0 * v at the window's first
+// row, then fmaf(g[k], v, acc) for k = 1..10 in order.
+__device__ __forceinline__ void column_stats(const Taps& taps,
+                                             const float* __restrict__ sp,
+                                             const float* __restrict__ st,
+                                             float* __restrict__ sums, int r0,
+                                             int c) {
+    float a[5][RA];
+#pragma unroll
+    for (int i = 0; i < RA + WS - 1; ++i) {
+        const float p = sp[(r0 + i) * SWS + SX + c];
+        const float t = st[(r0 + i) * SWS + SX + c];
+        const float v[5] = {p, t, __fmul_rn(p, p), __fmul_rn(t, t),
+                            __fmul_rn(p, t)};
+#pragma unroll
+        for (int j = 0; j < RA; ++j) {
+            const int k = i - j;
+            if (k < 0 || k >= WS) continue;
+#pragma unroll
+            for (int m = 0; m < 5; ++m)
+                a[m][j] = k == 0 ? __fmul_rn(taps.g[0], v[m])
+                                 : fmaf(taps.g[k], v[m], a[m][j]);
+        }
+    }
+#pragma unroll
+    for (int m = 0; m < 5; ++m)
+#pragma unroll
+        for (int j = 0; j < RA; ++j)
+            sums[(m * RH + r0 + j) * AS + c] = a[m][j];
+}
+
+// The row pass of one map over N consecutive outputs from the row
+// src[0 .. N + 9]: out[j] = g0 * src[j], then fmaf with taps 1..10.
+template <int N>
+__device__ __forceinline__ void row_taps(const Taps& taps,
+                                         const float* __restrict__ src,
+                                         float (&out)[N]) {
+#pragma unroll
+    for (int i = 0; i < N + WS - 1; ++i) {
+        const float v = src[i];
+#pragma unroll
+        for (int j = 0; j < N; ++j) {
+            const int k = i - j;
+            if (k < 0 || k >= WS) continue;
+            out[j] = k == 0 ? __fmul_rn(taps.g[0], v)
+                            : fmaf(taps.g[k], v, out[j]);
+        }
+    }
+}
+
+// The coefficient maps of one pixel from its five statistics.
+struct Coef {
+    float mu1, e11, e12;
+};
+
+__device__ __forceinline__ Coef coef_of(float mu1, float mu2, float e11,
+                                        float e22, float e12, float c1,
+                                        float c2) {
+    const Ssim s = ssim_terms(mu1, mu2, e11, e22, e12, c1, c2);
+    // R = 1/(D1*D2), M = N1*N2*R
+    const float rr = __fdiv_rn(1.0f, __fmul_rn(s.d1, s.d2));
+    const float m = __fmul_rn(__fmul_rn(s.n1, s.n2), rr);
+    // Cmu1 = 2*mu2*R*(N2 - N1) - 2*mu1*M*(1/D1 - 1/D2)
+    const float ta = __fmul_rn(__fmul_rn(__fmul_rn(2.0f, s.m2), rr),
+                               __fsub_rn(s.n2, s.n1));
+    const float tb = __fmul_rn(
+        __fmul_rn(__fmul_rn(2.0f, s.m1), m),
+        __fsub_rn(__fdiv_rn(1.0f, s.d1), __fdiv_rn(1.0f, s.d2)));
+    Coef c;
+    c.mu1 = __fsub_rn(ta, tb);
+    c.e11 = __fdiv_rn(-m, s.d2);
+    c.e12 = __fmul_rn(__fmul_rn(2.0f, s.n1), rr);
+    return c;
+}
+
+// B: the row pass of the five statistics at pixels c0 .. c0 + N - 1 of
+// row r of the ring (RH x RW, origin (y0 - 5, x0 - 5)), then the maps there.
+template <int N>
+__device__ __forceinline__ void ring_maps(const Taps& taps,
+                                          const float* __restrict__ sums,
+                                          float* __restrict__ maps, int r,
+                                          int c0, int H, int W, int y0,
+                                          int x0, float c1, float c2) {
+    float st[5][N];
+#pragma unroll
+    for (int m = 0; m < 5; ++m)
+        row_taps<N>(taps, sums + (m * RH + r) * AS + c0, st[m]);
+    const int y = y0 - HALF + r;
+#pragma unroll
+    for (int j = 0; j < N; ++j) {
+        const int x = x0 - HALF + c0 + j;
+        Coef c = {0.0f, 0.0f, 0.0f};
+        if (y >= 0 && y < H && x >= 0 && x < W)
+            c = coef_of(st[0][j], st[1][j], st[2][j], st[3][j], st[4][j], c1,
+                        c2);
+        maps[(0 * RH + r) * CS + c0 + j] = c.mu1;
+        maps[(1 * RH + r) * CS + c0 + j] = c.e11;
+        maps[(2 * RH + r) * CS + c0 + j] = c.e12;
+    }
+}
+
+// C: the adjoint's column pass of the three maps at rows r0 .. r0 + RC - 1
+// of the tile, column c of the ring.
+__device__ __forceinline__ void column_adjoint(const Taps& taps,
+                                               const float* __restrict__ maps,
+                                               float* __restrict__ sums,
+                                               int r0, int c) {
+#pragma unroll
+    for (int m = 0; m < 3; ++m) {
+        float a[RC];
+#pragma unroll
+        for (int i = 0; i < RC + WS - 1; ++i) {
+            const float v = maps[(m * RH + r0 + i) * CS + c];
+#pragma unroll
+            for (int j = 0; j < RC; ++j) {
+                const int k = i - j;
+                if (k < 0 || k >= WS) continue;
+                a[j] = k == 0 ? __fmul_rn(taps.g[0], v)
+                              : fmaf(taps.g[k], v, a[j]);
+            }
+        }
+#pragma unroll
+        for (int j = 0; j < RC; ++j) sums[(m * TH + r0 + j) * CS + c] = a[j];
+    }
+}
+
+// D: dL/dp at pixels c0 .. c0 + RB - 1 of row r of the tile into out (row
+// stride OS): the adjoint's row pass of C's sums, the L1 and forward-
+// difference sign terms from the p, t ring (qp, qt; row stride QS, origin
+// (y0 - 1, x0 - 1)).
+__device__ __forceinline__ void out_tile(const Taps& taps,
+                                         const float* __restrict__ sums,
+                                         const float* __restrict__ qp,
+                                         const float* __restrict__ qt,
+                                         float* __restrict__ out,
+                                         const float* __restrict__ scales,
+                                         int r, int c0, int y0, int x0, int H,
+                                         int W) {
+    const int y = y0 + r, xs = x0 + c0;
+    const float* prow = qp + (r + 1) * QS + c0;   // column xs - 1
+    const float* trow = qt + (r + 1) * QS + c0;
+    const float s_l1 = scales[0], s_ssim = scales[1], s_grad = scales[2];
+    // sign q[x], q[x] = (t[x+1]-t[x]) - (p[x+1]-p[x]), at x = xs-1+j, 0
+    // where x+1 lies outside: the forward term of x, the backward one of x+1
+    float sx[RB + 1];
+#pragma unroll
+    for (int j = 0; j <= RB; ++j) {
+        const int x = xs - 1 + j;
+        sx[j] = x >= 0 && x + 1 < W
+                    ? sgn(__fsub_rn(__fsub_rn(trow[j + 1], trow[j]),
+                                    __fsub_rn(prow[j + 1], prow[j])))
+                    : 0.0f;
+    }
+    float g[3][RB];
+#pragma unroll
+    for (int m = 0; m < 3; ++m)
+        row_taps<RB>(taps, sums + (m * TH + r) * CS + c0, g[m]);
+#pragma unroll
+    for (int j = 0; j < RB; ++j) {
+        const float* pr = prow + j + 1;
+        const float* tr = trow + j + 1;
+        const float p = pr[0], t = tr[0];
+        float d = __fmul_rn(s_l1, sgn(__fsub_rn(p, t)));
+        // d/dp[x] = sign q[x] - sign q[x-1], along x and along y
+        d = __fadd_rn(d, __fmul_rn(s_grad, __fsub_rn(sx[j + 1], sx[j])));
+        float fwd = 0.0f, back = 0.0f;
+        if (y + 1 < H)
+            fwd = sgn(__fsub_rn(__fsub_rn(tr[QS], t), __fsub_rn(pr[QS], p)));
+        if (y > 0)
+            back = sgn(__fsub_rn(__fsub_rn(t, tr[-QS]), __fsub_rn(p, pr[-QS])));
+        d = __fadd_rn(d, __fmul_rn(s_grad, __fsub_rn(fwd, back)));
+        // g0 + g1*2*p + g2*t
+        const float adj = __fadd_rn(
+            __fadd_rn(g[0][j], __fmul_rn(__fmul_rn(g[1][j], 2.0f), p)),
+            __fmul_rn(g[2][j], t));
+        out[r * OS + c0 + j] = __fadd_rn(d, __fmul_rn(s_ssim, adj));
+    }
+}
+
+__global__ void __launch_bounds__(NT, 2)
+bwd_kernel(const float* __restrict__ pred, const float* __restrict__ tgt,
+           const float* __restrict__ scales, float* __restrict__ dout, int H,
+           int W, float c1, float c2, Taps taps) {
+    extern __shared__ __align__(16) float smem[];
+    float* region1 = smem;
+    float* region2 = smem + R1;
 
     const int b = blockIdx.z;
     const int y0 = blockIdx.y * TH, x0 = blockIdx.x * TW;
     const size_t img = (size_t)b * H * W;
-    const size_t plane = (size_t)B * H * W;
-    for (int m = 0; m < 3; ++m)
-        stage_tile(coef + m * plane + img, H, W, y0, x0, sc[m]);
+    const bool vec = (W & 3) == 0 &&
+        ((reinterpret_cast<size_t>(pred) | reinterpret_cast<size_t>(tgt) |
+          reinterpret_cast<size_t>(dout)) & 15) == 0;
+    const int tid = threadIdx.x;
+
+    // 0. p, t with a 10-pixel halo into region 2
+    float* sp = region2;
+    float* st = region2 + SH * SWS;
+    stage(pred + img, tgt + img, H, W, y0, x0, vec, sp, st);
     __syncthreads();
-    for (int idx = threadIdx.x; idx < TH * PW; idx += NT) {
-        const int r = idx / PW, c = idx - r * PW;
+
+    // A. the statistics down the columns into region 1
+    for (int idx = tid; idx < (RH / RA) * CW; idx += NT)
+        column_stats(taps, sp, st, region1, (idx / CW) * RA, idx % CW);
+    __syncthreads();
+
+    // B. along the rows, and the coefficient maps into region 2
+    for (int idx = tid; idx < RH * (B_FULL + 1); idx += NT) {
+        if (idx < RH * B_FULL)
+            ring_maps<RB>(taps, region1, region2, idx % RH, (idx / RH) * RB,
+                          H, W, y0, x0, c1, c2);
+        else
+            ring_maps<RB_LAST>(taps, region1, region2, idx - RH * B_FULL,
+                               B_FULL * RB, H, W, y0, x0, c1, c2);
+    }
+    __syncthreads();
+
+    // C. the adjoint down the columns into region 1; p and t of the tile and
+    // a 1-pixel ring beside it (loaded before the column pass, stored after)
+    float* qp = region1 + RING;
+    float* qt = qp + QH * QS;
+    float ring_p[Q_TRIPS], ring_t[Q_TRIPS];
 #pragma unroll
-        for (int m = 0; m < 3; ++m) {
-            float a = __fmul_rn(taps.g[0], sc[m][r][c]);
+    for (int k = 0; k < Q_TRIPS; ++k) {
+        const int idx = tid + k * NT, rq = idx / QW;
+        const int y = y0 - 1 + rq, x = x0 - 1 + (idx - rq * QW);
+        const bool in = idx < QH * QW && y >= 0 && y < H && x >= 0 && x < W;
+        ring_p[k] = in ? pred[img + (size_t)y * W + x] : 0.0f;
+        ring_t[k] = in ? tgt[img + (size_t)y * W + x] : 0.0f;
+    }
+    if (tid < C_STRIPS * RW)
+        column_adjoint(taps, region2, region1, (tid / RW) * RC, tid % RW);
 #pragma unroll
-            for (int k = 1; k < WS; ++k) a = fmaf(taps.g[k], sc[m][r + k][c], a);
-            col[m][r][c] = a;
+    for (int k = 0; k < Q_TRIPS; ++k) {
+        const int idx = tid + k * NT, rq = idx / QW;
+        if (idx < QH * QW) {
+            qp[rq * QS + idx - rq * QW] = ring_p[k];
+            qt[rq * QS + idx - rq * QW] = ring_t[k];
         }
     }
     __syncthreads();
 
-    const float s_l1 = scales[0], s_ssim = scales[1], s_grad = scales[2];
-    const float* p_img = pred + img;
-    const float* t_img = tgt + img;
+    // D. along the rows, the sign terms, dL/dp into region 2
+    if (tid < (TW / RB) * TH)
+        out_tile(taps, region1, qp, qt, region2, scales, tid % TH,
+                 (tid / TH) * RB, y0, x0, H, W);
+    __syncthreads();
+
+    // the tile's outputs to device memory, consecutive threads on
+    // consecutive 16-byte pieces of a row
+    constexpr int P4 = TW / 4;
+    for (int idx = tid; idx < TH * P4; idx += NT) {
+        const int ro = idx / P4, x = x0 + 4 * (idx - ro * P4);
+        const int yo = y0 + ro;
+        if (yo >= H) continue;
+        const float* o = region2 + ro * OS + 4 * (idx - ro * P4);
+        float* dst = dout + img + (size_t)yo * W + x;
+        if (vec && x + 4 <= W) {
+            *reinterpret_cast<float4*>(dst) =
+                make_float4(o[0], o[1], o[2], o[3]);
+        } else {
 #pragma unroll
-    for (int n = 0; n < PER_THREAD; ++n) {
-        const int idx = threadIdx.x + n * NT;
-        const int r = idx / TW, c = idx - r * TW;
-        const int y = y0 + r, x = x0 + c;
-        if (y >= H || x >= W) continue;
-        const size_t at = (size_t)y * W + x;
-        const float p = p_img[at], t = t_img[at];
-
-        float d = __fmul_rn(s_l1, sgn(__fsub_rn(p, t)));
-
-        // q[x] = (t[x+1]-t[x]) - (p[x+1]-p[x]);  d/dp[x] = sign q[x] - sign q[x-1]
-        float fwd = 0.0f, back = 0.0f;
-        if (x + 1 < W)
-            fwd = sgn(__fsub_rn(__fsub_rn(t_img[at + 1], t),
-                                __fsub_rn(p_img[at + 1], p)));
-        if (x > 0)
-            back = sgn(__fsub_rn(__fsub_rn(t, t_img[at - 1]),
-                                 __fsub_rn(p, p_img[at - 1])));
-        d = __fadd_rn(d, __fmul_rn(s_grad, __fsub_rn(fwd, back)));
-        fwd = 0.0f;
-        back = 0.0f;
-        if (y + 1 < H)
-            fwd = sgn(__fsub_rn(__fsub_rn(t_img[at + W], t),
-                                __fsub_rn(p_img[at + W], p)));
-        if (y > 0)
-            back = sgn(__fsub_rn(__fsub_rn(t, t_img[at - W]),
-                                 __fsub_rn(p, p_img[at - W])));
-        d = __fadd_rn(d, __fmul_rn(s_grad, __fsub_rn(fwd, back)));
-
-        const float g0 = row_pass(taps, col[0], r, c);
-        const float g1 = row_pass(taps, col[1], r, c);
-        const float g2 = row_pass(taps, col[2], r, c);
-        // g0 + g1*2*p + g2*t
-        const float adj = __fadd_rn(
-            __fadd_rn(g0, __fmul_rn(__fmul_rn(g1, 2.0f), p)),
-            __fmul_rn(g2, t));
-        dout[img + at] = __fadd_rn(d, __fmul_rn(s_ssim, adj));
+            for (int e = 0; e < 4; ++e)
+                if (x + e < W) dst[e] = o[e];
+        }
     }
 }
+
+}  // namespace bwd
 
 Taps make_taps(const float* g) {
     Taps t;
@@ -388,17 +640,16 @@ Taps make_taps(const float* g) {
 
 }  // namespace
 
-extern "C" {
-
-// The tile edge, so the wrapper can size tile_partials.
-int fused_loss_tile() { return TH; }
+// The tile edge of the forward, so the wrapper can size tile_partials.
+extern "C" int fused_loss_tile() { return TH; }
 
 // pred, tgt: [B,H,W] float32 contiguous. tile_partials: [B, tiles, 3] scratch
 // with tiles = ceil(H/32)*ceil(W/32). out: [B,3]. taps: 11 host floats.
 // Returns the CUDA error of the launches (0 on success).
-int fused_loss_fwd(const void* pred, const void* tgt, void* tile_partials,
-                   void* out, int B, int H, int W, float c1, float c2,
-                   const float* taps, void* stream) {
+extern "C" int fused_loss_fwd(const void* pred, const void* tgt,
+                              void* tile_partials, void* out, int B, int H,
+                              int W, float c1, float c2, const float* taps,
+                              void* stream) {
     const dim3 grid((W + TW - 1) / TW, (H + TH - 1) / TH, B);
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     fwd_tiles_kernel<<<grid, NT, 0, s>>>(
@@ -412,24 +663,23 @@ int fused_loss_fwd(const void* pred, const void* tgt, void* tile_partials,
     return static_cast<int>(cudaGetLastError());
 }
 
-// coef: [3,B,H,W] scratch. scales: 3 device floats (L1, SSIM, gradient).
-// dout: [B,H,W].
-int fused_loss_bwd(const void* pred, const void* tgt, const void* scales,
-                   void* coef, void* dout, int B, int H, int W, float c1,
-                   float c2, const float* taps, void* stream) {
-    const dim3 grid((W + TW - 1) / TW, (H + TH - 1) / TH, B);
-    cudaStream_t s = static_cast<cudaStream_t>(stream);
-    const Taps tp = make_taps(taps);
-    bwd_coef_kernel<<<grid, NT, 0, s>>>(
+// scales: 3 device floats (L1, SSIM, gradient). dout: [B,H,W]. taps: 11 host
+// floats. One kernel, no scratch. Returns the CUDA error of the launch (0 on
+// success).
+extern "C" int fused_loss_bwd(const void* pred, const void* tgt,
+                              const void* scales, void* dout, int B, int H,
+                              int W, float c1, float c2, const float* taps,
+                              void* stream) {
+    const cudaError_t attr = cudaFuncSetAttribute(
+        bwd::bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        bwd::SMEM_BYTES);
+    if (attr != cudaSuccess) return static_cast<int>(attr);
+    const dim3 grid((W + bwd::TW - 1) / bwd::TW, (H + bwd::TH - 1) / bwd::TH,
+                    B);
+    bwd::bwd_kernel<<<grid, bwd::NT, bwd::SMEM_BYTES,
+                      static_cast<cudaStream_t>(stream)>>>(
         static_cast<const float*>(pred), static_cast<const float*>(tgt),
-        static_cast<float*>(coef), B, H, W, c1, c2, tp);
-    cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
-    bwd_out_kernel<<<grid, NT, 0, s>>>(
-        static_cast<const float*>(pred), static_cast<const float*>(tgt),
-        static_cast<const float*>(coef), static_cast<const float*>(scales),
-        static_cast<float*>(dout), B, H, W, tp);
+        static_cast<const float*>(scales), static_cast<float*>(dout), H, W, c1,
+        c2, make_taps(taps));
     return static_cast<int>(cudaGetLastError());
 }
-
-}  // extern "C"

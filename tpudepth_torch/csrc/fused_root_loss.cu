@@ -23,26 +23,37 @@
 //     equal inputs the per-pixel maps are the plain version's bit for bit;
 //     only the sums over pixels take another order.
 //
-// The TPU kernels hold one whole image in VMEM per grid step. Here the
-// image is cut into 32x32 output tiles; a block stages its tile of p and t
-// with a 1-pixel reflected halo in shared memory.
-//
-// Forward: every block writes its two sums to tile_partials[B][tiles][2]; a
-// second small kernel adds each image's tiles in a fixed order, so the loss
-// repeats bit for bit from run to run (no atomics).
-//
-// Backward: two kernels with three maps through device memory. The first
-// recomputes the statistics per tile and writes the gated coefficient maps
-// for the pixels of the image; the second stages them with a 1-pixel halo
-// that is zero outside the image, runs the adjoint box and adds the L1 sign
-// term. One kernel would need a 2-pixel halo of recomputed statistics; the
-// three maps cost 2 x 3 x B*H*W*4 bytes of traffic (59 MB at B 8, 480x640)
-// that the TPU kernel keeps on the chip.
-//
-// What bounds it: the forward reads 2*B*H*W*4 bytes and does about 58 float
+// What bounds it: the forward reads 2*B*H*W*4 bytes and does about 59 float
 // operations per pixel, the backward reads 2 and writes 1 such plane and
-// does about 95: at 3.35 TB/s and 67 TFLOP/s (float32 outside the tensor
-// cores) both are bound by bytes.
+// does about 99: at 3.35 TB/s and 67 TFLOP/s (float32 outside the tensor
+// cores) both are bound by bytes (0.0059 and 0.0088 ms at B 8, 480x640).
+//
+// Forward: the TPU kernel holds one whole image in VMEM per grid step; here
+// the image is cut into 32x32 output tiles, a block stages its tile of p and
+// t with a 1-pixel reflected halo in shared memory and writes its two sums
+// to tile_partials[B][tiles][2]; a second small kernel adds each image's
+// tiles in a fixed order, so the loss repeats bit for bit from run to run
+// (no atomics).
+//
+// Backward: one kernel, and the coefficient maps never leave the chip (the
+// TPU kernel keeps them in VMEM; a two-kernel split writes three maps and
+// reads them back with a halo, 11 planes of traffic where the function needs
+// 3). A warp walks down a strip of 16 output rows and 60 output columns;
+// each lane holds two neighbouring columns (from 2 left of the strip to 2
+// right of it), so a row of p and t comes in as one 8-byte load a lane when
+// W is even. Per row it keeps in registers p, t and their products on the
+// last three rows (the box's column pass) and the adjoint's row pass on the
+// last three rows (its column pass), each in a ring of three slots that the
+// loop, unrolled by three, addresses by constants (no moves); the
+// neighbours along a row come from the next lanes by shuffles (two a map
+// and row). A row or column one step outside the image is the reflected
+// one, as the statistics' ReflectionPad(1) wants; the coefficient maps are
+// 0 outside the image, which the adjoint's folds at x = 1, W-2 and y = 1,
+// H-2 read. The ring the strip recomputes is 4 of 64 columns and 2 of 18
+// rows of statistics; there is no shared memory and no barrier, and the
+// next row's loads start before the current row's arithmetic. The
+// four IEEE divisions a pixel and the ~100 other operations then take
+// longer than the bytes: the kernel is bound by its instructions.
 //
 // sign(0) is 0, as in jnp.sign. H and W must be at least 2.
 
@@ -61,7 +72,7 @@ constexpr int PER_THREAD = TH * TW / NT;
 constexpr float THIRD = 1.0f / 3.0f;
 
 __device__ __forceinline__ float sgn(float v) {
-    return static_cast<float>((v > 0.0f) - (v < 0.0f));
+    return v > 0.0f ? 1.0f : (v < 0.0f ? -1.0f : 0.0f);
 }
 
 // ReflectionPad(1) index of i in [-1, n]
@@ -85,19 +96,6 @@ __device__ __forceinline__ void stage_reflect(const float* __restrict__ img,
         float v = 0.0f;
         if (y <= H && x <= W)
             v = img[(size_t)reflect(y, H) * W + reflect(x, W)];
-        dst[r][c] = v;
-    }
-}
-
-// Stage a PH x PW window, zero outside the image.
-__device__ __forceinline__ void stage_zero(const float* __restrict__ img,
-                                           int H, int W, int y0, int x0,
-                                           float (*dst)[PWS]) {
-    for (int idx = threadIdx.x; idx < PH * PW; idx += NT) {
-        const int r = idx / PW, c = idx - r * PW;
-        const int y = y0 - 1 + r, x = x0 - 1 + c;
-        float v = 0.0f;
-        if (y >= 0 && y < H && x >= 0 && x < W) v = img[(size_t)y * W + x];
         dst[r][c] = v;
     }
 }
@@ -132,14 +130,10 @@ struct Ssim {
     float m1, m2, n1, d1, n2, d2;
 };
 
-__device__ __forceinline__ Ssim ssim_terms(float (*col)[TH][PWS], int r,
-                                           int c, float c1, float c2) {
+__device__ __forceinline__ Ssim ssim_of(float m1, float m2, float e11,
+                                        float e22, float e12, float c1,
+                                        float c2) {
     Ssim s;
-    const float m1 = row_pass(col[0], r, c);
-    const float m2 = row_pass(col[1], r, c);
-    const float e11 = row_pass(col[2], r, c);
-    const float e22 = row_pass(col[3], r, c);
-    const float e12 = row_pass(col[4], r, c);
     const float m11 = __fmul_rn(m1, m1);
     const float m22 = __fmul_rn(m2, m2);
     const float s11 = __fsub_rn(e11, m11);
@@ -152,6 +146,16 @@ __device__ __forceinline__ Ssim ssim_terms(float (*col)[TH][PWS], int r,
     s.n2 = __fadd_rn(__fmul_rn(2.0f, s12), c2);
     s.d2 = __fadd_rn(__fadd_rn(s11, s22), c2);
     return s;
+}
+
+__device__ __forceinline__ Ssim ssim_terms(float (*col)[TH][PWS], int r,
+                                           int c, float c1, float c2) {
+    const float m1 = row_pass(col[0], r, c);
+    const float m2 = row_pass(col[1], r, c);
+    const float e11 = row_pass(col[2], r, c);
+    const float e22 = row_pass(col[3], r, c);
+    const float e12 = row_pass(col[4], r, c);
+    return ssim_of(m1, m2, e11, e22, e12, c1, c2);
 }
 
 // Sum two per-thread values over the block; thread 0 holds the result.
@@ -236,127 +240,271 @@ fwd_reduce_kernel(const float* __restrict__ tile_partials,
     }
 }
 
-// Backward, first kernel: the gated coefficient maps on the pixels of the
-// image. coef is [3][B][H][W].
-__global__ void __launch_bounds__(NT)
-bwd_coef_kernel(const float* __restrict__ pred, const float* __restrict__ tgt,
-                const float* __restrict__ scales, float* __restrict__ coef,
-                int B, int H, int W, float c1, float c2) {
-    __shared__ float sp[PH][PWS];
-    __shared__ float st[PH][PWS];
-    __shared__ float col[5][TH][PWS];
+// -- backward ----------------------------------------------------------------
 
-    const int b = blockIdx.z;
-    const int y0 = blockIdx.y * TH, x0 = blockIdx.x * TW;
-    const size_t img = (size_t)b * H * W;
-    const size_t plane = (size_t)B * H * W;
-    stage_reflect(pred + img, H, W, y0, x0, sp);
-    stage_reflect(tgt + img, H, W, y0, x0, st);
-    __syncthreads();
-    column_pass5(sp, st, col);
-    __syncthreads();
+constexpr int BWD_WARPS = 4;      // warps per block, each a strip of its own
+constexpr int BWD_COLS = 60;      // output columns of a strip (64 held, 2 a side)
+constexpr int BWD_ROWS = 16;      // output rows of a strip
+constexpr unsigned FULL = 0xffffffffu;
 
-    const float s_ssim = scales[0];
+// Where a lane reads its two columns xa, xa + 1 (the strip's first lane
+// starts 2 left of it): a column one step outside the image is the
+// reflected one, as the statistics' ReflectionPad(1) wants; a column
+// further out feeds only coefficient maps outside the image, which are 0,
+// so it reads any column of the image. With 8-byte rows (vec) one float2
+// at the even column clamped into [0, W - 2] gives both: at xa = -2 its
+// second column 1 = reflect(-1), at xa = W its first column W - 2 =
+// reflect(W).
+struct Columns {
+    int v;        // the float2's column (vec)
+    int a, b;     // the two columns' own (otherwise)
+};
+
+__device__ __forceinline__ Columns columns_of(int xa, int W) {
+    Columns c;
+    c.v = min(max(xa, 0), W - 2);
+    c.a = reflect(min(max(xa, -1), W), W);
+    c.b = reflect(min(max(xa + 1, -1), W), W);
+    return c;
+}
+
+// One row of p or t at the lane's columns; rows further out than one step
+// are as columns are.
+__device__ __forceinline__ float2 load_pair(const float* __restrict__ img,
+                                            int H, int W, int y,
+                                            const Columns& c, bool vec) {
+    const float* row = img + (size_t)reflect(min(max(y, -1), H), H) * W;
+    if (vec) return *reinterpret_cast<const float2*>(row + c.v);
+    return make_float2(row[c.a], row[c.b]);
+}
+
+// The five maps of one row at the lane's two columns.
+struct Maps {
+    float2 p, t, pp, tt, pt;
+};
+
+__device__ __forceinline__ Maps maps_of(float2 p, float2 t) {
+    Maps m;
+    m.p = p;
+    m.t = t;
+    m.pp = make_float2(__fmul_rn(p.x, p.x), __fmul_rn(p.y, p.y));
+    m.tt = make_float2(__fmul_rn(t.x, t.x), __fmul_rn(t.y, t.y));
+    m.pt = make_float2(__fmul_rn(p.x, t.x), __fmul_rn(p.y, t.y));
+    return m;
+}
+
+__device__ __forceinline__ float2 sum3v(float2 a, float2 b, float2 c) {
+    return make_float2(sum3(a.x, b.x, c.x), sum3(a.y, b.y, c.y));
+}
+
+// The box at the lane's two columns from the column pass v there: the
+// neighbours along the row from the lanes beside it.
+__device__ __forceinline__ float2 row_box(float2 v) {
+    const float left = __shfl_up_sync(FULL, v.y, 1);
+    const float right = __shfl_down_sync(FULL, v.x, 1);
+    return make_float2(sum3(left, v.x, v.y), sum3(v.x, v.y, right));
+}
+
+// The adjoint's pass along a row at columns x and x + 1 from the map c there
+// (0 outside the image), with the reflection's folds.
+__device__ __forceinline__ float2 row_adjoint(float2 c, int x, int W) {
+    const float left = __shfl_up_sync(FULL, c.y, 1);
+    const float right = __shfl_down_sync(FULL, c.x, 1);
+    float a = sum3(left, c.x, c.y);
+    if (x == 1) a = __fadd_rn(a, __fmul_rn(left, THIRD));
+    if (x == W - 2) a = __fadd_rn(a, __fmul_rn(c.y, THIRD));
+    float b = sum3(c.x, c.y, right);
+    if (x + 1 == 1) b = __fadd_rn(b, __fmul_rn(c.x, THIRD));
+    if (x + 1 == W - 2) b = __fadd_rn(b, __fmul_rn(right, THIRD));
+    return make_float2(a, b);
+}
+
+// The gated coefficient maps of one pixel (0 where it lies outside).
+struct Coef {
+    float mu1, e11, e12;
+};
+
+__device__ __forceinline__ Coef coef_of(const Ssim& s, float s_ssim) {
+    // R = 1/(D1*D2), M = N1*N2*R; d clip((1-M)/2, 0, 1)/dM = -1/2
+    // strictly inside the clip, else 0
+    const float rr = __fdiv_rn(1.0f, __fmul_rn(s.d1, s.d2));
+    const float m = __fmul_rn(__fmul_rn(s.n1, s.n2), rr);
+    const float pre = __fmul_rn(__fsub_rn(1.0f, m), 0.5f);
+    const float gate = __fmul_rn((pre > 0.0f && pre < 1.0f) ? -0.5f : 0.0f,
+                                 s_ssim);
+    // Cmu1 = 2*mu2*R*(N2 - N1) - 2*mu1*M*(1/D1 - 1/D2)
+    const float ta = __fmul_rn(__fmul_rn(__fmul_rn(2.0f, s.m2), rr),
+                               __fsub_rn(s.n2, s.n1));
+    const float tb = __fmul_rn(
+        __fmul_rn(__fmul_rn(2.0f, s.m1), m),
+        __fsub_rn(__fdiv_rn(1.0f, s.d1), __fdiv_rn(1.0f, s.d2)));
+    Coef c;
+    c.mu1 = __fmul_rn(gate, __fsub_rn(ta, tb));
+    c.e11 = __fmul_rn(gate, __fdiv_rn(-m, s.d2));
+    c.e12 = __fmul_rn(gate, __fmul_rn(__fmul_rn(2.0f, s.n1), rr));
+    return c;
+}
+
+// ((d + g0) + (g1*2)*p) + g2*t, d = s_l1 * sign(p - t)
+__device__ __forceinline__ float out_of(float p, float t, float g0, float g1,
+                                        float g2, float s_l1) {
+    float d = __fmul_rn(s_l1, sgn(__fsub_rn(p, t)));
+    d = __fadd_rn(d, g0);
+    d = __fadd_rn(d, __fmul_rn(__fmul_rn(g1, 2.0f), p));
+    return __fadd_rn(d, __fmul_rn(g2, t));
+}
+
+// The adjoint's pass down the columns at output row y from its row pass a
+// on rows y-1, y, y+1 (0 outside the image), with the reflection's folds.
+__device__ __forceinline__ float col_adjoint(float a0, float a1, float a2,
+                                             int y, int H) {
+    float g = sum3(a0, a1, a2);
+    if (y == 1) g = __fadd_rn(g, __fmul_rn(a0, THIRD));
+    if (y == H - 2) g = __fadd_rn(g, __fmul_rn(a2, THIRD));
+    return g;
+}
+
+// What a lane carries from row to row: the five maps of the last three
+// rows of p and t (m), and the adjoint's row pass of the three coefficient
+// maps on the last three rows of them (a), each in a ring of three slots.
+struct Window {
+    Maps m[3];
+    float2 a[3][3];   // [slot][map]
+};
+
+// Everything one row step needs besides the window.
+struct Strip {
+    const float* P;
+    const float* T;
+    float* out;
+    int H, W, xa;
+    Columns cols;
+    bool vec, in_a, in_b, mine;
+    float c1, c2, s_ssim, s_l1;
+};
+
+// Row step j of a strip starting at output row ys: p and t of row y = ys -
+// 2 + j (loaded one step ahead into np, nt) into slot S = j % 3; from
+// j = 2 the statistics, coefficient maps and the adjoint's row pass of row
+// y - 1 into slot S; from j = 4 output row y - 2. Slots by S, so that the
+// rings need no moves.
+template <int S>
+__device__ __forceinline__ void row_step(Window& w, const Strip& s, int j,
+                                         int ys, int steps, float2& np,
+                                         float2& nt) {
+    constexpr int S1 = (S + 1) % 3, S2 = (S + 2) % 3;   // rows y-2, y-1
+    const int y = ys - 2 + j;
+    w.m[S] = maps_of(np, nt);
+    if (j + 1 < steps) {
+        np = load_pair(s.P, s.H, s.W, y + 1, s.cols, s.vec);
+        nt = load_pair(s.T, s.H, s.W, y + 1, s.cols, s.vec);
+    }
+    if (j < 2) return;
+    const int ym = y - 1;
+    const Maps& m0 = w.m[S1];
+    const Maps& m1 = w.m[S2];
+    const Maps& m2 = w.m[S];
+    if (ym >= 0 && ym < s.H) {
+        const float2 mu1 = row_box(sum3v(m0.p, m1.p, m2.p));
+        const float2 mu2 = row_box(sum3v(m0.t, m1.t, m2.t));
+        const float2 e11 = row_box(sum3v(m0.pp, m1.pp, m2.pp));
+        const float2 e22 = row_box(sum3v(m0.tt, m1.tt, m2.tt));
+        const float2 e12 = row_box(sum3v(m0.pt, m1.pt, m2.pt));
+        // both columns' maps (a branch each would not save the warp's time)
+        Coef ca = coef_of(ssim_of(mu1.x, mu2.x, e11.x, e22.x, e12.x, s.c1,
+                                  s.c2), s.s_ssim);
+        Coef cb = coef_of(ssim_of(mu1.y, mu2.y, e11.y, e22.y, e12.y, s.c1,
+                                  s.c2), s.s_ssim);
+        if (!s.in_a) ca = {0.0f, 0.0f, 0.0f};
+        if (!s.in_b) cb = {0.0f, 0.0f, 0.0f};
+        w.a[S][0] = row_adjoint(make_float2(ca.mu1, cb.mu1), s.xa, s.W);
+        w.a[S][1] = row_adjoint(make_float2(ca.e11, cb.e11), s.xa, s.W);
+        w.a[S][2] = row_adjoint(make_float2(ca.e12, cb.e12), s.xa, s.W);
+    } else {
 #pragma unroll
-    for (int n = 0; n < PER_THREAD; ++n) {
-        const int idx = threadIdx.x + n * NT;
-        const int r = idx / TW, c = idx - r * TW;
-        const int y = y0 + r, x = x0 + c;
-        if (y >= H || x >= W) continue;
-        const Ssim s = ssim_terms(col, r, c, c1, c2);
-        // R = 1/(D1*D2), M = N1*N2*R; d clip((1-M)/2, 0, 1)/dM = -1/2
-        // strictly inside the clip, else 0
-        const float rr = __fdiv_rn(1.0f, __fmul_rn(s.d1, s.d2));
-        const float m = __fmul_rn(__fmul_rn(s.n1, s.n2), rr);
-        const float pre = __fmul_rn(__fsub_rn(1.0f, m), 0.5f);
-        const float gate = __fmul_rn((pre > 0.0f && pre < 1.0f) ? -0.5f : 0.0f,
-                                     s_ssim);
-        // Cmu1 = 2*mu2*R*(N2 - N1) - 2*mu1*M*(1/D1 - 1/D2)
-        const float ta = __fmul_rn(__fmul_rn(__fmul_rn(2.0f, s.m2), rr),
-                                   __fsub_rn(s.n2, s.n1));
-        const float tb = __fmul_rn(
-            __fmul_rn(__fmul_rn(2.0f, s.m1), m),
-            __fsub_rn(__fdiv_rn(1.0f, s.d1), __fdiv_rn(1.0f, s.d2)));
-        const size_t at = img + (size_t)y * W + x;
-        coef[at] = __fmul_rn(gate, __fsub_rn(ta, tb));
-        coef[plane + at] = __fmul_rn(gate, __fdiv_rn(-m, s.d2));            // Ce11
-        coef[2 * plane + at] = __fmul_rn(
-            gate, __fmul_rn(__fmul_rn(2.0f, s.n1), rr));                    // Ce12
+        for (int k = 0; k < 3; ++k) w.a[S][k] = make_float2(0.0f, 0.0f);
+    }
+    if (j < 4 || !s.mine) return;
+    // output row y - 2: the adjoint's column pass over rows y-3, y-2, y-1
+    const int yo = y - 2;
+    const float2* a0 = w.a[S1];
+    const float2* a1 = w.a[S2];
+    const float2* a2 = w.a[S];
+    const float oa = out_of(
+        m0.p.x, m0.t.x, col_adjoint(a0[0].x, a1[0].x, a2[0].x, yo, s.H),
+        col_adjoint(a0[1].x, a1[1].x, a2[1].x, yo, s.H),
+        col_adjoint(a0[2].x, a1[2].x, a2[2].x, yo, s.H), s.s_l1);
+    const float ob = out_of(
+        m0.p.y, m0.t.y, col_adjoint(a0[0].y, a1[0].y, a2[0].y, yo, s.H),
+        col_adjoint(a0[1].y, a1[1].y, a2[1].y, yo, s.H),
+        col_adjoint(a0[2].y, a1[2].y, a2[2].y, yo, s.H), s.s_l1);
+    float* row = s.out + (size_t)yo * s.W + s.xa;
+    if (s.vec && s.in_a) {
+        *reinterpret_cast<float2*>(row) = make_float2(oa, ob);
+    } else {
+        if (s.in_a) row[0] = oa;
+        if (s.in_b) row[1] = ob;
     }
 }
 
-// Backward, second kernel: the adjoint box of the three coefficient maps
-// (zero outside the image, the reflection folded back at rows / columns 1
-// and n-2), then the sum with the L1 sign term.
-__global__ void __launch_bounds__(NT)
-bwd_out_kernel(const float* __restrict__ pred, const float* __restrict__ tgt,
-               const float* __restrict__ coef,
-               const float* __restrict__ scales, float* __restrict__ dout,
-               int B, int H, int W) {
-    __shared__ float sc[3][PH][PWS];
-    __shared__ float rw[3][PH][TW + 1];   // after the row pass
-
-    const int b = blockIdx.z;
-    const int y0 = blockIdx.y * TH, x0 = blockIdx.x * TW;
+// One warp a strip of BWD_ROWS x BWD_COLS outputs; task = (image, column
+// strip, row strip), the row strip fastest.
+__global__ void __launch_bounds__(BWD_WARPS * 32)
+bwd_kernel(const float* __restrict__ pred, const float* __restrict__ tgt,
+           const float* __restrict__ scales, float* __restrict__ dout, int B,
+           int H, int W, int strips_y, int strips_x, float c1, float c2) {
+    const int lane = threadIdx.x & 31;
+    const int task = blockIdx.x * BWD_WARPS + (threadIdx.x >> 5);
+    const int b = task / (strips_y * strips_x);
+    if (b >= B) return;
+    const int rest = task - b * strips_y * strips_x;
+    const int ys = (rest % strips_y) * BWD_ROWS;
+    const int steps = min(BWD_ROWS, H - ys) + 4;
     const size_t img = (size_t)b * H * W;
-    const size_t plane = (size_t)B * H * W;
-    for (int m = 0; m < 3; ++m)
-        stage_zero(coef + m * plane + img, H, W, y0, x0, sc[m]);
-    __syncthreads();
-    // along the rows, on every staged row (rows outside the image are 0)
-    for (int idx = threadIdx.x; idx < PH * TW; idx += NT) {
-        const int r = idx / TW, c = idx - r * TW;
-        const int x = x0 + c;
-#pragma unroll
-        for (int m = 0; m < 3; ++m) {
-            float a = sum3(sc[m][r][c], sc[m][r][c + 1], sc[m][r][c + 2]);
-            if (x == 1) a = __fadd_rn(a, __fmul_rn(sc[m][r][c], THIRD));
-            if (x == W - 2) a = __fadd_rn(a, __fmul_rn(sc[m][r][c + 2], THIRD));
-            rw[m][r][c] = a;
-        }
-    }
-    __syncthreads();
+    Strip s;
+    s.P = pred + img;
+    s.T = tgt + img;
+    s.out = dout + img;
+    s.H = H;
+    s.W = W;
+    s.xa = (rest / strips_y) * BWD_COLS - 2 + 2 * lane;
+    s.cols = columns_of(s.xa, W);
+    // W even: xa is even, so an 8-byte load at the even column is aligned
+    s.vec = (W & 1) == 0 &&
+        ((reinterpret_cast<size_t>(pred) | reinterpret_cast<size_t>(tgt) |
+          reinterpret_cast<size_t>(dout)) & 7) == 0;
+    s.in_a = s.xa >= 0 && s.xa < W;
+    s.in_b = s.xa + 1 >= 0 && s.xa + 1 < W;
+    s.mine = lane >= 1 && lane <= 30;   // the strip's own columns
+    s.c1 = c1;
+    s.c2 = c2;
+    s.s_ssim = scales[0];
+    s.s_l1 = scales[1];
 
-    const float s_l1 = scales[1];
-#pragma unroll
-    for (int n = 0; n < PER_THREAD; ++n) {
-        const int idx = threadIdx.x + n * NT;
-        const int r = idx / TW, c = idx - r * TW;
-        const int y = y0 + r, x = x0 + c;
-        if (y >= H || x >= W) continue;
-        float g[3];
-#pragma unroll
-        for (int m = 0; m < 3; ++m) {
-            float a = sum3(rw[m][r][c], rw[m][r + 1][c], rw[m][r + 2][c]);
-            if (y == 1) a = __fadd_rn(a, __fmul_rn(rw[m][r][c], THIRD));
-            if (y == H - 2) a = __fadd_rn(a, __fmul_rn(rw[m][r + 2][c], THIRD));
-            g[m] = a;
-        }
-        const size_t at = img + (size_t)y * W + x;
-        const float p = pred[at], t = tgt[at];
-        // ((d + g0) + (g1*2)*p) + g2*t, d = s_l1 * sign(p - t)
-        float d = __fmul_rn(s_l1, sgn(__fsub_rn(p, t)));
-        d = __fadd_rn(d, g[0]);
-        d = __fadd_rn(d, __fmul_rn(__fmul_rn(g[1], 2.0f), p));
-        dout[at] = __fadd_rn(d, __fmul_rn(g[2], t));
+    Window w;
+    float2 np = load_pair(s.P, H, W, ys - 2, s.cols, s.vec);
+    float2 nt = load_pair(s.T, H, W, ys - 2, s.cols, s.vec);
+    for (int j = 0; j < steps; j += 3) {
+        row_step<0>(w, s, j, ys, steps, np, nt);
+        if (j + 1 < steps) row_step<1>(w, s, j + 1, ys, steps, np, nt);
+        if (j + 2 < steps) row_step<2>(w, s, j + 2, ys, steps, np, nt);
     }
 }
 
 }  // namespace rootloss
 }  // namespace
 
-extern "C" {
-
 // The tile edge, so the wrapper can size tile_partials.
-int fused_root_loss_tile() { return rootloss::TH; }
+extern "C" int fused_root_loss_tile() { return rootloss::TH; }
 
 // pred, tgt: [B,H,W] float32 contiguous, H, W >= 2. tile_partials:
 // [B, tiles, 2] scratch with tiles = ceil(H/32)*ceil(W/32). out: [B,2]
 // (sum of the clipped SSIM loss map, sum |p-t|). Returns the CUDA error of
 // the launches (0 on success).
-int fused_root_loss_fwd(const void* pred, const void* tgt, void* tile_partials,
-                        void* out, int B, int H, int W, float c1, float c2,
-                        void* stream) {
+extern "C" int fused_root_loss_fwd(const void* pred, const void* tgt,
+                                   void* tile_partials, void* out, int B,
+                                   int H, int W, float c1, float c2,
+                                   void* stream) {
     using namespace rootloss;
     const dim3 grid((W + TW - 1) / TW, (H + TH - 1) / TH, B);
     cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -371,25 +519,20 @@ int fused_root_loss_fwd(const void* pred, const void* tgt, void* tile_partials,
     return static_cast<int>(cudaGetLastError());
 }
 
-// scales: 2 device floats (SSIM, L1 factors of dL/dp). coef: [3,B,H,W]
-// scratch. dout: [B,H,W].
-int fused_root_loss_bwd(const void* pred, const void* tgt, const void* scales,
-                        void* coef, void* dout, int B, int H, int W, float c1,
-                        float c2, void* stream) {
+// scales: 2 device floats (SSIM, L1 factors of dL/dp). dout: [B,H,W]. One
+// kernel, no scratch. Returns the CUDA error of the launch (0 on success).
+extern "C" int fused_root_loss_bwd(const void* pred, const void* tgt,
+                                   const void* scales, void* dout, int B,
+                                   int H, int W, float c1, float c2,
+                                   void* stream) {
     using namespace rootloss;
-    const dim3 grid((W + TW - 1) / TW, (H + TH - 1) / TH, B);
-    cudaStream_t s = static_cast<cudaStream_t>(stream);
-    bwd_coef_kernel<<<grid, NT, 0, s>>>(
+    const int strips_y = (H + BWD_ROWS - 1) / BWD_ROWS;
+    const int strips_x = (W + BWD_COLS - 1) / BWD_COLS;
+    const long long tasks = (long long)B * strips_y * strips_x;
+    const int blocks = static_cast<int>((tasks + BWD_WARPS - 1) / BWD_WARPS);
+    bwd_kernel<<<blocks, BWD_WARPS * 32, 0, static_cast<cudaStream_t>(stream)>>>(
         static_cast<const float*>(pred), static_cast<const float*>(tgt),
-        static_cast<const float*>(scales), static_cast<float*>(coef), B, H, W,
-        c1, c2);
-    cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
-    bwd_out_kernel<<<grid, NT, 0, s>>>(
-        static_cast<const float*>(pred), static_cast<const float*>(tgt),
-        static_cast<const float*>(coef), static_cast<const float*>(scales),
-        static_cast<float*>(dout), B, H, W);
+        static_cast<const float*>(scales), static_cast<float*>(dout), B, H, W,
+        strips_y, strips_x, c1, c2);
     return static_cast<int>(cudaGetLastError());
 }
-
-}  // extern "C"

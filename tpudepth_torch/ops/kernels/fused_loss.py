@@ -172,19 +172,23 @@ def tolerance(p: torch.Tensor, t: torch.Tensor, max_depth: float) -> dict:
             "grad_atol": grad_atol, "grad_rtol": 1e-5}
 
 
+_VP, _I32, _F32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+
+#: ctypes signature of each C entry of ``csrc/fused_loss.cu``; the 11 taps
+#: go as a pointer to host floats (a ctypes array)
+ARGTYPES = {
+    "fused_loss_tile": (),
+    "fused_loss_fwd": (_VP,) * 4 + (_I32,) * 3 + (_F32,) * 2 + (_VP, _VP),
+    "fused_loss_bwd": (_VP,) * 4 + (_I32,) * 3 + (_F32,) * 2 + (_VP, _VP),
+}
+
+
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
     lib = _build.load("fused_loss")
-    vp, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    taps = ctypes.POINTER(ctypes.c_float)
-    lib.fused_loss_tile.argtypes = []
-    lib.fused_loss_tile.restype = i32
-    lib.fused_loss_fwd.argtypes = [vp, vp, vp, vp, i32, i32, i32, f32, f32,
-                                   taps, vp]
-    lib.fused_loss_fwd.restype = i32
-    lib.fused_loss_bwd.argtypes = [vp, vp, vp, vp, vp, i32, i32, i32, f32,
-                                   f32, taps, vp]
-    lib.fused_loss_bwd.restype = i32
+    for fn, types in ARGTYPES.items():
+        getattr(lib, fn).argtypes = list(types)
+        getattr(lib, fn).restype = _I32
     return lib
 
 
@@ -237,7 +241,8 @@ def fused_bwd(p: torch.Tensor, t: torch.Tensor, max_depth: float,
     the inputs' device: the factors of the L1, SSIM and gradient terms).
 
     CPU tensors run :func:`fused_bwd_reference`; CUDA tensors launch the
-    ``fused_loss_bwd`` kernel (counted in ``fused_bwd.launches``)."""
+    ``fused_loss_bwd`` kernel, one CUDA kernel and no scratch (counted in
+    ``fused_bwd.launches``)."""
     if p.device.type == "cpu":
         return fused_bwd_reference(p, t, max_depth, scales)
     _check(p, t)
@@ -246,15 +251,13 @@ def fused_bwd(p: torch.Tensor, t: torch.Tensor, max_depth: float,
             or scales.device != p.device or not scales.is_contiguous()):
         raise ValueError("scales must be 3 contiguous float32 on pred's device")
     bsz, h, w = p.shape
-    coef = torch.empty((3, bsz, h, w), dtype=torch.float32, device=p.device)
     dout = torch.empty_like(p)
     c1, c2 = _constants(max_depth)
     with torch.cuda.device(p.device):
         stream = torch.cuda.current_stream(p.device).cuda_stream
         rc = _lib().fused_loss_bwd(p.data_ptr(), t.data_ptr(),
-                                   scales.data_ptr(), coef.data_ptr(),
-                                   dout.data_ptr(), bsz, h, w, c1, c2,
-                                   _c_taps(), stream)
+                                   scales.data_ptr(), dout.data_ptr(), bsz, h,
+                                   w, c1, c2, _c_taps(), stream)
     if rc != 0:
         raise RuntimeError(f"fused_loss_bwd launch failed: CUDA error {rc}")
     fused_bwd.launches += 1

@@ -128,16 +128,22 @@ def root_bwd_reference(p: torch.Tensor, t: torch.Tensor,
 PARTIALS_RTOL = 1e-5
 
 
+_VP, _I32, _F32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+
+#: ctypes signature of each C entry of ``csrc/fused_root_loss.cu``
+ARGTYPES = {
+    "fused_root_loss_tile": (),
+    "fused_root_loss_fwd": (_VP,) * 4 + (_I32,) * 3 + (_F32,) * 2 + (_VP,),
+    "fused_root_loss_bwd": (_VP,) * 4 + (_I32,) * 3 + (_F32,) * 2 + (_VP,),
+}
+
+
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
     lib = _build.load("fused_root_loss")
-    vp, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.fused_root_loss_tile.argtypes = []
-    lib.fused_root_loss_tile.restype = i32
-    lib.fused_root_loss_fwd.argtypes = [vp] * 4 + [i32] * 3 + [f32] * 2 + [vp]
-    lib.fused_root_loss_fwd.restype = i32
-    lib.fused_root_loss_bwd.argtypes = [vp] * 5 + [i32] * 3 + [f32] * 2 + [vp]
-    lib.fused_root_loss_bwd.restype = i32
+    for fn, types in ARGTYPES.items():
+        getattr(lib, fn).argtypes = list(types)
+        getattr(lib, fn).restype = _I32
     return lib
 
 
@@ -187,8 +193,8 @@ def root_bwd(p: torch.Tensor, t: torch.Tensor,
     the inputs' device: the factors of the SSIM and L1 terms).
 
     CPU tensors run :func:`root_bwd_reference`; CUDA tensors (float32)
-    launch the ``fused_root_loss_bwd`` kernels (counted in
-    ``root_bwd.launches``)."""
+    launch the ``fused_root_loss_bwd`` kernel, one CUDA kernel and no
+    scratch (counted in ``root_bwd.launches``)."""
     _check(p, t)
     if p.device.type == "cpu":
         return root_bwd_reference(p, t, scales)
@@ -197,14 +203,12 @@ def root_bwd(p: torch.Tensor, t: torch.Tensor,
             or scales.device != p.device or not scales.is_contiguous()):
         raise ValueError("scales must be 2 contiguous float32 on pred's device")
     bsz, h, w = p.shape
-    coef = torch.empty((3, bsz, h, w), dtype=torch.float32, device=p.device)
     dout = torch.empty_like(p)
     with torch.cuda.device(p.device):
         stream = torch.cuda.current_stream(p.device).cuda_stream
         rc = _lib().fused_root_loss_bwd(p.data_ptr(), t.data_ptr(),
-                                        scales.data_ptr(), coef.data_ptr(),
-                                        dout.data_ptr(), bsz, h, w, C1, C2,
-                                        stream)
+                                        scales.data_ptr(), dout.data_ptr(),
+                                        bsz, h, w, C1, C2, stream)
     if rc != 0:
         raise RuntimeError(f"fused_root_loss_bwd launch failed: CUDA error {rc}")
     root_bwd.launches += 1
