@@ -25,7 +25,7 @@ plain PyTorch version. Phases:
    against ``fused_partials_reference`` / ``fused_bwd_reference`` at the
    training path's shape and at ragged, zero-target, pred == target, flat
    and narrow cases; each loss kernel's CUDA kernels a call from a CUDA
-   graph of one call ([loss kernel count]; each backward is one); per
+   graph of one call ([loss kernel count]; each is one); per
    shape the device time of the kernel, of the plain version and
    of a library yardstick (one cuDNN ``F.conv2d``; the port's ``DepthLoss``
    and its autograd backward) beside the bound, ``gub_conv_fwd`` also at
@@ -168,13 +168,14 @@ TRAIN_BATCH, TRAIN_HW, MAX_DEPTH = 8, (480, 640), 10.0
 # (kind, B, H, W) of tests/test_torch_port_cuda.py::loss_pair: the training
 # shape with depth_norm-scale targets, half resolution, a ragged image,
 # masked (zero) targets, pred == target (gate closed, signs at 0), flat
-# patches (signs of zero differences), uniform values, and the backward's
-# 32x64 tile one row and column above a tile and an image narrower than its
-# 10-pixel halo
+# patches (signs of zero differences), uniform values, the backward's
+# 32x64 tile and the forward's 40x64 exactly, one row and column above a
+# tile, and an image narrower than the backward's 10-pixel halo
 LOSS_CASES = [("norm", 8, 480, 640), ("norm", 8, 240, 320),
               ("norm", 2, 33, 47), ("zeros", 8, 480, 640),
               ("equal", 2, 96, 128), ("smooth", 2, 50, 70),
-              ("random", 3, 48, 64), ("norm", 2, 33, 65), ("norm", 1, 11, 70)]
+              ("random", 3, 48, 64), ("norm", 3, 32, 64), ("norm", 3, 40, 64),
+              ("norm", 2, 33, 65), ("norm", 2, 41, 65), ("norm", 1, 11, 70)]
 # float operations per pixel that the functions need: 22 multiply-adds for
 # each of the 5 (forward) or 8 (backward) gaussian maps, plus the pointwise
 # formulas (SSIM map, L1 and difference terms; coefficient maps and the sum)
@@ -710,47 +711,12 @@ def time_eager_ms(fn, calls: int = 20) -> float:
     return start.elapsed_time(end) / calls
 
 
-def graph_kernels(fn) -> int:
-    """CUDA kernels one call of ``fn`` launches: the kernel nodes of a CUDA
-    graph captured from one call, counted through libcuda (``cuGraphGetNodes``,
-    ``cuGraphNodeGetType``). Unlike a profiler trace, which can drop events
-    late in a long run, the count does not depend on timing."""
-    import ctypes
-
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        fn()
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph(keep_graph=True)   # the graph, not only
-    with torch.cuda.graph(graph):                   # its executable
-        fn()
-    torch.cuda.synchronize()
-    cu = ctypes.CDLL("libcuda.so.1")
-    cu.cuGraphGetNodes.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
-                                   ctypes.POINTER(ctypes.c_size_t)]
-    cu.cuGraphNodeGetType.argtypes = [ctypes.c_void_p,
-                                      ctypes.POINTER(ctypes.c_int)]
-    raw = ctypes.c_void_p(graph.raw_cuda_graph())
-    n = ctypes.c_size_t(0)
-    check(cu.cuGraphGetNodes(raw, None, ctypes.byref(n)) == 0,
-          "cuGraphGetNodes failed")
-    nodes = (ctypes.c_void_p * n.value)()
-    check(cu.cuGraphGetNodes(raw, nodes, ctypes.byref(n)) == 0,
-          "cuGraphGetNodes failed")
-    kernels, kind = 0, ctypes.c_int(-1)
-    for node in nodes:
-        check(cu.cuGraphNodeGetType(ctypes.c_void_p(node),
-                                    ctypes.byref(kind)) == 0,
-              "cuGraphNodeGetType failed")
-        kernels += kind.value == 0   # CU_GRAPH_NODE_TYPE_KERNEL
-    graph.reset()
-    return kernels
-
-
 def loss_kernel_count(name, fn) -> dict:
     """The CUDA kernels one call of a loss kernel's wrapper launches
-    (``graph_kernels``), printed as ``[loss kernel count]``."""
+    (``tpudepth_torch.utils.profiling.graph_kernels``: the kernel nodes of a
+    CUDA graph of one call), printed as ``[loss kernel count]``."""
+    from tpudepth_torch.utils.profiling import graph_kernels
+
     count = graph_kernels(fn)
     print(f"[loss kernel count] {name}: {count} CUDA kernel(s) a call",
           flush=True)
@@ -2372,11 +2338,14 @@ def phase_train_kernels():
 
 # (kind, B, H, W) of tests/torch_port_helpers.py::root_pair: the training
 # shape with a min-max target and a prediction in (0, 1), the same with the
-# clip active, pred == target (the clip's bound), flat patches, ragged tiles,
-# the backward's 16x60 warp strip one row and column above a strip, images
+# clip active, pred == target (the clip's bound), flat patches, ragged
+# strips, the backward's 16x60 warp strip one row and column above a strip,
+# the forward's 8-row strip (twice) and its first 61 columns (a strip
+# holds 62, from column -1) one row and column below, at and above, images
 # of 2 rows or columns
 ROOT_CASES = [("unit", 8, 480, 640), ("anti", 8, 480, 640), ("equal", 2, 40, 40),
               ("smooth", 2, 34, 46), ("unit", 3, 33, 47), ("anti", 2, 17, 61),
+              ("unit", 2, 15, 61), ("anti", 2, 17, 63), ("unit", 1, 16, 62),
               ("unit", 1, 2, 65), ("unit", 1, 65, 2)]
 # float operations a pixel: the five 3x3 statistics (3 products, 2 x 15
 # sums and thirds), the SSIM terms, the clipped map and |p - t| (forward);
@@ -2766,7 +2735,8 @@ def main() -> int:
         "library_ms": total(rows, "library_ms"),
         "shapes": rows,
     }]
-    for name in ("fused_loss_bwd", "fused_root_loss_bwd"):
+    for name in ("fused_loss_fwd", "fused_loss_bwd", "fused_root_loss_fwd",
+                 "fused_root_loss_bwd"):
         count = {**loss_rows, **rl_rows}[name]["cuda_kernels"]
         check(count == 1, f"{name} runs {count} CUDA kernels a call, not one")
     for name, line, fn, count, e in (

@@ -7,7 +7,7 @@ the four loss kernels' times and CUDA kernels a call, and digests of the
 outputs that must stay bit-equal from tree to tree, on one NVIDIA GPU.
 
     python3 scripts/torch_kernel_ab.py [--tag NAME] [--json PATH]
-        [--skip conv,split,loss,digest]
+        [--against PATH] [--skip conv,split,loss,digest]
 
 It runs ``chip_smoke``'s own ``fwd_train_step_times`` and ``kernel_splits``
 (from the ``chip_smoke.py`` beside this script's directory) on the
@@ -40,10 +40,16 @@ differ from the trees before it, while ``gub_conv_dw`` / ``_dx``,
 ``block_epilogue_infer``, the f32 ``window_attn_infer`` and the bf16
 ``window_attn_train_bwd`` (which shares the attention's tile code) do not.
 The one-kernel loss backwards keep every output's operations and their
-order, so the four loss digests equal the two-kernel trees' too.
-Every digest is equal between two runs of one tree. The card's name and
-power limit come first; ``--json`` writes every number to PATH. It needs a
-card.
+order, so their digests equal the two-kernel trees'. The one-kernel loss
+forwards keep every pixel's operations but add an image's pixels in
+another order (warp strips or 32x64 tiles, then blocks), so their digests
+differ from the two-kernel trees'; ``--against PATH`` (another tree's
+``--json``) prints their largest relative difference from that tree
+(``[loss fwd diff]``) beside ``fused_loss.tolerance``'s ``partials_rtol``
+and ``fused_root_loss.PARTIALS_RTOL``. Every digest is equal between two
+runs of one tree. The card's name and power limit come first; ``--json``
+writes every number to PATH, the two forwards' partial sums too. It needs
+a card.
 """
 
 from __future__ import annotations
@@ -147,15 +153,17 @@ def digests(cs):
                   f"{'f32' if ' f32' in name else 'bf16'} {d}", flush=True)
         del attn, attn32, tattn, ga, tail, found, a
         torch.cuda.empty_cache()
-    out.update(loss_digests(cs))
-    return out
+    found, partials = loss_digests(cs)
+    out.update(found)
+    return out, partials
 
 
 def loss_digests(cs):
     """The four loss kernels' outputs at the training shape, B 8 480x640
     f32, on ``chip_smoke``'s seeded pairs: the alhashim partials and dL/dp
     (``fused_loss_fwd`` / ``_bwd``) and the root recipe's
-    (``fused_root_loss_fwd`` / ``_bwd``)."""
+    (``fused_root_loss_fwd`` / ``_bwd``). Returns their digests and the two
+    forwards' partial sums with the rtol they are held to."""
     from tpudepth_torch.ops.kernels import fused_loss as fl
     from tpudepth_torch.ops.kernels import fused_root_loss as frl
 
@@ -165,6 +173,9 @@ def loss_digests(cs):
     scales = torch.tensor([0.1 / n, -0.5 / n, 1.0 / n], device=cs.DEVICE)
     found = {"fused_loss_fwd": fl.fused_partials(p, t, cs.MAX_DEPTH),
              "fused_loss_bwd": fl.fused_bwd(p, t, cs.MAX_DEPTH, scales)}
+    rtol = {"fused_loss_fwd":
+            fl.tolerance(p, t, cs.MAX_DEPTH)["partials_rtol"],
+            "fused_root_loss_fwd": frl.PARTIALS_RTOL}
     p, t = cs.make_root_pair("unit", bsz, h, w, seed=1)
     scales = torch.tensor([1.0 / n, 0.1 / n], device=cs.DEVICE)
     found["fused_root_loss_fwd"] = frl.root_partials(p, t)
@@ -173,6 +184,26 @@ def loss_digests(cs):
     for name, v in found.items():
         out[f"{name} B{bsz} {h}x{w}"] = d = digest(v)
         print(f"[digest] {name} B{bsz} {h}x{w} f32 {d}", flush=True)
+    partials = {name: {"value": found[name].double().cpu().tolist(),
+                       "rtol": r} for name, r in rtol.items()}
+    return out, partials
+
+
+def forward_differences(partials, path):
+    """The largest relative difference of the two loss forwards' partial
+    sums between this tree and the tree whose ``--json`` is ``path``
+    (``[loss fwd diff]``)."""
+    with open(path) as f:
+        other = json.load(f)
+    out = {}
+    for name, mine in partials.items():
+        a = torch.tensor(mine["value"], dtype=torch.float64)
+        b = torch.tensor(other["loss_partials"][name]["value"],
+                         dtype=torch.float64)
+        out[name] = rel = float(((a - b).abs() / b.abs().clamp_min(1e-30))
+                                .max())
+        print(f"[loss fwd diff] {name}: largest relative difference from "
+              f"{other['tag']} {rel:.3e} (rtol {mine['rtol']:g})", flush=True)
     return out
 
 
@@ -191,6 +222,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--tag", default="tree")
     ap.add_argument("--json", help="write every number to this file")
+    ap.add_argument("--against", help="another tree's --json: print the "
+                    "loss forwards' largest relative difference from it")
     ap.add_argument("--skip", default="", help="comma-separated sections")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -203,10 +236,14 @@ def main() -> int:
     result = {"tag": args.tag}
     for section, fn in (("conv", cs.fwd_train_step_times),
                         ("split", cs.kernel_splits),
-                        ("loss", lambda: loss_times(cs)),
-                        ("digest", lambda: digests(cs))):
+                        ("loss", lambda: loss_times(cs))):
         if section not in skip:
             result[section] = fn()
+    if "digest" not in skip:
+        result["digest"], result["loss_partials"] = digests(cs)
+        if args.against:
+            result["loss_fwd_diff"] = forward_differences(
+                result["loss_partials"], args.against)
     if args.json:
         os.makedirs(os.path.dirname(os.path.abspath(args.json)), exist_ok=True)
         with open(args.json, "w") as f:

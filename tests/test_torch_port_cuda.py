@@ -429,15 +429,17 @@ def loss_pair(kind, bsz, h, w, device, seed=0):
     return dev(p), dev(t)
 
 
-# the backward's 32x64 output tile: one row and column below and above one
-# and two tiles, images narrower than its 10-pixel halo on one axis, a width
-# that is even but not a multiple of 4 (no 16-byte loads)
+# the backward's 32x64 output tile and the forward's 40x64: exactly one,
+# one row and column below and above one and two tiles, images narrower
+# than the backward's 10-pixel halo on one axis, a width that is even but
+# not a multiple of 4 (no 16-byte loads)
 LOSS_CASES = [("random", 3, 48, 64), ("norm", 8, 240, 320),
               ("norm", 2, 33, 47), ("zeros", 2, 64, 96), ("equal", 2, 40, 40),
               ("smooth", 2, 50, 70), ("norm", 1, 7, 5), ("norm", 8, 480, 640),
               ("norm", 2, 31, 63), ("norm", 2, 33, 65), ("norm", 1, 63, 129),
               ("zeros", 1, 65, 127), ("norm", 1, 11, 70), ("norm", 1, 70, 11),
-              ("random", 2, 32, 66)]
+              ("random", 2, 32, 66), ("norm", 3, 32, 64), ("norm", 3, 40, 64),
+              ("norm", 2, 39, 65), ("norm", 2, 41, 63), ("zeros", 1, 81, 129)]
 
 
 @pytest.mark.parametrize("case", LOSS_CASES, ids=lambda c: "-".join(map(str, c)))
@@ -453,7 +455,7 @@ def test_fused_loss_fwd_matches_plain(cuda, case):
     torch.testing.assert_close(got[:, [0, 2]], want[:, [0, 2]], atol=0,
                                rtol=tol["partials_rtol"])
     assert bool(((got[:, 1] - want[:, 1]).abs() <= tol["ssim_atol"]).all())
-    # the tile sums are added in a fixed order: the same bits every time
+    # the block sums are added in a fixed order: the same bits every time
     assert torch.equal(got, fl.fused_partials(p, t, 10.0))
     if case[0] == "equal":
         n = float(p.shape[1] * p.shape[2])
@@ -513,14 +515,18 @@ def test_fused_loss_refuses_what_it_does_not_take(cuda):
 from torch_port_helpers import root_pair  # noqa: E402
 from tpudepth_torch.ops.kernels import fused_root_loss as frl  # noqa: E402
 
-# the SAM / NewCRF training shape; ragged tiles; the clip active; pred ==
+# the SAM / NewCRF training shape; ragged strips; the clip active; pred ==
 # target (the clip's bound); flat patches; the smallest image; the
 # backward's warp strip of 16 rows x 60 columns one below and above one and
-# two strips, images of 2 rows or columns (narrower than its 2-pixel halo)
+# two strips, images of 2 rows or columns (narrower than its 2-pixel halo);
+# the forward's strip of 8 rows x 62 columns (from column -1, so 61 in the
+# first) one below, at and above one, two and four strips
 ROOT_CASES = [("unit", 8, 480, 640), ("unit", 2, 33, 47), ("anti", 2, 64, 96),
               ("equal", 2, 40, 40), ("smooth", 2, 34, 46), ("unit", 1, 2, 3),
               ("unit", 2, 15, 59), ("anti", 2, 17, 61), ("unit", 1, 31, 121),
-              ("unit", 1, 33, 119), ("unit", 1, 2, 65), ("anti", 1, 65, 2)]
+              ("unit", 1, 33, 119), ("unit", 1, 2, 65), ("anti", 1, 65, 2),
+              ("unit", 2, 15, 61), ("anti", 2, 17, 63), ("unit", 1, 16, 62),
+              ("unit", 1, 33, 123), ("anti", 1, 32, 124)]
 
 
 @pytest.mark.parametrize("case", ROOT_CASES, ids=lambda c: "-".join(map(str, c)))
@@ -533,7 +539,7 @@ def test_fused_root_loss_fwd_matches_plain(cuda, case):
     want = frl.root_partials_reference(p, t)
     assert got.shape == want.shape == (p.shape[0], 2)
     torch.testing.assert_close(got, want, atol=0, rtol=frl.PARTIALS_RTOL)
-    # the tile sums are added in a fixed order: the same bits every time
+    # the block sums are added in a fixed order: the same bits every time
     assert torch.equal(got, frl.root_partials(p, t))
     if case[0] == "equal":
         assert float(got.abs().max()) == 0.0
@@ -557,37 +563,61 @@ def test_fused_root_loss_bwd_matches_plain(cuda, case):
     assert float(want.abs().max()) > 0 or case[0] == "equal"
 
 
-def _cuda_kernels_a_call(fn) -> list:
-    """Names of the CUDA kernels one call of ``fn`` runs, from a
-    ``torch.profiler`` trace (a warm-up call first)."""
-    from torch.profiler import ProfilerActivity, profile
+def _loss_call(name, device):
+    """``(wrapper, its launch counter, a call of it)`` of a loss kernel at
+    B 2 96x128."""
+    if name.startswith("fused_loss"):
+        p, t = loss_pair("norm", 2, 96, 128, device)
+        scales = torch.tensor([0.1, -0.5, 1.0], device=device) / p.numel()
+        if name == "fused_loss_fwd":
+            return fl.fused_partials, lambda: fl.fused_partials(p, t, 10.0)
+        return fl.fused_bwd, lambda: fl.fused_bwd(p, t, 10.0, scales)
+    p, t = root_pair("unit", 2, 96, 128, device)
+    scales = torch.tensor([1.0, 0.1], device=device) / p.numel()
+    if name == "fused_root_loss_fwd":
+        return frl.root_partials, lambda: frl.root_partials(p, t)
+    return frl.root_bwd, lambda: frl.root_bwd(p, t, scales)
 
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    return [e.name for e in prof.events()
-            if e.device_type == torch.autograd.DeviceType.CUDA]
+
+@pytest.mark.parametrize("name", ["fused_loss_fwd", "fused_loss_bwd",
+                                  "fused_root_loss_fwd", "fused_root_loss_bwd"])
+def test_loss_kernel_is_one_cuda_kernel(cuda, name):
+    """Each loss kernel is one CUDA kernel a call, counted from the kernel
+    nodes of a CUDA graph of one call: the backwards keep the coefficient
+    maps on the chip, the forwards add each image's block sums in the
+    image's last block (the counters' memset is a node of another type)."""
+    from tpudepth_torch.utils.profiling import graph_kernels
+
+    wrapper, call = _loss_call(name, cuda)
+    before = wrapper.launches
+    assert graph_kernels(call) == 1
+    assert wrapper.launches == before + 2
 
 
-@pytest.mark.parametrize("recipe", ["alhashim", "root"])
-def test_loss_backward_is_one_cuda_kernel(cuda, recipe):
-    """Each backward is one CUDA kernel and no scratch: the coefficient maps
-    stay on the chip."""
-    if recipe == "alhashim":
-        p, t = loss_pair("norm", 2, 96, 128, cuda)
-        scales = torch.tensor([0.1, -0.5, 1.0], device=cuda) / p.numel()
-        before = fl.fused_bwd.launches
-        names = _cuda_kernels_a_call(lambda: fl.fused_bwd(p, t, 10.0, scales))
-        assert fl.fused_bwd.launches == before + 2
+@pytest.mark.parametrize("name", ["fused_loss_fwd", "fused_root_loss_fwd"])
+def test_loss_forward_on_two_streams_gives_the_single_stream_bits(cuda, name):
+    """Two calls at once on two streams, each with its own scratch and
+    per-image tickets, give the bits of the same calls on one stream."""
+    if name == "fused_loss_fwd":
+        pairs = [loss_pair("norm", 2, 480, 640, cuda, seed=s) for s in (0, 1)]
+        fwd = lambda p, t: fl.fused_partials(p, t, 10.0)  # noqa: E731
     else:
-        p, t = root_pair("unit", 2, 96, 128, cuda)
-        scales = torch.tensor([1.0, 0.1], device=cuda) / p.numel()
-        before = frl.root_bwd.launches
-        names = _cuda_kernels_a_call(lambda: frl.root_bwd(p, t, scales))
-        assert frl.root_bwd.launches == before + 2
-    assert len(names) == 1, names
+        pairs = [root_pair("unit", 2, 480, 640, cuda, seed=s) for s in (0, 1)]
+        fwd = frl.root_partials
+    want = [fwd(p, t) for p, t in pairs]
+    streams = [torch.cuda.Stream() for _ in pairs]
+    main = torch.cuda.current_stream()
+    for _ in range(10):
+        got = []
+        for s, (p, t) in zip(streams, pairs):
+            s.wait_stream(main)
+            with torch.cuda.stream(s):
+                got.append(fwd(p, t))
+        for s in streams:
+            main.wait_stream(s)
+        torch.cuda.synchronize()
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
 
 
 def test_fused_root_loss_on_the_card_matches_the_plain_composition(cuda):

@@ -172,10 +172,10 @@ _ENTRIES = [("epilogue_infer", "block_epilogue_infer"),
             ("block_infer", "sam_block_infer"),
             ("window_attn_train", "window_attn_train_fwd"),
             ("window_attn_train", "window_attn_train_bwd"),
-            ("fused_loss", "fused_loss_tile"),
+            ("fused_loss", "fused_loss_fwd_tile"),
             ("fused_loss", "fused_loss_fwd"),
             ("fused_loss", "fused_loss_bwd"),
-            ("fused_root_loss", "fused_root_loss_tile"),
+            ("fused_root_loss", "fused_root_loss_fwd_strip"),
             ("fused_root_loss", "fused_root_loss_fwd"),
             ("fused_root_loss", "fused_root_loss_bwd")]
 
@@ -188,6 +188,52 @@ def test_ctypes_signature_matches_the_c_entry(library, name):
     the card, as a wrong argument)."""
     source, argtypes = _SIGNATURES[library]
     assert list(argtypes[name]) == _c_entries(source)[name]
+
+
+def _constants(source: str, names) -> list:
+    """The values of ``constexpr int NAME = <int>;`` in a CUDA source (the
+    first of each name, or the first inside ``namespace fwd`` of the
+    alhashim loss, whose backward has constants of the same names)."""
+    text = _source(source)
+    if "namespace fwd {" in text:
+        text = text[text.index("namespace fwd {"):text.index("}  // namespace fwd")]
+    return [int(re.search(rf"constexpr int {n} = (\d+);", text).group(1))
+            for n in names]
+
+
+@pytest.mark.parametrize("h,w", [(480, 640), (33, 65), (2, 3)])
+def test_fused_loss_fwd_scratch_matches_the_cuda_source(h, w):
+    """The forward's scratch: a block a 40x64 tile of ``fused_loss.cu``'s
+    ``namespace fwd``, three sums a block, then one ticket counter an
+    image (the C entry refuses a smaller scratch)."""
+    th, tw = _constants("fused_loss.cu", ("TH", "TW"))
+    assert (th, tw) == (40, 64)
+    for bsz in (1, 8):
+        blocks = -(-h // th) * -(-w // tw)
+        words = fl.fwd_scratch_words(bsz, h, w, (th, tw))
+        assert words == bsz * blocks * 3 + bsz
+        # the counters come after the sums, one an image
+        assert words - fl.fwd_scratch_words(bsz - 1, h, w, (th, tw)) == (
+            blocks * 3 + 1)
+
+
+@pytest.mark.parametrize("h,w", [(480, 640), (33, 65), (2, 3)])
+def test_fused_root_loss_fwd_scratch_matches_the_cuda_source(h, w):
+    """The forward's scratch: warp strips of ``FWD_ROWS`` x ``FWD_COLS``
+    outputs (from column -1, so ``ceil((W + 1) / FWD_COLS)`` a row),
+    ``FWD_WARPS`` strips a block, two sums a block, then one ticket counter
+    an image (the C entry refuses a smaller scratch)."""
+    rows, cols, warps = _constants("fused_root_loss.cu",
+                                   ("FWD_ROWS", "FWD_COLS", "FWD_WARPS"))
+    assert (rows, cols, warps) == (8, 62, 4)
+    for bsz in (1, 8):
+        strips = -(-h // rows) * ((w + cols) // cols)
+        blocks = -(-strips // warps)
+        words = frl.fwd_scratch_words(bsz, h, w, (rows, cols, warps))
+        assert words == bsz * blocks * 2 + bsz
+        assert words - frl.fwd_scratch_words(bsz - 1, h, w,
+                                             (rows, cols, warps)) == (
+            blocks * 2 + 1)
 
 
 def test_ffn_entries_share_one_signature_with_the_bf16_scratch():

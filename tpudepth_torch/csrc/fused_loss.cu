@@ -17,15 +17,32 @@
 // the bytes at 3.35 TB/s, so both directions are bound by operations: 0.0092
 // and 0.0151 ms at B 8, 480x640.
 //
-// Forward: the TPU kernel holds one whole image (~14 float32 buffers) in
-// VMEM per grid step; here the image is cut into 32x32 output tiles. A block
-// stages its tile of p and t with a 5-pixel halo (zero outside the image),
-// forms the five products after the zero fill (so they are zero outside
-// too), runs the gaussian down the columns and then along the rows through
-// shared memory, one shared load a multiply-add, and finishes on the tile's
-// interior. Every block writes its three sums to tile_partials[B][tiles][3];
-// a second small kernel adds each image's tiles in a fixed order, so the
-// loss repeats bit for bit from run to run (no atomics).
+// Forward: one kernel a call. The TPU kernel holds one whole image (~14
+// float32 buffers) in VMEM per grid step; here a block of 384 threads takes a
+// 40x64 output tile (namespace fwd) and
+//   0. stages p and t with a 5-pixel halo, zero outside the image, by
+//      16-byte loads when W is a multiple of 4 (50 x 80 floats each);
+//   A. runs the statistics' gaussian down the columns for the 40 x 74
+//      pixels the row pass needs: a thread slides the 11 taps down 8 rows of
+//      one column and keeps the 5 maps' 8 sums in registers (18 shared loads
+//      of p and t for 440 multiply-adds; 370 threads);
+//   B. along the rows, 8 outputs a thread (five 16-byte shared loads a map
+//      for 88 multiply-adds; 320 threads), then the SSIM map of each pixel
+//      in registers; the other 64 threads walk down a column of the tile
+//      each for its L1 and forward-difference terms.
+// The forward needs the statistics on the tile alone, so there is no ring:
+// 1.16x the column pass, 1x the row pass. Every block adds its threads'
+// sums in a fixed tree and writes them to partials[B][blocks][3]; then
+// (__threadfence, a ticket from atomicAdd on the image's counter, which the
+// C entry zeroes with cudaMemsetAsync on the launch stream) the image's last
+// block adds its blocks' sums in block order and writes out[b]. The sums
+// are those of fixed trees whichever block comes last, so the loss repeats
+// bit for bit from run to run; no float atomics. Tried and dropped (B 8,
+// 480x640): 32x64 tiles (4.5 waves of two blocks an SM; 40x64 gives 3.6),
+// 32x60 tiles (exactly 5 waves, but 6-column row strips load by 4 bytes),
+// three blocks an SM (56 registers spill), and the edge terms taken by the
+// column pass's threads, after it or from its own loads (more registers or
+// more instructions on the longer phase).
 //
 // Backward: one kernel a 32x64 output tile, and the coefficient maps never
 // leave the chip (a two-kernel split writes three maps to device memory and
@@ -83,77 +100,12 @@ namespace {
 
 constexpr int WS = 11;
 constexpr int HALF = WS / 2;
-constexpr int TH = 32;               // output tile
-constexpr int TW = 32;
-constexpr int PH = TH + 2 * HALF;    // staged tile with halo
-constexpr int PW = TW + 2 * HALF;
-constexpr int PWS = PW + 1;          // row stride in shared memory
-constexpr int NT = 256;              // threads per block
-constexpr int PER_THREAD = TH * TW / NT;
-
 struct Taps {
     float g[WS];
 };
 
 __device__ __forceinline__ float sgn(float v) {
     return v > 0.0f ? 1.0f : (v < 0.0f ? -1.0f : 0.0f);
-}
-
-// Stage a PH x PW window of one image whose interior starts at (y0, x0);
-// pixels outside the image are 0.
-__device__ __forceinline__ void stage_tile(const float* __restrict__ img,
-                                           int H, int W, int y0, int x0,
-                                           float (*dst)[PWS]) {
-    for (int idx = threadIdx.x; idx < PH * PW; idx += NT) {
-        const int r = idx / PW, c = idx - r * PW;
-        const int y = y0 - HALF + r, x = x0 - HALF + c;
-        float v = 0.0f;
-        if (y >= 0 && y < H && x >= 0 && x < W) v = img[(size_t)y * W + x];
-        dst[r][c] = v;
-    }
-}
-
-// Column pass (along H) of the five maps p, t, p*p, t*t, p*t over the staged
-// tile: col[m][r][c] for r < TH, c < PW. The sum starts with tap 0 and adds
-// taps 1..10 in order, as the plain version does.
-__device__ __forceinline__ void column_pass5(const Taps& taps,
-                                             float (*sp)[PWS],
-                                             float (*st)[PWS],
-                                             float (*col)[TH][PWS]) {
-    for (int idx = threadIdx.x; idx < TH * PW; idx += NT) {
-        const int r = idx / PW, c = idx - r * PW;
-        float p = sp[r][c], t = st[r][c];
-        float a0 = __fmul_rn(taps.g[0], p);
-        float a1 = __fmul_rn(taps.g[0], t);
-        float a2 = __fmul_rn(taps.g[0], __fmul_rn(p, p));
-        float a3 = __fmul_rn(taps.g[0], __fmul_rn(t, t));
-        float a4 = __fmul_rn(taps.g[0], __fmul_rn(p, t));
-#pragma unroll
-        for (int k = 1; k < WS; ++k) {
-            p = sp[r + k][c];
-            t = st[r + k][c];
-            a0 = fmaf(taps.g[k], p, a0);
-            a1 = fmaf(taps.g[k], t, a1);
-            a2 = fmaf(taps.g[k], __fmul_rn(p, p), a2);
-            a3 = fmaf(taps.g[k], __fmul_rn(t, t), a3);
-            a4 = fmaf(taps.g[k], __fmul_rn(p, t), a4);
-        }
-        col[0][r][c] = a0;
-        col[1][r][c] = a1;
-        col[2][r][c] = a2;
-        col[3][r][c] = a3;
-        col[4][r][c] = a4;
-    }
-}
-
-// Row pass (along W) of map m at interior pixel (r, c).
-__device__ __forceinline__ float row_pass(const Taps& taps,
-                                          float (*col)[PWS],
-                                          int r, int c) {
-    float a = __fmul_rn(taps.g[0], col[r][c]);
-#pragma unroll
-    for (int k = 1; k < WS; ++k) a = fmaf(taps.g[k], col[r][c + k], a);
-    return a;
 }
 
 // The SSIM terms of one pixel from its five statistics, in the operation
@@ -181,7 +133,153 @@ __device__ __forceinline__ Ssim ssim_terms(float mu1, float mu2, float e11,
     return s;
 }
 
-// Sum three per-thread values over the block; thread 0 holds the result.
+// p and t of rows ytop .. ytop + ROWS - 1, columns xleft .. xleft + COLS - 1
+// (xleft a multiple of 4), zero outside the image, into sp and st (row
+// stride COLS): a thread keeps one 4-column group and steps down the rows.
+template <int ROWS, int COLS, int NT>
+__device__ __forceinline__ void stage(const float* __restrict__ pred,
+                                      const float* __restrict__ tgt, int H,
+                                      int W, int ytop, int xleft, bool vec,
+                                      float* __restrict__ sp,
+                                      float* __restrict__ st) {
+    constexpr int Q4 = COLS / 4;         // groups a row
+    constexpr int STEP = NT / Q4;        // rows at a time
+    const int q = threadIdx.x % Q4, r0 = threadIdx.x / Q4;
+    if (r0 >= STEP) return;
+    const int x = xleft + 4 * q;
+    const bool in[4] = {x >= 0 && x < W, x + 1 >= 0 && x + 1 < W,
+                        x + 2 >= 0 && x + 2 < W, x + 3 >= 0 && x + 3 < W};
+#pragma unroll
+    for (int k = 0; k < (ROWS + STEP - 1) / STEP; ++k) {
+        const int r = r0 + k * STEP;
+        if (r >= ROWS) break;
+        const int y = ytop + r;
+        float4 vp = make_float4(0.0f, 0.0f, 0.0f, 0.0f), vt = vp;
+        if (y >= 0 && y < H) {
+            const size_t at = (size_t)y * W + x;
+            if (vec) {
+                // W % 4 == 0 and x % 4 == 0: all four inside or all outside
+                if (in[0]) {
+                    vp = *reinterpret_cast<const float4*>(pred + at);
+                    vt = *reinterpret_cast<const float4*>(tgt + at);
+                }
+            } else {
+                if (in[0]) vp.x = pred[at], vt.x = tgt[at];
+                if (in[1]) vp.y = pred[at + 1], vt.y = tgt[at + 1];
+                if (in[2]) vp.z = pred[at + 2], vt.z = tgt[at + 2];
+                if (in[3]) vp.w = pred[at + 3], vt.w = tgt[at + 3];
+            }
+        }
+        *reinterpret_cast<float4*>(sp + r * COLS + 4 * q) = vp;
+        *reinterpret_cast<float4*>(st + r * COLS + 4 * q) = vt;
+    }
+}
+
+// The column pass of p, t, p*p, t*t, p*t for N rows of one column: from the
+// staged rows r0 .. r0 + N + 9 of sp[c], st[c] (row stride SWS) into
+// sums[(m * MS + r0 + j) * AS + c], map m, j < N. acc = g0 * v at the
+// window's first row, then fmaf(g[k], v, acc) for k = 1..10 in order.
+template <int N, int SWS, int MS, int AS>
+__device__ __forceinline__ void column_stats(const Taps& taps,
+                                             const float* __restrict__ sp,
+                                             const float* __restrict__ st,
+                                             float* __restrict__ sums, int r0,
+                                             int c) {
+    float a[5][N];
+#pragma unroll
+    for (int i = 0; i < N + WS - 1; ++i) {
+        const float p = sp[(r0 + i) * SWS + c];
+        const float t = st[(r0 + i) * SWS + c];
+        const float v[5] = {p, t, __fmul_rn(p, p), __fmul_rn(t, t),
+                            __fmul_rn(p, t)};
+#pragma unroll
+        for (int j = 0; j < N; ++j) {
+            const int k = i - j;
+            if (k < 0 || k >= WS) continue;
+#pragma unroll
+            for (int m = 0; m < 5; ++m)
+                a[m][j] = k == 0 ? __fmul_rn(taps.g[0], v[m])
+                                 : fmaf(taps.g[k], v[m], a[m][j]);
+        }
+    }
+#pragma unroll
+    for (int m = 0; m < 5; ++m)
+#pragma unroll
+        for (int j = 0; j < N; ++j)
+            sums[(m * MS + r0 + j) * AS + c] = a[m][j];
+}
+
+// The row pass of one map over N consecutive outputs from the values
+// v[0 .. N + 9] of a row: out[j] = g0 * v[j], then fmaf with taps 1..10.
+template <int N>
+__device__ __forceinline__ void taps_of(const Taps& taps, const float* v,
+                                        float (&out)[N]) {
+#pragma unroll
+    for (int i = 0; i < N + WS - 1; ++i) {
+#pragma unroll
+        for (int j = 0; j < N; ++j) {
+            const int k = i - j;
+            if (k < 0 || k >= WS) continue;
+            out[j] = k == 0 ? __fmul_rn(taps.g[0], v[i])
+                            : fmaf(taps.g[k], v[i], out[j]);
+        }
+    }
+}
+
+// The row pass from the row src[0 .. N + 9] in shared memory.
+template <int N>
+__device__ __forceinline__ void row_taps(const Taps& taps,
+                                         const float* __restrict__ src,
+                                         float (&out)[N]) {
+    float v[N + WS - 1];
+#pragma unroll
+    for (int i = 0; i < N + WS - 1; ++i) v[i] = src[i];
+    taps_of<N>(taps, v, out);
+}
+
+// The same from a 16-byte aligned row, by 16-byte loads.
+template <int N>
+__device__ __forceinline__ void row_taps4(const Taps& taps,
+                                          const float* __restrict__ src,
+                                          float (&out)[N]) {
+    constexpr int L = (N + WS - 1 + 3) / 4;
+    float v[4 * L];
+#pragma unroll
+    for (int q = 0; q < L; ++q) {
+        const float4 f = reinterpret_cast<const float4*>(src)[q];
+        v[4 * q] = f.x;
+        v[4 * q + 1] = f.y;
+        v[4 * q + 2] = f.z;
+        v[4 * q + 3] = f.w;
+    }
+    taps_of<N>(taps, v, out);
+}
+
+namespace fwd {
+
+constexpr int TH = 40;                 // output tile
+constexpr int TW = 64;
+constexpr int SH = TH + 2 * HALF;      // 50 staged rows of p and t
+constexpr int RW = TW + 2 * HALF;      // 74 columns of the column pass
+constexpr int SX = 3;                  // staged column of image column x0 - 5
+constexpr int SWS = 80;                // staged columns x0 - 8 .. x0 + 71
+// row stride of A's sums: 16-byte rows, and 8 rows of B's 16-byte loads
+// fall on 32 distinct banks (76 = 12 mod 32)
+constexpr int AS = 76;
+constexpr int NT = 384;                // 12 warps, two blocks an SM
+constexpr int RA = 8;                  // rows a thread in A
+constexpr int RB = 8;                  // columns a thread in B
+constexpr int A_ITEMS = (TH / RA) * RW;
+constexpr int B_ITEMS = TH * (TW / RB);
+constexpr int SMEM_BYTES = (2 * SH * SWS + 5 * TH * AS) * 4;
+static_assert(TH % RA == 0 && TW % RB == 0, "strips");
+static_assert(A_ITEMS <= NT && B_ITEMS + TW == NT,
+              "one item a thread in A; in B and the edge terms");
+static_assert(SX + RW + 1 <= SWS, "the staged columns");
+static_assert(AS % 4 == 0 && AS >= TW + 12 && TH % 8 == 0, "B's loads");
+
+// Sum three per-thread values over the block in a fixed tree; thread 0
+// holds the result.
 __device__ __forceinline__ void block_sum3(float& a, float& b, float& c) {
     __shared__ float red[3][NT / 32];
 #pragma unroll
@@ -209,81 +307,116 @@ __device__ __forceinline__ void block_sum3(float& a, float& b, float& c) {
     }
 }
 
-__global__ void __launch_bounds__(NT)
-fwd_tiles_kernel(const float* __restrict__ pred, const float* __restrict__ tgt,
-                 float* __restrict__ tile_partials, int H, int W, float c1,
-                 float c2, Taps taps) {
-    __shared__ float sp[PH][PWS];
-    __shared__ float st[PH][PWS];
-    __shared__ float col[5][TH][PWS];
+// The L1 and forward-difference terms of the tile's column x, rows y0 ..
+// y0 + TH - 1, from the staged p, t there (sp, st at the tile's first row;
+// row stride SWS), right of them and below them.
+__device__ __forceinline__ void edge_terms(const float* __restrict__ sp,
+                                           const float* __restrict__ st,
+                                           int y0, int x, int H, int W,
+                                           float& l1, float& gr) {
+    float p = sp[0], t = st[0];
+#pragma unroll 4
+    for (int j = 0; j < TH; ++j) {
+        if (y0 + j >= H) break;
+        const float pd = sp[(j + 1) * SWS], td = st[(j + 1) * SWS];
+        l1 += fabsf(__fsub_rn(p, t));
+        if (x + 1 < W) {
+            const float dt = __fsub_rn(st[j * SWS + 1], t);
+            const float dp = __fsub_rn(sp[j * SWS + 1], p);
+            gr += fabsf(__fsub_rn(dt, dp));
+        }
+        if (y0 + j + 1 < H) {
+            const float dt = __fsub_rn(td, t);
+            const float dp = __fsub_rn(pd, p);
+            gr += fabsf(__fsub_rn(dt, dp));
+        }
+        p = pd;
+        t = td;
+    }
+}
+
+__global__ void __launch_bounds__(NT, 2)
+fwd_kernel(const float* __restrict__ pred, const float* __restrict__ tgt,
+           float* __restrict__ partials, unsigned* __restrict__ count,
+           float* __restrict__ out, int H, int W, float c1, float c2,
+           Taps taps) {
+    extern __shared__ __align__(16) float smem[];
+    float* sp = smem;
+    float* st = sp + SH * SWS;
+    float* sums = st + SH * SWS;
+    __shared__ bool last;
 
     const int b = blockIdx.z;
     const int y0 = blockIdx.y * TH, x0 = blockIdx.x * TW;
     const size_t img = (size_t)b * H * W;
-    stage_tile(pred + img, H, W, y0, x0, sp);
-    stage_tile(tgt + img, H, W, y0, x0, st);
-    __syncthreads();
-    column_pass5(taps, sp, st, col);
+    const bool vec = (W & 3) == 0 &&
+        ((reinterpret_cast<size_t>(pred) | reinterpret_cast<size_t>(tgt)) &
+         15) == 0;
+    const int tid = threadIdx.x;
+
+    // 0. p, t of rows y0-5 .. y0+44, columns x0-8 .. x0+71
+    stage<SH, SWS, NT>(pred + img, tgt + img, H, W, y0 - HALF, x0 - 8, vec,
+                       sp, st);
     __syncthreads();
 
+    // A. the statistics down the columns
+    if (tid < A_ITEMS)
+        column_stats<RA, SWS, TH, AS>(taps, sp + SX, st + SX, sums,
+                                      (tid / RW) * RA, tid % RW);
+    __syncthreads();
+
+    // B. along the rows and the SSIM map of each pixel; the other TW threads
+    // take the edge terms, a column of the tile each
     float l1 = 0.0f, ss = 0.0f, gr = 0.0f;
+    if (tid < B_ITEMS) {
+        const int r = tid % TH, c0 = (tid / TH) * RB;
+        float s[5][RB];
 #pragma unroll
-    for (int n = 0; n < PER_THREAD; ++n) {
-        const int idx = threadIdx.x + n * NT;
-        const int r = idx / TW, c = idx - r * TW;
-        const int y = y0 + r, x = x0 + c;
-        if (y >= H || x >= W) continue;
-        const float mu1 = row_pass(taps, col[0], r, c);
-        const float mu2 = row_pass(taps, col[1], r, c);
-        const float e11 = row_pass(taps, col[2], r, c);
-        const float e22 = row_pass(taps, col[3], r, c);
-        const float e12 = row_pass(taps, col[4], r, c);
-        const Ssim s = ssim_terms(mu1, mu2, e11, e22, e12, c1, c2);
-        ss += __fdiv_rn(__fmul_rn(s.n1, s.n2), __fmul_rn(s.d1, s.d2));
-
-        const float p = sp[r + HALF][c + HALF], t = st[r + HALF][c + HALF];
-        l1 += fabsf(__fsub_rn(p, t));
-        if (x + 1 < W) {
-            const float dt = __fsub_rn(st[r + HALF][c + HALF + 1], t);
-            const float dp = __fsub_rn(sp[r + HALF][c + HALF + 1], p);
-            gr += fabsf(__fsub_rn(dt, dp));
+        for (int m = 0; m < 5; ++m)
+            row_taps4<RB>(taps, sums + (m * TH + r) * AS + c0, s[m]);
+        if (y0 + r < H) {
+#pragma unroll
+            for (int j = 0; j < RB; ++j) {
+                if (x0 + c0 + j >= W) break;
+                const Ssim q = ssim_terms(s[0][j], s[1][j], s[2][j], s[3][j],
+                                          s[4][j], c1, c2);
+                ss += __fdiv_rn(__fmul_rn(q.n1, q.n2), __fmul_rn(q.d1, q.d2));
+            }
         }
-        if (y + 1 < H) {
-            const float dt = __fsub_rn(st[r + HALF + 1][c + HALF], t);
-            const float dp = __fsub_rn(sp[r + HALF + 1][c + HALF], p);
-            gr += fabsf(__fsub_rn(dt, dp));
-        }
+    } else if (x0 + tid - B_ITEMS < W) {
+        const int at = HALF * SWS + SX + HALF + tid - B_ITEMS;
+        edge_terms(sp + at, st + at, y0, x0 + tid - B_ITEMS, H, W, l1, gr);
     }
+
+    // the block's sums, then the image's last block adds the blocks' sums
+    const int blocks = gridDim.x * gridDim.y;
+    float* mine = partials + (size_t)b * blocks * 3;
     block_sum3(l1, ss, gr);
-    if (threadIdx.x == 0) {
-        const size_t tile = (size_t)b * gridDim.y * gridDim.x
-                            + (size_t)blockIdx.y * gridDim.x + blockIdx.x;
-        tile_partials[tile * 3 + 0] = l1;
-        tile_partials[tile * 3 + 1] = ss;
-        tile_partials[tile * 3 + 2] = gr;
+    if (tid == 0) {
+        const int at = blockIdx.y * gridDim.x + blockIdx.x;
+        mine[at * 3 + 0] = l1;
+        mine[at * 3 + 1] = ss;
+        mine[at * 3 + 2] = gr;
+        __threadfence();
+        last = atomicAdd(count + b, 1u) == static_cast<unsigned>(blocks - 1);
     }
-}
-
-// out[b][k] = sum over the image's tiles, each thread over a fixed stride and
-// the block in a fixed tree: the same bits on every run.
-__global__ void __launch_bounds__(NT)
-fwd_reduce_kernel(const float* __restrict__ tile_partials,
-                  float* __restrict__ out, int tiles) {
-    const int b = blockIdx.x;
-    const float* src = tile_partials + (size_t)b * tiles * 3;
+    __syncthreads();
+    if (!last) return;
     float a0 = 0.0f, a1 = 0.0f, a2 = 0.0f;
-    for (int i = threadIdx.x; i < tiles; i += NT) {
-        a0 += src[i * 3 + 0];
-        a1 += src[i * 3 + 1];
-        a2 += src[i * 3 + 2];
+    for (int i = tid; i < blocks; i += NT) {
+        a0 += __ldcg(mine + i * 3 + 0);
+        a1 += __ldcg(mine + i * 3 + 1);
+        a2 += __ldcg(mine + i * 3 + 2);
     }
     block_sum3(a0, a1, a2);
-    if (threadIdx.x == 0) {
+    if (tid == 0) {
         out[b * 3 + 0] = a0;
         out[b * 3 + 1] = a1;
         out[b * 3 + 2] = a2;
     }
 }
+
+}  // namespace fwd
 
 namespace bwd {
 
@@ -320,97 +453,6 @@ static_assert(2 * SH * SWS <= R2 && TH * OS <= R2, "region 2 too small");
 static_assert(RH % RA == 0 && RW % RB != 0 && TH % RC == 0, "strips");
 static_assert(C_STRIPS * RW <= NT && (TW / RB) * TH <= NT,
               "one item a thread in C and D");
-
-// 0: p and t of rows y0-10 .. y0+41, columns x0-12 .. x0+75, zero outside:
-// a thread keeps one 4-column group and steps down the rows.
-__device__ __forceinline__ void stage(const float* __restrict__ pred,
-                                      const float* __restrict__ tgt, int H,
-                                      int W, int y0, int x0, bool vec,
-                                      float* __restrict__ sp,
-                                      float* __restrict__ st) {
-    constexpr int Q4 = SWS / 4;          // 22 groups a row
-    constexpr int STEP = NT / Q4;        // 11 rows at a time
-    const int q = threadIdx.x % Q4, r0 = threadIdx.x / Q4;
-    if (r0 >= STEP) return;
-    const int x = x0 - 12 + 4 * q;
-    const bool in[4] = {x >= 0 && x < W, x + 1 >= 0 && x + 1 < W,
-                        x + 2 >= 0 && x + 2 < W, x + 3 >= 0 && x + 3 < W};
-#pragma unroll
-    for (int k = 0; k < (SH + STEP - 1) / STEP; ++k) {
-        const int r = r0 + k * STEP;
-        if (r >= SH) break;
-        const int y = y0 - 2 * HALF + r;
-        float4 vp = make_float4(0.0f, 0.0f, 0.0f, 0.0f), vt = vp;
-        if (y >= 0 && y < H) {
-            const size_t at = (size_t)y * W + x;
-            if (vec) {
-                // W % 4 == 0 and x % 4 == 0: all four inside or all outside
-                if (in[0]) {
-                    vp = *reinterpret_cast<const float4*>(pred + at);
-                    vt = *reinterpret_cast<const float4*>(tgt + at);
-                }
-            } else {
-                if (in[0]) vp.x = pred[at], vt.x = tgt[at];
-                if (in[1]) vp.y = pred[at + 1], vt.y = tgt[at + 1];
-                if (in[2]) vp.z = pred[at + 2], vt.z = tgt[at + 2];
-                if (in[3]) vp.w = pred[at + 3], vt.w = tgt[at + 3];
-            }
-        }
-        *reinterpret_cast<float4*>(sp + r * SWS + 4 * q) = vp;
-        *reinterpret_cast<float4*>(st + r * SWS + 4 * q) = vt;
-    }
-}
-
-// A: the column pass of p, t, p*p, t*t, p*t for RA rows of one column c
-// (of CW), rows r0 .. r0 + RA - 1 of RH. acc = g0 * v at the window's first
-// row, then fmaf(g[k], v, acc) for k = 1..10 in order.
-__device__ __forceinline__ void column_stats(const Taps& taps,
-                                             const float* __restrict__ sp,
-                                             const float* __restrict__ st,
-                                             float* __restrict__ sums, int r0,
-                                             int c) {
-    float a[5][RA];
-#pragma unroll
-    for (int i = 0; i < RA + WS - 1; ++i) {
-        const float p = sp[(r0 + i) * SWS + SX + c];
-        const float t = st[(r0 + i) * SWS + SX + c];
-        const float v[5] = {p, t, __fmul_rn(p, p), __fmul_rn(t, t),
-                            __fmul_rn(p, t)};
-#pragma unroll
-        for (int j = 0; j < RA; ++j) {
-            const int k = i - j;
-            if (k < 0 || k >= WS) continue;
-#pragma unroll
-            for (int m = 0; m < 5; ++m)
-                a[m][j] = k == 0 ? __fmul_rn(taps.g[0], v[m])
-                                 : fmaf(taps.g[k], v[m], a[m][j]);
-        }
-    }
-#pragma unroll
-    for (int m = 0; m < 5; ++m)
-#pragma unroll
-        for (int j = 0; j < RA; ++j)
-            sums[(m * RH + r0 + j) * AS + c] = a[m][j];
-}
-
-// The row pass of one map over N consecutive outputs from the row
-// src[0 .. N + 9]: out[j] = g0 * src[j], then fmaf with taps 1..10.
-template <int N>
-__device__ __forceinline__ void row_taps(const Taps& taps,
-                                         const float* __restrict__ src,
-                                         float (&out)[N]) {
-#pragma unroll
-    for (int i = 0; i < N + WS - 1; ++i) {
-        const float v = src[i];
-#pragma unroll
-        for (int j = 0; j < N; ++j) {
-            const int k = i - j;
-            if (k < 0 || k >= WS) continue;
-            out[j] = k == 0 ? __fmul_rn(taps.g[0], v)
-                            : fmaf(taps.g[k], v, out[j]);
-        }
-    }
-}
 
 // The coefficient maps of one pixel from its five statistics.
 struct Coef {
@@ -560,12 +602,14 @@ bwd_kernel(const float* __restrict__ pred, const float* __restrict__ tgt,
     // 0. p, t with a 10-pixel halo into region 2
     float* sp = region2;
     float* st = region2 + SH * SWS;
-    stage(pred + img, tgt + img, H, W, y0, x0, vec, sp, st);
+    stage<SH, SWS, NT>(pred + img, tgt + img, H, W, y0 - 2 * HALF, x0 - 12,
+                       vec, sp, st);
     __syncthreads();
 
     // A. the statistics down the columns into region 1
     for (int idx = tid; idx < (RH / RA) * CW; idx += NT)
-        column_stats(taps, sp, st, region1, (idx / CW) * RA, idx % CW);
+        column_stats<RA, SWS, RH, AS>(taps, sp + SX, st + SX, region1,
+                                      (idx / CW) * RA, idx % CW);
     __syncthreads();
 
     // B. along the rows, and the coefficient maps into region 2
@@ -640,26 +684,41 @@ Taps make_taps(const float* g) {
 
 }  // namespace
 
-// The tile edge of the forward, so the wrapper can size tile_partials.
-extern "C" int fused_loss_tile() { return TH; }
+// The forward's output tile, rows and columns, into tile[0..1], so the
+// wrapper can size the scratch. Returns 0.
+extern "C" int fused_loss_fwd_tile(int* tile) {
+    tile[0] = fwd::TH;
+    tile[1] = fwd::TW;
+    return 0;
+}
 
-// pred, tgt: [B,H,W] float32 contiguous. tile_partials: [B, tiles, 3] scratch
-// with tiles = ceil(H/32)*ceil(W/32). out: [B,3]. taps: 11 host floats.
-// Returns the CUDA error of the launches (0 on success).
+// pred, tgt: [B,H,W] float32 contiguous. scratch: scratch_words 32-bit
+// words, at least B * blocks * 3 + B with blocks = ceil(H/40) * ceil(W/64):
+// each block's three sums, then one ticket counter an image (zeroed here on
+// the stream). out: [B,3]. taps: 11 host floats. One kernel. Returns the
+// CUDA error of the memset or the launch (0 on success).
 extern "C" int fused_loss_fwd(const void* pred, const void* tgt,
-                              void* tile_partials, void* out, int B, int H,
-                              int W, float c1, float c2, const float* taps,
-                              void* stream) {
-    const dim3 grid((W + TW - 1) / TW, (H + TH - 1) / TH, B);
+                              void* scratch, void* out, int B, int H, int W,
+                              int scratch_words, float c1, float c2,
+                              const float* taps, void* stream) {
+    const dim3 grid((W + fwd::TW - 1) / fwd::TW, (H + fwd::TH - 1) / fwd::TH,
+                    B);
+    const long long sums = 3LL * B * grid.x * grid.y;
+    if (scratch_words < sums + B)
+        return static_cast<int>(cudaErrorInvalidValue);
+    float* partials = static_cast<float*>(scratch);
+    unsigned* count = reinterpret_cast<unsigned*>(partials + sums);
     cudaStream_t s = static_cast<cudaStream_t>(stream);
-    fwd_tiles_kernel<<<grid, NT, 0, s>>>(
-        static_cast<const float*>(pred), static_cast<const float*>(tgt),
-        static_cast<float*>(tile_partials), H, W, c1, c2, make_taps(taps));
-    cudaError_t err = cudaGetLastError();
+    cudaError_t err = cudaFuncSetAttribute(
+        fwd::fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        fwd::SMEM_BYTES);
     if (err != cudaSuccess) return static_cast<int>(err);
-    fwd_reduce_kernel<<<B, NT, 0, s>>>(
-        static_cast<const float*>(tile_partials), static_cast<float*>(out),
-        static_cast<int>(grid.x * grid.y));
+    err = cudaMemsetAsync(count, 0, B * sizeof(unsigned), s);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    fwd::fwd_kernel<<<grid, fwd::NT, fwd::SMEM_BYTES, s>>>(
+        static_cast<const float*>(pred), static_cast<const float*>(tgt),
+        partials, count, static_cast<float*>(out), H, W, c1, c2,
+        make_taps(taps));
     return static_cast<int>(cudaGetLastError());
 }
 

@@ -28,12 +28,29 @@
 // does about 99: at 3.35 TB/s and 67 TFLOP/s (float32 outside the tensor
 // cores) both are bound by bytes (0.0059 and 0.0088 ms at B 8, 480x640).
 //
-// Forward: the TPU kernel holds one whole image in VMEM per grid step; here
-// the image is cut into 32x32 output tiles, a block stages its tile of p and
-// t with a 1-pixel reflected halo in shared memory and writes its two sums
-// to tile_partials[B][tiles][2]; a second small kernel adds each image's
-// tiles in a fixed order, so the loss repeats bit for bit from run to run
-// (no atomics).
+// Forward: one kernel a call. The TPU kernel holds one whole image in VMEM
+// per grid step; here a warp walks down a strip of 8 output rows and 62
+// output columns (the backward's strip without its adjoint ring): each lane
+// holds two neighbouring columns, from one left of the strip to one right
+// of it, so the strip's lanes start at an even column and a row of p and t
+// comes in as one 8-byte load a lane when W is even (strip k holds the
+// columns 62k - 1 .. 62k + 60). A lane keeps the five maps of the last row
+// and the sum of the last two rows' (the box's column pass is then one add
+// and one multiply a map as a row comes in), takes the neighbours along a
+// row from the next lanes by shuffles (the row pass), and sums the clipped
+// SSIM loss map and |p - t| in registers: no shared memory and no barrier
+// in the walk. The walk has a fixed length, unrolled: rows past the image
+// and warps past the last strip are walked and not added, so no branch
+// around the shuffles depends on the warp (a walk of variable length made
+// the compiler reconverge the warp at every shuffle). A block of four warps
+// takes four strips of one image, adds its lanes' sums in a fixed tree and
+// writes them to partials[B][blocks][2]; then (__threadfence, a ticket from
+// atomicAdd on the image's counter, which the C entry zeroes with
+// cudaMemsetAsync on the launch stream) the image's last block adds its
+// blocks' sums in block order and writes out[b]. The sums are those of
+// fixed trees whichever block comes last, so the loss repeats bit for bit
+// from run to run; no float atomics. At B 8, 480x640 the 1320 blocks of 48
+// registers a thread are one wave of ten blocks an SM.
 //
 // Backward: one kernel, and the coefficient maps never leave the chip (the
 // TPU kernel keeps them in VMEM; a two-kernel split writes three maps and
@@ -62,13 +79,6 @@
 namespace {
 namespace rootloss {
 
-constexpr int TH = 32;               // output tile
-constexpr int TW = 32;
-constexpr int PH = TH + 2;           // staged tile with a 1-pixel halo
-constexpr int PW = TW + 2;
-constexpr int PWS = PW + 1;          // row stride in shared memory
-constexpr int NT = 256;              // threads per block
-constexpr int PER_THREAD = TH * TW / NT;
 constexpr float THIRD = 1.0f / 3.0f;
 
 __device__ __forceinline__ float sgn(float v) {
@@ -82,47 +92,6 @@ __device__ __forceinline__ int reflect(int i, int n) {
 
 __device__ __forceinline__ float sum3(float a, float b, float c) {
     return __fmul_rn(__fadd_rn(__fadd_rn(a, b), c), THIRD);
-}
-
-// Stage a PH x PW window of one image whose interior starts at (y0, x0),
-// the halo reflected at the image's border; rows and columns further out
-// (past a partial tile) are 0 and feed no output.
-__device__ __forceinline__ void stage_reflect(const float* __restrict__ img,
-                                              int H, int W, int y0, int x0,
-                                              float (*dst)[PWS]) {
-    for (int idx = threadIdx.x; idx < PH * PW; idx += NT) {
-        const int r = idx / PW, c = idx - r * PW;
-        const int y = y0 - 1 + r, x = x0 - 1 + c;
-        float v = 0.0f;
-        if (y <= H && x <= W)
-            v = img[(size_t)reflect(y, H) * W + reflect(x, W)];
-        dst[r][c] = v;
-    }
-}
-
-// Column pass of the five maps p, t, p*p, t*t, p*t over the staged tile:
-// col[m][r][c] for r < TH, c < PW.
-__device__ __forceinline__ void column_pass5(float (*sp)[PWS],
-                                             float (*st)[PWS],
-                                             float (*col)[TH][PWS]) {
-    for (int idx = threadIdx.x; idx < TH * PW; idx += NT) {
-        const int r = idx / PW, c = idx - r * PW;
-        const float p0 = sp[r][c], p1 = sp[r + 1][c], p2 = sp[r + 2][c];
-        const float t0 = st[r][c], t1 = st[r + 1][c], t2 = st[r + 2][c];
-        col[0][r][c] = sum3(p0, p1, p2);
-        col[1][r][c] = sum3(t0, t1, t2);
-        col[2][r][c] = sum3(__fmul_rn(p0, p0), __fmul_rn(p1, p1),
-                            __fmul_rn(p2, p2));
-        col[3][r][c] = sum3(__fmul_rn(t0, t0), __fmul_rn(t1, t1),
-                            __fmul_rn(t2, t2));
-        col[4][r][c] = sum3(__fmul_rn(p0, t0), __fmul_rn(p1, t1),
-                            __fmul_rn(p2, t2));
-    }
-}
-
-// Row pass of map m at interior pixel (r, c).
-__device__ __forceinline__ float row_pass(float (*col)[PWS], int r, int c) {
-    return sum3(col[r][c], col[r][c + 1], col[r][c + 2]);
 }
 
 // The SSIM terms of one pixel from its five statistics (JAX's _stats).
@@ -148,110 +117,16 @@ __device__ __forceinline__ Ssim ssim_of(float m1, float m2, float e11,
     return s;
 }
 
-__device__ __forceinline__ Ssim ssim_terms(float (*col)[TH][PWS], int r,
-                                           int c, float c1, float c2) {
-    const float m1 = row_pass(col[0], r, c);
-    const float m2 = row_pass(col[1], r, c);
-    const float e11 = row_pass(col[2], r, c);
-    const float e22 = row_pass(col[3], r, c);
-    const float e12 = row_pass(col[4], r, c);
-    return ssim_of(m1, m2, e11, e22, e12, c1, c2);
-}
+// -- the warp strip of both directions ---------------------------------------
 
-// Sum two per-thread values over the block; thread 0 holds the result.
-__device__ __forceinline__ void block_sum2(float& a, float& b) {
-    __shared__ float red[2][NT / 32];
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-        a += __shfl_xor_sync(0xffffffffu, a, off);
-        b += __shfl_xor_sync(0xffffffffu, b, off);
-    }
-    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-    if (lane == 0) {
-        red[0][warp] = a;
-        red[1][warp] = b;
-    }
-    __syncthreads();
-    if (threadIdx.x == 0) {
-        a = red[0][0];
-        b = red[1][0];
-        for (int w = 1; w < NT / 32; ++w) {
-            a += red[0][w];
-            b += red[1][w];
-        }
-    }
-}
-
-__global__ void __launch_bounds__(NT)
-fwd_tiles_kernel(const float* __restrict__ pred, const float* __restrict__ tgt,
-                 float* __restrict__ tile_partials, int H, int W, float c1,
-                 float c2) {
-    __shared__ float sp[PH][PWS];
-    __shared__ float st[PH][PWS];
-    __shared__ float col[5][TH][PWS];
-
-    const int b = blockIdx.z;
-    const int y0 = blockIdx.y * TH, x0 = blockIdx.x * TW;
-    const size_t img = (size_t)b * H * W;
-    stage_reflect(pred + img, H, W, y0, x0, sp);
-    stage_reflect(tgt + img, H, W, y0, x0, st);
-    __syncthreads();
-    column_pass5(sp, st, col);
-    __syncthreads();
-
-    float ss = 0.0f, l1 = 0.0f;
-#pragma unroll
-    for (int n = 0; n < PER_THREAD; ++n) {
-        const int idx = threadIdx.x + n * NT;
-        const int r = idx / TW, c = idx - r * TW;
-        if (y0 + r >= H || x0 + c >= W) continue;
-        const Ssim s = ssim_terms(col, r, c, c1, c2);
-        const float map = __fdiv_rn(__fmul_rn(s.n1, s.n2),
-                                    __fmul_rn(s.d1, s.d2));
-        const float pre = __fmul_rn(__fsub_rn(1.0f, map), 0.5f);
-        ss += fminf(fmaxf(pre, 0.0f), 1.0f);
-        l1 += fabsf(__fsub_rn(sp[r + 1][c + 1], st[r + 1][c + 1]));
-    }
-    block_sum2(ss, l1);
-    if (threadIdx.x == 0) {
-        const size_t tile = (size_t)b * gridDim.y * gridDim.x
-                            + (size_t)blockIdx.y * gridDim.x + blockIdx.x;
-        tile_partials[tile * 2 + 0] = ss;
-        tile_partials[tile * 2 + 1] = l1;
-    }
-}
-
-// out[b][k] = sum over the image's tiles, each thread over a fixed stride and
-// the block in a fixed tree: the same bits on every run.
-__global__ void __launch_bounds__(NT)
-fwd_reduce_kernel(const float* __restrict__ tile_partials,
-                  float* __restrict__ out, int tiles) {
-    const int b = blockIdx.x;
-    const float* src = tile_partials + (size_t)b * tiles * 2;
-    float a0 = 0.0f, a1 = 0.0f;
-    for (int i = threadIdx.x; i < tiles; i += NT) {
-        a0 += src[i * 2 + 0];
-        a1 += src[i * 2 + 1];
-    }
-    block_sum2(a0, a1);
-    if (threadIdx.x == 0) {
-        out[b * 2 + 0] = a0;
-        out[b * 2 + 1] = a1;
-    }
-}
-
-// -- backward ----------------------------------------------------------------
-
-constexpr int BWD_WARPS = 4;      // warps per block, each a strip of its own
-constexpr int BWD_COLS = 60;      // output columns of a strip (64 held, 2 a side)
-constexpr int BWD_ROWS = 16;      // output rows of a strip
 constexpr unsigned FULL = 0xffffffffu;
 
-// Where a lane reads its two columns xa, xa + 1 (the strip's first lane
-// starts 2 left of it): a column one step outside the image is the
+// Where a lane reads its two columns xa, xa + 1 (a strip's lanes start at
+// an even column left of it): a column one step outside the image is the
 // reflected one, as the statistics' ReflectionPad(1) wants; a column
-// further out feeds only coefficient maps outside the image, which are 0,
-// so it reads any column of the image. With 8-byte rows (vec) one float2
+// further out feeds only pixels outside the image (coefficient maps, which
+// are 0, or losses that are not summed), so it reads any column of the
+// image. With 8-byte rows (vec) one float2
 // at the even column clamped into [0, W - 2] gives both: at xa = -2 its
 // second column 1 = reflect(-1), at xa = W its first column W - 2 =
 // reflect(W).
@@ -304,6 +179,168 @@ __device__ __forceinline__ float2 row_box(float2 v) {
     const float right = __shfl_down_sync(FULL, v.x, 1);
     return make_float2(sum3(left, v.x, v.y), sum3(v.x, v.y, right));
 }
+
+// -- forward -----------------------------------------------------------------
+
+constexpr int FWD_WARPS = 4;      // warps per block, each a strip of its own
+constexpr int FWD_COLS = 62;      // output columns of a strip (64 held)
+constexpr int FWD_ROWS = 8;       // output rows of a strip
+
+// Sum two per-thread values over a block of FWD_WARPS warps in a fixed
+// tree; thread 0 holds the result.
+__device__ __forceinline__ void block_sum2(float& a, float& b) {
+    __shared__ float red[2][FWD_WARPS];
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+        a += __shfl_xor_sync(FULL, a, off);
+        b += __shfl_xor_sync(FULL, b, off);
+    }
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    if (lane == 0) {
+        red[0][warp] = a;
+        red[1][warp] = b;
+    }
+    __syncthreads();
+    if (threadIdx.x == 0) {
+        a = red[0][0];
+        b = red[1][0];
+        for (int w = 1; w < FWD_WARPS; ++w) {
+            a += red[0][w];
+            b += red[1][w];
+        }
+    }
+}
+
+__device__ __forceinline__ float2 add2(float2 a, float2 b) {
+    return make_float2(__fadd_rn(a.x, b.x), __fadd_rn(a.y, b.y));
+}
+
+__device__ __forceinline__ Maps add_maps(const Maps& a, const Maps& b) {
+    Maps m;
+    m.p = add2(a.p, b.p);
+    m.t = add2(a.t, b.t);
+    m.pp = add2(a.pp, b.pp);
+    m.tt = add2(a.tt, b.tt);
+    m.pt = add2(a.pt, b.pt);
+    return m;
+}
+
+// The box's column pass, ((x[y-1] + x[y]) + x[y+1]) * third, from the sum
+// of the two rows above and the row below.
+__device__ __forceinline__ float2 col3(float2 pair, float2 below) {
+    return make_float2(__fmul_rn(__fadd_rn(pair.x, below.x), THIRD),
+                       __fmul_rn(__fadd_rn(pair.y, below.y), THIRD));
+}
+
+// The clipped SSIM loss of one pixel from its five statistics.
+__device__ __forceinline__ float loss_of(float m1, float m2, float e11,
+                                         float e22, float e12, float c1,
+                                         float c2) {
+    const Ssim s = ssim_of(m1, m2, e11, e22, e12, c1, c2);
+    const float map = __fdiv_rn(__fmul_rn(s.n1, s.n2), __fmul_rn(s.d1, s.d2));
+    const float pre = __fmul_rn(__fsub_rn(1.0f, map), 0.5f);
+    return fminf(fmaxf(pre, 0.0f), 1.0f);
+}
+
+// One warp a strip of FWD_ROWS x FWD_COLS outputs of image blockIdx.y;
+// task = blockIdx.x * FWD_WARPS + warp = (column strip, row strip), the row
+// strip fastest. out[b] = (sum of the clipped SSIM loss map, sum |p - t|).
+__global__ void __launch_bounds__(FWD_WARPS * 32)
+fwd_kernel(const float* __restrict__ pred, const float* __restrict__ tgt,
+           float* __restrict__ partials, unsigned* __restrict__ count,
+           float* __restrict__ out, int H, int W, int strips_y, int strips_x,
+           float c1, float c2) {
+    __shared__ bool last;
+    const int lane = threadIdx.x & 31;
+    const int b = blockIdx.y;
+    // A warp past the last strip walks the last one and adds nothing, and
+    // rows past the image are walked and not added: no branch around the
+    // shuffles depends on the warp, so they need no reconvergence.
+    const int tasks = strips_y * strips_x;
+    const int task = blockIdx.x * FWD_WARPS + (threadIdx.x >> 5);
+    const bool live = task < tasks;
+    const int strip = live ? task : tasks - 1;
+    const int ys = (strip % strips_y) * FWD_ROWS;
+    const int xa = (strip / strips_y) * FWD_COLS - 2 + 2 * lane;
+    const float* P = pred + (size_t)b * H * W;
+    const float* T = tgt + (size_t)b * H * W;
+    const Columns cols = columns_of(xa, W);
+    // W even: xa is even, so an 8-byte load at the even column is aligned
+    const bool vec = (W & 1) == 0 &&
+        ((reinterpret_cast<size_t>(pred) | reinterpret_cast<size_t>(tgt)) &
+         7) == 0;
+    const bool own_a = live && lane >= 1 && xa >= 0 && xa < W;
+    const bool own_b = live && lane <= 30 && xa + 1 >= 0 && xa + 1 < W;
+
+    // rows ys - 1 .. ys + FWD_ROWS: prev is the last row's five maps, pair
+    // the sum of the last two rows', so the column pass of the row above
+    // the new one is col3(pair, new)
+    Maps prev = maps_of(load_pair(P, H, W, ys - 1, cols, vec),
+                        load_pair(T, H, W, ys - 1, cols, vec));
+    Maps cur = maps_of(load_pair(P, H, W, ys, cols, vec),
+                       load_pair(T, H, W, ys, cols, vec));
+    Maps pair = add_maps(prev, cur);
+    prev = cur;
+    float2 np = load_pair(P, H, W, ys + 1, cols, vec);
+    float2 nt = load_pair(T, H, W, ys + 1, cols, vec);
+    float ss = 0.0f, l1 = 0.0f;
+#pragma unroll
+    for (int j = 1; j <= FWD_ROWS; ++j) {
+        const int y = ys + j;   // the new row; output row y - 1
+        cur = maps_of(np, nt);
+        if (j < FWD_ROWS) {
+            np = load_pair(P, H, W, y + 1, cols, vec);
+            nt = load_pair(T, H, W, y + 1, cols, vec);
+        }
+        const float2 mu1 = row_box(col3(pair.p, cur.p));
+        const float2 mu2 = row_box(col3(pair.t, cur.t));
+        const float2 e11 = row_box(col3(pair.pp, cur.pp));
+        const float2 e22 = row_box(col3(pair.tt, cur.tt));
+        const float2 e12 = row_box(col3(pair.pt, cur.pt));
+        const float la = loss_of(mu1.x, mu2.x, e11.x, e22.x, e12.x, c1, c2);
+        const float lb = loss_of(mu1.y, mu2.y, e11.y, e22.y, e12.y, c1, c2);
+        const bool in = y - 1 < H;
+        if (own_a && in) {
+            ss += la;
+            l1 += fabsf(__fsub_rn(prev.p.x, prev.t.x));
+        }
+        if (own_b && in) {
+            ss += lb;
+            l1 += fabsf(__fsub_rn(prev.p.y, prev.t.y));
+        }
+        pair = add_maps(prev, cur);
+        prev = cur;
+    }
+
+    // the block's sums, then the image's last block adds the blocks' sums
+    const int blocks = gridDim.x;
+    float* mine = partials + (size_t)b * blocks * 2;
+    block_sum2(ss, l1);
+    if (threadIdx.x == 0) {
+        mine[blockIdx.x * 2 + 0] = ss;
+        mine[blockIdx.x * 2 + 1] = l1;
+        __threadfence();
+        last = atomicAdd(count + b, 1u) == static_cast<unsigned>(blocks - 1);
+    }
+    __syncthreads();
+    if (!last) return;
+    float a0 = 0.0f, a1 = 0.0f;
+    for (int i = threadIdx.x; i < blocks; i += FWD_WARPS * 32) {
+        a0 += __ldcg(mine + i * 2 + 0);
+        a1 += __ldcg(mine + i * 2 + 1);
+    }
+    block_sum2(a0, a1);
+    if (threadIdx.x == 0) {
+        out[b * 2 + 0] = a0;
+        out[b * 2 + 1] = a1;
+    }
+}
+
+// -- backward ----------------------------------------------------------------
+
+constexpr int BWD_WARPS = 4;      // warps per block, each a strip of its own
+constexpr int BWD_COLS = 60;      // output columns of a strip (64 held, 2 a side)
+constexpr int BWD_ROWS = 16;      // output rows of a strip
 
 // The adjoint's pass along a row at columns x and x + 1 from the map c there
 // (0 outside the image), with the reflection's folds.
@@ -494,28 +531,41 @@ bwd_kernel(const float* __restrict__ pred, const float* __restrict__ tgt,
 }  // namespace rootloss
 }  // namespace
 
-// The tile edge, so the wrapper can size tile_partials.
-extern "C" int fused_root_loss_tile() { return rootloss::TH; }
+// The forward's strip, rows and columns, and its warps a block into
+// strip[0..2], so the wrapper can size the scratch. Returns 0.
+extern "C" int fused_root_loss_fwd_strip(int* strip) {
+    strip[0] = rootloss::FWD_ROWS;
+    strip[1] = rootloss::FWD_COLS;
+    strip[2] = rootloss::FWD_WARPS;
+    return 0;
+}
 
-// pred, tgt: [B,H,W] float32 contiguous, H, W >= 2. tile_partials:
-// [B, tiles, 2] scratch with tiles = ceil(H/32)*ceil(W/32). out: [B,2]
-// (sum of the clipped SSIM loss map, sum |p-t|). Returns the CUDA error of
-// the launches (0 on success).
+// pred, tgt: [B,H,W] float32 contiguous, H, W >= 2. scratch: scratch_words
+// 32-bit words, at least B * blocks * 2 + B with blocks = ceil(ceil(H/8) *
+// ceil((W+1)/62) / 4): each block's two sums, then one ticket counter an
+// image (zeroed here on the stream). out: [B,2] (sum of the clipped SSIM
+// loss map, sum |p-t|). One kernel. Returns the CUDA error of the memset or
+// the launch (0 on success).
 extern "C" int fused_root_loss_fwd(const void* pred, const void* tgt,
-                                   void* tile_partials, void* out, int B,
-                                   int H, int W, float c1, float c2,
-                                   void* stream) {
+                                   void* scratch, void* out, int B, int H,
+                                   int W, int scratch_words, float c1,
+                                   float c2, void* stream) {
     using namespace rootloss;
-    const dim3 grid((W + TW - 1) / TW, (H + TH - 1) / TH, B);
+    const int strips_y = (H + FWD_ROWS - 1) / FWD_ROWS;
+    const int strips_x = (W + FWD_COLS) / FWD_COLS;   // columns -1 .. W - 1
+    const int blocks = (strips_y * strips_x + FWD_WARPS - 1) / FWD_WARPS;
+    const long long sums = 2LL * B * blocks;
+    if (scratch_words < sums + B)
+        return static_cast<int>(cudaErrorInvalidValue);
+    float* partials = static_cast<float*>(scratch);
+    unsigned* count = reinterpret_cast<unsigned*>(partials + sums);
     cudaStream_t s = static_cast<cudaStream_t>(stream);
-    fwd_tiles_kernel<<<grid, NT, 0, s>>>(
-        static_cast<const float*>(pred), static_cast<const float*>(tgt),
-        static_cast<float*>(tile_partials), H, W, c1, c2);
-    cudaError_t err = cudaGetLastError();
+    const cudaError_t err = cudaMemsetAsync(count, 0, B * sizeof(unsigned), s);
     if (err != cudaSuccess) return static_cast<int>(err);
-    fwd_reduce_kernel<<<B, NT, 0, s>>>(
-        static_cast<const float*>(tile_partials), static_cast<float*>(out),
-        static_cast<int>(grid.x * grid.y));
+    fwd_kernel<<<dim3(blocks, B), FWD_WARPS * 32, 0, s>>>(
+        static_cast<const float*>(pred), static_cast<const float*>(tgt),
+        partials, count, static_cast<float*>(out), H, W, strips_y, strips_x,
+        c1, c2);
     return static_cast<int>(cudaGetLastError());
 }
 

@@ -177,8 +177,8 @@ _VP, _I32, _F32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 #: ctypes signature of each C entry of ``csrc/fused_loss.cu``; the 11 taps
 #: go as a pointer to host floats (a ctypes array)
 ARGTYPES = {
-    "fused_loss_tile": (),
-    "fused_loss_fwd": (_VP,) * 4 + (_I32,) * 3 + (_F32,) * 2 + (_VP, _VP),
+    "fused_loss_fwd_tile": (ctypes.POINTER(_I32),),
+    "fused_loss_fwd": (_VP,) * 4 + (_I32,) * 4 + (_F32,) * 2 + (_VP, _VP),
     "fused_loss_bwd": (_VP,) * 4 + (_I32,) * 3 + (_F32,) * 2 + (_VP, _VP),
 }
 
@@ -203,29 +203,43 @@ def _c_taps():
     return (ctypes.c_float * _WS)(*_gauss_taps())
 
 
+@functools.lru_cache(maxsize=None)
+def _fwd_tile() -> Tuple[int, int]:
+    tile = (_I32 * 2)()
+    _lib().fused_loss_fwd_tile(tile)
+    return tile[0], tile[1]
+
+
+def fwd_scratch_words(bsz: int, h: int, w: int, tile: Tuple[int, int]) -> int:
+    """32-bit words of the forward's scratch for ``[bsz,h,w]`` inputs and its
+    output tile ``(rows, columns)``: every block's three sums, then one
+    ticket counter an image, which the C entry zeroes."""
+    blocks = -(-h // tile[0]) * -(-w // tile[1])
+    return bsz * blocks * 3 + bsz
+
+
 def fused_partials(p: torch.Tensor, t: torch.Tensor,
                    max_depth: float) -> torch.Tensor:
     """Per-image partial sums ``[B,3]`` of ``p``, ``t`` ``[B,H,W]`` float32.
 
     CPU tensors run :func:`fused_partials_reference`; CUDA tensors launch the
-    ``fused_loss_fwd`` kernel (counted in ``fused_partials.launches``). The
-    kernel's result repeats bit for bit from run to run."""
+    ``fused_loss_fwd`` kernel, one CUDA kernel (counted in
+    ``fused_partials.launches``). The kernel's result repeats bit for bit
+    from run to run."""
     if p.device.type == "cpu":
         return fused_partials_reference(p, t, max_depth)
     _check(p, t)
     _check_cuda(p, t)
-    lib = _lib()
     bsz, h, w = p.shape
-    tile = lib.fused_loss_tile()
-    tiles = -(-h // tile) * -(-w // tile)
-    scratch = torch.empty((bsz, tiles, 3), dtype=torch.float32, device=p.device)
+    words = fwd_scratch_words(bsz, h, w, _fwd_tile())
+    scratch = torch.empty(words, dtype=torch.float32, device=p.device)
     out = torch.empty((bsz, 3), dtype=torch.float32, device=p.device)
     c1, c2 = _constants(max_depth)
     with torch.cuda.device(p.device):
         stream = torch.cuda.current_stream(p.device).cuda_stream
-        rc = lib.fused_loss_fwd(p.data_ptr(), t.data_ptr(), scratch.data_ptr(),
-                                out.data_ptr(), bsz, h, w, c1, c2, _c_taps(),
-                                stream)
+        rc = _lib().fused_loss_fwd(p.data_ptr(), t.data_ptr(),
+                                   scratch.data_ptr(), out.data_ptr(), bsz, h,
+                                   w, words, c1, c2, _c_taps(), stream)
     if rc != 0:
         raise RuntimeError(f"fused_loss_fwd launch failed: CUDA error {rc}")
     fused_partials.launches += 1

@@ -26,6 +26,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import Tuple
 
 import torch
 import torch.nn.functional as F
@@ -123,8 +124,8 @@ def root_bwd_reference(p: torch.Tensor, t: torch.Tensor,
 
 
 #: rtol of the kernels' partial sums against the plain versions': the sums
-#: over an image's pixels are taken in another order (tiles of 32x32, then
-#: the tiles); the per-pixel maps are the same operations in the same order
+#: over an image's pixels are taken in another order (strips of 8x62, then
+#: the blocks); the per-pixel maps are the same operations in the same order
 PARTIALS_RTOL = 1e-5
 
 
@@ -132,8 +133,8 @@ _VP, _I32, _F32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
 #: ctypes signature of each C entry of ``csrc/fused_root_loss.cu``
 ARGTYPES = {
-    "fused_root_loss_tile": (),
-    "fused_root_loss_fwd": (_VP,) * 4 + (_I32,) * 3 + (_F32,) * 2 + (_VP,),
+    "fused_root_loss_fwd_strip": (ctypes.POINTER(_I32),),
+    "fused_root_loss_fwd": (_VP,) * 4 + (_I32,) * 4 + (_F32,) * 2 + (_VP,),
     "fused_root_loss_bwd": (_VP,) * 4 + (_I32,) * 3 + (_F32,) * 2 + (_VP,),
 }
 
@@ -156,28 +157,45 @@ def _check_cuda(name: str, p: torch.Tensor, t: torch.Tensor):
         raise ValueError(f"{name}: pred and target must be contiguous [B,H,W]")
 
 
+@functools.lru_cache(maxsize=None)
+def _fwd_strip() -> Tuple[int, int, int]:
+    strip = (_I32 * 3)()
+    _lib().fused_root_loss_fwd_strip(strip)
+    return strip[0], strip[1], strip[2]
+
+
+def fwd_scratch_words(bsz: int, h: int, w: int,
+                      strip: Tuple[int, int, int]) -> int:
+    """32-bit words of the forward's scratch for ``[bsz,h,w]`` inputs and its
+    strip ``(rows, columns, warps a block)``: every block's two sums, then
+    one ticket counter an image, which the C entry zeroes. Strip k holds the
+    columns ``k*columns - 1 ..``, so ``ceil((w + 1) / columns)`` strips
+    cover a row; a block takes ``warps`` strips of one image."""
+    rows, cols, warps = strip
+    strips = -(-h // rows) * -(-(w + 1) // cols)
+    return bsz * -(-strips // warps) * 2 + bsz
+
+
 def root_partials(p: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     """Per-image partial sums ``[B,2]`` of ``p``, ``t`` ``[B,H,W]``.
 
     CPU tensors run :func:`root_partials_reference`; CUDA tensors (float32)
-    launch the ``fused_root_loss_fwd`` kernel (counted in
+    launch the ``fused_root_loss_fwd`` kernel, one CUDA kernel (counted in
     ``root_partials.launches``). The kernel's result repeats bit for bit
     from run to run."""
     _check(p, t)
     if p.device.type == "cpu":
         return root_partials_reference(p, t)
     _check_cuda("fused_root_loss_fwd", p, t)
-    lib = _lib()
     bsz, h, w = p.shape
-    tile = lib.fused_root_loss_tile()
-    tiles = -(-h // tile) * -(-w // tile)
-    scratch = torch.empty((bsz, tiles, 2), dtype=torch.float32, device=p.device)
+    words = fwd_scratch_words(bsz, h, w, _fwd_strip())
+    scratch = torch.empty(words, dtype=torch.float32, device=p.device)
     out = torch.empty((bsz, 2), dtype=torch.float32, device=p.device)
     with torch.cuda.device(p.device):
         stream = torch.cuda.current_stream(p.device).cuda_stream
-        rc = lib.fused_root_loss_fwd(p.data_ptr(), t.data_ptr(),
-                                     scratch.data_ptr(), out.data_ptr(), bsz,
-                                     h, w, C1, C2, stream)
+        rc = _lib().fused_root_loss_fwd(p.data_ptr(), t.data_ptr(),
+                                        scratch.data_ptr(), out.data_ptr(),
+                                        bsz, h, w, words, C1, C2, stream)
     if rc != 0:
         raise RuntimeError(f"fused_root_loss_fwd launch failed: CUDA error {rc}")
     root_partials.launches += 1

@@ -1,9 +1,11 @@
-"""Step timing (``tpudepth/utils/profiling.py::StepTimer``)."""
+"""Step timing (``tpudepth/utils/profiling.py::StepTimer``) and the count
+of CUDA kernels a call launches (:func:`graph_kernels`)."""
 
 from __future__ import annotations
 
+import ctypes
 import time
-from typing import Dict, Optional
+from typing import Callable, Dict, Optional
 
 import torch
 
@@ -39,3 +41,41 @@ class StepTimer:
             "compute_time_per_step": self.compute_time / n,
             "steps": self.steps,
         }
+
+
+def graph_kernels(fn: Callable[[], object]) -> int:
+    """CUDA kernels one call of ``fn`` launches on the current device: the
+    kernel nodes of a CUDA graph captured from one call (after one call on a
+    side stream), counted through libcuda (``cuGraphGetNodes``,
+    ``cuGraphNodeGetType``). Memsets and copies are nodes of other types.
+    Unlike a profiler trace, which can drop events late in a long run, the
+    count does not depend on timing. Needs a card."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph(keep_graph=True)   # the graph, not only
+    with torch.cuda.graph(graph):                   # its executable
+        fn()
+    torch.cuda.synchronize()
+    cu = ctypes.CDLL("libcuda.so.1")
+    cu.cuGraphGetNodes.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
+                                   ctypes.POINTER(ctypes.c_size_t)]
+    cu.cuGraphNodeGetType.argtypes = [ctypes.c_void_p,
+                                      ctypes.POINTER(ctypes.c_int)]
+    raw = ctypes.c_void_p(graph.raw_cuda_graph())
+    n = ctypes.c_size_t(0)
+    if cu.cuGraphGetNodes(raw, None, ctypes.byref(n)) != 0:
+        raise RuntimeError("cuGraphGetNodes failed")
+    nodes = (ctypes.c_void_p * n.value)()
+    if cu.cuGraphGetNodes(raw, nodes, ctypes.byref(n)) != 0:
+        raise RuntimeError("cuGraphGetNodes failed")
+    kernels, kind = 0, ctypes.c_int(-1)
+    for node in nodes:
+        if cu.cuGraphNodeGetType(ctypes.c_void_p(node),
+                                 ctypes.byref(kind)) != 0:
+            raise RuntimeError("cuGraphNodeGetType failed")
+        kernels += kind.value == 0   # CU_GRAPH_NODE_TYPE_KERNEL
+    graph.reset()
+    return kernels
