@@ -12,8 +12,12 @@ with its blocks as window rows, fused, paired and as whole blocks, both
 scored by the root protocol's ``RootEvaluator``, and training both
 attention models (``Trainer.fit``, root recipe, bf16, batch 8) through the
 training kernels. It holds every CUDA kernel of those paths against its
-plain PyTorch version. Phases:
+plain PyTorch version, and drives the data feed and the command lines
+from a seeded dataset zip. Phases:
 
+0. [host libs]: Pillow, matplotlib, OpenCV, TensorBoard, the libjpeg /
+   libpng headers, g++, whether the native decoder built, and so which
+   decoder reads the zips (the run fails when neither can);
 1. device: needs CUDA; prints the card's name and power limit; turns TF32
    off for every f32 reference;
 2. build: compiles every CUDA source of the package with nvcc (in parallel)
@@ -113,7 +117,23 @@ plain PyTorch version. Phases:
    NewCRF's encoder moved; the last checkpoint restored; one f32 step
    against the ``plain`` step; 8 steps on one batch lower the loss;
    ms/step, img/s, peak memory and a profile of one step;
-9. one JSON line on the kernels, and last the JSON line with the device.
+9. [data feed]: a seeded synthetic NYU zip (48 train and 16 test pairs at
+   480x640, ``make_synthetic_zip``), its decode rate, the train split of
+   ``get_dataloader`` from its decode-once cache in host batches and
+   pinned and copied to the card one batch ahead, every device batch equal
+   to its host batch over 3 epochs; [cli guidedepth]:
+   ``guidedepth_main.main`` in this process, ``--train --eval`` at B8,
+   2 epochs x 3 steps, GUB stages plain and fused (checkpoints,
+   ``best_model``, ``results.txt``, finite metrics, the second epoch's train
+   img/s beside [train]'s in-memory img/s); [cli train]: the root command
+   line on NewCRF, B8, 1 epoch x 3 steps (rolling checkpoint, TensorBoard
+   events); [cli test]: the root evaluation on that checkpoint; [cli
+   inference]: ``tpudepth_torch.inference --eval --gub fused`` at bs 1
+   (``inference_results.txt``). Each path's kernel launches are counted
+   from 0 over exactly that run and must equal the expected counts;
+10. one JSON line on the kernels (each kernel's launches on the command
+   lines' paths added to its ``launches_by_path``), and last the JSON line
+   with the device.
 
 Any failed check raises, and the script exits non-zero without printing a
 result. It imports nothing of JAX.
@@ -123,6 +143,7 @@ from __future__ import annotations
 
 import copy
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -2127,12 +2148,8 @@ TRAIN_KERNELS = ("window_attn_train_fwd", "window_attn_train_bwd",
 
 
 def _train_counters():
-    from tpudepth_torch.ops.kernels import mlp_train as mt
-    from tpudepth_torch.ops.kernels import window_attn as wat
-
-    return dict(zip(TRAIN_KERNELS, (wat.window_attention_fwd,
-                                    wat.window_attention_bwd,
-                                    mt.mlp_train_fwd, mt.mlp_train_bwd)))
+    counters = _counters()
+    return {k: counters[k] for k in TRAIN_KERNELS}
 
 
 def _train_kernel_inputs(seed, bsz, windows, c, heads, rows, dtype):
@@ -2380,9 +2397,8 @@ def make_root_pair(kind, bsz, h, w, seed=0):
 
 
 def _root_counters():
-    from tpudepth_torch.ops.kernels import fused_root_loss as frl
-
-    return dict(zip(ROOT_KERNELS, (frl.root_partials, frl.root_bwd)))
+    counters = _counters()
+    return {k: counters[k] for k in ROOT_KERNELS}
 
 
 def phase_root_loss_kernels():
@@ -2664,6 +2680,383 @@ def train_attention_model(name, tmp, blocks):
     return out
 
 
+# the data feed and the command lines: one seeded synthetic NYU zip at
+# 480x640, 48 train pairs (6 batches of 8: 2 epochs x 3 steps) and 16 test
+# pairs (2 validation batches; 16 evaluation images at batch 1)
+FEED_TRAIN, FEED_TEST, FEED_EPOCHS = 48, 16, 3
+# GuideDepth through its command line: 2 epochs x 3 steps, each epoch's
+# validation over the 2 batches of the test split, then the evaluation of
+# the 16 test images and their flips at batch 1
+CLI_STEPS, CLI_VAL_BATCHES, CLI_EVAL_FORWARDS = 6, 4, 2 * FEED_TEST
+# the inference command line's speedtests: warm-up and timed runs, f32 and bf16
+CLI_WARMUP, CLI_RUNS = 5, 20
+
+
+def _counters():
+    """Every kernel wrapper of the port by the kernel's name: each counts its
+    launches in ``.launches``."""
+    from tpudepth_torch.ops.kernels import (
+        block_infer,
+        epilogue_infer,
+        fused_loss,
+        fused_root_loss,
+        gub_conv,
+        mlp_infer,
+        mlp_train,
+        rowblock_infer,
+        window_attn,
+        window_attn_infer,
+    )
+
+    return {
+        "gub_conv_fwd": gub_conv.conv_bn_act,
+        "gub_conv_dw": gub_conv.conv_bn_act_dw,
+        "gub_conv_dx": gub_conv.conv_bn_act_dx,
+        "fused_loss_fwd": fused_loss.fused_partials,
+        "fused_loss_bwd": fused_loss.fused_bwd,
+        "fused_root_loss_fwd": fused_root_loss.root_partials,
+        "fused_root_loss_bwd": fused_root_loss.root_bwd,
+        "window_attn_train_fwd": window_attn.window_attention_fwd,
+        "window_attn_train_bwd": window_attn.window_attention_bwd,
+        "mlp_train_fwd": mlp_train.mlp_train_fwd,
+        "mlp_train_bwd": mlp_train.mlp_train_bwd,
+        "window_attn_infer": window_attn_infer.window_attention_infer,
+        "block_epilogue_infer": epilogue_infer.block_epilogue_infer,
+        "mlp_infer": mlp_infer.mlp_infer,
+        "crf_rowblock_infer": rowblock_infer.crf_rowblock_infer,
+        "sam_rowblock_infer": rowblock_infer.sam_rowblock_infer,
+        "sam_block_infer": block_infer.sam_block_infer,
+        "crf_block_infer": block_infer.crf_block_infer,
+    }
+
+
+def run_counted(fn):
+    """``fn()`` with every kernel's count set to 0 just before it and read
+    just after it. Returns its result, its host seconds (synchronized) and
+    the kernels it launched with their counts."""
+    counters = _counters()
+    for f in counters.values():
+        f.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    return out, seconds, {k: f.launches for k, f in counters.items()
+                          if f.launches}
+
+
+def phase_host_libs():
+    """[host libs]: what the card's machine offers the data feed: Pillow,
+    matplotlib, OpenCV, TensorBoard, the libjpeg / libpng headers and g++,
+    whether the port's native decoder built, and so which decoder reads the
+    zips. Without Pillow and without the native decoder no zip can be made
+    or read, and the run fails."""
+    import importlib.util
+
+    from tpudepth_torch.data import native
+
+    have = {m: importlib.util.find_spec(m) is not None
+            for m in ("PIL", "matplotlib", "cv2", "tensorboard")}
+    pil = "missing"
+    if have["PIL"]:
+        import PIL
+
+        pil = PIL.__version__
+    headers = {h: os.path.exists(f"/usr/include/{h}")
+               for h in ("jpeglib.h", "png.h")}
+    try:
+        gxx = subprocess.run(["g++", "--version"], capture_output=True,
+                             text=True, timeout=60).stdout.splitlines()[0]
+    except (OSError, IndexError, subprocess.TimeoutExpired):
+        gxx = "missing"
+    t0 = time.perf_counter()
+    built = native.get_lib() is not None
+    t_build = time.perf_counter() - t0
+    route = "native" if built else "pillow" if have["PIL"] else "none"
+    print(f"[host libs] Pillow {pil}; matplotlib "
+          f"{'found' if have['matplotlib'] else 'missing'}; OpenCV "
+          f"{'found' if have['cv2'] else 'missing'}; tensorboard "
+          f"{'found' if have['tensorboard'] else 'missing'}; headers "
+          + ", ".join(f"{h} {'found' if ok else 'missing'}"
+                      for h, ok in headers.items())
+          + f"; {gxx}", flush=True)
+    print(f"[host libs] native decoder "
+          + (f"built in {t_build:.1f} s" if built
+             else f"not built ({native.build_error()})")
+          + f"; route: the zips decode with {route}", flush=True)
+    check(route != "none", "neither Pillow nor the native decoder: no zip "
+          "can be made or decoded on this machine")
+    return {"pillow": pil, **{k: v for k, v in have.items() if k != "PIL"},
+            "headers": headers, "gxx": gxx, "native_decoder": built,
+            "route": route}
+
+
+def phase_data_feed(tmp):
+    """[data feed]: the seeded NYU zip through the port's loaders. The decode
+    rate (a dataset without a cache, every batch decoded); the train split as
+    ``get_dataloader`` feeds the command lines (raw uint8, decode-once
+    cache) in host batches, and the same batches pinned and copied to the
+    card one batch ahead; every device batch held equal to its host batch
+    over 3 epochs."""
+    from tpudepth_torch.data import get_dataloader, make_synthetic_zip
+    from tpudepth_torch.data.nyu import (
+        DataLoader,
+        NYUDepthDataset,
+        load_zip_to_mem,
+    )
+
+    t0 = time.perf_counter()
+    path = make_synthetic_zip(f"{tmp}/nyu_synthetic_480x640.zip",
+                              n_train=FEED_TRAIN, n_test=FEED_TEST,
+                              image_hw=TRAIN_HW, seed=0)
+    t_zip = time.perf_counter() - t0
+    data, train_pairs, _ = load_zip_to_mem(path)
+    uncached = NYUDepthDataset(data, train_pairs, raw=True)
+    t0 = time.perf_counter()
+    n = sum(b["image"].shape[0]
+            for b in DataLoader(uncached, TRAIN_BATCH, shuffle=True))
+    decode_ips = n / (time.perf_counter() - t0)
+    decoder = uncached.decoder()
+
+    host = get_dataloader("nyu", path, "train", batch_size=TRAIN_BATCH,
+                          resolution="full")
+    ds = host.dataset
+    deadline = time.perf_counter() + 120
+    while (not all(ds._has_cached(i) for i in range(len(ds)))
+           and time.perf_counter() < deadline):
+        time.sleep(0.05)
+    check(ds.raw and all(ds._has_cached(i) for i in range(len(ds))),
+          "the train split's decode-once cache did not fill")
+    device = DataLoader(ds, TRAIN_BATCH, shuffle=True, device=DEVICE)
+    host_s, device_s, compared = 0.0, 0.0, 0
+    for epoch in range(FEED_EPOCHS):
+        host.set_epoch(epoch)
+        device.set_epoch(epoch)
+        t0 = time.perf_counter()
+        want = list(host)
+        host_s += time.perf_counter() - t0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = list(device)
+        torch.cuda.synchronize()
+        device_s += time.perf_counter() - t0
+        check(len(got) == len(want) == FEED_TRAIN // TRAIN_BATCH,
+              f"epoch {epoch}: {len(got)} device and {len(want)} host batches")
+        for g, w in zip(got, want):
+            for k in ("image", "depth"):
+                check(g[k].is_cuda and g[k].dtype == torch.uint8
+                      and torch.equal(g[k].cpu(), torch.from_numpy(w[k])),
+                      f"epoch {epoch}: a device {k} batch differs from its "
+                      "host batch")
+                compared += 1
+    images = FEED_EPOCHS * len(host) * TRAIN_BATCH
+    out = {"zip_s": t_zip, "decoder": decoder, "decode_img_per_s": decode_ips,
+           "cached_decoder": ds.decoder(),
+           "host_img_per_s": images / host_s,
+           "device_img_per_s": images / device_s,
+           "batches_compared": compared // 2}
+    print(f"[data feed] zip of {FEED_TRAIN} + {FEED_TEST} pairs at "
+          f"{TRAIN_HW[0]}x{TRAIN_HW[1]} made in {t_zip:.2f} s; decoder "
+          f"{decoder}: {decode_ips:.1f} img/s decoding every batch (raw "
+          f"uint8, B{TRAIN_BATCH}, host clock); train split from its cache "
+          f"(filled by {ds.decoder()}): host batches {out['host_img_per_s']:.1f}"
+          f" img/s, pinned and on the card {out['device_img_per_s']:.1f} "
+          f"img/s ({FEED_EPOCHS} epochs, synchronized); "
+          f"{out['batches_compared']} device batches equal to their host "
+          "batches", flush=True)
+    return path, out
+
+
+def _finite_results_txt(path):
+    with open(path) as f:
+        header, values = f.read().split("\n")
+    check(header == "RMSE,MAE,REL, RMSE_log,Lg10,Delta1,Delta2,Delta3",
+          f"{path}: header {header!r}")
+    vals = [float(v) for v in values.split(",")]
+    check(len(vals) == 8 and np.all(np.isfinite(vals)), f"{path}: {values}")
+    return vals
+
+
+def _start_checkpoint(path):
+    """A GuideDepth-schema checkpoint to start ``--load_checkpoint`` from:
+    the seeded model with its output bias at ``OUTPUT_BIAS``, as [train]
+    starts its models (a model's raw output of exactly 0 scores as 0 m and
+    makes the logarithmic metrics infinite), a fresh Adam, epoch 0."""
+    from tpudepth_torch.core.config import TrainConfig
+    from tpudepth_torch.models.registry import build_model
+    from tpudepth_torch.train.checkpoint import save_checkpoint
+    from tpudepth_torch.train.trainer import make_optimizer
+
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(0)
+        model = build_model("GuideDepth")
+    with torch.no_grad():
+        model.up_3.reduce.bias.fill_(OUTPUT_BIAS)
+    optimizer = make_optimizer(TrainConfig(), model.parameters())
+    return save_checkpoint(path, {"epoch": 0, "val_losses": [],
+                                  "model": model.state_dict(),
+                                  "optimizer": optimizer.state_dict()})
+
+
+def phase_cli_guidedepth(tmp, path, in_memory):
+    """[cli guidedepth]: ``guidedepth_main.main`` in this process, ``--train
+    --eval`` on the zip at 480x640 B8, 2 epochs x 3 steps from
+    :func:`_start_checkpoint` (``--load_checkpoint``), GUB stages plain and
+    fused: the checkpoints, ``best_model`` and ``results.txt`` on disk,
+    finite metrics, every kernel's launches over the run, and the train
+    img/s of the second epoch (the first pays the model's warm-up) beside
+    the [train] phase's on in-memory batches."""
+    from tpudepth_torch.cli import guidedepth_main
+
+    start = _start_checkpoint(f"{tmp}/cli_start/checkpoint")
+    out = {}
+    for gub in ("plain", "fused"):
+        ck, res = f"{tmp}/cli_{gub}/checkpoints", f"{tmp}/cli_{gub}/results"
+        argv = ["--train", "--eval", "--data_path", path, "--dataset", "nyu",
+                "--resolution", "full", "--batch_size", str(TRAIN_BATCH),
+                "--num_epochs", "2", "--steps-per-epoch", "3",
+                "--load_checkpoint", start, "--save_checkpoint", ck,
+                "--save_results", res, "--gub", gub, "--device", "cuda"]
+        result, seconds, counts = run_counted(lambda: guidedepth_main.main(argv))
+        check(sorted(os.listdir(ck)) == ["checkpoint_0", "checkpoint_1"],
+              f"{ck}: {sorted(os.listdir(ck))}")
+        check(os.path.isfile(f"{res}/best_model"), "best_model not exported")
+        values = _finite_results_txt(f"{res}/results.txt")
+        m = result["metrics"]
+        check(np.all(np.isfinite([m.rmse, m.mae, m.absrel, m.lg10, m.delta1,
+                                  m.rmse_log])), "metrics not finite")
+        check(np.all(np.isfinite(result["val_losses"]))
+              and len(result["val_losses"]) == 2, "validation losses")
+        want = {"fused_loss_fwd": CLI_STEPS + CLI_VAL_BATCHES,
+                "fused_loss_bwd": CLI_STEPS}
+        if gub == "fused":
+            want.update(gub_conv_fwd=FUSED_FWD_PER_PASS * (
+                CLI_STEPS + CLI_VAL_BATCHES + CLI_EVAL_FORWARDS),
+                gub_conv_dw=FUSED_DW_PER_STEP * CLI_STEPS,
+                gub_conv_dx=FUSED_DX_PER_STEP * CLI_STEPS)
+        check(counts == want, f"cli guidedepth {gub}: launches {counts}, "
+              f"expected {want}")
+        ep = result["epoch_times"][1]
+        ips = ep["images"] / ep["seconds"]
+        out[gub] = {"launches": counts, "seconds": seconds,
+                    "train_img_per_s": ips,
+                    "first_epoch_s": result["epoch_times"][0]["seconds"],
+                    "in_memory_img_per_s": in_memory[gub],
+                    "results": values}
+        print(f"[cli guidedepth {gub}] train + eval in {seconds:.2f} s; "
+              f"launches {counts}; train {ips:.1f} img/s (epoch 1: "
+              f"{ep['images']} images in {ep['seconds']:.3f} s, host clock, "
+              f"the feed included) beside {in_memory[gub]:.1f} img/s on "
+              f"in-memory batches ([train {gub}]); epoch 0 "
+              f"{out[gub]['first_epoch_s']:.2f} s; results.txt {values}",
+              flush=True)
+    return out
+
+
+def phase_cli_train(tmp, path, in_memory):
+    """[cli train]: the root command line in this process on NewCRF, B8,
+    1 epoch x 3 steps, from a working directory of its own (it writes
+    ``./checkpoints/global_checkpoint`` and ``runs/``): the checkpoint, the
+    logged losses, every kernel's launches, and the epoch's img/s."""
+    import importlib.util
+
+    from tpudepth_torch.cli import train as cli_train
+
+    work = f"{tmp}/cli_train"
+    os.makedirs(work)
+    cwd = os.getcwd()
+    os.chdir(work)
+    try:
+        argv = ["--model", "newcrf", "--bs", str(SAM_BATCH), "--epochs", "1",
+                "--steps-per-epoch", "3", "--data", path, "--log-dir", "runs",
+                "--device", "cuda"]
+        result, seconds, counts = run_counted(lambda: cli_train.main(argv))
+    finally:
+        os.chdir(cwd)
+    ckpt = f"{work}/checkpoints/global_checkpoint"
+    check(result["checkpoint"] == ckpt and os.path.isfile(ckpt),
+          f"no rolling checkpoint at {ckpt}")
+    check(len(result["losses"]) == 1 and np.all(np.isfinite(result["losses"])),
+          f"logged losses {result['losses']}")
+    tb = importlib.util.find_spec("tensorboard") is not None
+    grids = tb and importlib.util.find_spec("matplotlib") is not None
+    events = [f for _, _, fs in os.walk(f"{work}/runs") for f in fs
+              if f.startswith("events.out.tfevents")]
+    check(bool(events) == tb, f"TensorBoard event files {events}")
+    want = {**{k: 3 * 8 for k in TRAIN_KERNELS},
+            "fused_root_loss_fwd": 3, "fused_root_loss_bwd": 3}
+    if grids:  # the image grids' forwards at step 0 and at the epoch's end
+        want["crf_rowblock_infer"] = 2 * 8
+    check(counts == want, f"cli train: launches {counts}, expected {want}")
+    ep = result["epoch_times"][0]
+    ips = ep["images"] / ep["seconds"]
+    print(f"[cli train] newcrf B{SAM_BATCH} 1 epoch x 3 steps in "
+          f"{seconds:.2f} s; launches {counts}; train {ips:.1f} img/s (epoch "
+          f"0 with the new model's first step, host clock) beside "
+          f"{in_memory:.1f} img/s on in-memory batches ([newcrf train]); "
+          f"TensorBoard {'events ' + str(len(events)) if tb else 'missing'}, "
+          f"image grids {'logged' if grids else 'off (no matplotlib)'}",
+          flush=True)
+    return ckpt, {"launches": counts, "seconds": seconds,
+                  "train_img_per_s": ips, "in_memory_img_per_s": in_memory,
+                  "tensorboard_events": len(events), "image_grids": grids}
+
+
+def phase_cli_test(path, ckpt):
+    """[cli test]: the root evaluation command line on [cli train]'s
+    checkpoint: finite metrics, ``crf_rowblock_infer`` 8 a batch."""
+    from tpudepth_torch.cli import test as cli_test
+
+    argv = ["--bs", str(SAM_BATCH), "--pt", ckpt, "--data", path, "--model",
+            "newcrf", "--device", "cuda"]
+    metrics, seconds, counts = run_counted(lambda: cli_test.main(argv))
+    check(len(metrics) == 9 and np.all(np.isfinite(list(metrics.values()))),
+          f"metrics {metrics}")
+    want = {"crf_rowblock_infer": 8 * (FEED_TEST // SAM_BATCH)}
+    check(counts == want, f"cli test: launches {counts}, expected {want}")
+    print(f"[cli test] newcrf on the rolling checkpoint, {FEED_TEST} test "
+          f"images at B{SAM_BATCH} in {seconds:.2f} s; launches {counts}; "
+          + ", ".join(f"{k} {v:.4f}" for k, v in metrics.items()), flush=True)
+    return {"launches": counts, "seconds": seconds, "metrics": metrics}
+
+
+def phase_cli_inference(tmp, path):
+    """[cli inference]: ``tpudepth_torch.inference --eval`` on the model that
+    [cli guidedepth] trained with fused GUB stages, at 480x640 bs 1: both
+    speedtests (short), the bf16 engine through ``AlhashimEvaluator`` over
+    the test split, the two report files, ``gub_conv_fwd`` 9 a forward."""
+    from tpudepth_torch import inference
+
+    res = f"{tmp}/cli_inference"
+    argv = ["--eval", "--data_path", path, "--dataset", "nyu", "--resolution",
+            "full", "--gub", "fused", "--weights_path",
+            f"{tmp}/cli_fused/results/best_model", "--num_test_runs",
+            str(CLI_RUNS), "--warm_up_runs", str(CLI_WARMUP),
+            "--save_results", res, "--device", "cuda"]
+    result, seconds, counts = run_counted(lambda: inference.main(argv))
+    _finite_results_txt(f"{res}/results.txt")
+    m = result["metrics"]
+    with open(f"{res}/inference_results.txt") as f:
+        lines = f.read().splitlines()
+    check(lines[0] == "backend,s/frame,FPS,img/s,RMSE,Delta1"
+          and lines[1].startswith("torch_f32,")
+          and lines[2].startswith("engine_bf16,")
+          and lines[2].endswith(f",{m.rmse:.3f},{m.delta1:.3f}")
+          and np.all(np.isfinite([float(v) for v in lines[2].split(",")[1:]])),
+          f"inference_results.txt {lines}")
+    want = {"gub_conv_fwd": FUSED_FWD_PER_PASS * (
+        2 * (CLI_WARMUP + CLI_RUNS) + CLI_EVAL_FORWARDS)}
+    check(counts == want, f"cli inference: launches {counts}, expected {want}")
+    ms = {k: result[k]["seconds_per_frame"] * 1e3 for k in ("f32", "bf16")}
+    print(f"[cli inference] GuideDepth fused bs 1 in {seconds:.2f} s; f32 "
+          f"{ms['f32']:.3f} ms/frame, bf16 engine {ms['bf16']:.3f} ms/frame "
+          f"({CLI_RUNS} runs between CUDA events); eval RMSE {m.rmse:.3f} "
+          f"Delta1 {m.delta1:.3f}; launches {counts}", flush=True)
+    return {"launches": counts, "seconds": seconds, "ms_per_frame": ms,
+            "rmse": m.rmse, "delta1": m.delta1}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -2671,6 +3064,7 @@ def main() -> int:
     import tpudepth_torch  # noqa: F401  (fails outside the repo)
 
     t_start = time.perf_counter()
+    host_libs = phase_host_libs()
     phase_device()
     phase_build()
     rows, max_err, n_checks = phase_kernels()
@@ -2698,6 +3092,24 @@ def main() -> int:
         # training, each kernel's count set to 0 just before its fit
         attn_train = {name: train_attention_model(name, tmp, blocks)
                       for name, blocks in (("sam", 4), ("newcrf", 8))}
+        # the data feed and the command lines: each path's counts set to 0
+        # just before it and read just after it (run_counted)
+        t_feed = time.perf_counter()
+        os.environ["TPUDEPTH_CACHE_DIR"] = f"{tmp}/data_cache"
+        zip_path, data_feed = phase_data_feed(tmp)
+        cli = {"guidedepth": phase_cli_guidedepth(tmp, zip_path, {
+            gub: fused_train[f"{gub}_img_per_s"] for gub in ("plain", "fused")})}
+        ckpt, cli["train"] = phase_cli_train(
+            tmp, zip_path, attn_train["newcrf"]["img_per_s"])
+        cli["test"] = phase_cli_test(zip_path, ckpt)
+        cli["inference"] = phase_cli_inference(tmp, zip_path)
+        t_feed = time.perf_counter() - t_feed
+    cli_launches = {
+        **{f"cli guidedepth {gub}": cli["guidedepth"][gub]["launches"]
+           for gub in ("plain", "fused")},
+        "cli train newcrf": cli["train"]["launches"],
+        "cli test newcrf": cli["test"]["launches"],
+        "cli inference fused": cli["inference"]["launches"]}
 
     def total(table, key):
         return sum(r[key] for r in table)
@@ -2958,6 +3370,20 @@ def main() -> int:
             "bytes_ms": r["bytes_ms"], "ops_ms": r["ops_ms"],
             "cuda_kernels_per_call": r["cuda_kernels"],
         })
+    for k in kernels:
+        for path, counts in cli_launches.items():
+            if counts.get(k["name"]):
+                k.setdefault("launches_by_path", {})[path] = counts[k["name"]]
+    for name in ("fused_loss_fwd", "fused_loss_bwd", "gub_conv_fwd",
+                 "gub_conv_dw", "gub_conv_dx", "window_attn_train_fwd",
+                 "window_attn_train_bwd", "mlp_train_fwd", "mlp_train_bwd",
+                 "fused_root_loss_fwd", "fused_root_loss_bwd",
+                 "crf_rowblock_infer"):
+        check(any(name in c for c in cli_launches.values()),
+              f"no command line launched {name}")
+    seconds = time.perf_counter() - t_start
+    print(f"[time] {seconds:.1f} s in all; the data feed and the command "
+          f"lines {t_feed:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels, "serve_errors": errs,
                       "sam_serve_errors": sam_errs, "sam_engine": sam_perf,
                       "newcrf_serve_errors": crf_errs,
@@ -2965,8 +3391,9 @@ def main() -> int:
                       "engine_img_per_s": perf, "training": train,
                       "fused_training": fused_train, "evaluation": evaluation,
                       "attention_training": attn_train,
-                      "kernel_splits": splits,
-                      "seconds": time.perf_counter() - t_start}))
+                      "kernel_splits": splits, "host_libs": host_libs,
+                      "data_feed": data_feed, "cli": cli,
+                      "seconds": seconds}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

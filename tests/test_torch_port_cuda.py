@@ -1754,3 +1754,72 @@ def test_block_mode_model_on_the_card_matches_the_plain_model(cuda, name,
     assert tuple(f.launches - b for f, b in zip(fns, before)) == (
         blocks, 0, 0, 0, 0, 0)
     assert float((got - want).norm() / want.norm()) < 1e-5
+
+
+# -- the data feed and the command lines on the card ------------------------
+
+from tpudepth_torch.data import nyu as feed  # noqa: E402
+from tpudepth_torch.data import synthetic  # noqa: E402
+
+
+@pytest.mark.parametrize("prefetch", [1, 2])
+@pytest.mark.parametrize("family", ["nyu", "kitti"])
+def test_loader_copies_every_batch_to_the_card_as_its_host_batch(
+        cuda, tmp_path, family, prefetch):
+    """The train loader pinned and copied one batch ahead (uint8 images,
+    uint8 NYU or uint16 KITTI depth) over 3 epochs: each device batch equals
+    the host batch of the same epoch, both as kept and as summed on the
+    consumer's stream the moment it is yielded."""
+    make = (synthetic.make_synthetic_zip if family == "nyu"
+            else synthetic.make_synthetic_kitti_zip)
+    path = make(str(tmp_path / "z.zip"), n_train=20, n_test=4,
+                image_hw=(48, 64), seed=1)
+    train, _ = feed.get_training_testing_data(
+        4, path, dataset="nyu" if family == "nyu" else "kitti")
+    host = feed.DataLoader(train.dataset, 4, shuffle=True)
+    dev = feed.DataLoader(train.dataset, 4, shuffle=True, device=cuda,
+                          prefetch=prefetch)
+    for epoch in range(3):
+        host.set_epoch(epoch)
+        dev.set_epoch(epoch)
+        sums, got = [], []
+        for batch in dev:
+            assert batch["image"].is_cuda and batch["image"].dtype == torch.uint8
+            # read on the consumer's stream at once, without a host sync
+            sums.append({k: v.to(torch.int64).sum() for k, v in batch.items()})
+            got.append(batch)
+        want = list(host)
+        assert len(got) == len(want) == 5
+        for g, s, w in zip(got, sums, want):
+            for k in ("image", "depth"):
+                ref = torch.from_numpy(w[k])
+                assert g[k].dtype == ref.dtype and g[k].shape == ref.shape
+                assert torch.equal(g[k].cpu(), ref)
+                assert int(s[k]) == int(ref.to(torch.int64).sum())
+
+
+@pytest.mark.parametrize("gub", ["plain", "fused"])
+def test_guidedepth_main_trains_a_step_on_the_card_through_the_loader(
+        cuda, tmp_path, gub):
+    """One ``--train`` step of the command line on the card, fed by the
+    pinned loader: the loss kernels (and with ``--gub fused`` the GUB
+    kernels) launched, a finite validation loss, the epoch's checkpoint."""
+    from tpudepth_torch.cli import guidedepth_main
+
+    path = synthetic.make_synthetic_zip(str(tmp_path / "z.zip"), n_train=8,
+                                        n_test=4, image_hw=(96, 128), seed=2)
+    counters = (fl.fused_partials, fl.fused_bwd, gc.conv_bn_act,
+                gc.conv_bn_act_dw, gc.conv_bn_act_dx)
+    before = [f.launches for f in counters]
+    out = guidedepth_main.main([
+        "--train", "--data_path", path, "--resolution", "mini",
+        "--batch_size", "4", "--num_epochs", "1", "--steps-per-epoch", "1",
+        "--save_checkpoint", str(tmp_path / "ck"),
+        "--save_results", str(tmp_path / "res"), "--gub", gub])
+    torch.cuda.synchronize()
+    got = tuple(f.launches - b for f, b in zip(counters, before))
+    # one train step and one validation batch
+    assert got == ((2, 1, 18, 9, 9) if gub == "fused" else (2, 1, 0, 0, 0))
+    assert np.isfinite(out["val_losses"]).all() and len(out["val_losses"]) == 1
+    assert (tmp_path / "ck" / "checkpoint_0").is_file()
+    assert (tmp_path / "res" / "best_model").is_file()

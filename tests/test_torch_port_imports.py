@@ -17,9 +17,18 @@ REQUIRED = ("tpudepth_torch.models.sam", "tpudepth_torch.models.newcrf",
             "tpudepth_torch.ops.kernels.window_attn",
             "tpudepth_torch.ops.kernels.mlp_train",
             "tpudepth_torch.ops.kernels.fused_root_loss",
-            "tpudepth_torch.eval.evaluator")
+            "tpudepth_torch.eval.evaluator",
+            # the data feed and the command lines
+            "tpudepth_torch.data.nyu", "tpudepth_torch.data.datasets",
+            "tpudepth_torch.data.diskcache", "tpudepth_torch.data.synthetic",
+            "tpudepth_torch.data.native", "tpudepth_torch.utils.viz",
+            "tpudepth_torch.cli.guidedepth_main", "tpudepth_torch.cli.train",
+            "tpudepth_torch.cli.test", "tpudepth_torch.cli.demo",
+            "tpudepth_torch.inference")
 # (module, name): what those modules must define
-REQUIRED_NAMES = (("tpudepth_torch.eval.evaluator", "RootEvaluator"),)
+REQUIRED_NAMES = (("tpudepth_torch.eval.evaluator", "RootEvaluator"),
+                  ("tpudepth_torch.data", "get_dataloader"),
+                  ("tpudepth_torch.data.native", "decode_batch_raw"))
 
 
 def _forbidden(name: str) -> bool:

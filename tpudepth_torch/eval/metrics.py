@@ -159,3 +159,22 @@ class AverageMeter:
             self.sum_gpu_time / c, self.sum_data_time / c,
         )
         return avg
+
+
+class ScalarMeter:
+    """Running meter of one scalar (``src/utils.py:10-24``)."""
+
+    def __init__(self):
+        self.reset()
+
+    def reset(self):
+        self.val = 0.0
+        self.avg = 0.0
+        self.sum = 0.0
+        self.count = 0
+
+    def update(self, val: float, n: int = 1):
+        self.val = val
+        self.sum += val * n
+        self.count += n
+        self.avg = self.sum / self.count

@@ -30,3 +30,12 @@ def save_checkpoint(path: str, payload: Dict[str, Any]) -> str:
 def load_checkpoint(path: str, map_location="cpu") -> Dict[str, Any]:
     return torch.load(os.path.abspath(path), map_location=map_location,
                       weights_only=True)
+
+
+def load_model_weights(model: torch.nn.Module, path: str) -> Dict[str, Any]:
+    """Load into ``model`` the weights of a checkpoint of either schema, of
+    an exported ``best_model`` (all carry ``model``) or of a bare
+    ``state_dict``; returns what the file holds."""
+    restored = load_checkpoint(path)
+    model.load_state_dict(restored.get("model", restored))
+    return restored

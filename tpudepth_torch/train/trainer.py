@@ -252,11 +252,13 @@ class Trainer:
     parameters; one built here is initialized from ``config.seed`` by
     :meth:`init_state`. Loaders are any object with ``__len__``,
     ``set_epoch(epoch)`` and iteration over ``{"image", "depth"}`` dicts of
-    NHWC arrays."""
+    NHWC arrays (numpy, or tensors already on the device, which are used as
+    they are). ``writer`` is the command line's TensorBoard ``SummaryWriter``
+    (or None), kept for its hooks as the JAX ``Trainer`` keeps it."""
 
     def __init__(self, config: TrainConfig, model=None,
                  device: DeviceLike = None, train_loader=None,
-                 val_loader=None):
+                 val_loader=None, writer=None):
         from tpudepth_torch.models.registry import (
             build_model,
             canonical_model_name,
@@ -272,8 +274,12 @@ class Trainer:
         self.model = model if model is not None else build_model(self.model_name)
         self.train_loader = train_loader
         self.val_loader = val_loader
+        self.writer = writer
         self.epoch = 0
         self.val_losses = []
+        # per train epoch: {"epoch", "images", "seconds"}, host clock from
+        # the first batch's request to the epoch's loss on the host
+        self.epoch_times = []
         self.steps_per_epoch = len(train_loader) if train_loader is not None else 1
 
         recipe_kind = "alhashim" if config.eval_mode == "alhashim" else "l1"
@@ -344,7 +350,7 @@ class Trainer:
         steps_total = len(self.train_loader)
         steps_cap = steps_cap or steps_total
         total_dev, count = None, 0
-        start = time.perf_counter()
+        start = t_epoch = time.perf_counter()
         for i, batch in enumerate(self.train_loader):
             if i >= steps_cap:
                 break
@@ -360,9 +366,10 @@ class Trainer:
                 start = time.perf_counter()
             if image_log_fn and i % cfg.image_log_every == 0:
                 image_log_fn(niter)
-        if total_dev is None:
-            return 0.0
-        return float(total_dev) / max(count, 1)
+        avg = 0.0 if total_dev is None else float(total_dev) / max(count, 1)
+        self.epoch_times.append({"epoch": self.epoch, "images": count,
+                                 "seconds": time.perf_counter() - t_epoch})
+        return avg
 
     def val_epoch(self, max_batches: int = 0):
         """Validation loop (``src/GuideDepth/training.py:110-154``): the loss
