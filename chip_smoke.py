@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke test of tpudepth_torch on one NVIDIA GPU: ``python3 chip_smoke.py``.
 
-It drives the port's main paths at NYU 480x640: serving (GuideDepth in bf16
+It drives the port's main paths at NYU 480x640 (the U-Net at KITTI
+384x1280): serving (GuideDepth in bf16
 with fused GUB stages), training (``Trainer.fit``, alhashim recipe, bf16,
 batch 8) with plain and with fused GUB stages, the evaluator on the trained
 model, serving MobileV3SAMDepth (MobileNetV3-Large + four SAM stages at
@@ -11,9 +12,10 @@ encoder + four two-block NewCRF stages, the second block of each shifted)
 with its blocks as window rows, fused, paired and as whole blocks, both
 scored by the root protocol's ``RootEvaluator``, and training both
 attention models (``Trainer.fit``, root recipe, bf16, batch 8) through the
-training kernels. It holds every CUDA kernel of those paths against its
-plain PyTorch version, and drives the data feed and the command lines
-from a seeded dataset zip. Phases:
+training kernels, serving and training DenseDepth and the U-Nets, and
+serializing engines through ``torch.export``. It holds every CUDA kernel of
+those paths against its plain PyTorch version, and drives the data feed and
+the command lines from a seeded dataset zip. Phases:
 
 0. [host libs]: Pillow, matplotlib, OpenCV, TensorBoard, the libjpeg /
    libpng headers, g++, whether the native decoder built, and so which
@@ -117,6 +119,23 @@ from a seeded dataset zip. Phases:
    NewCRF's encoder moved; the last checkpoint restored; one f32 step
    against the ``plain`` step; 8 steps on one batch lower the loss;
    ms/step, img/s, peak memory and a profile of one step;
+   [zoo]: DenseDepth, the interpolated U-Net large and small at 480x640 and
+   the U-Net at KITTI's 384x1280 (it takes multiples of 64 only), seeded
+   at their published widths, served in bf16 through ``InferenceEngine``
+   at bs 1 and 8 (ms/frame, img/s, the half-size output against the f32
+   model), then 3 root-recipe train steps at B 8 with
+   ``fused_root_loss_fwd`` / ``_bwd`` counted (one each a step, at the
+   half-size prediction: 240x320, 192x640), one f32 step through the loss
+   kernels against the plain ``ssim + 0.1 l1_loss`` step, and img/s;
+   [engine export]: the bf16 bs-1 engines of fused GuideDepth, SAM
+   ``fused`` / ``pair`` / ``row`` / ``block``, NewCRF ``row`` / ``block``
+   and the small interpolated U-Net serialized through ``torch.export``
+   (every serving kernel a ``tpudepth::*`` custom op) and deserialized:
+   the output against the live engine's, every kernel's launches a call
+   equal live and deserialized (all eight kernels among them), export and
+   load seconds, file size, live and deserialized ms/frame; [op cost]: the
+   bs-1 frame of fused GuideDepth, SAM ``fused`` and NewCRF ``row`` with
+   the kernels called through their ops and directly, in turns;
 9. [data feed]: a seeded synthetic NYU zip (48 train and 16 test pairs at
    480x640, ``make_synthetic_zip``), its decode rate, the train split of
    ``get_dataloader`` from its decode-once cache in host batches and
@@ -132,8 +151,8 @@ from a seeded dataset zip. Phases:
    (``inference_results.txt``). Each path's kernel launches are counted
    from 0 over exactly that run and must equal the expected counts;
 10. one JSON line on the kernels (each kernel's launches on the command
-   lines' paths added to its ``launches_by_path``), and last the JSON line
-   with the device.
+   lines', the exported engines' and the zoo's training paths added to its
+   ``launches_by_path``), and last the JSON line with the device.
 
 Any failed check raises, and the script exits non-zero without printing a
 result. It imports nothing of JAX.
@@ -141,6 +160,7 @@ result. It imports nothing of JAX.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import json
 import os
@@ -978,9 +998,9 @@ class SyntheticLoader:
     ``image`` raw uint8 and ``depth`` raw uint8 (training) or float in
     [0, 1] (validation), NYU-like with a tenth of the depth pixels 0."""
 
-    def __init__(self, n: int, seed: int, raw_depth: bool):
+    def __init__(self, n: int, seed: int, raw_depth: bool, hw=TRAIN_HW):
         rng = np.random.default_rng(seed)
-        h, w = TRAIN_HW
+        h, w = hw
         self.batches = []
         for _ in range(n):
             image = rng.integers(0, 256, (TRAIN_BATCH, h, w, 3), dtype=np.uint8)
@@ -1129,11 +1149,13 @@ def one_f32_step(cfg, model, batch, recipe):
     return float(loss), {n: p.grad.clone() for n, p in model.named_parameters()}
 
 
-def compare_steps(tag, got, want, loss_rtol, grad_rel, floor):
+def compare_steps(tag, got, want, loss_rtol, grad_rel, floor,
+                  min_compared=100):
     """Hold loss and per-tensor gradients of two steps together: per tensor
     the largest difference over the tensor's largest gradient, with an
     absolute ``floor`` under which a tensor holds noise (conv biases in
-    front of a BatchNorm have a zero gradient)."""
+    front of a BatchNorm have a zero gradient); more than ``min_compared``
+    tensors must lie above the floor."""
     (lk, gk), (lp, gp) = got, want
     worst, worst_name, g_max, n_above = 0.0, "", 0.0, 0
     for name in gk:
@@ -1151,7 +1173,7 @@ def compare_steps(tag, got, want, loss_rtol, grad_rel, floor):
           f"{len(gk)} tensors (largest |g| {g_max:.3e}), {n_above} with "
           f"max|g| above the floor {floor:.3g}: largest max|diff|/max|g| "
           f"{worst:.2e} ({worst_name}; bound {grad_rel:g})", flush=True)
-    check(n_above > 100, "the gradients are too small to compare")
+    check(n_above > min_compared, "the gradients are too small to compare")
     check(abs(lk - lp) <= loss_rtol * abs(lp), f"{tag}: step loss")
     return abs(lk - lp) / abs(lp), worst
 
@@ -2359,11 +2381,14 @@ def phase_train_kernels():
 # strips, the backward's 16x60 warp strip one row and column above a strip,
 # the forward's 8-row strip (twice) and its first 61 columns (a strip
 # holds 62, from column -1) one row and column below, at and above, images
-# of 2 rows or columns
+# of 2 rows or columns; the zoo's half-size predictions at B 8
+# (ZOO_LOSS_HW: 480x640 and KITTI's 384x1280 halved)
+ZOO_LOSS_HW = [(240, 320), (192, 640)]
 ROOT_CASES = [("unit", 8, 480, 640), ("anti", 8, 480, 640), ("equal", 2, 40, 40),
               ("smooth", 2, 34, 46), ("unit", 3, 33, 47), ("anti", 2, 17, 61),
               ("unit", 2, 15, 61), ("anti", 2, 17, 63), ("unit", 1, 16, 62),
-              ("unit", 1, 2, 65), ("unit", 1, 65, 2)]
+              ("unit", 1, 2, 65), ("unit", 1, 65, 2)] + [
+              ("unit", 8, h, w) for h, w in ZOO_LOSS_HW]
 # float operations a pixel: the five 3x3 statistics (3 products, 2 x 15
 # sums and thirds), the SSIM terms, the clipped map and |p - t| (forward);
 # the same statistics, the gated coefficient maps, three adjoint boxes and
@@ -2477,6 +2502,28 @@ def phase_root_loss_kernels():
               f"({rows[name]['bound_by']}: bytes {t_bytes:.4f}, operations "
               f"{t_ops:.4f}; {100 * max(t_bytes, t_ops) / ms:.1f}% of bound)",
               flush=True)
+    # the zoo's training shapes: kernel, plain version and bound
+    for h, w in ZOO_LOSS_HW:
+        p, t = make_root_pair("unit", bsz, h, w, seed=2)
+        pixels = p.numel()
+        scales = torch.tensor([1.0 / pixels, 0.1 / pixels], device=DEVICE)
+        for name, kern, plain, nbytes, flops in (
+                ("fused_root_loss_fwd", lambda: frl.root_partials(p, t),
+                 lambda: frl.root_partials_reference(p, t),
+                 2 * pixels * 4 + bsz * 2 * 4, pixels * ROOT_FWD_FLOP_PER_PIXEL),
+                ("fused_root_loss_bwd", lambda: frl.root_bwd(p, t, scales),
+                 lambda: frl.root_bwd_reference(p, t, scales),
+                 3 * pixels * 4 + 2 * 4, pixels * ROOT_BWD_FLOP_PER_PIXEL)):
+            ms, plain_ms = time_ms(kern), time_ms(plain, per_graph=2,
+                                                  replays=10)
+            bound = max(nbytes / HBM_BYTES_PER_S, flops / F32_FLOP_PER_S) * 1e3
+            rows[name].setdefault("zoo_shapes", []).append(
+                {"shape": [bsz, 1, h, w], "ms": ms, "plain_ms": plain_ms,
+                 "bound_ms": bound})
+            print(f"[root loss kernel time] {name} B{bsz} {h}x{w} f32 (zoo): "
+                  f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+                  f"{bound:.4f} ms ({100 * bound / ms:.1f}% of bound)",
+                  flush=True)
     del p, t, p4, t4, pg
     torch.cuda.empty_cache()
     return rows, err, len(ROOT_CASES)
@@ -2678,6 +2725,366 @@ def train_attention_model(name, tmp, blocks):
     del trainer
     torch.cuda.empty_cache()
     return out
+
+
+# [zoo]: the rest of the model zoo, (name, input H x W, dataset); the U-Net
+# takes H and W that are multiples of 64, which no NYU size is, so it runs
+# at KITTI full
+ZOO = [("densedepth", (480, 640), "nyu_reduced"),
+       ("unet_interp", (480, 640), "nyu_reduced"),
+       ("unet_interp_small", (480, 640), "nyu_reduced"),
+       ("unet", (384, 1280), "kitti")]
+# raw output (these heads have no sigmoid), bf16 engine against the f32
+# model on the same weights: ||got - ref|| / ||ref||, the bound [serve]
+# holds GuideDepth's raw output to
+ZOO_BF16_REL_L2 = SERVE_BF16_REL_L2
+ZOO_TRAIN_STEPS, ZOO_TIMED_STEPS = 3, 4
+# a zoo model has 166-204 parameter tensors, against the attention models'
+# 300-600; about half of them lie above [sam train]'s floor (1e-4 of the
+# largest gradient: the encoder's early layers get far smaller ones)
+ZOO_MIN_COMPARED = 60
+
+
+def phase_zoo():
+    """[zoo]: each model of ``ZOO`` seeded at its published widths, served
+    in bf16 through ``InferenceEngine`` at bs 1 and 8 (ms/frame, img/s, the
+    half-size output against the f32 model), then ``ZOO_TRAIN_STEPS``
+    root-recipe train steps at B 8 bf16 with ``fused_root_loss_fwd`` /
+    ``_bwd`` counted (one each a step, at the half-size prediction), one
+    f32 step through the loss kernels against the same step through the
+    plain ``ssim + 0.1 l1_loss`` (the [sam train] bounds), and the step's
+    img/s."""
+    from tpudepth_torch.core.config import TrainConfig
+    from tpudepth_torch.infer.engine import InferenceEngine
+    from tpudepth_torch.losses.losses import l1_loss, ssim
+    from tpudepth_torch.models.layers import init_random_
+    from tpudepth_torch.models.registry import build_model
+    from tpudepth_torch.train.trainer import LossRecipe, Trainer
+
+    class PlainRootRecipe(LossRecipe):
+        def loss(self, pred, target):
+            return 1.0 * ssim(pred, target) + 0.1 * l1_loss(pred, target)
+
+    counters = _root_counters()
+    out = {}
+    for name, (h, w), dataset in ZOO:
+        res = out[name] = {"input": [h, w]}
+        model = init_random_(build_model(name), seed=500)
+        weights = copy.deepcopy(model.state_dict())
+        rng = np.random.default_rng(501)
+        for bs in (1, SAM_BATCH):
+            x = rng.random((bs, 3, h, w), dtype=np.float32)
+            eng = InferenceEngine(model, (bs, 3, h, w),
+                                  compute_dtype=torch.bfloat16)
+            got = eng(x)
+            ref = InferenceEngine(model, (bs, 3, h, w),
+                                  compute_dtype=torch.float32)(x)
+            check(tuple(got.shape) == (bs, 1, h // 2, w // 2)
+                  and got.dtype == torch.float32, f"{name} output {got.shape}")
+            check(bool(torch.isfinite(got).all()), f"{name}: non-finite depth")
+            rel_l2 = float((got - ref).norm() / ref.norm())
+            rel_max = float((got - ref).abs().max() / ref.abs().max())
+            check(float(ref.std()) > 1e-3, f"{name}: constant reference")
+            check(rel_l2 <= ZOO_BF16_REL_L2,
+                  f"{name} bf16 vs f32 rel L2 {rel_l2:.3e} beyond "
+                  f"{ZOO_BF16_REL_L2}")
+            stats = eng.benchmark(20 if bs == 1 else 8, 3)
+            res[f"bs{bs}"] = {
+                "ms_per_frame": 1e3 * stats["seconds_per_frame"] / bs,
+                "img_per_s": stats["images_per_second"], "rel_l2": rel_l2,
+                "rel_max": rel_max}
+            print(f"[zoo] {name} {h}x{w} bf16 bs{bs}: "
+                  f"{res[f'bs{bs}']['ms_per_frame']:.3f} ms/frame, "
+                  f"{stats['images_per_second']:.1f} img/s; output "
+                  f"{tuple(got.shape)}, vs f32: rel L2 {rel_l2:.3e} (bound "
+                  f"{ZOO_BF16_REL_L2:g}), max abs / max|ref| {rel_max:.3e}",
+                  flush=True)
+            del eng
+        del model
+
+        cfg = TrainConfig(model=name, dataset=dataset, resolution="full",
+                          batch_size=TRAIN_BATCH, compute_dtype="bfloat16",
+                          seed=0)
+        loader = SyntheticLoader(2, seed=502, raw_depth=True, hw=(h, w))
+        trained = build_model(name)
+        trained.load_state_dict(weights)
+        pred_shapes = []
+        trained.register_forward_hook(
+            lambda m, i, o: pred_shapes.append(tuple(o.shape)))
+        trainer = Trainer(cfg, model=trained, device=DEVICE,
+                          train_loader=loader)
+        trainer.init_state()
+        check(trainer.recipe.kind == "root" and not trainer.freeze_encoder,
+              f"{name}: root recipe, encoder trained")
+        per_step, losses = [], []
+        for i in range(ZOO_TRAIN_STEPS):
+            for fn in counters.values():
+                fn.launches = 0
+            losses.append(float(trainer.train_step(loader.batches[i % 2])))
+            per_step.append({k: fn.launches for k, fn in counters.items()})
+        check(all(np.isfinite(losses)), f"{name}: train losses {losses}")
+        check(per_step == [{k: 1 for k in ROOT_KERNELS}] * ZOO_TRAIN_STEPS,
+              f"{name}: loss kernel launches per step {per_step}")
+        check(set(pred_shapes) == {(TRAIN_BATCH, 1, h // 2, w // 2)},
+              f"{name}: predictions {set(pred_shapes)}")
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for i in range(ZOO_TIMED_STEPS):
+            trainer.train_step(loader.batches[i % 2])
+        end.record()
+        end.synchronize()
+        step_ms = start.elapsed_time(end) / ZOO_TIMED_STEPS
+        res.update({"train_losses": losses, "launches_per_step": per_step[0],
+                    "loss_shape": [TRAIN_BATCH, 1, h // 2, w // 2],
+                    "step_ms": step_ms,
+                    "train_img_per_s": TRAIN_BATCH / step_ms * 1e3})
+        print(f"[zoo] {name} train B{TRAIN_BATCH} {h}x{w} bf16 root recipe: "
+              f"losses {[round(x, 5) for x in losses]}, loss kernels at "
+              f"[{TRAIN_BATCH}, 1, {h // 2}, {w // 2}], launches per step "
+              f"{per_step[0]}; {step_ms:.2f} ms/step, "
+              f"{res['train_img_per_s']:.1f} img/s ({ZOO_TIMED_STEPS} steps "
+              "between CUDA events, warm)", flush=True)
+        del trainer, trained
+
+        results = {}
+        for tag, recipe_cls in (("kernels", LossRecipe),
+                                ("plain", PlainRootRecipe)):
+            m = build_model(name)
+            m.load_state_dict(weights)
+            recipe = recipe_cls(kind="root", max_depth=MAX_DEPTH,
+                                depth_scale=MAX_DEPTH)
+            before = {k: fn.launches for k, fn in counters.items()}
+            results[tag] = one_f32_step(cfg, m, loader.batches[0], recipe)
+            got = {k: fn.launches - before[k] for k, fn in counters.items()}
+            check(got == {k: int(tag == "kernels") for k in ROOT_KERNELS},
+                  f"{name} f32 {tag} step launched {got}")
+            del m
+        g_all = max(float(g.abs().max()) for g in results["plain"][1].values())
+        res["step_loss_rel"], res["step_grad_rel"] = compare_steps(
+            f"{name} root loss kernels vs plain", results["kernels"],
+            results["plain"], ATTN_STEP_LOSS_RTOL, ATTN_STEP_GRAD_REL,
+            ATTN_STEP_GRAD_FLOOR_REL * g_all, ZOO_MIN_COMPARED)
+        del results
+        torch.cuda.empty_cache()
+    return out
+
+
+# [engine export]: (label, model, build_model keywords, input H x W, meters,
+# the kernels' launches a bs-1 forward); between them every serving kernel
+EXPORT_CASES = [
+    ("GuideDepth fused", "GuideDepth", {"gub": "fused"}, True,
+     {"gub_conv_fwd": 9}),
+    ("sam fused", "sam", {"attn": "fused"}, False,
+     {"window_attn_infer": 4, "block_epilogue_infer": 4}),
+    ("sam pair", "sam", {"attn": "pair"}, False,
+     {"window_attn_infer": 4, "mlp_infer": 4}),
+    ("sam row", "sam", {"attn": "row"}, False, {"sam_rowblock_infer": 4}),
+    ("sam block", "sam", {"attn": "block"}, False, {"sam_block_infer": 4}),
+    ("newcrf row", "newcrf", {"attn": "row"}, False,
+     {"crf_rowblock_infer": 8}),
+    ("newcrf block", "newcrf", {"attn": "block"}, False,
+     {"crf_block_infer": 8}),
+    ("unet_interp_small", "unet_interp_small", {}, False, {}),
+]
+# the deserialized engine against the live one, if their bits differ
+EXPORT_REL_L2 = 1e-3
+# the eight serving kernels, each a tpudepth::* custom op
+SERVING_KERNELS = {"gub_conv_fwd", "window_attn_infer", "block_epilogue_infer",
+                   "mlp_infer", "crf_rowblock_infer", "sam_rowblock_infer",
+                   "sam_block_infer", "crf_block_infer"}
+# the engines whose bs-1 frame times the calls through the ops against
+# direct calls, in turns of OP_COST_RUNS frames a route (a few: the route
+# was decided on the host time a call, below, which these turns confirm)
+OP_COST_CASES = ("GuideDepth fused", "sam fused", "newcrf row")
+OP_COST_RUNS, OP_COST_TURNS = 10, 4
+# host time of one wrapper call (enqueue only), op against direct: rounds of
+# OP_CALLS calls a route, the card drained between rounds (not timed)
+OP_CALLS, OP_CALL_ROUNDS = 40, 8
+
+
+@contextlib.contextmanager
+def through_ops(on):
+    """The serving wrappers call their ``tpudepth::*`` ops even in eager
+    calls (``on``), or go to their kernels directly as eager serving does;
+    the same kernels launch either way."""
+    from tpudepth_torch.ops.kernels import _op
+
+    saved = _op.through_op
+    if on:
+        _op.through_op = lambda: True
+    try:
+        yield
+    finally:
+        _op.through_op = saved
+
+
+def _host_us_per_call(fn):
+    """Median host microseconds of one ``fn()`` (its launches enqueued, not
+    waited for) over ``OP_CALL_ROUNDS`` rounds of ``OP_CALLS`` calls."""
+    times = []
+    for _ in range(OP_CALL_ROUNDS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(OP_CALLS):
+            fn()
+        times.append((time.perf_counter() - t0) / OP_CALLS * 1e6)
+    torch.cuda.synchronize()
+    return statistics.median(times)
+
+
+def op_call_cost():
+    """[op cost] per call: the host time of one bs-1 bf16 call of
+    ``gub_conv_fwd`` (up_1's comb conv), ``window_attn_infer`` (SAM crf3's
+    attention) and ``crf_rowblock_infer`` (NewCRF crf3's block) through
+    the op and directly, in turns."""
+    from tpudepth_torch.ops.kernels import rowblock_infer as rbi
+    from tpudepth_torch.ops.kernels import window_attn_infer as wai
+    from tpudepth_torch.ops.kernels.gub_conv import conv_bn_act
+
+    bf16 = torch.bfloat16
+    parts, wt, b, pre, _ = make_case(0, 1, 120, 160, (32, 32), 64, True,
+                                     False, bf16, DEVICE)
+    attn, _ = _sam_kernel_inputs(0, 1, 9, 1024, 4096, 300, bf16)
+    row, kw = _rowblock_inputs(0, 1, (15, 20), 1024, 32, 0, bf16)
+    calls = {
+        "gub_conv_fwd": lambda: conv_bn_act(parts, wt, b, preludes=pre),
+        "window_attn_infer": lambda: wai.window_attention_infer(**attn),
+        "crf_rowblock_infer": lambda: rbi.crf_rowblock_infer(**row, **kw)}
+    out = {}
+    with torch.inference_mode():
+        for name, fn in calls.items():
+            us = {"op": [], "direct": []}
+            for r in ("op", "direct", "direct", "op"):
+                with through_ops(r == "op"):
+                    us[r].append(_host_us_per_call(fn))
+            op_us, direct_us = (statistics.median(us[r])
+                                for r in ("op", "direct"))
+            out[name] = {"op_us": op_us, "direct_us": direct_us,
+                         "added_us": op_us - direct_us}
+            print(f"[op cost] {name} bs1 bf16: {op_us:.1f} us of host time "
+                  f"a call through the op, {direct_us:.1f} direct "
+                  f"({op_us - direct_us:+.1f} us; medians of "
+                  f"{2 * OP_CALL_ROUNDS} rounds of {OP_CALLS} calls a "
+                  "route)", flush=True)
+    return out
+
+
+def _export_engine(case):
+    """One of ``EXPORT_CASES`` in a worker process: its bf16 bs-1 engine
+    (:func:`_export_case_engine`) serialized to the case's path. Returns
+    the seconds of ``InferenceEngine.serialize``: one eager call, the
+    ``torch.export`` trace and the save."""
+    (_, name, kw, meters, _), path = case
+    eng = _export_case_engine(name, kw, meters)
+    t0 = time.perf_counter()
+    eng.serialize(path)
+    return time.perf_counter() - t0
+
+
+def _export_case_engine(name, kw, meters):
+    """The bf16 bs-1 480x640 engine of an ``EXPORT_CASES`` model, seeded
+    (the same weights in every process)."""
+    from tpudepth_torch.infer.engine import InferenceEngine
+    from tpudepth_torch.models.layers import init_random_
+    from tpudepth_torch.models.registry import build_model
+
+    model = init_random_(build_model(name, **kw), seed=601)
+    return InferenceEngine(model, (1, 3, *TRAIN_HW),
+                           compute_dtype=torch.bfloat16,
+                           max_depth=MAX_DEPTH if meters else None)
+
+
+def phase_engine_export(tmp):
+    """[engine export]: the bf16 bs-1 engine of each of ``EXPORT_CASES``
+    at 480x640 serialized (``InferenceEngine.serialize``, ``torch.export``
+    through the ``tpudepth::*`` ops), all at once by spawned processes (the
+    trace and the save are host work in Python), then deserialized here on
+    the card: its output against the live engine's (bit-equal expected,
+    else rel L2 <= ``EXPORT_REL_L2``), every kernel's launches a call equal
+    live and deserialized and equal to the case's, the export and load
+    seconds, the file's size, and live and deserialized ms/frame.
+    [op cost]: the bs-1 frame of ``OP_COST_CASES`` with the kernels called
+    through their ops (:func:`through_ops`) and directly, in turns
+    (``OP_COST_TURNS`` of ``OP_COST_RUNS`` frames each), and the host time
+    of one call of three kernels (:func:`op_call_cost`)."""
+    import multiprocessing
+
+    from tpudepth_torch.infer.engine import InferenceEngine, speedtest
+
+    x = np.random.default_rng(600).random((1, 3, *TRAIN_HW), dtype=np.float32)
+    example = torch.as_tensor(x, device=DEVICE)
+    paths = [f"{tmp}/engine_{i}.pt2" for i in range(len(EXPORT_CASES))]
+    workers = min(len(EXPORT_CASES), os.cpu_count() or 1)
+    t0 = time.perf_counter()
+    with multiprocessing.get_context("spawn").Pool(workers) as pool:
+        export_s = pool.map(_export_engine, list(zip(EXPORT_CASES, paths)))
+    t_all = time.perf_counter() - t0
+    print(f"[engine export] {len(EXPORT_CASES)} engines exported and saved "
+          f"by {workers} spawned processes in {t_all:.2f} s", flush=True)
+    out, cost = {"parallel_export_s": t_all, "engines": {}}, {}
+    for (label, name, kw, meters, per_call), path, t_export in zip(
+            EXPORT_CASES, paths, export_s):
+        eng = _export_case_engine(name, kw, meters)
+        t0 = time.perf_counter()
+        loaded = InferenceEngine.deserialize(path, device=DEVICE)
+        t_load = time.perf_counter() - t0
+        size = os.path.getsize(path)
+        live, _, live_counts = run_counted(lambda: eng(x))
+        got, _, got_counts = run_counted(lambda: loaded(x))
+        check(live_counts == per_call and got_counts == per_call,
+              f"{label}: launches live {live_counts}, deserialized "
+              f"{got_counts}, expected {per_call}")
+        equal = torch.equal(got, live)
+        rel_l2 = float((got - live).norm() / live.norm())
+        max_err = float((got - live).abs().max())
+        check(equal or rel_l2 <= EXPORT_REL_L2,
+              f"{label}: deserialized vs live rel L2 {rel_l2:.3e}")
+        check(float(live.std()) > 1e-4, f"{label}: constant output")
+        times = {tag: 1e3 * speedtest(f, example, 20, 3)["seconds_per_frame"]
+                 for tag, f in (("live", eng), ("deserialized", loaded))}
+        res = out["engines"][label] = {
+            "export_s": t_export, "load_s": t_load, "file_mib": size / 2**20,
+            "bit_equal": equal, "rel_l2": rel_l2, "max_abs_err": max_err,
+            "launches_per_call": got_counts,
+            "live_ms": times["live"],
+            "deserialized_ms": times["deserialized"]}
+        print(f"[engine export] {label} 480x640 bf16 bs1: export + save "
+              f"{t_export:.2f} s (one of {workers} processes), load "
+              f"{t_load:.2f} s, file {res['file_mib']:.1f} MiB; deserialized "
+              f"vs live bit-equal {equal} (rel L2 {rel_l2:.3e}, max abs "
+              f"{max_err:.3e}); launches a call {got_counts} (live "
+              f"{live_counts}); {res['live_ms']:.3f} ms/frame live, "
+              f"{res['deserialized_ms']:.3f} deserialized", flush=True)
+        os.remove(path)
+        if label in OP_COST_CASES:
+            turns = {"op": [], "direct": []}
+            for j in range(OP_COST_TURNS):
+                for r in ("op", "direct")[::1 if j % 2 == 0 else -1]:
+                    with through_ops(r == "op"):
+                        turns[r].append(1e3 * speedtest(
+                            eng, example, OP_COST_RUNS, 3)["seconds_per_frame"])
+            op_ms, direct_ms = (statistics.median(turns[r])
+                                for r in ("op", "direct"))
+            calls = sum(per_call.values())
+            cost[label] = {
+                "op_ms": op_ms, "direct_ms": direct_ms,
+                "added_pct": 100 * (op_ms - direct_ms) / direct_ms,
+                "op_calls_per_frame": calls,
+                "us_per_op_call": 1e3 * (op_ms - direct_ms) / calls,
+                "turns": turns}
+            print(f"[op cost] {label} 480x640 bf16 bs1: {op_ms:.4f} ms/frame "
+                  f"through the ops, {direct_ms:.4f} ms direct: "
+                  f"{cost[label]['added_pct']:+.2f} % (medians of "
+                  f"{OP_COST_TURNS} turns of {OP_COST_RUNS} frames; "
+                  f"{cost[label]['us_per_op_call']:+.2f} us a call, "
+                  f"{calls} calls a frame; turns op "
+                  f"{[round(t, 4) for t in turns['op']]}, direct "
+                  f"{[round(t, 4) for t in turns['direct']]})", flush=True)
+        del eng, loaded
+        torch.cuda.empty_cache()
+    cost["per_call"] = op_call_cost()
+    return out, cost
 
 
 # the data feed and the command lines: one seeded synthetic NYU zip at
@@ -3092,6 +3499,19 @@ def main() -> int:
         # training, each kernel's count set to 0 just before its fit
         attn_train = {name: train_attention_model(name, tmp, blocks)
                       for name, blocks in (("sam", 4), ("newcrf", 8))}
+        # the rest of the zoo served and trained, then the engines
+        # serialized and deserialized; each path's counts set to 0 just
+        # before it and read just after it
+        t_zoo = time.perf_counter()
+        zoo = phase_zoo()
+        t_zoo = time.perf_counter() - t_zoo
+        t_export = time.perf_counter()
+        export, op_cost = phase_engine_export(tmp)
+        t_export = time.perf_counter() - t_export
+        served = set().union(*(r["launches_per_call"]
+                               for r in export["engines"].values()))
+        check(served == SERVING_KERNELS,
+              f"the exported engines launched {sorted(served)}")
         # the data feed and the command lines: each path's counts set to 0
         # just before it and read just after it (run_counted)
         t_feed = time.perf_counter()
@@ -3370,8 +3790,15 @@ def main() -> int:
             "bytes_ms": r["bytes_ms"], "ops_ms": r["ops_ms"],
             "cuda_kernels_per_call": r["cuda_kernels"],
         })
+    by_path = {
+        **cli_launches,
+        **{f"engine export {label} (a bs-1 call, live and deserialized)":
+           r["launches_per_call"] for label, r in export["engines"].items()},
+        **{f"zoo training {name} ({ZOO_TRAIN_STEPS} steps)":
+           {k: v * ZOO_TRAIN_STEPS for k, v in r["launches_per_step"].items()}
+           for name, r in zoo.items()}}
     for k in kernels:
-        for path, counts in cli_launches.items():
+        for path, counts in by_path.items():
             if counts.get(k["name"]):
                 k.setdefault("launches_by_path", {})[path] = counts[k["name"]]
     for name in ("fused_loss_fwd", "fused_loss_bwd", "gub_conv_fwd",
@@ -3383,7 +3810,8 @@ def main() -> int:
               f"no command line launched {name}")
     seconds = time.perf_counter() - t_start
     print(f"[time] {seconds:.1f} s in all; the data feed and the command "
-          f"lines {t_feed:.1f} s", flush=True)
+          f"lines {t_feed:.1f} s; [zoo] {t_zoo:.1f} s; [engine export] and "
+          f"[op cost] {t_export:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels, "serve_errors": errs,
                       "sam_serve_errors": sam_errs, "sam_engine": sam_perf,
                       "newcrf_serve_errors": crf_errs,
@@ -3392,7 +3820,8 @@ def main() -> int:
                       "fused_training": fused_train, "evaluation": evaluation,
                       "attention_training": attn_train,
                       "kernel_splits": splits, "host_libs": host_libs,
-                      "data_feed": data_feed, "cli": cli,
+                      "data_feed": data_feed, "cli": cli, "zoo": zoo,
+                      "engine_export": export, "op_cost": op_cost,
                       "seconds": seconds}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

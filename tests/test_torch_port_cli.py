@@ -37,10 +37,8 @@ CLIS = {
     "tpudepth_torch.cli.train": ("train.py", ()),
     "tpudepth_torch.cli.test": ("test.py", ()),
     "tpudepth_torch.cli.demo": ("demo.py", ()),
-    # --engine_path waits for the engine's serialization; --timing has no
-    # counterpart: CUDA events leave no dispatch gap
-    "tpudepth_torch.inference": ("inference.py", ("--engine_path",
-                                                  "--timing")),
+    # --timing has no counterpart: CUDA events leave no dispatch gap
+    "tpudepth_torch.inference": ("inference.py", ("--timing",)),
 }
 DATA = "synthetic:48x64"
 

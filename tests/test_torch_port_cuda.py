@@ -520,13 +520,15 @@ from tpudepth_torch.ops.kernels import fused_root_loss as frl  # noqa: E402
 # backward's warp strip of 16 rows x 60 columns one below and above one and
 # two strips, images of 2 rows or columns (narrower than its 2-pixel halo);
 # the forward's strip of 8 rows x 62 columns (from column -1, so 61 in the
-# first) one below, at and above one, two and four strips
+# first) one below, at and above one, two and four strips; the zoo's
+# half-size predictions of a B 8 step (480x640 and KITTI's 384x1280 halved)
 ROOT_CASES = [("unit", 8, 480, 640), ("unit", 2, 33, 47), ("anti", 2, 64, 96),
               ("equal", 2, 40, 40), ("smooth", 2, 34, 46), ("unit", 1, 2, 3),
               ("unit", 2, 15, 59), ("anti", 2, 17, 61), ("unit", 1, 31, 121),
               ("unit", 1, 33, 119), ("unit", 1, 2, 65), ("anti", 1, 65, 2),
               ("unit", 2, 15, 61), ("anti", 2, 17, 63), ("unit", 1, 16, 62),
-              ("unit", 1, 33, 123), ("anti", 1, 32, 124)]
+              ("unit", 1, 33, 123), ("anti", 1, 32, 124),
+              ("unit", 8, 240, 320), ("anti", 8, 192, 640)]
 
 
 @pytest.mark.parametrize("case", ROOT_CASES, ids=lambda c: "-".join(map(str, c)))
@@ -1823,3 +1825,88 @@ def test_guidedepth_main_trains_a_step_on_the_card_through_the_loader(
     assert np.isfinite(out["val_losses"]).all() and len(out["val_losses"]) == 1
     assert (tmp_path / "ck" / "checkpoint_0").is_file()
     assert (tmp_path / "res" / "best_model").is_file()
+
+
+# -- the serving kernels as tpudepth::* custom ops, and exported engines -------
+
+from torch_port_helpers import op_counts, round_trip, serving_op_cases  # noqa: E402
+from tpudepth_torch.ops.kernels import _op  # noqa: E402
+
+
+def _serving_counters():
+    return {"gub_conv_fwd": gc.conv_bn_act,
+            "window_attn_infer": wai.window_attention_infer,
+            "block_epilogue_infer": ei.block_epilogue_infer,
+            "mlp_infer": mi.mlp_infer,
+            "crf_rowblock_infer": rbi.crf_rowblock_infer,
+            "sam_rowblock_infer": rbi.sam_rowblock_infer,
+            "sam_block_infer": bi.sam_block_infer,
+            "crf_block_infer": bi.crf_block_infer}
+
+
+@pytest.mark.parametrize("name", sorted(_serving_counters()))
+def test_serving_op_gives_the_bits_of_its_direct_launch(cuda, name):
+    """bf16, the widths of ``serving_op_cases``: the op's CUDA kernel is the
+    wrapper's launch, one counted launch a call either way."""
+    op, run, args = serving_op_cases(cuda, dtype=torch.bfloat16)[name]
+    counter = _serving_counters()[name]
+    before = counter.launches
+    got = op(*args)
+    want = run(*args)
+    torch.cuda.synchronize()
+    assert counter.launches == before + 2
+    got, want = ((got[0], want[0]) if isinstance(got, tuple)
+                 else (got, want))
+    assert got.is_cuda and got.dtype == torch.bfloat16
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("name,mode,per_call", [
+    ("sam", "block", {"sam_block_infer": 4}),
+    ("newcrf", "row", {"crf_rowblock_infer": 8})])
+def test_deserialized_engine_launches_what_the_live_one_launches(
+        cuda, tmp_path, name, mode, per_call):
+    """A bf16 engine at 1x3x64x96 serialized and deserialized on the card:
+    the same bits as the live engine (``round_trip``), its program's ops,
+    and each kernel's launches a call, live and deserialized."""
+    from tpudepth_torch.infer.engine import InferenceEngine
+    from tpudepth_torch.models.layers import init_random_
+    from tpudepth_torch.models.registry import build_model
+
+    model = init_random_(build_model(name, attn=mode), seed=3)
+    assert round_trip(tmp_path, model, (64, 96), tta=False, meters=False,
+                      device=cuda) == per_call
+    live = InferenceEngine(model, (1, 3, 64, 96), device=cuda)
+    loaded = InferenceEngine.deserialize(str(tmp_path / "engine.pt2"),
+                                         device=cuda)
+    assert op_counts(loaded) == per_call
+    x = torch.rand(1, 3, 64, 96, device=cuda)
+    counters = _serving_counters()
+    for engine in (live, loaded):
+        before = {k: f.launches for k, f in counters.items()}
+        engine(x)
+        torch.cuda.synchronize()
+        got = {k: f.launches - before[k] for k, f in counters.items()}
+        assert {k: v for k, v in got.items() if v} == per_call
+    with pytest.raises(ValueError, match="is not moved"):
+        InferenceEngine.deserialize(str(tmp_path / "engine.pt2"), device="cpu")
+
+
+def test_direct_route_launches_the_same_kernels(cuda, monkeypatch):
+    """Eager calls skip the dispatcher and give the bits and launches of
+    calls through the ops."""
+    from tpudepth_torch.infer.engine import InferenceEngine
+    from tpudepth_torch.models.layers import init_random_
+    from tpudepth_torch.models.registry import build_model
+
+    model = init_random_(build_model("sam", attn="fused"), seed=4)
+    eng = InferenceEngine(model, (1, 3, 64, 96), device=cuda)
+    x = torch.rand(1, 3, 64, 96, device=cuda)
+    outs, launches = [], []
+    for forced in (True, False):
+        monkeypatch.setattr(_op, "through_op", lambda: forced)
+        before = wai.window_attention_infer.launches
+        outs.append(eng(x))
+        torch.cuda.synchronize()
+        launches.append(wai.window_attention_infer.launches - before)
+    assert torch.equal(*outs) and launches == [4, 4]

@@ -143,8 +143,9 @@ def test_fused_gub_runs_forward_and_backward_in_train_mode():
 
 
 def test_build_model_rejects_unported_names():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model("densedepth")
+    """Every name of the JAX registry is ported; a name it lacks raises."""
+    with pytest.raises(ValueError, match="unknown model"):
+        build_model("resnet")
     with pytest.raises(ValueError):
         build_model("GuideDepth", gub="packed")
 

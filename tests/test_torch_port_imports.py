@@ -24,11 +24,24 @@ REQUIRED = ("tpudepth_torch.models.sam", "tpudepth_torch.models.newcrf",
             "tpudepth_torch.data.native", "tpudepth_torch.utils.viz",
             "tpudepth_torch.cli.guidedepth_main", "tpudepth_torch.cli.train",
             "tpudepth_torch.cli.test", "tpudepth_torch.cli.demo",
-            "tpudepth_torch.inference")
+            "tpudepth_torch.inference",
+            # the zoo, the serving ops and the engine's serialization
+            "tpudepth_torch.models.decoders", "tpudepth_torch.models.registry",
+            "tpudepth_torch.models.jax_weights", "tpudepth_torch.ops.kernels._op",
+            "tpudepth_torch.ops.kernels.gub_conv",
+            "tpudepth_torch.ops.kernels.mlp_infer",
+            "tpudepth_torch.infer.engine")
 # (module, name): what those modules must define
 REQUIRED_NAMES = (("tpudepth_torch.eval.evaluator", "RootEvaluator"),
                   ("tpudepth_torch.data", "get_dataloader"),
-                  ("tpudepth_torch.data.native", "decode_batch_raw"))
+                  ("tpudepth_torch.data.native", "decode_batch_raw"),
+                  ("tpudepth_torch.models.decoders", "MobileV3DenseDepth"),
+                  ("tpudepth_torch.models.decoders", "MobileV3UNet"),
+                  ("tpudepth_torch.models.decoders", "MobileV3UNetInterp"),
+                  ("tpudepth_torch.models.jax_weights",
+                   "zoo_state_dict_from_flax"),
+                  ("tpudepth_torch.infer.engine", "ExportedEngine"),
+                  ("tpudepth_torch.ops.kernels.gub_conv", "FWD_OP"))
 
 
 def _forbidden(name: str) -> bool:

@@ -381,8 +381,8 @@ def test_sam_does_not_train(trained_plain, mode):
 
 def test_newcrf_is_not_ported_and_modes_are_checked():
     """Once a guard that NewCRF raised: NewCRF now builds in each of its
-    modes, a name still to port raises with ROADMAP, and a mode a model
-    lacks raises ``ValueError``."""
+    modes, a name the JAX registry lacks raises (every one of its names is
+    ported), and a mode a model lacks raises ``ValueError``."""
     for mode in ("row", "fused", "pair", "plain"):
         model = build_model("newcrf", attn=mode)
         assert type(model).__name__ == "MobileV3NewCRFDepth"
@@ -390,8 +390,8 @@ def test_newcrf_is_not_ported_and_modes_are_checked():
     assert build_model("newcrf").Unet[1].crf0.crf_layer.blocks[1].mode == "row"
     assert build_model("sam").Unet[1].crf0.sam_block.mode == "fused"
     assert build_model("sam", attn="row").Unet[1].crf0.sam_block.mode == "row"
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model("densedepth")
+    with pytest.raises(ValueError, match="unknown model"):
+        build_model("resnet")
     with pytest.raises(ValueError, match="attn"):
         build_model("sam", attn="packed")
     with pytest.raises(ValueError, match="attn"):

@@ -12,6 +12,7 @@ front of a BatchNorm hold only noise). ``check_trainer_switches``: one
 implementations of the eval forward, each within f32 rounding of the other).
 """
 
+import functools
 import types
 
 import numpy as np
@@ -25,12 +26,14 @@ from tpudepth.core.config import TrainConfig as JaxTrainConfig
 from tpudepth.core.mesh import create_mesh
 from tpudepth.models import build_model as jax_build_model
 from tpudepth.ops.attention import training_mode
+from tpudepth.ops.image import resize_bilinear as jax_resize_bilinear
 from tpudepth.train import trainer as jtr
 from torch_port_helpers import HW
 from tpudepth_torch.core.config import TrainConfig
 from tpudepth_torch.models import jax_weights
 from tpudepth_torch.models import registry
 from tpudepth_torch.models.registry import build_model
+from tpudepth_torch.ops.image import resize_bilinear
 from tpudepth_torch.train import trainer as ttr
 
 MAX_DEPTH = 10.0
@@ -41,17 +44,21 @@ BRIDGE = {
                jax_weights.newcrf_grads_from_flax),
     "GuideDepth": (jax_weights.guidedepth_state_dict_from_flax, None),
     "GuideDepth-S": (jax_weights.guidedepth_state_dict_from_flax, None),
+    **{name: (functools.partial(jax_weights.zoo_state_dict_from_flax, name),
+              functools.partial(jax_weights.zoo_grads_from_flax, name))
+       for name in jax_weights.ZOO_MODELS},
 }
 
 
-def random_variables(name, seed):
-    """JAX variables of ``name`` of its own structure, filled from a numpy
-    seed: lecun-normal kernels, BatchNorm statistics, scales and biases away
-    from (0, 1), LayerNorm scales around 1, bias tables N(0, 0.02)."""
+def random_variables(name, seed, hw=HW):
+    """JAX variables of ``name`` of its own structure (traced at ``hw``),
+    filled from a numpy seed: lecun-normal kernels, BatchNorm statistics,
+    scales and biases away from (0, 1), LayerNorm scales around 1, bias
+    tables N(0, 0.02)."""
     model = jax_build_model(name)
     shapes = jax.eval_shape(lambda k, x: model.init(k, x, train=False),
                             jax.random.PRNGKey(0),
-                            jnp.zeros((1, *HW, 3), jnp.float32))
+                            jnp.zeros((1, *hw, 3), jnp.float32))
     rng = np.random.default_rng(seed)
 
     def fill(path, leaf):
@@ -72,17 +79,19 @@ def random_variables(name, seed):
     return jax.tree_util.tree_map_with_path(fill, shapes)
 
 
-def batch(seed, bsz=2):
+def batch(seed, bsz=2, hw=HW):
     rng = np.random.default_rng(seed)
-    image = rng.random((bsz, *HW, 3), dtype=np.float32)
-    depth = rng.random((bsz, *HW, 1), dtype=np.float32) * 0.9 + 0.05
+    image = rng.random((bsz, *hw, 3), dtype=np.float32)
+    depth = rng.random((bsz, *hw, 1), dtype=np.float32) * 0.9 + 0.05
     depth[rng.random(depth.shape) < 0.05] = 0.0   # masked pixels
     return image, depth
 
 
 def jax_step64(name, variables, image, depth):
     """The JAX package's float64 train-mode forward, mutated statistics,
-    root loss and gradients, carried to the port's names."""
+    root loss and gradients, carried to the port's names. A prediction at
+    half the input's size gets the target resized to it, as the JAX
+    trainer's step does (``tpudepth/train/trainer.py:240-248``)."""
     to_state, to_grads = BRIDGE[name]
     recipe = jtr.LossRecipe(kind="root", max_depth=MAX_DEPTH,
                             depth_scale=MAX_DEPTH)
@@ -98,7 +107,10 @@ def jax_step64(name, variables, image, depth):
                     {"params": params, "batch_stats": v64["batch_stats"]},
                     jnp.asarray(image, jnp.float64), train=True,
                     mutable=["batch_stats"])
-            return recipe.loss(pred, target), (pred, mutated["batch_stats"])
+            tgt = target
+            if pred.shape[1:3] != tgt.shape[1:3]:
+                tgt = jax_resize_bilinear(tgt, pred.shape[1:3])
+            return recipe.loss(pred, tgt), (pred, mutated["batch_stats"])
 
         (loss, (pred, stats)), grads = jax.jit(
             jax.value_and_grad(loss_fn, has_aux=True))(v64["params"])
@@ -128,6 +140,9 @@ def check_step64(name, variables, want, image, depth):
         np.testing.assert_allclose(sd[k].numpy(), want["stats"][k].numpy(),
                                    rtol=1e-3, atol=1e-4, err_msg=k)
     target = recipe.target(torch.from_numpy(depth).permute(0, 3, 1, 2))
+    if pred.shape[2:] != target.shape[2:]:
+        # the port trainer's step (tpudepth_torch/train/trainer.py)
+        target = resize_bilinear(target, pred.shape[2:])
     loss = recipe.loss(pred, target)
     assert loss.item() == pytest.approx(want["loss"], rel=1e-5)
     loss.backward()

@@ -1,7 +1,7 @@
 """Inference command line of the port: ``python -m tpudepth_torch.inference``.
 
-The JAX CLI (``inference.py``) on the card, for any ported model
-(``--model GuideDepth|GuideDepth-S|sam|newcrf``): the model in float32 and
+The JAX CLI (``inference.py``) on the card, for any of its models
+(``--model``, a name or alias of ``models/registry.py``): the model in float32 and
 the bfloat16 engine (with the meters conversion), each timed with the
 10-warmup / 200-run protocol between CUDA events (``--num_test_runs 0``
 skips the timing; on ``--device cpu`` it must be 0, since the speedtest
@@ -22,9 +22,12 @@ kernel), checked against the model; by default each model's own (SAM
 and, beside it, ``inference_results.txt`` in the JAX CLI's format
 (``backend,s/frame,FPS,img/s,RMSE,Delta1``; one row for the f32 model, one
 for the bf16 engine with its accuracy; the timing columns stay empty when
-the timing was skipped). ``--engine_path`` waits for the engine's
-serialization; ``--timing`` has no counterpart: CUDA events leave no
-dispatch gap (``infer/engine.py``).
+the timing was skipped). ``--engine_path PATH`` serializes the bf16
+engine of ``(batch_size, 3, H, W)`` to PATH (``InferenceEngine.serialize``,
+``torch.export``); with ``--eval`` and ``--batch_size 1`` the deserialized
+engine is scored too and gets the row ``engine_bf16_deserialized`` (the
+JAX CLI's ``aot_bf16_deserialized``). ``--timing`` has no counterpart: CUDA
+events leave no dispatch gap (``infer/engine.py``).
 """
 
 from __future__ import annotations
@@ -59,6 +62,8 @@ def get_parser() -> argparse.ArgumentParser:
     parser.add_argument("--weights_path", type=str, default=None,
                         help="a checkpoint or state_dict the port wrote")
     parser.add_argument("--save_results", type=str, default="./results")
+    parser.add_argument("--engine_path", type=str, default="",
+                        help="serialize the bf16 engine here (torch.export)")
     parser.add_argument("--gub", type=str, default="plain", choices=GUB_MODES)
     parser.add_argument("--attn", type=str, default=None, choices=ATTN_MODES,
                         help="block mode of an attention model (default: "
@@ -93,7 +98,9 @@ def _row(name, stats, avg=None) -> str:
 
 def evaluate(args, model, config, device):
     """The bf16 engine at batch 1 through ``AlhashimEvaluator`` over the
-    test split (the engine's output is already in meters)."""
+    test split (the engine's output is already in meters); with
+    ``--engine_path`` and ``--batch_size 1`` the deserialized engine too.
+    Returns the engine's metrics and the deserialized engine's (or None)."""
     from tpudepth_torch.data.datasets import get_dataloader
     from tpudepth_torch.data.synthetic import resolve_data
     from tpudepth_torch.eval.evaluator import AlhashimEvaluator
@@ -110,7 +117,16 @@ def evaluate(args, model, config, device):
     avg = evaluator.evaluate(test_loader, save_results_to=args.save_results)
     print("[bf16 engine eval]")
     print(AlhashimEvaluator.format_report(avg))
-    return avg
+    deser_avg = None
+    if args.engine_path and args.batch_size == 1:
+        deser = InferenceEngine.deserialize(args.engine_path, device=device)
+        deser_avg = AlhashimEvaluator(
+            deser, config,
+            depth_scale=1.0 if args.dataset == "kitti" else None,
+            forward_returns_meters=True, device=device).evaluate(test_loader)
+        print("[deserialized engine eval]")
+        print(AlhashimEvaluator.format_report(deser_avg))
+    return avg, deser_avg
 
 
 def main(argv=None) -> dict:
@@ -140,18 +156,26 @@ def main(argv=None) -> dict:
 
     f32 = _timed("tpudepth_torch f32        ", InferenceEngine(
         model, shape, compute_dtype=torch.float32, device=device), args)
-    bf16 = _timed("tpudepth_torch bf16 engine", InferenceEngine(
-        model, shape, compute_dtype=torch.bfloat16,
-        max_depth=MAX_DEPTHS[args.dataset], device=device), args)
+    engine = InferenceEngine(model, shape, compute_dtype=torch.bfloat16,
+                             max_depth=MAX_DEPTHS[args.dataset], device=device)
+    if args.engine_path:
+        engine.serialize(args.engine_path)
+        print("serialized engine to", args.engine_path)
+    bf16 = _timed("tpudepth_torch bf16 engine", engine, args)
     out = {"f32": f32, "bf16": bf16}
     if args.evaluate:
-        out["metrics"] = avg = evaluate(args, model, config, device)
+        avg, deser_avg = evaluate(args, model, config, device)
+        out["metrics"] = avg
+        if deser_avg is not None:
+            out["deserialized_metrics"] = deser_avg
         os.makedirs(args.save_results, exist_ok=True)
         with open(os.path.join(args.save_results, "inference_results.txt"),
                   "w") as f:
             f.write("backend,s/frame,FPS,img/s,RMSE,Delta1\n")
             f.write(_row("torch_f32", f32))
             f.write(_row("engine_bf16", bf16, avg))
+            if deser_avg is not None:
+                f.write(_row("engine_bf16_deserialized", None, deser_avg))
     return out
 
 

@@ -1,24 +1,43 @@
-"""MobileNetV3 encoder-decoder depth models with attention decoders (NCHW).
+"""MobileNetV3 encoder-decoder depth models (NCHW).
 
-Counterpart of ``tpudepth/models/decoders.py``; so far ``MobileV3SAMDepth``
-(``src/model_mobileV3_large_SAM.py``) and ``MobileV3NewCRFDepth``
-(``src/model_mobileV3_large_newCRFs.py``). Module names follow the reference
-``state_dict``: ``Unet.0.original_model.features.*`` (the encoder),
-``Unet.1.conv0``, ``Unet.1.crf{i}.*`` and ``Unet.1.conv1`` (the decoder).
+Counterpart of ``tpudepth/models/decoders.py``, all five of its models:
+
+- ``MobileV3SAMDepth`` (``src/model_mobileV3_large_SAM.py``) and
+  ``MobileV3NewCRFDepth`` (``src/model_mobileV3_large_newCRFs.py``), whose
+  module names follow the reference ``state_dict``:
+  ``Unet.0.original_model.features.*`` (the encoder), ``Unet.1.conv0``,
+  ``Unet.1.crf{i}.*`` and ``Unet.1.conv1`` (the decoder);
+- ``MobileV3DenseDepth``, ``MobileV3UNet`` and ``MobileV3UNetInterp``
+  (large and small), whose reference ``state_dict`` layouts are not in the
+  repo: their module names follow the flax names (``encoder``, ``conv2``,
+  ``up0``..., ``bridge``, ``bridge_conv``, ``upa``, ``convBlock``,
+  ``conv1`` / ``conv2``, ``conv3``). They answer ``[B,1,H/2,W/2]`` in the
+  input's dtype, with no sigmoid in the head.
 """
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import List, Sequence
 
 import torch
 import torch.nn as nn
 
-from tpudepth_torch.models.layers import Conv
-from tpudepth_torch.models.mobilenetv3 import MobileNetV3Features
+from tpudepth_torch.models.layers import Conv, ConvTranspose, leaky_relu_02
+from tpudepth_torch.models.mobilenetv3 import (
+    LARGE_LAST,
+    LARGE_SPEC,
+    SMALL_LAST,
+    SMALL_SPEC,
+    MobileNetV3Features,
+)
 from tpudepth_torch.models.newcrf import NewCRF
 from tpudepth_torch.models.sam import SAM
-from tpudepth_torch.ops.image import pixel_shuffle, upsample
+from tpudepth_torch.ops.image import (
+    max_pool,
+    pixel_shuffle,
+    resize_bilinear,
+    upsample,
+)
 
 ATTN_HEADS = (4, 8, 16, 32)
 ATTN_EMBED = (128, 256, 512, 1024)  # crf_dims (src/model_mobileV3_large_SAM.py:69)
@@ -93,3 +112,152 @@ class MobileV3NewCRFDepth(_AttentionDepth):
 
     def __init__(self, attn: str = "row"):
         super().__init__("newcrf", attn)
+
+
+# ---------------------------------------------------------------------------
+# DenseDepth and U-Net decoders
+# ---------------------------------------------------------------------------
+
+
+def _tap_channels(arch: str) -> List[int]:
+    """Channels of each of MobileNetV3Features' taps (the input's 3 first)."""
+    spec, last = ((LARGE_SPEC, LARGE_LAST) if arch == "large"
+                  else (SMALL_SPEC, SMALL_LAST))
+    return [3, 16] + [row[2] for row in spec] + [last]
+
+
+class ConvBlock(nn.Module):
+    """3x3 conv + LeakyReLU(0.2), twice (``src/models/model_mobileV3.py
+    :6-21``)."""
+
+    def __init__(self, cin: int, features: int):
+        super().__init__()
+        self.conv1 = Conv(cin, features, 3, padding=1)
+        self.conv2 = Conv(features, features, 3, padding=1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return leaky_relu_02(self.conv2(leaky_relu_02(self.conv1(x))))
+
+
+class UpSampleConcat(nn.Module):
+    """Bilinear (align_corners=True) to the skip's size, concat, ConvBlock
+    (DenseDepth's ``UpSample``, the interpolated U-Net's ``Up``)."""
+
+    def __init__(self, cin: int, skip: int, features: int):
+        super().__init__()
+        self.convBlock = ConvBlock(cin + skip, features)
+
+    def forward(self, x: torch.Tensor, skip: torch.Tensor) -> torch.Tensor:
+        x = resize_bilinear(x, skip.shape[2:], align_corners=True)
+        return self.convBlock(torch.cat([x, skip], dim=1))
+
+
+class UpTransposed(nn.Module):
+    """ConvTranspose(k2, s2) up + concat + ConvBlock
+    (``src/models/model_mobileV3_Unet.py:52-67``)."""
+
+    def __init__(self, cin: int, skip: int, features: int):
+        super().__init__()
+        self.up = ConvTranspose(cin, features)
+        self.convBlock = ConvBlock(features + skip, features)
+
+    def forward(self, x: torch.Tensor, skip: torch.Tensor) -> torch.Tensor:
+        return self.convBlock(torch.cat([self.up(x), skip], dim=1))
+
+
+class MobileV3DenseDepth(nn.Module):
+    """DenseDepth-style decoder (``src/models/model_mobileV3.py:24-70``): a
+    1x1 bridge 960 -> 960 without the reference's ``padding=1`` (as the JAX
+    package, ``tpudepth/models/decoders.py:153-157``), six UpSample stages
+    over taps feats[16, 13, 10, 7, 4, 2], 3x3 head; output at half the
+    input's size."""
+
+    TAPS = (16, 13, 10, 7, 4, 2)
+
+    def __init__(self):
+        super().__init__()
+        f = LARGE_LAST
+        ch = _tap_channels("large")
+        self.encoder = MobileNetV3Features("large")
+        self.conv2 = Conv(f, f, 1)
+        widths = (f // 2, f // 2, f // 4, f // 8, f // 8, f // 16)
+        cin = f
+        for i, (tap, width) in enumerate(zip(self.TAPS, widths)):
+            setattr(self, f"up{i}", UpSampleConcat(cin, ch[tap], width))
+            cin = width
+        self.conv3 = Conv(cin, 1, 3, padding=1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        feats = self.encoder(x)
+        h = self.conv2(feats[17])
+        for i, tap in enumerate(self.TAPS):
+            h = getattr(self, f"up{i}")(h, feats[tap])
+        return self.conv3(h)
+
+
+class MobileV3UNet(nn.Module):
+    """Transposed-conv U-Net (``src/models/model_mobileV3_Unet.py``):
+    MaxPool(2) and a 1x1 bridge 960 -> 1280 at H/64, then five transposed-
+    conv ups over taps feats[17, 13, 7, 4, 2], 3x3 head at half the input's
+    size. Each up doubles its map exactly, so H and W must be multiples of
+    64 (a JAX model fails elsewhere at its concat)."""
+
+    UPS = (("upa", 17, 960), ("up0", 13, 112), ("up1", 7, 40),
+           ("up2", 4, 24), ("up3", 2, 16))
+
+    def __init__(self):
+        super().__init__()
+        ch = _tap_channels("large")
+        self.encoder = MobileNetV3Features("large")
+        self.bridge_conv = Conv(LARGE_LAST, 1280, 1)
+        cin = 1280
+        for name, tap, width in self.UPS:
+            setattr(self, name, UpTransposed(cin, ch[tap], width))
+            cin = width
+        self.conv3 = Conv(cin, 1, 3, padding=1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        h, w = x.shape[2:]
+        if h % 64 or w % 64:
+            raise ValueError(f"the U-Net takes H and W that are multiples of "
+                             f"64, not {h}x{w}")
+        feats = self.encoder(x)
+        y = self.bridge_conv(max_pool(feats[17], 2, 2))
+        for name, tap, _ in self.UPS:
+            y = getattr(self, name)(y, feats[tap])
+        return self.conv3(y)
+
+
+class MobileV3UNetInterp(nn.Module):
+    """Interpolated U-Net (``src/models/model_mobileV3_Unet_interpolado.py``
+    large, ``..._small.py`` small): a 1x1 bridge on the first tap, then an
+    UpSample stage a tap, head 8 -> 1 at half the input's size. Large:
+    bridge 960, taps feats[17, 16, 13, 11, 7, 4, 2]. Small (MobileNetV3-
+    Small): bridge 576, the six taps feats[13, 10, 8, 5, 3, 1] that the JAX
+    code uses (``tpudepth/models/decoders.py:236-240``)."""
+
+    ARCHS = {"large": (LARGE_LAST, (17, 16, 13, 11, 7, 4, 2),
+                       (160, 112, 80, 40, 24, 16, 8)),
+             "small": (SMALL_LAST, (13, 10, 8, 5, 3, 1),
+                       (96, 48, 40, 24, 16, 8))}
+
+    def __init__(self, arch: str = "large"):
+        super().__init__()
+        if arch not in self.ARCHS:
+            raise ValueError(f"arch must be 'large' or 'small', not {arch!r}")
+        bridge, self.taps, widths = self.ARCHS[arch]
+        ch = _tap_channels(arch)
+        self.encoder = MobileNetV3Features(arch)
+        self.bridge = Conv(ch[self.taps[0]], bridge, 1)
+        cin = bridge
+        for i, (tap, width) in enumerate(zip(self.taps, widths)):
+            setattr(self, f"up{i}", UpSampleConcat(cin, ch[tap], width))
+            cin = width
+        self.conv3 = Conv(cin, 1, 3, padding=1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        feats = self.encoder(x)
+        h = self.bridge(feats[self.taps[0]])
+        for i, tap in enumerate(self.taps):
+            h = getattr(self, f"up{i}")(h, feats[tap])
+        return self.conv3(h)

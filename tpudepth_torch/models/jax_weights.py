@@ -1,15 +1,23 @@
 """Weight bridge: a JAX ``{'params', 'batch_stats'}`` tree (nested dicts of
-numpy arrays) of GuideDepth, MobileV3SAMDepth or MobileV3NewCRFDepth -> the
-port's ``state_dict``, and a gradient tree of the same ``params`` structure
--> gradients by parameter name.
+numpy arrays) of any of the JAX package's eight models -> the port's
+``state_dict``, and a gradient tree of the same ``params`` structure ->
+gradients by parameter name.
 
-The inverse of ``tpudepth/models/torch_import.py::convert_guidedepth`` and
+For GuideDepth, MobileV3SAMDepth and MobileV3NewCRFDepth this is the inverse
+of ``tpudepth/models/torch_import.py::convert_guidedepth`` and
 ``::convert_attention_model`` (``variant='sam'`` and ``'newcrf'``), with its
 own copy of their name tables (``_ddrnet``, ``_gub``, ``_mnv3_encoder``,
-``_sam_stage``, ``_newcrf_stage`` there):
+``_sam_stage``, ``_newcrf_stage`` there). No converter covers
+MobileV3DenseDepth, MobileV3UNet and MobileV3UNetInterp (their reference
+files are not in the repo); their tables here map the flax names onto the
+port's modules of the same names:
 
 - conv kernels HWIO -> OIHW (depthwise ``(kh, kw, 1, C)`` -> ``(C, 1, kh,
   kw)`` by the same transpose);
+- transposed-conv kernels ``(kh, kw, in, out)`` -> ``(in, out, kh, kw)``,
+  flipped in H and W: flax's ``ConvTranspose`` slides its kernel unflipped
+  over the dilated input, torch's ``ConvTranspose2d`` is the gradient of a
+  conv and so flips it (``torch_import.py:75-82`` flips the other way);
 - flax ``Dense`` kernels ``[in, out]`` -> ``Linear.weight`` ``[out, in]``;
 - BatchNorm ``scale``/``bias``/``mean``/``var`` -> ``weight``/``bias``/
   ``running_mean``/``running_var``, with ``num_batches_tracked`` = 0;
@@ -29,10 +37,12 @@ import torch
 
 Entry = Tuple[str, str, str]  # (kind, flax path, torch prefix)
 
-# the MobileNetV3-Large block table: (has SE) per inverted residual, the
-# port's own copy of the use_se column of LARGE_SPEC
-_MNV3_LARGE_SE = (False, False, False, True, True, True, False, False, False,
-                  False, True, True, True, True, True)
+# the MobileNetV3 block tables: (has expand, has SE) per inverted residual,
+# the port's own copy of the exp != in and use_se columns of LARGE_SPEC and
+# SMALL_SPEC
+_MNV3_LARGE = ((False, False),) + ((True, False),) * 2 + ((True, True),) * 3 \
+    + ((True, False),) * 4 + ((True, True),) * 5
+_MNV3_SMALL = ((False, True),) + ((True, False),) * 2 + ((True, True),) * 8
 
 
 def _basic_block(fp: str, tp: str, has_downsample: bool) -> Iterator[Entry]:
@@ -108,16 +118,18 @@ def _gub(fp: str, tp: str) -> Iterator[Entry]:
     yield "conv", f"{fp}/reduce", f"{tp}.reduce"
 
 
-def _mnv3_large(fp: str, tp: str) -> Iterator[Entry]:
+def _mnv3(fp: str, tp: str, table=_MNV3_LARGE) -> Iterator[Entry]:
+    """MobileNetV3's features, Large by default, ``table=_MNV3_SMALL`` for
+    Small."""
     def cna(f, t):
         yield "conv", f"{f}/conv", f"{t}.0"
         yield "bn", f"{f}/bn", f"{t}.1"
 
     yield from cna(f"{fp}/stem", f"{tp}.0")
-    for i, se in enumerate(_MNV3_LARGE_SE):
+    for i, (expand, se) in enumerate(table):
         fb, tb = f"{fp}/block{i + 1}", f"{tp}.{i + 1}.block"
         j = 0
-        if i != 0:
+        if expand:
             yield from cna(f"{fb}/expand", f"{tb}.{j}")
             j += 1
         yield from cna(f"{fb}/depthwise", f"{tb}.{j}")
@@ -127,7 +139,7 @@ def _mnv3_large(fp: str, tp: str) -> Iterator[Entry]:
             yield "conv", f"{fb}/se/fc2", f"{tb}.{j}.fc2"
             j += 1
         yield from cna(f"{fb}/project", f"{tb}.{j}")
-    yield from cna(f"{fp}/head", f"{tp}.{len(_MNV3_LARGE_SE) + 1}")
+    yield from cna(f"{fp}/head", f"{tp}.{len(table) + 1}")
 
 
 def _sam_stage(fp: str, tp: str) -> Iterator[Entry]:
@@ -172,12 +184,48 @@ def _guidedepth_entries() -> List[Entry]:
 def _attention_entries(stage) -> List[Entry]:
     """MobileNetV3-Large, the bridge, four stages of ``stage`` and the
     head."""
-    entries = list(_mnv3_large("encoder", "Unet.0.original_model.features"))
+    entries = list(_mnv3("encoder", "Unet.0.original_model.features"))
     entries.append(("conv", "decoder/conv0", "Unet.1.conv0"))
     for i in range(4):
         entries += list(stage(f"decoder/crf{i}", f"Unet.1.crf{i}"))
     entries.append(("conv", "decoder/conv1", "Unet.1.conv1"))
     return entries
+
+
+def _conv_block(fp: str, tp: str) -> Iterator[Entry]:
+    for i in (1, 2):
+        yield "conv", f"{fp}/conv{i}", f"{tp}.conv{i}"
+
+
+def _zoo_entries(name: str) -> List[Entry]:
+    """MobileV3DenseDepth (``'densedepth'``), MobileV3UNet (``'unet'``) and
+    MobileV3UNetInterp (``'unet_interp'``, ``'unet_interp_small'``): the
+    encoder, the bridge, the up stages and the head, under the flax names
+    (an up stage's unnamed ``ConvBlock_0`` is the port's ``convBlock``)."""
+    table = _MNV3_SMALL if name == "unet_interp_small" else _MNV3_LARGE
+    entries = list(_mnv3("encoder", "encoder.features", table))
+    if name == "densedepth":
+        entries.append(("conv", "conv2", "conv2"))
+        ups = [f"up{i}" for i in range(6)]
+    elif name == "unet":
+        entries.append(("conv", "bridge_conv", "bridge_conv"))
+        ups = ["upa", "up0", "up1", "up2", "up3"]
+    else:
+        entries.append(("conv", "bridge", "bridge"))
+        ups = [f"up{i}" for i in range(6 if table is _MNV3_SMALL else 7)]
+    for up in ups:
+        if name == "unet":
+            entries.append(("tconv", f"{up}/up", f"{up}.up"))
+            entries += list(_conv_block(f"{up}/convBlock", f"{up}.convBlock"))
+        else:
+            entries += list(_conv_block(f"{up}/ConvBlock_0",
+                                        f"{up}.convBlock"))
+    entries.append(("conv", "conv3", "conv3"))
+    return entries
+
+
+#: the models of :func:`_zoo_entries`
+ZOO_MODELS = ("densedepth", "unet", "unet_interp", "unet_interp_small")
 
 
 def _flatten(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
@@ -215,6 +263,11 @@ def _convert(params: Dict[str, np.ndarray],
                 np.transpose(take(params, f"{fp}/Conv_0/kernel"), (3, 2, 0, 1)))
             if f"{fp}/Conv_0/bias" in params:
                 put(f"{tp}.bias", take(params, f"{fp}/Conv_0/bias"))
+        elif kind == "tconv":
+            kernel = take(params, f"{fp}/ConvTranspose_0/kernel")
+            put(f"{tp}.weight",
+                np.transpose(kernel, (2, 3, 0, 1))[:, :, ::-1, ::-1])
+            put(f"{tp}.bias", take(params, f"{fp}/ConvTranspose_0/bias"))
         elif kind == "bn":
             put(f"{tp}.weight", take(params, f"{fp}/BatchNorm_0/scale"))
             put(f"{tp}.bias", take(params, f"{fp}/BatchNorm_0/bias"))
@@ -282,3 +335,63 @@ def newcrf_grads_from_flax(grads: Mapping) -> "OrderedDict[str, torch.Tensor]":
     """A ``MobileV3NewCRFDepth`` gradient tree -> ``{parameter name:
     gradient}`` of ``build_model("newcrf")``."""
     return _convert(_flatten(grads), None, _attention_entries(_newcrf_stage))
+
+
+def zoo_state_dict_from_flax(name: str, variables: Mapping
+                             ) -> "OrderedDict[str, torch.Tensor]":
+    """JAX variables of ``build_model(name)``, ``name`` one of
+    :data:`ZOO_MODELS` -> the port's ``state_dict`` of the same model."""
+    return _convert(_flatten(variables["params"]),
+                    _flatten(variables.get("batch_stats", {})),
+                    _zoo_entries(name))
+
+
+def zoo_grads_from_flax(name: str, grads: Mapping
+                        ) -> "OrderedDict[str, torch.Tensor]":
+    """A gradient tree of ``build_model(name)``, ``name`` one of
+    :data:`ZOO_MODELS` -> ``{parameter name: gradient}``."""
+    return _convert(_flatten(grads), None, _zoo_entries(name))
+
+
+def densedepth_state_dict_from_flax(variables):
+    """JAX ``MobileV3DenseDepth`` variables -> the port's ``state_dict``."""
+    return zoo_state_dict_from_flax("densedepth", variables)
+
+
+def unet_state_dict_from_flax(variables):
+    """JAX ``MobileV3UNet`` variables -> the port's ``state_dict``."""
+    return zoo_state_dict_from_flax("unet", variables)
+
+
+def unet_interp_state_dict_from_flax(variables):
+    """JAX ``MobileV3UNetInterp('large')`` variables -> the port's
+    ``state_dict``."""
+    return zoo_state_dict_from_flax("unet_interp", variables)
+
+
+def unet_interp_small_state_dict_from_flax(variables):
+    """JAX ``MobileV3UNetInterp('small')`` variables -> the port's
+    ``state_dict``."""
+    return zoo_state_dict_from_flax("unet_interp_small", variables)
+
+
+def densedepth_grads_from_flax(grads):
+    """A ``MobileV3DenseDepth`` gradient tree -> gradients by name."""
+    return zoo_grads_from_flax("densedepth", grads)
+
+
+def unet_grads_from_flax(grads):
+    """A ``MobileV3UNet`` gradient tree -> gradients by name."""
+    return zoo_grads_from_flax("unet", grads)
+
+
+def unet_interp_grads_from_flax(grads):
+    """A ``MobileV3UNetInterp('large')`` gradient tree -> gradients by
+    name."""
+    return zoo_grads_from_flax("unet_interp", grads)
+
+
+def unet_interp_small_grads_from_flax(grads):
+    """A ``MobileV3UNetInterp('small')`` gradient tree -> gradients by
+    name."""
+    return zoo_grads_from_flax("unet_interp_small", grads)

@@ -27,6 +27,12 @@ def relu(x: torch.Tensor) -> torch.Tensor:
     return F.relu(x)
 
 
+def leaky_relu_02(x: torch.Tensor) -> torch.Tensor:
+    """LeakyReLU(0.2) of the DenseDepth and U-Net conv blocks
+    (``src/models/model_mobileV3.py:13-15``)."""
+    return F.leaky_relu(x, negative_slope=0.2)
+
+
 def hardswish(x: torch.Tensor) -> torch.Tensor:
     """``x * relu6(x + 3) / 6`` in the JAX package's operation order."""
     return x * torch.clamp(x + 3.0, 0.0, 6.0) / 6.0
@@ -51,6 +57,23 @@ class Conv(nn.Conv2d):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         bias = None if self.bias is None else self.bias.to(x.dtype)
         return self._conv_forward(x, self.weight.to(x.dtype), bias)
+
+
+class ConvTranspose(nn.ConvTranspose2d):
+    """``nn.ConvTranspose2d(k=2, s=2)`` (the U-Net's ``Up``,
+    ``src/models/model_mobileV3_Unet.py:58``; ``tpudepth/models/layers.py
+    ::ConvTranspose``) whose f32 weight ``[in, out, k, k]`` and bias are cast
+    to the input dtype. Its weight is flax's kernel transposed and flipped in
+    space (``jax_weights``)."""
+
+    def __init__(self, cin: int, cout: int, kernel_size: int = 2,
+                 stride: int = 2):
+        super().__init__(cin, cout, kernel_size, stride)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        bias = None if self.bias is None else self.bias.to(x.dtype)
+        return F.conv_transpose2d(x, self.weight.to(x.dtype), bias,
+                                  self.stride)
 
 
 class Linear(nn.Linear):
@@ -237,7 +260,8 @@ def init_random_(model: nn.Module, seed: int) -> nn.Module:
     generator, so the same seed gives the same model on any device.
 
     Conv and Linear weights are lecun-normal (std 1/sqrt(fan_in)), biases
-    N(0, 0.05); BatchNorm weight U(0.5, 1.5), bias N(0, 0.1), running mean
+    N(0, 0.05); a transposed conv's fan-in is the terms each output sums,
+    ``in * k * k / stride^2``; BatchNorm weight U(0.5, 1.5), bias N(0, 0.1), running mean
     N(0, 0.1) and running var U(0.5, 1.5), so every BN affine differs from
     the identity; LayerNorm weight U(0.5, 1.5), bias N(0, 0.1); a
     relative-position bias table N(0, 0.02) truncated at 2 standard
@@ -248,8 +272,11 @@ def init_random_(model: nn.Module, seed: int) -> nn.Module:
         t.copy_(torch.from_numpy(arr.astype(np.float32)))
 
     for m in model.modules():
-        if isinstance(m, (nn.Conv2d, nn.Linear)):
+        if isinstance(m, (nn.Conv2d, nn.Linear, nn.ConvTranspose2d)):
             fan_in = m.weight[0].numel()
+            if isinstance(m, nn.ConvTranspose2d):
+                fan_in = (m.weight.shape[0] * m.weight[0, 0].numel()
+                          // (m.stride[0] * m.stride[1]))
             fill(m.weight, rng.standard_normal(m.weight.shape) / np.sqrt(fan_in))
             if m.bias is not None:
                 fill(m.bias, 0.05 * rng.standard_normal(m.bias.shape))

@@ -1,5 +1,7 @@
-"""Model registry of the port (``tpudepth/models/registry.py``): the
-GuideDepth family, MobileV3SAMDepth and MobileV3NewCRFDepth so far."""
+"""Model registry of the port (``tpudepth/models/registry.py``): all eight
+of the JAX package's models under its 22 aliases: the GuideDepth family,
+MobileV3SAMDepth, MobileV3NewCRFDepth, MobileV3DenseDepth, MobileV3UNet and
+MobileV3UNetInterp (large and small)."""
 
 from __future__ import annotations
 
@@ -8,7 +10,13 @@ from typing import Optional
 import torch.nn as nn
 
 from tpudepth_torch.models import newcrf, sam
-from tpudepth_torch.models.decoders import MobileV3NewCRFDepth, MobileV3SAMDepth
+from tpudepth_torch.models.decoders import (
+    MobileV3DenseDepth,
+    MobileV3NewCRFDepth,
+    MobileV3SAMDepth,
+    MobileV3UNet,
+    MobileV3UNetInterp,
+)
 from tpudepth_torch.models.guidedepth import GuideDepth
 
 # alias (lowercased) -> canonical name; every switch keyed on a model name
@@ -24,13 +32,31 @@ _ALIASES = {
     "newcrfs": "newcrf",
     "mobilev3_newcrf": "newcrf",
     "mobilev3_large_newcrfs": "newcrf",
+    "densedepth": "densedepth",
+    "mobilev3": "densedepth",
+    "mobilev2": "densedepth",
+    "mobilev3_densedepth": "densedepth",
+    "unet": "unet",
+    "mobilev3_unet": "unet",
+    "unet_interp": "unet_interp",
+    "mobilev3_unet_interpolado": "unet_interp",
+    "unet_interpolado": "unet_interp",
+    "unet_interp_small": "unet_interp_small",
+    "mobilev3_unet_interpolado_small": "unet_interp_small",
+    "unet_interpolado_small": "unet_interp_small",
 }
 
-MODEL_NAMES = ["GuideDepth", "GuideDepth-S", "sam", "newcrf"]
+MODEL_NAMES = ["GuideDepth", "GuideDepth-S", "sam", "newcrf", "densedepth",
+               "unet", "unet_interp", "unet_interp_small"]
 
 GUB_MODES = ("plain", "fused")
 
 _ATTN_MODELS = {"sam": MobileV3SAMDepth, "newcrf": MobileV3NewCRFDepth}
+
+# the DenseDepth and U-Net models: no attention blocks, no GUB
+_ZOO = {"densedepth": MobileV3DenseDepth, "unet": MobileV3UNet,
+        "unet_interp": lambda: MobileV3UNetInterp("large"),
+        "unet_interp_small": lambda: MobileV3UNetInterp("small")}
 
 # every block mode of any attention model; each model checks its own
 ATTN_MODES = tuple(dict.fromkeys(sam.ATTN_MODES + newcrf.ATTN_MODES))
@@ -60,14 +86,15 @@ def build_model(name: str, gub: str = "plain",
     ``'row'``, the default, ``'fused'``, ``'pair'``, ``'block'`` or
     ``'plain'``); None takes the model's
     default, and a mode the model lacks raises ``ValueError``. Each model has
-    one parameter tree whatever its modes."""
+    one parameter tree whatever its modes. ``gub`` other than ``'plain'``
+    outside the GuideDepth family, ``attn`` outside the attention models and
+    an unknown name raise ``ValueError``."""
     if gub not in GUB_MODES:
         raise ValueError(f"gub must be one of {GUB_MODES}, not {gub!r}")
-    canon = _ALIASES.get(str(name).lower())
-    if canon is None:
-        raise NotImplementedError(
-            f"model {name!r} is not ported yet (ported: {MODEL_NAMES}); "
-            "see ROADMAP.md Queue A")
+    canon = canonical_model_name(name)
+    if gub != "plain" and canon not in ("GuideDepth", "GuideDepth-S"):
+        raise ValueError(f"gub={gub!r} is a mode of the GuideDepth family, "
+                         f"not of {canon!r}")
     if canon in _ATTN_MODELS:
         # the model's own default mode (the JAX package's eval default on its
         # chip) unless one is named; the blocks check it
@@ -76,6 +103,8 @@ def build_model(name: str, gub: str = "plain",
     if attn is not None:
         raise ValueError(f"attn is a mode of the attention models "
                          f"{sorted(_ATTN_MODELS)}, not of {canon!r}")
+    if canon in _ZOO:
+        return _ZOO[canon]()
     fused = gub == "fused"
     if canon == "GuideDepth":
         return GuideDepth(fused_stages=fused)

@@ -50,7 +50,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from tpudepth_torch.ops.kernels import _build
+from tpudepth_torch.ops.kernels import _build, _op
 from tpudepth_torch.ops.kernels.epilogue_infer import (
     ffn_reference,
     layer_norm_f32,
@@ -241,15 +241,31 @@ def sam_block_infer(xw: torch.Tensor, vw: torch.Tensor, ln1: tuple,
     """The SAM block, ``[BW, N, C]`` in x's dtype. CPU tensors run
     :func:`sam_block_infer_reference`; CUDA tensors launch the
     ``sam_block_infer`` kernels (one call counted in
-    ``sam_block_infer.launches``)."""
+    ``sam_block_infer.launches``); through :data:`SAM_OP` only while
+    ``torch.export`` traces."""
     c = xw.shape[-1]
-    bw, n, c, heads, hidden, nw = _check(
+    _check(
         "sam_block_infer", xw, vw, bias, None, valid, [ln1, lnv],
         [(wq, bq, c), (wkv, bkv, 2 * c)], (wproj, bproj, ln2, w1, b1, w2, b2))
+    _op.check_device("sam_block_infer", xw)
+    args = (xw, vw, *ln1, *lnv, wq, bq, wkv, bkv, bias, wproj, bproj, *ln2,
+            w1, b1, w2, b2, valid, float(scale))
+    return SAM_OP(*args) if _op.through_op() else _sam_run(*args)
+
+
+def _sam_run(xw, vw, ln1_w, ln1_b, lnv_w, lnv_b, wq, bq, wkv, bkv, bias,
+             wproj, bproj, ln2_w, ln2_b, w1, b1, w2, b2, valid, scale):
+    """The kernel of a ``sam_block_infer`` call on xw's device, its
+    LayerNorm pairs flattened: the plain version on the CPU, the launch on
+    the card (counted)."""
+    ln1, lnv, ln2 = (ln1_w, ln1_b), (lnv_w, lnv_b), (ln2_w, ln2_b)
+    bw, n, c = xw.shape
+    heads, hidden = bias.shape[0], w1.shape[1]
+    nw = valid.shape[0] if valid is not None else 1
     if xw.device.type == "cpu":
         return sam_block_infer_reference(
             xw, vw, ln1, lnv, wq, bq, wkv, bkv, bias, wproj, bproj, ln2, w1,
-            b1, w2, b2, valid, scale=scale)
+            b1, w2, b2, valid, scale=scale).contiguous()
 
     bf16 = xw.dtype == torch.bfloat16
 
@@ -275,6 +291,15 @@ def sam_block_infer(xw: torch.Tensor, vw: torch.Tensor, ln1: tuple,
 
 sam_block_infer.launches = 0
 
+#: ``tpudepth::sam_block_infer``
+SAM_OP = _op.define(
+    "sam_block_infer",
+    "(Tensor xw, Tensor vw, Tensor ln1_w, Tensor ln1_b, Tensor lnv_w, "
+    "Tensor lnv_b, Tensor wq, Tensor bq, Tensor wkv, Tensor bkv, Tensor bias, "
+    "Tensor wproj, Tensor bproj, Tensor ln2_w, Tensor ln2_b, Tensor w1, "
+    "Tensor b1, Tensor w2, Tensor b2, Tensor? valid, float scale) -> Tensor",
+    _sam_run, _sam_run, lambda xw, *rest: xw.new_empty(xw.shape))
+
 
 def crf_block_infer(xw: torch.Tensor, vw: torch.Tensor, ln1: tuple,
                     wqk: torch.Tensor, bqk: torch.Tensor, bias: torch.Tensor,
@@ -286,14 +311,31 @@ def crf_block_infer(xw: torch.Tensor, vw: torch.Tensor, ln1: tuple,
     """The NewCRF block, ``[BW, N, C]`` in x's dtype. CPU tensors run
     :func:`crf_block_infer_reference`; CUDA tensors launch the
     ``crf_block_infer`` kernels (one call counted in
-    ``crf_block_infer.launches``)."""
-    bw, n, c, heads, hidden, nw = _check(
+    ``crf_block_infer.launches``); through :data:`CRF_OP` only while
+    ``torch.export`` traces."""
+    _check(
         "crf_block_infer", xw, vw, bias, mask, valid, [ln1],
         [(wqk, bqk, 2 * xw.shape[-1])], (wproj, bproj, ln2, w1, b1, w2, b2))
+    _op.check_device("crf_block_infer", xw)
+    args = (xw, vw, *ln1, wqk, bqk, bias, wproj, bproj, *ln2, w1, b1, w2, b2,
+            mask, valid, float(scale))
+    return CRF_OP(*args) if _op.through_op() else _crf_run(*args)
+
+
+def _crf_run(xw, vw, ln1_w, ln1_b, wqk, bqk, bias, wproj, bproj, ln2_w, ln2_b,
+             w1, b1, w2, b2, mask, valid, scale):
+    """The kernel of a ``crf_block_infer`` call on xw's device, its
+    LayerNorm pairs flattened: the plain version on the CPU, the launch on
+    the card (counted)."""
+    ln1, ln2 = (ln1_w, ln1_b), (ln2_w, ln2_b)
+    bw, n, c = xw.shape
+    heads, hidden = bias.shape[0], w1.shape[1]
+    nw = mask.shape[0] if mask is not None else (
+        valid.shape[0] if valid is not None else 1)
     if xw.device.type == "cpu":
         return crf_block_infer_reference(
             xw, vw, ln1, wqk, bqk, bias, wproj, bproj, ln2, w1, b1, w2, b2,
-            mask, valid, scale=scale)
+            mask, valid, scale=scale).contiguous()
 
     bf16 = xw.dtype == torch.bfloat16
 
@@ -316,3 +358,12 @@ def crf_block_infer(xw: torch.Tensor, vw: torch.Tensor, ln1: tuple,
 
 
 crf_block_infer.launches = 0
+
+#: ``tpudepth::crf_block_infer``
+CRF_OP = _op.define(
+    "crf_block_infer",
+    "(Tensor xw, Tensor vw, Tensor ln1_w, Tensor ln1_b, Tensor wqk, "
+    "Tensor bqk, Tensor bias, Tensor wproj, Tensor bproj, Tensor ln2_w, "
+    "Tensor ln2_b, Tensor w1, Tensor b1, Tensor w2, Tensor b2, Tensor? mask, "
+    "Tensor? valid, float scale) -> Tensor",
+    _crf_run, _crf_run, lambda xw, *rest: xw.new_empty(xw.shape))

@@ -35,7 +35,7 @@ from typing import Tuple
 
 import torch
 
-from tpudepth_torch.ops.kernels import _build
+from tpudepth_torch.ops.kernels import _build, _op
 
 _VP, _I32 = ctypes.c_void_p, ctypes.c_int
 
@@ -185,7 +185,8 @@ def block_epilogue_infer(o: torch.Tensor, x: torch.Tensor,
     """``[M, C]`` block output in ``o``'s dtype. CPU tensors run
     :func:`block_epilogue_infer_reference`; CUDA tensors launch the
     ``block_epilogue_infer`` kernel (counted in
-    ``block_epilogue_infer.launches``)."""
+    ``block_epilogue_infer.launches``); through :data:`OP` only while
+    ``torch.export`` traces."""
     m, c = o.shape
     hidden = w1.shape[1]
     if (x.shape != o.shape or wproj.shape != (c, c) or w1.shape[0] != c
@@ -194,9 +195,19 @@ def block_epilogue_infer(o: torch.Tensor, x: torch.Tensor,
             or b1.shape != (hidden,)):
         raise ValueError("block_epilogue_infer: shapes do not fit "
                          f"o {tuple(o.shape)}, w1 {tuple(w1.shape)}")
+    _op.check_device("block_epilogue_infer", o)
+    args = (o, x, wproj, bproj, lns, lnb, w1, b1, w2, b2)
+    return OP(*args) if _op.through_op() else _run(*args)
+
+
+def _run(o, x, wproj, bproj, lns, lnb, w1, b1, w2, b2):
+    """The kernel of a call on o's device: the plain version on the CPU, the
+    launch on the card (counted)."""
+    m, c = o.shape
+    hidden = w1.shape[1]
     if o.device.type == "cpu":
         return block_epilogue_infer_reference(o, x, wproj, bproj, lns, lnb,
-                                              w1, b1, w2, b2)
+                                              w1, b1, w2, b2).contiguous()
     if o.device.type != "cuda":
         raise ValueError(f"no block_epilogue_infer kernel for {o.device}")
     if not (width_ok(c, out=True) and width_ok(hidden)):
@@ -227,3 +238,10 @@ def block_epilogue_infer(o: torch.Tensor, x: torch.Tensor,
 
 
 block_epilogue_infer.launches = 0
+
+#: ``tpudepth::block_epilogue_infer``
+OP = _op.define(
+    "block_epilogue_infer",
+    "(Tensor o, Tensor x, Tensor wproj, Tensor bproj, Tensor lns, Tensor lnb, "
+    "Tensor w1, Tensor b1, Tensor w2, Tensor b2) -> Tensor",
+    _run, _run, lambda o, *rest: o.new_empty(o.shape))

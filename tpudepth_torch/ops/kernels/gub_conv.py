@@ -35,7 +35,7 @@ import torch
 import torch.nn.functional as F
 from torch.autograd.function import once_differentiable
 
-from tpudepth_torch.ops.kernels import _build
+from tpudepth_torch.ops.kernels import _build, _op
 
 Prelude = Tuple[torch.Tensor, torch.Tensor]
 
@@ -607,9 +607,12 @@ def conv_bn_act(
     through :class:`_ConvBnAct`.
 
     CPU tensors run :func:`conv_bn_act_reference`; CUDA tensors launch the
-    ``gub_conv_fwd`` kernel (counted in ``conv_bn_act.launches``)."""
+    ``gub_conv_fwd`` kernel (counted in ``conv_bn_act.launches``). Without
+    autograd the call goes through :data:`FWD_OP` only while
+    ``torch.export`` traces."""
     parts = tuple(parts)
     _check_args(parts, w, b, preludes, skip)
+    _op.check_device("gub_conv_fwd", parts[0])
     flat = list(parts)
     if preludes is not None:
         flat += [a for a, _ in preludes] + [c for _, c in preludes]
@@ -618,7 +621,45 @@ def conv_bn_act(
     if torch.is_grad_enabled() and any(t.requires_grad for t in (w, b, *flat)):
         return _ConvBnAct.apply(len(parts), preludes is not None,
                                 skip is not None, stats, w, b, *flat)
-    return _forward(parts, w, b, preludes, skip, stats)
+    if not _op.through_op():
+        return _forward(parts, w, b, preludes, skip, stats)
+    a, c = ([list(t) for t in zip(*preludes)] if preludes is not None
+            else ([], []))
+    y, s, q = FWD_OP(list(parts), w, b, a, c, skip, stats)
+    return (y, s, q) if stats else y
 
 
 conv_bn_act.launches = 0
+
+
+def _fwd_run(parts, w, b, a, c, skip, stats):
+    """:func:`_forward` with the preludes as two lists (empty: none) and
+    three outputs, the sums empty without statistics: the plain version on
+    the CPU (its output contiguous, as the launch's), the launch on the card
+    (counted)."""
+    preludes = tuple(zip(a, c)) if a else None
+    out = _forward(tuple(parts), w, b, preludes, skip, stats)
+    if stats:
+        y, s, q = out
+        # the launch's sums are rows of one tensor: outputs of an op may not
+        # share storage
+        return y.contiguous(), s.clone(), q.clone()
+    none = out.new_empty((0,), dtype=torch.float32)
+    return out.contiguous(), none, none.clone()
+
+
+def _fwd_fake(parts, w, b, a, c, skip, stats):
+    bsz, h, wd, _ = parts[0].shape
+    cout = w.shape[3]
+    n = cout if stats else 0
+    return (parts[0].new_empty((bsz, h, wd, cout)),
+            parts[0].new_empty((n,), dtype=torch.float32),
+            parts[0].new_empty((n,), dtype=torch.float32))
+
+
+#: ``tpudepth::gub_conv_fwd``: :func:`conv_bn_act` without autograd
+FWD_OP = _op.define(
+    "gub_conv_fwd",
+    "(Tensor[] parts, Tensor w, Tensor b, Tensor[] a, Tensor[] c, "
+    "Tensor? skip, bool stats) -> (Tensor, Tensor, Tensor)",
+    _fwd_run, _fwd_run, _fwd_fake)

@@ -22,6 +22,7 @@ from __future__ import annotations
 
 import torch
 
+from tpudepth_torch.ops.kernels import _op
 from tpudepth_torch.ops.kernels import epilogue_infer as _epi
 
 #: (atol as a fraction of the output's largest value, rtol) against the
@@ -82,17 +83,34 @@ def mlp_infer(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
               w2: torch.Tensor, b2: torch.Tensor) -> torch.Tensor:
     """``[M, C2]`` in ``x``'s dtype. CPU tensors run
     :func:`mlp_infer_reference`; CUDA tensors launch the ``mlp_infer``
-    kernel (counted in ``mlp_infer.launches``)."""
+    kernel (counted in ``mlp_infer.launches``); through :data:`OP` only while
+    ``torch.export`` traces."""
     m, c = x.shape
     hidden, c2 = w2.shape
     if w1.shape != (c, hidden) or b1.shape != (hidden,) or b2.shape != (c2,):
         raise ValueError(f"mlp_infer: shapes do not fit x {tuple(x.shape)}, "
                          f"w1 {tuple(w1.shape)}, w2 {tuple(w2.shape)}")
+    _op.check_device("mlp_infer", x)
+    args = (x, w1, b1, w2, b2)
+    return OP(*args) if _op.through_op() else _run(*args)
+
+
+def _run(x, w1, b1, w2, b2):
+    """The kernel of a call on x's device: the plain version on the CPU, the
+    launch on the card (counted)."""
     if x.device.type == "cpu":
-        return mlp_infer_reference(x, w1, b1, w2, b2)
+        return mlp_infer_reference(x, w1, b1, w2, b2).contiguous()
     out = launch_ffn(_epi.lib, "mlp_infer", x, w1, b1, w2, b2)
     mlp_infer.launches += 1
     return out
+
+
+#: ``tpudepth::mlp_infer``
+OP = _op.define(
+    "mlp_infer",
+    "(Tensor x, Tensor w1, Tensor b1, Tensor w2, Tensor b2) -> Tensor",
+    _run, _run,
+    lambda x, w1, b1, w2, b2: x.new_empty((x.shape[0], w2.shape[1])))
 
 
 mlp_infer.launches = 0

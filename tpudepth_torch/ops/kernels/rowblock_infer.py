@@ -45,7 +45,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from tpudepth_torch.ops.kernels import _build
+from tpudepth_torch.ops.kernels import _build, _op
 from tpudepth_torch.ops.kernels import epilogue_infer as _epi
 from tpudepth_torch.ops.kernels.epilogue_infer import (
     block_epilogue_infer_reference,
@@ -291,15 +291,32 @@ def crf_rowblock_infer(x: torch.Tensor, v: torch.Tensor, ln1: tuple,
     """The NewCRF block, ``[B, Hp, Wp, C]`` in x's dtype. CPU tensors run
     :func:`crf_rowblock_infer_reference`; CUDA tensors launch the
     ``crf_rowblock_infer`` kernels (one call counted in
-    ``crf_rowblock_infer.launches``)."""
-    b, hp, wp, c, heads, hidden = _check(
+    ``crf_rowblock_infer.launches``); through :data:`CRF_OP` only while
+    ``torch.export`` traces."""
+    _, hp, wp, _, _, _ = _check(
         "crf_rowblock_infer", x, v, bias, mask, window_size, [ln1],
         [(wqk, bqk, 2 * x.shape[-1])], (wproj, bproj, ln2, w1, b1, w2, b2))
     h, w, shift = valid_hw if valid_hw is not None else (hp, wp, 0)
+    _op.check_device("crf_rowblock_infer", x)
+    args = (x, v, *ln1, wqk, bqk, bias, wproj, bproj, *ln2, w1, b1, w2, b2,
+            mask, float(scale), window_size, h, w, shift)
+    return CRF_OP(*args) if _op.through_op() else _crf_run(*args)
+
+
+def _crf_run(x, v, ln1_w, ln1_b, wqk, bqk, bias, wproj, bproj, ln2_w, ln2_b,
+             w1, b1, w2, b2, mask, scale, window_size, h, w, shift):
+    """The kernel of a ``crf_rowblock_infer`` call on x's device, its
+    LayerNorm pairs flattened: the plain version on the CPU, the launch on
+    the card (counted)."""
+    ln1, ln2 = (ln1_w, ln1_b), (ln2_w, ln2_b)
+    b, hp, wp, c = x.shape
+    heads = bias.shape[0]
+    hidden = w1.shape[1]
     if x.device.type == "cpu":
         return crf_rowblock_infer_reference(
             x, v, ln1, wqk, bqk, bias, wproj, bproj, ln2, w1, b1, w2, b2,
-            mask, scale=scale, window_size=window_size, valid_hw=(h, w, shift))
+            mask, scale=scale, window_size=window_size,
+            valid_hw=(h, w, shift)).contiguous()
     wqk_t, wp_t, w1_t, w2_t = cuda_args(
         "crf_rowblock_infer", x, v, bias, mask, window_size ** 2,
         (wqk, wproj, w1, w2), (*ln1, bqk, bproj, *ln2, b1, b2))
@@ -325,6 +342,15 @@ def crf_rowblock_infer(x: torch.Tensor, v: torch.Tensor, ln1: tuple,
 
 crf_rowblock_infer.launches = 0
 
+#: ``tpudepth::crf_rowblock_infer``
+CRF_OP = _op.define(
+    "crf_rowblock_infer",
+    "(Tensor x, Tensor v, Tensor ln1_w, Tensor ln1_b, Tensor wqk, Tensor bqk, "
+    "Tensor bias, Tensor wproj, Tensor bproj, Tensor ln2_w, Tensor ln2_b, "
+    "Tensor w1, Tensor b1, Tensor w2, Tensor b2, Tensor? mask, float scale, "
+    "int window_size, int h, int w, int shift) -> Tensor",
+    _crf_run, _crf_run, lambda x, *rest: x.new_empty(x.shape))
+
 
 def sam_rowblock_infer(x: torch.Tensor, v: torch.Tensor, ln1: tuple,
                        lnv: tuple, wq: torch.Tensor, bq: torch.Tensor,
@@ -337,16 +363,33 @@ def sam_rowblock_infer(x: torch.Tensor, v: torch.Tensor, ln1: tuple,
     """The SAM block, ``[B, Hp, Wp, C]`` in x's dtype. CPU tensors run
     :func:`sam_rowblock_infer_reference`; CUDA tensors launch the
     ``sam_rowblock_infer`` kernels (one call counted in
-    ``sam_rowblock_infer.launches``)."""
+    ``sam_rowblock_infer.launches``); through :data:`SAM_OP` only while
+    ``torch.export`` traces."""
     c = x.shape[-1]
-    b, hp, wp, c, heads, hidden = _check(
+    _, hp, wp, _, _, _ = _check(
         "sam_rowblock_infer", x, v, bias, None, window_size, [ln1, lnv],
         [(wq, bq, c), (wkv, bkv, 2 * c)], (wproj, bproj, ln2, w1, b1, w2, b2))
     h, w = valid_hw if valid_hw is not None else (hp, wp)
+    _op.check_device("sam_rowblock_infer", x)
+    args = (x, v, *ln1, *lnv, wq, bq, wkv, bkv, bias, wproj, bproj, *ln2, w1,
+            b1, w2, b2, float(scale), window_size, h, w)
+    return SAM_OP(*args) if _op.through_op() else _sam_run(*args)
+
+
+def _sam_run(x, v, ln1_w, ln1_b, lnv_w, lnv_b, wq, bq, wkv, bkv, bias, wproj,
+             bproj, ln2_w, ln2_b, w1, b1, w2, b2, scale, window_size, h, w):
+    """The kernel of a ``sam_rowblock_infer`` call on x's device, its
+    LayerNorm pairs flattened: the plain version on the CPU, the launch on
+    the card (counted)."""
+    ln1, lnv, ln2 = (ln1_w, ln1_b), (lnv_w, lnv_b), (ln2_w, ln2_b)
+    b, hp, wp, c = x.shape
+    heads = bias.shape[0]
+    hidden = w1.shape[1]
     if x.device.type == "cpu":
         return sam_rowblock_infer_reference(
             x, v, ln1, lnv, wq, bq, wkv, bkv, bias, wproj, bproj, ln2, w1, b1,
-            w2, b2, scale=scale, window_size=window_size, valid_hw=(h, w))
+            w2, b2, scale=scale, window_size=window_size,
+            valid_hw=(h, w)).contiguous()
     wq_t, wkv_t, wp_t, w1_t, w2_t = cuda_args(
         "sam_rowblock_infer", x, v, bias, None, window_size ** 2,
         (wq, wkv, wproj, w1, w2), (*ln1, *lnv, bq, bkv, bproj, *ln2, b1, b2))
@@ -372,3 +415,13 @@ def sam_rowblock_infer(x: torch.Tensor, v: torch.Tensor, ln1: tuple,
 
 
 sam_rowblock_infer.launches = 0
+
+#: ``tpudepth::sam_rowblock_infer``
+SAM_OP = _op.define(
+    "sam_rowblock_infer",
+    "(Tensor x, Tensor v, Tensor ln1_w, Tensor ln1_b, Tensor lnv_w, "
+    "Tensor lnv_b, Tensor wq, Tensor bq, Tensor wkv, Tensor bkv, Tensor bias, "
+    "Tensor wproj, Tensor bproj, Tensor ln2_w, Tensor ln2_b, Tensor w1, "
+    "Tensor b1, Tensor w2, Tensor b2, float scale, int window_size, int h, "
+    "int w) -> Tensor",
+    _sam_run, _sam_run, lambda x, *rest: x.new_empty(x.shape))

@@ -36,7 +36,7 @@ from tpudepth_torch.ops.attention import (
     to_heads,
     window_cross_attention_fast,
 )
-from tpudepth_torch.ops.kernels import _build
+from tpudepth_torch.ops.kernels import _build, _op
 
 _VP, _I32, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 
@@ -161,19 +161,35 @@ def launch_forward(lib, name, q, k, v, bias, mask) -> torch.Tensor:
     return out
 
 
+def _run(q, k, v, bias, mask):
+    """The kernel of a call on q's device: the plain version on the CPU (its
+    output contiguous, as the launch's), the launch on the card (counted)."""
+    if q.device.type == "cpu":
+        return window_attention_infer_reference(q, k, v, bias, mask).contiguous()
+    out = launch_forward(_lib, "window_attn_infer", q, k, v, bias, mask)
+    window_attention_infer.launches += 1
+    return out
+
+
+#: ``tpudepth::window_attn_infer``; k and v stay views with their strides
+OP = _op.define(
+    "window_attn_infer",
+    "(Tensor q, Tensor k, Tensor v, Tensor bias, Tensor? mask) -> Tensor",
+    _run, _run, lambda q, k, v, bias, mask: q.new_empty(q.shape))
+
+
 def window_attention_infer(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            bias: torch.Tensor,
                            mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """``[BW, N, C]`` attention output in q's dtype. CPU tensors run
     :func:`window_attention_infer_reference`; CUDA tensors launch the
     ``window_attn_infer`` kernel (counted in
-    ``window_attention_infer.launches``)."""
+    ``window_attention_infer.launches``); through :data:`OP` only while
+    ``torch.export`` traces."""
     _check(q, k, v, bias, mask)
-    if q.device.type == "cpu":
-        return window_attention_infer_reference(q, k, v, bias, mask)
-    out = launch_forward(_lib, "window_attn_infer", q, k, v, bias, mask)
-    window_attention_infer.launches += 1
-    return out
+    _op.check_device("window_attn_infer", q)
+    args = (q, k, v, bias, mask)
+    return OP(*args) if _op.through_op() else _run(*args)
 
 
 window_attention_infer.launches = 0
