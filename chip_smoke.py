@@ -54,9 +54,9 @@ the command lines from a seeded dataset zip. Phases:
    beside the ``block``, ``row`` and ``fused`` modules; then one B 8 bf16
    call a stage of ``sam_rowblock_infer``, ``crf_rowblock_infer`` (shift 0
    and 3), ``sam_block_infer``, ``crf_block_infer`` (shift 0 and 3) and
-   ``window_attn_train_bwd`` split into its CUDA kernels by
-   ``torch.profiler`` ([row kernel split], [block kernel split], [train
-   kernel split]);
+   ``window_attn_train_bwd`` split into its CUDA kernels, counted from a
+   CUDA graph of one call and timed by ``torch.profiler`` ([row kernel
+   split], [block kernel split], [train kernel split]);
    [train kernels]:
    ``window_attn_train_fwd`` / ``_bwd`` (with and without the shift-3 mask)
    and ``mlp_train_fwd`` / ``_bwd`` (also at an odd row count, the forward
@@ -109,6 +109,22 @@ the command lines from a seeded dataset zip. Phases:
    through ``InferenceEngine`` (bf16, meters) and ``AlhashimEvaluator`` over
    seeded synthetic batches, against the f32 plain model through the same
    evaluator; ``results.txt`` written and read back;
+7b. [packed]: GuideDepth's packed (space-to-depth) stages, the JAX
+   package's default (``build_model(packed=True)``: up_2 folded (2,2) to
+   128 channels, up_3 (4,4) to 256): ``gub_conv_fwd`` (with and without
+   statistics), ``gub_conv_dw`` and ``gub_conv_dx`` against their plain
+   versions at the six packed conv shapes, B 1 and 8, f32 and bf16, then
+   timed at B 8 beside cuDNN on the same packed tensors, the bound and
+   the unpacked conv ([packed kernel time]); packed plain and fused
+   engines (bf16, flip-TTA): 9 and 0 ``gub_conv_fwd`` a forward, bf16 and
+   f32 against the f32 unpacked plain model, ms/frame, img/s and busy ms
+   at bs 1 and 8 beside the unpacked engines, one call under
+   ``utils.profiling.trace``; packed training at B 8 bf16: the kernels a
+   step plain, fused and rematerialized (``remat_stages``: the forward
+   kernel twice a step; ``TrainConfig(remat=True)`` too), one f32 packed
+   step against the unpacked plain step, each rematerialized f32 step
+   against the same model's plain step (running statistics moved once),
+   ms/step, img/s and peak memory in turns;
 8. [sam train], [newcrf train]: a seeded model in its default block mode
    through ``Trainer.fit`` (2 epochs x 3 steps, root recipe, bf16, B 8,
    validation and checkpoints), the training kernels' launches counted over
@@ -127,7 +143,8 @@ the command lines from a seeded dataset zip. Phases:
    ``fused_root_loss_fwd`` / ``_bwd`` counted (one each a step, at the
    half-size prediction: 240x320, 192x640), one f32 step through the loss
    kernels against the plain ``ssim + 0.1 l1_loss`` step, and img/s;
-   [engine export]: the bf16 bs-1 engines of fused GuideDepth, SAM
+   [engine export]: the bf16 bs-1 engines of fused GuideDepth (unpacked
+   and packed), SAM
    ``fused`` / ``pair`` / ``row`` / ``block``, NewCRF ``row`` / ``block``
    and the small interpolated U-Net serialized through ``torch.export``
    (every serving kernel a ``tpudepth::*`` custom op) and deserialized:
@@ -162,6 +179,7 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import dataclasses
 import json
 import os
 import statistics
@@ -371,47 +389,70 @@ def fwd_train_step_times():
     return out
 
 
-def phase_kernels():
+def check_fwd_case(tag, seed, bsz, h, w, cins, cout, prelude, skip, dtype,
+                   k=3, no_stats=False) -> float:
+    """``gub_conv_fwd`` with statistics against ``conv_bn_act_reference``
+    on one case (and, with ``no_stats``, the launch without statistics
+    too), within ``gub_conv.tolerance``; the statistics within
+    ``STATS_RTOL``. Returns the largest absolute error of the output."""
     from tpudepth_torch.ops.kernels.gub_conv import (
         conv_bn_act,
         conv_bn_act_reference,
         tolerance,
     )
 
+    parts, wt, b, pre, sk = make_case(seed, bsz, h, w, cins, cout, prelude,
+                                      skip, dtype, DEVICE, k)
+    y, s, q = conv_bn_act(parts, wt, b, preludes=pre, skip=sk, stats=True)
+    torch.cuda.synchronize()
+    ry = conv_bn_act_reference(parts, wt, b, preludes=pre, skip=sk)
+    atol, rtol = tolerance(dtype)
+    yr, yk = ry.float(), y.float()
+    err = (yk - yr).abs()
+    ok_y = bool((err <= atol + rtol * yr.abs()).all())
+    # the statistics against f64 sums of the kernel's own output, per
+    # channel, relative to sum|y| and sum y^2
+    yd = y.double()
+    abs_s, sum_q = yd.abs().sum(dim=(0, 1, 2)), (yd * yd).sum(dim=(0, 1, 2))
+    es = float(((s.double() - yd.sum(dim=(0, 1, 2))).abs()
+                / abs_s.clamp_min(1e-30)).max())
+    eq = float(((q.double() - sum_q).abs() / sum_q.clamp_min(1e-30)).max())
+    e = float(err.max())
+    e_plain = None
+    if no_stats:
+        y2 = conv_bn_act(parts, wt, b, preludes=pre, skip=sk).float()
+        torch.cuda.synchronize()
+        err2 = (y2 - yr).abs()
+        ok_y = ok_y and bool((err2 <= atol + rtol * yr.abs()).all())
+        e_plain = float(err2.max())
+        e = max(e, e_plain)
+    print(f"[kernel] {tag:<24} {str(dtype)[6:]:<8} B{bsz} pre={int(prelude)} "
+          f"skip={int(skip)} max_abs_err {float(err.max()):.3e} "
+          f"(max rel {float((err / yr.abs().clamp_min(1e-3)).max()):.3e}; "
+          f"atol {atol:g} rtol {rtol:g})"
+          + ("" if e_plain is None else
+             f", without statistics {e_plain:.3e}")
+          + f" stats rel err {es:.2e} {eq:.2e} (rtol {STATS_RTOL:g})",
+          flush=True)
+    check(ok_y, f"{tag} {dtype} output beyond tolerance")
+    check(es <= STATS_RTOL and eq <= STATS_RTOL, f"{tag} {dtype} statistics")
+    return e
+
+
+def phase_kernels():
+    from tpudepth_torch.ops.kernels.gub_conv import (
+        conv_bn_act,
+        conv_bn_act_reference,
+    )
+
     dev = torch.device("cuda")
     max_err = 0.0
     n_checks = 0
 
-    def check_case(tag, seed, bsz, h, w, cins, cout, prelude, skip, dtype,
-                   k=3):
+    def check_case(*args, **kwargs):
         nonlocal max_err, n_checks
-        parts, wt, b, pre, sk = make_case(seed, bsz, h, w, cins, cout,
-                                          prelude, skip, dtype, dev, k)
-        y, s, q = conv_bn_act(parts, wt, b, preludes=pre, skip=sk, stats=True)
-        torch.cuda.synchronize()
-        ry = conv_bn_act_reference(parts, wt, b, preludes=pre, skip=sk)
-        atol, rtol = tolerance(dtype)
-        yr, yk = ry.float(), y.float()
-        err = (yk - yr).abs()
-        ok_y = bool((err <= atol + rtol * yr.abs()).all())
-        # the statistics against f64 sums of the kernel's own output, per
-        # channel, relative to sum|y| and sum y^2
-        yd = y.double()
-        abs_s, sum_q = yd.abs().sum(dim=(0, 1, 2)), (yd * yd).sum(dim=(0, 1, 2))
-        es = float(((s.double() - yd.sum(dim=(0, 1, 2))).abs()
-                    / abs_s.clamp_min(1e-30)).max())
-        eq = float(((q.double() - sum_q).abs() / sum_q.clamp_min(1e-30)).max())
-        e = float(err.max())
-        max_err = max(max_err, e)
+        max_err = max(max_err, check_fwd_case(*args, **kwargs))
         n_checks += 1
-        print(f"[kernel] {tag:<24} {str(dtype)[6:]:<8} pre={int(prelude)} "
-              f"skip={int(skip)} max_abs_err {e:.3e} "
-              f"(max rel {float((err / yr.abs().clamp_min(1e-3)).max()):.3e}; "
-              f"atol {atol:g} rtol {rtol:g}) stats rel err {es:.2e} {eq:.2e} "
-              f"(rtol {STATS_RTOL:g})", flush=True)
-        check(ok_y, f"{tag} {dtype} output beyond tolerance")
-        check(es <= STATS_RTOL and eq <= STATS_RTOL,
-              f"{tag} {dtype} statistics")
 
     for i, (name, cins, cout, h, w, prelude) in enumerate(PATH_SHAPES):
         for dtype in (torch.float32, torch.bfloat16):
@@ -511,6 +552,102 @@ def _bwd_bounds(bsz, h, w, cins, cout, prelude, dx_parts, k=3):
     return bound(dw_bytes, dw_flops), bound(dx_bytes, dx_flops)
 
 
+def bwd_cotangents(seed, y, stats):
+    """``dy`` of unit scale in ``y``'s dtype and, with statistics, ``ds`` and
+    ``dq`` of scale 0.1 with the forward output ``y``."""
+    rng = np.random.default_rng(1000 + seed)
+    dy = torch.from_numpy(rng.standard_normal(tuple(y.shape))
+                          .astype(np.float32)).to(DEVICE, y.dtype)
+    if not stats:
+        return dy, {}
+    ds, dq = (torch.from_numpy((0.1 * rng.standard_normal(y.shape[-1]))
+                               .astype(np.float32)).to(DEVICE)
+              for _ in range(2))
+    return dy, {"y": y, "ds": ds, "dq": dq}
+
+
+def _close(got, want, atol, rtol):
+    d = (got.float() - want.float()).abs()
+    return bool((d <= atol + rtol * want.float().abs()).all()), float(d.max())
+
+
+def check_bwd_case(tag, seed, bsz, h, w, cins, cout, prelude, skip, stats,
+                   dtype, k=3):
+    """``gub_conv_dw`` and ``gub_conv_dx`` (every part) on one case against
+    their plain versions, each rerun bit-equal (tolerances: those of
+    :func:`phase_bwd_kernels`). Returns ``{"dw", "dw_rel", "dx",
+    "dx_sums_rel"}``: the largest errors, and the launches of dx."""
+    from tpudepth_torch.ops.kernels import gub_conv as gc
+
+    parts, wt, b, pre, sk = make_case(seed, bsz, h, w, cins, cout, prelude,
+                                      skip, dtype, DEVICE, k)
+    y = gc.conv_bn_act(parts, wt, b, preludes=pre, skip=sk)
+    dy, cot = bwd_cotangents(seed, y, stats)
+    n = bsz * h * w
+    g_rms = _rms(gc._cotangent(dy, cot.get("y"), cot.get("ds"),
+                               cot.get("dq")))
+    xa_rms = _rms(torch.cat(gc._activate(parts, pre, sk), dim=-1))
+
+    dw, db = gc.conv_bn_act_dw(parts, dy, wt, preludes=pre, skip=sk, **cot)
+    torch.cuda.synchronize()
+    rdw, rdb = gc.conv_bn_act_dw_reference(parts, dy, k, preludes=pre,
+                                           skip=sk, **cot)
+    ok_w, e_w = _close(dw, rdw, gc.sum_tolerance(n, xa_rms * g_rms),
+                       gc.SUM_RTOL)
+    ok_b, e_b = _close(db, rdb, gc.sum_tolerance(n, g_rms), gc.SUM_RTOL)
+    dw2, db2 = gc.conv_bn_act_dw(parts, dy, wt, preludes=pre, skip=sk, **cot)
+    same = torch.equal(dw, dw2) and torch.equal(db, db2)
+    err = {"dw": max(e_w, e_b),
+           "dw_rel": max(e_w / float(rdw.abs().max()),
+                         e_b / float(rdb.abs().max()))}
+    del rdw, rdb, dw2, db2
+
+    atol, rtol = gc.tolerance(dtype)
+    e_x = e_s = 0.0
+    ok_x = True
+    off = 0
+    for j, x in enumerate(parts):
+        kw = dict(prelude=pre[j] if prelude else None,
+                  want_skip=skip and j == 0, **cot)
+        got = gc.conv_bn_act_dx(x, wt, off, dy, **kw)
+        torch.cuda.synchronize()
+        cin = x.shape[-1]
+        want = gc.conv_bn_act_dx_reference(x, wt[:, :, off:off + cin],
+                                           dy, **kw)
+        again = gc.conv_bn_act_dx(x, wt, off, dy, **kw)
+        for name, g, r, g2 in zip(("dx", "dA", "dC", "dskip"), got, want,
+                                  again):
+            check((g is None) == (r is None), f"{tag} {name} presence")
+            if g is None:
+                continue
+            same = same and torch.equal(g, g2)
+            if name in ("dx", "dskip"):
+                ok, e = _close(g, r, atol, rtol)
+                e_x = max(e_x, e)
+            else:
+                # sums over H*W of dp (dC) and dp * x (dA), |dp| <= |dxa|
+                dxa_rms = _rms(want[3] if want[3] is not None
+                               else want[0] / pre[j][0][:, None, None, :])
+                term = dxa_rms * (_rms(x) if name == "dA" else 1.0)
+                ok, e = _close(g, r, gc.sum_tolerance(h * w, term),
+                               gc.SUM_RTOL)
+                e_s = max(e_s, e / float(r.abs().max()))
+            ok_x = ok_x and ok
+        off += cin
+        del got, want, again
+    err.update(dx=e_x, dx_sums_rel=e_s, dx_launches=len(parts))
+    print(f"[kernel] bwd {tag:<24} {str(dtype)[6:]:<8} B{bsz} "
+          f"pre={int(prelude)} skip={int(skip)} stats={int(stats)}: dw "
+          f"max_abs_err {e_w:.3e} db {e_b:.3e} (of max|dw| "
+          f"{float(dw.abs().max()):.3e}); dx max_abs_err {e_x:.3e} (atol "
+          f"{atol:g} rtol {rtol:g}); dA/dC max err / max {e_s:.2e}; "
+          f"repeat bit-equal {same}", flush=True)
+    check(ok_w and ok_b, f"{tag} {dtype} dw/db beyond tolerance")
+    check(ok_x, f"{tag} {dtype} dx/dskip/dA/dC beyond tolerance")
+    check(same, f"{tag} {dtype} backward kernels do not repeat")
+    return err
+
+
 def phase_bwd_kernels():
     """``gub_conv_dw`` and ``gub_conv_dx`` against their plain versions, then
     their times at the shapes of one batch-8 bf16 train step.
@@ -526,93 +663,12 @@ def phase_bwd_kernels():
     err = {"dw": 0.0, "dw_rel": 0.0, "dx": 0.0, "dx_sums_rel": 0.0}
     n_checks = {"dw": 0, "dx": 0}
 
-    def cotangents(seed, y, stats):
-        rng = np.random.default_rng(1000 + seed)
-        dy = torch.from_numpy(rng.standard_normal(tuple(y.shape))
-                              .astype(np.float32)).to(dev, y.dtype)
-        if not stats:
-            return dy, {}
-        ds, dq = (torch.from_numpy((0.1 * rng.standard_normal(y.shape[-1]))
-                                   .astype(np.float32)).to(dev)
-                  for _ in range(2))
-        return dy, {"y": y, "ds": ds, "dq": dq}
-
-    def close(got, want, atol, rtol):
-        d = (got.float() - want.float()).abs()
-        return bool((d <= atol + rtol * want.float().abs()).all()), float(d.max())
-
-    def check_case(tag, seed, bsz, h, w, cins, cout, prelude, skip, stats,
-                   dtype, k=3):
-        parts, wt, b, pre, sk = make_case(seed, bsz, h, w, cins, cout,
-                                          prelude, skip, dtype, dev, k)
-        y = gc.conv_bn_act(parts, wt, b, preludes=pre, skip=sk)
-        dy, cot = cotangents(seed, y, stats)
-        n = bsz * h * w
-        g_rms = _rms(gc._cotangent(dy, cot.get("y"), cot.get("ds"),
-                                   cot.get("dq")))
-        xa_rms = _rms(torch.cat(gc._activate(parts, pre, sk), dim=-1))
-
-        dw, db = gc.conv_bn_act_dw(parts, dy, wt, preludes=pre, skip=sk, **cot)
-        torch.cuda.synchronize()
-        rdw, rdb = gc.conv_bn_act_dw_reference(parts, dy, k, preludes=pre,
-                                               skip=sk, **cot)
-        ok_w, e_w = close(dw, rdw, gc.sum_tolerance(n, xa_rms * g_rms),
-                          gc.SUM_RTOL)
-        ok_b, e_b = close(db, rdb, gc.sum_tolerance(n, g_rms), gc.SUM_RTOL)
-        dw2, db2 = gc.conv_bn_act_dw(parts, dy, wt, preludes=pre, skip=sk,
-                                     **cot)
-        same = torch.equal(dw, dw2) and torch.equal(db, db2)
-        err["dw"] = max(err["dw"], e_w, e_b)
-        err["dw_rel"] = max(err["dw_rel"], e_w / float(rdw.abs().max()),
-                            e_b / float(rdb.abs().max()))
+    def check_case(*args, **kwargs):
+        e = check_bwd_case(*args, **kwargs)
+        for key in err:
+            err[key] = max(err[key], e[key])
         n_checks["dw"] += 1
-        del rdw, rdb, dw2, db2
-
-        atol, rtol = gc.tolerance(dtype)
-        e_x = e_s = 0.0
-        ok_x = True
-        off = 0
-        for j, x in enumerate(parts):
-            kw = dict(prelude=pre[j] if prelude else None,
-                      want_skip=skip and j == 0, **cot)
-            got = gc.conv_bn_act_dx(x, wt, off, dy, **kw)
-            torch.cuda.synchronize()
-            cin = x.shape[-1]
-            want = gc.conv_bn_act_dx_reference(x, wt[:, :, off:off + cin],
-                                               dy, **kw)
-            again = gc.conv_bn_act_dx(x, wt, off, dy, **kw)
-            for name, g, r, g2 in zip(("dx", "dA", "dC", "dskip"), got, want,
-                                      again):
-                check((g is None) == (r is None), f"{tag} {name} presence")
-                if g is None:
-                    continue
-                same = same and torch.equal(g, g2)
-                if name in ("dx", "dskip"):
-                    ok, e = close(g, r, atol, rtol)
-                    e_x = max(e_x, e)
-                else:
-                    # sums over H*W of dp (dC) and dp * x (dA), |dp| <= |dxa|
-                    dxa_rms = _rms(want[3] if want[3] is not None
-                                   else want[0] / pre[j][0][:, None, None, :])
-                    term = dxa_rms * (_rms(x) if name == "dA" else 1.0)
-                    ok, e = close(g, r, gc.sum_tolerance(h * w, term),
-                                  gc.SUM_RTOL)
-                    e_s = max(e_s, e / float(r.abs().max()))
-                ok_x = ok_x and ok
-            off += cin
-            n_checks["dx"] += 1
-            del got, want, again
-        err["dx"] = max(err["dx"], e_x)
-        err["dx_sums_rel"] = max(err["dx_sums_rel"], e_s)
-        print(f"[kernel] bwd {tag:<24} {str(dtype)[6:]:<8} B{bsz} "
-              f"pre={int(prelude)} skip={int(skip)} stats={int(stats)}: dw "
-              f"max_abs_err {e_w:.3e} db {e_b:.3e} (of max|dw| "
-              f"{float(dw.abs().max()):.3e}); dx max_abs_err {e_x:.3e} (atol "
-              f"{atol:g} rtol {rtol:g}); dA/dC max err / max {e_s:.2e}; "
-              f"repeat bit-equal {same}", flush=True)
-        check(ok_w and ok_b, f"{tag} {dtype} dw/db beyond tolerance")
-        check(ok_x, f"{tag} {dtype} dx/dskip/dA/dC beyond tolerance")
-        check(same, f"{tag} {dtype} backward kernels do not repeat")
+        n_checks["dx"] += e["dx_launches"]
 
     for i, (name, cins, cout, h, w, prelude) in enumerate(PATH_SHAPES):
         for dtype in (torch.float32, torch.bfloat16):
@@ -639,7 +695,7 @@ def phase_bwd_kernels():
         parts, wt, b, pre, _ = make_case(i, TRAIN_BATCH, h, w, cins, cout,
                                          prelude, False, dtype, dev)
         y = gc.conv_bn_act(parts, wt, b, preludes=pre)
-        dy, cot = cotangents(i, y, True)
+        dy, cot = bwd_cotangents(i, y, True)
         dx_parts = [] if cins == (3,) else list(range(len(cins)))
         offs = np.cumsum([0, *cins])
 
@@ -953,15 +1009,17 @@ def phase_serving():
 
 
 def profile_engine(eng, tag: str, runs: int = 5):
-    """Profile ``runs`` engine calls on a zero image."""
+    """Profile ``runs`` engine calls on a zero image; returns the busy ms a
+    call (:func:`profile_window`)."""
     example = torch.zeros(eng.input_shape, device="cuda")
-    profile_window(lambda: eng(example), tag, runs)
+    return profile_window(lambda: eng(example), tag, runs)
 
 
 def profile_window(fn, tag: str, runs: int):
     """Device busy share of ``runs`` calls of ``fn`` (kernel time summed by
     the profiler over the host-clock window) and the kernels that take
-    most."""
+    most. Returns the busy ms a call (None when the trace has no device
+    time)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -982,7 +1040,7 @@ def profile_window(fn, tag: str, runs: int):
     busy_us = sum(e.self_device_time_total for e in kernels)
     if busy_us == 0:
         print(f"[profile] {tag}: no device time in the trace (not measured)")
-        return
+        return None
     n_launch = sum(e.count for e in kernels)
     print(f"[profile] {tag}: device busy {busy_us / runs / 1e3:.3f} ms of "
           f"{wall_us / runs / 1e3:.3f} ms per call ({100 * busy_us / wall_us:.1f}%"
@@ -991,6 +1049,7 @@ def profile_window(fn, tag: str, runs: int):
         print(f"[profile] {tag}:   {e.self_device_time_total / runs / 1e3:8.3f} "
               f"ms/call  x{e.count // runs:<4} {e.key[:90]}")
     sys.stdout.flush()
+    return busy_us / runs / 1e3
 
 
 class SyntheticLoader:
@@ -1129,9 +1188,10 @@ def fit_checkpoint_restore(gub, train_loader, val_loader, tmp):
     return trainer, cfg, counts
 
 
-def one_f32_step(cfg, model, batch, recipe):
+def one_f32_step(cfg, model, batch, recipe, remat=False):
     """Loss and gradients of one f32 train step (augment off) of ``model``
-    (moved to the card) on ``batch``."""
+    (moved to the card) on ``batch``; ``remat``: the whole forward
+    rematerialized (``make_train_step(remat=True)``)."""
     from tpudepth_torch.train.trainer import (
         TrainState,
         make_optimizer,
@@ -1142,7 +1202,8 @@ def one_f32_step(cfg, model, batch, recipe):
     model = model.to(DEVICE, memory_format=torch.channels_last)
     state = TrainState(model, make_optimizer(cfg, model.parameters()))
     step = make_train_step(model, recipe, step_lr(1e-4, 15, 0.1, 3),
-                           compute_dtype=torch.float32, augment=False)
+                           compute_dtype=torch.float32, augment=False,
+                           remat=remat)
     loss = step(state, torch.as_tensor(batch["image"]).to(DEVICE),
                 torch.as_tensor(batch["depth"]).to(DEVICE))
     torch.cuda.synchronize()
@@ -1313,6 +1374,440 @@ def phase_training_fused(tmp, plain_trainer, cfg, loaders):
                    "train step plain", 2)
     profile_window(lambda: trainer.train_step(batch), "train step fused", 2)
     return out, trainer
+
+
+# (name, input channels per part, Cout, H, W, prelude): the k=3 GUB convs of
+# GuideDepth's packed stages at 480x640 (``build_model(packed=True)``), in
+# the order a forward runs them: up_2 folded (2,2) to 128 channels and up_3
+# folded (4,4) to 256, both on a 120x160 grid; the RGB guide folded to 12
+# and 48 channels; the comb conv's two parts re-indexed into its weight.
+# up_1 stays unpacked (PATH_SHAPES).
+PACKED_SHAPES = [
+    ("up_2.feature_conv_a", (128,), 128, 120, 160, False),
+    ("up_2.guide_conv_a", (12,), 128, 120, 160, False),
+    ("up_2.comb_conv_a", (64, 64), 128, 120, 160, True),
+    ("up_3.feature_conv_a", (256,), 256, 120, 160, False),
+    ("up_3.guide_conv_a", (48,), 256, 120, 160, False),
+    ("up_3.comb_conv_a", (128, 128), 256, 120, 160, True),
+]
+# sub-pixel copies a packed channel stands for: a dense packed conv does
+# this many times the unpacked conv's multiply-adds, the rest on zeros
+PACKED_FOLD = {"up_2": 4, "up_3": 16}
+PACKED_BLOCKS = [None, (2, 2), (4, 4)]
+# serving timings of the packed phase: (bs, timed runs, warm-up runs)
+PACKED_SERVE_RUNS = {1: (10, 2), 8: (5, 1)}
+PACKED_TRAIN_STEPS = 3
+
+
+def packed_kernel_checks():
+    """The three GUB kernels against their plain versions at every
+    ``PACKED_SHAPES`` row, B 1 and B 8, f32 and bf16: ``gub_conv_fwd``
+    with and without statistics (:func:`check_fwd_case`), ``gub_conv_dw``
+    and ``gub_conv_dx`` with the statistics' cotangents, every part
+    (:func:`check_bwd_case`), with [kernel]'s and [bwd]'s tolerances."""
+    err = {"fwd": 0.0, "dw": 0.0, "dw_rel": 0.0, "dx": 0.0,
+           "dx_sums_rel": 0.0}
+    checks = {"fwd": 0, "dw": 0, "dx": 0}
+    for i, (name, cins, cout, h, w, prelude) in enumerate(PACKED_SHAPES):
+        for bsz in (1, TRAIN_BATCH):
+            for dtype in (torch.float32, torch.bfloat16):
+                err["fwd"] = max(err["fwd"], check_fwd_case(
+                    f"packed {name}", 700 + i, bsz, h, w, cins, cout,
+                    prelude, False, dtype, no_stats=True))
+                e = check_bwd_case(f"packed {name}", 720 + i, bsz, h, w, cins,
+                                   cout, prelude, False, True, dtype)
+                for key in ("dw", "dw_rel", "dx", "dx_sums_rel"):
+                    err[key] = max(err[key], e[key])
+                checks["fwd"] += 1
+                checks["dw"] += 1
+                checks["dx"] += e["dx_launches"]
+                torch.cuda.empty_cache()
+    return err, checks
+
+
+def packed_kernel_times(rows, bwd_rows):
+    """Device times of the three GUB kernels at ``PACKED_SHAPES`` as a
+    packed B 8 bf16 train step launches them (statistics on; ``gub_conv_dx``
+    for the depth feature and the comb conv's parts), beside cuDNN on the
+    same packed tensors (``F.conv2d`` + ``batch_norm_stats``;
+    ``convolution_backward``), the bound of the dense packed conv and the
+    bound of its non-zero products (1/``PACKED_FOLD`` of them), and the
+    unpacked conv's kernel times of [kernel time] (``rows``, ``bwd_rows``)."""
+    from tpudepth_torch.ops.kernels import gub_conv as gc
+
+    dtype = torch.bfloat16
+    unpacked = {r["name"]: r for r in rows}
+    unpacked_bwd = {r["name"]: r for r in bwd_rows}
+    conv_bwd = torch.ops.aten.convolution_backward
+    out = []
+    for i, (name, cins, cout, h, w, prelude) in enumerate(PACKED_SHAPES):
+        fold = PACKED_FOLD[name[:4]]
+        parts, wt, b, pre, _ = make_case(740 + i, TRAIN_BATCH, h, w, cins,
+                                         cout, prelude, False, dtype, DEVICE)
+        x_lib = torch.cat(gc._activate(parts, pre, None), dim=-1).permute(
+            0, 3, 1, 2)
+        w_lib = wt.to(dtype).permute(3, 2, 0, 1).contiguous(
+            memory_format=torch.channels_last)
+        b_lib = b.to(dtype)
+        y = gc.conv_bn_act(parts, wt, b, preludes=pre)
+        dy, cot = bwd_cotangents(i, y, True)
+        g_lib = dy.permute(0, 3, 1, 2)
+        dx_parts = [] if "guide" in name else list(range(len(cins)))
+        offs = np.cumsum([0, *cins])
+
+        def run_dx():
+            for j in dx_parts:
+                gc.conv_bn_act_dx(parts[j], wt, int(offs[j]), dy,
+                                  prelude=pre[j] if prelude else None, **cot)
+
+        def lib_bwd(mask):
+            return conv_bwd(g_lib, x_lib, w_lib, [cout], [1, 1], [1, 1],
+                            [1, 1], False, [0, 0], 1, mask)
+
+        fwd_b, fwd_bytes, fwd_ops = _bound_ms(TRAIN_BATCH, h, w, cins, cout,
+                                              prelude)
+        (dw_b, dw_bytes, dw_ops), (dx_b, dx_bytes, dx_ops) = _bwd_bounds(
+            TRAIN_BATCH, h, w, cins, cout, prelude, dx_parts)
+        r = {"name": name, "cins": list(cins), "cout": cout, "hw": [h, w],
+             "fold": fold, "dx_launches": len(dx_parts),
+             "fwd_ms": time_ms(lambda: gc.conv_bn_act(
+                 parts, wt, b, preludes=pre, stats=True), 2, 5),
+             "fwd_library_ms": time_ms(lambda: torch.batch_norm_stats(
+                 F.conv2d(x_lib, w_lib, b_lib, padding=1), 1e-5), 2, 5),
+             "fwd_bound_ms": fwd_b,
+             "fwd_needed_bound_ms": max(fwd_bytes, fwd_ops / fold),
+             "fwd_bound_by": "bytes" if fwd_bytes >= fwd_ops else "operations",
+             "dw_ms": time_ms(lambda: gc.conv_bn_act_dw(
+                 parts, dy, wt, preludes=pre, **cot), 2, 5),
+             "dw_library_ms": time_ms(lambda: lib_bwd([False, True, True]),
+                                      2, 5),
+             "dw_bound_ms": dw_b,
+             "dw_needed_bound_ms": max(dw_bytes, dw_ops / fold),
+             "dx_ms": time_ms(run_dx, 2, 5) if dx_parts else 0.0,
+             "dx_library_ms": (time_ms(lambda: lib_bwd([True, False, False]),
+                                       2, 5) if dx_parts else 0.0),
+             "dx_bound_ms": dx_b if dx_parts else 0.0,
+             "dx_needed_bound_ms": (max(dx_bytes, dx_ops / fold)
+                                    if dx_parts else 0.0),
+             "unpacked_fwd_ms": unpacked[name]["b8_ms"],
+             "unpacked_dw_ms": unpacked_bwd[name]["dw_ms"],
+             "unpacked_dx_ms": unpacked_bwd[name]["dx_ms"]}
+        out.append(r)
+        print(f"[packed kernel time] {name:<20} "
+              f"{'+'.join(map(str, cins))}->{cout} @{h}x{w} fold {fold} "
+              f"B{TRAIN_BATCH} bf16 stats: gub_conv_fwd {r['fwd_ms']:.4f} ms "
+              f"(cuDNN F.conv2d + batch_norm_stats {r['fwd_library_ms']:.4f}; "
+              f"bound {fwd_b:.4f} dense {r['fwd_bound_by']}, "
+              f"{r['fwd_needed_bound_ms']:.4f} non-zero; unpacked conv "
+              f"{r['unpacked_fwd_ms']:.4f}); gub_conv_dw {r['dw_ms']:.4f} "
+              f"(cuDNN {r['dw_library_ms']:.4f}, bound {dw_b:.4f} / "
+              f"{r['dw_needed_bound_ms']:.4f}, unpacked "
+              f"{r['unpacked_dw_ms']:.4f}); gub_conv_dx x{len(dx_parts)} "
+              f"{r['dx_ms']:.4f} (cuDNN {r['dx_library_ms']:.4f}, bound "
+              f"{r['dx_bound_ms']:.4f} / {r['dx_needed_bound_ms']:.4f}, "
+              f"unpacked {r['unpacked_dx_ms']:.4f})", flush=True)
+        del parts, x_lib, y, dy, cot, g_lib
+        torch.cuda.empty_cache()
+    for which in ("fwd", "dw", "dx"):
+        ms, lib, unp = (sum(r[k] for r in out) for k in (
+            f"{which}_ms", f"{which}_library_ms", f"unpacked_{which}_ms"))
+        print(f"[packed kernel time] gub_conv_{which} total, the packed "
+              f"stages of one B{TRAIN_BATCH} bf16 train step: {ms:.4f} ms, "
+              f"cuDNN {lib:.4f} ms, the same convs unpacked {unp:.4f} ms",
+              flush=True)
+    return out
+
+
+def packed_serving(tmp):
+    """GuideDepth with ``packed=True``, GUB stages plain and fused, served
+    through ``InferenceEngine`` (bf16, flip-TTA): 4 requests each with the
+    kernels counted over exactly them (``gub_conv_fwd`` 9 a forward fused,
+    0 plain); the raw bf16 and f32 outputs against the f32 unpacked plain
+    model; ms/frame, img/s and busy ms a call at bs 1 and 8 beside the
+    unpacked models of the same run; one fused call under
+    ``utils.profiling.trace``."""
+    from tpudepth_torch.infer.engine import InferenceEngine
+    from tpudepth_torch.models.layers import init_random_
+    from tpudepth_torch.models.registry import build_model
+    from tpudepth_torch.utils.profiling import trace
+
+    base = init_random_(build_model("GuideDepth"), seed=0).state_dict()
+    models = {}
+    for packed in (False, True):
+        for gub in ("plain", "fused"):
+            m = build_model("GuideDepth", gub=gub, packed=packed)
+            m.load_state_dict(base)
+            models[("packed " if packed else "") + gub] = m
+    blocks = models["packed fused"].stage_blocks(*TRAIN_HW)
+    check(blocks == PACKED_BLOCKS, f"stage blocks {blocks}")
+    shape = (1, 3, *TRAIN_HW)
+    images = [np.random.default_rng(800 + i).random(shape, dtype=np.float32)
+              for i in range(4)]
+
+    def answers(name, dtype):
+        eng = InferenceEngine(models[name], shape, compute_dtype=dtype,
+                              flip_tta=True)
+        eng(images[0])
+        outs, _, counts = run_counted(lambda: [eng(img).float()
+                                               for img in images])
+        return torch.cat(outs), counts
+
+    out = {"blocks": blocks, "launches_per_forward": {}, "errors": {},
+           "launches": 0}
+    ref, _ = answers("plain", torch.float32)
+    check(float(ref.std()) > 1e-2, "reference output is constant")
+    for gub, per_forward in (("fused", FUSED_FWD_PER_PASS), ("plain", 0)):
+        got, counts = answers(f"packed {gub}", torch.bfloat16)
+        n = counts.get("gub_conv_fwd", 0)
+        out["launches_per_forward"][gub] = n / (2 * len(images))
+        if gub == "fused":
+            out["launches"] = n
+        check(n == per_forward * 2 * len(images) and set(counts) <= {
+            "gub_conv_fwd"}, f"packed {gub}: {counts} over {len(images)} "
+              f"flip-TTA requests, expected {per_forward} gub_conv_fwd a "
+              "forward")
+        got32, _ = answers(f"packed {gub}", torch.float32)
+        for tag, g in ((f"bf16 packed {gub}", got), (f"f32 packed {gub}",
+                                                     got32)):
+            rel_l2 = float((g - ref).norm() / ref.norm())
+            rel_max = float((g - ref).abs().max() / ref.abs().max())
+            out["errors"][tag] = (rel_l2, rel_max)
+            print(f"[packed serve] raw output, {tag} vs f32 unpacked plain "
+                  f"(flip-TTA, 4 images): rel L2 {rel_l2:.3e}, max abs / "
+                  f"max|ref| {rel_max:.3e}; gub_conv_fwd launches "
+                  f"{n} over 4 bf16 requests", flush=True)
+        l2, mx = out["errors"][f"bf16 packed {gub}"]
+        check(l2 <= SERVE_BF16_REL_L2 and mx <= SERVE_BF16_REL_MAX,
+              f"bf16 packed {gub} vs f32 unpacked plain: {l2:.3e} / {mx:.3e}")
+        check(out["errors"][f"f32 packed {gub}"][0] <= SERVE_F32_REL_MAX,
+              f"f32 packed {gub} vs f32 unpacked plain beyond "
+              f"{SERVE_F32_REL_MAX}")
+
+    # ms/batch in turns (unpacked and packed, plain and fused, then the
+    # reverse order: the host's load drifts), then a profile of each
+    out["perf"] = {}
+    names = ("plain", "packed plain", "fused", "packed fused")
+    for bs, (runs, warm) in PACKED_SERVE_RUNS.items():
+        engines = {name: InferenceEngine(models[name], (bs, 3, *TRAIN_HW),
+                                         compute_dtype=torch.bfloat16,
+                                         flip_tta=True) for name in names}
+        turns = {name: [] for name in names}
+        peak = {}
+        for name in names + names[::-1]:
+            torch.cuda.reset_peak_memory_stats()
+            turns[name].append(1e3 * engines[name].benchmark(
+                runs, warm)["seconds_per_frame"])
+            peak[name] = torch.cuda.max_memory_allocated() / 2**20
+        for name in names:
+            ms = statistics.mean(turns[name])
+            r = out["perf"][f"{name} bs{bs}"] = {
+                "ms_per_batch": ms, "turns_ms": turns[name],
+                "img_per_s": bs / ms * 1e3, "peak_mib": peak[name],
+                "busy_ms": profile_engine(engines[name],
+                                          f"packed phase {name} bs{bs}",
+                                          runs=1)}
+            print(f"[packed engine] GuideDepth 480x640 bf16 flip-TTA "
+                  f"{name:<12} bs{bs}: {ms:.3f} ms/batch (turns "
+                  f"{', '.join(f'{t:.3f}' for t in turns[name])}; {runs} "
+                  f"runs each), {r['img_per_s']:.1f} img/s, busy "
+                  f"{r['busy_ms']:.3f} ms a call, peak {peak[name]:.0f} MiB",
+                  flush=True)
+        del engines
+    eng = InferenceEngine(models["packed fused"], shape,
+                          compute_dtype=torch.bfloat16, flip_tta=True)
+    logdir = f"{tmp}/packed_trace"
+    with trace(logdir):
+        eng(images[0])
+        torch.cuda.synchronize()
+    files = [f for f in os.listdir(logdir) if f.endswith(".pt.trace.json")]
+    check(len(files) == 1 and os.path.getsize(f"{logdir}/{files[0]}") > 0,
+          f"utils.profiling.trace wrote {files}")
+    print(f"[packed] utils.profiling.trace around one packed fused call: "
+          f"{files[0]}, {os.path.getsize(f'{logdir}/{files[0]}')} bytes",
+          flush=True)
+    out["trace_bytes"] = os.path.getsize(f"{logdir}/{files[0]}")
+    return out
+
+
+def packed_training():
+    """Packed GuideDepth trained at B 8 bf16 through ``Trainer.train_step``
+    (alhashim, augment on): the kernels a step, plain and fused, and with
+    the GUB stages rematerialized; one f32 step packed against the unpacked
+    plain step ([train fused]'s tolerances); one f32 step with
+    ``remat_stages=True`` and one with ``remat=True`` against the same
+    model's plain step (loss and gradients within [train]'s f32
+    tolerances, running statistics equal); ms/step, img/s and peak memory,
+    packed and unpacked in turns, and with each rematerialization."""
+    from tpudepth_torch.core.config import TrainConfig
+    from tpudepth_torch.models.layers import init_random_
+    from tpudepth_torch.models.registry import build_model
+    from tpudepth_torch.train.trainer import LossRecipe, Trainer
+
+    loader = SyntheticLoader(3, seed=900, raw_depth=True)
+    base = init_random_(build_model("GuideDepth"), seed=1)
+    with torch.no_grad():
+        base.up_3.reduce.bias.fill_(OUTPUT_BIAS)
+    base = base.state_dict()
+    cfg = TrainConfig(model="GuideDepth", dataset="nyu_reduced",
+                      resolution="full", batch_size=TRAIN_BATCH,
+                      compute_dtype="bfloat16", seed=0)
+
+    def model_for(**options):
+        m = build_model("GuideDepth", **options)
+        m.load_state_dict(base)
+        return m
+
+    configs = {
+        "plain": ({}, False),
+        "fused": ({"gub": "fused"}, False),
+        "packed plain": ({"packed": True}, False),
+        "packed fused": ({"packed": True, "gub": "fused"}, False),
+        "packed fused remat_stages": ({"packed": True, "gub": "fused",
+                                       "remat_stages": True}, False),
+        "packed fused remat": ({"packed": True, "gub": "fused"}, True),
+    }
+    trainers = {}
+    for name, (options, remat) in configs.items():
+        tr = Trainer(dataclasses.replace(cfg, remat=remat),
+                     model=model_for(**options), device=DEVICE,
+                     train_loader=loader)
+        tr.init_state()
+        trainers[name] = tr
+    out = {"per_step": {}, "steps": {}}
+    want = {"packed plain": (0, 0, 0),
+            "packed fused": (FUSED_FWD_PER_PASS, FUSED_DW_PER_STEP,
+                             FUSED_DX_PER_STEP),
+            "packed fused remat_stages": (2 * FUSED_FWD_PER_PASS,
+                                          FUSED_DW_PER_STEP,
+                                          FUSED_DX_PER_STEP),
+            "packed fused remat": (2 * FUSED_FWD_PER_PASS, FUSED_DW_PER_STEP,
+                                   FUSED_DX_PER_STEP)}
+    for name, per_step in want.items():
+        tr = trainers[name]
+        losses, _, counts = run_counted(lambda: [
+            float(tr.train_step(b)) for b in loader.batches[:PACKED_TRAIN_STEPS]])
+        got = tuple(counts.get(k, 0) / PACKED_TRAIN_STEPS for k in (
+            "gub_conv_fwd", "gub_conv_dw", "gub_conv_dx"))
+        out["per_step"][name] = counts
+        print(f"[packed train] {name}: {PACKED_TRAIN_STEPS} steps B"
+              f"{TRAIN_BATCH} bf16, losses {[round(x, 4) for x in losses]}, "
+              f"launches {counts}", flush=True)
+        check(all(np.isfinite(losses)), f"{name}: losses {losses}")
+        check(got == per_step, f"{name}: (fwd, dw, dx) a step {got}, "
+              f"expected {per_step}")
+        check(counts.get("fused_loss_fwd") == PACKED_TRAIN_STEPS
+              and counts.get("fused_loss_bwd") == PACKED_TRAIN_STEPS,
+              f"{name}: loss kernels {counts}")
+
+    # one f32 step: packed against unpacked plain, and each
+    # rematerialization against the same model without it
+    batch = loader.batches[0]
+    recipe = LossRecipe(kind="alhashim", max_depth=MAX_DEPTH,
+                        depth_scale=MAX_DEPTH)
+    steps, stats = {}, {}
+    for name in ("plain", "packed plain", "packed fused", "packed fused again",
+                 "packed fused remat_stages", "packed fused remat"):
+        options, remat = configs[name.replace(" again", "")]
+        model = model_for(**options)
+        steps[name] = one_f32_step(cfg, model, batch, recipe, remat=remat)
+        stats[name] = {k: v.clone() for k, v in model.state_dict().items()
+                       if "running" in k}
+        del model
+    g_all = max(float(g.abs().max()) for g in steps["plain"][1].values())
+    for name in ("packed plain", "packed fused"):
+        out["steps"][name] = compare_steps(
+            f"{name} vs unpacked plain", steps[name], steps["plain"],
+            FUSED_STEP_LOSS_RTOL, FUSED_STEP_GRAD_REL,
+            FUSED_STEP_GRAD_FLOOR_REL * g_all)
+    # A rematerialized step computes what the plain step computes, but no
+    # two runs of the same f32 step are bit-equal: the forward kernel adds
+    # its BatchNorm sums in f64 atomics in no fixed order, and a sum off by
+    # its last bit flips a few ReLU gates as in [train fused] (and cuDNN's
+    # backward may sum in another order). So each rematerialized step is
+    # held to [train fused]'s tolerances, beside the same step run twice.
+    for name in ("packed fused again", "packed fused remat_stages",
+                 "packed fused remat"):
+        out["steps"][name] = compare_steps(
+            f"{name} vs packed fused", steps[name], steps["packed fused"],
+            FUSED_STEP_LOSS_RTOL, FUSED_STEP_GRAD_REL,
+            FUSED_STEP_GRAD_FLOOR_REL * g_all)
+    for name in ("packed fused remat_stages", "packed fused remat"):
+        # moved once: a second move would be off by a tenth of the first;
+        # each tensor's largest difference over its largest value
+        worst = max(float((v - stats["packed fused"][k]).abs().max()
+                          / stats["packed fused"][k].abs().max())
+                    for k, v in stats[name].items())
+        same = all(torch.equal(v, stats["packed fused"][k])
+                   for k, v in stats[name].items())
+        out["steps"][name] += (worst, same)
+        print(f"[packed train] {name}: running statistics after one f32 "
+              f"step against packed fused: largest rel diff {worst:.2e}, "
+              f"bit-equal {same}", flush=True)
+        check(worst <= STATS_RTOL, f"{name}: running statistics moved "
+              "otherwise than once")
+    del steps
+
+    # ms/step, img/s and peak memory in turns (warm, between CUDA events)
+    times = {name: [] for name in trainers}
+    mem = {}
+    order = list(trainers)
+    for name in order + order[::-1]:
+        tr = trainers[name]
+        tr.train_step(loader.batches[0])
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for i in range(PACKED_TRAIN_STEPS):
+            tr.train_step(loader.batches[i % 3])
+        end.record()
+        end.synchronize()
+        times[name].append(start.elapsed_time(end) / PACKED_TRAIN_STEPS)
+        mem[name] = torch.cuda.max_memory_allocated() / 2**20
+    out["perf"] = {}
+    for name in order:
+        ms = statistics.mean(times[name])
+        out["perf"][name] = {"step_ms": ms, "img_per_s": TRAIN_BATCH / ms * 1e3,
+                             "peak_mib": mem[name], "turns_ms": times[name]}
+        print(f"[packed train] {name:<26} GuideDepth 480x640 B{TRAIN_BATCH} "
+              f"bf16: {ms:.2f} ms/step ({', '.join(f'{t:.2f}' for t in times[name])}"
+              f"), {TRAIN_BATCH / ms * 1e3:.1f} img/s, peak memory "
+              f"{mem[name]:.0f} MiB", flush=True)
+    busy = {}
+    for name in ("plain", "packed plain", "fused", "packed fused"):
+        busy[name] = profile_window(
+            lambda: trainers[name].train_step(batch),
+            f"packed phase train step {name}", 1)
+    out["busy_ms"] = busy
+    return out
+
+
+def phase_packed(tmp, rows, bwd_rows):
+    """[packed]: GuideDepth's packed (space-to-depth) stages, the JAX
+    package's default: the GUB kernels at the packed widths against their
+    plain versions and timed, packed serving and packed training."""
+    t0 = time.perf_counter()
+    seconds = {}
+
+    def part(name, fn, *args):
+        t = time.perf_counter()
+        result = fn(*args)
+        torch.cuda.empty_cache()
+        seconds[name] = time.perf_counter() - t
+        return result
+
+    err, checks = part("checks", packed_kernel_checks)
+    out = {"errors": err, "checks": checks,
+           "kernel_times": part("kernel times", packed_kernel_times, rows,
+                                bwd_rows),
+           "serving": part("serving", packed_serving, tmp),
+           "training": part("training", packed_training),
+           "seconds": time.perf_counter() - t0, "part_seconds": seconds}
+    print(f"[packed] {out['seconds']:.1f} s: "
+          + ", ".join(f"{k} {v:.1f} s" for k, v in seconds.items()),
+          flush=True)
+    return out
 
 
 def phase_evaluation(tmp, trainer):
@@ -1826,11 +2321,17 @@ def _whole_block_phase(label, fns, tolerance, inputs, modes, seeds):
 
 
 def split_ms(fn, calls: int = 3):
-    """Device ms per call of each CUDA kernel ``fn`` launches, by name, from
-    a ``torch.profiler`` trace of ``calls`` calls: [(name, ms, count)]."""
+    """The CUDA kernels ``fn`` launches a call, counted from the kernel
+    nodes of a CUDA graph of one call (``utils.profiling.graph_kernels``,
+    which drops nothing), and the device ms a call of each, by name, from a
+    ``torch.profiler`` trace of ``calls`` calls (a trace can drop late
+    events: its counts are printed beside the graph's). Returns
+    ``{"cuda_kernels": n, "split": [(name, ms, count)]}``."""
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
+    from tpudepth_torch.utils.profiling import graph_kernels
+
+    n = graph_kernels(fn)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -1841,7 +2342,7 @@ def split_ms(fn, calls: int = 3):
            for e in prof.key_averages()
            if e.device_type == torch.autograd.DeviceType.CUDA
            and e.self_device_time_total > 0]
-    return sorted(out, key=lambda r: -r[1])
+    return {"cuda_kernels": n, "split": sorted(out, key=lambda r: -r[1])}
 
 
 def kernel_splits():
@@ -1883,7 +2384,11 @@ def kernel_splits():
             with torch.inference_mode():
                 split = split_ms(lambda: kern(**a, **kw))
             out[key][stage] = split
-            for kname, ms, count in split:
+            traced = sum(count for _, _, count in split["split"])
+            print(f"[{label} kernel split] {key} {stage} B{SAM_BATCH} bf16: "
+                  f"{split['cuda_kernels']} CUDA kernels a call (CUDA graph; "
+                  f"the profiler saw {traced})", flush=True)
+            for kname, ms, count in split["split"]:
                 print(f"[{label} kernel split] {key} {stage} B{SAM_BATCH} "
                       f"bf16: {ms:.4f} ms x{count} {kname[:100]}", flush=True)
             del a
@@ -2875,6 +3380,8 @@ def phase_zoo():
 EXPORT_CASES = [
     ("GuideDepth fused", "GuideDepth", {"gub": "fused"}, True,
      {"gub_conv_fwd": 9}),
+    ("GuideDepth fused packed", "GuideDepth",
+     {"gub": "fused", "packed": True}, True, {"gub_conv_fwd": 9}),
     ("sam fused", "sam", {"attn": "fused"}, False,
      {"window_attn_infer": 4, "block_epilogue_infer": 4}),
     ("sam pair", "sam", {"attn": "pair"}, False,
@@ -3495,6 +4002,9 @@ def main() -> int:
         evaluation, eval_launches = phase_evaluation(tmp, fused_trainer)
         del fused_trainer
         torch.cuda.empty_cache()
+        # GuideDepth's packed stages served and trained, each path's counts
+        # set to 0 just before it and read just after it (run_counted)
+        packed = phase_packed(tmp, rows, bwd_rows)
         # the main paths of this slice: SAM (4 blocks) and NewCRF (8 blocks)
         # training, each kernel's count set to 0 just before its fit
         attn_train = {name: train_attention_model(name, tmp, blocks)
@@ -3548,10 +4058,21 @@ def main() -> int:
         "launches_by_path": {
             "serving": launches,
             "fused_training": fused_train["launches"]["gub_conv_fwd"],
-            "evaluation": eval_launches},
-        "max_abs_err": max_err,
-        "max_err": max_err,
-        "checks": n_checks,
+            "evaluation": eval_launches,
+            "packed serving (fused, 4 bs-1 flip-TTA requests)":
+                packed["serving"]["launches"],
+            **{f"packed training {name} ({PACKED_TRAIN_STEPS} steps)":
+               counts["gub_conv_fwd"]
+               for name, counts in packed["training"]["per_step"].items()
+               if counts.get("gub_conv_fwd")}},
+        "launches_per_forward_packed":
+            packed["serving"]["launches_per_forward"],
+        "max_abs_err": max(max_err, packed["errors"]["fwd"]),
+        "max_err": max(max_err, packed["errors"]["fwd"]),
+        "checks": n_checks + packed["checks"]["fwd"],
+        "packed_shapes": [{k: v for k, v in r.items()
+                           if not k.startswith(("dw", "dx", "unpacked_d"))}
+                          for r in packed["kernel_times"]],
         "ok": True,
         "timed": "device time of one bs-1 480x640 bf16 forward: the nine "
                  "k=3 GUB convs summed, CUDA graph replays; train_step_ms "
@@ -3602,6 +4123,7 @@ def main() -> int:
         })
     kernels[2]["max_rel_err"] = loss_err["bwd_rel"]
     for which, line, fn in (("dw", 355, "_dw_call"), ("dx", 535, "_dx_call")):
+        rel = "dw_rel" if which == "dw" else "dx_sums_rel"
         kernels.append({
             "name": f"gub_conv_{which}",
             "route": "cuda",
@@ -3609,9 +4131,19 @@ def main() -> int:
             "replaces": f"tpudepth/ops/pallas/gub_conv.py:{line}",
             "replaces_function": f"tpudepth/ops/pallas/gub_conv.py::{fn}",
             "launches": fused_train["launches"][f"gub_conv_{which}"],
-            "max_abs_err": bwd_err[which],
-            "max_rel_err": bwd_err["dw_rel" if which == "dw" else "dx_sums_rel"],
-            "checks": bwd_checks[which],
+            "launches_by_path": {
+                f"packed training {name} ({PACKED_TRAIN_STEPS} steps)":
+                counts[f"gub_conv_{which}"]
+                for name, counts in packed["training"]["per_step"].items()
+                if counts.get(f"gub_conv_{which}")},
+            "max_abs_err": max(bwd_err[which], packed["errors"][which]),
+            "max_rel_err": max(bwd_err[rel], packed["errors"][rel]),
+            "checks": bwd_checks[which] + packed["checks"][which],
+            "packed_shapes": [
+                {k: v for k, v in r.items()
+                 if k in ("name", "cins", "cout", "hw", "fold", "dx_launches",
+                          f"unpacked_{which}_ms") or k.startswith(which)}
+                for r in packed["kernel_times"]],
             "ok": True,
             "timed": f"device time of the launches of one B{TRAIN_BATCH} "
                      f"{TRAIN_HW[0]}x{TRAIN_HW[1]} bf16 train step with "
@@ -3811,14 +4343,15 @@ def main() -> int:
     seconds = time.perf_counter() - t_start
     print(f"[time] {seconds:.1f} s in all; the data feed and the command "
           f"lines {t_feed:.1f} s; [zoo] {t_zoo:.1f} s; [engine export] and "
-          f"[op cost] {t_export:.1f} s", flush=True)
+          f"[op cost] {t_export:.1f} s; [packed] {packed['seconds']:.1f} s",
+          flush=True)
     print(json.dumps({"kernels": kernels, "serve_errors": errs,
                       "sam_serve_errors": sam_errs, "sam_engine": sam_perf,
                       "newcrf_serve_errors": crf_errs,
                       "newcrf_engine": crf_perf, "root_eval": root_eval,
                       "engine_img_per_s": perf, "training": train,
                       "fused_training": fused_train, "evaluation": evaluation,
-                      "attention_training": attn_train,
+                      "attention_training": attn_train, "packed": packed,
                       "kernel_splits": splits, "host_libs": host_libs,
                       "data_feed": data_feed, "cli": cli, "zoo": zoo,
                       "engine_export": export, "op_cost": op_cost,

@@ -72,9 +72,16 @@ CASES = [
                          ids=["f32", "bf16"])
 @pytest.mark.parametrize("case", CASES, ids=[str(i) for i in range(len(CASES))])
 def test_gub_conv_fwd_matches_plain(cuda, case, dtype):
+    _fwd_against_plain(case, dtype, cuda)
+
+
+def _fwd_against_plain(case, dtype, device):
+    """``gub_conv_fwd`` with statistics on ``case`` against its plain
+    version: one counted launch, the output within :func:`tolerance`, the
+    statistics as :func:`_check_statistics` holds them."""
     bsz, h, w, cins, cout, k, prelude, skip = case
     parts, wt, b, pre, sk = _case(0, bsz, h, w, cins, cout, k, prelude, skip,
-                                  dtype, cuda)
+                                  dtype, device)
     before = conv_bn_act.launches
     y, s, q = conv_bn_act(parts, wt, b, preludes=pre, skip=sk, stats=True)
     torch.cuda.synchronize()
@@ -347,6 +354,115 @@ def test_gub_conv_dx_bf16_on_the_tensor_cores(cuda, case):
 @pytest.mark.parametrize("case", TC_CASES, ids=TC_IDS)
 def test_gub_conv_dw_bf16_on_the_tensor_cores(cuda, case):
     _dw_against_plain(case, torch.bfloat16, cuda)
+
+
+# The k=3 GUB convs of GuideDepth's packed (space-to-depth) stages at
+# 480x640 (models/guidedepth.py, packed=True), on a quarter of their 120x160
+# grid, B 2, with statistics: up_2 folded (2,2) at 128 channels, up_3 (4,4)
+# at 256, the RGB guide at 12 and 48 channels, the comb conv's two parts
+PACKED_CASES = [(2, 60, 80, cins, cout, 3, prelude, False, True)
+                for cins, cout, prelude in (
+                    ((128,), 128, False), ((12,), 128, False),
+                    ((64, 64), 128, True), ((256,), 256, False),
+                    ((48,), 256, False), ((128, 128), 256, True))]
+PACKED_IDS = [f"up_{s}.{conv}" for s in (2, 3)
+              for conv in ("feature", "guide", "comb")]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", PACKED_CASES, ids=PACKED_IDS)
+def test_gub_conv_fwd_at_packed_widths(cuda, case, dtype):
+    _fwd_against_plain(case[:8], dtype, cuda)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", PACKED_CASES, ids=PACKED_IDS)
+def test_gub_conv_dw_at_packed_widths(cuda, case, dtype):
+    _dw_against_plain(case, dtype, cuda)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", PACKED_CASES, ids=PACKED_IDS)
+def test_gub_conv_dx_at_packed_widths(cuda, case, dtype):
+    _dx_against_plain(case, dtype, cuda)
+
+
+def test_gub_conv_dw_f32_sums_stay_short_at_the_full_packed_size(cuda):
+    """up_3's packed comb conv at its full 120x160 grid, B 8, f32: a 256 x
+    256 conv has 8 dw blocks a channel slab, each over 150 tiles; one chain
+    over all of a block's pixels drifted beyond the sum tolerance."""
+    _dw_against_plain((8, 120, 160, (128, 128), 256, 3, True, False, True),
+                      torch.float32, cuda)
+
+
+@pytest.mark.parametrize("gub,fwd", [("plain", 0), ("fused", 9)])
+def test_packed_guidedepth_on_the_card_matches_the_unpacked_model(cuda, gub,
+                                                                 fwd):
+    """GuideDepth at 1x3x96x128 f32, packed (up_2 (2,2), up_3 (4,4)) in
+    both GUB modes against the unpacked plain model on the card (summation
+    order only), and the ``gub_conv_fwd`` launches of a forward."""
+    from tpudepth_torch.models.layers import init_random_
+    from tpudepth_torch.models.registry import build_model
+
+    plain = init_random_(build_model("GuideDepth"), seed=0).to(cuda).eval()
+    model = build_model("GuideDepth", gub=gub, packed=True)
+    model.load_state_dict(plain.state_dict())
+    model.to(cuda).eval()
+    assert model.stage_blocks(96, 128) == [None, (2, 2), (4, 4)]
+    x = torch.rand(1, 3, 96, 128, generator=torch.Generator().manual_seed(1))
+    x = x.to(cuda).contiguous(memory_format=torch.channels_last)
+    with torch.no_grad():
+        want = plain(x)
+        before = conv_bn_act.launches
+        got = model(x)
+    torch.cuda.synchronize()
+    assert conv_bn_act.launches - before == fwd
+    assert float((got - want).norm() / want.norm()) < 1e-4
+
+
+def test_rematerialized_packed_fused_stages_launch_the_forward_twice(cuda):
+    """A train-mode forward and backward of packed fused GuideDepth-S with
+    ``remat_stages``: ``gub_conv_fwd`` runs once in the forward and once
+    more in the backward a conv, ``gub_conv_dw`` once a conv, ``gub_conv_dx``
+    once a part that needs a gradient (not the RGB guide); the gradients
+    and the running statistics equal the step without rematerialization
+    (the GUB kernels repeat bit for bit, cuDNN's backward may not: 1e-5 of
+    each gradient's largest, under a floor of 1e-5 of the largest of all,
+    since a conv bias in front of a BatchNorm has a gradient of 0 and holds
+    noise; a second move of the statistics would be off by a tenth of the
+    first)."""
+    from tpudepth_torch.models.layers import init_random_
+    from tpudepth_torch.models.registry import build_model
+
+    x = torch.rand(2, 3, 64, 96, generator=torch.Generator().manual_seed(2))
+    x = x.to(cuda).contiguous(memory_format=torch.channels_last)
+    runs = []
+    for remat in (False, True):
+        model = init_random_(build_model("GuideDepth-S", gub="fused",
+                                         packed=True, remat_stages=remat),
+                             seed=3).to(cuda).train()
+        counts = (conv_bn_act.launches, gc.conv_bn_act_dw.launches,
+                  gc.conv_bn_act_dx.launches)
+        model(x).square().mean().backward()
+        torch.cuda.synchronize()
+        runs.append(([conv_bn_act.launches - counts[0],
+                      gc.conv_bn_act_dw.launches - counts[1],
+                      gc.conv_bn_act_dx.launches - counts[2]],
+                     {n: p.grad for n, p in model.named_parameters()},
+                     {k: v for k, v in model.state_dict().items()
+                      if "running" in k}))
+    (c0, g0, s0), (c1, g1, s1) = runs
+    assert c0 == [9, 9, 9] and c1 == [18, 9, 9]
+    floor = 1e-5 * max(float(g.abs().max()) for g in g0.values())
+    for n, g in g1.items():
+        torch.testing.assert_close(
+            g, g0[n], rtol=1e-5,
+            atol=max(1e-5 * float(g0[n].abs().max()), floor), msg=n)
+    for k, v in s1.items():
+        torch.testing.assert_close(v, s0[k], rtol=1e-6, atol=1e-6, msg=k)
 
 
 def test_conv_bn_act_backward_on_the_card_matches_the_plain_backward(cuda):
@@ -1859,6 +1975,22 @@ def test_serving_op_gives_the_bits_of_its_direct_launch(cuda, name):
                  else (got, want))
     assert got.is_cuda and got.dtype == torch.bfloat16
     assert torch.equal(got, want)
+
+
+def test_deserialized_packed_guidedepth_engine_gives_the_live_bits(
+        cuda, tmp_path):
+    """Packed fused GuideDepth's bf16 flip-TTA engine at 1x3x64x96 (up_2
+    folded (2,2), up_3 (4,4)) serialized and deserialized on the card: the
+    same bits as the live engine, 9 ``gub_conv_fwd`` ops a forward; the
+    kernel refuses a part that is not contiguous NHWC, so the program must
+    lay the packed tensors out as the eager call does."""
+    from tpudepth_torch.models.layers import init_random_
+    from tpudepth_torch.models.registry import build_model
+
+    model = init_random_(build_model("GuideDepth", gub="fused", packed=True),
+                         seed=3)
+    assert round_trip(tmp_path, model, (64, 96), tta=True, meters=True,
+                      device=cuda) == {"gub_conv_fwd": 18}
 
 
 @pytest.mark.parametrize("name,mode,per_call", [

@@ -11,6 +11,8 @@ running statistics atol 1e-5; gradients of the parameters, the guide and the
 depth within 1e-5 of the GLOBAL gradient scale (the conv biases' gradients
 under train-mode BatchNorm are analytically zero, so both sides hold only
 rounding noise there and a per-tensor scale would compare noise to noise).
+The port's block also runs packed at the JAX run's block, against the JAX
+fused packed block, with the same tolerances.
 """
 
 import numpy as np
@@ -25,6 +27,7 @@ from tpudepth.ops.packed import depth_to_space, space_to_depth
 from tpudepth_torch.models.guidedepth import GuidedUpsamplingBlock
 from tpudepth_torch.models.jax_weights import _flatten, _gub
 from tpudepth_torch.models.layers import BatchNorm
+from tpudepth_torch.ops import packed as tp
 
 IN, EXPAND, OUT = 16, 16, 8
 BLOCK = (4, 4)
@@ -79,7 +82,8 @@ def _loss(xp, out):
 
 
 @pytest.fixture(scope="module")
-def setup():
+def inputs():
+    """The guide, the depth and the JAX block's variables."""
     rng = np.random.default_rng(0)
     guide = rng.random((2, 16, 24, 3), dtype=np.float32)
     depth = rng.random((2, 16, 24, IN), dtype=np.float32)
@@ -87,7 +91,41 @@ def setup():
     shapes = jax.eval_shape(
         lambda k, g, d: plain.init(k, g, d, train=False),
         jax.random.PRNGKey(0), jnp.asarray(guide), jnp.asarray(depth))
-    variables = _fill(shapes, 1)
+    return guide, depth, _fill(shapes, 1)
+
+
+def _port_run(inputs, block=None):
+    """The port's fused block in train mode on ``inputs``, unpacked or
+    packed with ``block``: output, state dict and gradients, NHWC."""
+    guide, depth, variables = inputs
+    port = GuidedUpsamplingBlock(IN, EXPAND, OUT, fused=True)
+    loaded = port.load_state_dict(
+        _gub_from_flax(variables["params"], variables["batch_stats"]),
+        strict=False)
+    assert not loaded.unexpected_keys and all(
+        k.endswith("num_batches_tracked") for k in loaded.missing_keys)
+    port.train()
+    g = torch.from_numpy(guide).permute(0, 3, 1, 2).requires_grad_(True)
+    d = torch.from_numpy(depth).permute(0, 3, 1, 2).requires_grad_(True)
+    if block is None:
+        out = port(g, d)
+    else:
+        out = tp.depth_to_space(port(tp.space_to_depth(g, block),
+                                     tp.space_to_depth(d, block), block),
+                                block)
+    _loss(torch, out).backward()
+    return {
+        "out": out.detach().permute(0, 2, 3, 1).numpy(),
+        "stats": port.state_dict(),
+        "grads": {**{n: p.grad for n, p in port.named_parameters()},
+                  "guide": g.grad.permute(0, 2, 3, 1),
+                  "depth": d.grad.permute(0, 2, 3, 1)},
+    }
+
+
+@pytest.fixture(scope="module")
+def setup(inputs):
+    guide, depth, variables = inputs
 
     def run(module, packed):
         def f(params, g, d):
@@ -111,57 +149,38 @@ def setup():
                       "depth": torch.from_numpy(np.array(grads[2]))},
         }
 
-    want = {"jax-plain": run(plain, 0),
+    want = {"jax-plain": run(JaxGUB(IN, EXPAND, OUT, fused=False), 0),
             "jax-fused-packed": run(JaxGUB(IN, EXPAND, OUT, fused=True), BLOCK)}
+    return want, _port_run(inputs)
 
-    port = GuidedUpsamplingBlock(IN, EXPAND, OUT, fused=True)
-    loaded = port.load_state_dict(
-        _gub_from_flax(variables["params"], variables["batch_stats"]),
-        strict=False)
-    assert not loaded.unexpected_keys and all(
-        k.endswith("num_batches_tracked") for k in loaded.missing_keys)
-    port.train()
-    g = torch.from_numpy(guide).permute(0, 3, 1, 2).requires_grad_(True)
-    d = torch.from_numpy(depth).permute(0, 3, 1, 2).requires_grad_(True)
-    out = port(g, d)
-    _loss(torch, out).backward()
-    got = {
-        "out": out.detach().permute(0, 2, 3, 1).numpy(),
-        "stats": port.state_dict(),
-        "grads": {**{n: p.grad for n, p in port.named_parameters()},
-                  "guide": g.grad.permute(0, 2, 3, 1),
-                  "depth": d.grad.permute(0, 2, 3, 1)},
-    }
-    return want, got
+
+@pytest.fixture(scope="module")
+def packed_port(inputs):
+    """The port's fused block run packed with the JAX run's ``BLOCK``."""
+    return _port_run(inputs, BLOCK)
 
 
 REFS = ["jax-plain", "jax-fused-packed"]
 
 
-@pytest.mark.parametrize("ref", REFS)
-def test_train_output_matches_jax(setup, ref):
-    want, got = setup
-    assert got["out"].shape == want[ref]["out"].shape == (2, 16, 24, OUT)
-    assert np.std(want[ref]["out"]) > 1e-2
-    np.testing.assert_allclose(got["out"], want[ref]["out"], atol=1e-4)
+def _check_output(want, got):
+    assert got["out"].shape == want["out"].shape == (2, 16, 24, OUT)
+    assert np.std(want["out"]) > 1e-2
+    np.testing.assert_allclose(got["out"], want["out"], atol=1e-4)
 
 
-@pytest.mark.parametrize("ref", REFS)
-def test_train_running_statistics_match_jax(setup, ref):
-    want, got = setup
+def _check_running_statistics(want, got):
     keys = [k for k in got["stats"]
             if k.endswith(("running_mean", "running_var"))]
     assert len(keys) == 12
     for k in keys:
         np.testing.assert_allclose(got["stats"][k].numpy(),
-                                   want[ref]["stats"][k].numpy(), atol=1e-5,
+                                   want["stats"][k].numpy(), atol=1e-5,
                                    err_msg=k)
 
 
-@pytest.mark.parametrize("ref", REFS)
-def test_train_gradients_match_jax(setup, ref):
-    want, got = setup
-    wg, gg = want[ref]["grads"], got["grads"]
+def _check_gradients(want, got):
+    wg, gg = want["grads"], got["grads"]
     assert set(wg) == set(gg)
     gscale = max(float(v.abs().max()) for v in wg.values())
     # not everything is noise: weights, guide and depth have real gradients
@@ -171,6 +190,38 @@ def test_train_gradients_match_jax(setup, ref):
         assert gg[k].shape == wg[k].shape, k
         d = float((gg[k] - wg[k]).abs().max()) / gscale
         assert d < 1e-5, (k, d)
+
+
+CHECKS = {"output": _check_output, "stats": _check_running_statistics,
+          "grads": _check_gradients}
+
+
+@pytest.mark.parametrize("ref", REFS)
+def test_train_output_matches_jax(setup, ref):
+    want, got = setup
+    _check_output(want[ref], got)
+
+
+@pytest.mark.parametrize("ref", REFS)
+def test_train_running_statistics_match_jax(setup, ref):
+    want, got = setup
+    _check_running_statistics(want[ref], got)
+
+
+@pytest.mark.parametrize("ref", REFS)
+def test_train_gradients_match_jax(setup, ref):
+    want, got = setup
+    _check_gradients(want[ref], got)
+
+
+@pytest.mark.parametrize("check", list(CHECKS))
+def test_packed_train_mode_matches_the_jax_fused_packed_block(
+        setup, packed_port, check):
+    """The port's fused block run packed at ``BLOCK`` (the packed weights,
+    the affines tiled, the statistics folded) against the JAX fused packed
+    block, with the same tolerances."""
+    want, _ = setup
+    CHECKS[check](want["jax-fused-packed"], packed_port)
 
 
 def test_train_affine_from_sums_and_from_the_tensor_agree_with_forward():

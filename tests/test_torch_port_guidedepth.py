@@ -1,14 +1,19 @@
 """Port GuideDepth (tpudepth_torch) against the JAX GuideDepth: the weight
-bridge, and the eval forward in the plain and the fused GUB configuration.
+bridge, and the eval forward in the plain and the fused GUB configuration,
+unpacked and packed (space-to-depth stages, the JAX package's default).
 
 The same JAX variables (the JAX model's parameter tree filled from a numpy
 seed, with BatchNorm statistics, scales and biases away from (0, 1) so every
 BN affine and prelude is non-trivial) feed both packages. The fused JAX path runs under
 ``TPUDEPTH_GUB=fused`` with its Pallas kernel in interpret mode on the CPU;
 the fused port path runs the plain version of its CUDA kernel on the CPU.
+Each JAX output is computed once for the module (:func:`jax_outputs`).
 Tolerance: rtol 1e-3, atol 1e-4 in f32 (what ``tests/test_models.py`` holds
 the JAX model to against the reference PyTorch model).
 """
+
+import contextlib
+import os
 
 import numpy as np
 import pytest
@@ -60,10 +65,55 @@ def variables():
             for seed, name in enumerate(["GuideDepth", "GuideDepth-S"])}
 
 
-def _port_model(name, gub, flax_vars):
-    model = build_model(name, gub=gub)
+def _port_model(name, gub, flax_vars, **options):
+    model = build_model(name, gub=gub, **options)
     model.load_state_dict(guidedepth_state_dict_from_flax(flax_vars))
     return model.eval()
+
+
+@contextlib.contextmanager
+def _gub_env(gub):
+    """``TPUDEPTH_GUB=fused`` (the JAX package's fused stages) for the block
+    when ``gub`` is ``'fused'``, unset otherwise."""
+    before = os.environ.pop("TPUDEPTH_GUB", None)
+    if gub == "fused":
+        os.environ["TPUDEPTH_GUB"] = "fused"
+    try:
+        yield
+    finally:
+        os.environ.pop("TPUDEPTH_GUB", None)
+        if before is not None:
+            os.environ["TPUDEPTH_GUB"] = before
+
+
+#: the input of every eval-forward comparison
+X = np.random.default_rng(7).standard_normal((1, *HW, 3)).astype(np.float32)
+
+
+@pytest.fixture(scope="module")
+def jax_outputs(variables):
+    """``get(name, gub, **options)``: the JAX default (packed) model's eval
+    output on :data:`X`, computed once a configuration."""
+    cache = {}
+
+    def get(name, gub, **options):
+        key = (name, gub, tuple(sorted(options.items())))
+        if key not in cache:
+            model = jax_build_model(name, **options)
+            with _gub_env(gub):
+                cache[key] = np.asarray(jax.jit(
+                    lambda v, x: model.apply(v, x, train=False))(
+                        variables[name], jnp.asarray(X)))
+        return cache[key]
+
+    return get
+
+
+def _port_forward(port):
+    with torch.no_grad():
+        got = port(torch.from_numpy(X).permute(0, 3, 1, 2).contiguous(
+            memory_format=torch.channels_last))
+    return got.permute(0, 2, 3, 1).numpy()
 
 
 @pytest.mark.parametrize("name", ["GuideDepth", "GuideDepth-S"])
@@ -104,25 +154,53 @@ def test_bridge_round_trip_through_convert_guidedepth(variables):
 @pytest.mark.parametrize("name,gub", [("GuideDepth", "plain"),
                                       ("GuideDepth", "fused"),
                                       ("GuideDepth-S", "fused")])
-def test_eval_forward_matches_jax(variables, monkeypatch, name, gub):
-    if gub == "fused":
-        monkeypatch.setenv("TPUDEPTH_GUB", "fused")
-    else:
-        monkeypatch.delenv("TPUDEPTH_GUB", raising=False)
-    flax_vars = variables[name]
-    x = np.random.default_rng(7).standard_normal((1, *HW, 3)).astype(np.float32)
-    model = jax_build_model(name)
-    want = np.asarray(jax.jit(lambda v, x: model.apply(v, x, train=False))(
-        flax_vars, jnp.asarray(x)))
-
-    port = _port_model(name, gub, flax_vars)
-    with torch.no_grad():
-        got = port(torch.from_numpy(x).permute(0, 3, 1, 2).contiguous(
-            memory_format=torch.channels_last))
-    got = got.permute(0, 2, 3, 1).numpy()
+def test_eval_forward_matches_jax(variables, jax_outputs, name, gub):
+    want = jax_outputs(name, gub)
+    got = _port_forward(_port_model(name, gub, variables[name]))
     assert got.shape == want.shape == (1, *HW, 1)
     assert np.std(want) > 1e-2  # the comparison is not of a constant
     np.testing.assert_allclose(got, want, rtol=1e-3, atol=1e-4)
+
+
+#: (name, the port's gub mode, the JAX run it is held against, JAX options):
+#: the packed port in both modes against the JAX default model (its plain
+#: and fused runs compute the same function), and GuideDepth-S with the
+#: override of 256-channel stages and a 192-channel guide
+PACKED_CASES = [
+    ("GuideDepth", "plain", "plain", {}),
+    ("GuideDepth", "fused", "fused", {}),
+    ("GuideDepth-S", "plain", "fused", {}),
+    ("GuideDepth-S", "fused", "fused", {}),
+    ("GuideDepth-S", "fused", "plain",
+     {"packed_blocks": ((2, 4), (4, 8), (8, 8))}),
+]
+
+
+@pytest.mark.parametrize("name,gub,jax_gub,options", PACKED_CASES,
+                         ids=["GuideDepth-plain", "GuideDepth-fused",
+                              "GuideDepth-S-plain", "GuideDepth-S-fused",
+                              "GuideDepth-S-fused-blocks"])
+def test_packed_eval_forward_matches_jax(variables, jax_outputs, name, gub,
+                                         jax_gub, options):
+    port = _port_model(name, gub, variables[name], packed=True, **options)
+    blocks = port.stage_blocks(*HW)
+    assert sum(b is not None for b in blocks) >= 2, blocks
+    want = jax_outputs(name, jax_gub, **options)
+    got = _port_forward(port)
+    assert got.shape == want.shape == (1, *HW, 1)
+    assert np.std(want) > 1e-2
+    np.testing.assert_allclose(got, want, rtol=1e-3, atol=1e-4)
+
+
+@pytest.mark.parametrize("name", ["GuideDepth", "GuideDepth-S"])
+def test_the_bridge_loads_into_a_packed_model(variables, name):
+    """Packing changes no parameter or buffer: the bridge's state dict loads
+    strictly into a packed fused model, key for key and shape for shape."""
+    sd = guidedepth_state_dict_from_flax(variables[name])
+    packed = build_model(name, gub="fused", packed=True)
+    packed.load_state_dict(sd)
+    assert {k: v.shape for k, v in packed.state_dict().items()} == {
+        k: v.shape for k, v in build_model(name).state_dict().items()}
 
 
 def test_fused_gub_runs_forward_and_backward_in_train_mode():

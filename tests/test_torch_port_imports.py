@@ -30,7 +30,10 @@ REQUIRED = ("tpudepth_torch.models.sam", "tpudepth_torch.models.newcrf",
             "tpudepth_torch.models.jax_weights", "tpudepth_torch.ops.kernels._op",
             "tpudepth_torch.ops.kernels.gub_conv",
             "tpudepth_torch.ops.kernels.mlp_infer",
-            "tpudepth_torch.infer.engine")
+            "tpudepth_torch.infer.engine",
+            # packed stages, rematerialization, debug and trace helpers
+            "tpudepth_torch.ops.packed", "tpudepth_torch.utils.debug",
+            "tpudepth_torch.utils.profiling")
 # (module, name): what those modules must define
 REQUIRED_NAMES = (("tpudepth_torch.eval.evaluator", "RootEvaluator"),
                   ("tpudepth_torch.data", "get_dataloader"),
@@ -41,7 +44,11 @@ REQUIRED_NAMES = (("tpudepth_torch.eval.evaluator", "RootEvaluator"),
                   ("tpudepth_torch.models.jax_weights",
                    "zoo_state_dict_from_flax"),
                   ("tpudepth_torch.infer.engine", "ExportedEngine"),
-                  ("tpudepth_torch.ops.kernels.gub_conv", "FWD_OP"))
+                  ("tpudepth_torch.ops.kernels.gub_conv", "FWD_OP"),
+                  ("tpudepth_torch.ops.packed", "upsample2x_pack"),
+                  ("tpudepth_torch.models.layers", "rematerialize"),
+                  ("tpudepth_torch.utils.debug", "checkify_nan_step"),
+                  ("tpudepth_torch.utils.profiling", "trace"))
 
 
 def _forbidden(name: str) -> bool:

@@ -288,7 +288,7 @@ def test_result_and_average_meter_match_the_jax_package():
 def test_train_config_keeps_the_jax_package_defaults():
     ours = {f.name: f.default for f in dataclasses.fields(TrainConfig)}
     theirs = {f.name: f.default for f in dataclasses.fields(JaxTrainConfig)}
-    dropped = {"num_data_shards", "remat", "remat_stages"}
+    dropped = {"num_data_shards"}
     assert set(theirs) - set(ours) == dropped
     assert {k: theirs[k] for k in ours} == ours
     cfg = TrainConfig(dataset="kitti", resolution="half")

@@ -78,9 +78,12 @@ class TrainConfig:
     """Training configuration.
 
     Defaults follow the GuideDepth trainer (``src/GuideDepth/main.py:72-87``:
-    bs 8, lr 1e-4, 20 epochs, StepLR(15, 0.1)). The JAX package's mesh and
-    rematerialization knobs (``num_data_shards``, ``remat``, ``remat_stages``)
-    are left out: the port trains on one device and stores every activation.
+    bs 8, lr 1e-4, 20 epochs, StepLR(15, 0.1)). The JAX package's mesh knob
+    (``num_data_shards``) is left out: the port trains on one device.
+    ``remat`` rematerializes the whole forward in the backward, and
+    ``remat_stages`` each GUB stage of the GuideDepth family
+    (``tpudepth/core/config.py:103-107``; ``models/layers.py::
+    rematerialize``).
     """
 
     model: str = "GuideDepth"
@@ -100,6 +103,10 @@ class TrainConfig:
     compute_dtype: str = "bfloat16"
     log_every: int = 5
     image_log_every: int = 300
+    remat: bool = False  # rematerialize the whole forward (memory lever)
+    # per-GUB-stage rematerialization (GuideDepth family): keep only the
+    # stage inputs for the backward, run each stage again there
+    remat_stages: bool = False
     # opt-in tripwire: a non-finite gradient norm turns the reported loss
     # into NaN, on the device and without a host sync
     check_grads: bool = False

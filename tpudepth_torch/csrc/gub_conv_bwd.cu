@@ -59,8 +59,10 @@
 //   K = 9 taps x Cout. The part's weights are flipped, transposed to
 //   [tap][ci][co], rounded and staged once per block (up to 72 KB of
 //   dynamic shared memory; Cout above 64 is walked in chunks of 64 that
-//   restage them). Four warps split the tile rows, two groups of four split
-//   N at 32-64 channels. The epilogue is the CUDA-core kernel's.
+//   restage them, each chunk's sums from 0 and the chunks' sums added in
+//   f32, so no chain is longer than a 64-channel conv's 36 k16 steps).
+//   Four warps split the tile rows, two groups of four split N at 32-64
+//   channels. The epilogue is the CUDA-core kernel's.
 // * gub_conv_dw_tc: M = (tap, ci), N = Cout, K = pixels, split over the
 //   blocks. Warp w of nine owns tap w for a chunk of up to 64 (ci, co)
 //   pairs and keeps its sums in registers over all the block's tiles;
@@ -85,7 +87,10 @@
 //   gridDim.x, ...; per tile it stages xa (with halo) and r(g) in shared
 //   memory. gridDim.x is chosen so that about kDwBlocks blocks run; each
 //   writes one partial dw. db comes from the blocks of the first channel
-//   chunk, summed while g is staged.
+//   chunk, summed while g is staged. Each tile's sums start from 0 and are
+//   added to the block's in f32: a wide conv has few blocks a channel
+//   slab (8 at 256 x 256 channels), and one chain over all their tiles
+//   (19,200 terms at B 8 on a 120x160 grid) drifted beyond the check.
 // * gub_conv_dx_kernel: the forward's layout with the roles swapped: one
 //   block per (image, 8x16 tile, slab of <= 32 INPUT channels), one pixel
 //   per thread, g staged 16 output channels at a time with its halo, the
@@ -223,7 +228,8 @@ gub_conv_dw_kernel(const DwParams p) {
   const int ci = tid / 8;  // this thread's input channel of the chunk
   const int cg = tid % 8;  // and its group of CPT output channels
 
-  float acc[K * K * CPT];
+  float acc[K * K * CPT];   // the block's sums: the tiles' sums added
+  float tacc[K * K * CPT];  // the tile's sums
 #pragma unroll
   for (int i = 0; i < K * K * CPT; ++i) acc[i] = 0.f;
   float dbv = 0.f;  // sum of g at channel co0 + tid % COS
@@ -259,6 +265,7 @@ gub_conv_dw_kernel(const DwParams p) {
     }
     // g of the tile for the slab; kThreads % COS == 0, so a thread meets one
     // channel only and keeps that channel's unrounded sum for db.
+    float tdb = 0.f;
     for (int idx = tid; idx < kThreads * COS; idx += kThreads) {
       const int pix = idx / COS;
       const int co = co0 + idx % COS;
@@ -269,13 +276,16 @@ gub_conv_dw_kernel(const DwParams p) {
         const long long e =
             (((long long)bi * p.H + oy) * p.W + ox) * p.cout + co;
         g = cot_at<T>(p.cot, e, co);
-        dbv += g;
+        tdb += g;
         g = round_io<T>(g);
       }
       gs[idx] = g;
     }
+    dbv = __fadd_rn(dbv, tdb);
     __syncthreads();
     if (ci < cc) {
+#pragma unroll
+      for (int i = 0; i < K * K * CPT; ++i) tacc[i] = 0.f;
       for (int py = 0; py < kTileH; ++py) {
         for (int px = 0; px < kTileW; ++px) {
           float gv[CPT];
@@ -290,13 +300,15 @@ gub_conv_dw_kernel(const DwParams p) {
               const float xv = xs[ci * NPIX + (py + u) * TWP + px + v];
 #pragma unroll
               for (int c = 0; c < CPT; ++c) {
-                acc[(u * K + v) * CPT + c] =
-                    fmaf(xv, gv[c], acc[(u * K + v) * CPT + c]);
+                tacc[(u * K + v) * CPT + c] =
+                    fmaf(xv, gv[c], tacc[(u * K + v) * CPT + c]);
               }
             }
           }
         }
       }
+#pragma unroll
+      for (int i = 0; i < K * K * CPT; ++i) acc[i] = __fadd_rn(acc[i], tacc[i]);
     }
   }
 
@@ -714,7 +726,12 @@ gub_conv_dx_tc(const DxParams p) {
   }
   if (steps > 0) issue(0);
   cp_async_commit();
+  // acc: one K chunk's sums, 9 taps x KS k16 steps from 0 (the chain of a
+  // conv with up to 64 output channels); tot: the chunks' sums added in f32,
+  // rounded to nearest, so a wide conv's chain stays that short (144 steps
+  // in one chain at 256 output channels drifted beyond the check).
   float acc[2][NT][4];
+  float tot[2][NT][4];
   for (int s = 0; s < steps; ++s) {
     cp_async_wait_all();
     __syncthreads();  // this step's stage landed; the last step is done
@@ -747,14 +764,12 @@ gub_conv_dx_tc(const DxParams p) {
       store_vec<8>(gs + pix * GS + cg, g);
     }
     if (nkc > 1) stage_weights(kc);
-    if (kc == 0) {
 #pragma unroll
-      for (int m = 0; m < 2; ++m)
+    for (int m = 0; m < 2; ++m)
 #pragma unroll
-        for (int j = 0; j < NT; ++j)
+      for (int j = 0; j < NT; ++j)
 #pragma unroll
-          for (int e = 0; e < 4; ++e) acc[m][j][e] = 0.f;
-    }
+        for (int e = 0; e < 4; ++e) acc[m][j][e] = 0.f;
     __syncthreads();
 
     // dxa[pix, ci] += sum over taps and co of g[pix + tap, co] w~[tap, ci, co]
@@ -795,6 +810,15 @@ gub_conv_dx_tc(const DxParams p) {
           for (int j = 0; j < NT; ++j) mma(acc[m][j], a[m], b[j][0], b[j][1]);
       }
     }
+#pragma unroll
+    for (int m = 0; m < 2; ++m)
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          tot[m][j][e] =
+              kc == 0 ? acc[m][j][e] : __fadd_rn(tot[m][j][e], acc[m][j][e]);
+        }
     if (kc != nkc - 1) continue;
 
     // Epilogue, gub_conv_dx_kernel's arithmetic: dskip before the gate; the
@@ -824,8 +848,8 @@ gub_conv_dx_tc(const DxParams p) {
           const int ci = ci0 + n;
           if (n >= nci) continue;
           const bool two = n + 1 < nci;
-          float v0 = acc[m][j][2 * h];
-          float v1 = acc[m][j][2 * h + 1];
+          float v0 = tot[m][j][2 * h];
+          float v1 = tot[m][j][2 * h + 1];
           if (dskip != nullptr) {
             if (two && pairs) {
               *reinterpret_cast<__nv_bfloat162*>(dskip + e0 + ci) =

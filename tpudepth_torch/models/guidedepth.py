@@ -17,23 +17,44 @@ arithmetic:
   is f32 vector math on them (``BatchNorm.train_affine``), and the backward
   runs the ``gub_conv_dw`` and ``gub_conv_dx`` kernels. The k=1 convs take
   their prelude as plain tensor code, as the JAX package keeps them out of
-  Pallas. The JAX package fuses only its space-to-depth packed stages; the
-  port fuses all three stages unpacked, which is the same arithmetic.
+  Pallas.
+
+Either way a stage may run packed (``packed=True``): in space-to-depth
+layout (``ops/packed.py``), the upsampled depth made packed by
+``upsample2x_pack``, the RGB guide folded by ``space_to_depth``, every conv
+with the packed kernel gathered from its own weight and the output unfolded
+by ``depth_to_space`` (``tpudepth/models/guidedepth.py:216-293, 372-386``).
+The parameters are the same. Where the port differs: the JAX package fuses
+only packed stages (``if packed and self.fused``), the port's fused mode
+fuses every stage, an unpacked one (``up_1`` at GuideDepth's widths) too:
+the same arithmetic, rounded in other places in bf16. The JAX package
+packs by default; the port runs unpacked unless asked, until measurements
+on the card decide.
 """
 
 from __future__ import annotations
 
-from typing import List, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn as nn
 
 from tpudepth_torch.models.ddrnet import DualResNetBackbone
-from tpudepth_torch.models.layers import BatchNorm, Conv, Linear
+from tpudepth_torch.models.layers import BatchNorm, Conv, Linear, rematerialize
 from tpudepth_torch.ops.image import nhwc, resize_bilinear, resize_nearest
 from tpudepth_torch.ops.kernels.gub_conv import conv_bn_act
+from tpudepth_torch.ops.packed import (
+    block_total,
+    depth_to_space,
+    pack_conv_kernel,
+    packed_channel_mean,
+    space_to_depth,
+    tile_channel,
+    upsample2x_pack,
+)
 
 Affine = Tuple[torch.Tensor, torch.Tensor]
+Block = Optional[Tuple[int, int]]
 
 
 def _conv_bn_relu(cin: int, cout: int, k: int) -> List[nn.Module]:
@@ -59,9 +80,29 @@ def _activate(y: torch.Tensor, pre: Affine, skip=None) -> torch.Tensor:
     return z.to(y.dtype)
 
 
+def _run(layers: nn.Sequential, x: torch.Tensor, block: Block,
+         input_splits: Optional[Sequence[int]] = None) -> torch.Tensor:
+    """A branch's conv -> BN -> ReLU modules, packed with ``block``;
+    ``input_splits`` go to its first conv."""
+    for m in layers:
+        if isinstance(m, Conv):
+            x = m(x, block, input_splits)
+            input_splits = None
+        elif isinstance(m, BatchNorm):
+            x = m(x, block)
+        else:
+            x = m(x)
+    return x
+
+
 class SELayer(nn.Module):
     """Channel SE with a spatial-mean squeeze and bias-free linears
-    (``modules.py:5-25``); reduction 1 in the GUB."""
+    (``modules.py:5-25``); reduction 1 in the GUB.
+
+    Packed (``block``): the squeeze averages the packed copies back to the
+    original channels and the excitation is tiled back; ``splits``: the
+    input is a plain concat of packed parts with these original channel
+    counts, squeezed and scaled part by part (``guidedepth.py:78-147``)."""
 
     def __init__(self, channel: int, reduction: int):
         super().__init__()
@@ -73,15 +114,41 @@ class SELayer(nn.Module):
         """The excitation ``[B, C]`` (in (0, 1)) of the squeeze ``[B, C]``."""
         return self.fc(squeezed)
 
-    def forward(self, x):
-        return x * self.excite(x.mean(dim=(2, 3)))[:, :, None, None]
+    @staticmethod
+    def squeeze(x: torch.Tensor, block: Block = None,
+                splits: Optional[Sequence[int]] = None) -> torch.Tensor:
+        """Per-original-channel spatial means ``[B, C]``."""
+        if block is None:
+            return x.mean(dim=(2, 3))
+        if splits is None:
+            return packed_channel_mean(x, block)
+        parts = x.split([block_total(block) * c for c in splits], dim=1)
+        return torch.cat([packed_channel_mean(p, block) for p in parts], 1)
+
+    @staticmethod
+    def tile(e: torch.Tensor, block: Block = None,
+             splits: Optional[Sequence[int]] = None) -> torch.Tensor:
+        """A per-original-channel ``[B, C]`` laid out as the (packed) input's
+        channels."""
+        if block is None:
+            return e
+        if splits is None:
+            return tile_channel(e, block)
+        return torch.cat([tile_channel(p, block)
+                          for p in e.split(list(splits), dim=1)], 1)
+
+    def forward(self, x, block: Block = None, splits=None):
+        e = self.excite(self.squeeze(x, block, splits))
+        return x * self.tile(e, block, splits)[:, :, None, None]
 
 
 class GuidedUpsamplingBlock(nn.Module):
     """GUB (``modules.py:29-100``), guidance 'full', kernel size 3, RGB
     guide: feature branch and guide branch (conv3-BN-ReLU, conv1-BN-ReLU to
     expand//2 each) -> concat -> SE(reduction 1) -> comb conv back to
-    in_features -> +depth -> 1x1 reduce."""
+    in_features -> +depth -> 1x1 reduce. With ``block`` the guide, the depth
+    and the output are packed; the concat stays a plain channel concat of
+    the packed branches and the comb conv's weight is re-indexed for it."""
 
     def __init__(self, in_features: int, expand_features: int,
                  out_features: int, fused: bool = False):
@@ -96,68 +163,97 @@ class GuidedUpsamplingBlock(nn.Module):
         self.SE_block = SELayer(ef, reduction=1)
         self.reduce = Conv(in_features, out_features, 1, bias=True)
         self.fused = fused
+        self.splits = (ef // 2, ef // 2)
 
-    def forward(self, guide, depth):
+    def forward(self, guide, depth, block: Block = None):
         if self.fused:
-            return self._fused(guide, depth)
-        x = self.feature_conv(depth)
-        y = self.guide_conv(guide)
-        xy = self.SE_block(torch.cat([x, y], dim=1))
-        r = self.comb_conv(xy)
-        return self.reduce(r + depth)
+            return self._fused(guide, depth, block)
+        splits = None if block is None else self.splits
+        x = _run(self.feature_conv, depth, block)
+        y = _run(self.guide_conv, guide, block)
+        xy = self.SE_block(torch.cat([x, y], dim=1), block, splits)
+        r = _run(self.comb_conv, xy, block, splits)
+        return self.reduce(r + depth, block)
 
-    def _fused(self, guide, depth):
+    def _fused(self, guide, depth, block: Block):
         """Fused execution (``tpudepth/models/guidedepth.py:161-184,
         243-293``); the normalized inputs of the k=3 convs exist only inside
         the kernel. In train mode every BatchNorm affine comes from batch
         statistics: a k=3 conv's from the sums its kernel emits, a k=1
-        conv's reduced from its output."""
+        conv's reduced from its output. Packed, the kernels take the packed
+        weights and the affines tiled to the packed channels
+        (``_packed_prelude``, ``_se_prelude``, ``_norm_mean``)."""
         train = self.training
+        b2 = 1 if block is None else block_total(block)
+
+        def tile(v: torch.Tensor) -> torch.Tensor:
+            return v if block is None else tile_channel(v, block)
 
         def conv3(parts: Sequence[torch.Tensor], conv: Conv, bn: BatchNorm,
-                  preludes=None):
-            out = conv_bn_act([nhwc(p) for p in parts],
-                              conv.weight.permute(2, 3, 1, 0), conv.bias,
-                              preludes=preludes, stats=train)
+                  preludes=None, splits=None):
+            w, b = conv.weight, conv.bias
+            if block is not None:
+                w, b = pack_conv_kernel(w, block, splits)[0], tile(b)
+            out = conv_bn_act([nhwc(p) for p in parts], w.permute(2, 3, 1, 0),
+                              b, preludes=preludes, stats=train)
             if not train:
                 return _nchw(out), bn.eval_affine()
             y, s, q = out
-            n = float(y.shape[0] * y.shape[1] * y.shape[2])
-            return _nchw(y), bn.train_affine(sums=(s, q, n))
+            n = float(y.shape[0] * y.shape[1] * y.shape[2] * b2)
+            return _nchw(y), bn.train_affine(sums=(s, q, n), block=block)
 
         def conv1(x: torch.Tensor, conv: Conv, bn: BatchNorm):
-            y = conv(x)
-            return y, bn.train_affine(y) if train else bn.eval_affine()
+            y = conv(x, block)
+            return y, (bn.train_affine(y, block=block) if train
+                       else bn.eval_affine())
+
+        def act(y: torch.Tensor, pre: Affine, skip=None) -> torch.Tensor:
+            return _activate(y, (tile(pre[0]), tile(pre[1])), skip)
 
         fc, gc, cc = self.feature_conv, self.guide_conv, self.comb_conv
         y1, p1 = conv3([depth], fc[0], fc[1])
-        y2, p2 = conv1(_activate(y1, p1), fc[3], fc[4])
+        y2, p2 = conv1(act(y1, p1), fc[3], fc[4])
         g1, q1 = conv3([guide], gc[0], gc[1])
-        g2, q2 = conv1(_activate(g1, q1), gc[3], gc[4])
+        g2, q2 = conv1(act(g1, q1), gc[3], gc[4])
 
         # SE squeeze of the normalized branches, excitation folded into the
         # comb conv's preludes: relu(x*A + C) * e == relu(x*(A*e) + C*e)
         # because e = sigmoid(.) > 0.
-        mx = _activate(y2, p2).mean(dim=(2, 3))
-        mg = _activate(g2, q2).mean(dim=(2, 3))
-        exc = self.SE_block.excite(torch.cat([mx, mg], dim=1)).to(p2[0].dtype)
+        se = self.SE_block
+        mx = se.squeeze(act(y2, p2), block)
+        mg = se.squeeze(act(g2, q2), block)
+        exc = se.excite(torch.cat([mx, mg], dim=1)).to(p2[0].dtype)
         half = exc.shape[1] // 2
-        pre_x = tuple((t[None] * exc[:, :half]).contiguous() for t in p2)
-        pre_g = tuple((t[None] * exc[:, half:]).contiguous() for t in q2)
+        pre_x = tuple(tile(t[None] * exc[:, :half]).contiguous() for t in p2)
+        pre_g = tuple(tile(t[None] * exc[:, half:]).contiguous() for t in q2)
 
-        y5, p5 = conv3([y2, g2], cc[0], cc[1], preludes=(pre_x, pre_g))
-        y6, p6 = conv1(_activate(y5, p5), cc[3], cc[4])
-        return self.reduce(_activate(y6, p6, skip=depth))
+        y5, p5 = conv3([y2, g2], cc[0], cc[1], preludes=(pre_x, pre_g),
+                       splits=None if block is None else self.splits)
+        y6, p6 = conv1(act(y5, p5), cc[3], cc[4])
+        return self.reduce(act(y6, p6, skip=depth), block)
 
 
 class GuideDepth(nn.Module):
     """``GuideDepth.py:9-57``: ``up_features=(64,32,16)`` or ``(32,8,4)`` for
     GuideDepth-S (``loader.py:19``). Input ``[B,3,H,W]``, output
-    ``[B,1,H,W]``; the compute dtype is the input's."""
+    ``[B,1,H,W]``; the compute dtype is the input's.
+
+    ``packed``: a stage runs in space-to-depth layout with the block
+    :meth:`stage_blocks` chooses, by ``tpudepth/models/guidedepth.py:
+    372-386``'s rules (``packed_max_channels``, ``packed_block4_max_channels``
+    and the per-stage override ``packed_blocks``). The JAX package's default
+    is ``packed=True``; the port's is ``False``. ``remat_stages``: in train
+    mode each GUB stage is rematerialized (:func:`~tpudepth_torch.models.
+    layers.rematerialize`): only its inputs are kept for the backward, which
+    runs the stage again (the fused stages launch ``gub_conv_fwd`` twice)."""
 
     def __init__(self, up_features: Sequence[int] = (64, 32, 16),
                  inner_features: Sequence[int] = (64, 32, 16),
-                 fused_stages: bool = False):
+                 fused_stages: bool = False, packed: bool = False,
+                 packed_max_channels: int = 128,
+                 packed_block4_max_channels: int = 256,
+                 packed_blocks: Optional[Sequence[Optional[Sequence[int]]]]
+                 = None, remat_stages: bool = False):
         super().__init__()
         up, inner = list(up_features), list(inner_features)
         self.feature_extractor = DualResNetBackbone(features=up[0])
@@ -165,13 +261,58 @@ class GuideDepth(nn.Module):
         for i in range(3):
             setattr(self, f"up_{i + 1}", GuidedUpsamplingBlock(
                 up[i], inner[i], outs[i], fused=fused_stages))
+        self.inner_features = tuple(inner)
+        self.packed = packed
+        self.packed_max_channels = packed_max_channels
+        self.packed_block4_max_channels = packed_block4_max_channels
+        self.packed_blocks = (None if packed_blocks is None else tuple(
+            None if b is None else tuple(b) for b in packed_blocks))
+        self.remat_stages = remat_stages
+
+    def stage_blocks(self, h: int, w: int) -> List[Block]:
+        """The block of each stage for an ``h x w`` input (None: unpacked).
+        Stage i's guide is ``h/4``, ``h/2``, ``h`` high. An override packs
+        only where the guide divides by it; else ``(4, 4)`` where
+        ``16 * inner <= packed_block4_max_channels`` and the guide divides
+        by 4; else ``(2, 2)`` where ``4 * inner <= packed_max_channels``
+        and it divides by 2."""
+        blocks: List[Block] = []
+        guides = ((h // 4, w // 4), (h // 2, w // 2), (h, w))
+        for i, (gh, gw) in enumerate(guides):
+            blk = None
+            if self.packed:
+                inner = self.inner_features[i]
+                override = (self.packed_blocks[i]
+                            if self.packed_blocks is not None else None)
+                if override is not None:
+                    by, bx = override
+                    if gh % by == 0 and gw % bx == 0:
+                        blk = (by, bx)
+                elif (16 * inner <= self.packed_block4_max_channels
+                      and gh % 4 == 0 and gw % 4 == 0):
+                    blk = (4, 4)
+                elif (4 * inner <= self.packed_max_channels
+                      and gh % 2 == 0 and gw % 2 == 0):
+                    blk = (2, 2)
+            blocks.append(blk)
+        return blocks
 
     def forward(self, x):
         y = self.feature_extractor(x)
         h, w = x.shape[2:]
         x_half = resize_nearest(x, (h // 2, w // 2))
         x_quarter = resize_nearest(x, (h // 4, w // 4))
+        blocks = self.stage_blocks(h, w)
         for i, guide in enumerate((x_quarter, x_half, x)):
-            y = resize_bilinear(y, (y.shape[2] * 2, y.shape[3] * 2))
-            y = getattr(self, f"up_{i + 1}")(guide, y)
+            gub, blk = getattr(self, f"up_{i + 1}"), blocks[i]
+            if blk is not None:
+                y, guide = upsample2x_pack(y, blk), space_to_depth(guide, blk)
+            else:
+                y = resize_bilinear(y, (y.shape[2] * 2, y.shape[3] * 2))
+            if self.remat_stages and self.training:
+                y = rematerialize(gub, guide, y, blk)
+            else:
+                y = gub(guide, y, blk)
+            if blk is not None:
+                y = depth_to_space(y, blk)
         return y

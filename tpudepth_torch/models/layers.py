@@ -1,15 +1,23 @@
 """Building blocks: float32 parameters cast to the input's dtype at use.
 
-Counterpart of ``tpudepth/models/layers.py`` (unpacked only). A module's
-compute dtype is its input's dtype; parameters and BatchNorm statistics stay
-float32, as ``dtype=bf16, param_dtype=f32`` does in the JAX modules. BatchNorm
-uses torch momentum 0.1 and eps 1e-5 by default (DDRNet and GUB); MobileNetV3
+Counterpart of ``tpudepth/models/layers.py``. A module's compute dtype is
+its input's dtype; parameters and BatchNorm statistics stay float32, as
+``dtype=bf16, param_dtype=f32`` does in the JAX modules. BatchNorm uses
+torch momentum 0.1 and eps 1e-5 by default (DDRNet and GUB); MobileNetV3
 passes 0.01 and 1e-3.
+
+``Conv`` and ``BatchNorm`` also run in space-to-depth packed layout
+(``block=`` at call time, ``ops/packed.py``) with the same parameters and
+buffers, as ``Conv(packed=...)`` and ``BatchNorm(packed=...)`` do in JAX.
+:func:`rematerialize` is ``torch.utils.checkpoint`` with the BatchNorm
+running statistics moved once, by the forward and not by its recomputation.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import contextlib
+import threading
+from typing import Callable, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -18,6 +26,12 @@ import torch.nn.functional as F
 
 from tpudepth_torch.ops.kernels.mlp_infer import mlp_infer
 from tpudepth_torch.ops.kernels.mlp_train import mlp_train
+from tpudepth_torch.ops.packed import (
+    BlockSpec,
+    block_total,
+    pack_conv_kernel,
+    tile_channel,
+)
 
 BN_MOMENTUM = 0.1
 BN_EPS = 1e-5
@@ -51,12 +65,56 @@ def make_divisible(v: float, divisor: int = 8) -> int:
     return new_v
 
 
-class Conv(nn.Conv2d):
-    """``nn.Conv2d`` whose f32 weight and bias are cast to the input dtype."""
+_RECOMPUTE = threading.local()
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+
+@contextlib.contextmanager
+def _recomputing():
+    before = getattr(_RECOMPUTE, "on", False)
+    _RECOMPUTE.on = True
+    try:
+        yield
+    finally:
+        _RECOMPUTE.on = before
+
+
+def rematerialize(fn: Callable, *args):
+    """``fn(*args)`` under ``torch.utils.checkpoint`` (non-reentrant): only
+    the inputs are saved for the backward, which runs ``fn`` again. The
+    recomputation runs in a context in which :class:`BatchNorm` leaves its
+    running statistics alone, so a rematerialized train step moves them
+    once, as the plain step does (JAX returns the mutated ``batch_stats``
+    from its one forward; ``tpudepth/train/trainer.py:194-205``)."""
+    from torch.utils.checkpoint import checkpoint
+
+    return checkpoint(fn, *args, use_reentrant=False,
+                      context_fn=lambda: (contextlib.nullcontext(),
+                                          _recomputing()))
+
+
+class Conv(nn.Conv2d):
+    """``nn.Conv2d`` whose f32 weight and bias are cast to the input dtype.
+
+    With ``block`` the input and output are packed (``ops/packed.py``): the
+    conv runs with the packed kernel gathered from the same ``weight``
+    (stride 1, groups 1, padding ``k//2`` only), and ``input_splits`` says
+    the input is a plain concat of packed parts with these original channel
+    counts (``tpudepth/models/layers.py:65-170``)."""
+
+    def forward(self, x: torch.Tensor, block: Optional[BlockSpec] = None,
+                input_splits: Optional[Sequence[int]] = None) -> torch.Tensor:
         bias = None if self.bias is None else self.bias.to(x.dtype)
-        return self._conv_forward(x, self.weight.to(x.dtype), bias)
+        if block is None:
+            return self._conv_forward(x, self.weight.to(x.dtype), bias)
+        k = self.kernel_size[0]
+        if (self.stride != (1, 1) or self.groups != 1
+                or self.padding != ((k - 1) // 2,) * 2):
+            raise ValueError("a packed conv takes stride 1, groups 1 and "
+                             "padding k//2")
+        wp, pads = pack_conv_kernel(self.weight, block, input_splits)
+        if bias is not None:
+            bias = tile_channel(bias, block)
+        return F.conv2d(x, wp.to(x.dtype), bias, padding=pads)
 
 
 class ConvTranspose(nn.ConvTranspose2d):
@@ -103,7 +161,14 @@ class BatchNorm(nn.BatchNorm2d):
     In eval it applies the per-channel affine of :meth:`eval_affine`
     (``x * A + C``, the form the fused GUB kernels take as their prelude).
     :meth:`train_affine` gives the same form from batch statistics, for the
-    fused GUB stages in train mode."""
+    fused GUB stages in train mode.
+
+    With ``block`` the input is packed: the statistics reduce per ORIGINAL
+    channel over the ``by*bx`` packed copies, the running statistics keep
+    their ``[C]`` shapes and the affine is tiled to the packed channels
+    (``_PackedBatchNormInner``, ``tpudepth/models/layers.py:242-300``).
+    The running statistics do not move while :func:`rematerialize`
+    recomputes a forward."""
 
     def __init__(self, num_features: int, eps: float = BN_EPS,
                  momentum: float = BN_MOMENTUM):
@@ -116,6 +181,8 @@ class BatchNorm(nn.BatchNorm2d):
         return a, self.bias - self.running_mean * a
 
     def _move_running(self, mean: torch.Tensor, var: torch.Tensor):
+        if getattr(_RECOMPUTE, "on", False):
+            return
         with torch.no_grad():
             self.running_mean.mul_(1.0 - self.momentum).add_(
                 mean, alpha=self.momentum)
@@ -124,45 +191,65 @@ class BatchNorm(nn.BatchNorm2d):
 
     def train_affine(self, y: Optional[torch.Tensor] = None,
                      sums: Optional[Tuple[torch.Tensor, torch.Tensor, float]]
-                     = None) -> Tuple[torch.Tensor, torch.Tensor]:
+                     = None, block: Optional[BlockSpec] = None
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
         """``(A, C)`` with ``normalize(y) == y * A + C`` from BATCH
         statistics, and the running statistics moved towards them: the
         counterpart of ``_PackedBatchNormInner(stats_in=, as_vectors=True)``
-        (``tpudepth/models/layers.py:254-291``), unpacked.
+        (``tpudepth/models/layers.py:254-291``).
 
         The statistics come from ``sums = (sum, sum_sq, n)`` per channel (a
         fused conv kernel's epilogue) or are reduced from ``y`` ``[B,C,H,W]``
         itself: ``mean = s/n``, ``var = max(q/n - mean^2, 0)``, ``A =
-        rsqrt(var + eps) * weight``, ``C = bias - mean * A``. The vectors are
-        in the parameters' dtype and carry autograd through ``s`` and ``q``
-        (or ``y``): the BatchNorm chain rule is this tensor math's."""
+        rsqrt(var + eps) * weight``, ``C = bias - mean * A``. With ``block``,
+        ``y`` and the sums are per packed channel and fold to the original
+        channels (``n`` counts every pixel of an original channel); ``A``
+        and ``C`` stay ``[C]``. The vectors are in the parameters' dtype and
+        carry autograd through ``s`` and ``q`` (or ``y``): the BatchNorm
+        chain rule is this tensor math's."""
         if sums is not None:
             s, q, n = sums
+            if block is not None:
+                b2 = block_total(block)
+                s, q = s.reshape(b2, -1).sum(0), q.reshape(b2, -1).sum(0)
             mean, mean2 = s / n, q / n
         else:
-            yf = y.to(self.weight.dtype)
-            mean = yf.mean(dim=(0, 2, 3))
-            mean2 = (yf * yf).mean(dim=(0, 2, 3))
+            mean, mean2 = self._moments(y.to(self.weight.dtype), block)
         var = torch.clamp(mean2 - mean * mean, min=0.0)
         self._move_running(mean.detach(), var.detach())
         a = torch.rsqrt(var + self.eps) * self.weight
         return a, self.bias - mean * a
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    @staticmethod
+    def _moments(xf: torch.Tensor, block: Optional[BlockSpec]):
+        """``E[x]`` and ``E[x^2]`` per (original) channel."""
+        if block is not None:
+            b2 = block_total(block)
+            xf = xf.reshape(xf.shape[0], b2, xf.shape[1] // b2, *xf.shape[2:])
+            dims = (0, 1, 3, 4)
+        else:
+            dims = (0, 2, 3)
+        return xf.mean(dim=dims), (xf * xf).mean(dim=dims)
+
+    def forward(self, x: torch.Tensor,
+                block: Optional[BlockSpec] = None) -> torch.Tensor:
         dt = x.dtype
 
         def per_channel(v: torch.Tensor) -> torch.Tensor:
-            return v.to(dt)[None, :, None, None]
+            v = v.to(dt)
+            if block is not None:
+                v = tile_channel(v, block)
+            return v[None, :, None, None]
 
         if not self.training:
             a, c = self.eval_affine()
             return x * per_channel(a) + per_channel(c)
         xf = x if x.dtype == torch.float64 else x.float()
-        mean = xf.mean(dim=(0, 2, 3))
-        var = torch.clamp((xf * xf).mean(dim=(0, 2, 3)) - mean * mean, min=0.0)
+        mean, mean2 = self._moments(xf, block)
+        var = torch.clamp(mean2 - mean * mean, min=0.0)
         self._move_running(mean.detach(), var.detach())
         mul = torch.rsqrt(var.to(dt) + self.eps) * self.weight.to(dt)
-        return ((x - per_channel(mean)) * mul[None, :, None, None]
+        return ((x - per_channel(mean)) * per_channel(mul)
                 + per_channel(self.bias))
 
 

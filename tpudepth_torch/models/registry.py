@@ -74,8 +74,14 @@ def canonical_model_name(name: str, strict: bool = True) -> str:
     return canon
 
 
+#: the GuideDepth family's options of :func:`build_model`
+#: (``tpudepth/models/registry.py:66-75`` forwards them as ``**kwargs``)
+GUIDEDEPTH_OPTIONS = ("packed", "packed_blocks", "packed_max_channels",
+                      "packed_block4_max_channels", "remat_stages")
+
+
 def build_model(name: str, gub: str = "plain",
-                attn: Optional[str] = None) -> nn.Module:
+                attn: Optional[str] = None, **options) -> nn.Module:
     """``gub='fused'`` runs every GUB's k=3 convs of a GuideDepth model
     through the fused GUB conv kernels (``ops/kernels/gub_conv.py``:
     ``gub_conv_fwd`` in eval and train mode, ``gub_conv_dw`` and
@@ -86,15 +92,29 @@ def build_model(name: str, gub: str = "plain",
     ``'row'``, the default, ``'fused'``, ``'pair'``, ``'block'`` or
     ``'plain'``); None takes the model's
     default, and a mode the model lacks raises ``ValueError``. Each model has
-    one parameter tree whatever its modes. ``gub`` other than ``'plain'``
-    outside the GuideDepth family, ``attn`` outside the attention models and
-    an unknown name raise ``ValueError``."""
+    one parameter tree whatever its modes.
+
+    ``options`` (:data:`GUIDEDEPTH_OPTIONS`) go to the GuideDepth family's
+    :class:`~tpudepth_torch.models.guidedepth.GuideDepth`: ``packed``
+    (space-to-depth stages; False here, where the JAX package's default is
+    True), ``packed_blocks``, ``packed_max_channels``,
+    ``packed_block4_max_channels`` and ``remat_stages``. ``gub`` other than
+    ``'plain'`` or any option outside the GuideDepth family, ``attn``
+    outside the attention models and an unknown name raise ``ValueError``;
+    an unknown option raises ``TypeError``."""
     if gub not in GUB_MODES:
         raise ValueError(f"gub must be one of {GUB_MODES}, not {gub!r}")
+    unknown = sorted(set(options) - set(GUIDEDEPTH_OPTIONS))
+    if unknown:
+        raise TypeError(f"unknown build_model options {unknown}")
     canon = canonical_model_name(name)
-    if gub != "plain" and canon not in ("GuideDepth", "GuideDepth-S"):
+    guidedepth = canon in ("GuideDepth", "GuideDepth-S")
+    if gub != "plain" and not guidedepth:
         raise ValueError(f"gub={gub!r} is a mode of the GuideDepth family, "
                          f"not of {canon!r}")
+    if options and not guidedepth:
+        raise ValueError(f"{sorted(options)} are options of the GuideDepth "
+                         f"family, not of {canon!r}")
     if canon in _ATTN_MODELS:
         # the model's own default mode (the JAX package's eval default on its
         # chip) unless one is named; the blocks check it
@@ -107,6 +127,6 @@ def build_model(name: str, gub: str = "plain",
         return _ZOO[canon]()
     fused = gub == "fused"
     if canon == "GuideDepth":
-        return GuideDepth(fused_stages=fused)
+        return GuideDepth(fused_stages=fused, **options)
     return GuideDepth(up_features=(32, 8, 4), inner_features=(32, 8, 4),
-                      fused_stages=fused)
+                      fused_stages=fused, **options)

@@ -49,6 +49,7 @@ from tpudepth_torch.losses.losses import (
     silog_loss_variance,
     ssim,
 )
+from tpudepth_torch.models.layers import rematerialize
 from tpudepth_torch.ops.image import resize_bilinear
 from tpudepth_torch.ops.kernels.fused_loss import fused_depth_loss
 from tpudepth_torch.ops.kernels.fused_root_loss import fused_root_loss
@@ -167,10 +168,16 @@ def make_train_step(
     check_grads: bool = False,
     depth_post_scale: float = 1.0,
     train_hw: Optional[Tuple[int, int]] = None,
+    remat: bool = False,
 ):
     """Build the train step ``(state, image, depth, generator) -> loss``. It
     updates ``state`` in place and returns the loss as a detached device
     tensor: nothing in it waits for the device.
+
+    ``remat``: the forward is rematerialized (``layers.rematerialize``, the
+    counterpart of ``jax.checkpoint`` around the whole apply,
+    ``tpudepth/train/trainer.py:194-205``): the backward runs it again, and
+    the BatchNorm running statistics move once.
 
     ``image`` and ``depth`` are NHWC tensors on the model's device. Raw
     integer pixels (uint8 rgb, uint8 / uint16 depth) are normalized here;
@@ -198,8 +205,9 @@ def make_train_step(
         target = recipe.target(depth.float())
 
         model.train()
-        pred = model(image.to(compute_dtype).contiguous(
-            memory_format=torch.channels_last)).float()
+        x = image.to(compute_dtype).contiguous(
+            memory_format=torch.channels_last)
+        pred = (rematerialize(model, x) if remat else model(x)).float()
         if pred.shape[2:] != target.shape[2:]:
             # a decoder may answer at half resolution: align the target
             target = resize_bilinear(target, pred.shape[2:])
@@ -271,7 +279,12 @@ class Trainer:
         # encoder) reads the canonical name, so aliases cannot dodge it
         self.model_name = canonical_model_name(config.model,
                                                strict=model is None)
-        self.model = model if model is not None else build_model(self.model_name)
+        options = {}
+        if config.remat_stages and self.model_name in ("GuideDepth",
+                                                       "GuideDepth-S"):
+            options["remat_stages"] = True
+        self.model = (model if model is not None
+                      else build_model(self.model_name, **options))
         self.train_loader = train_loader
         self.val_loader = val_loader
         self.writer = writer
@@ -322,7 +335,7 @@ class Trainer:
             self.model, self.recipe, schedule,
             compute_dtype=self.compute_dtype,
             check_grads=cfg.check_grads, depth_post_scale=raw_depth_scale,
-            train_hw=cfg.image_size)
+            train_hw=cfg.image_size, remat=cfg.remat)
         self._generator = torch.Generator(device=self.device)
         return self.state
 

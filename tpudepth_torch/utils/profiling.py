@@ -1,13 +1,69 @@
-"""Step timing (``tpudepth/utils/profiling.py::StepTimer``) and the count
-of CUDA kernels a call launches (:func:`graph_kernels`)."""
+"""Tracing and timing: :func:`trace`, :func:`annotate`, :func:`timed` and
+``StepTimer`` (``tpudepth/utils/profiling.py``), and the count of CUDA
+kernels a call launches (:func:`graph_kernels`).
+
+The JAX package's ``jax.profiler`` trace for TensorBoard / XProf becomes a
+``torch.profiler`` trace written as a Chrome trace (``chrome://tracing``,
+Perfetto, TensorBoard's PyTorch profiler plugin); ``block_until_ready``
+becomes ``torch.cuda.synchronize`` of the result's devices.
+"""
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import os
 import time
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, Iterator, List, Optional
 
 import torch
+
+
+def tensors_in(tree) -> List[torch.Tensor]:
+    """The tensors of a (nested) tuple, list or dict of results."""
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    if isinstance(tree, dict):
+        tree = list(tree.values())
+    if isinstance(tree, (tuple, list)):
+        return [t for item in tree for t in tensors_in(item)]
+    return []
+
+
+@contextlib.contextmanager
+def trace(logdir: str) -> Iterator["torch.profiler.profile"]:
+    """Profile the block with ``torch.profiler`` (CPU activity, and the
+    card's through CUPTI when CUDA is available) and write its Chrome trace
+    into ``logdir`` as ``trace_<pid>_<ns>.pt.trace.json`` when it ends.
+    Yields the profiler (``key_averages()`` once the block is left)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(logdir, exist_ok=True)
+    with profile(activities=activities) as prof:
+        yield prof
+    prof.export_chrome_trace(os.path.join(
+        logdir, f"trace_{os.getpid()}_{time.time_ns()}.pt.trace.json"))
+
+
+def annotate(name: str):
+    """A named region of a :func:`trace` (``torch.profiler.record_function``),
+    a context manager."""
+    return torch.profiler.record_function(name)
+
+
+def timed(fn: Callable, *args, sync: bool = True, **kw):
+    """``(result, seconds)`` of ``fn(*args, **kw)`` on the host clock; with
+    ``sync`` every CUDA device holding a tensor of the result is
+    synchronized first, so its device work counts."""
+    t0 = time.perf_counter()
+    out = fn(*args, **kw)
+    if sync:
+        for dev in {t.device for t in tensors_in(out) if t.is_cuda}:
+            torch.cuda.synchronize(dev)
+    return out, time.perf_counter() - t0
 
 
 class StepTimer:
