@@ -135,6 +135,21 @@ the command lines from a seeded dataset zip. Phases:
    NewCRF's encoder moved; the last checkpoint restored; one f32 step
    against the ``plain`` step; 8 steps on one batch lower the loss;
    ms/step, img/s, peak memory and a profile of one step;
+   [weights jax]: a port trainer (GuideDepth fused; SAM with its encoder
+   frozen) after 2 steps at B 8 bf16, the tree the JAX trainer's orbax
+   checkpoint of that state restores to (built with the bridge tables'
+   inverse: no JAX here), converted by ``trainer_checkpoint_from_jax`` and
+   restored into two fresh trainers: model, statistics and Adam state
+   bit-equal, the next step of the source within 4x the two restored
+   copies' spread, SAM's encoder unchanged, the kernels counted;
+   [weights torch]: GuideDepth saved as a GuideDepth release, the root
+   ``global_checkpoint`` and the DDRNet ImageNet checkpoint, SAM's encoder
+   as torchvision ``features``, each loaded into a fresh model and served
+   one bs-1 bf16 frame bit-equal to the source's; [stage chain]: NewCRF
+   ``row`` (its stages chained on the padded layout) against its blocks run
+   one by one at bs 1 and 8: outputs bit-equal, chained blocks' padded
+   outputs finite, launches and device
+   ms a call in turns;
    [zoo]: DenseDepth, the interpolated U-Net large and small at 480x640 and
    the U-Net at KITTI's 384x1280 (it takes multiples of 64 only), seeded
    at their published widths, served in bf16 through ``InferenceEngine``
@@ -3971,6 +3986,370 @@ def phase_cli_inference(tmp, path):
             "rmse": m.rmse, "delta1": m.delta1}
 
 
+# [weights jax]: optimizer steps before the conversion, one epoch of them
+WEIGHTS_STEPS = 2
+# after the restore, the source and restored trainers' next step may differ
+# by at most this many times the spread of two repeats of that step from
+# identical copies (the GUB statistics' f64 atomics and cuDNN's backward
+# are not bit-repeatable; a restore that lost anything would differ by far
+# more than the repeats)
+WEIGHTS_SPREAD_FACTOR = 4.0
+# the loss is one number: two repeats can agree by chance, so the loss
+# also passes within this share of itself (f32 rounding of its sum; a
+# restore that lost a parameter or a statistic moves it by far more)
+WEIGHTS_LOSS_FLOOR = 1e-6
+
+
+def _jax_tree(name, trainer, epoch, extra):
+    """The tree ``orbax_io.read_orbax`` gives for the JAX trainer's
+    checkpoint of ``trainer``'s state, built from the port's state with the
+    bridge tables' inverse (this machine has no JAX and writes no orbax
+    file)."""
+    from tpudepth_torch.models.jax_weights import flax_from_torch
+    from tpudepth_torch.train.jax_state import optax_state_from_torch
+
+    tree = flax_from_torch(name, trainer.model.state_dict())
+    tree["opt_state"] = optax_state_from_torch(
+        name, trainer.state.optimizer.state_dict(), trainer.model,
+        trainer.freeze_encoder)
+    tree.update(epoch=epoch, **extra)
+    return tree
+
+
+def _same_state(label, a, b):
+    """Model (parameters, BatchNorm statistics; not ``num_batches_tracked``,
+    which JAX does not keep) and Adam state of two trainers bit-equal."""
+    sa, sb = a.model.state_dict(), b.model.state_dict()
+    check(set(sa) == set(sb), f"{label}: state_dict keys differ")
+    for k, v in sa.items():
+        if not k.endswith("num_batches_tracked"):
+            check(torch.equal(v, sb[k]), f"{label}: {k} differs")
+    oa = a.state.optimizer.state_dict()
+    ob = b.state.optimizer.state_dict()
+    check(set(oa["state"]) == set(ob["state"]) and len(oa["state"]) > 50,
+          f"{label}: optimizer state keys")
+    for i, st in oa["state"].items():
+        for field in ("exp_avg", "exp_avg_sq", "step"):
+            check(torch.equal(torch.as_tensor(st[field]).cpu(),
+                              torch.as_tensor(ob["state"][i][field]).cpu()),
+                  f"{label}: optimizer state {i}.{field} differs")
+    check([g["lr"] for g in oa["param_groups"]]
+          == [g["lr"] for g in ob["param_groups"]], f"{label}: learning rate")
+
+
+def _max_diff(a, b):
+    """Largest parameter difference of two models, and of their losses."""
+    pb = dict(b.named_parameters())
+    return max(float((p.detach().float() - pb[n].detach().float()).abs().max())
+               for n, p in a.named_parameters())
+
+
+def weights_jax_case(name, gub, seed):
+    """[weights jax] for one model: a port trainer after ``WEIGHTS_STEPS``
+    steps at 480x640 B 8 bf16, its JAX checkpoint tree, converted by
+    ``trainer_checkpoint_from_jax`` and restored into two fresh trainers
+    built from another seed: model and Adam state bit-equal to the source;
+    then one more step in each, the source against a restored trainer
+    within ``WEIGHTS_SPREAD_FACTOR`` times the two restored trainers'
+    spread. The kernels' launches are counted over the three steps."""
+    from tpudepth_torch.core.config import TrainConfig
+    from tpudepth_torch.models.registry import build_model
+    from tpudepth_torch.train.jax_state import trainer_checkpoint_from_jax
+    from tpudepth_torch.train.trainer import ENCODER_PREFIX, Trainer
+
+    cfg = TrainConfig(model=name, dataset="nyu_reduced", resolution="full",
+                      batch_size=TRAIN_BATCH, compute_dtype="bfloat16",
+                      log_every=1, seed=0, scheduler_step_size=1)
+    loader = SyntheticLoader(WEIGHTS_STEPS, seed=seed, raw_depth=True)
+    options = {"gub": gub} if gub else {}
+
+    def trainer_for(model_seed):
+        with torch.random.fork_rng(devices=[]):
+            torch.manual_seed(model_seed)
+            model = build_model(name, **options)
+        tr = Trainer(cfg, model=model, device=DEVICE, train_loader=loader)
+        tr.init_state()
+        return tr
+
+    src = trainer_for(seed)
+    for batch in loader:
+        src.train_step(batch)
+    torch.cuda.synchronize()
+    root = src.recipe.kind == "root"
+    # GuideDepth: checkpoint_0 holds the epoch to resume at; root: the
+    # rolling checkpoint holds the completed epoch
+    extra = ({"loss": 0.5} if root else {"val_losses": [0.25]})
+    tree = _jax_tree(name, src, 0 if root else 1, extra)
+    t0 = time.perf_counter()
+    restored = []
+    for k in range(2):
+        tr = trainer_for(seed + 1 + k)
+        payload = trainer_checkpoint_from_jax(name, tree, tr.model,
+                                              tr.freeze_encoder)
+        tr.restore_payload(payload)
+        if root:
+            tr.set_resume_epoch(tr.epoch + 1)
+        check(tr.state.step == src.state.step == WEIGHTS_STEPS,
+              f"{name}: restored step {tr.state.step}")
+        _same_state(f"[weights jax] {name} restored {k}", src, tr)
+        restored.append(tr)
+    t_convert = (time.perf_counter() - t0) / 2
+    encoder = {n: p.detach().clone()
+               for n, p in restored[0].model.named_parameters()
+               if n.startswith(ENCODER_PREFIX)}
+    batch = loader.batches[0]
+
+    def steps():
+        return [float(tr.train_step(batch)) for tr in (src, *restored)]
+
+    losses, seconds, launches = run_counted(steps)
+    spread = _max_diff(restored[0].model, restored[1].model)
+    diff = _max_diff(src.model, restored[0].model)
+    loss_spread = abs(losses[1] - losses[2])
+    loss_diff = abs(losses[0] - losses[1])
+    print(f"[weights jax] {name}{' ' + gub if gub else ''}: {WEIGHTS_STEPS} "
+          f"steps at {TRAIN_HW[0]}x{TRAIN_HW[1]} B{TRAIN_BATCH} bf16, the JAX "
+          f"tree converted and restored in {t_convert:.2f} s a trainer: model, "
+          "statistics, Adam moments, steps and learning rate bit-equal; the "
+          f"next step: losses {losses}, source vs restored max |dp| "
+          f"{diff:.3e} (loss {loss_diff:.3e}), the two restored copies' "
+          f"spread {spread:.3e} (loss {loss_spread:.3e}); launches over the "
+          f"3 steps {launches}", flush=True)
+    check(all(np.isfinite(losses)), f"{name}: non-finite loss {losses}")
+    check(diff <= WEIGHTS_SPREAD_FACTOR * spread
+          and loss_diff <= max(WEIGHTS_SPREAD_FACTOR * loss_spread,
+                               WEIGHTS_LOSS_FLOOR * abs(losses[0])),
+          f"{name}: the restored trainer's step differs by {diff:.3e} "
+          f"(loss {loss_diff:.3e}), beyond {WEIGHTS_SPREAD_FACTOR}x the "
+          f"repeats' spread {spread:.3e} ({loss_spread:.3e})")
+    if encoder:
+        after = dict(restored[0].model.named_parameters())
+        check(all(torch.equal(v, after[n]) for n, v in encoder.items()),
+              f"{name}: the frozen encoder moved")
+    return {"steps_before": WEIGHTS_STEPS, "losses": losses,
+            "param_diff": diff, "param_spread": spread,
+            "loss_diff": loss_diff, "loss_spread": loss_spread,
+            "convert_restore_s": t_convert, "step_s": seconds,
+            "frozen_encoder_params": len(encoder),
+            "launches": launches,
+            "launches_per_step": {k: v // 3 for k, v in launches.items()}}
+
+
+def phase_weights_jax():
+    """[weights jax]: GuideDepth with fused GUB stages (``optax.adam``'s
+    layout) and SAM with its encoder frozen (``optax.multi_transform``'s)
+    resumed from the JAX trainer's checkpoint tree."""
+    t0 = time.perf_counter()
+    out = {"GuideDepth fused": weights_jax_case("GuideDepth", "fused", 500),
+           "sam": weights_jax_case("sam", None, 510)}
+    gd, sam = out["GuideDepth fused"], out["sam"]
+    check(gd["launches_per_step"] == {
+        "gub_conv_fwd": FUSED_FWD_PER_PASS, "gub_conv_dw": FUSED_DW_PER_STEP,
+        "gub_conv_dx": FUSED_DX_PER_STEP, "fused_loss_fwd": 1,
+        "fused_loss_bwd": 1}, f"GuideDepth launches {gd['launches']}")
+    check(sam["launches_per_step"] == {
+        **{k: 4 for k in TRAIN_KERNELS}, "fused_root_loss_fwd": 1,
+        "fused_root_loss_bwd": 1}, f"sam launches {sam['launches']}")
+    check(sam["frozen_encoder_params"] > 100, "SAM's encoder not frozen")
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def phase_weights_torch(tmp):
+    """[weights torch]: a seeded GuideDepth (fused) saved as a GuideDepth
+    release (``model``, ``src/GuideDepth/training.py:166-178``), as the
+    root ``global_checkpoint`` (``model_state_dict``, ``src/train.py:
+    147-153``) and as the DDRNet-23-slim ImageNet checkpoint (its backbone
+    and the classifier head), and a seeded SAM's encoder as torchvision's
+    ``features.*``; each loaded into a fresh model from another seed
+    (the backbone-only files beside the source's other weights) and served
+    one bs-1 bf16 frame, bit-equal to the source model's frame."""
+    from tpudepth_torch.infer.engine import InferenceEngine
+    from tpudepth_torch.models import torch_import
+    from tpudepth_torch.models.layers import init_random_
+    from tpudepth_torch.models.registry import build_model
+    from tpudepth_torch.train.checkpoint import load_model_weights
+
+    t0 = time.perf_counter()
+    shape = (1, 3, 480, 640)
+    image = np.random.default_rng(520).random(shape, dtype=np.float32)
+
+    def serve(model):
+        eng = InferenceEngine(model, shape, compute_dtype=torch.bfloat16,
+                              device=DEVICE)
+        (frame,), _, counts = run_counted(lambda: [eng(image)])
+        return frame, counts
+
+    def seeded(name, seed, **kw):
+        return init_random_(build_model(name, **kw), seed=seed)
+
+    cases = {}
+    for name, kw, prefix, backbone in (
+            ("GuideDepth", {"gub": "fused"}, "feature_extractor.", "ddrnet"),
+            ("sam", {}, "Unet.0.original_model.features.", "mobilenetv3")):
+        src = seeded(name, 521, **kw)
+        sd = {k: v.detach().cpu() for k, v in src.state_dict().items()}
+        want, counts = serve(src)
+        files = {}
+        if name == "GuideDepth":
+            files["guidedepth release"] = {
+                "epoch": 20, "val_losses": [0.5], "model": sd,
+                "optimizer": {}, "lr_scheduler": {}}
+            files["root global_checkpoint"] = {
+                "epoch": 3, "model_state_dict": sd, "loss": 0.5,
+                "optimizer_state_dict": {"state": {}, "param_groups": []}}
+            head = {"down5.0.weight": torch.randn(256, 64, 3, 3),
+                    "last_layer.0.weight": torch.randn(1024, 512, 1, 1),
+                    "linear.weight": torch.randn(1000, 1024),
+                    "linear.bias": torch.randn(1000)}
+            files["ddrnet imagenet"] = {"state_dict": {
+                **{k[len(prefix):]: v for k, v in sd.items()
+                   if k.startswith(prefix)}, **head}}
+        else:
+            files["torchvision features"] = {
+                **{"features." + k[len(prefix):]: v for k, v in sd.items()
+                   if k.startswith(prefix)},
+                "classifier.0.weight": torch.randn(1280, 960)}
+        for label, payload in files.items():
+            path = f"{tmp}/{label.replace(' ', '_')}.pth"
+            torch.save(payload, path)
+            fresh = seeded(name, 522, **kw)
+            if label in ("ddrnet imagenet", "torchvision features"):
+                # the source's other weights, then the backbone from the file
+                fresh.load_state_dict({k: v for k, v in sd.items()
+                                       if not k.startswith(prefix)},
+                                      strict=False)
+                before = serve(fresh)[0]
+                check(not torch.equal(before, want),
+                      f"{label}: the fresh model already serves the frame")
+                loaded = torch.load(path, weights_only=True)
+                if backbone == "ddrnet":
+                    torch_import.load_ddrnet_imagenet(fresh, loaded)
+                else:
+                    torch_import.load_mobilenetv3_features(fresh, loaded)
+            else:
+                load_model_weights(fresh, path)
+            got, got_counts = serve(fresh)
+            check(torch.equal(got, want), f"[weights torch] {label}: the "
+                  "served frame differs from the source model's")
+            check(got_counts == counts, f"{label}: launches {got_counts}")
+            cases[f"{name} {label}"] = {"bit_equal": True,
+                                        "launches_per_frame": got_counts}
+            print(f"[weights torch] {name} from a {label} .pth: the bs-1 "
+                  f"bf16 frame bit-equal to the source model's; launches a "
+                  f"frame {got_counts}", flush=True)
+    return {"cases": cases, "seconds": time.perf_counter() - t0}
+
+
+STAGE_CHAIN_TURNS = 2   # one by one, chained, chained, one by one
+
+
+@contextlib.contextmanager
+def newcrf_blocks_one_by_one(model):
+    """Every NewCRF stage of ``model`` runs its blocks one by one through
+    ``CRFBlock.forward`` (each padding and cropping its own maps) instead
+    of the row mode's padded chain (``tests/torch_port_helpers.py`` has the
+    same)."""
+    from tpudepth_torch.models.newcrf import CRFLayer
+
+    layers = [m for m in model.modules() if isinstance(m, CRFLayer)]
+
+    def one_by_one(layer):
+        def forward(x, v):
+            for blk in layer.blocks:
+                x = blk(x, v)
+            return x
+        return forward
+
+    for layer in layers:
+        layer.forward = one_by_one(layer)
+    try:
+        yield
+    finally:
+        for layer in layers:
+            del layer.forward
+
+
+def phase_stage_chain():
+    """[stage chain]: NewCRF ``row`` at 480x640 bf16, bs 1 and 8, its
+    stages chained on the padded layout (the model as served) against its
+    blocks run one by one: outputs bit-equal, every chained block's whole
+    padded output finite, the launches a forward, and the device time of a
+    call (CUDA graph replays) in turns."""
+    from tpudepth_torch.models.layers import init_random_
+    from tpudepth_torch.models.newcrf import CRFBlock
+    from tpudepth_torch.models.registry import build_model
+
+    t0 = time.perf_counter()
+    model = init_random_(build_model("newcrf", attn="row"), seed=530).to(
+        DEVICE, memory_format=torch.channels_last).eval()
+    blocks = [m for m in model.modules() if isinstance(m, CRFBlock)]
+
+    def forward(one_by_one):
+        if not one_by_one:
+            return model(x)
+        with newcrf_blocks_one_by_one(model):
+            return model(x)
+
+    out = {}
+    for bsz in (1, 8):
+        x = torch.from_numpy(np.random.default_rng(531 + bsz).random(
+            (bsz, 3, 480, 640), dtype=np.float32)).to(
+            DEVICE, torch.bfloat16).contiguous(
+            memory_format=torch.channels_last)
+        seen = []
+
+        def recording(blk):
+            rowblock = blk.rowblock
+
+            def call(xp, vp, h, w):
+                y = rowblock(xp, vp, h, w)
+                seen.append((tuple(xp.shape), bool(torch.isfinite(y).all())))
+                return y
+            return call
+
+        for blk in blocks:
+            blk.rowblock = recording(blk)
+        with torch.no_grad():
+            (y_on,), _, on_counts = run_counted(lambda: [forward(False)])
+        for blk in blocks:
+            del blk.rowblock
+        with torch.no_grad():
+            (y_off,), _, off_counts = run_counted(lambda: [forward(True)])
+        check(torch.equal(y_on, y_off),
+              f"bs{bsz}: the chained NewCRF differs from its blocks one by "
+              "one")
+        check(len(seen) == 8 and all(f for _, f in seen),
+              f"bs{bsz}: chained block outputs {seen}")
+        check(all(s[1] % 7 == 0 and s[2] % 7 == 0 for s, _ in seen),
+              f"bs{bsz}: the chained blocks did not take padded maps {seen}")
+        check(on_counts == off_counts == {"crf_rowblock_infer": 8},
+              f"bs{bsz}: launches {on_counts} / {off_counts}")
+        times = {False: [], True: []}
+        with torch.no_grad():
+            for one_by_one in (True, False, False, True) * STAGE_CHAIN_TURNS:
+                times[one_by_one].append(time_ms(
+                    lambda: forward(one_by_one), per_graph=3, replays=10))
+        r = {"bit_equal": True, "chained_block_maps": sorted({s for s, _ in
+                                                              seen}),
+             "launches_per_forward": on_counts,
+             "one_by_one_ms": statistics.mean(times[True]),
+             "chained_ms": statistics.mean(times[False]),
+             "one_by_one_ms_turns": times[True],
+             "chained_ms_turns": times[False]}
+        out[f"bs{bsz}"] = r
+        print(f"[stage chain] NewCRF row 480x640 bf16 bs{bsz}: chained "
+              f"output bit-equal to the blocks one by one, the 8 chained "
+              f"blocks' padded outputs finite, crf_rowblock_infer 8 a "
+              f"forward either way; device ms a call (graph replays, "
+              f"{2 * STAGE_CHAIN_TURNS} turns each) one by one "
+              f"{r['one_by_one_ms']:.3f}, chained {r['chained_ms']:.3f} "
+              f"(one by one {[round(t, 3) for t in times[True]]}, chained "
+              f"{[round(t, 3) for t in times[False]]})", flush=True)
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -4009,6 +4388,13 @@ def main() -> int:
         # training, each kernel's count set to 0 just before its fit
         attn_train = {name: train_attention_model(name, tmp, blocks)
                       for name, blocks in (("sam", 4), ("newcrf", 8))}
+        # weight I/O: a JAX trainer's checkpoint tree resumed (GuideDepth
+        # fused, SAM frozen), reference .pth files served; NewCRF's padded
+        # stage chain; each path's counts set to 0 just before it and read
+        # just after it (run_counted)
+        weights_jax = phase_weights_jax()
+        weights_torch = phase_weights_torch(tmp)
+        stage_chain = phase_stage_chain()
         # the rest of the zoo served and trained, then the engines
         # serialized and deserialized; each path's counts set to 0 just
         # before it and read just after it
@@ -4328,7 +4714,14 @@ def main() -> int:
            r["launches_per_call"] for label, r in export["engines"].items()},
         **{f"zoo training {name} ({ZOO_TRAIN_STEPS} steps)":
            {k: v * ZOO_TRAIN_STEPS for k, v in r["launches_per_step"].items()}
-           for name, r in zoo.items()}}
+           for name, r in zoo.items()},
+        **{f"weights jax {label} (one step each of the source and two "
+           "restored trainers)": weights_jax[label]["launches"]
+           for label in ("GuideDepth fused", "sam")},
+        **{f"weights torch {label} (a bs-1 frame)": r["launches_per_frame"]
+           for label, r in weights_torch["cases"].items()},
+        **{f"stage chain newcrf row {bs} (a chained forward)":
+           stage_chain[bs]["launches_per_forward"] for bs in ("bs1", "bs8")}}
     for k in kernels:
         for path, counts in by_path.items():
             if counts.get(k["name"]):
@@ -4343,8 +4736,10 @@ def main() -> int:
     seconds = time.perf_counter() - t_start
     print(f"[time] {seconds:.1f} s in all; the data feed and the command "
           f"lines {t_feed:.1f} s; [zoo] {t_zoo:.1f} s; [engine export] and "
-          f"[op cost] {t_export:.1f} s; [packed] {packed['seconds']:.1f} s",
-          flush=True)
+          f"[op cost] {t_export:.1f} s; [packed] {packed['seconds']:.1f} s; "
+          f"[weights jax] {weights_jax['seconds']:.1f} s, [weights torch] "
+          f"{weights_torch['seconds']:.1f} s, [stage chain] "
+          f"{stage_chain['seconds']:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels, "serve_errors": errs,
                       "sam_serve_errors": sam_errs, "sam_engine": sam_perf,
                       "newcrf_serve_errors": crf_errs,
@@ -4355,7 +4750,9 @@ def main() -> int:
                       "kernel_splits": splits, "host_libs": host_libs,
                       "data_feed": data_feed, "cli": cli, "zoo": zoo,
                       "engine_export": export, "op_cost": op_cost,
-                      "seconds": seconds}))
+                      "weights_jax": weights_jax,
+                      "weights_torch": weights_torch,
+                      "stage_chain": stage_chain, "seconds": seconds}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

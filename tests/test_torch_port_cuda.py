@@ -2042,3 +2042,72 @@ def test_direct_route_launches_the_same_kernels(cuda, monkeypatch):
         torch.cuda.synchronize()
         launches.append(wai.window_attention_infer.launches - before)
     assert torch.equal(*outs) and launches == [4, 4]
+
+
+# -- NewCRF's padded stage chain: the row kernel on a chained input ------------
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("shift", [0, 3], ids=["shift0", "shift3"])
+@pytest.mark.parametrize("case", ROW_CASES + [(8, 15, 20, 1024, 32)],
+                         ids=["odd", "crf1", "crf3", "crf3-B8"])
+def test_crf_rowblock_infer_on_a_chained_padded_input(cuda, case, shift,
+                                                       dtype):
+    """A chained block's x holds the previous block's output at the pad
+    positions: with large finite values there, every real token's output
+    keeps the bits of the zero-padded call (LN(x) zeroed by select), and
+    the whole output, pad rows included, is written and finite."""
+    a, kw = _rowblock_case(sum(case) + 11 + shift, *case, shift, dtype, cuda)
+    b, h, w, c, _ = case
+    hp, wp = a["x"].shape[1:3]
+    real = (torch.from_numpy(rbi._valid_image(h, w, hp, wp, shift)) > 0
+            ).to(cuda)
+    fresh = rbi.crf_rowblock_infer(**a, **kw)
+    g = torch.Generator(device=cuda).manual_seed(sum(case) + shift)
+    junk = 3e4 * torch.randn(a["x"].shape, generator=g, device=cuda)
+    x = torch.where(real[None, :, :, None], a["x"], junk.to(dtype))
+    before = rbi.crf_rowblock_infer.launches
+    got = rbi.crf_rowblock_infer(**dict(a, x=x.contiguous()), **kw)
+    torch.cuda.synchronize()
+    assert rbi.crf_rowblock_infer.launches == before + 1
+    assert torch.equal(got[:, real], fresh[:, real])
+    assert bool(torch.isfinite(got).all()) and bool(torch.isfinite(fresh).all())
+    # every row written: the output of the next call takes the freed block
+    # of this NaN tensor (the caching allocator's best fit), and a row left
+    # unwritten would stay NaN
+    poison = torch.full_like(got, float("nan"))
+    del poison
+    again = rbi.crf_rowblock_infer(**dict(a, x=x.contiguous()), **kw)
+    assert torch.equal(again, got)
+
+
+@pytest.mark.parametrize("bsz", [1, 8])
+def test_newcrf_stage_chain_is_bit_equal_on_the_card(cuda, bsz):
+    """``build_model('newcrf', attn='row')`` served in bf16 at 480x640,
+    its stages chained, against its blocks run one by one: the same bits,
+    8 row-kernel launches a forward either way, and every chained block's
+    whole padded output finite."""
+    from torch_port_helpers import blocks_one_by_one, chained_blocks
+    from tpudepth_torch.models.layers import init_random_
+    from tpudepth_torch.models.registry import build_model
+
+    model = init_random_(build_model("newcrf", attn="row"), seed=3)
+    model = model.to(cuda, memory_format=torch.channels_last).eval()
+    x = torch.rand(bsz, 3, 480, 640, generator=torch.Generator().manual_seed(4))
+    x = x.to(cuda, torch.bfloat16).contiguous(memory_format=torch.channels_last)
+    outs = []
+    for one_by_one in (False, True):
+        before = rbi.crf_rowblock_infer.launches
+        with torch.no_grad(), chained_blocks(model) as seen:
+            if one_by_one:
+                with blocks_one_by_one(model):
+                    outs.append(model(x))
+            else:
+                outs.append(model(x))
+        torch.cuda.synchronize()
+        assert rbi.crf_rowblock_infer.launches == before + 8
+        if not one_by_one:
+            assert len(seen) == 8
+            assert all(bool(torch.isfinite(y).all()) for _, y in seen)
+    assert torch.equal(outs[0], outs[1])

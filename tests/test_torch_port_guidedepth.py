@@ -206,8 +206,13 @@ def test_the_bridge_loads_into_a_packed_model(variables, name):
 def test_fused_gub_runs_forward_and_backward_in_train_mode():
     """Train mode of the fused stages (held against the JAX block in
     ``tests/test_torch_port_gub_train.py``): every parameter but the conv
-    biases in front of a BatchNorm gets a gradient that is not zero."""
-    gub = GuidedUpsamplingBlock(4, 4, 1, fused=True).train()
+    biases in front of a BatchNorm gets a gradient that is not zero. The
+    block's init is seeded here: about one init in 15 leaves the SE block's
+    ReLU dead on this input (zero gradients by the math), and the global
+    generator's state depends on which tests ran before in the process."""
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(0)
+        gub = GuidedUpsamplingBlock(4, 4, 1, fused=True).train()
     gen = torch.Generator().manual_seed(0)
     out = gub(torch.rand(2, 3, 8, 8, generator=gen),
               torch.rand(2, 4, 8, 8, generator=gen))

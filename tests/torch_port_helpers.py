@@ -8,7 +8,10 @@
 - :func:`serving_op_cases`, small inputs of the eight serving kernels'
   ``tpudepth::*`` custom ops; :func:`round_trip` and
   :func:`same_bits_deserialized`, an engine serialized and deserialized
-  against the live one, and :func:`op_counts`.
+  against the live one, and :func:`op_counts`;
+- NewCRF's row stage chain: :func:`blocks_one_by_one` (each block padded
+  and cropped on its own, what the chain must equal bit for bit) and
+  :func:`chained_blocks` (what each chained block takes and gives).
 """
 
 import collections
@@ -238,3 +241,57 @@ def same_bits_deserialized(live, path, seed=0):
         assert float(want.std()) > 1e-3
         assert torch.equal(got, want)
     return op_counts(loaded)
+
+
+def _crf_layers(model):
+    from tpudepth_torch.models.newcrf import CRFLayer
+
+    return [m for m in model.modules() if isinstance(m, CRFLayer)]
+
+
+@contextlib.contextmanager
+def blocks_one_by_one(model):
+    """Every NewCRF stage of ``model`` runs its blocks one by one through
+    ``CRFBlock.forward``, each padding and cropping its own maps, instead of
+    the row mode's padded chain."""
+    layers = _crf_layers(model)
+
+    def one_by_one(layer):
+        def forward(x, v):
+            for blk in layer.blocks:
+                x = blk(x, v)
+            return x
+        return forward
+
+    for layer in layers:
+        layer.forward = one_by_one(layer)
+    try:
+        yield
+    finally:
+        for layer in layers:
+            del layer.forward
+
+
+@contextlib.contextmanager
+def chained_blocks(model):
+    """Records ``(x, output)`` of every ``CRFBlock.rowblock`` call of
+    ``model``'s NewCRF stages, in order, into the yielded list."""
+    seen = []
+    blocks = [b for layer in _crf_layers(model) for b in layer.blocks]
+
+    def recording(blk):
+        rowblock = blk.rowblock
+
+        def call(xp, vp, h, w):
+            y = rowblock(xp, vp, h, w)
+            seen.append((xp, y))
+            return y
+        return call
+
+    for blk in blocks:
+        blk.rowblock = recording(blk)
+    try:
+        yield seen
+    finally:
+        for blk in blocks:
+            del blk.rowblock

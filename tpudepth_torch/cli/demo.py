@@ -2,7 +2,8 @@
 
 Counterpart of the JAX package's ``demo.py`` (the reference's
 ``src/demo.py``, which is broken in its snapshot): a checkpoint the port
-wrote (or a random model when ``--pt`` does not exist), one RGB image
+wrote, a JAX orbax checkpoint directory of ``--model`` or a reference
+``.pth`` (or a random model when ``--pt`` does not exist), one RGB image
 (``--image``, resized to 640x480; a synthetic gradient without it), the
 prediction in bf16, and the input beside its colorized depth saved as
 ``--out``. :func:`predict_depth` is the prediction on an array alone, so it
@@ -68,7 +69,7 @@ def main(argv=None) -> dict:
 
     model = build_model(args.model)
     if os.path.exists(args.pt):
-        load_model_weights(model, args.pt)
+        load_model_weights(model, args.pt, args.model)
     else:
         print(f"checkpoint {args.pt} not found; using random init")
         init_random_(model, seed=0)

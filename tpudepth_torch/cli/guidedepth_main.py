@@ -17,7 +17,10 @@ of the step), validates on the test split, writes ``checkpoint_{e}`` per
 epoch and exports ``best_model`` into ``--save_results``. ``--eval`` scores
 the trained (or ``--weights_path``) model in bf16 with the flip-TTA /
 Eigen-crop protocol and writes ``results.txt``. ``--data_path synthetic``
-or ``synthetic:HxW`` makes a seeded zip.
+or ``synthetic:HxW`` makes a seeded zip. ``--load_checkpoint`` and
+``--weights_path`` take the port's files, the JAX package's orbax
+checkpoint directories of ``--model`` (read with ``tensorstore``) and
+reference ``.pth`` files (``train/checkpoint.py``).
 """
 
 from __future__ import annotations
@@ -121,7 +124,7 @@ def evaluate(args, device: torch.device, test_path: str):
     print("Maximum Depth of Dataset: {}".format(config.max_depth))
     model = build_model(args.model, gub=args.gub)
     if args.weights_path and os.path.exists(str(args.weights_path)):
-        load_model_weights(model, args.weights_path)
+        load_model_weights(model, args.weights_path, args.model)
     else:
         print("no weights_path; using random init")
         init_random_(model, seed=0)

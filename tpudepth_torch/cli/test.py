@@ -3,8 +3,9 @@
 Counterpart of the JAX package's ``test.py`` (``src/test.py:30-37``:
 ``--bs --pt --min_depth_eval --max_depth_eval``, and ``--data``, ``--model``,
 ``--dtype``), plus ``--device`` (default ``cuda``). It loads a checkpoint
-the port wrote (``tpudepth_torch/train/checkpoint.py``: either schema, an
-exported ``best_model`` or a bare ``state_dict``) and scores the model with
+(``tpudepth_torch/train/checkpoint.py``: the port's of either schema, an
+exported ``best_model`` or a bare ``state_dict``, the JAX package's orbax
+directory of ``--model``, or a reference ``.pth``) and scores the model with
 ``RootEvaluator`` over ``get_training_testing_data``'s test split: the
 Garg/Eigen fractional crop, min-max ground truth, the nine-metric report.
 """
@@ -54,7 +55,7 @@ def main(argv=None) -> dict:
 
     print("getting the Model from: ", args.pt)
     model = build_model(args.model)
-    restored = load_model_weights(model, args.pt)
+    restored = load_model_weights(model, args.pt, args.model)
     model.to(device, memory_format=torch.channels_last)
     print("Model started.")
     print("Model with: {} epoch".format(restored.get("epoch", "?")))

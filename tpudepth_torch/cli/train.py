@@ -7,7 +7,8 @@ or ``synthetic[:HxW]``), ``--model``, ``--dtype``, ``--log-dir`` and
 with the port's ``Trainer`` (GuideDepth with the alhashim recipe, SAM and
 NewCRF with the root recipe: 1.0 * SSIM + 0.1 * L1 on min-max targets,
 ``src/train.py:89-100``) over ``get_training_testing_data``, keeps one
-rolling ``./checkpoints/global_checkpoint`` (``--cp 1`` resumes from it)
+rolling ``./checkpoints/global_checkpoint`` (``--cp 1`` resumes from it,
+the port's file or the JAX package's orbax directory of that name)
 and logs to TensorBoard under the reference's tags (``src/train.py:48-49,
 132,141,170-190``): ``Train/Loss`` every logged step, ``Train/Loss.avg``
 every epoch, the image grids ``Train.1.Image``, ``Train.2.Depth``,

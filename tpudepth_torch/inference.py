@@ -60,7 +60,9 @@ def get_parser() -> argparse.ArgumentParser:
     parser.add_argument("--num_test_runs", type=int, default=200)
     parser.add_argument("--warm_up_runs", type=int, default=10)
     parser.add_argument("--weights_path", type=str, default=None,
-                        help="a checkpoint or state_dict the port wrote")
+                        help="a checkpoint or state_dict of the port, a JAX "
+                             "(orbax) checkpoint directory of --model or a "
+                             "reference .pth")
     parser.add_argument("--save_results", type=str, default="./results")
     parser.add_argument("--engine_path", type=str, default="",
                         help="serialize the bf16 engine here (torch.export)")
@@ -148,7 +150,7 @@ def main(argv=None) -> dict:
     except ValueError as e:
         raise SystemExit(str(e))
     if args.weights_path and os.path.exists(args.weights_path):
-        load_model_weights(model, args.weights_path)
+        load_model_weights(model, args.weights_path, args.model)
     else:
         print("no weights; random init")
         init_random_(model, seed=0)

@@ -25,6 +25,11 @@ port's modules of the same names:
   bias table as it is.
 
 Every leaf of the tree must be consumed; a leaf left over raises.
+
+By model name (any alias of ``registry.build_model``):
+:func:`state_dict_from_flax`, and its inverse :func:`flax_from_torch`. The
+trainer's state (the optax Adam state, a whole JAX trainer payload) goes
+through ``train/jax_state.py`` on top of these tables.
 """
 
 from __future__ import annotations
@@ -228,66 +233,95 @@ def _zoo_entries(name: str) -> List[Entry]:
 ZOO_MODELS = ("densedepth", "unet", "unet_interp", "unet_interp_small")
 
 
-def _flatten(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
+def _flatten(tree: Mapping, prefix: str = "", keep_none: bool = False,
+             dtype=np.float32) -> Dict[str, Optional[np.ndarray]]:
+    """``{"a/b/kernel": array}`` of a nested tree, in ``dtype``.
+    ``keep_none``: a ``None`` leaf (optax's masked node, as an orbax file
+    restores it) stays None."""
     out = {}
     for k, v in tree.items():
         path = f"{prefix}/{k}" if prefix else str(k)
         if isinstance(v, Mapping):
-            out.update(_flatten(v, path))
+            out.update(_flatten(v, path, keep_none, dtype))
+        elif keep_none and v is None:
+            out[path] = None
         else:
-            out[path] = np.asarray(v, dtype=np.float32)
+            out[path] = np.asarray(v, dtype=dtype)
     return out
 
 
-def _convert(params: Dict[str, np.ndarray],
-             stats: Optional[Dict[str, np.ndarray]],
-             entries: List[Entry]) -> "OrderedDict[str, torch.Tensor]":
-    """Map flattened flax leaves to port names by ``entries``.
-    ``stats=None`` maps a params-only tree (gradients): no BatchNorm
-    statistics are expected or written."""
-    tables = [params] + ([stats] if stats is not None else [])
-    used = set()
+# (flax -> port, port -> flax) layout changes of a kind's kernel
+_CONV = (lambda k: np.transpose(k, (3, 2, 0, 1)),
+         lambda w: np.transpose(w, (2, 3, 1, 0)))
+_TCONV = (lambda k: np.transpose(k, (2, 3, 0, 1))[:, :, ::-1, ::-1],
+          lambda w: np.transpose(w[:, :, ::-1, ::-1], (2, 3, 0, 1)))
+_DENSE = (lambda k: k.T, lambda w: w.T)
 
-    def take(table, key):
-        used.add((id(table), key))
-        return table[key]
 
-    out: "OrderedDict[str, torch.Tensor]" = OrderedDict()
-
-    def put(name, arr):
-        out[name] = torch.from_numpy(np.array(arr, np.float32))
-
+def _leaf_map(entries: List[Entry]):
+    """Every leaf of ``entries``: (port name, flax leaf path, ``'params'`` or
+    ``'stats'``, layout pair or None, optional)."""
     for kind, fp, tp in entries:
         if kind == "conv":
-            put(f"{tp}.weight",
-                np.transpose(take(params, f"{fp}/Conv_0/kernel"), (3, 2, 0, 1)))
-            if f"{fp}/Conv_0/bias" in params:
-                put(f"{tp}.bias", take(params, f"{fp}/Conv_0/bias"))
+            yield f"{tp}.weight", f"{fp}/Conv_0/kernel", "params", _CONV, False
+            yield f"{tp}.bias", f"{fp}/Conv_0/bias", "params", None, True
         elif kind == "tconv":
-            kernel = take(params, f"{fp}/ConvTranspose_0/kernel")
-            put(f"{tp}.weight",
-                np.transpose(kernel, (2, 3, 0, 1))[:, :, ::-1, ::-1])
-            put(f"{tp}.bias", take(params, f"{fp}/ConvTranspose_0/bias"))
-        elif kind == "bn":
-            put(f"{tp}.weight", take(params, f"{fp}/BatchNorm_0/scale"))
-            put(f"{tp}.bias", take(params, f"{fp}/BatchNorm_0/bias"))
-            if stats is not None:
-                put(f"{tp}.running_mean", take(stats, f"{fp}/BatchNorm_0/mean"))
-                put(f"{tp}.running_var", take(stats, f"{fp}/BatchNorm_0/var"))
-                out[f"{tp}.num_batches_tracked"] = torch.tensor(
-                    0, dtype=torch.long)
-        elif kind == "ln":
-            put(f"{tp}.weight", take(params, f"{fp}/LayerNorm_0/scale"))
-            put(f"{tp}.bias", take(params, f"{fp}/LayerNorm_0/bias"))
+            yield (f"{tp}.weight", f"{fp}/ConvTranspose_0/kernel", "params",
+                   _TCONV, False)
+            yield (f"{tp}.bias", f"{fp}/ConvTranspose_0/bias", "params", None,
+                   False)
+        elif kind in ("bn", "ln"):
+            mod = "BatchNorm_0" if kind == "bn" else "LayerNorm_0"
+            yield f"{tp}.weight", f"{fp}/{mod}/scale", "params", None, False
+            yield f"{tp}.bias", f"{fp}/{mod}/bias", "params", None, False
+            if kind == "bn":
+                yield (f"{tp}.running_mean", f"{fp}/{mod}/mean", "stats", None,
+                       False)
+                yield (f"{tp}.running_var", f"{fp}/{mod}/var", "stats", None,
+                       False)
         elif kind == "raw":
-            put(tp, take(params, fp))
+            yield tp, fp, "params", None, False
         else:
-            put(f"{tp}.weight", take(params, f"{fp}/kernel").T)
-            if f"{fp}/bias" in params:
-                put(f"{tp}.bias", take(params, f"{fp}/bias"))
+            yield f"{tp}.weight", f"{fp}/kernel", "params", _DENSE, False
+            yield f"{tp}.bias", f"{fp}/bias", "params", None, True
 
-    left = [k for table in tables for k in table
-            if (id(table), k) not in used]
+
+def _convert(params: Dict[str, Optional[np.ndarray]],
+             stats: Optional[Dict[str, np.ndarray]],
+             entries: List[Entry],
+             sources: Optional[Dict[str, str]] = None, dtype=np.float32
+             ) -> "OrderedDict[str, Optional[torch.Tensor]]":
+    """Map flattened flax leaves to port names by ``entries``.
+    ``stats=None`` maps a params-only tree (gradients, Adam moments): no
+    BatchNorm statistics are expected or written. A None leaf maps to None.
+    ``sources``, when given, receives each port name's flax leaf path.
+    Tensors are ``dtype`` (float32 unless asked otherwise). A
+    missing leaf raises ``KeyError`` and a leaf left over ``ValueError``,
+    each naming the leaf."""
+    tables = {"params": params, "stats": stats}
+    used = set()
+    out: "OrderedDict[str, Optional[torch.Tensor]]" = OrderedDict()
+    for name, key, table, layout, optional in _leaf_map(entries):
+        src = tables[table]
+        if src is None:
+            continue
+        if key not in src:
+            if optional:
+                continue
+            raise KeyError(f"flax leaf {table}/{key} is missing (the port's "
+                           f"{name})")
+        used.add((table, key))
+        if sources is not None:
+            sources[name] = key
+        arr = src[key]
+        out[name] = None if arr is None else torch.from_numpy(
+            np.array(layout[0](arr) if layout else arr, dtype))
+        if name.endswith(".running_var"):
+            out[name[:-len("running_var")] + "num_batches_tracked"] = \
+                torch.tensor(0, dtype=torch.long)
+
+    left = [k for table, t in tables.items() if t is not None for k in t
+            if (table, k) not in used]
     if left:
         raise ValueError(f"flax leaves not consumed by the bridge: {left}")
     return out
@@ -395,3 +429,64 @@ def unet_interp_small_grads_from_flax(grads):
     """A ``MobileV3UNetInterp('small')`` gradient tree -> gradients by
     name."""
     return zoo_grads_from_flax("unet_interp_small", grads)
+
+
+# ---------------------------------------------------------------------------
+# one entry point by model name, and the tables' inverse
+# ---------------------------------------------------------------------------
+
+
+def _entries(name: str) -> List[Entry]:
+    """The key table of any name or alias of ``registry.build_model``
+    (packed and unpacked GuideDepth share one parameter tree)."""
+    from tpudepth_torch.models.registry import canonical_model_name
+
+    canon = canonical_model_name(name)
+    if canon in ("GuideDepth", "GuideDepth-S"):
+        return _guidedepth_entries()
+    if canon == "sam":
+        return _attention_entries(_sam_stage)
+    if canon == "newcrf":
+        return _attention_entries(_newcrf_stage)
+    return _zoo_entries(canon)
+
+
+def state_dict_from_flax(name: str, variables: Mapping
+                         ) -> "OrderedDict[str, torch.Tensor]":
+    """JAX ``{'params', 'batch_stats'}`` of ``build_model(name)`` -> the
+    port's ``state_dict`` of the same model (the family functions above,
+    chosen by ``registry.canonical_model_name(name)``)."""
+    return _convert(_flatten(variables["params"]),
+                    _flatten(variables.get("batch_stats", {})),
+                    _entries(name))
+
+
+def _nest(tree: Dict, path: str, value) -> None:
+    *parents, leaf = path.split("/")
+    for p in parents:
+        tree = tree.setdefault(p, {})
+    tree[leaf] = value
+
+
+def flax_from_torch(name: str, named: Mapping, stats: bool = True) -> Dict:
+    """The inverse of :func:`state_dict_from_flax`: port tensors by name
+    (a ``state_dict``, or parameters only with ``stats=False``; a None value
+    becomes a None leaf) -> ``{'params': ..., 'batch_stats': ...}`` of
+    float32 numpy arrays in the flax layout (``batch_stats`` only with
+    ``stats``)."""
+    params: Dict = {}
+    batch_stats: Dict = {}
+    for pname, key, table, layout, optional in _leaf_map(_entries(name)):
+        if table == "stats" and not stats:
+            continue
+        if pname not in named:
+            if optional:
+                continue
+            raise KeyError(f"the port's {pname} is missing (flax leaf {key})")
+        value = named[pname]
+        if value is not None:
+            value = np.asarray(torch.as_tensor(value).detach().cpu().float())
+            value = np.ascontiguousarray(layout[1](value) if layout else value)
+        _nest(params if table == "params" else batch_stats, key, value)
+    return {"params": params, "batch_stats": batch_stats} if stats \
+        else {"params": params}

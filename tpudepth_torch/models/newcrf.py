@@ -13,9 +13,8 @@ names follow the reference ``state_dict`` (``proj_x``, ``proj_v``,
 The blocks run in one of five modes, with one parameter tree:
 
 - ``row`` (the default, as the JAX package's eval default on its chip): the
-  whole block through the ``crf_rowblock_infer`` kernels on the zero-padded
-  (and, for the shifted block, rolled) raw x and v, unrolled and cropped
-  after;
+  whole block through the ``crf_rowblock_infer`` kernels on the padded (and,
+  for the shifted block, rolled) raw x and v, unrolled after;
 - ``fused``: the ``window_attn_infer`` kernel with the shift mask, then the
   ``block_epilogue_infer`` kernel on the cropped rows
   (``TPUDEPTH_BLOCK=pair`` in JAX);
@@ -27,6 +26,15 @@ The blocks run in one of five modes, with one parameter tree:
   and cropped after (``TPUDEPTH_BLOCK=fused`` in JAX);
 - ``plain``: no kernel, the f32 attention composition with the shift mask
   (what the JAX package computes on the CPU).
+
+In ``row`` mode in eval a stage pads x and v once, chains its blocks'
+``crf_rowblock_infer`` calls on the padded layout and crops once (the JAX
+package's ``padded_io``, ``TPUDEPTH_STAGE_CHAIN=on``,
+``tpudepth/models/newcrf.py:357-373``; the same bits as a pad and a crop
+around every block). A chained block's x holds the previous block's output
+at the pad positions, no longer zeros; the kernel zeroes LN(x) there by
+select, so no real token's output depends on what x holds at the pad
+positions.
 
 In train mode every mode takes the unfused block, as the JAX package does on
 training traces: LN, pad, [roll], windows, ``qk``, attention with the shift
@@ -115,9 +123,11 @@ class CRFBlock(nn.Module):
     def forward(self, x: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
         b, h, w, c = x.shape
         ws, ss = self.window_size, self.shift_size
-        mask = shift_mask(h, w, ws, ss, x.device) if ss else None
         if self.mode == "row" and not self.training:
-            return self._rowblock(x, v, mask)
+            xp, _, _ = pad_to_window_multiple(x, ws)
+            vp, _, _ = pad_to_window_multiple(v.to(x.dtype), ws)
+            return self.rowblock(xp, vp, h, w)[:, :h, :w, :]
+        mask = shift_mask(h, w, ws, ss, x.device) if ss else None
         if self.mode == "block" and not self.training:
             return self._block(x, v, mask)
         n = ws * ws
@@ -150,16 +160,15 @@ class CRFBlock(nn.Module):
         y = x + attn
         return y + self.mlp(self.norm2(y))
 
-    def _rowblock(self, x: torch.Tensor, v: torch.Tensor,
-                  mask) -> torch.Tensor:
-        """The whole block on the zero-padded raw x and v, rolled by
-        (-shift, -shift) for the shifted block; unrolled and cropped after
-        (the pad and roll copies stay around the kernel, as in the JAX
-        package's ``_rowblock``)."""
-        _, h, w, _ = x.shape
+    def rowblock(self, xp: torch.Tensor, vp: torch.Tensor, h: int,
+                 w: int) -> torch.Tensor:
+        """The whole block on x and v padded to window multiples (real
+        extent h x w), rolled by (-shift, -shift) for the shifted block and
+        unrolled after; the output keeps the padded layout (the pad and roll
+        copies stay around the kernel, as in the JAX package's
+        ``_rowblock``)."""
         ws, ss = self.window_size, self.shift_size
-        xp, _, _ = pad_to_window_multiple(x, ws)
-        vp, _, _ = pad_to_window_multiple(v.to(x.dtype), ws)
+        mask = shift_mask(h, w, ws, ss, xp.device) if ss else None
         if ss:
             xp = torch.roll(xp, (-ss, -ss), dims=(1, 2))
             vp = torch.roll(vp, (-ss, -ss), dims=(1, 2))
@@ -171,9 +180,7 @@ class CRFBlock(nn.Module):
             (self.norm2.weight, self.norm2.bias), mlp.fc1.weight.t(),
             mlp.fc1.bias, mlp.fc2.weight.t(), mlp.fc2.bias, mask,
             scale=at.scale, window_size=ws, valid_hw=(h, w, ss))
-        if ss:
-            y = torch.roll(y, (ss, ss), dims=(1, 2))
-        return y[:, :h, :w, :]
+        return torch.roll(y, (ss, ss), dims=(1, 2)) if ss else y
 
     def _block(self, x: torch.Tensor, v: torch.Tensor,
                mask) -> torch.Tensor:
@@ -217,9 +224,18 @@ class CRFLayer(nn.Module):
             for i in range(depth)])
 
     def forward(self, x: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+        if self.training or self.blocks[0].mode != "row":
+            for blk in self.blocks:
+                x = blk(x, v)
+            return x
+        # row mode in eval: one pad and one crop a stage (module docstring)
+        _, h, w, _ = x.shape
+        ws = self.blocks[0].window_size
+        xp, _, _ = pad_to_window_multiple(x, ws)
+        vp, _, _ = pad_to_window_multiple(v.to(x.dtype), ws)
         for blk in self.blocks:
-            x = blk(x, v)
-        return x
+            xp = blk.rowblock(xp, vp, h, w)
+        return xp[:, :h, :w, :]
 
 
 class NewCRF(nn.Module):

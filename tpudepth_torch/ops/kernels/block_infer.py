@@ -54,6 +54,7 @@ from tpudepth_torch.ops.kernels import _build, _op
 from tpudepth_torch.ops.kernels.epilogue_infer import (
     ffn_reference,
     layer_norm_f32,
+    layer_norm_f32_valid,
     linear_f32,
 )
 from tpudepth_torch.ops.kernels.rowblock_infer import (
@@ -68,14 +69,13 @@ from tpudepth_torch.ops.kernels.window_attn_infer import (
 _VP, _I32, _F32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
 
-def _ln_valid(t, ln, valid):
-    """LN(t) in f32 times the valid table of t's windows, rounded to t's
+def _ln_valid_windows(t, ln, valid):
+    """LN(t) in f32, zero at the pad tokens of the valid table of t's
+    windows (:func:`~.epilogue_infer.layer_norm_f32_valid`), rounded to t's
     dtype."""
-    tn = layer_norm_f32(t, *ln)
     if valid is not None:
-        reps = t.shape[0] // valid.shape[0]
-        tn = tn * valid.float().repeat(reps, 1)[..., None]
-    return tn.to(t.dtype)
+        valid = valid.repeat(t.shape[0] // valid.shape[0], 1)[..., None]
+    return layer_norm_f32_valid(t, ln, valid).to(t.dtype)
 
 
 def _tail(xw, o, wproj, bproj, ln2, w1, b1, w2, b2):
@@ -96,8 +96,8 @@ def sam_block_infer_reference(xw, vw, ln1, lnv, wq, bq, wkv, bkv, bias,
     once; k and v from LNv(v); o rounded; the tail of :func:`_tail`."""
     c = xw.shape[-1]
     dt = xw.dtype
-    q = (linear_f32(_ln_valid(xw, ln1, valid), wq, bq) * scale).to(dt)
-    kv = linear_f32(_ln_valid(vw, lnv, valid), wkv, bkv)
+    q = (linear_f32(_ln_valid_windows(xw, ln1, valid), wq, bq) * scale).to(dt)
+    kv = linear_f32(_ln_valid_windows(vw, lnv, valid), wkv, bkv)
     o = window_attention_infer_reference(q, kv[..., :c].to(dt),
                                          kv[..., c:].to(dt), bias)
     return _tail(xw, o, wproj, bproj, ln2, w1, b1, w2, b2)
@@ -111,7 +111,7 @@ def crf_block_infer_reference(xw, vw, ln1, wqk, bqk, bias, wproj, bproj, ln2,
     rounded once; the raw values; o rounded; the tail of :func:`_tail`."""
     c = xw.shape[-1]
     dt = xw.dtype
-    qk = linear_f32(_ln_valid(xw, ln1, valid), wqk, bqk)
+    qk = linear_f32(_ln_valid_windows(xw, ln1, valid), wqk, bqk)
     o = window_attention_infer_reference((qk[..., :c] * scale).to(dt),
                                          qk[..., c:].to(dt), vw.to(dt), bias,
                                          mask)

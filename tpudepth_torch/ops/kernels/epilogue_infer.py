@@ -31,7 +31,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -57,6 +57,20 @@ def layer_norm_f32(y: torch.Tensor, scale: torch.Tensor,
     var = torch.clamp((yf * yf).mean(dim=-1, keepdim=True) - mean * mean,
                       min=0.0)
     return (yf - mean) * (torch.rsqrt(var + LN_EPS) * scale.float()) + bias.float()
+
+
+def layer_norm_f32_valid(t: torch.Tensor, ln,
+                         valid: Optional[torch.Tensor]) -> torch.Tensor:
+    """:func:`layer_norm_f32` of ``t`` with ``ln = (scale, bias)``, zero at
+    the pad tokens (``valid`` false or 0, broadcast against the result; None:
+    no pad) by select, as the kernels apply it: whatever a pad token holds
+    (NewCRF's chained block's previous output there, even a non-finite
+    value) leaves no trace."""
+    y = layer_norm_f32(t, *ln)
+    if valid is None:
+        return y
+    return torch.where(valid.bool(), y, torch.zeros((), dtype=y.dtype,
+                                                    device=y.device))
 
 
 def linear_f32(a: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

@@ -23,13 +23,16 @@ tensors launch the kernels or raise. The boundary keeps the JAX layout:
   ``(-shift, -shift)``;
 - ``valid_hw``: the real extent ``(h, w, shift)`` (NewCRF) or ``(h, w)``
   (SAM) of the map, default the whole map; pad tokens are made zero after
-  the LayerNorm, so their queries, keys and values are the biases alone;
+  the LayerNorm by select, so their queries, keys and values are the biases
+  alone whatever x holds there (NewCRF's stage chain hands a block the
+  previous block's output at the pad positions);
 - ``mask``: None or the ``[nW, N, N]`` float32 shift mask, windows
   row-major; ``bias`` ``[heads, N, N]`` float32;
 - weights float32 ``[in, out]`` (the ``.t()`` view of a ``Linear`` weight),
   biases and LayerNorm ``(scale, bias)`` pairs float32;
-- the output ``[B, Hp, Wp, C]`` in x's dtype; its pad positions hold garbage
-  that the caller crops.
+- the output ``[B, Hp, Wp, C]`` in x's dtype, every position written
+  (finite where x is); no real token's output depends on what x holds at
+  the pad positions, and the caller crops them.
 
 The kernels take windows of at most 64 tokens, heads of a width that is a
 multiple of 8 up to 64, and C, H = 4C widths of ``block_epilogue_infer``
@@ -49,7 +52,7 @@ from tpudepth_torch.ops.kernels import _build, _op
 from tpudepth_torch.ops.kernels import epilogue_infer as _epi
 from tpudepth_torch.ops.kernels.epilogue_infer import (
     block_epilogue_infer_reference,
-    layer_norm_f32,
+    layer_norm_f32_valid,
     linear_f32,
 )
 from tpudepth_torch.ops.kernels.window_attn_infer import (
@@ -72,10 +75,10 @@ def _valid_image(h: int, w: int, hp: int, wp: int, shift: int) -> np.ndarray:
 @functools.lru_cache(maxsize=None)
 def _valid_on(h: int, w: int, hp: int, wp: int, shift: int,
               device: torch.device) -> torch.Tensor:
-    """:func:`_valid_image` as ``[Hp, Wp, 1]`` on ``device``, made once per
-    shape (so that a captured CUDA graph of the plain version copies
-    nothing from the host)."""
-    return torch.from_numpy(_valid_image(h, w, hp, wp, shift)).to(
+    """:func:`_valid_image` as a bool ``[Hp, Wp, 1]`` on ``device``, made
+    once per shape (so that a captured CUDA graph of the plain version
+    copies nothing from the host)."""
+    return torch.from_numpy(_valid_image(h, w, hp, wp, shift) > 0).to(
         device)[:, :, None]
 
 
@@ -109,7 +112,7 @@ def crf_rowblock_infer_reference(x, v, ln1, wqk, bqk, bias, wproj, bproj, ln2,
     _, hp, wp, c = x.shape
     dt = x.dtype
     h, w, shift = valid_hw if valid_hw is not None else (hp, wp, 0)
-    xn = (layer_norm_f32(x, *ln1) * _valid(x, h, w, shift)).to(dt)
+    xn = layer_norm_f32_valid(x, ln1, _valid(x, h, w, shift)).to(dt)
     qk = linear_f32(xn, wqk, bqk)
     q = (qk[..., :c] * scale).to(dt)
     k = qk[..., c:].to(dt)
@@ -127,8 +130,8 @@ def sam_rowblock_infer_reference(x, v, ln1, lnv, wq, bq, wkv, bkv, bias,
     dt = x.dtype
     h, w = valid_hw if valid_hw is not None else (hp, wp)
     valid = _valid(x, h, w, 0)
-    xn = (layer_norm_f32(x, *ln1) * valid).to(dt)
-    vn = (layer_norm_f32(v, *lnv) * valid).to(dt)
+    xn = layer_norm_f32_valid(x, ln1, valid).to(dt)
+    vn = layer_norm_f32_valid(v, lnv, valid).to(dt)
     q = (linear_f32(xn, wq, bq) * scale).to(dt)
     kv = linear_f32(vn, wkv, bkv)
     return _attend_and_tail(x, q, kv[..., :c].to(dt), kv[..., c:].to(dt),

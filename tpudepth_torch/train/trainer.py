@@ -90,6 +90,15 @@ def make_optimizer(config: TrainConfig, params) -> torch.optim.Adam:
 ENCODER_PREFIX = "Unet.0."
 
 
+def freezes_encoder(model_name: str) -> bool:
+    """Whether ``model_name`` (any name or alias of ``build_model``) trains
+    with its encoder frozen: the reference freezes the MobileNetV3 encoder
+    of the SAM model only (``src/model_mobileV3_large_SAM.py:168-169``)."""
+    from tpudepth_torch.models.registry import canonical_model_name
+
+    return canonical_model_name(model_name, strict=False) == "sam"
+
+
 def trainable_parameters(model: torch.nn.Module, freeze_encoder: bool):
     """The parameters the optimizer updates: all, or all but the encoder's
     (``tpudepth/train/trainer.py::freeze_encoder_mask``, where
@@ -299,9 +308,7 @@ class Trainer:
         if self.model_name not in ("GuideDepth", "GuideDepth-S"):
             # root-stack models train with the root recipe (src/train.py:94-100)
             recipe_kind = "root"
-        # the reference freezes the MobileNetV3 encoder of the SAM model only
-        # (src/model_mobileV3_large_SAM.py:168-169)
-        self.freeze_encoder = self.model_name == "sam"
+        self.freeze_encoder = freezes_encoder(self.model_name)
         # 8-bit NYU depth arrives in [0,1] -> scale by max_depth to meters;
         # the kitti reader already yields meters (16-bit png / 256).
         depth_scale = 1.0 if config.dataset == "kitti" else config.max_depth
@@ -460,11 +467,26 @@ class Trainer:
 
     def restore(self, path: str):
         """Resume mid-training: model, optimizer, epoch counter and
-        ``val_losses`` history. The GuideDepth schema stores the epoch to
-        resume at; the root schema stores the completed epoch, whose resume
-        point is epoch+1: callers adjust with :meth:`set_resume_epoch`."""
-        restored = load_checkpoint(path, map_location=self.device)
-        self.model.load_state_dict(restored["model"])
+        ``val_losses`` history, from a port checkpoint or from the JAX
+        package's orbax checkpoint directory of the same model
+        (``train/checkpoint.py::load_checkpoint``; Adam moments and counts
+        carried over, ``optax.multi_transform``'s frozen encoder too). The
+        GuideDepth schema stores the epoch to resume at; the root schema
+        stores the completed epoch, whose resume point is epoch+1: callers
+        adjust with :meth:`set_resume_epoch`."""
+        return self.restore_payload(load_checkpoint(
+            path, map_location=self.device, model_name=self.model_name,
+            model=self.model, freeze_encoder=self.freeze_encoder))
+
+    def restore_payload(self, restored: dict):
+        """:meth:`restore` from a checkpoint already loaded into the port's
+        schema (``jax_state.trainer_checkpoint_from_jax`` of a restored
+        JAX payload, say)."""
+        from tpudepth_torch.models.torch_import import (
+            load_reference_state_dict,
+        )
+
+        load_reference_state_dict(self.model, restored)
         self.state.optimizer.load_state_dict(restored["optimizer"])
         self.set_resume_epoch(int(restored.get("epoch", 0)))
         self.val_losses = [float(v) for v in restored.get("val_losses", [])]
