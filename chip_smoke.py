@@ -149,7 +149,18 @@ the command lines from a seeded dataset zip. Phases:
    ``row`` (its stages chained on the padded layout) against its blocks run
    one by one at bs 1 and 8: outputs bit-equal, chained blocks' padded
    outputs finite, launches and device
-   ms a call in turns;
+   ms a call in turns; [data parallel]: ``initialize`` a no-op without a
+   launcher, then a world-1 NCCL group: fused GuideDepth at 480x640 bf16,
+   global B 8, 3 ``Trainer`` steps with exact launches (9 + 9 + 9 GUB, 1 +
+   1 loss a step) and ms a step, the warm step time under the group and
+   without one between CUDA events in turns, one f32 step under the group
+   against the step without (bit for bit when two repeats of the latter
+   are; else within 4x their spread); then 2 gloo ranks on the one card
+   (spawned ``--dp-rank`` processes, joined with a timeout), 4 images a
+   rank, f32, 2 fused steps: both ranks bit-equal, rank 0's loss, change
+   of the parameters, Adam first moments and running statistics within 4x
+   the spread of two repeats of one process on the union batch, launches
+   exact;
    [zoo]: DenseDepth, the interpolated U-Net large and small at 480x640 and
    the U-Net at KITTI's 384x1280 (it takes multiples of 64 only), seeded
    at their published widths, served in bf16 through ``InferenceEngine``
@@ -4350,6 +4361,383 @@ def phase_stage_chain():
     return out
 
 
+# [data parallel]: the port's data axis on the card. (a) a world of one
+# under NCCL: fused GuideDepth 480x640 bf16, global B 8, DP_STEPS steps
+# through ``initialize`` and the ``Trainer``, the kernels' launches counted
+# over exactly those steps; (b) DP_RANKS gloo ranks on the one card (NCCL
+# refuses two ranks on one device), DP_PER_RANK images a rank, f32,
+# DP_STEPS_GLOO fused steps, against one process on the union batch.
+DP_STEPS = 3
+DP_RANKS, DP_PER_RANK, DP_STEPS_GLOO = 2, 4, 2
+# a child that has not finished by then fails the phase
+DP_JOIN_TIMEOUT = 300
+# the two-rank steps may differ from one process's by at most this many
+# times the spread of two repeats of the single-process steps (the GUB
+# statistics' atomics and cuDNN's backward are not bit-repeatable). Two
+# repeats may also agree bit for bit while the ranks sum in another order,
+# so each kind then passes within what the smoke holds two f32 steps that
+# round differently to (fused against plain GUB stages, FUSED_STEP_*). The
+# kinds: the loss; the parameters' change from the initial weights, as one
+# vector, relative to one process's (the direction of the update); the
+# Adam first moments (0.1 g + 0.09 g'), the only check that sees the
+# gradients' scale, since Adam's normalized update hides a gradient off by
+# a constant factor; the running statistics within DP_STATS_REL of each
+# tensor's largest
+DP_SPREAD_FACTOR = 4.0
+DP_STATS_REL = 1e-3
+# warm steps timed between CUDA events, with and without the group
+DP_TIMED_STEPS = 12
+
+
+def _dp_model():
+    """Fused GuideDepth from seed 0, its output bias at ``OUTPUT_BIAS``."""
+    from tpudepth_torch.models.registry import build_model
+
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(0)
+        model = build_model("GuideDepth", gub="fused")
+    with torch.no_grad():
+        model.up_3.reduce.bias.fill_(OUTPUT_BIAS)
+    return model
+
+
+def _dp_config(dtype: str, batch: int):
+    from tpudepth_torch.core.config import TrainConfig
+
+    return TrainConfig(model="GuideDepth", dataset="nyu_reduced",
+                       resolution="full", batch_size=batch,
+                       compute_dtype=dtype, log_every=1, seed=0)
+
+
+def _dp_gloo_run(loader, rows=None):
+    """``DP_STEPS_GLOO`` f32 steps of a fresh ``Trainer`` (on this process's
+    rows of each global batch when ``rows`` is given); the losses, and the
+    model's state and Adam first moments (``name:exp_avg``) on the host."""
+    from tpudepth_torch.train.trainer import Trainer
+
+    tr = Trainer(_dp_config("float32", DP_RANKS * DP_PER_RANK),
+                 model=_dp_model(), device=DEVICE, train_loader=loader)
+    tr.init_state()
+    losses = []
+    for batch in loader.batches[:DP_STEPS_GLOO]:
+        if rows is not None:
+            batch = {k: v[rows] for k, v in batch.items()}
+        losses.append(float(tr.train_step(batch)))
+    state = {k: v.detach().cpu() for k, v in tr.model.state_dict().items()
+             if v.is_floating_point()}
+    opt = tr.state.optimizer.state
+    for n, p in tr.model.named_parameters():
+        state[f"{n}:exp_avg"] = opt[p]["exp_avg"].cpu()
+    return losses, state
+
+
+def dp_gloo_worker(rank: int, workdir: str) -> int:
+    """One of the DP_RANKS gloo ranks of [data parallel] (b), run as
+    ``python chip_smoke.py --dp-rank RANK WORKDIR``: its rows of the
+    phase's batches; writes its losses and state to WORKDIR."""
+    from tpudepth_torch.parallel import initialize
+    from tpudepth_torch.parallel.launch import shutdown
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    initialize(f"file://{workdir}/rdzv", DP_RANKS, rank, backend="gloo",
+               device="cuda")
+    loader = SyntheticLoader(DP_STEPS_GLOO, seed=310, raw_depth=True)
+    rows = slice(rank * DP_PER_RANK, (rank + 1) * DP_PER_RANK)
+    (losses, state), seconds, launches = run_counted(
+        lambda: _dp_gloo_run(loader, rows))
+    torch.save({"losses": losses, "state": state, "seconds": seconds,
+                "launches": launches}, f"{workdir}/rank{rank}.pt")
+    shutdown()
+    return 0
+
+
+def _collective_host(fn, runs: int = 2):
+    """All-reduces a call of ``fn`` and the host time in them (the
+    profiler's CPU total of ``c10d::allreduce_``)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        for _ in range(runs):
+            fn()
+        torch.cuda.synchronize()
+    ev = [e for e in prof.key_averages() if e.key == "c10d::allreduce_"]
+    return {"calls": sum(e.count for e in ev) // runs,
+            "host_ms": sum(e.cpu_time_total for e in ev) / runs / 1e3}
+
+
+def _state_diff(a, b, keys=None):
+    return max(float((a[k] - b[k]).abs().max()) for k in (keys or a))
+
+
+def _dp_kind(key: str) -> str:
+    if key.endswith(":exp_avg"):
+        return "exp_avg"
+    return "stats" if key.endswith(("running_mean", "running_var")) \
+        else "params"
+
+
+def phase_data_parallel(tmp):
+    """[data parallel]: (a) a world of one under NCCL, its launches exact
+    and its f32 step against the step without a group; (b) two gloo ranks
+    on the card against one process on the union batch."""
+    import torch.distributed as dist
+
+    from tpudepth_torch.parallel import host_shard_info, initialize
+    from tpudepth_torch.parallel.launch import shutdown
+    from tpudepth_torch.train.trainer import (
+        Trainer,
+        TrainState,
+        make_optimizer,
+        make_train_step,
+        step_lr,
+    )
+
+    t_phase = time.perf_counter()
+    out = {}
+    # (a) NCCL, world 1
+    check(initialize() == (0, 1) and not dist.is_initialized(),
+          "initialize() without a launcher is not a no-op")
+    loader = SyntheticLoader(DP_STEPS, seed=300, raw_depth=True)
+    # the same trainer without a group, built before the group exists, for
+    # the step time beside the group's
+    solo = Trainer(_dp_config("bfloat16", TRAIN_BATCH), model=_dp_model(),
+                   train_loader=loader)
+    check(not solo.mesh.collective, f"the trainer's data axis {solo.mesh}")
+    solo.init_state()
+    initialize(f"file://{tmp}/dp_nccl", num_processes=1, process_id=0,
+               backend="nccl")
+    try:
+        check(host_shard_info() == (0, 1) and dist.get_backend() == "nccl",
+              "the world-1 NCCL group")
+        tr = Trainer(_dp_config("bfloat16", TRAIN_BATCH), model=_dp_model(),
+                     train_loader=loader)
+        check(tr.mesh.collective and tr.mesh.world == 1
+              and tr.device == torch.device("cuda", 0),
+              f"the trainer's data axis {tr.mesh}")
+        tr.init_state()
+
+        def steps():
+            losses, ms = [], []
+            for batch in loader.batches:
+                t0 = time.perf_counter()
+                losses.append(float(tr.train_step(batch)))
+                ms.append((time.perf_counter() - t0) * 1e3)
+            return losses, ms
+
+        (losses, step_ms), seconds, launches = run_counted(steps)
+        want = {"gub_conv_fwd": FUSED_FWD_PER_PASS * DP_STEPS,
+                "gub_conv_dw": FUSED_DW_PER_STEP * DP_STEPS,
+                "gub_conv_dx": FUSED_DX_PER_STEP * DP_STEPS,
+                "fused_loss_fwd": DP_STEPS, "fused_loss_bwd": DP_STEPS}
+        print(f"[data parallel] NCCL world 1: fused GuideDepth "
+              f"{TRAIN_HW[0]}x{TRAIN_HW[1]} global B{TRAIN_BATCH} bf16, "
+              f"{DP_STEPS} Trainer steps in {seconds:.2f} s, ms a step "
+              f"(host, synchronized; the first builds and warms) "
+              f"{[round(x, 2) for x in step_ms]}; losses "
+              f"{[round(x, 4) for x in losses]}; launches {launches}",
+              flush=True)
+        check(all(np.isfinite(losses)), f"non-finite losses {losses}")
+        check(launches == want, f"launches {launches}, expected {want}")
+
+        # step time as Trainer.train_step runs it (host batch in, augment
+        # on), warm, between CUDA events, in turns group-none-none-group:
+        # what the world-1 group's collectives cost
+        def timed(t):
+            for b in loader.batches:
+                t.train_step(b)
+            torch.cuda.synchronize()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for i in range(DP_TIMED_STEPS):
+                t.train_step(loader.batches[i % len(loader.batches)])
+            end.record()
+            end.synchronize()
+            return start.elapsed_time(end) / DP_TIMED_STEPS
+
+        times = {"group": [], "none": []}
+        for label, t in (("group", tr), ("none", solo), ("none", solo),
+                         ("group", tr)):
+            times[label].append(timed(t))
+        group_ms, none_ms = (statistics.mean(times["group"]),
+                             statistics.mean(times["none"]))
+        print(f"[data parallel] step time, {DP_TIMED_STEPS} warm steps "
+              f"between CUDA events, turns group-none-none-group: under the "
+              f"world-1 NCCL group {group_ms:.2f} ms "
+              f"({', '.join(f'{x:.2f}' for x in times['group'])}), without a "
+              f"group {none_ms:.2f} ms "
+              f"({', '.join(f'{x:.2f}' for x in times['none'])}), "
+              f"{group_ms / none_ms:.3f}x", flush=True)
+        collectives = _collective_host(
+            lambda: tr.train_step(loader.batches[0]))
+        each_us = collectives["host_ms"] / max(collectives["calls"], 1) * 1e3
+        print(f"[data parallel] profiled group step: {collectives['calls']} "
+              f"all-reduces a step, {collectives['host_ms']:.2f} ms of host "
+              f"time in them ({each_us:.1f} us each)", flush=True)
+        del solo
+
+        # one f32 step with the group's data axis against the step without
+        # a group, from the same weights, batch and draws; two repeats of
+        # the latter say whether the step repeats bit for bit
+        batch = loader.batches[0]
+        cfg = _dp_config("float32", TRAIN_BATCH)
+        results = []
+        for mesh in (tr.mesh, None, None):
+            model = _dp_model().to(DEVICE, memory_format=torch.channels_last)
+            state = TrainState(model, make_optimizer(cfg, model.parameters()))
+            step = make_train_step(model, tr.recipe, step_lr(1e-4, 15, 0.1, 3),
+                                   compute_dtype=torch.float32, mesh=mesh)
+            loss = step(state, torch.as_tensor(batch["image"]).to(DEVICE),
+                        torch.as_tensor(batch["depth"]).to(DEVICE),
+                        torch.Generator(device=DEVICE).manual_seed(0))
+            results.append((float(loss), {
+                k: v.detach().cpu() for k, v in model.state_dict().items()
+                if v.is_floating_point()}))
+            del model, state, step
+        (lg, sg), (l0, s0), (l1, s1) = results
+        repeat_bits = l0 == l1 and _state_diff(s0, s1) == 0.0
+        diff, spread = _state_diff(sg, s0), _state_diff(s0, s1)
+        print(f"[data parallel] f32 step under the world-1 NCCL group vs "
+              f"without: loss {lg!r} vs {l0!r}, max |d state| {diff:.3e}; "
+              f"two repeats without a group: loss {l1!r}, max |d state| "
+              f"{spread:.3e} ("
+              f"{'bit-equal' if repeat_bits else 'not bit-equal'})",
+              flush=True)
+        if repeat_bits:
+            check(lg == l0 and diff == 0.0,
+                  "the world-1 group's f32 step differs from the step "
+                  "without a group, which repeats bit for bit")
+        else:
+            check(diff <= DP_SPREAD_FACTOR * spread
+                  and abs(lg - l0) <= DP_SPREAD_FACTOR * abs(l0 - l1),
+                  f"the world-1 group's f32 step differs by {diff:.3e} "
+                  f"(loss {abs(lg - l0):.3e}), beyond {DP_SPREAD_FACTOR}x "
+                  f"the repeats' {spread:.3e} ({abs(l0 - l1):.3e})")
+        out["nccl_world1"] = {
+            "steps": DP_STEPS, "losses": losses, "step_ms": step_ms,
+            "timed_group_ms": times["group"], "timed_none_ms": times["none"],
+            "collectives": collectives,
+            "seconds": seconds, "launches": launches,
+            "f32_step_bit_equal": lg == l0 and diff == 0.0,
+            "f32_repeats_bit_equal": repeat_bits,
+            "f32_max_diff": diff, "f32_repeat_spread": spread}
+        del tr, results
+    finally:
+        shutdown()
+    torch.cuda.empty_cache()
+
+    # (b) gloo, DP_RANKS ranks on the one card
+    workdir = f"{tmp}/dp_gloo"
+    os.makedirs(workdir)
+    env = {**os.environ, "OMP_NUM_THREADS": "2"}
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--dp-rank", str(r),
+         workdir], env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True) for r in range(DP_RANKS)]
+    try:
+        # one process on the union batch, twice, while the ranks run
+        loader = SyntheticLoader(DP_STEPS_GLOO, seed=310, raw_depth=True)
+        ref = [_dp_gloo_run(loader) for _ in range(2)]
+        logs = []
+        for p in procs:
+            log, _ = p.communicate(
+                timeout=max(DP_JOIN_TIMEOUT - (time.perf_counter() - t0), 1))
+            logs.append(log)
+    except subprocess.TimeoutExpired:
+        for p in procs:
+            p.kill()
+        raise RuntimeError(f"chip_smoke check failed: a gloo rank outlived "
+                           f"{DP_JOIN_TIMEOUT} s")
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        check(p.returncode == 0,
+              f"gloo rank {r} exited {p.returncode}:\n{log[-4000:]}")
+    t_ranks = time.perf_counter() - t0
+    ranks = [torch.load(f"{workdir}/rank{r}.pt") for r in range(DP_RANKS)]
+    (la, sa), (lb, sb) = ref
+    r0, r1 = ranks
+    check(r0["losses"] == r1["losses"]
+          and all(torch.equal(v, r1["state"][k])
+                  for k, v in r0["state"].items()),
+          "the two gloo ranks' losses or states differ")
+    loss_diff = max(abs(x - y) for x, y in zip(r0["losses"], la))
+    loss_spread = max(abs(x - y) for x, y in zip(la, lb))
+    g_all = max(float(v.abs().max()) for k, v in sa.items()
+                if _dp_kind(k) == "exp_avg")
+    kinds, beyond = {}, []
+    # the parameters' change from the initial weights, as one vector
+    p0 = _dp_model().state_dict()
+    keys = [k for k in sa if _dp_kind(k) == "params"]
+
+    def moved(state):
+        return torch.cat([(state[k] - p0[k].float()).flatten() for k in keys])
+
+    d_one, d_rep, d_ranks = moved(sa), moved(sb), moved(r0["state"])
+    norm = float(d_one.norm())
+    rel, spread = (float((d_ranks - d_one).norm()) / norm,
+                   float((d_rep - d_one).norm()) / norm)
+    bound = DP_SPREAD_FACTOR * spread if spread else FUSED_STEP_GRAD_REL
+    if rel > bound:
+        beyond.append(f"the parameters' change {rel:.3e} > {bound:.3e}")
+    kinds["params"] = {"max_diff": rel, "repeat_spread": spread,
+                       "worst_of_bound": rel / bound}
+    for kind in ("stats", "exp_avg"):
+        keys = [k for k in sa if _dp_kind(k) == kind]
+        spread = _state_diff(sa, sb, keys)
+        worst = 0.0
+        for k in keys:
+            d = float((r0["state"][k] - sa[k]).abs().max())
+            top = float(sa[k].abs().max())
+            bound = max(DP_SPREAD_FACTOR * spread, {
+                "stats": DP_STATS_REL * top,
+                "exp_avg": max(FUSED_STEP_GRAD_REL * top,
+                               FUSED_STEP_GRAD_FLOOR_REL * g_all)}[kind])
+            if d > bound:
+                beyond.append(f"{k} {d:.3e} > {bound:.3e}")
+            worst = max(worst, d / bound)
+        kinds[kind] = {"max_diff": _state_diff(r0["state"], sa, keys),
+                       "repeat_spread": spread, "worst_of_bound": worst}
+    print(f"[data parallel] gloo {DP_RANKS} ranks on one card, "
+          f"{DP_PER_RANK} images a rank at {TRAIN_HW[0]}x{TRAIN_HW[1]} f32, "
+          f"{DP_STEPS_GLOO} fused GuideDepth steps: ranks bit-equal; losses "
+          f"{r0['losses']} vs one process on the union batch {la} "
+          f"(repeat {lb}); against the repeats' spread, and the largest "
+          f"share of a bound (params: |d change| / |change| of all the "
+          f"parameters; stats, exp_avg: max |d|): "
+          + "; ".join(f"{kind} {v['max_diff']:.3e} / {v['repeat_spread']:.3e}"
+                      f" ({v['worst_of_bound']:.2f})"
+                      for kind, v in kinds.items())
+          + f"; rank 0's run {r0['seconds']:.2f} s (its launches "
+          f"{r0['launches']}), spawn to join {t_ranks:.2f} s", flush=True)
+    check(not beyond, f"the two-rank state differs from one process's "
+          f"beyond its bound in {len(beyond)} tensors: {beyond[:8]}")
+    want = {"gub_conv_fwd": FUSED_FWD_PER_PASS * DP_STEPS_GLOO,
+            "gub_conv_dw": FUSED_DW_PER_STEP * DP_STEPS_GLOO,
+            "gub_conv_dx": FUSED_DX_PER_STEP * DP_STEPS_GLOO,
+            "fused_loss_fwd": DP_STEPS_GLOO, "fused_loss_bwd": DP_STEPS_GLOO}
+    check(r0["launches"] == r1["launches"] == want,
+          f"the gloo ranks launched {r0['launches']}, {r1['launches']}, "
+          f"expected {want} each")
+    check(loss_diff <= max(DP_SPREAD_FACTOR * loss_spread,
+                           FUSED_STEP_LOSS_RTOL * abs(la[-1])),
+          f"the two-rank losses differ from one process's by "
+          f"{loss_diff:.3e}, beyond {DP_SPREAD_FACTOR}x the repeats' spread "
+          f"{loss_spread:.3e}")
+    out["gloo"] = {"ranks": DP_RANKS, "per_rank": DP_PER_RANK,
+                   "steps": DP_STEPS_GLOO, "losses": r0["losses"],
+                   "single_losses": la, "kinds": kinds,
+                   "loss_diff": loss_diff,
+                   "loss_spread": loss_spread,
+                   "rank_seconds": r0["seconds"], "spawn_to_join_s": t_ranks,
+                   "launches": r0["launches"]}
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"[data parallel] {out['seconds']:.1f} s", flush=True)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -4395,6 +4783,10 @@ def main() -> int:
         weights_jax = phase_weights_jax()
         weights_torch = phase_weights_torch(tmp)
         stage_chain = phase_stage_chain()
+        # data-parallel training: a world of one under NCCL and two gloo
+        # ranks on the card, each path's counts set to 0 just before it and
+        # read just after it
+        data_parallel = phase_data_parallel(tmp)
         # the rest of the zoo served and trained, then the engines
         # serialized and deserialized; each path's counts set to 0 just
         # before it and read just after it
@@ -4721,7 +5113,11 @@ def main() -> int:
         **{f"weights torch {label} (a bs-1 frame)": r["launches_per_frame"]
            for label, r in weights_torch["cases"].items()},
         **{f"stage chain newcrf row {bs} (a chained forward)":
-           stage_chain[bs]["launches_per_forward"] for bs in ("bs1", "bs8")}}
+           stage_chain[bs]["launches_per_forward"] for bs in ("bs1", "bs8")},
+        f"data parallel nccl world 1 ({DP_STEPS} steps)":
+            data_parallel["nccl_world1"]["launches"],
+        f"data parallel gloo rank 0 of {DP_RANKS} ({DP_STEPS_GLOO} steps)":
+            data_parallel["gloo"]["launches"]}
     for k in kernels:
         for path, counts in by_path.items():
             if counts.get(k["name"]):
@@ -4739,7 +5135,8 @@ def main() -> int:
           f"[op cost] {t_export:.1f} s; [packed] {packed['seconds']:.1f} s; "
           f"[weights jax] {weights_jax['seconds']:.1f} s, [weights torch] "
           f"{weights_torch['seconds']:.1f} s, [stage chain] "
-          f"{stage_chain['seconds']:.1f} s", flush=True)
+          f"{stage_chain['seconds']:.1f} s, [data parallel] "
+          f"{data_parallel['seconds']:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels, "serve_errors": errs,
                       "sam_serve_errors": sam_errs, "sam_engine": sam_perf,
                       "newcrf_serve_errors": crf_errs,
@@ -4752,7 +5149,8 @@ def main() -> int:
                       "engine_export": export, "op_cost": op_cost,
                       "weights_jax": weights_jax,
                       "weights_torch": weights_torch,
-                      "stage_chain": stage_chain, "seconds": seconds}))
+                      "stage_chain": stage_chain,
+                      "data_parallel": data_parallel, "seconds": seconds}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
@@ -4760,4 +5158,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--dp-rank"]:
+        sys.exit(dp_gloo_worker(int(sys.argv[2]), sys.argv[3]))
     sys.exit(main())

@@ -2111,3 +2111,103 @@ def test_newcrf_stage_chain_is_bit_equal_on_the_card(cuda, bsz):
             assert len(seen) == 8
             assert all(bool(torch.isfinite(y).all()) for _, y in seen)
     assert torch.equal(outs[0], outs[1])
+
+
+# -- data parallel -----------------------------------------------------------
+
+
+@pytest.fixture
+def nccl_world_1(cuda, tmp_path):
+    """A process group of one under NCCL, and its data axis."""
+    from tpudepth_torch.core import mesh as mesh_lib
+
+    torch.distributed.init_process_group(
+        "nccl", init_method=f"file://{tmp_path}/rdzv", world_size=1, rank=0)
+    try:
+        yield mesh_lib.create_mesh(device=cuda)
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def test_fused_gub_batchnorm_with_world_1_nccl_sums_is_bit_equal(
+        cuda, nccl_world_1):
+    """``BatchNorm.train_affine`` on one ``gub_conv_fwd`` launch's f32 sums,
+    inside the world-1 NCCL group's data axis (the sums SUM-all-reduced with
+    autograd, the count times the world) and outside it: the affine, the
+    running statistics and the sums' cotangents, which the backward kernels
+    receive, are the same bits."""
+    from tpudepth_torch.core import mesh as mesh_lib
+    from tpudepth_torch.models.layers import BatchNorm
+
+    g = torch.Generator().manual_seed(7)
+    x = torch.randn(4, 60, 80, 16, generator=g).to(cuda)
+    w = (torch.randn(3, 3, 16, 32, generator=g) * 0.1).to(cuda)
+    b = torch.randn(32, generator=g).to(cuda)
+    before = conv_bn_act.launches
+    _, s, q = conv_bn_act([x], w, b, stats=True)
+    assert conv_bn_act.launches == before + 1
+    n = float(4 * 60 * 80)
+    out = []
+    for axis in (None, nccl_world_1):
+        bn = BatchNorm(32).to(cuda).train()
+        ss, qq = s.clone().requires_grad_(), q.clone().requires_grad_()
+        with mesh_lib.data_axis(axis):
+            a, c = bn.train_affine(sums=(ss, qq, n))
+            (a * torch.linspace(-1, 1, 32, device=cuda)).sum().backward(
+                retain_graph=True)
+            c.square().sum().backward()
+        out.append((a.detach(), c.detach(), ss.grad, qq.grad,
+                    bn.running_mean.clone(), bn.running_var.clone()))
+    for got, want in zip(out[1], out[0]):
+        assert torch.equal(got, want)
+
+
+def test_fused_step_under_a_world_1_nccl_group_launches_as_without(
+        cuda, nccl_world_1):
+    """A fused GuideDepth-S f32 train step under the world-1 NCCL group
+    launches the kernels as often as without a group (9 + 9 + 9 GUB, 1 + 1
+    loss) and lands within 4x the spread of two repeats of the step without
+    (the f32 step does not repeat bit for bit on the card: the GUB
+    statistics' and cuDNN's atomics)."""
+    from tpudepth_torch.core.config import TrainConfig
+    from tpudepth_torch.models.layers import init_random_
+    from tpudepth_torch.models.registry import build_model
+    from tpudepth_torch.train import trainer as ttr
+
+    rng = np.random.default_rng(5)
+    image = torch.from_numpy(rng.integers(0, 256, (4, 96, 128, 3),
+                                          dtype=np.uint8)).to(cuda)
+    depth = torch.from_numpy(rng.random((4, 96, 128, 1), dtype=np.float32)
+                             * 0.9 + 0.05).to(cuda)
+    weights = init_random_(build_model("GuideDepth-S", gub="fused"),
+                           seed=6).state_dict()
+    counters = (conv_bn_act, gc.conv_bn_act_dw, gc.conv_bn_act_dx,
+                fl.fused_partials, fl.fused_bwd)
+    runs = []
+    for mesh in (nccl_world_1, None, None):
+        model = build_model("GuideDepth-S", gub="fused")
+        model.load_state_dict(weights)
+        model = model.to(cuda, memory_format=torch.channels_last)
+        state = ttr.TrainState(model, ttr.make_optimizer(
+            TrainConfig(), model.parameters()))
+        step = ttr.make_train_step(
+            model, ttr.LossRecipe(), ttr.step_lr(1e-4, 15, 0.1, 10),
+            compute_dtype=torch.float32, mesh=mesh)
+        before = [f.launches for f in counters]
+        loss = step(state, image, depth,
+                    torch.Generator(device=cuda).manual_seed(0))
+        torch.cuda.synchronize()
+        runs.append((float(loss), [f.launches - b for f, b in
+                                   zip(counters, before)],
+                     model.state_dict()))
+    (lg, cg, sg), (l0, c0, s0), (l1, _, s1) = runs
+    assert cg == c0 == [9, 9, 9, 1, 1]
+    assert np.isfinite(lg)
+
+    def diff(a, b):
+        return max(float((a[k].double() - b[k].double()).abs().max())
+                   for k in a if a[k].is_floating_point())
+
+    spread = diff(s0, s1)
+    assert diff(sg, s0) <= 4 * spread
+    assert abs(lg - l0) <= max(4 * abs(l0 - l1), 1e-6 * abs(l0))

@@ -27,6 +27,7 @@ from tpudepth_torch.core.config import TrainConfig
 from tpudepth_torch.models.layers import init_random_
 from tpudepth_torch.models.registry import build_model
 from tpudepth_torch.train import trainer as ttr
+from torch_port_helpers import torch_one_thread  # noqa: F401
 
 LR = 1e-4
 HW = (96, 128)

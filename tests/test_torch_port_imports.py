@@ -40,7 +40,10 @@ REQUIRED = ("tpudepth_torch.models.sam", "tpudepth_torch.models.newcrf",
             # weight I/O
             "tpudepth_torch.train.orbax_io", "tpudepth_torch.train.jax_state",
             "tpudepth_torch.models.torch_import",
-            "tpudepth_torch.models.keras_import")
+            "tpudepth_torch.models.keras_import",
+            # data parallelism
+            "tpudepth_torch.core.mesh", "tpudepth_torch.parallel",
+            "tpudepth_torch.parallel.launch")
 # read only inside the functions that read a file
 LAZY = ("tensorstore", "h5py")
 # (module, name): what those modules must define
@@ -64,7 +67,10 @@ REQUIRED_NAMES = (("tpudepth_torch.eval.evaluator", "RootEvaluator"),
                   ("tpudepth_torch.models.torch_import",
                    "load_ddrnet_imagenet"),
                   ("tpudepth_torch.models.keras_import",
-                   "import_keras_sequential"))
+                   "import_keras_sequential"),
+                  ("tpudepth_torch.parallel", "initialize"),
+                  ("tpudepth_torch.parallel", "host_shard_info"),
+                  ("tpudepth_torch.core.mesh", "all_reduce_sum"))
 
 
 def _forbidden(name: str) -> bool:

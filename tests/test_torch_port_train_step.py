@@ -51,6 +51,7 @@ from tpudepth_torch.models.jax_weights import (
 )
 from tpudepth_torch.models.registry import build_model
 from tpudepth_torch.train import trainer as ttr
+from torch_port_helpers import torch_one_thread  # noqa: F401
 
 LR = 1e-4
 MAX_DEPTH = 10.0

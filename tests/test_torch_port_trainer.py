@@ -23,6 +23,7 @@ from tpudepth_torch.eval.metrics import AverageMeter, Result
 from tpudepth_torch.models.registry import build_model
 from tpudepth_torch.train.checkpoint import load_checkpoint, save_checkpoint
 from tpudepth_torch.utils.profiling import StepTimer
+from torch_port_helpers import torch_one_thread  # noqa: F401
 
 HW = (64, 64)
 
@@ -288,7 +289,7 @@ def test_result_and_average_meter_match_the_jax_package():
 def test_train_config_keeps_the_jax_package_defaults():
     ours = {f.name: f.default for f in dataclasses.fields(TrainConfig)}
     theirs = {f.name: f.default for f in dataclasses.fields(JaxTrainConfig)}
-    dropped = {"num_data_shards"}
+    dropped = set()
     assert set(theirs) - set(ours) == dropped
     assert {k: theirs[k] for k in ours} == ours
     cfg = TrainConfig(dataset="kitti", resolution="half")

@@ -23,7 +23,7 @@ import jax.numpy as jnp
 import torch
 
 from tpudepth.core.config import TrainConfig as JaxTrainConfig
-from tpudepth.core.mesh import create_mesh
+from tpudepth.core.mesh import batch_sharding, create_mesh, replicated
 from tpudepth.models import build_model as jax_build_model
 from tpudepth.ops.attention import training_mode
 from tpudepth.ops.image import resize_bilinear as jax_resize_bilinear
@@ -42,8 +42,10 @@ BRIDGE = {
             jax_weights.sam_grads_from_flax),
     "newcrf": (jax_weights.newcrf_state_dict_from_flax,
                jax_weights.newcrf_grads_from_flax),
-    "GuideDepth": (jax_weights.guidedepth_state_dict_from_flax, None),
-    "GuideDepth-S": (jax_weights.guidedepth_state_dict_from_flax, None),
+    "GuideDepth": (jax_weights.guidedepth_state_dict_from_flax,
+                   jax_weights.guidedepth_grads_from_flax),
+    "GuideDepth-S": (jax_weights.guidedepth_state_dict_from_flax,
+                     jax_weights.guidedepth_grads_from_flax),
     **{name: (functools.partial(jax_weights.zoo_state_dict_from_flax, name),
               functools.partial(jax_weights.zoo_grads_from_flax, name))
        for name in jax_weights.ZOO_MODELS},
@@ -87,26 +89,34 @@ def batch(seed, bsz=2, hw=HW):
     return image, depth
 
 
-def jax_step64(name, variables, image, depth):
+def jax_step64(name, variables, image, depth, kind="root", mesh=None,
+               **model_kwargs):
     """The JAX package's float64 train-mode forward, mutated statistics,
-    root loss and gradients, carried to the port's names. A prediction at
-    half the input's size gets the target resized to it, as the JAX
-    trainer's step does (``tpudepth/train/trainer.py:240-248``)."""
+    loss (``kind``'s recipe) and gradients, carried to the port's names. A
+    prediction at half the input's size gets the target resized to it, as
+    the JAX trainer's step does (``tpudepth/train/trainer.py:240-248``).
+    With ``mesh`` the batch is sharded over its ``data`` axis and the
+    variables replicated, as the JAX trainer places them; ``model_kwargs``
+    go to the JAX ``build_model``."""
     to_state, to_grads = BRIDGE[name]
-    recipe = jtr.LossRecipe(kind="root", max_depth=MAX_DEPTH,
+    recipe = jtr.LossRecipe(kind=kind, max_depth=MAX_DEPTH,
                             depth_scale=MAX_DEPTH)
     with jax.enable_x64(True):
-        model64 = jax_build_model(name, dtype=jnp.float64)
+        model64 = jax_build_model(name, dtype=jnp.float64, **model_kwargs)
         v64 = jax.tree_util.tree_map(lambda a: jnp.asarray(a, jnp.float64),
                                      variables)
         target = recipe.target(jnp.asarray(depth))
+        image = jnp.asarray(image, jnp.float64)
+        if mesh is not None:
+            image = jax.device_put(image, batch_sharding(mesh))
+            target = jax.device_put(target, batch_sharding(mesh))
+            v64 = jax.device_put(v64, replicated(mesh))
 
         def loss_fn(params):
             with training_mode():
                 pred, mutated = model64.apply(
                     {"params": params, "batch_stats": v64["batch_stats"]},
-                    jnp.asarray(image, jnp.float64), train=True,
-                    mutable=["batch_stats"])
+                    image, train=True, mutable=["batch_stats"])
             tgt = target
             if pred.shape[1:3] != tgt.shape[1:3]:
                 tgt = jax_resize_bilinear(tgt, pred.shape[1:3])
@@ -130,26 +140,34 @@ def check_step64(name, variables, want, image, depth):
                             depth_scale=MAX_DEPTH)
     # the head's sigmoid runs in f32 in both packages
     pred = model(torch.from_numpy(image).permute(0, 3, 1, 2).double())
-    assert np.std(want["pred"]) > 1e-3
-    np.testing.assert_allclose(pred.permute(0, 2, 3, 1).detach().numpy(),
-                               want["pred"], rtol=1e-3, atol=1e-4)
-    sd = model.state_dict()
-    keys = [k for k in sd if k.endswith(("running_mean", "running_var"))]
-    assert len(keys) >= 90   # MobileNetV3-Large's 46 BatchNorms
-    for k in keys:
-        np.testing.assert_allclose(sd[k].numpy(), want["stats"][k].numpy(),
-                                   rtol=1e-3, atol=1e-4, err_msg=k)
+    stats = {k: v for k, v in model.state_dict().items()
+             if k.endswith(("running_mean", "running_var"))}
     target = recipe.target(torch.from_numpy(depth).permute(0, 3, 1, 2))
     if pred.shape[2:] != target.shape[2:]:
         # the port trainer's step (tpudepth_torch/train/trainer.py)
         target = resize_bilinear(target, pred.shape[2:])
     loss = recipe.loss(pred, target)
-    assert loss.item() == pytest.approx(want["loss"], rel=1e-5)
     loss.backward()
-    assert set(want["grads"]) == {n for n, _ in model.named_parameters()}
+    check_recorded64(want, pred.detach(), stats, loss.item(),
+                     {n: p.grad for n, p in model.named_parameters()})
+
+
+def check_recorded64(want, pred, stats, loss, grads):
+    """A port float64 step's NCHW ``pred``, moved ``stats``, ``loss`` and
+    ``grads`` (by name) against :func:`jax_step64`'s ``want``, at the
+    module's tolerances."""
+    assert np.std(want["pred"]) > 1e-3
+    np.testing.assert_allclose(pred.permute(0, 2, 3, 1).numpy(),
+                               want["pred"], rtol=1e-3, atol=1e-4)
+    assert len(stats) >= 90   # MobileNetV3-Large's 46 BatchNorms
+    for k, v in stats.items():
+        np.testing.assert_allclose(v.numpy(), want["stats"][k].numpy(),
+                                   rtol=1e-3, atol=1e-4, err_msg=k)
+    assert loss == pytest.approx(want["loss"], rel=1e-5)
+    assert set(want["grads"]) == set(grads)
     n_compared = 0
-    for n, p in model.named_parameters():
-        g, gw = p.grad.numpy(), want["grads"][n].numpy()
+    for n, grad in grads.items():
+        g, gw = grad.numpy(), want["grads"][n].numpy()
         tol = max(1e-3 * np.abs(gw).max(), 1e-6)
         assert np.abs(g - gw).max() <= tol, (n, np.abs(g - gw).max(), tol)
         n_compared += int(np.abs(gw).max() > 1e-6)

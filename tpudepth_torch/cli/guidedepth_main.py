@@ -21,6 +21,13 @@ or ``synthetic:HxW`` makes a seeded zip. ``--load_checkpoint`` and
 ``--weights_path`` take the port's files, the JAX package's orbax
 checkpoint directories of ``--model`` (read with ``tensorstore``) and
 reference ``.pth`` files (``train/checkpoint.py``).
+
+Data parallel: ``torchrun --nproc_per_node N -m
+tpudepth_torch.cli.guidedepth_main --train ...`` trains over N processes
+(NCCL on the cards, ``cuda:LOCAL_RANK`` each; gloo with ``--device cpu``),
+``--batch_size`` the global batch, each rank loading its shard of the train
+split and its rows of each validation batch; rank 0 alone prints, saves
+and evaluates.
 """
 
 from __future__ import annotations
@@ -38,6 +45,12 @@ from tpudepth_torch.data.synthetic import resolve_data
 from tpudepth_torch.eval.evaluator import AlhashimEvaluator
 from tpudepth_torch.models.layers import init_random_
 from tpudepth_torch.models.registry import GUB_MODES, build_model
+from tpudepth_torch.parallel.launch import (
+    default_device,
+    host_shard_info,
+    initialize,
+    shutdown,
+)
 from tpudepth_torch.train.checkpoint import load_model_weights
 from tpudepth_torch.train.trainer import Trainer, make_eval_step
 
@@ -76,6 +89,11 @@ def get_parser() -> argparse.ArgumentParser:
 
 
 def train(args, device: torch.device, data_path: str) -> Trainer:
+    rank, world = host_shard_info()
+    if args.batch_size % world:
+        raise ValueError(f"--batch_size {args.batch_size} does not split "
+                         f"into {world} ranks")
+    say = print if rank == 0 else (lambda *a, **k: None)
     config = TrainConfig(
         model=args.model, dataset=args.dataset, resolution=args.resolution,
         epochs=args.num_epochs, batch_size=args.batch_size,
@@ -83,11 +101,16 @@ def train(args, device: torch.device, data_path: str) -> Trainer:
         scheduler_step_size=args.scheduler_step_size,
         eval_mode=args.eval_mode, data_path=data_path,
         checkpoint_dir=args.save_checkpoint, results_dir=args.save_results)
-    print("Maximum Depth of Dataset: {}".format(config.max_depth))
+    say("Maximum Depth of Dataset: {}".format(config.max_depth))
+    # train: this rank's shard at its share of the batch; val: the global
+    # batches, whose rows the trainer splits over the ranks
     loaders = {split: get_dataloader(
-        args.dataset, data_path, split, batch_size=args.batch_size,
+        args.dataset, data_path, split,
+        batch_size=args.batch_size // (world if split == "train" else 1),
         resolution=args.resolution, workers=args.num_workers,
-        device=device if split == "train" else None)
+        device=device if split == "train" else None,
+        shard=rank if split == "train" else 0,
+        num_shards=world if split == "train" else 1)
         for split in ("train", "val")}
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(config.seed)
@@ -99,12 +122,12 @@ def train(args, device: torch.device, data_path: str) -> Trainer:
         trainer.restore(args.load_checkpoint)
 
     def on_epoch_end(epoch, train_avg, val_avg, tr):
-        print("{} - Average Training Loss: {:3.4f}".format(
+        say("{} - Average Training Loss: {:3.4f}".format(
             time.strftime("%H:%M"), train_avg))
         if val_avg is not None:
-            print("{} - Average Validation Loss: {:3.4f}".format(
+            say("{} - Average Validation Loss: {:3.4f}".format(
                 time.strftime("%H:%M"), tr.val_losses[-1]))
-            print(AlhashimEvaluator.format_report(val_avg))
+            say(AlhashimEvaluator.format_report(val_avg))
 
     # per-epoch checkpoints with val_losses and the best epoch's export
     # (src/GuideDepth/training.py:72-86,166-189)
@@ -112,7 +135,7 @@ def train(args, device: torch.device, data_path: str) -> Trainer:
         epochs=args.num_epochs, steps_per_epoch=args.steps_per_epoch,
         val_max_batches=args.steps_per_epoch or 0, on_epoch_end=on_epoch_end,
         checkpoint_style="per_epoch", export_best=True)
-    print("Model saved.")
+    say("Model saved.")
     return trainer
 
 
@@ -147,21 +170,29 @@ def main(argv=None) -> dict:
     the trainer's ``epoch_times`` and ``val_losses`` and the evaluation's
     ``metrics`` (a ``Result``)."""
     args = get_parser().parse_args(argv)
-    print(args)
-    device = resolve_device(args.device)
+    resolve_device(args.device)   # raises on cuda without a card
+    started = not torch.distributed.is_initialized()
+    rank, _ = initialize(device=args.device)
+    device = default_device(None if args.device == "cuda" else args.device)
+    if rank == 0:
+        print(args)
     data_path = resolve_data(args.data_path, dataset=args.dataset)
     test_path = (resolve_data(args.test_path, dataset=args.dataset)
                  if args.test_path else data_path)
     os.makedirs(args.save_checkpoint, exist_ok=True)
     os.makedirs(args.save_results, exist_ok=True)
     out = {}
-    if args.train:
-        trainer = train(args, device, data_path)
-        out.update(epoch_times=trainer.epoch_times,
-                   val_losses=trainer.val_losses)
-        del trainer
+    try:
+        if args.train:
+            trainer = train(args, device, data_path)
+            out.update(epoch_times=trainer.epoch_times,
+                       val_losses=trainer.val_losses)
+            del trainer
+    finally:
+        if started:   # leave only the group this command joined
+            shutdown()
     out["weights_path"] = args.weights_path
-    if args.evaluate:
+    if args.evaluate and rank == 0:
         out["metrics"] = evaluate(args, device, test_path)
     return out
 

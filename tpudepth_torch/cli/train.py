@@ -15,6 +15,11 @@ every epoch, the image grids ``Train.1.Image``, ``Train.2.Depth``,
 ``Train.3.Ours`` and ``Train.3.Diff``. The writer is
 ``torch.utils.tensorboard``'s, or None when that does not import; the
 colorized grids need matplotlib and are left out, with a note, without it.
+
+Data parallel: ``torchrun --nproc_per_node N -m tpudepth_torch.cli.train
+...`` trains over N processes (NCCL on the cards, ``cuda:LOCAL_RANK`` each;
+gloo with ``--device cpu``), ``--bs`` the global batch, each rank loading
+its shard of the train split; rank 0 alone prints, logs and saves.
 """
 
 from __future__ import annotations
@@ -33,6 +38,7 @@ from tpudepth_torch.data.nyu import get_training_testing_data
 from tpudepth_torch.data.synthetic import resolve_data
 from tpudepth_torch.eval.metrics import ScalarMeter
 from tpudepth_torch.losses.losses import depth_norm_minmax
+from tpudepth_torch.parallel.launch import default_device, initialize, shutdown
 from tpudepth_torch.train.trainer import Trainer, make_eval_step
 from tpudepth_torch.utils.viz import colorize, make_grid
 
@@ -93,36 +99,44 @@ def main(argv=None) -> dict:
     """Run the command line; returns the checkpoint's path, the logged
     losses and the trainer's ``epoch_times``."""
     args = get_parser().parse_args(argv)
-    device = resolve_device(args.device)
+    resolve_device(args.device)   # raises on cuda without a card
+    started = not torch.distributed.is_initialized()
+    rank, world = initialize(device=args.device)
+    device = default_device(None if args.device == "cuda" else args.device)
+    if args.bs % world:
+        raise ValueError(f"--bs {args.bs} does not split into {world} ranks")
+    # rank 0 alone prints, logs to TensorBoard and saves
+    say = print if rank == 0 else (lambda *a, **k: None)
     zip_path = resolve_data(args.data)
     config = TrainConfig(model=args.model, epochs=args.epochs,
                          batch_size=args.bs, learning_rate=args.lr,
                          compute_dtype=args.dtype, data_path=zip_path)
-    print(f"Device: {device}")
-    train_loader, test_loader = get_training_testing_data(args.bs, zip_path,
-                                                          device=device)
-    print("Model created.")
+    say(f"Device: {device}")
+    train_loader, test_loader = get_training_testing_data(
+        args.bs // world, zip_path, device=device, shard=rank,
+        num_shards=world)
+    say("Model created.")
 
     # TensorBoard with the reference's tags (src/train.py:48-49,132,141)
-    writer = make_writer(os.path.join(
+    writer = None if rank else make_writer(os.path.join(
         args.log_dir, f"MobileNetV3_large-e{args.epochs}-bs{args.bs}-lr{args.lr}"))
     images = (writer is not None
               and importlib.util.find_spec("matplotlib") is not None)
     if writer is not None and not images:
-        print("matplotlib is not installed: TensorBoard gets the scalars and "
-              "no image grids")
+        say("matplotlib is not installed: TensorBoard gets the scalars and "
+            "no image grids")
     trainer = Trainer(config, device=device, train_loader=train_loader,
                       val_loader=test_loader, writer=writer)
     trainer.init_state()
 
     ckpt_path = os.path.abspath("./checkpoints/global_checkpoint")
     if args.cp == 1:
-        print("starting training from the last checkpoint")
+        say("starting training from the last checkpoint")
         restored = trainer.restore(ckpt_path)
         # the root schema stores the completed epoch (src/train.py:59-68)
         trainer.set_resume_epoch(trainer.epoch + 1)
-        print("epoch started:", trainer.epoch)
-        print("loss started:", restored.get("loss", 0.0))
+        say("epoch started:", trainer.epoch)
+        say("loss started:", restored.get("loss", 0.0))
 
     losses, batch_time = ScalarMeter(), ScalarMeter()
     logged = []
@@ -144,7 +158,7 @@ def main(argv=None) -> dict:
 
     def image_log_fn(niter):
         if images:
-            print("Recording epoch`s intermediate results. %300")
+            say("Recording epoch`s intermediate results. %300")
             log_progress(trainer, test_loader, writer, niter)
 
     def on_epoch_end(epoch, train_avg, val_avg, tr):
@@ -152,7 +166,7 @@ def main(argv=None) -> dict:
             writer.add_scalar("Train/Loss.avg", losses.avg, epoch)
         if images:
             log_progress(trainer, test_loader, writer, epoch)
-        print("saving a checkpoint.")
+        say("saving a checkpoint.")
 
     trainer.val_loader = None  # the root recipe logs images, no validation
     try:
@@ -162,7 +176,9 @@ def main(argv=None) -> dict:
     finally:
         if writer:
             writer.close()
-    print("checkpoint saved at:", ckpt_path)
+        if started:   # leave only the group this command joined
+            shutdown()
+    say("checkpoint saved at:", ckpt_path)
     return {"checkpoint": ckpt_path, "losses": logged,
             "epoch_times": trainer.epoch_times}
 

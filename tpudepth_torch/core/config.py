@@ -78,10 +78,12 @@ class TrainConfig:
     """Training configuration.
 
     Defaults follow the GuideDepth trainer (``src/GuideDepth/main.py:72-87``:
-    bs 8, lr 1e-4, 20 epochs, StepLR(15, 0.1)). The JAX package's mesh knob
-    (``num_data_shards``) is left out: the port trains on one device.
-    ``remat`` rematerializes the whole forward in the backward, and
-    ``remat_stages`` each GUB stage of the GuideDepth family
+    bs 8, lr 1e-4, 20 epochs, StepLR(15, 0.1)). ``batch_size`` is the
+    global batch; ``num_data_shards`` is the data axis (0: every rank of
+    the process group; otherwise it must equal the world size,
+    ``core/mesh.py::create_mesh``). ``remat`` rematerializes the whole
+    forward in the backward, and ``remat_stages`` each GUB stage of the
+    GuideDepth family
     (``tpudepth/core/config.py:103-107``; ``models/layers.py::
     rematerialize``).
     """
@@ -101,6 +103,7 @@ class TrainConfig:
     load_checkpoint: str = ""
     seed: int = 0
     compute_dtype: str = "bfloat16"
+    num_data_shards: int = 0  # 0 => all
     log_every: int = 5
     image_log_every: int = 300
     remat: bool = False  # rematerialize the whole forward (memory lever)

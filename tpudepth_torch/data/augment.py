@@ -17,6 +17,19 @@ import torch
 _PERMS = tuple(permutations(range(3)))
 
 
+def draw_decisions(generator: Optional[torch.Generator], b: int,
+                   device) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``(do_flip, do_swap, perm_idx)`` of a batch of ``b``, drawn from
+    ``generator`` in :func:`augment_batch`'s order. A data-parallel step
+    draws them for the global batch on every rank and keeps its rows, as
+    JAX draws the global batch's from one key."""
+    do_flip = torch.rand(b, device=device, generator=generator) < 0.5
+    do_swap = torch.rand(b, device=device, generator=generator) < 0.5
+    perm_idx = torch.randint(0, len(_PERMS), (b,), device=device,
+                             generator=generator)
+    return do_flip, do_swap, perm_idx
+
+
 def augment_batch(
     generator: Optional[torch.Generator],
     image: torch.Tensor,
@@ -34,15 +47,12 @@ def augment_batch(
     (a ``torch.Generator`` on the batch's device) unless they are passed in.
     """
     b, dev = image.shape[0], image.device
-
-    def draw_bool():
-        return torch.rand(b, device=dev, generator=generator) < 0.5
-
-    do_flip = draw_bool() if do_flip is None else do_flip.to(dev)
-    do_swap = draw_bool() if do_swap is None else do_swap.to(dev)
-    if perm_idx is None:
-        perm_idx = torch.randint(0, len(_PERMS), (b,), device=dev,
-                                 generator=generator)
+    if do_flip is None or do_swap is None or perm_idx is None:
+        drawn = draw_decisions(generator, b, dev)
+        do_flip = drawn[0] if do_flip is None else do_flip
+        do_swap = drawn[1] if do_swap is None else do_swap
+        perm_idx = drawn[2] if perm_idx is None else perm_idx
+    do_flip, do_swap = do_flip.to(dev), do_swap.to(dev)
     flip = do_flip[:, None, None, None]
     image = torch.where(flip, image.flip(3), image)
     depth = torch.where(flip, depth.flip(3), depth)

@@ -24,6 +24,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from tpudepth_torch.core.mesh import all_reduce_sum, current_axis
 from tpudepth_torch.ops.kernels.mlp_infer import mlp_infer
 from tpudepth_torch.ops.kernels.mlp_train import mlp_train
 from tpudepth_torch.ops.packed import (
@@ -168,7 +169,14 @@ class BatchNorm(nn.BatchNorm2d):
     their ``[C]`` shapes and the affine is tiled to the packed channels
     (``_PackedBatchNormInner``, ``tpudepth/models/layers.py:242-300``).
     The running statistics do not move while :func:`rematerialize`
-    recomputes a forward."""
+    recomputes a forward.
+
+    Under a data axis (``core/mesh.py::data_axis``, entered by the train
+    step of a process group) every batch statistic is the global batch's,
+    as under JAX's data-sharded ``jit``: the moments, or a fused kernel's
+    sums, are SUM-all-reduced with autograd, so the running statistics move
+    alike on every rank. ``nn.SyncBatchNorm`` is not used: it moves the
+    running variance by the unbiased variance."""
 
     def __init__(self, num_features: int, eps: float = BN_EPS,
                  momentum: float = BN_MOMENTUM):
@@ -212,6 +220,11 @@ class BatchNorm(nn.BatchNorm2d):
             if block is not None:
                 b2 = block_total(block)
                 s, q = s.reshape(b2, -1).sum(0), q.reshape(b2, -1).sum(0)
+            mesh = current_axis()
+            if mesh is not None:
+                # the global batch's sums, once, after the packed fold
+                s, q = all_reduce_sum(torch.stack([s, q]), mesh)
+                n = n * mesh.world
             mean, mean2 = s / n, q / n
         else:
             mean, mean2 = self._moments(y.to(self.weight.dtype), block)
@@ -222,14 +235,22 @@ class BatchNorm(nn.BatchNorm2d):
 
     @staticmethod
     def _moments(xf: torch.Tensor, block: Optional[BlockSpec]):
-        """``E[x]`` and ``E[x^2]`` per (original) channel."""
+        """``E[x]`` and ``E[x^2]`` per (original) channel; under a data axis
+        (``core/mesh.py::data_axis``) those of the global batch: the SUM
+        all-reduce of the rank's moments over the world size (the shards
+        are equal), with autograd."""
         if block is not None:
             b2 = block_total(block)
             xf = xf.reshape(xf.shape[0], b2, xf.shape[1] // b2, *xf.shape[2:])
             dims = (0, 1, 3, 4)
         else:
             dims = (0, 2, 3)
-        return xf.mean(dim=dims), (xf * xf).mean(dim=dims)
+        mean, mean2 = xf.mean(dim=dims), (xf * xf).mean(dim=dims)
+        mesh = current_axis()
+        if mesh is not None:
+            mean, mean2 = all_reduce_sum(torch.stack([mean, mean2]),
+                                         mesh) / mesh.world
+        return mean, mean2
 
     def forward(self, x: torch.Tensor,
                 block: Optional[BlockSpec] = None) -> torch.Tensor:

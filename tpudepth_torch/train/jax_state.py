@@ -170,7 +170,12 @@ def trainer_checkpoint_from_jax(name: str, tree: Mapping,
     if unknown or "params" not in tree:
         raise ValueError(f"not a JAX trainer payload: unknown keys {unknown}"
                          if unknown else "not a JAX trainer payload: no params")
-    out = {"model": state_dict_from_flax(name, tree)}
+    converted = state_dict_from_flax(name, tree)
+    # the port's key order, which the optimizer state's parameter list
+    # follows (``trainer.optimizer_state_by_name`` pairs them by it)
+    order = [k for k in model.state_dict() if k in converted]
+    out = {"model": {k: converted[k] for k in
+                     order + [k for k in converted if k not in order]}}
     if "opt_state" in tree:
         out["optimizer"] = optimizer_state_from_optax(
             name, tree["opt_state"], model, freeze_encoder)

@@ -24,8 +24,20 @@ Counterpart of ``tpudepth/train/trainer.py`` (``src/GuideDepth/training.py``,
 
 Batches come from the loader as the JAX package's loaders deliver them:
 dicts of NHWC arrays, ``image`` ``[B,H,W,3]`` and ``depth`` ``[B,H,W,1]``
-(float, or raw uint8 / uint16). The step views them as NCHW. The mesh is not
-ported: one device, no sharding.
+(float, or raw uint8 / uint16). The step views them as NCHW.
+
+Data parallel (``core/mesh.py``, ``parallel/launch.py``): under a process
+group each rank takes its equal share of the global batch
+(``TrainConfig.batch_size``) and the step is the global batch's step, as
+under JAX's data-sharded ``jit``. The augmentation draws the global batch's
+decisions from the same seed on every rank; the BatchNorm statistics (the
+fused GUB kernels' sums too), the min-max target and the masked losses' sums
+are all-reduced inside the forward; the gradients are averaged over the
+ranks after the backward. Why that is the global gradient:
+each rank's loss is its share (their mean is the global loss), and the SUM
+all-reduces' backward hands every rank the sum of all ranks' cotangents, so
+the sum of the ranks' gradients is the gradient of the sum of the shares.
+Parameters, statistics and Adam moments stay the same bits on every rank.
 """
 
 from __future__ import annotations
@@ -38,10 +50,13 @@ from typing import Callable, Optional, Tuple
 import numpy as np
 import torch
 
+from tpudepth_torch.core import mesh as mesh_lib
 from tpudepth_torch.core.config import TrainConfig
+from tpudepth_torch.core.mesh import DataMesh
 from tpudepth_torch.core.precision import Precision
-from tpudepth_torch.core.runtime import DeviceLike, resolve_device
-from tpudepth_torch.data.augment import augment_batch
+from tpudepth_torch.core.runtime import DeviceLike
+from tpudepth_torch.data.augment import augment_batch, draw_decisions
+from tpudepth_torch.losses import losses as losses_lib
 from tpudepth_torch.losses.losses import (
     DepthLoss,
     depth_norm_minmax,
@@ -53,6 +68,7 @@ from tpudepth_torch.models.layers import rematerialize
 from tpudepth_torch.ops.image import resize_bilinear
 from tpudepth_torch.ops.kernels.fused_loss import fused_depth_loss
 from tpudepth_torch.ops.kernels.fused_root_loss import fused_root_loss
+from tpudepth_torch.parallel.launch import default_device
 from tpudepth_torch.train.checkpoint import load_checkpoint, save_checkpoint
 
 
@@ -107,6 +123,51 @@ def trainable_parameters(model: torch.nn.Module, freeze_encoder: bool):
     gradients, and its BatchNorm statistics still move."""
     return [p for n, p in model.named_parameters()
             if not (freeze_encoder and n.startswith(ENCODER_PREFIX))]
+
+
+def optimizer_state_by_name(saved: dict, file_keys, model: torch.nn.Module,
+                            freeze_encoder: bool,
+                            optimizer: torch.optim.Optimizer) -> dict:
+    """A ``torch.optim.Adam`` ``state_dict`` saved beside a model whose
+    ``state_dict`` keys are ``file_keys`` (a port file, a converted JAX
+    checkpoint or a reference ``.pth``), as the ``state_dict`` of
+    ``optimizer``, the port's Adam over ``trainable_parameters(model,
+    freeze_encoder)``, paired by parameter name and not by position.
+
+    The saved list of parameters follows the file's keys in order, buffers
+    skipped (the port's buffers and the reference's
+    ``relative_position_index``), as ``train/jax_state.py`` maps optax by
+    name: either all of them (the reference's Adam over ``model.
+    parameters()``, SAM's unused ``proj`` included) or the trainable ones.
+    Another count raises, naming both. Saved parameters the port has no
+    place for (SAM's ``proj``, a frozen encoder's) are dropped; the param
+    group's hyperparameters are the saved first group's."""
+    buffers = {n for n, _ in model.named_buffers()}
+    names = [k for k in file_keys
+             if k not in buffers and not k.endswith("relative_position_index")]
+    trainable = [n for n in names
+                 if not (freeze_encoder and n.startswith(ENCODER_PREFIX))]
+    ids = [i for group in saved.get("param_groups", [])
+           for i in group["params"]]
+    if len(ids) == len(names):
+        order = names
+    elif len(ids) == len(trainable):
+        order = trainable
+    else:
+        raise ValueError(
+            f"the optimizer state holds {len(ids)} parameters; the file's "
+            f"model has {len(names)} parameters, {len(trainable)} of them "
+            "trainable")
+    own = [n for n, _ in model.named_parameters()
+           if not (freeze_encoder and n.startswith(ENCODER_PREFIX))]
+    index = {n: i for i, n in enumerate(own)}
+    state = {index[name]: saved["state"][i] for i, name in zip(ids, order)
+             if name in index and i in saved["state"]}
+    groups = optimizer.state_dict()["param_groups"]
+    for key, value in saved["param_groups"][0].items():
+        if key != "params":
+            groups[0][key] = value
+    return {"state": state, "param_groups": groups}
 
 
 def inverse_depth_norm(depth: torch.Tensor, max_depth: float) -> torch.Tensor:
@@ -178,10 +239,16 @@ def make_train_step(
     depth_post_scale: float = 1.0,
     train_hw: Optional[Tuple[int, int]] = None,
     remat: bool = False,
+    mesh: Optional[DataMesh] = None,
 ):
     """Build the train step ``(state, image, depth, generator) -> loss``. It
     updates ``state`` in place and returns the loss as a detached device
     tensor: nothing in it waits for the device.
+
+    ``mesh``: the data axis (``core/mesh.py``). Under a process group
+    ``image`` and ``depth`` are this rank's rows of the global batch, and
+    the step is the global batch's: its loss is the global loss on every
+    rank.
 
     ``remat``: the forward is rematerialized (``layers.rematerialize``, the
     counterpart of ``jax.checkpoint`` around the whole apply,
@@ -195,6 +262,8 @@ def make_train_step(
     training resolution: only a DOWN-resize is applied (a loader larger than
     the configuration). ``generator`` draws the augmentation.
     """
+
+    mesh = mesh if mesh is not None else DataMesh()
 
     def step(state: TrainState, image: torch.Tensor, depth: torch.Tensor,
              generator: Optional[torch.Generator] = None) -> torch.Tensor:
@@ -210,27 +279,47 @@ def make_train_step(
             image = resize_bilinear(image, train_hw)
             depth = resize_bilinear(depth, train_hw)
         if augment:
-            image, depth = augment_batch(generator, image, depth)
-        target = recipe.target(depth.float())
+            # the global batch's decisions, drawn alike on every rank, and
+            # this rank's rows of them
+            b = image.shape[0]
+            rows = mesh_lib.batch_rows(mesh, b * mesh.world)
+            flip, swap, perm = draw_decisions(generator, b * mesh.world,
+                                              image.device)
+            image, depth = augment_batch(None, image, depth,
+                                         do_flip=flip[rows],
+                                         do_swap=swap[rows],
+                                         perm_idx=perm[rows])
 
         model.train()
         x = image.to(compute_dtype).contiguous(
             memory_format=torch.channels_last)
-        pred = (rematerialize(model, x) if remat else model(x)).float()
-        if pred.shape[2:] != target.shape[2:]:
-            # a decoder may answer at half resolution: align the target
-            target = resize_bilinear(target, pred.shape[2:])
-        loss = recipe.loss(pred, target)
-        # every gradient of the model, frozen parameters' too, so that none
-        # piles up across steps and check_grads sees this step's alone
-        model.zero_grad(set_to_none=True)
-        loss.backward()
-        loss = loss.detach()
+        with mesh_lib.data_axis(mesh):
+            target = recipe.target(depth.float())
+            pred = losses_lib.widen(rematerialize(model, x) if remat
+                                    else model(x))
+            if pred.shape[2:] != target.shape[2:]:
+                # a decoder may answer at half resolution: align the target
+                target = resize_bilinear(target, pred.shape[2:])
+            loss = recipe.loss(pred, target)
+            # every gradient of the model, frozen parameters' too, so that
+            # none piles up across steps and check_grads sees this step's
+            # alone
+            model.zero_grad(set_to_none=True)
+            loss.backward()
+        # the optimizer's parameters only: a frozen encoder's gradients are
+        # never applied
+        mesh_lib.average_gradients(
+            [p for g in state.optimizer.param_groups for p in g["params"]],
+            mesh)
+        loss = mesh_lib.all_reduce_mean(loss.detach(), mesh)
         if check_grads:
-            # fold the finiteness of the global gradient norm into the
-            # reported loss, on the device
-            gsq = sum(p.grad.float().square().sum()
-                      for p in model.parameters() if p.grad is not None)
+            # fold the finiteness of the gradient norm into the reported
+            # loss, on the device; summed over the ranks, so a frozen
+            # parameter's gradient that is not finite on one rank poisons
+            # every rank's loss
+            gsq = mesh_lib.all_reduce_sum(sum(
+                p.grad.float().square().sum()
+                for p in model.parameters() if p.grad is not None), mesh)
             loss = torch.where(torch.isfinite(gsq), loss,
                                torch.full_like(loss, float("nan")))
         for group in state.optimizer.param_groups:
@@ -263,15 +352,26 @@ def _step_seed(seed: int, step: int) -> int:
 
 class Trainer:
     """Training loop (capability parity with ``src/GuideDepth/training.py``
-    Trainer and ``src/train.py``) on one device.
+    Trainer and ``src/train.py``) on one device, or data-parallel over the
+    ranks of a process group (``parallel/launch.py::initialize``).
 
-    ``device=None`` means the CUDA card. A ``model`` passed in keeps its
-    parameters; one built here is initialized from ``config.seed`` by
-    :meth:`init_state`. Loaders are any object with ``__len__``,
-    ``set_epoch(epoch)`` and iteration over ``{"image", "depth"}`` dicts of
-    NHWC arrays (numpy, or tensors already on the device, which are used as
-    they are). ``writer`` is the command line's TensorBoard ``SummaryWriter``
-    (or None), kept for its hooks as the JAX ``Trainer`` keeps it."""
+    ``device=None`` means the CUDA card (``cuda:LOCAL_RANK`` under a
+    group). A ``model`` passed in keeps its parameters (rank 0's, under a
+    group); one built here is initialized from ``config.seed`` by
+    :meth:`init_state`.
+
+    Under a group of ``world`` ranks ``config.batch_size`` is the global
+    batch: the train loader of each rank gives its ``batch_size // world``
+    rows (its shard of the dataset), the validation loader the global
+    batches, whose rows the ranks split and gather again. Losses, metrics
+    and the model are the same on every rank; ``log_fn`` and
+    ``image_log_fn`` run on rank 0, which alone writes files.
+
+    Loaders are any object with ``__len__``, ``set_epoch(epoch)`` and
+    iteration over ``{"image", "depth"}`` dicts of NHWC arrays (numpy, or
+    tensors already on the device, which are used as they are). ``writer``
+    is the command line's TensorBoard ``SummaryWriter`` (or None), kept for
+    its hooks as the JAX ``Trainer`` keeps it."""
 
     def __init__(self, config: TrainConfig, model=None,
                  device: DeviceLike = None, train_loader=None,
@@ -282,7 +382,11 @@ class Trainer:
         )
 
         self.config = config
-        self.device = resolve_device(device)
+        self.device = default_device(device)
+        self.mesh = mesh_lib.create_mesh(config.num_data_shards, self.device)
+        if config.batch_size % self.mesh.world:
+            raise ValueError(f"batch_size {config.batch_size} does not split "
+                             f"into {self.mesh.world} equal shards")
         self._own_model = model is None
         # every switch keyed on the model's name (loss recipe, frozen
         # encoder) reads the canonical name, so aliases cannot dodge it
@@ -302,7 +406,8 @@ class Trainer:
         # per train epoch: {"epoch", "images", "seconds"}, host clock from
         # the first batch's request to the epoch's loss on the host
         self.epoch_times = []
-        self.steps_per_epoch = len(train_loader) if train_loader is not None else 1
+        self.steps_per_epoch = (self._global_len(train_loader)
+                                if train_loader is not None else 1)
 
         recipe_kind = "alhashim" if config.eval_mode == "alhashim" else "l1"
         if self.model_name not in ("GuideDepth", "GuideDepth-S"):
@@ -319,6 +424,16 @@ class Trainer:
         self._train_step = None
         self._generator = None
 
+    @property
+    def is_main(self) -> bool:
+        """Whether this process logs and writes files: rank 0."""
+        return self.mesh.rank == 0
+
+    def _global_len(self, loader) -> int:
+        """The steps every rank can take: the least of the ranks' loader
+        lengths (shards may differ by a sample)."""
+        return mesh_lib.min_of_host_ints(len(loader), self.mesh)
+
     # -- state ---------------------------------------------------------------
 
     def init_state(self) -> TrainState:
@@ -330,6 +445,7 @@ class Trainer:
                     if hasattr(m, "reset_parameters"):
                         m.reset_parameters()
         self.model.to(self.device, memory_format=torch.channels_last)
+        mesh_lib.replicated(self.mesh, self.model)
         self.state = TrainState(self.model, make_optimizer(
             cfg, trainable_parameters(self.model, self.freeze_encoder)))
         raw_depth_scale = 1.0
@@ -342,7 +458,7 @@ class Trainer:
             self.model, self.recipe, schedule,
             compute_dtype=self.compute_dtype,
             check_grads=cfg.check_grads, depth_post_scale=raw_depth_scale,
-            train_hw=cfg.image_size, remat=cfg.remat)
+            train_hw=cfg.image_size, remat=cfg.remat, mesh=self.mesh)
         self._generator = torch.Generator(device=self.device)
         return self.state
 
@@ -363,19 +479,22 @@ class Trainer:
     def train_epoch(self, log_fn=None, steps_cap: int = 0,
                     image_log_fn=None) -> float:
         """One epoch; returns the exact sample-weighted mean of every step's
-        loss. The running sum is a device scalar, fetched once at the end of
-        the epoch; host floats are pulled only on ``log_every`` steps when a
-        ``log_fn`` is given."""
+        (global) loss. The running sum is a device scalar, fetched once at
+        the end of the epoch; host floats are pulled only on ``log_every``
+        steps when a ``log_fn`` is given (rank 0)."""
         cfg = self.config
-        steps_total = len(self.train_loader)
-        steps_cap = steps_cap or steps_total
+        steps_total = self._global_len(self.train_loader)
+        if not self.is_main:
+            log_fn = image_log_fn = None
+        # every rank stops at the same step
+        steps_cap = min(steps_cap or steps_total, steps_total)
         total_dev, count = None, 0
         start = t_epoch = time.perf_counter()
         for i, batch in enumerate(self.train_loader):
             if i >= steps_cap:
                 break
             loss = self.train_step(batch)
-            bs = batch["image"].shape[0]
+            bs = batch["image"].shape[0] * self.mesh.world
             contrib = loss.float() * bs
             total_dev = contrib if total_dev is None else total_dev + contrib
             count += bs
@@ -418,7 +537,7 @@ class Trainer:
                 # validate at the configured model resolution
                 image = resize_bilinear(image, hw)
             timer.data_done()
-            inv_pred = eval_step(image)
+            inv_pred = self._split_forward(eval_step, image)
             pred_m = inverse_depth_norm(inv_pred, cfg.max_depth)
             timer.step_done(sync_on=pred_m)
             with torch.no_grad():
@@ -441,6 +560,19 @@ class Trainer:
         self.val_losses.append(acc_loss / max(seen, 1))
         return avg
 
+    def _split_forward(self, eval_step, image: torch.Tensor) -> torch.Tensor:
+        """``eval_step`` of a global batch: under a group each rank runs
+        its rows (the last ranks' padded with copies of the last row) and
+        gathers every rank's predictions. Eval-mode forwards are per
+        image."""
+        b, world = image.shape[0], self.mesh.world
+        per = -(-b // world)
+        rows = image[self.mesh.rank * per:(self.mesh.rank + 1) * per]
+        if rows.shape[0] < per:
+            fill = image[-1:].expand(per - rows.shape[0], *image.shape[1:])
+            rows = torch.cat([rows, fill])
+        return mesh_lib.gather_rows(eval_step(rows), self.mesh)[:b]
+
     # -- checkpointing -------------------------------------------------------
 
     def _state_payload(self):
@@ -450,20 +582,27 @@ class Trainer:
     def _checkpoint_path(self, name: str) -> str:
         return os.path.join(os.path.abspath(self.config.checkpoint_dir), name)
 
+    def _save(self, path: str, payload: dict) -> str:
+        """``payload`` written to ``path`` by rank 0; every rank returns
+        once it is on disk."""
+        if self.is_main:
+            save_checkpoint(path, payload)
+        mesh_lib.barrier(self.mesh)
+        return os.path.abspath(path)
+
     def save_epoch_checkpoint(self, epoch: int) -> str:
         """GuideDepth schema: per-epoch ``checkpoint_{e}`` carrying epoch+1
         and the ``val_losses`` history."""
         payload = {"epoch": epoch + 1, "val_losses": list(self.val_losses)}
         payload.update(self._state_payload())
-        return save_checkpoint(self._checkpoint_path(f"checkpoint_{epoch}"),
-                               payload)
+        return self._save(self._checkpoint_path(f"checkpoint_{epoch}"),
+                          payload)
 
     def save_rolling_checkpoint(self, epoch: int, loss: float) -> str:
         """Root schema: one rolling ``global_checkpoint``."""
         payload = {"epoch": epoch, "loss": float(loss)}
         payload.update(self._state_payload())
-        return save_checkpoint(self._checkpoint_path("global_checkpoint"),
-                               payload)
+        return self._save(self._checkpoint_path("global_checkpoint"), payload)
 
     def restore(self, path: str):
         """Resume mid-training: model, optimizer, epoch counter and
@@ -487,7 +626,9 @@ class Trainer:
         )
 
         load_reference_state_dict(self.model, restored)
-        self.state.optimizer.load_state_dict(restored["optimizer"])
+        self.state.optimizer.load_state_dict(optimizer_state_by_name(
+            restored["optimizer"], list(restored["model"]), self.model,
+            self.freeze_encoder, self.state.optimizer))
         self.set_resume_epoch(int(restored.get("epoch", 0)))
         self.val_losses = [float(v) for v in restored.get("val_losses", [])]
         return restored
@@ -516,7 +657,7 @@ class Trainer:
         if payload is None:
             payload = {"model": self.model.state_dict(),
                        "best_epoch": best_epoch}
-        return save_checkpoint(os.path.join(out_dir, "best_model"), payload)
+        return self._save(os.path.join(out_dir, "best_model"), payload)
 
     # -- fit -----------------------------------------------------------------
 
