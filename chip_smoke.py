@@ -160,7 +160,14 @@ the command lines from a seeded dataset zip. Phases:
    rank, f32, 2 fused steps: both ranks bit-equal, rank 0's loss, change
    of the parameters, Adam first moments and running statistics within 4x
    the spread of two repeats of one process on the union batch, launches
-   exact;
+   exact; [spatial]: the model axis, 2 gloo ranks on the one card as a
+   (1 x 2) grid (spawned ``--spatial-rank`` processes), each holding 240
+   of the 480 rows, f32: fused GuideDepth and NewCRF (``row``), a bs-2
+   forward joined against one process's (1e-4 of its largest value; the
+   stem conv's output 120 of 240 rows a rank), one B 8 train step against
+   one process's (loss 1e-5 relative, state as [data parallel] (b)),
+   launches a rank exact, peak memory and step ms beside one process's,
+   the phase within 90 s;
    [zoo]: DenseDepth, the interpolated U-Net large and small at 480x640 and
    the U-Net at KITTI's 384x1280 (it takes multiples of 64 only), seeded
    at their published widths, served in bf16 through ``InferenceEngine``
@@ -247,6 +254,8 @@ SERVE_F32_REL_MAX = 1e-4
 STATS_RTOL = 1e-6
 
 DEVICE = torch.device("cuda")
+# the card's name and power limit (``phase_device``), beside the numbers
+CARD = "card not read"
 
 # the training path: GuideDepth, NYU full resolution, batch 8
 TRAIN_BATCH, TRAIN_HW, MAX_DEPTH = 8, (480, 640), 10.0
@@ -342,7 +351,9 @@ def phase_device():
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60)
-    print(smi.stdout.strip().splitlines()[0])
+    global CARD
+    CARD = smi.stdout.strip().splitlines()[0]
+    print(CARD)
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
@@ -3836,7 +3847,8 @@ def _start_checkpoint(path):
     optimizer = make_optimizer(TrainConfig(), model.parameters())
     return save_checkpoint(path, {"epoch": 0, "val_losses": [],
                                   "model": model.state_dict(),
-                                  "optimizer": optimizer.state_dict()})
+                                  "optimizer": optimizer.state_dict()},
+                           blocking=True)
 
 
 def phase_cli_guidedepth(tmp, path, in_memory):
@@ -4479,6 +4491,53 @@ def _dp_kind(key: str) -> str:
         else "params"
 
 
+def _state_against_repeats(state, sa, sb, p0):
+    """A state (``params``, ``stats``, ``exp_avg`` by ``_dp_kind``) after a
+    step held against one process's state after the same step, ``sa``,
+    within DP_SPREAD_FACTOR times the spread of two repeats of it (``sa``,
+    ``sb``), or, where the repeats agree bit for bit, within what the smoke
+    holds two f32 steps that round differently to: the parameters' change
+    from ``p0`` as one vector, each running statistic within DP_STATS_REL
+    of its largest value, each Adam first moment. Returns each kind's
+    largest difference, the repeats' spread and the largest share of a
+    bound, and the tensors beyond their bound."""
+    g_all = max(float(v.abs().max()) for k, v in sa.items()
+                if _dp_kind(k) == "exp_avg")
+    kinds, beyond = {}, []
+    # the parameters' change from the initial weights, as one vector
+    keys = [k for k in sa if _dp_kind(k) == "params"]
+
+    def moved(st):
+        return torch.cat([(st[k] - p0[k].float()).flatten() for k in keys])
+
+    d_one, d_rep, d_got = moved(sa), moved(sb), moved(state)
+    norm = float(d_one.norm())
+    rel, spread = (float((d_got - d_one).norm()) / norm,
+                   float((d_rep - d_one).norm()) / norm)
+    bound = DP_SPREAD_FACTOR * spread if spread else FUSED_STEP_GRAD_REL
+    if rel > bound:
+        beyond.append(f"the parameters' change {rel:.3e} > {bound:.3e}")
+    kinds["params"] = {"max_diff": rel, "repeat_spread": spread,
+                       "worst_of_bound": rel / bound}
+    for kind in ("stats", "exp_avg"):
+        keys = [k for k in sa if _dp_kind(k) == kind]
+        spread = _state_diff(sa, sb, keys)
+        worst = 0.0
+        for k in keys:
+            d = float((state[k] - sa[k]).abs().max())
+            top = float(sa[k].abs().max())
+            bound = max(DP_SPREAD_FACTOR * spread, {
+                "stats": DP_STATS_REL * top,
+                "exp_avg": max(FUSED_STEP_GRAD_REL * top,
+                               FUSED_STEP_GRAD_FLOOR_REL * g_all)}[kind])
+            if d > bound:
+                beyond.append(f"{k} {d:.3e} > {bound:.3e}")
+            worst = max(worst, d / bound)
+        kinds[kind] = {"max_diff": _state_diff(state, sa, keys),
+                       "repeat_spread": spread, "worst_of_bound": worst}
+    return kinds, beyond
+
+
 def phase_data_parallel(tmp):
     """[data parallel]: (a) a world of one under NCCL, its launches exact
     and its f32 step against the step without a group; (b) two gloo ranks
@@ -4665,41 +4724,8 @@ def phase_data_parallel(tmp):
           "the two gloo ranks' losses or states differ")
     loss_diff = max(abs(x - y) for x, y in zip(r0["losses"], la))
     loss_spread = max(abs(x - y) for x, y in zip(la, lb))
-    g_all = max(float(v.abs().max()) for k, v in sa.items()
-                if _dp_kind(k) == "exp_avg")
-    kinds, beyond = {}, []
-    # the parameters' change from the initial weights, as one vector
-    p0 = _dp_model().state_dict()
-    keys = [k for k in sa if _dp_kind(k) == "params"]
-
-    def moved(state):
-        return torch.cat([(state[k] - p0[k].float()).flatten() for k in keys])
-
-    d_one, d_rep, d_ranks = moved(sa), moved(sb), moved(r0["state"])
-    norm = float(d_one.norm())
-    rel, spread = (float((d_ranks - d_one).norm()) / norm,
-                   float((d_rep - d_one).norm()) / norm)
-    bound = DP_SPREAD_FACTOR * spread if spread else FUSED_STEP_GRAD_REL
-    if rel > bound:
-        beyond.append(f"the parameters' change {rel:.3e} > {bound:.3e}")
-    kinds["params"] = {"max_diff": rel, "repeat_spread": spread,
-                       "worst_of_bound": rel / bound}
-    for kind in ("stats", "exp_avg"):
-        keys = [k for k in sa if _dp_kind(k) == kind]
-        spread = _state_diff(sa, sb, keys)
-        worst = 0.0
-        for k in keys:
-            d = float((r0["state"][k] - sa[k]).abs().max())
-            top = float(sa[k].abs().max())
-            bound = max(DP_SPREAD_FACTOR * spread, {
-                "stats": DP_STATS_REL * top,
-                "exp_avg": max(FUSED_STEP_GRAD_REL * top,
-                               FUSED_STEP_GRAD_FLOOR_REL * g_all)}[kind])
-            if d > bound:
-                beyond.append(f"{k} {d:.3e} > {bound:.3e}")
-            worst = max(worst, d / bound)
-        kinds[kind] = {"max_diff": _state_diff(r0["state"], sa, keys),
-                       "repeat_spread": spread, "worst_of_bound": worst}
+    kinds, beyond = _state_against_repeats(r0["state"], sa, sb,
+                                           _dp_model().state_dict())
     print(f"[data parallel] gloo {DP_RANKS} ranks on one card, "
           f"{DP_PER_RANK} images a rank at {TRAIN_HW[0]}x{TRAIN_HW[1]} f32, "
           f"{DP_STEPS_GLOO} fused GuideDepth steps: ranks bit-equal; losses "
@@ -4735,6 +4761,259 @@ def phase_data_parallel(tmp):
                    "launches": r0["launches"]}
     out["seconds"] = time.perf_counter() - t_phase
     print(f"[data parallel] {out['seconds']:.1f} s", flush=True)
+    return out
+
+
+# [spatial]: the model axis on the card. SPATIAL_RANKS gloo ranks share the
+# one card as a (1 x SPATIAL_RANKS) grid (NCCL refuses two ranks on one
+# device), each holding its 240 of the 480 image rows, f32 with TF32 off,
+# NYU 480x640: (a) GuideDepth with fused GUB stages, (b) NewCRF (``row`` in
+# eval, the training kernels in a step), each an eval forward of
+# SPATIAL_BATCH images and one train step (Adam, augmentation off) of
+# TRAIN_BATCH against one process on the same inputs. The step takes the
+# batch [data parallel] (b) takes: at 2 images DAPPM's pooled 1x1 maps give
+# their BatchNorms 2 values a channel, whose gradients are rounding noise
+# that Adam turns into steps of lr either way (at 64x96 on the CPU the
+# parameters' change of the ranks and of one process, which agree to 1e-12
+# in float64, differed by 27 %). The ranks' joined
+# forward matches one process's within SPATIAL_FWD_REL of the map's
+# largest value (the halo strips and the row-wise resizes sum in other
+# orders); the step's loss within SPATIAL_LOSS_RTOL; its state as [data
+# parallel] (b) holds its ranks' (``_state_against_repeats``), the second
+# of the two single-process steps taking the batch's images in reverse
+# order: NewCRF's step repeats nearly bit for bit (on an H100 the
+# parameters' change of two repeats lay 5.8e-6 apart), so a repeat shows no
+# spread of summation order, while Adam's first update (lr times a sign)
+# flips the few elements whose gradient is rounding noise under any other
+# order (the ranks' change lay 8.7e-4 from one process's).
+SPATIAL_RANKS, SPATIAL_BATCH = 2, 2
+SPATIAL_JOIN_TIMEOUT = 240
+SPATIAL_FWD_REL, SPATIAL_LOSS_RTOL = 1e-4, 1e-5
+SPATIAL_SECONDS = 90.0
+# what a rank launches: an eval forward, and one train step
+SPATIAL_FWD_LAUNCHES = {"guidedepth": {"gub_conv_fwd": FUSED_FWD_PER_PASS},
+                        "newcrf": {"crf_rowblock_infer": 8}}
+SPATIAL_STEP_LAUNCHES = {
+    "guidedepth": {"gub_conv_fwd": FUSED_FWD_PER_PASS,
+                   "gub_conv_dw": FUSED_DW_PER_STEP,
+                   "gub_conv_dx": FUSED_DX_PER_STEP,
+                   "fused_loss_fwd": 1, "fused_loss_bwd": 1},
+    "newcrf": {**{k: 8 for k in TRAIN_KERNELS},
+               "fused_root_loss_fwd": 1, "fused_root_loss_bwd": 1}}
+
+
+def _spatial_model(name):
+    from tpudepth_torch.models.layers import init_random_
+    from tpudepth_torch.models.registry import build_model
+
+    if name == "guidedepth":
+        return _dp_model()
+    return init_random_(build_model("newcrf"), seed=0)
+
+
+def _spatial_run(name, batch, mesh=None):
+    """``name``'s eval forward and one f32 train step on this process's
+    image rows (``mesh``, a model axis) or on the whole batch: the output
+    on the host, the stem conv's output shape (GuideDepth), peak memory in
+    the forward, each run's launches, the step's loss and state (``params``,
+    ``stats``, ``name:exp_avg``), and the ms of a second, warm step."""
+    from tpudepth_torch.core import mesh as mesh_lib
+    from tpudepth_torch.core.config import TrainConfig
+    from tpudepth_torch.train.trainer import (
+        LossRecipe,
+        TrainState,
+        make_optimizer,
+        make_train_step,
+        step_lr,
+    )
+
+    model = _spatial_model(name).to(DEVICE, memory_format=torch.channels_last)
+    image = torch.as_tensor(batch["image"]).to(DEVICE)
+    depth = torch.as_tensor(batch["depth"]).to(DEVICE)
+    if mesh is not None:
+        image = mesh_lib.shard_spatial(mesh, image)
+        depth = mesh_lib.shard_spatial(mesh, depth)
+    out = {"stem": []}
+    x = (image[:SPATIAL_BATCH].permute(0, 3, 1, 2).float() / 255.0
+         ).contiguous(memory_format=torch.channels_last)
+
+    def forward():
+        hook = None
+        if name == "guidedepth":
+            hook = model.feature_extractor.conv1[0].register_forward_hook(
+                lambda m, i, o: out["stem"].append(tuple(o.shape)))
+        with torch.no_grad(), mesh_lib.mesh_context(mesh):
+            pred = model.eval()(x).float().cpu()
+        if hook is not None:
+            hook.remove()
+        return pred
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    out["pred"], _, out["fwd_launches"] = run_counted(forward)
+    out["peak_mib"] = (torch.cuda.max_memory_allocated() - base) / 2 ** 20
+    recipe = (LossRecipe(kind="alhashim", max_depth=MAX_DEPTH,
+                         depth_scale=MAX_DEPTH) if name == "guidedepth"
+              else LossRecipe(kind="root"))
+    state = TrainState(model, make_optimizer(TrainConfig(learning_rate=1e-4),
+                                             model.parameters()))
+    step = make_train_step(model, recipe, step_lr(1e-4, 15, 0.1, 3),
+                           compute_dtype=torch.float32, augment=False,
+                           mesh=mesh)
+    loss, _, out["step_launches"] = run_counted(
+        lambda: float(step(state, image, depth)))
+    out["loss"] = loss
+    st = {k: v.detach().cpu() for k, v in model.state_dict().items()
+          if v.is_floating_point()}
+    opt = state.optimizer.state
+    for n, p in model.named_parameters():
+        st[f"{n}:exp_avg"] = opt[p]["exp_avg"].cpu()
+    out["state"] = st
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    step(state, image, depth)
+    torch.cuda.synchronize()
+    out["step_ms"] = (time.perf_counter() - t0) * 1e3
+    return out
+
+
+def _spatial_batch():
+    return SyntheticLoader(1, seed=320, raw_depth=True).batches[0]
+
+
+def spatial_worker(rank: int, workdir: str) -> int:
+    """One of the SPATIAL_RANKS gloo ranks of [spatial], run as ``python
+    chip_smoke.py --spatial-rank RANK WORKDIR``: its image rows of the
+    phase's batch under the (1 x SPATIAL_RANKS) grid; writes what
+    ``_spatial_run`` returns to WORKDIR."""
+    from tpudepth_torch.core.mesh import create_mesh
+    from tpudepth_torch.parallel import initialize
+    from tpudepth_torch.parallel.launch import shutdown
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    initialize(f"file://{workdir}/rdzv", SPATIAL_RANKS, rank, backend="gloo",
+               device="cuda")
+    mesh = create_mesh(1, SPATIAL_RANKS, device=DEVICE)
+    check(mesh.spatial and mesh.model_rank == rank, f"the grid {mesh}")
+    batch = _spatial_batch()
+    out = {name: _spatial_run(name, batch, mesh)
+           for name in ("guidedepth", "newcrf")}
+    torch.save(out, f"{workdir}/rank{rank}.pt")
+    shutdown()
+    return 0
+
+
+def phase_spatial(tmp):
+    """[spatial]: two gloo ranks on the card as a (1 x 2) grid, GuideDepth
+    (fused GUB stages) and NewCRF, each rank's forward and step against one
+    process's, their launches exact."""
+    t_phase = time.perf_counter()
+    workdir = f"{tmp}/spatial"
+    os.makedirs(workdir)
+    env = {**os.environ, "OMP_NUM_THREADS": "2"}
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--spatial-rank", str(r),
+         workdir], env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True) for r in range(SPATIAL_RANKS)]
+    try:
+        # one process on the whole batch, and on its images in reverse
+        # order, while the ranks run
+        batch = _spatial_batch()
+        backwards = {k: np.ascontiguousarray(v[::-1])
+                     for k, v in batch.items()}
+        ref = {name: [_spatial_run(name, b) for b in (batch, backwards)]
+               for name in ("guidedepth", "newcrf")}
+        logs = []
+        for p in procs:
+            log, _ = p.communicate(timeout=max(
+                SPATIAL_JOIN_TIMEOUT - (time.perf_counter() - t_phase), 1))
+            logs.append(log)
+    except subprocess.TimeoutExpired:
+        for p in procs:
+            p.kill()
+        raise RuntimeError(f"chip_smoke check failed: a spatial rank "
+                           f"outlived {SPATIAL_JOIN_TIMEOUT} s")
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        check(p.returncode == 0,
+              f"spatial rank {r} exited {p.returncode}:\n{log[-4000:]}")
+    ranks = [torch.load(f"{workdir}/rank{r}.pt")
+             for r in range(SPATIAL_RANKS)]
+    out = {"ranks": SPATIAL_RANKS, "forward_batch": SPATIAL_BATCH,
+           "step_batch": TRAIN_BATCH, "hw": TRAIN_HW}
+    for name in ("guidedepth", "newcrf"):
+        one, rep = ref[name]
+        got = [r[name] for r in ranks]
+        pred = torch.cat([g["pred"] for g in got], dim=2)
+        fwd_err = float((pred - one["pred"]).abs().max()
+                        / one["pred"].abs().max())
+        loss_rel = abs(got[0]["loss"] - one["loss"]) / abs(one["loss"])
+        kinds, beyond = _state_against_repeats(
+            got[0]["state"], one["state"], rep["state"],
+            _spatial_model(name).state_dict())
+        res = {"fwd_max_rel_err": fwd_err, "loss": got[0]["loss"],
+               "single_loss": one["loss"], "loss_rel": loss_rel,
+               "kinds": kinds,
+               "fwd_launches": [g["fwd_launches"] for g in got],
+               "step_launches": [g["step_launches"] for g in got],
+               "peak_mib": [g["peak_mib"] for g in got],
+               "single_peak_mib": one["peak_mib"],
+               "step_ms": [g["step_ms"] for g in got],
+               "single_step_ms": one["step_ms"], "stem": got[0]["stem"]}
+        out[name] = res
+        print(f"[spatial] {name} ({CARD}): {SPATIAL_RANKS} model ranks, "
+              f"{TRAIN_HW[0]}x{TRAIN_HW[1]} f32: B{SPATIAL_BATCH} forward "
+              f"joined vs one process max rel err {fwd_err:.3e}; "
+              f"B{TRAIN_BATCH} step loss "
+              f"{got[0]['loss']!r} vs {one['loss']!r} (rel {loss_rel:.3e}); "
+              f"against one process's spread with the batch reversed "
+              f"(largest share of a bound): "
+              + "; ".join(f"{kind} {v['max_diff']:.3e} / "
+                          f"{v['repeat_spread']:.3e} "
+                          f"({v['worst_of_bound']:.2f})"
+                          for kind, v in kinds.items())
+              + f"; launches a rank: forward {res['fwd_launches'][0]}, "
+              f"step {res['step_launches'][0]}; stem conv output "
+              f"{res['stem']}", flush=True)
+        print(f"[spatial] {name} ({CARD}): forward peak memory a rank "
+              f"{', '.join(f'{m:.1f}' for m in res['peak_mib'])} MiB vs one "
+              f"process {one['peak_mib']:.1f} MiB; warm step (host clock, "
+              f"synchronized) a rank "
+              f"{', '.join(f'{m:.2f}' for m in res['step_ms'])} ms vs one "
+              f"process {one['step_ms']:.2f} ms (two gloo ranks on one card: "
+              f"not a speed across cards)", flush=True)
+        check(all(torch.equal(g["state"][k], got[0]["state"][k])
+                  for g in got[1:] for k in got[0]["state"])
+              and all(g["loss"] == got[0]["loss"] for g in got),
+              f"[spatial] {name}: the ranks' states differ")
+        check(pred.shape == one["pred"].shape and bool(
+            torch.isfinite(pred).all()) and fwd_err <= SPATIAL_FWD_REL,
+              f"[spatial] {name}: the joined forward {tuple(pred.shape)} "
+              f"differs from one process's by {fwd_err:.3e}")
+        check(loss_rel <= SPATIAL_LOSS_RTOL,
+              f"[spatial] {name}: loss {loss_rel:.3e} relative off")
+        check(not beyond, f"[spatial] {name}: the state differs from one "
+              f"process's beyond its bound in {len(beyond)} tensors: "
+              f"{beyond[:8]}")
+        for g in got:
+            check(g["fwd_launches"] == SPATIAL_FWD_LAUNCHES[name]
+                  and g["step_launches"] == SPATIAL_STEP_LAUNCHES[name],
+                  f"[spatial] {name}: a rank launched {g['fwd_launches']} "
+                  f"(forward), {g['step_launches']} (step), expected "
+                  f"{SPATIAL_FWD_LAUNCHES[name]}, "
+                  f"{SPATIAL_STEP_LAUNCHES[name]}")
+        if name == "guidedepth":
+            h = TRAIN_HW[0] // 2
+            check(all(g["stem"] == [(SPATIAL_BATCH, 32, h // SPATIAL_RANKS,
+                                     TRAIN_HW[1] // 2)] for g in got),
+                  f"[spatial] the stem conv's output a rank "
+                  f"{[g['stem'] for g in got]}, not {h // SPATIAL_RANKS} of "
+                  f"its {h} rows")
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"[spatial] ({CARD}) {out['seconds']:.1f} s", flush=True)
+    check(out["seconds"] <= SPATIAL_SECONDS,
+          f"[spatial] took {out['seconds']:.1f} s, over {SPATIAL_SECONDS} s")
     return out
 
 
@@ -4787,6 +5066,9 @@ def main() -> int:
         # ranks on the card, each path's counts set to 0 just before it and
         # read just after it
         data_parallel = phase_data_parallel(tmp)
+        # the model axis: two gloo ranks on the card as a (1 x 2) grid,
+        # each path's counts set to 0 just before it and read just after it
+        spatial = phase_spatial(tmp)
         # the rest of the zoo served and trained, then the engines
         # serialized and deserialized; each path's counts set to 0 just
         # before it and read just after it
@@ -5117,7 +5399,11 @@ def main() -> int:
         f"data parallel nccl world 1 ({DP_STEPS} steps)":
             data_parallel["nccl_world1"]["launches"],
         f"data parallel gloo rank 0 of {DP_RANKS} ({DP_STEPS_GLOO} steps)":
-            data_parallel["gloo"]["launches"]}
+            data_parallel["gloo"]["launches"],
+        **{f"spatial {name} rank 0 of {SPATIAL_RANKS} ({what})":
+           spatial[name][f"{what}_launches"][0]
+           for name in ("guidedepth", "newcrf")
+           for what in ("fwd", "step")}}
     for k in kernels:
         for path, counts in by_path.items():
             if counts.get(k["name"]):
@@ -5136,7 +5422,8 @@ def main() -> int:
           f"[weights jax] {weights_jax['seconds']:.1f} s, [weights torch] "
           f"{weights_torch['seconds']:.1f} s, [stage chain] "
           f"{stage_chain['seconds']:.1f} s, [data parallel] "
-          f"{data_parallel['seconds']:.1f} s", flush=True)
+          f"{data_parallel['seconds']:.1f} s, [spatial] "
+          f"{spatial['seconds']:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels, "serve_errors": errs,
                       "sam_serve_errors": sam_errs, "sam_engine": sam_perf,
                       "newcrf_serve_errors": crf_errs,
@@ -5150,7 +5437,8 @@ def main() -> int:
                       "weights_jax": weights_jax,
                       "weights_torch": weights_torch,
                       "stage_chain": stage_chain,
-                      "data_parallel": data_parallel, "seconds": seconds}))
+                      "data_parallel": data_parallel, "spatial": spatial,
+                      "seconds": seconds}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
@@ -5160,4 +5448,6 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--dp-rank"]:
         sys.exit(dp_gloo_worker(int(sys.argv[2]), sys.argv[3]))
+    if sys.argv[1:2] == ["--spatial-rank"]:
+        sys.exit(spatial_worker(int(sys.argv[2]), sys.argv[3]))
     sys.exit(main())

@@ -2211,3 +2211,70 @@ def test_fused_step_under_a_world_1_nccl_group_launches_as_without(
     spread = diff(s0, s1)
     assert diff(sg, s0) <= 4 * spread
     assert abs(lg - l0) <= max(4 * abs(l0 - l1), 1e-6 * abs(l0))
+
+
+# -- the model axis: convs and resizes on row blocks with their halos --------
+
+# (H, W, k, stride, padding, groups, model ranks): the stem's stride-2 conv,
+# a 3x3 and a depthwise 5x5 at stride 1 and 2, a 1x1 at stride 2, over 2
+# and 4 row blocks
+HALO_CONVS = [(480, 64, 3, 2, 1, 1, 2), (240, 40, 3, 1, 1, 1, 4),
+              (120, 24, 5, 2, 2, 8, 4), (120, 24, 5, 1, 2, 8, 2),
+              (64, 32, 1, 2, 0, 1, 4)]
+
+
+@pytest.mark.parametrize("case", HALO_CONVS,
+                         ids=[str(i) for i in range(len(HALO_CONVS))])
+def test_conv_on_row_blocks_with_halos_joins_to_the_whole_conv(cuda, case):
+    """Each block of rows with the halo rows its window reads (sliced by
+    hand, no process group) through ``conv_strip``: the blocks joined equal
+    the whole map's conv on the card (cuDNN may pick another algorithm for
+    a strip: f32 sums in another order)."""
+    from tpudepth_torch.models.layers import conv_plan, conv_strip
+
+    h, w, k, s, p, groups, m = case
+    g = torch.Generator(device=cuda).manual_seed(h + k)
+    x = torch.randn(2, 8, h, w, device=cuda, generator=g)
+    wt = torch.randn(16, 8 // groups, k, k, device=cuda, generator=g)
+    b = torch.randn(16, device=cuda, generator=g)
+    want = torch.nn.functional.conv2d(x, wt, b, s, p, 1, groups)
+    plan = conv_plan(h, k, s, p, 1, m)
+    got = torch.cat([conv_strip(x[:, :, r[2]:r[3]], wt, b, r, (s, s), (p, p),
+                                (1, 1), groups) for r in plan], dim=2)
+    assert got.shape == want.shape
+    err = float((got - want).abs().max() / want.abs().max())
+    assert err <= 1e-6, err
+
+
+# (H in, H out, W in, W out, align_corners, mode, model ranks): GuideDepth's
+# x2 upsamples, the backbone's 1/64 -> 1/8 join, the U-Net's align_corners
+# joins, the guide images' nearest downsample
+HALO_RESIZES = [(60, 120, 80, 160, False, "bilinear", 2),
+                (120, 240, 160, 320, False, "bilinear", 4),
+                (8, 60, 10, 80, False, "bilinear", 2),
+                (30, 60, 40, 80, True, "bilinear", 2),
+                (16, 32, 16, 32, True, "bilinear", 4),
+                (480, 240, 640, 320, False, "nearest", 2)]
+
+
+@pytest.mark.parametrize("case", HALO_RESIZES,
+                         ids=[str(i) for i in range(len(HALO_RESIZES))])
+def test_resize_on_row_blocks_with_halos_joins_to_the_whole_resize(cuda,
+                                                                   case):
+    """Each block of output rows from the source rows it interpolates
+    from (``resize_plan``, sliced by hand) through ``resize_strip``: the
+    blocks joined equal ``F.interpolate`` of the whole map on the card;
+    the rows clamp at the image's edges, not at a block's."""
+    from tpudepth_torch.ops.image import resize_plan, resize_strip
+
+    h, ho, w, wo, align, mode, m = case
+    g = torch.Generator(device=cuda).manual_seed(h + ho)
+    x = torch.randn(2, 8, h, w, device=cuda, generator=g)
+    kw = {} if mode == "nearest" else {"align_corners": align}
+    want = torch.nn.functional.interpolate(x, size=(ho, wo), mode=mode, **kw)
+    plan = resize_plan(h, ho, m, mode, align)
+    got = torch.cat([resize_strip(x[:, :, r[2]:r[3]], h, (ho, wo), r, mode,
+                                  align) for r in plan], dim=2)
+    assert got.shape == want.shape
+    err = float((got - want).abs().max() / want.abs().max())
+    assert err <= 1e-6, err

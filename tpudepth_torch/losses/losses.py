@@ -16,7 +16,9 @@ the pixel means are each rank's own (with equal shards their mean over the
 ranks is the global mean, so the fused kernels run on each rank's shard
 unchanged); the min-max target's min and max and the masked L1's and
 SILog's sums are all-reduced. The mean over the ranks of what each rank
-returns is the global batch's loss.
+returns is the global batch's loss. Under a model axis the train step
+hands the losses the despatialized (whole) prediction and depth
+(``train/trainer.py``), so their reductions stay over the data ranks.
 """
 
 from __future__ import annotations

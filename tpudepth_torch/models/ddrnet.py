@@ -4,8 +4,20 @@ Counterpart of ``tpudepth/models/ddrnet.py``. Module names follow the
 reference PyTorch ``state_dict`` keys (``src/GuideDepth/model/DDRNet_23_slim.py``,
 as ``tpudepth/models/torch_import.py::_ddrnet`` documents them), e.g.
 ``conv1.0`` (stem conv, with bias), ``layer3_.1.bn2``, ``down4.3``,
-``spp.scale1.1``. The mesh helper ``despatialize`` is a no-op off a mesh and
-has no counterpart here.
+``spp.scale1.1``.
+
+Under a model axis (``core/mesh.py``) the input and the output are this
+rank's image rows. The high-resolution branch runs on rows (``conv1``,
+``layer1``, ``layer2``, ``layer3_``, ``layer4_``, ``layer5_``,
+``final_layer``), and the context branch on the whole map, gathered by
+``despatialize`` where the JAX package places its calls
+(``tpudepth/models/ddrnet.py:226-263``): after ``layer3`` and ``down3``,
+which run on rows, and before ``layer4``, ``layer5`` and ``spp``. One
+point lies earlier than JAX's: ``down4``'s second stride-2 conv runs whole
+(JAX gathers after it), so that no map on rows lies below 1/16 of the
+image, where JAX's own test shape (64 rows over 4 ranks) leaves 2 rows for
+4 ranks and NYU's 480 rows over 2 ranks leave 7.5 a rank. Whole maps join
+the branch on rows resized to the global size, then ``take_rows``.
 """
 
 from __future__ import annotations
@@ -13,6 +25,13 @@ from __future__ import annotations
 import torch
 import torch.nn as nn
 
+from tpudepth_torch.core.mesh import (
+    check_rows,
+    despatialize,
+    run_on_rows,
+    spatial_mesh,
+    take_rows,
+)
 from tpudepth_torch.models.layers import BatchNorm, Conv, relu
 from tpudepth_torch.ops.image import avg_pool, global_avg_pool, resize_bilinear
 
@@ -180,24 +199,33 @@ class DualResNetBackbone(nn.Module):
                                    *_conv_bn(p * 4, p * 8, 3, 2))
         self.spp = DAPPM(p * 16, spp_planes, p * 4)
         self.final_layer = SegmentHead(p * 4, head_planes, features)
+        run_on_rows(self.conv1, self.layer1, self.layer2, self.layer3,
+                    self.layer3_, self.down3, self.layer4_, self.down4[0],
+                    self.down4[1], self.layer5_, self.final_layer)
 
     def forward(self, x):
-        size = (x.shape[2] // 8, x.shape[3] // 8)
+        mesh = spatial_mesh()
+        rows = x.shape[2] * (mesh.num_model if mesh is not None else 1)
+        check_rows(rows, mesh, 16, "DDRNet")
+        size = (rows // 8, x.shape[3] // 8)
         h = self.conv1(x)
         l1 = self.layer1(h)
         l2 = self.layer2(relu(l1))
-        l3 = self.layer3(relu(l2))
+        l3 = despatialize(self.layer3(relu(l2)), mesh)
         x_ = self.layer3_(relu(l2))
 
-        xm = l3 + self.down3(relu(x_))
-        x_ = x_ + resize_bilinear(self.compression3(relu(l3)), size)
+        xm = l3 + despatialize(self.down3(relu(x_)), mesh)
+        x_ = x_ + take_rows(
+            resize_bilinear(self.compression3(relu(l3)), size), mesh)
 
         l4 = self.layer4(relu(xm))
         x_ = self.layer4_(relu(x_))
-        xm = l4 + self.down4(relu(x_))
-        x_ = x_ + resize_bilinear(self.compression4(relu(l4)), size)
+        # down4 = conv-BN on rows, ReLU, then conv-BN on the whole map
+        xm = l4 + self.down4[3:](despatialize(self.down4[:3](relu(x_)), mesh))
+        x_ = x_ + take_rows(
+            resize_bilinear(self.compression4(relu(l4)), size), mesh)
 
         x_ = self.layer5_(relu(x_))
         l5 = self.layer5(relu(xm))
-        xm = resize_bilinear(self.spp(l5), size)
+        xm = take_rows(resize_bilinear(self.spp(l5), size), mesh)
         return self.final_layer(xm + x_)

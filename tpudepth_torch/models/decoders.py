@@ -13,6 +13,16 @@ Counterpart of ``tpudepth/models/decoders.py``, all five of its models:
   ``up0``..., ``bridge``, ``bridge_conv``, ``upa``, ``convBlock``,
   ``conv1`` / ``conv2``, ``conv3``). They answer ``[B,1,H/2,W/2]`` in the
   input's dtype, with no sigmoid in the head.
+
+Under a model axis (``core/mesh.py``) a model takes and gives this rank's
+image rows. The encoder runs on rows down to 1/16 (``models/
+mobilenetv3.py``). The attention decoder runs on the whole map: its taps on
+rows are despatialized (windows of 7, padding to multiples of 7 and
+NewCRF's shift of 3 cross the ranks' edges) and its output goes back to
+rows. The interpolated U-Net's decoder runs on rows from the first stage
+whose tap is on rows: that stage resizes the whole map to the tap's global
+size and takes its rows; later stages resize on rows. DenseDepth and the
+transposed-conv U-Net have no model axis (``NotImplementedError``).
 """
 
 from __future__ import annotations
@@ -22,6 +32,13 @@ from typing import List, Sequence
 import torch
 import torch.nn as nn
 
+from tpudepth_torch.core.mesh import (
+    despatialize,
+    rows_mesh,
+    run_on_rows,
+    spatial_mesh,
+    take_rows,
+)
 from tpudepth_torch.models.layers import Conv, ConvTranspose, leaky_relu_02
 from tpudepth_torch.models.mobilenetv3 import (
     LARGE_LAST,
@@ -94,7 +111,14 @@ class _AttentionDepth(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         encoder, decoder = self.Unet
-        return decoder(encoder(x))
+        feats = encoder(x)
+        mesh = spatial_mesh()
+        if mesh is None:
+            return decoder(feats)
+        last_rows = encoder.original_model.first_whole
+        feats = [despatialize(f, mesh) if k in (4, 7, 13) and k <= last_rows
+                 else f for k, f in enumerate(feats)]
+        return take_rows(decoder(feats), mesh)
 
 
 class MobileV3SAMDepth(_AttentionDepth):
@@ -141,14 +165,26 @@ class ConvBlock(nn.Module):
 
 class UpSampleConcat(nn.Module):
     """Bilinear (align_corners=True) to the skip's size, concat, ConvBlock
-    (DenseDepth's ``UpSample``, the interpolated U-Net's ``Up``)."""
+    (DenseDepth's ``UpSample``, the interpolated U-Net's ``Up``). On rows
+    the skip is rows; ``x`` is rows too, or the whole map where
+    ``joins_whole`` is set (resized whole, then its rows taken)."""
 
     def __init__(self, cin: int, skip: int, features: int):
         super().__init__()
         self.convBlock = ConvBlock(cin + skip, features)
+        self.joins_whole = False
 
     def forward(self, x: torch.Tensor, skip: torch.Tensor) -> torch.Tensor:
-        x = resize_bilinear(x, skip.shape[2:], align_corners=True)
+        mesh = rows_mesh(self)
+        if mesh is None:
+            x = resize_bilinear(x, skip.shape[2:], align_corners=True)
+        else:
+            size = (skip.shape[2] * mesh.num_model, skip.shape[3])
+            if self.joins_whole:
+                x = take_rows(resize_bilinear(x, size, align_corners=True),
+                              mesh)
+            else:
+                x = resize_bilinear(x, size, align_corners=True, rows=mesh)
         return self.convBlock(torch.cat([x, skip], dim=1))
 
 
@@ -163,6 +199,13 @@ class UpTransposed(nn.Module):
 
     def forward(self, x: torch.Tensor, skip: torch.Tensor) -> torch.Tensor:
         return self.convBlock(torch.cat([self.up(x), skip], dim=1))
+
+
+def _no_model_axis(what: str):
+    if spatial_mesh() is not None:
+        raise NotImplementedError(
+            f"{what} does not run under a model axis yet (ROADMAP, Held: "
+            "DenseDepth and the U-Net on rows)")
 
 
 class MobileV3DenseDepth(nn.Module):
@@ -188,6 +231,7 @@ class MobileV3DenseDepth(nn.Module):
         self.conv3 = Conv(cin, 1, 3, padding=1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        _no_model_axis("DenseDepth")
         feats = self.encoder(x)
         h = self.conv2(feats[17])
         for i, tap in enumerate(self.TAPS):
@@ -217,6 +261,7 @@ class MobileV3UNet(nn.Module):
         self.conv3 = Conv(cin, 1, 3, padding=1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        _no_model_axis("the transposed-conv U-Net")
         h, w = x.shape[2:]
         if h % 64 or w % 64:
             raise ValueError(f"the U-Net takes H and W that are multiples of "
@@ -250,10 +295,16 @@ class MobileV3UNetInterp(nn.Module):
         self.encoder = MobileNetV3Features(arch)
         self.bridge = Conv(ch[self.taps[0]], bridge, 1)
         cin = bridge
+        last_rows, whole = self.encoder.first_whole, True
         for i, (tap, width) in enumerate(zip(self.taps, widths)):
-            setattr(self, f"up{i}", UpSampleConcat(cin, ch[tap], width))
+            up = UpSampleConcat(cin, ch[tap], width)
+            setattr(self, f"up{i}", up)
+            if tap <= last_rows:
+                run_on_rows(up)
+                up.joins_whole, whole = whole, False
             cin = width
         self.conv3 = Conv(cin, 1, 3, padding=1)
+        run_on_rows(self.conv3)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         feats = self.encoder(x)

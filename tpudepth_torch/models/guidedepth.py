@@ -30,6 +30,16 @@ fuses every stage, an unpacked one (``up_1`` at GuideDepth's widths) too:
 the same arithmetic, rounded in other places in bf16. The JAX package
 packs by default; the port runs unpacked unless asked, until measurements
 on the card decide.
+
+Under a model axis (``core/mesh.py``) the input and the output are this
+rank's image rows. The backbone runs its high-resolution branch on rows
+(``models/ddrnet.py``); the guide images are taken on rows; a plain
+unpacked GUB stage runs on rows (halo convs, BatchNorm over data x model,
+the SE squeeze added over the model ranks). A fused or a packed stage needs
+whole images (the kernels' per-channel sums would count halo rows and their
+H padding would be wrong at a rank's edge): the stages then run on the
+despatialized map and guides, and the output goes back to rows
+(``take_rows``). Their BatchNorm sums go over the data ranks only.
 """
 
 from __future__ import annotations
@@ -39,6 +49,14 @@ from typing import List, Optional, Sequence, Tuple
 import torch
 import torch.nn as nn
 
+from tpudepth_torch.core.mesh import (
+    all_reduce_sum,
+    despatialize,
+    rows_mesh,
+    run_on_rows,
+    spatial_mesh,
+    take_rows,
+)
 from tpudepth_torch.models.ddrnet import DualResNetBackbone
 from tpudepth_torch.models.layers import BatchNorm, Conv, Linear, rematerialize
 from tpudepth_torch.ops.image import nhwc, resize_bilinear, resize_nearest
@@ -102,7 +120,8 @@ class SELayer(nn.Module):
     Packed (``block``): the squeeze averages the packed copies back to the
     original channels and the excitation is tiled back; ``splits``: the
     input is a plain concat of packed parts with these original channel
-    counts, squeezed and scaled part by part (``guidedepth.py:78-147``)."""
+    counts, squeezed and scaled part by part (``guidedepth.py:78-147``). On
+    rows the squeeze is the whole image's mean."""
 
     def __init__(self, channel: int, reduction: int):
         super().__init__()
@@ -116,8 +135,13 @@ class SELayer(nn.Module):
 
     @staticmethod
     def squeeze(x: torch.Tensor, block: Block = None,
-                splits: Optional[Sequence[int]] = None) -> torch.Tensor:
-        """Per-original-channel spatial means ``[B, C]``."""
+                splits: Optional[Sequence[int]] = None,
+                rows=None) -> torch.Tensor:
+        """Per-original-channel spatial means ``[B, C]``; with ``rows`` (a
+        mesh) ``x`` is this rank's rows and the means the whole image's."""
+        if rows is not None:
+            n = x.shape[2] * rows.num_model * x.shape[3]
+            return all_reduce_sum(x.sum(dim=(2, 3)), rows, "model") / n
         if block is None:
             return x.mean(dim=(2, 3))
         if splits is None:
@@ -138,7 +162,7 @@ class SELayer(nn.Module):
                           for p in e.split(list(splits), dim=1)], 1)
 
     def forward(self, x, block: Block = None, splits=None):
-        e = self.excite(self.squeeze(x, block, splits))
+        e = self.excite(self.squeeze(x, block, splits, rows_mesh(self)))
         return x * self.tile(e, block, splits)[:, :, None, None]
 
 
@@ -268,6 +292,8 @@ class GuideDepth(nn.Module):
         self.packed_blocks = (None if packed_blocks is None else tuple(
             None if b is None else tuple(b) for b in packed_blocks))
         self.remat_stages = remat_stages
+        if not (fused_stages or packed):
+            run_on_rows(self.up_1, self.up_2, self.up_3)
 
     def stage_blocks(self, h: int, w: int) -> List[Block]:
         """The block of each stage for an ``h x w`` input (None: unpacked).
@@ -298,21 +324,30 @@ class GuideDepth(nn.Module):
         return blocks
 
     def forward(self, x):
+        mesh = spatial_mesh()
         y = self.feature_extractor(x)
         h, w = x.shape[2:]
-        x_half = resize_nearest(x, (h // 2, w // 2))
-        x_quarter = resize_nearest(x, (h // 4, w // 4))
+        rows = None
+        if mesh is not None:
+            h = h * mesh.num_model
+            # the stages run on rows, or (fused, packed) all on the whole map
+            rows = rows_mesh(self.up_1)
+            if rows is None:
+                x, y = despatialize(x, mesh), despatialize(y, mesh)
+        x_half = resize_nearest(x, (h // 2, w // 2), rows=rows)
+        x_quarter = resize_nearest(x, (h // 4, w // 4), rows=rows)
         blocks = self.stage_blocks(h, w)
         for i, guide in enumerate((x_quarter, x_half, x)):
             gub, blk = getattr(self, f"up_{i + 1}"), blocks[i]
             if blk is not None:
                 y, guide = upsample2x_pack(y, blk), space_to_depth(guide, blk)
             else:
-                y = resize_bilinear(y, (y.shape[2] * 2, y.shape[3] * 2))
+                hy = y.shape[2] * (rows.num_model if rows is not None else 1)
+                y = resize_bilinear(y, (hy * 2, y.shape[3] * 2), rows=rows)
             if self.remat_stages and self.training:
                 y = rematerialize(gub, guide, y, blk)
             else:
                 y = gub(guide, y, blk)
             if blk is not None:
                 y = depth_to_space(y, blk)
-        return y
+        return take_rows(y, mesh) if mesh is not None and rows is None else y

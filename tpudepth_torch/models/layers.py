@@ -11,20 +11,33 @@ passes 0.01 and 1e-3.
 buffers, as ``Conv(packed=...)`` and ``BatchNorm(packed=...)`` do in JAX.
 :func:`rematerialize` is ``torch.utils.checkpoint`` with the BatchNorm
 running statistics moved once, by the forward and not by its recomputation.
+
+Under a model axis (``core/mesh.py``) a module marked to run on rows
+(``run_on_rows``) takes and gives this rank's image rows: a ``Conv`` reads
+the rows its window needs beyond its own from its neighbours
+(:func:`conv_rows`), a ``BatchNorm`` reduces its statistics over the data
+and model ranks, a ``SqueezeExcitation`` its means over the model ranks.
 """
 
 from __future__ import annotations
 
 import contextlib
 import threading
-from typing import Callable, Optional, Sequence, Tuple
+from typing import Callable, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from tpudepth_torch.core.mesh import all_reduce_sum, current_axis
+from tpudepth_torch.core.mesh import (
+    Mesh,
+    all_reduce_sum,
+    current_axis,
+    fetch_rows,
+    rows_mesh,
+)
+from tpudepth_torch.ops.image import global_avg_pool
 from tpudepth_torch.ops.kernels.mlp_infer import mlp_infer
 from tpudepth_torch.ops.kernels.mlp_train import mlp_train
 from tpudepth_torch.ops.packed import (
@@ -93,6 +106,57 @@ def rematerialize(fn: Callable, *args):
                                           _recomputing()))
 
 
+def conv_plan(h_in: int, kernel: int, stride: int, padding: int,
+              dilation: int, num_model: int
+              ) -> List[Tuple[int, int, int, int, int, int]]:
+    """How a conv (along H: ``kernel``, ``stride``, ``padding``,
+    ``dilation``) of an ``h_in``-row map splits over ``num_model`` row
+    shards: per rank ``(o0, o1, lo, hi, top, bottom)``, its output rows
+    ``[o0, o1)`` (equal shards), the input rows ``[lo, hi)`` they read and
+    the rows of zero padding above and below them. Output row ``j`` reads
+    input rows ``s j - p`` to ``s j - p + d (k - 1)``; rows outside ``[0,
+    h_in)`` are the padding."""
+    h_out = (h_in + 2 * padding - dilation * (kernel - 1) - 1) // stride + 1
+    if h_out % num_model:
+        raise ValueError(f"a conv's output of {h_out} rows does not split "
+                         f"into {num_model} equal shards over the model axis")
+    per = h_out // num_model
+    plan = []
+    for q in range(num_model):
+        o0, o1 = q * per, (q + 1) * per
+        a = stride * o0 - padding
+        b = stride * (o1 - 1) - padding + dilation * (kernel - 1) + 1
+        lo, hi = max(a, 0), min(b, h_in)
+        plan.append((o0, o1, lo, hi, lo - a, b - hi))
+    return plan
+
+
+def conv_strip(strip: torch.Tensor, weight: torch.Tensor,
+               bias: Optional[torch.Tensor], rows, stride, padding,
+               dilation, groups: int) -> torch.Tensor:
+    """A conv's output rows ``rows`` (an entry of :func:`conv_plan`) from the
+    input rows ``[lo, hi)`` they read (``strip``): the strip padded with
+    its rows of zeros, the conv without H padding."""
+    top, bottom = rows[4], rows[5]
+    if top or bottom:
+        strip = F.pad(strip, (0, 0, top, bottom))
+    return F.conv2d(strip, weight, bias, stride, (0, padding[1]), dilation,
+                    groups)
+
+
+def conv_rows(x: torch.Tensor, weight: torch.Tensor,
+              bias: Optional[torch.Tensor], stride, padding, dilation,
+              groups: int, mesh: Mesh) -> torch.Tensor:
+    """``F.conv2d`` of a map of which this rank holds the rows ``x``: the
+    rows of its output, from its own input rows and the halo rows its
+    neighbours send (``core/mesh.py::fetch_rows``)."""
+    plan = conv_plan(x.shape[2] * mesh.num_model, weight.shape[2], stride[0],
+                     padding[0], dilation[0], mesh.num_model)
+    strip = fetch_rows(x, [(lo, hi) for _, _, lo, hi, _, _ in plan], mesh)
+    return conv_strip(strip, weight, bias, plan[mesh.model_rank], stride,
+                      padding, dilation, groups)
+
+
 class Conv(nn.Conv2d):
     """``nn.Conv2d`` whose f32 weight and bias are cast to the input dtype.
 
@@ -100,12 +164,18 @@ class Conv(nn.Conv2d):
     conv runs with the packed kernel gathered from the same ``weight``
     (stride 1, groups 1, padding ``k//2`` only), and ``input_splits`` says
     the input is a plain concat of packed parts with these original channel
-    counts (``tpudepth/models/layers.py:65-170``)."""
+    counts (``tpudepth/models/layers.py:65-170``). Marked to run on rows
+    under a model axis, it runs :func:`conv_rows`."""
 
     def forward(self, x: torch.Tensor, block: Optional[BlockSpec] = None,
                 input_splits: Optional[Sequence[int]] = None) -> torch.Tensor:
         bias = None if self.bias is None else self.bias.to(x.dtype)
         if block is None:
+            mesh = rows_mesh(self)
+            if mesh is not None:
+                return conv_rows(x, self.weight.to(x.dtype), bias,
+                                 self.stride, self.padding, self.dilation,
+                                 self.groups, mesh)
             return self._conv_forward(x, self.weight.to(x.dtype), bias)
         k = self.kernel_size[0]
         if (self.stride != (1, 1) or self.groups != 1
@@ -176,7 +246,10 @@ class BatchNorm(nn.BatchNorm2d):
     as under JAX's data-sharded ``jit``: the moments, or a fused kernel's
     sums, are SUM-all-reduced with autograd, so the running statistics move
     alike on every rank. ``nn.SyncBatchNorm`` is not used: it moves the
-    running variance by the unbiased variance."""
+    running variance by the unbiased variance. Marked to run on rows under
+    a model axis, it averages those moments over the model ranks' rows too
+    (:meth:`_over_rows`); a BatchNorm on the whole map reduces over the
+    data ranks only."""
 
     def __init__(self, num_features: int, eps: float = BN_EPS,
                  momentum: float = BN_MOMENTUM):
@@ -225,13 +298,24 @@ class BatchNorm(nn.BatchNorm2d):
                 # the global batch's sums, once, after the packed fold
                 s, q = all_reduce_sum(torch.stack([s, q]), mesh)
                 n = n * mesh.world
-            mean, mean2 = s / n, q / n
+            mean, mean2 = self._over_rows(s / n, q / n)
         else:
-            mean, mean2 = self._moments(y.to(self.weight.dtype), block)
+            mean, mean2 = self._over_rows(
+                *self._moments(y.to(self.weight.dtype), block))
         var = torch.clamp(mean2 - mean * mean, min=0.0)
         self._move_running(mean.detach(), var.detach())
         a = torch.rsqrt(var + self.eps) * self.weight
         return a, self.bias - mean * a
+
+    def _over_rows(self, mean: torch.Tensor, mean2: torch.Tensor):
+        """On rows under a model axis, the moments of the data ranks'
+        batch (:meth:`_moments`) averaged over the model ranks' rows too
+        (equal shards), with autograd; else as they are."""
+        mesh = rows_mesh(self)
+        if mesh is None:
+            return mean, mean2
+        both = all_reduce_sum(torch.stack([mean, mean2]), mesh, "model")
+        return both[0] / mesh.num_model, both[1] / mesh.num_model
 
     @staticmethod
     def _moments(xf: torch.Tensor, block: Optional[BlockSpec]):
@@ -266,7 +350,7 @@ class BatchNorm(nn.BatchNorm2d):
             a, c = self.eval_affine()
             return x * per_channel(a) + per_channel(c)
         xf = x if x.dtype == torch.float64 else x.float()
-        mean, mean2 = self._moments(xf, block)
+        mean, mean2 = self._over_rows(*self._moments(xf, block))
         var = torch.clamp(mean2 - mean * mean, min=0.0)
         self._move_running(mean.detach(), var.detach())
         mul = torch.rsqrt(var.to(dt) + self.eps) * self.weight.to(dt)
@@ -302,7 +386,8 @@ class ConvBNAct(nn.Sequential):
 
 class SqueezeExcitation(nn.Module):
     """torchvision's MobileNetV3 SE: spatial mean, 1x1 conv ``fc1``, ReLU,
-    1x1 conv ``fc2``, hardsigmoid scale."""
+    1x1 conv ``fc2``, hardsigmoid scale. On rows the mean is the whole
+    image's (``ops/image.py::global_avg_pool``)."""
 
     def __init__(self, channels: int, squeeze_channels: int):
         super().__init__()
@@ -310,7 +395,7 @@ class SqueezeExcitation(nn.Module):
         self.fc2 = Conv(squeeze_channels, channels, 1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        s = x.mean(dim=(2, 3), keepdim=True)
+        s = global_avg_pool(x, keepdims=True, rows=rows_mesh(self))
         s = self.fc2(relu(self.fc1(s)))
         return x * hardsigmoid(s)
 

@@ -6,6 +6,14 @@ SE conventions and its ``state_dict`` layout (``features.0.0``,
 torch momentum 0.01. :class:`MobileNetV3Features` returns the input and the
 output of every ``features`` module: 18 tensors for Large, 14 for Small,
 the reference's feature list (``src/model_mobileV3_large_SAM.py:178-182``).
+
+Under a model axis (``core/mesh.py``) the input is this rank's image rows
+and the features down to 1/16 of the image run on rows; the first module
+that reaches 1/32 (``first_whole``: ``features[13]`` of Large,
+``features[9]`` of Small) takes its input despatialized, so the taps
+``feats[:first_whole + 1]`` are rows and the deeper ones whole maps. The
+1/32 maps are not split: at JAX's test shape (64 rows over 4 ranks) they
+hold 2 rows for 4 ranks.
 """
 
 from __future__ import annotations
@@ -15,6 +23,12 @@ from typing import List
 import torch
 import torch.nn as nn
 
+from tpudepth_torch.core.mesh import (
+    check_rows,
+    despatialize,
+    run_on_rows,
+    spatial_mesh,
+)
 from tpudepth_torch.models.layers import (
     ConvBNAct,
     SqueezeExcitation,
@@ -100,15 +114,26 @@ class MobileNetV3Features(nn.Module):
         spec = LARGE_SPEC if arch == "large" else SMALL_SPEC
         last = LARGE_LAST if arch == "large" else SMALL_LAST
         mods: List[nn.Module] = [_cba(3, 16, 3, 2, act="hardswish")]
-        cin = 16
+        cin, stride = 16, 2
+        self.first_whole = None
         for k, exp, out, se, act, s in spec:
+            stride *= s
+            if stride == 32 and self.first_whole is None:
+                self.first_whole = len(mods)
             mods.append(InvertedResidual(cin, k, exp, out, se, act, s))
             cin = out
         mods.append(_cba(cin, last, 1, act="hardswish"))
         self.features = nn.Sequential(*mods)
+        run_on_rows(*mods[:self.first_whole])
 
     def forward(self, x: torch.Tensor) -> List[torch.Tensor]:
+        mesh = spatial_mesh()
+        if mesh is not None:
+            check_rows(x.shape[2] * mesh.num_model, mesh, 16, "MobileNetV3")
         feats = [x]
-        for m in self.features:
-            feats.append(m(feats[-1]))
+        for i, m in enumerate(self.features):
+            h = feats[-1]
+            if i == self.first_whole:
+                h = despatialize(h, mesh)
+            feats.append(m(h))
         return feats

@@ -53,6 +53,7 @@ import functools
 import torch
 import torch.nn as nn
 
+from tpudepth_torch.core.mesh import despatialize, gathering_mesh, take_rows
 from tpudepth_torch.models.layers import Conv, LayerNorm, Linear, Mlp
 from tpudepth_torch.models.sam import WindowAttention
 from tpudepth_torch.ops.attention import window_cross_attention_packed
@@ -241,7 +242,10 @@ class CRFLayer(nn.Module):
 class NewCRF(nn.Module):
     """NewCRF stage: ``forward(x, v)`` projects the unary ``x`` and the
     values ``v`` (NCHW) to ``embed_dim`` with 3x3 convs, runs the blocks and
-    returns ``norm_crf`` of their output (NCHW, channels_last memory)."""
+    returns ``norm_crf`` of their output (NCHW, channels_last memory).
+    Marked by ``core/mesh.py::run_whole_on_rows``, under a model axis it
+    takes and gives this rank's rows and computes on the despatialized maps
+    (windows and the shift cross the ranks' edges)."""
 
     def __init__(self, input_dim: int, embed_dim: int, v_dim: int,
                  num_heads: int, window_size: int = 7, depth: int = 2,
@@ -256,9 +260,11 @@ class NewCRF(nn.Module):
         self.norm_crf = LayerNorm(embed_dim)
 
     def forward(self, x: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+        mesh = gathering_mesh(self)
+        x, v = despatialize(x, mesh), despatialize(v, mesh)
         if self.proj_x is not None:
             x = self.proj_x(x)
         if self.proj_v is not None:
             v = self.proj_v(v)
         out = self.norm_crf(self.crf_layer(nhwc(x), nhwc(v)))
-        return out.permute(0, 3, 1, 2)
+        return take_rows(out.permute(0, 3, 1, 2), mesh)

@@ -39,6 +39,7 @@ from __future__ import annotations
 import torch
 import torch.nn as nn
 
+from tpudepth_torch.core.mesh import despatialize, gathering_mesh, take_rows
 from tpudepth_torch.models.layers import Conv, LayerNorm, Linear, Mlp
 from tpudepth_torch.ops.attention import window_cross_attention_packed
 from tpudepth_torch.ops.image import nhwc
@@ -202,7 +203,10 @@ class SAM(nn.Module):
     """SAM stage: ``forward(e, q)`` projects the encoder feature ``e`` and
     the decoder state ``q`` (NCHW) to ``embed_dim`` with 3x3 convs, runs the
     block with queries from q and keys / values from e, and returns
-    ``LN(q_out) + e_proj + q_proj`` (NCHW, channels_last memory)."""
+    ``LN(q_out) + e_proj + q_proj`` (NCHW, channels_last memory). Marked
+    by ``core/mesh.py::run_whole_on_rows``, under a model axis it takes and
+    gives this rank's rows and computes on the despatialized maps (windows
+    cross the ranks' edges)."""
 
     def __init__(self, input_dim: int, embed_dim: int, v_dim: int,
                  num_heads: int, window_size: int = 7, mode: str = "fused"):
@@ -215,10 +219,12 @@ class SAM(nn.Module):
         self.norm_sam = LayerNorm(embed_dim)
 
     def forward(self, e: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+        mesh = gathering_mesh(self)
+        e, q = despatialize(e, mesh), despatialize(q, mesh)
         if self.proj_q is not None:
             q = self.proj_q(q)
         if self.proj_e is not None:
             e = self.proj_e(e)
         qn, en = nhwc(q), nhwc(e)
         out = self.norm_sam(self.sam_block(qn, en)) + en + qn
-        return out.permute(0, 3, 1, 2)
+        return take_rows(out.permute(0, 3, 1, 2), mesh)

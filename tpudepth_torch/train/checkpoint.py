@@ -8,7 +8,17 @@ Counterpart of ``tpudepth/train/checkpoint.py``. GuideDepth stack: per-epoch
 rolling ``global_checkpoint`` holding ``epoch`` (the completed epoch) and
 ``loss`` (``src/train.py:147-153``). Both carry ``model`` (the
 ``state_dict``: parameters and BatchNorm statistics) and ``optimizer``.
-Saves are synchronous and atomic (written beside the target, then renamed).
+
+Saves are asynchronous by default, as the JAX package's orbax saves
+(``tpudepth/train/checkpoint.py:29-59``): :func:`save_checkpoint` copies the
+payload on the caller's thread (tensors to the CPU, CPU tensors cloned, so
+the file holds the state at the call however the step moves it after) and
+hands the write to one background thread, which writes beside the target
+and renames (atomic; saves land in the order they were made).
+:func:`wait_for_checkpoints` blocks until every save has landed and raises
+a failed save's exception; :func:`load_checkpoint`, ``Trainer.fit`` and the
+process's exit wait for them. ``blocking=True`` returns once the file is
+on disk.
 
 What :func:`load_checkpoint` reads:
 
@@ -24,18 +34,72 @@ What :func:`load_checkpoint` reads:
 
 from __future__ import annotations
 
+import atexit
+import concurrent.futures
+import itertools
 import os
-from typing import Any, Dict, Optional
+import threading
+from typing import Any, Dict, List, Optional
 
 import torch
 
+_LOCK = threading.Lock()
+_WRITER: List[concurrent.futures.ThreadPoolExecutor] = []
+_PENDING: List[concurrent.futures.Future] = []
+_SERIAL = itertools.count()
 
-def save_checkpoint(path: str, payload: Dict[str, Any]) -> str:
+
+def _snapshot(obj):
+    """``obj`` with every tensor copied to the CPU (a CPU tensor cloned) and
+    every dict, list and tuple rebuilt, so nothing the caller changes after
+    the call reaches the file."""
+    if isinstance(obj, torch.Tensor):
+        t = obj.detach()
+        return t.clone() if t.device.type == "cpu" else t.cpu()
+    if isinstance(obj, dict):
+        return type(obj)((k, _snapshot(v)) for k, v in obj.items())
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(_snapshot(v) for v in obj)
+    return obj
+
+
+def _write(path: str, payload: Dict[str, Any]):
+    tmp = f"{path}.{os.getpid()}.{next(_SERIAL)}.tmp"
+    try:
+        torch.save(payload, tmp)
+        os.replace(tmp, path)
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+
+
+def wait_for_checkpoints():
+    """Block until every save has landed; raise the first failed save's
+    exception (every failed save is reported once)."""
+    with _LOCK:
+        pending, _PENDING[:] = list(_PENDING), []
+    errors = [f.exception() for f in pending]
+    errors = [e for e in errors if e is not None]
+    if errors:
+        raise errors[0]
+
+
+def save_checkpoint(path: str, payload: Dict[str, Any],
+                    blocking: bool = False) -> str:
+    """Save ``payload`` to ``path`` (returned absolute): snapshotted now,
+    written by the background thread, or before returning with
+    ``blocking``."""
     path = os.path.abspath(path)
     os.makedirs(os.path.dirname(path), exist_ok=True)
-    tmp = f"{path}.{os.getpid()}.tmp"
-    torch.save(payload, tmp)
-    os.replace(tmp, path)
+    payload = _snapshot(payload)
+    with _LOCK:
+        if not _WRITER:
+            _WRITER.append(concurrent.futures.ThreadPoolExecutor(
+                max_workers=1, thread_name_prefix="checkpoint"))
+            atexit.register(wait_for_checkpoints)
+        _PENDING.append(_WRITER[0].submit(_write, path, payload))
+    if blocking:
+        wait_for_checkpoints()
     return path
 
 
@@ -53,6 +117,7 @@ def load_checkpoint(path: str, map_location="cpu",
     from tpudepth_torch.train.orbax_io import is_orbax_checkpoint, read_orbax
 
     path = os.path.abspath(path)
+    wait_for_checkpoints()  # a save of this path in flight lands first
     if is_orbax_checkpoint(path):
         if model_name is None:
             raise ValueError(f"{path} is a JAX (orbax) checkpoint: pass "

@@ -38,6 +38,18 @@ each rank's loss is its share (their mean is the global loss), and the SUM
 all-reduces' backward hands every rank the sum of all ranks' cotangents, so
 the sum of the ranks' gradients is the gradient of the sum of the shares.
 Parameters, statistics and Adam moments stay the same bits on every rank.
+
+Spatial (``make_train_step(mesh=...)`` with a model axis, ``core/mesh.py``):
+``image`` and ``depth`` are this rank's batch rows and image rows, as JAX's
+``P("data", "model")`` places them. The model runs its modules on rows or
+whole as it marks them; the depth and the prediction are despatialized
+(one channel each) before the target and the loss, so the losses, the fused
+loss kernels among them, see whole images and reduce over the data ranks;
+the gradients of the parameters used on rows are summed over the model
+ranks before the data average, those used whole (and the whole modules'
+running statistics) taken from the model group's first rank. ``Trainer``
+keeps a data axis only, as the JAX package's ``Trainer`` shards its
+batches over ``data`` only.
 """
 
 from __future__ import annotations
@@ -52,7 +64,7 @@ import torch
 
 from tpudepth_torch.core import mesh as mesh_lib
 from tpudepth_torch.core.config import TrainConfig
-from tpudepth_torch.core.mesh import DataMesh
+from tpudepth_torch.core.mesh import Mesh
 from tpudepth_torch.core.precision import Precision
 from tpudepth_torch.core.runtime import DeviceLike
 from tpudepth_torch.data.augment import augment_batch, draw_decisions
@@ -69,7 +81,11 @@ from tpudepth_torch.ops.image import resize_bilinear
 from tpudepth_torch.ops.kernels.fused_loss import fused_depth_loss
 from tpudepth_torch.ops.kernels.fused_root_loss import fused_root_loss
 from tpudepth_torch.parallel.launch import default_device
-from tpudepth_torch.train.checkpoint import load_checkpoint, save_checkpoint
+from tpudepth_torch.train.checkpoint import (
+    load_checkpoint,
+    save_checkpoint,
+    wait_for_checkpoints,
+)
 
 
 @dataclasses.dataclass
@@ -239,16 +255,16 @@ def make_train_step(
     depth_post_scale: float = 1.0,
     train_hw: Optional[Tuple[int, int]] = None,
     remat: bool = False,
-    mesh: Optional[DataMesh] = None,
+    mesh: Optional[Mesh] = None,
 ):
     """Build the train step ``(state, image, depth, generator) -> loss``. It
     updates ``state`` in place and returns the loss as a detached device
     tensor: nothing in it waits for the device.
 
-    ``mesh``: the data axis (``core/mesh.py``). Under a process group
-    ``image`` and ``depth`` are this rank's rows of the global batch, and
-    the step is the global batch's: its loss is the global loss on every
-    rank.
+    ``mesh``: the (data, model) grid (``core/mesh.py``). Under a process
+    group ``image`` and ``depth`` are this rank's rows of the global batch
+    (and, with a model axis, its image rows), and the step is the global
+    batch's: its loss is the global loss on every rank.
 
     ``remat``: the forward is rematerialized (``layers.rematerialize``, the
     counterpart of ``jax.checkpoint`` around the whole apply,
@@ -263,7 +279,9 @@ def make_train_step(
     the configuration). ``generator`` draws the augmentation.
     """
 
-    mesh = mesh if mesh is not None else DataMesh()
+    mesh = mesh if mesh is not None else Mesh()
+    spatial = mesh if mesh.spatial else None
+    shares = mesh_lib.rows_parameters(model) if spatial is not None else ()
 
     def step(state: TrainState, image: torch.Tensor, depth: torch.Tensor,
              generator: Optional[torch.Generator] = None) -> torch.Tensor:
@@ -274,10 +292,13 @@ def make_train_step(
             depth = depth.float() * (depth_post_scale / 255.0)
         elif depth.dtype == torch.uint16:
             depth = depth.float() * depth_post_scale
-        if train_hw is not None and (image.shape[2] > train_hw[0]
+        h = image.shape[2] * mesh.num_model
+        if train_hw is not None and (h > train_hw[0]
                                      or image.shape[3] > train_hw[1]):
-            image = resize_bilinear(image, train_hw)
-            depth = resize_bilinear(depth, train_hw)
+            # on the whole images, then this rank's rows of them
+            image, depth = (mesh_lib.take_rows(resize_bilinear(
+                mesh_lib.despatialize(t, spatial), train_hw), spatial)
+                for t in (image, depth))
         if augment:
             # the global batch's decisions, drawn alike on every rank, and
             # this rank's rows of them
@@ -293,10 +314,11 @@ def make_train_step(
         model.train()
         x = image.to(compute_dtype).contiguous(
             memory_format=torch.channels_last)
-        with mesh_lib.data_axis(mesh):
-            target = recipe.target(depth.float())
-            pred = losses_lib.widen(rematerialize(model, x) if remat
-                                    else model(x))
+        with mesh_lib.mesh_context(mesh):
+            target = recipe.target(mesh_lib.despatialize(depth.float(),
+                                                         spatial))
+            pred = rematerialize(model, x) if remat else model(x)
+            pred = losses_lib.widen(mesh_lib.despatialize(pred, spatial))
             if pred.shape[2:] != target.shape[2:]:
                 # a decoder may answer at half resolution: align the target
                 target = resize_bilinear(target, pred.shape[2:])
@@ -310,7 +332,8 @@ def make_train_step(
         # never applied
         mesh_lib.average_gradients(
             [p for g in state.optimizer.param_groups for p in g["params"]],
-            mesh)
+            mesh, shares)
+        mesh_lib.replicate_whole_buffers(model, spatial)
         loss = mesh_lib.all_reduce_mean(loss.detach(), mesh)
         if check_grads:
             # fold the finiteness of the gradient norm into the reported
@@ -383,7 +406,8 @@ class Trainer:
 
         self.config = config
         self.device = default_device(device)
-        self.mesh = mesh_lib.create_mesh(config.num_data_shards, self.device)
+        self.mesh = mesh_lib.create_mesh(config.num_data_shards,
+                                         device=self.device)
         if config.batch_size % self.mesh.world:
             raise ValueError(f"batch_size {config.batch_size} does not split "
                              f"into {self.mesh.world} equal shards")
@@ -583,11 +607,10 @@ class Trainer:
         return os.path.join(os.path.abspath(self.config.checkpoint_dir), name)
 
     def _save(self, path: str, payload: dict) -> str:
-        """``payload`` written to ``path`` by rank 0; every rank returns
-        once it is on disk."""
+        """``payload`` saved to ``path`` by rank 0, in the background
+        (``train/checkpoint.py``); :meth:`fit` waits for it."""
         if self.is_main:
             save_checkpoint(path, payload)
-        mesh_lib.barrier(self.mesh)
         return os.path.abspath(path)
 
     def save_epoch_checkpoint(self, epoch: int) -> str:
@@ -657,7 +680,14 @@ class Trainer:
         if payload is None:
             payload = {"model": self.model.state_dict(),
                        "best_epoch": best_epoch}
-        return self._save(os.path.join(out_dir, "best_model"), payload)
+        # the final export blocks, as the JAX package's does
+        # (tpudepth/train/trainer.py:602); every rank returns once it is on
+        # disk
+        path = os.path.join(out_dir, "best_model")
+        if self.is_main:
+            save_checkpoint(path, payload, blocking=True)
+        mesh_lib.barrier(self.mesh)
+        return os.path.abspath(path)
 
     # -- fit -----------------------------------------------------------------
 
@@ -672,21 +702,29 @@ class Trainer:
         epochs = epochs or self.config.epochs
         if self.state is None:
             self.init_state()
-        for epoch in range(self.epoch, epochs):
-            self.epoch = epoch
-            self.train_loader.set_epoch(epoch)
-            train_avg = self.train_epoch(log_fn, steps_cap=steps_per_epoch,
-                                         image_log_fn=image_log_fn)
-            val_avg = None
-            if self.val_loader is not None:
-                val_avg = self.val_epoch(max_batches=val_max_batches)
-            if on_epoch_end:
-                on_epoch_end(epoch, train_avg, val_avg, self)
-            if checkpoint_style == "per_epoch":
-                self.save_epoch_checkpoint(epoch)
-            elif checkpoint_style == "rolling":
-                self.save_rolling_checkpoint(epoch, train_avg)
-        self.epoch = epochs
+        # the saves run in the background; they land before fit returns, on
+        # the exception path too (tpudepth/train/trainer.py:628-653), and
+        # every rank returns once they are on disk
+        try:
+            for epoch in range(self.epoch, epochs):
+                self.epoch = epoch
+                self.train_loader.set_epoch(epoch)
+                train_avg = self.train_epoch(log_fn,
+                                             steps_cap=steps_per_epoch,
+                                             image_log_fn=image_log_fn)
+                val_avg = None
+                if self.val_loader is not None:
+                    val_avg = self.val_epoch(max_batches=val_max_batches)
+                if on_epoch_end:
+                    on_epoch_end(epoch, train_avg, val_avg, self)
+                if checkpoint_style == "per_epoch":
+                    self.save_epoch_checkpoint(epoch)
+                elif checkpoint_style == "rolling":
+                    self.save_rolling_checkpoint(epoch, train_avg)
+            self.epoch = epochs
+        finally:
+            wait_for_checkpoints()
+        mesh_lib.barrier(self.mesh)
         if export_best:
             return self.export_best_model()
         return self.state
