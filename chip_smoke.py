@@ -4766,40 +4766,53 @@ def phase_data_parallel(tmp):
 
 # [spatial]: the model axis on the card. SPATIAL_RANKS gloo ranks share the
 # one card as a (1 x SPATIAL_RANKS) grid (NCCL refuses two ranks on one
-# device), each holding its 240 of the 480 image rows, f32 with TF32 off,
-# NYU 480x640: (a) GuideDepth with fused GUB stages, (b) NewCRF (``row`` in
-# eval, the training kernels in a step), each an eval forward of
-# SPATIAL_BATCH images and one train step (Adam, augmentation off) of
-# TRAIN_BATCH against one process on the same inputs. The step takes the
-# batch [data parallel] (b) takes: at 2 images DAPPM's pooled 1x1 maps give
-# their BatchNorms 2 values a channel, whose gradients are rounding noise
-# that Adam turns into steps of lr either way (at 64x96 on the CPU the
-# parameters' change of the ranks and of one process, which agree to 1e-12
-# in float64, differed by 27 %). The ranks' joined
-# forward matches one process's within SPATIAL_FWD_REL of the map's
-# largest value (the halo strips and the row-wise resizes sum in other
-# orders); the step's loss within SPATIAL_LOSS_RTOL; its state as [data
-# parallel] (b) holds its ranks' (``_state_against_repeats``), the second
-# of the two single-process steps taking the batch's images in reverse
-# order: NewCRF's step repeats nearly bit for bit (on an H100 the
-# parameters' change of two repeats lay 5.8e-6 apart), so a repeat shows no
-# spread of summation order, while Adam's first update (lr times a sign)
-# flips the few elements whose gradient is rounding noise under any other
-# order (the ranks' change lay 8.7e-4 from one process's).
-SPATIAL_RANKS, SPATIAL_BATCH = 2, 2
-SPATIAL_JOIN_TIMEOUT = 240
+# device), f32 with TF32 off: (a) GuideDepth with fused GUB stages, (b)
+# NewCRF (``row`` in eval, the training kernels in a step) and (c)
+# DenseDepth at NYU 480x640, each rank holding 120 of the 480 image rows
+# (the maps from 1/16 down split unequally, 30 rows as 8, 8, 7, 7,
+# ``core/mesh.py::row_bounds``), and (d) the transposed-conv U-Net at
+# KITTI 384x1280 (96 rows a rank), each an eval forward of SPATIAL_BATCH
+# images and one train step (Adam, augmentation off) against one process
+# on the same inputs. The step takes SPATIAL_STEP_BATCH images: for (a)
+# and (b) the batch [data parallel] (b) takes, as at 2 images DAPPM's
+# pooled 1x1 maps give their BatchNorms 2 values a channel, whose
+# gradients are rounding noise that Adam turns into steps of lr either way
+# (at 64x96 on the CPU the parameters' change of the ranks and of one
+# process, which agree to 1e-12 in float64, differed by 27 %); fewer for
+# (c) and (d), whose MobileNetV3 encoder has no BatchNorm on a pooled map,
+# to keep the phase within SPATIAL_SECONDS. The ranks' joined forward
+# matches one process's within SPATIAL_FWD_REL of the map's largest value
+# (the halo strips and the row-wise resizes sum in other orders); the
+# step's loss within SPATIAL_LOSS_RTOL; its state as [data parallel] (b)
+# holds its ranks' (``_state_against_repeats``), the second of the two
+# single-process steps taking the batch's images in reverse order:
+# NewCRF's step repeats nearly bit for bit (on an H100 the parameters'
+# change of two repeats lay 5.8e-6 apart), so a repeat shows no spread of
+# summation order, while Adam's first update (lr times a sign) flips the
+# few elements whose gradient is rounding noise under any other order (the
+# ranks' change lay 8.7e-4 from one process's).
+SPATIAL_RANKS, SPATIAL_BATCH = 4, 2
+SPATIAL_MODELS = ("guidedepth", "newcrf", "densedepth", "unet")
+SPATIAL_HW = {"guidedepth": TRAIN_HW, "newcrf": TRAIN_HW,
+              "densedepth": TRAIN_HW, "unet": (384, 1280)}
+SPATIAL_STEP_BATCH = {"guidedepth": TRAIN_BATCH, "newcrf": TRAIN_BATCH,
+                      "densedepth": 4, "unet": 4}
+SPATIAL_JOIN_TIMEOUT = 300
 SPATIAL_FWD_REL, SPATIAL_LOSS_RTOL = 1e-4, 1e-5
-SPATIAL_SECONDS = 90.0
+SPATIAL_SECONDS = 150.0
 # what a rank launches: an eval forward, and one train step
 SPATIAL_FWD_LAUNCHES = {"guidedepth": {"gub_conv_fwd": FUSED_FWD_PER_PASS},
-                        "newcrf": {"crf_rowblock_infer": 8}}
+                        "newcrf": {"crf_rowblock_infer": 8},
+                        "densedepth": {}, "unet": {}}
 SPATIAL_STEP_LAUNCHES = {
     "guidedepth": {"gub_conv_fwd": FUSED_FWD_PER_PASS,
                    "gub_conv_dw": FUSED_DW_PER_STEP,
                    "gub_conv_dx": FUSED_DX_PER_STEP,
                    "fused_loss_fwd": 1, "fused_loss_bwd": 1},
     "newcrf": {**{k: 8 for k in TRAIN_KERNELS},
-               "fused_root_loss_fwd": 1, "fused_root_loss_bwd": 1}}
+               "fused_root_loss_fwd": 1, "fused_root_loss_bwd": 1},
+    "densedepth": {"fused_root_loss_fwd": 1, "fused_root_loss_bwd": 1},
+    "unet": {"fused_root_loss_fwd": 1, "fused_root_loss_bwd": 1}}
 
 
 def _spatial_model(name):
@@ -4808,15 +4821,24 @@ def _spatial_model(name):
 
     if name == "guidedepth":
         return _dp_model()
-    return init_random_(build_model("newcrf"), seed=0)
+    return init_random_(build_model(name), seed=0)
+
+
+def _spatial_stem(name, model):
+    """The model's first conv, of whose output a rank holds its rows."""
+    if name == "guidedepth":
+        return model.feature_extractor.conv1[0]
+    if name == "newcrf":
+        return model.Unet[0].original_model.features[0][0]
+    return model.encoder.features[0][0]
 
 
 def _spatial_run(name, batch, mesh=None):
     """``name``'s eval forward and one f32 train step on this process's
     image rows (``mesh``, a model axis) or on the whole batch: the output
-    on the host, the stem conv's output shape (GuideDepth), peak memory in
-    the forward, each run's launches, the step's loss and state (``params``,
-    ``stats``, ``name:exp_avg``), and the ms of a second, warm step."""
+    on the host, the stem conv's output shape, peak memory in the forward,
+    each run's launches, the step's loss and state (``params``, ``stats``,
+    ``name:exp_avg``), and the ms of a second, warm step."""
     from tpudepth_torch.core import mesh as mesh_lib
     from tpudepth_torch.core.config import TrainConfig
     from tpudepth_torch.train.trainer import (
@@ -4838,14 +4860,11 @@ def _spatial_run(name, batch, mesh=None):
          ).contiguous(memory_format=torch.channels_last)
 
     def forward():
-        hook = None
-        if name == "guidedepth":
-            hook = model.feature_extractor.conv1[0].register_forward_hook(
-                lambda m, i, o: out["stem"].append(tuple(o.shape)))
+        hook = _spatial_stem(name, model).register_forward_hook(
+            lambda m, i, o: out["stem"].append(tuple(o.shape)))
         with torch.no_grad(), mesh_lib.mesh_context(mesh):
             pred = model.eval()(x).float().cpu()
-        if hook is not None:
-            hook.remove()
+        hook.remove()
         return pred
 
     torch.cuda.synchronize()
@@ -4878,14 +4897,18 @@ def _spatial_run(name, batch, mesh=None):
     return out
 
 
-def _spatial_batch():
-    return SyntheticLoader(1, seed=320, raw_depth=True).batches[0]
+def _spatial_batch(name):
+    """The phase's seeded batch for ``name``: SPATIAL_STEP_BATCH images at
+    its SPATIAL_HW."""
+    batch = SyntheticLoader(1, seed=320, raw_depth=True,
+                            hw=SPATIAL_HW[name]).batches[0]
+    return {k: v[:SPATIAL_STEP_BATCH[name]] for k, v in batch.items()}
 
 
 def spatial_worker(rank: int, workdir: str) -> int:
     """One of the SPATIAL_RANKS gloo ranks of [spatial], run as ``python
     chip_smoke.py --spatial-rank RANK WORKDIR``: its image rows of the
-    phase's batch under the (1 x SPATIAL_RANKS) grid; writes what
+    phase's batches under the (1 x SPATIAL_RANKS) grid; writes what
     ``_spatial_run`` returns to WORKDIR."""
     from tpudepth_torch.core.mesh import create_mesh
     from tpudepth_torch.parallel import initialize
@@ -4897,34 +4920,37 @@ def spatial_worker(rank: int, workdir: str) -> int:
                device="cuda")
     mesh = create_mesh(1, SPATIAL_RANKS, device=DEVICE)
     check(mesh.spatial and mesh.model_rank == rank, f"the grid {mesh}")
-    batch = _spatial_batch()
-    out = {name: _spatial_run(name, batch, mesh)
-           for name in ("guidedepth", "newcrf")}
+    out = {name: _spatial_run(name, _spatial_batch(name), mesh)
+           for name in SPATIAL_MODELS}
     torch.save(out, f"{workdir}/rank{rank}.pt")
     shutdown()
     return 0
 
 
 def phase_spatial(tmp):
-    """[spatial]: two gloo ranks on the card as a (1 x 2) grid, GuideDepth
-    (fused GUB stages) and NewCRF, each rank's forward and step against one
-    process's, their launches exact."""
+    """[spatial]: SPATIAL_RANKS gloo ranks on the card as a (1 x
+    SPATIAL_RANKS) grid, GuideDepth (fused GUB stages), NewCRF, DenseDepth
+    and the transposed-conv U-Net, each rank's forward and step against one
+    process's, their launches exact, each rank's stem rows as planned."""
+    from tpudepth_torch.core.mesh import row_bounds
+
     t_phase = time.perf_counter()
     workdir = f"{tmp}/spatial"
     os.makedirs(workdir)
-    env = {**os.environ, "OMP_NUM_THREADS": "2"}
+    env = {**os.environ, "OMP_NUM_THREADS": "1"}
     procs = [subprocess.Popen(
         [sys.executable, os.path.abspath(__file__), "--spatial-rank", str(r),
          workdir], env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
         text=True) for r in range(SPATIAL_RANKS)]
     try:
-        # one process on the whole batch, and on its images in reverse
+        # one process on each whole batch, and on its images in reverse
         # order, while the ranks run
-        batch = _spatial_batch()
-        backwards = {k: np.ascontiguousarray(v[::-1])
-                     for k, v in batch.items()}
-        ref = {name: [_spatial_run(name, b) for b in (batch, backwards)]
-               for name in ("guidedepth", "newcrf")}
+        ref = {}
+        for name in SPATIAL_MODELS:
+            batch = _spatial_batch(name)
+            backwards = {k: np.ascontiguousarray(v[::-1])
+                         for k, v in batch.items()}
+            ref[name] = [_spatial_run(name, b) for b in (batch, backwards)]
         logs = []
         for p in procs:
             log, _ = p.communicate(timeout=max(
@@ -4935,16 +4961,21 @@ def phase_spatial(tmp):
             p.kill()
         raise RuntimeError(f"chip_smoke check failed: a spatial rank "
                            f"outlived {SPATIAL_JOIN_TIMEOUT} s")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
     for r, (p, log) in enumerate(zip(procs, logs)):
         check(p.returncode == 0,
               f"spatial rank {r} exited {p.returncode}:\n{log[-4000:]}")
     ranks = [torch.load(f"{workdir}/rank{r}.pt")
              for r in range(SPATIAL_RANKS)]
     out = {"ranks": SPATIAL_RANKS, "forward_batch": SPATIAL_BATCH,
-           "step_batch": TRAIN_BATCH, "hw": TRAIN_HW}
-    for name in ("guidedepth", "newcrf"):
+           "step_batch": SPATIAL_STEP_BATCH, "hw": SPATIAL_HW}
+    for name in SPATIAL_MODELS:
         one, rep = ref[name]
         got = [r[name] for r in ranks]
+        hw, bsz = SPATIAL_HW[name], SPATIAL_STEP_BATCH[name]
         pred = torch.cat([g["pred"] for g in got], dim=2)
         fwd_err = float((pred - one["pred"]).abs().max()
                         / one["pred"].abs().max())
@@ -4960,12 +4991,13 @@ def phase_spatial(tmp):
                "peak_mib": [g["peak_mib"] for g in got],
                "single_peak_mib": one["peak_mib"],
                "step_ms": [g["step_ms"] for g in got],
-               "single_step_ms": one["step_ms"], "stem": got[0]["stem"]}
+               "single_step_ms": one["step_ms"],
+               "stem": [g["stem"] for g in got]}
         out[name] = res
         print(f"[spatial] {name} ({CARD}): {SPATIAL_RANKS} model ranks, "
-              f"{TRAIN_HW[0]}x{TRAIN_HW[1]} f32: B{SPATIAL_BATCH} forward "
+              f"{hw[0]}x{hw[1]} f32: B{SPATIAL_BATCH} forward "
               f"joined vs one process max rel err {fwd_err:.3e}; "
-              f"B{TRAIN_BATCH} step loss "
+              f"B{bsz} step loss "
               f"{got[0]['loss']!r} vs {one['loss']!r} (rel {loss_rel:.3e}); "
               f"against one process's spread with the batch reversed "
               f"(largest share of a bound): "
@@ -4974,15 +5006,16 @@ def phase_spatial(tmp):
                           f"({v['worst_of_bound']:.2f})"
                           for kind, v in kinds.items())
               + f"; launches a rank: forward {res['fwd_launches'][0]}, "
-              f"step {res['step_launches'][0]}; stem conv output "
-              f"{res['stem']}", flush=True)
+              f"step {res['step_launches'][0]}; stem conv output a rank "
+              f"{[s[0][2] if s else None for s in res['stem']]} rows",
+              flush=True)
         print(f"[spatial] {name} ({CARD}): forward peak memory a rank "
               f"{', '.join(f'{m:.1f}' for m in res['peak_mib'])} MiB vs one "
               f"process {one['peak_mib']:.1f} MiB; warm step (host clock, "
               f"synchronized) a rank "
               f"{', '.join(f'{m:.2f}' for m in res['step_ms'])} ms vs one "
-              f"process {one['step_ms']:.2f} ms (two gloo ranks on one card: "
-              f"not a speed across cards)", flush=True)
+              f"process {one['step_ms']:.2f} ms ({SPATIAL_RANKS} gloo ranks "
+              f"on one card: not a speed across cards)", flush=True)
         check(all(torch.equal(g["state"][k], got[0]["state"][k])
                   for g in got[1:] for k in got[0]["state"])
               and all(g["loss"] == got[0]["loss"] for g in got),
@@ -5003,13 +5036,15 @@ def phase_spatial(tmp):
                   f"(forward), {g['step_launches']} (step), expected "
                   f"{SPATIAL_FWD_LAUNCHES[name]}, "
                   f"{SPATIAL_STEP_LAUNCHES[name]}")
-        if name == "guidedepth":
-            h = TRAIN_HW[0] // 2
-            check(all(g["stem"] == [(SPATIAL_BATCH, 32, h // SPATIAL_RANKS,
-                                     TRAIN_HW[1] // 2)] for g in got),
-                  f"[spatial] the stem conv's output a rank "
-                  f"{[g['stem'] for g in got]}, not {h // SPATIAL_RANKS} of "
-                  f"its {h} rows")
+        # the stem conv's output: each rank's planned rows of half the
+        # height (the rule of core/mesh.py::row_bounds)
+        h = hw[0] // 2
+        bounds = row_bounds(h, SPATIAL_RANKS)
+        want = [[(SPATIAL_BATCH, one["stem"][0][1], bounds[r + 1] - bounds[r],
+                  hw[1] // 2)] for r in range(SPATIAL_RANKS)]
+        check(res["stem"] == want,
+              f"[spatial] {name}: the stem conv's output a rank "
+              f"{res['stem']}, not {want}")
     out["seconds"] = time.perf_counter() - t_phase
     print(f"[spatial] ({CARD}) {out['seconds']:.1f} s", flush=True)
     check(out["seconds"] <= SPATIAL_SECONDS,
@@ -5402,7 +5437,7 @@ def main() -> int:
             data_parallel["gloo"]["launches"],
         **{f"spatial {name} rank 0 of {SPATIAL_RANKS} ({what})":
            spatial[name][f"{what}_launches"][0]
-           for name in ("guidedepth", "newcrf")
+           for name in SPATIAL_MODELS
            for what in ("fwd", "step")}}
     for k in kernels:
         for path, counts in by_path.items():

@@ -2217,10 +2217,16 @@ def test_fused_step_under_a_world_1_nccl_group_launches_as_without(
 
 # (H, W, k, stride, padding, groups, model ranks): the stem's stride-2 conv,
 # a 3x3 and a depthwise 5x5 at stride 1 and 2, a 1x1 at stride 2, over 2
-# and 4 row blocks
+# and 4 row blocks; then blocks of unequal rows (``core/mesh.py::
+# row_bounds``): NYU 480x640's 1/16 map over 4 ranks (30 rows: 8, 8, 7,
+# 7) and over 2 at half resolution (15: 8, 7), a stride-2 1x1 and a
+# depthwise 5x5 whose outputs split unequally, and a map of 3 rows over 4
+# ranks (one holds none)
 HALO_CONVS = [(480, 64, 3, 2, 1, 1, 2), (240, 40, 3, 1, 1, 1, 4),
               (120, 24, 5, 2, 2, 8, 4), (120, 24, 5, 1, 2, 8, 2),
-              (64, 32, 1, 2, 0, 1, 4)]
+              (64, 32, 1, 2, 0, 1, 4), (30, 40, 3, 1, 1, 1, 4),
+              (15, 40, 3, 2, 1, 1, 2), (60, 40, 1, 2, 0, 1, 4),
+              (60, 40, 5, 2, 2, 8, 4), (3, 16, 3, 1, 1, 1, 4)]
 
 
 @pytest.mark.parametrize("case", HALO_CONVS,
@@ -2248,13 +2254,20 @@ def test_conv_on_row_blocks_with_halos_joins_to_the_whole_conv(cuda, case):
 
 # (H in, H out, W in, W out, align_corners, mode, model ranks): GuideDepth's
 # x2 upsamples, the backbone's 1/64 -> 1/8 join, the U-Net's align_corners
-# joins, the guide images' nearest downsample
+# joins, the guide images' nearest downsample; then blocks of unequal rows:
+# DenseDepth's 1/16 -> 1/8 join at 480x640 over 4 ranks (30 -> 60 rows),
+# the 1/32 -> 1/16 join over 4 (15 -> 30, whole source), a x2 upsample of
+# 15 rows over 2 and a nearest downsample to 15 rows over 4
 HALO_RESIZES = [(60, 120, 80, 160, False, "bilinear", 2),
                 (120, 240, 160, 320, False, "bilinear", 4),
                 (8, 60, 10, 80, False, "bilinear", 2),
                 (30, 60, 40, 80, True, "bilinear", 2),
                 (16, 32, 16, 32, True, "bilinear", 4),
-                (480, 240, 640, 320, False, "nearest", 2)]
+                (480, 240, 640, 320, False, "nearest", 2),
+                (30, 60, 40, 80, True, "bilinear", 4),
+                (15, 30, 20, 40, True, "bilinear", 4),
+                (15, 30, 20, 40, False, "bilinear", 2),
+                (60, 15, 80, 20, False, "nearest", 4)]
 
 
 @pytest.mark.parametrize("case", HALO_RESIZES,
@@ -2275,6 +2288,37 @@ def test_resize_on_row_blocks_with_halos_joins_to_the_whole_resize(cuda,
     plan = resize_plan(h, ho, m, mode, align)
     got = torch.cat([resize_strip(x[:, :, r[2]:r[3]], h, (ho, wo), r, mode,
                                   align) for r in plan], dim=2)
+    assert got.shape == want.shape
+    err = float((got - want).abs().max() / want.abs().max())
+    assert err <= 1e-6, err
+
+
+# (H in, W, model ranks): the U-Net's ups at KITTI 384x1280 over 4 ranks
+# (1/32 -> 1/16: 12 -> 24 rows, equal; 1/16 -> 1/8: 24 -> 48), at 480x640
+# shapes whose shards do not line up with twice the input's (15 -> 30 over
+# 4: 4, 4, 4, 3 -> 8, 8, 7, 7), and a map of 3 rows over 4 ranks
+HALO_TRANSPOSES = [(12, 40, 4), (24, 80, 4), (15, 20, 4), (15, 20, 2),
+                   (3, 8, 4)]
+
+
+@pytest.mark.parametrize("case", HALO_TRANSPOSES,
+                         ids=[str(i) for i in range(len(HALO_TRANSPOSES))])
+def test_transposed_conv_on_row_blocks_joins_to_the_whole(cuda, case):
+    """Each block of output rows of the U-Net's k=2 s=2 transposed conv
+    from the input rows that add into it (``transpose_plan``, sliced by
+    hand) through ``transpose_strip``: the blocks joined equal the whole
+    map's ``F.conv_transpose2d`` on the card."""
+    from tpudepth_torch.models.layers import transpose_plan, transpose_strip
+
+    h, w, m = case
+    g = torch.Generator(device=cuda).manual_seed(h + w)
+    x = torch.randn(2, 16, h, w, device=cuda, generator=g)
+    wt = torch.randn(16, 8, 2, 2, device=cuda, generator=g)
+    b = torch.randn(8, device=cuda, generator=g)
+    want = torch.nn.functional.conv_transpose2d(x, wt, b, 2)
+    plan = transpose_plan(h, 2, 2, m)
+    got = torch.cat([transpose_strip(x[:, :, r[2]:r[3]], wt, b, r, (2, 2))
+                     for r in plan], dim=2)
     assert got.shape == want.shape
     err = float((got - want).abs().max() / want.abs().max())
     assert err <= 1e-6, err

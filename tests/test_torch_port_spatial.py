@@ -16,19 +16,26 @@ same to carry them to flax for the JAX package's runs.
 Cases and tolerances:
 
 - forwards in eval (``test_spatial_sharding.py:17, 36``): GuideDepth-S and
-  ``unet_interp`` at 2x64x64 and the SAM stage (8/32/16/4, 2x28x28, marked
-  ``run_whole_on_rows``) on (1 x 4), and GuideDepth-S at 2x96x128 on
-  (2 x 2) (1/32 of 96 rows is 3, which 2 ranks cannot split: the port
-  despatializes above it). In float64 the joined rows equal the port's
-  single process within 1e-10 of the map's largest value (the halo strips'
-  convs and the row-wise resizes sum in other orders); in float32 they
-  match JAX's apply of ``P("data", "model")`` inputs at JAX's rtol 1e-4,
-  atol 1e-5. The stem conv's output holds ``H / (2 M)`` rows a rank.
+  ``unet_interp`` at 2x64x64, GuideDepth-S at 1x80x64 (5 rows at 1/16 over
+  4 ranks: 2, 1, 1, 1), DenseDepth at 1x96x64 (6 rows at 1/16: 2, 2, 1, 1),
+  the transposed-conv U-Net at 1x128x128 and the SAM stage (8/32/16/4,
+  2x28x28, marked ``run_whole_on_rows``) on (1 x 4), and GuideDepth-S at
+  2x96x128 on (2 x 2) (1/32 of 96 rows is 3, which 2 ranks split 2, 1: the
+  port despatializes above it). In float64 the joined rows equal the
+  port's single process within 1e-10 of the map's largest value (the halo
+  strips' convs and the row-wise resizes sum in other orders); in float32
+  they match JAX's apply of ``P("data", "model")`` inputs at JAX's rtol
+  1e-4, atol 1e-5. The stem conv's output holds this rank's rows of ``H /
+  2`` by ``core/mesh.py::row_bounds``.
 - float64 train steps on the grid against one process's first step on
   the whole batch (alhashim: GuideDepth-S at 4x64x64, plain and fused GUB
-  stages, on (2 x 2) and (1 x 4); root: NewCRF at 2x64x64 on (2 x 2),
+  stages, on (2 x 2) and (1 x 4), and at 4x80x64 on (1 x 4), where the
+  maps from 1/8 down split unequally; root: NewCRF at 2x64x64 on (2 x 2),
   ``test_spatial_sharding.py:154``; SAM with its frozen encoder at 2x64x64
-  on (2 x 2), ``__graft_entry__.py:173-220``): the first step's loss, and
+  on (2 x 2), ``__graft_entry__.py:173-220``; DenseDepth at 2x96x64 and the
+  U-Net at 2x64x64 on (1 x 4); the interpolated U-Net's 2x80x64 batch
+  resized by the step to 70x64, whose input rows split unequally, on
+  (1 x 4)): the first step's loss, and
   per tensor every gradient of a trained parameter and every running
   statistic, within 1e-9 of the tensor's largest value, and the parameters
   after it within 1e-9 (a millionth of the learning rate). Tensors under
@@ -54,10 +61,20 @@ Cases and tolerances:
   4x128x128 (see ``STEPS``).
 - the (4 x 1) grid's step is the data axis's step bit for bit; every rank
   of a grid ends with the same bits.
+- a 3-row map over (1 x 4) (one rank holds no rows) through a conv, the
+  transposed conv and a resize on rows, forward and backward, equals the
+  whole map's within 1e-12 (float64): the empty rank enters every
+  exchange.
+- a train-mode BatchNorm, the SE squeeze and ``global_avg_pool`` on rows
+  of a 15-row map (4, 4, 4, 3 rows on (1 x 4); 8, 7 on (2 x 2)) equal the
+  whole map's within 1e-12 (float64): their means add sums and counts.
 - without ranks: ``min_spatial_height`` and ``validate_spatial_input`` at
   ``test_spatial_sharding.py:137``'s numbers and message, an input height
-  that does not divide by the model axis raises naming both, and the conv
-  and resize row plans equal the whole map's ops.
+  that does not divide by the model axis raises naming both (the only
+  refusal of the model axis beside JAX's guard), the row rule gives every
+  row of any map to one rank, and the conv, transposed-conv and resize row
+  plans joined equal the whole map's ops, at heights that do not split
+  equally and with ranks that hold no rows.
 """
 
 import os
@@ -87,14 +104,18 @@ from tpudepth.models.torch_import import (
 from tpudepth.train.trainer import LossRecipe as JaxLossRecipe
 from tpudepth.train.trainer import TrainState as JaxTrainState
 from tpudepth.train.trainer import make_train_step as jax_make_train_step
-from torch_port_helpers import one_torch_thread
 import torch_port_spatial_worker as worker
 from torch_port_jax_steps import batch
 
 from tpudepth_torch.core import mesh as mesh_lib
 from tpudepth_torch.models.jax_weights import flax_from_torch
-from tpudepth_torch.models.layers import conv_plan, conv_strip
-from tpudepth_torch.models.registry import build_model
+from tpudepth_torch.models.layers import BatchNorm
+from tpudepth_torch.models.layers import (
+    conv_plan,
+    conv_strip,
+    transpose_plan,
+    transpose_strip,
+)
 from tpudepth_torch.ops.image import resize_plan, resize_strip
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
@@ -111,8 +132,12 @@ FORWARDS = {
     "unet_interp": ("unet_interp", {}, 2, (64, 64), "1x4"),
     "sam_stage": ("sam_stage", SAM_STAGE, 2, (28, 28), "1x4"),
     "GuideDepth-S-96x128": ("GuideDepth-S", {}, 2, (96, 128), "2x2"),
+    "GuideDepth-S-80x64": ("GuideDepth-S", {}, 1, (80, 64), "1x4"),
+    "densedepth": ("densedepth", {}, 1, (96, 64), "1x4"),
+    "unet": ("unet", {}, 1, (128, 128), "1x4"),
 }
-JAX_FORWARDS = ("GuideDepth-S", "unet_interp", "sam_stage")
+JAX_FORWARDS = ("GuideDepth-S", "unet_interp", "sam_stage",
+                "GuideDepth-S-80x64", "densedepth", "unet")
 # name: (model, build options, recipe, H x W, grid, frozen encoder)
 # name: (model, build options, recipe, batch, H x W, grid, frozen encoder,
 # SGD steps: 0 is one Adam step). The two SGD runs also hold JAX's
@@ -123,8 +148,8 @@ JAX_FORWARDS = ("GuideDepth-S", "unet_interp", "sam_stage")
 # rows stay equal down to 1/16: 2 rows a rank), and the JAX package's
 # float64 NewCRF step takes 15 s on an 8-core CPU at 4x128x128, more than
 # this file's share of the gate. In this order the single-process steps,
-# spread over the ranks as names[rank::4], keep NewCRF's on a rank of its
-# own.
+# spread over the ranks as names[rank::4], put the shortest beside NewCRF's
+# and the U-Net's beside the shortest of the first six.
 STEPS = {
     "gd-plain-2x2": ("GuideDepth-S", {}, "alhashim", 4, (64, 64), "2x2",
                      False, 3),
@@ -136,8 +161,21 @@ STEPS = {
                      False, 0),
     "gd-fused-1x4": ("GuideDepth-S", {"gub": "fused"}, "alhashim", 4,
                      (64, 64), "1x4", False, 0),
+    "unet-1x4": ("unet", {}, "root", 2, (64, 64), "1x4", False, 0),
+    "gd-fused-80-1x4": ("GuideDepth-S", {"gub": "fused"}, "alhashim", 4,
+                        (80, 64), "1x4", False, 0),
+    "densedepth-1x4": ("densedepth", {}, "root", 2, (96, 64), "1x4", False,
+                       0),
+    "gd-plain-80-1x4": ("GuideDepth-S", {}, "alhashim", 4, (80, 64), "1x4",
+                        False, 0),
+    "interp-resized-1x4": ("unet_interp", {}, "root", 2, (80, 64), "1x4",
+                           False, 0),
 }
 SGD = [name for name, case in STEPS.items() if case[7]]
+# the steps' ``train_hw``: the batch resized on the whole map to a height
+# the model axis does not divide (70 rows over 4 ranks: 18, 18, 17, 17),
+# as JAX's step resizes within itself
+TRAIN_HW = {"interp-resized-1x4": (70, 64)}
 
 
 def _nchw(a):
@@ -146,7 +184,9 @@ def _nchw(a):
 
 # the seed of each model's weights (``torch_port_spatial_worker.build``)
 SEEDS = {"GuideDepth-S": 41, "unet_interp": 42, "newcrf": 43, "sam": 44,
-         "sam_stage": 45}
+         "sam_stage": 45, "densedepth": 46, "unet": 47}
+# a map of 15 rows per grid (4, 4, 4, 3 rows on (1 x 4); 8, 7 on (2 x 2))
+MOMENTS = {"1x4": (2, 6, 15, 5), "2x2": (4, 6, 15, 5)}
 
 
 def _flax(case):
@@ -234,9 +274,17 @@ def _cases():
         steps[name] = {"model": model, "options": options, "kind": kind,
                        "grid": grid, "freeze": freeze, "image": image,
                        "depth": depth, "sgd_steps": sgd_steps,
-                       "seed": None if sgd_steps else SEEDS[model]}
-    return {"forward": forward, "steps": steps,
-            "data_only": steps["gd-fused-2x2"]}
+                       "seed": None if sgd_steps else SEEDS[model],
+                       "train_hw": TRAIN_HW.get(name)}
+    rng = np.random.default_rng(11)
+    moments = {grid: torch.from_numpy(1.0 + rng.standard_normal(shape))
+               for grid, shape in MOMENTS.items()}
+    empty = {"x": torch.from_numpy(rng.standard_normal((2, 3, 3, 8))),
+             "w": torch.from_numpy(rng.standard_normal((4, 3, 3, 3))),
+             "wt": torch.from_numpy(rng.standard_normal((4, 2, 2, 2))),
+             "size": (7, 20)}
+    return {"forward": forward, "steps": steps, "moments": moments,
+            "empty_rank": empty, "data_only": steps["gd-fused-2x2"]}
 
 
 @pytest.fixture(scope="module")
@@ -376,13 +424,17 @@ def test_forward_on_rows_matches_jax_on_sharded_inputs(results, jax_want,
                                jax_want[name], rtol=1e-4, atol=1e-5)
 
 
-@pytest.mark.parametrize("name", ["GuideDepth-S", "GuideDepth-S-96x128"])
+@pytest.mark.parametrize("name", ["GuideDepth-S", "GuideDepth-S-96x128",
+                                  "GuideDepth-S-80x64"])
 def test_the_stem_conv_holds_its_share_of_the_rows(results, name):
     _, _, bsz, (h, w), grid = FORWARDS[name]
     nd, nm = (int(n) for n in grid.split("x"))
+    bounds = mesh_lib.row_bounds(h // 2, nm)
     for r in results:
+        m = r["coords"][grid][1]
         stems = r["forward"][name]["stem"]
-        assert stems == [(bsz // nd, 32, h // (2 * nm), w // 2)], stems
+        assert stems == [(bsz // nd, 32, bounds[m + 1] - bounds[m],
+                          w // 2)], stems
 
 
 @pytest.mark.parametrize("name", list(STEPS))
@@ -405,6 +457,51 @@ def test_step_on_rows_equals_one_process(results, name):
         grads = results[0]["steps"][name]["digest"]
         assert "feature_extractor.layer4.0.conv1.weight:grad" in grads
         assert "feature_extractor.layer1.0.conv1.weight:grad" in grads
+
+
+@pytest.mark.parametrize("grid", list(MOMENTS))
+def test_means_over_unequal_rows_equal_the_whole_maps(results, grid):
+    x = _cases()["moments"][grid]
+    bn = BatchNorm(x.shape[1]).double().train()
+    want = {"bn": bn(x), "se": x.mean(dim=(2, 3)),
+            "gap": x.mean(dim=(2, 3), keepdim=True),
+            "running_mean": bn.running_mean, "running_var": bn.running_var}
+    nd, nm = (int(n) for n in grid.split("x"))
+    bounds = mesh_lib.row_bounds(x.shape[2], nm)
+    assert len(set(np.diff(bounds))) > 1
+    per = {r["coords"][grid]: r["moments"][grid] for r in results}
+    b = x.shape[0] // nd
+    for (d, m), got in per.items():
+        rows = slice(bounds[m], bounds[m + 1])
+        local = {"bn": want["bn"][d * b:(d + 1) * b, :, rows],
+                 "se": want["se"][d * b:(d + 1) * b],
+                 "gap": want["gap"][d * b:(d + 1) * b]}
+        for k in want:
+            w = local.get(k, want[k]).detach()
+            assert got[k].shape == w.shape, (k, got[k].shape, w.shape)
+            assert float((got[k] - w).abs().max()) <= 1e-12, (k, d, m)
+
+
+def test_a_rank_without_rows_enters_every_exchange(results):
+    """3 rows over 4 ranks (1, 1, 1, 0), a conv, the transposed conv (2, 2,
+    1, 1) and a resize to 7 rows on rows, forward and backward: the whole
+    map's, on every rank; the weights' shares add up to their gradients."""
+    case = _cases()["empty_rank"]
+    x, w, wt = (case[k].clone().requires_grad_() for k in ("x", "w", "wt"))
+    y = F.interpolate(F.conv_transpose2d(F.conv2d(x, w, None, 1, 1), wt,
+                                         None, 2),
+                      size=case["size"], mode="bilinear", align_corners=False)
+    (y * y).sum().backward()
+    got = [r["empty_rank"] for r in results]
+    assert [g["rows"].stop - g["rows"].start for g in got] == [1, 1, 1, 0]
+    for k, want in (("out", y.detach()), ("x", x.grad)):
+        for g in got:
+            assert float((g[k] - want).abs().max()) <= 1e-12 * float(
+                want.abs().max()), k
+    for k, want in (("w", w.grad), ("wt", wt.grad)):
+        total = sum(g[k] for g in got)
+        assert float((total - want).abs().max()) <= 1e-12 * float(
+            want.abs().max()), k
 
 
 def test_every_rank_of_a_grid_ends_with_the_same_bits(results):
@@ -460,9 +557,15 @@ def test_an_input_height_that_does_not_split_raises_naming_both():
     with pytest.raises(ValueError, match=r"66 rows .* 4 equal shards"):
         mesh_lib.shard_spatial(grid, torch.zeros(1, 66, 8, 3))
     assert mesh_lib.image_rows(grid, 64) == slice(16, 32)
-    with pytest.raises(ValueError, match="72 rows over 4 model ranks needs "
-                       "a multiple of 64"):
-        mesh_lib.check_rows(72, grid, 16, "DDRNet")
+    # 72 rows over 4 ranks plan down to 1/16 (5 rows: 2, 1, 1, 1)
+    assert mesh_lib.image_rows(grid, 72) == slice(18, 36)
+    h = 72
+    for _ in range(4):
+        plan = conv_plan(h, 3, 2, 1, 1, 4)
+        h = plan[-1][1]
+        assert [o1 - o0 for o0, o1, *_ in plan] == np.diff(
+            mesh_lib.row_bounds(h, 4)).tolist()
+    assert h == 5 and mesh_lib.rows_of(grid, h) == slice(2, 3)
 
 
 @pytest.mark.parametrize("k,s,p", [(3, 1, 1), (3, 2, 1), (1, 1, 0), (1, 2, 0),
@@ -497,10 +600,80 @@ def test_resize_row_plan_joins_to_the_whole_resize(mode, align, size):
             want.abs().max()) * 10
 
 
-def test_models_without_a_model_axis_say_so():
-    with one_torch_thread():
-        grid = mesh_lib.Mesh(num_model=2, model_group=object())
-        for name in ("densedepth", "unet"):
-            with mesh_lib.mesh_context(grid), pytest.raises(
-                    NotImplementedError, match="model axis"):
-                build_model(name)(torch.zeros(1, 3, 64, 64))
+@pytest.mark.parametrize("m", [2, 3, 4])
+def test_the_row_rule_gives_every_row_to_one_rank(m):
+    for h in range(1, 41):
+        bounds = mesh_lib.row_bounds(h, m)
+        rows = [list(range(h))[mesh_lib.rows_of(
+            mesh_lib.Mesh(model_rank=q, num_model=m), h)] for q in range(m)]
+        assert sum(rows, []) == list(range(h)), (h, m)
+        sizes = np.diff(bounds)
+        # balanced: no rank holds two rows more than another, and none is
+        # empty while the map has a row for each
+        assert sizes.max() - sizes.min() <= 1 and (h < m or sizes.min() > 0)
+
+
+# heights that split unequally over 2, 3 and 4 ranks, and maps of fewer
+# rows than ranks (empty ranks)
+UNEQUAL = (15, 30, 7, 5, 3, 2)
+
+
+@pytest.mark.parametrize("k,s,p", [(3, 1, 1), (3, 2, 1), (1, 1, 0), (1, 2, 0),
+                                   (5, 2, 2), (5, 1, 2)])
+def test_conv_row_plan_at_unequal_heights_joins_bit_for_bit(k, s, p):
+    for h in UNEQUAL:
+        x = torch.randn(2, 3, h, 10, dtype=torch.float64,
+                        generator=torch.Generator().manual_seed(h))
+        w = torch.randn(4, 3, k, k, dtype=torch.float64)
+        want = F.conv2d(x, w, None, s, p)
+        for m in (2, 3, 4):
+            plan = conv_plan(h, k, s, p, 1, m)
+            got = torch.cat([conv_strip(x[:, :, r[2]:r[3]], w, None, r,
+                                        (s, s), (p, p), (1, 1), 1)
+                             for r in plan], dim=2)
+            assert torch.equal(got, want), (h, m)
+
+
+@pytest.mark.parametrize("h", UNEQUAL)
+def test_transposed_conv_row_plan_joins_bit_for_bit(h):
+    x = torch.randn(2, 3, h, 10, dtype=torch.float64,
+                    generator=torch.Generator().manual_seed(h))
+    w = torch.randn(3, 4, 2, 2, dtype=torch.float64)
+    b = torch.randn(4, dtype=torch.float64)
+    want = F.conv_transpose2d(x, w, b, 2)
+    for m in (2, 3, 4):
+        plan = transpose_plan(h, 2, 2, m)
+        # output rows 2i and 2i + 1 read input row i alone
+        for o0, o1, lo, hi in plan:
+            assert (lo, hi) == ((o0 // 2, (o1 + 1) // 2) if o1 > o0
+                                else (lo, lo))
+        got = torch.cat([transpose_strip(x[:, :, r[2]:r[3]], w, b, r, (2, 2))
+                         for r in plan], dim=2)
+        assert torch.equal(got, want), (h, m)
+
+
+@pytest.mark.parametrize("mode,align,scale", [
+    ("bilinear", False, 2), ("bilinear", True, 2), ("bilinear", False, 0.5),
+    ("bilinear", True, 3.1), ("nearest", False, 0.5),
+    ("nearest", False, 2)])
+def test_resize_row_plan_at_unequal_heights_joins_to_the_whole_resize(
+        mode, align, scale):
+    """Split over 2-4 ranks, the strips join bit for bit to the same
+    strip computation over one rank, and match ``F.interpolate`` within
+    the float64 rounding of its other sum order."""
+    for h in UNEQUAL:
+        x = torch.randn(2, 3, h, 10, dtype=torch.float64,
+                        generator=torch.Generator().manual_seed(h))
+        size = (max(int(h * scale), 1), 20)
+        kw = {} if mode == "nearest" else {"align_corners": align}
+        want = F.interpolate(x, size=size, mode=mode, **kw)
+        one = resize_plan(h, size[0], 1, mode, align)[0]
+        whole = resize_strip(x[:, :, one[2]:one[3]], h, size, one, mode,
+                             align)
+        assert float((whole - want).abs().max()) <= 1e-15 * float(
+            want.abs().max()) * 10
+        for m in (2, 3, 4):
+            plan = resize_plan(h, size[0], m, mode, align)
+            got = torch.cat([resize_strip(x[:, :, r[2]:r[3]], h, size, r,
+                                          mode, align) for r in plan], dim=2)
+            assert torch.equal(got, whole), (h, m)

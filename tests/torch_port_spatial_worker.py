@@ -27,6 +27,16 @@ grids (``tpudepth_torch.core.mesh.create_mesh``) and reads
   head (in float32 in the port, as in the JAX package).
 - ``data_only``: the (4 x 1) grid's step against the step under the mesh of
   the data axis alone (``Mesh(rank, world, WORLD)``), bit for bit.
+- ``empty_rank``: a 3-row map over the (1 x 4) grid's ranks (the last
+  holds no rows): taken to rows (``take_rows``), a 3x3 conv, the U-Net's
+  transposed conv and a bilinear resize on rows, despatialized, and the
+  backward of its sum of squares; the rank records the whole output, the
+  input's gradient and its shares of the two weights' gradients.
+- ``moments``: per grid a map whose rows do not split equally; the rank
+  runs a train-mode ``BatchNorm``, the SE squeeze and ``global_avg_pool``
+  marked to run on rows on its batch rows and image rows
+  (``core/mesh.py::rows_of``) and records their outputs and the running
+  statistics.
 
 Rank ``r`` writes ``WORKDIR/rank{r}.pt``.
 """
@@ -43,10 +53,21 @@ from tpudepth_torch.core import mesh as mesh_lib
 from tpudepth_torch.core.config import TrainConfig
 from tpudepth_torch.losses import losses
 from tpudepth_torch.models import decoders
-from tpudepth_torch.models.layers import init_random_
+from tpudepth_torch.models.guidedepth import SELayer
+from tpudepth_torch.models.layers import (
+    BatchNorm,
+    conv_rows,
+    conv_transpose_rows,
+    init_random_,
+)
 from tpudepth_torch.models.registry import build_model
 from tpudepth_torch.models.sam import SAM
-from tpudepth_torch.ops.image import pixel_shuffle, upsample
+from tpudepth_torch.ops.image import (
+    global_avg_pool,
+    pixel_shuffle,
+    resize_rows,
+    upsample,
+)
 from tpudepth_torch.train import trainer as ttr
 
 LR = 1e-3
@@ -109,10 +130,46 @@ def forward_case(case, mesh, rank):
     return out
 
 
+def moments_case(x, mesh):
+    """A ``BatchNorm`` (train mode), the SE squeeze and ``global_avg_pool``
+    on rows of ``x`` (this rank's batch rows and image rows), marked to run
+    on rows: the normalized rows, the moved running statistics and the two
+    means."""
+    x = x[mesh_lib.batch_rows(mesh, x.shape[0])][
+        :, :, mesh_lib.rows_of(mesh, x.shape[2])]
+    bn = BatchNorm(x.shape[1]).double().train()
+    mesh_lib.run_on_rows(bn)
+    with mesh_lib.mesh_context(mesh):
+        out = {"bn": bn(x).detach(), "se": SELayer.squeeze(x, rows=mesh),
+               "gap": global_avg_pool(x, keepdims=True, rows=mesh)}
+    out.update(running_mean=bn.running_mean, running_var=bn.running_var)
+    return out
+
+
+def empty_rank_case(case, mesh):
+    """``case``'s map through a conv, a transposed conv and a resize on
+    rows of ``mesh``, where a rank may hold none of the map's rows: the
+    whole output, the input's gradient and this rank's shares of the
+    weights' gradients."""
+    x = case["x"].clone().requires_grad_()
+    w = case["w"].clone().requires_grad_()
+    wt = case["wt"].clone().requires_grad_()
+    mesh.plan.start(*x.shape[2:])
+    y = conv_rows(mesh_lib.take_rows(x, mesh), w, None, (1, 1), (1, 1),
+                  (1, 1), 1, mesh)
+    y = conv_transpose_rows(y, wt, None, (2, 2), mesh)
+    y = mesh_lib.despatialize(
+        resize_rows(y, case["size"], "bilinear", False, mesh), mesh)
+    (y * y).sum().backward()
+    return {"out": y.detach(), "x": x.grad, "w": w.grad, "wt": wt.grad,
+            "rows": mesh_lib.rows_of(mesh, x.shape[2])}
+
+
 def run_steps(case, mesh, steps=None):
     """The case's float64 steps on this rank's rows (``mesh``) or on the
     whole batch (None): one Adam step, or with ``case["sgd_steps"]`` that
-    many SGD steps (lr 1e-3); ``steps`` caps them. The first step's loss,
+    many SGD steps (lr 1e-3); ``steps`` caps them; the step resizes the
+    batch to ``case["train_hw"]`` where it is set. The first step's loss,
     every trainable parameter's gradient, every running statistic and the
     parameters after it; every step's loss; the parameters' change over
     all steps as one vector's norm."""
@@ -128,7 +185,7 @@ def run_steps(case, mesh, steps=None):
     state = ttr.TrainState(model, optimizer)
     step = ttr.make_train_step(model, recipe, lambda s: LR,
                                compute_dtype=torch.float64, augment=False,
-                               mesh=mesh)
+                               train_hw=case["train_hw"], mesh=mesh)
     image, depth = case["image"].double(), case["depth"].double()
     if mesh is not None:
         image = mesh_lib.shard_spatial(mesh, image)
@@ -208,6 +265,9 @@ def main(init_url, world, rank, workdir):
     for name, case in spec["forward"].items():
         out["forward"][name] = forward_case(case, grids[case["grid"]], rank)
     out["seconds"]["forward"] = time.perf_counter() - t0
+    out["moments"] = {grid: moments_case(x, grids[grid])
+                      for grid, x in spec["moments"].items()}
+    out["empty_rank"] = empty_rank_case(spec["empty_rank"], grids["1x4"])
     names = list(spec["steps"])
     mine, kept = names[rank::world], {}
     for name in names:

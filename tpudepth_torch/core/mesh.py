@@ -28,12 +28,20 @@ None: without a process group, or on an axis of one rank. With
 ``num_model == 1`` the data group is the world, as before the model axis
 existed, so every helper runs the same collective on the same tensors.
 
-The model axis (``spatial_sharding``, :func:`despatialize`): rank ``(d,
-m)`` holds image rows ``[m H / M, (m + 1) H / M)`` of an ``H``-row map.
-Every activation is either "rows" (split over the model axis) or "whole"
-(replicated over it); a module runs on rows where the model marks it
-(:func:`run_on_rows`, a static mark per module instance), and only two
-autograd functions cross between the two: :func:`despatialize` (rows to
+The model axis (``spatial_sharding``, :func:`despatialize`): the model
+ranks split the rows of an ``h``-row map by one rule, :func:`row_bounds`,
+for any ``h``: rank ``m`` holds rows ``[b[m], b[m + 1])``, the first ``h %
+M`` ranks one row more than the others (``torch.tensor_split``'s rule). The
+split is balanced rather than GSPMD's ``ceil(h / M)`` rows a rank: at the
+heights JAX takes (the input's ``H % M == 0``, deeper maps anything) GSPMD
+leaves the last ranks short or empty (72 rows over 4 ranks leave 5 at 1/16:
+2, 2, 1, 0), the balanced split no rank empty while ``h >= M`` (2, 1, 1, 1)
+and the same shards as before where ``M`` divides ``h``. The input keeps
+JAX's condition: :func:`image_rows` / :func:`shard_spatial` raise unless
+``M`` divides ``H``. Every activation is either "rows" (split over the model
+axis) or "whole" (replicated over it); a module runs on rows where the model
+marks it (:func:`run_on_rows`, a static mark per module instance), and only
+two autograd functions cross between the two: :func:`despatialize` (rows to
 whole: the rows gathered; its backward takes this rank's rows of the
 cotangent) and :func:`take_rows` (whole to rows: a slice; its backward
 SUM-all-reduces the rows' cotangents put into a zero map over the model
@@ -46,7 +54,24 @@ Convolutions and resizes on rows read the rows they need beyond their own
 from their neighbours through :func:`fetch_rows`. Every exchange is a SUM
 all-reduce of zero-padded slots (exact: each entry adds zeros only),
 because gloo takes CUDA tensors for all-reduce and broadcast only, and gloo
-is the only backend that runs two ranks on one card.
+is the only backend that runs two ranks on one card; every rank enters it,
+one that holds no rows of the map too. Means over rows (BatchNorm's
+moments, the SE squeezes) add each rank's sums and its count of elements
+(:func:`sum_with_count`), so unequal shards weigh by their rows.
+
+The global height of a map on rows is not its local height times ``M``
+once shards differ, so it travels with the forward in the mesh's row plan
+(``Mesh.plan``; :func:`input_rows`, :func:`global_rows`,
+:func:`record_rows`): the plan maps a map's width, which rows do not
+split, to its global height. A model's entry starts it anew from its input
+(whose shards are equal, or whose height a train step that resized its
+batch pinned: :func:`pin_input_rows`), and every step that makes a map on
+rows records
+the height it planned: a conv's output rows, a resize's size,
+:func:`take_rows` of a whole map. Two maps on rows of one width and
+different heights would make the plan ambiguous: recording the second
+raises, and :func:`global_rows` checks that this rank's rows are the
+rule's share of the height it returns.
 
 The model's modules find the mesh through :func:`mesh_context` (alias
 :func:`data_axis`), which the train step enters around its forward and
@@ -66,13 +91,36 @@ import torch
 import torch.distributed as dist
 
 
+class RowPlan:
+    """The global heights of the maps on rows of a mesh's current forward,
+    by width, and the models' input height where a step pinned it
+    (module docstring)."""
+
+    def __init__(self):
+        self.heights = {}
+        self.input = None
+
+    def start(self, h: int, w: int):
+        """A new forward, from an input of ``h`` global rows and width
+        ``w``."""
+        self.heights = {w: h}
+
+    def record(self, h: int, w: int):
+        known = self.heights.setdefault(w, h)
+        if known != h:
+            raise ValueError(
+                f"two maps on rows of width {w} have {known} and {h} rows: "
+                f"the row plan cannot tell their heights apart")
+
+
 @dataclasses.dataclass(frozen=True)
 class Mesh:
     """This process's place in a ``world x num_model`` grid: its data index
     ``rank`` of ``world`` data ranks and the data ``group``; its
     ``model_rank`` of ``num_model`` and the ``model_group``; the
     ``grid_group`` of every rank; its ``device``. A group is None where its
-    axis has one rank or there is no process group."""
+    axis has one rank or there is no process group. ``plan`` is the row
+    plan of its current forward on rows (:func:`input_rows`)."""
 
     rank: int = 0
     world: int = 1
@@ -82,6 +130,8 @@ class Mesh:
     num_model: int = 1
     model_group: Any = None
     grid_group: Any = None
+    plan: RowPlan = dataclasses.field(default_factory=RowPlan,
+                                      compare=False, repr=False)
 
     @property
     def collective(self) -> bool:
@@ -382,14 +432,30 @@ def spatial_sharding(mesh: Mesh):
     return functools.partial(shard_spatial, mesh)
 
 
+def row_bounds(h: int, num_model: int) -> List[int]:
+    """The rule for which rows of an ``h``-row map each of ``num_model``
+    ranks holds: rank ``m`` holds ``[b[m], b[m + 1])`` of the ``num_model +
+    1`` bounds ``b``, the first ``h % num_model`` ranks one row more than
+    the others (module docstring)."""
+    per, extra = divmod(h, num_model)
+    return [q * per + min(q, extra) for q in range(num_model + 1)]
+
+
+def rows_of(mesh: Mesh, h: int) -> slice:
+    """The rows of an ``h``-row map that this rank holds
+    (:func:`row_bounds`), for any ``h``."""
+    b = row_bounds(h, mesh.num_model)
+    return slice(b[mesh.model_rank], b[mesh.model_rank + 1])
+
+
 def image_rows(mesh: Mesh, h: int) -> slice:
-    """The rows of an ``h``-row map that this rank holds; ``h`` must divide
-    by the model axis."""
+    """The rows of an ``h``-row input that this rank holds; ``h`` must
+    divide by the model axis, as JAX's ``device_put`` of ``P("data",
+    "model")`` requires."""
     if h % mesh.num_model:
         raise ValueError(f"an image of {h} rows does not split into "
                          f"{mesh.num_model} equal shards over the model axis")
-    per = h // mesh.num_model
-    return slice(mesh.model_rank * per, (mesh.model_rank + 1) * per)
+    return rows_of(mesh, h)
 
 
 def shard_spatial(mesh: Mesh, batch, layout: str = "NHWC"):
@@ -403,15 +469,61 @@ def shard_spatial(mesh: Mesh, batch, layout: str = "NHWC"):
     return batch[tuple(index + [image_rows(mesh, batch.shape[dim])])]
 
 
-def check_rows(h: int, mesh: Optional[Mesh], factor: int, what: str):
-    """Raise unless an ``h``-row input keeps equal row shards down to
-    ``1/factor`` of its height, the deepest map that ``what`` runs on
-    rows."""
-    if mesh is not None and h % (factor * mesh.num_model):
-        raise ValueError(
-            f"{what} runs on rows down to 1/{factor} of the image: an input "
-            f"of {h} rows over {mesh.num_model} model ranks needs a "
-            f"multiple of {factor * mesh.num_model} rows")
+def input_rows(x: torch.Tensor, mesh: Mesh) -> int:
+    """The global height of a model's input ``x`` ``[B, C, h, W]`` on rows:
+    the height :func:`pin_input_rows` pinned, else ``h`` times the model
+    ranks (an input's shards are equal, :func:`image_rows`). Starts the row
+    plan of a new forward from it (a model and then its backbone or encoder
+    each start it, before either records a map)."""
+    h = mesh.plan.input or x.shape[2] * mesh.num_model
+    mesh.plan.start(h, x.shape[3])
+    return h
+
+
+def pin_input_rows(mesh: Optional[Mesh], hw: Optional[Tuple[int, int]]):
+    """Pin the global size ``hw`` of the models' inputs on ``mesh``'s rows
+    (:func:`input_rows`) and start the row plan from it, or unpin it
+    (``hw`` None): a train step's batch resized on the whole map and then
+    split by :func:`row_bounds`, whose shards need not be equal (JAX
+    resizes inside its step, to any height). A no-op for ``mesh`` None."""
+    if mesh is None:
+        return
+    mesh.plan.input = None if hw is None else int(hw[0])
+    if hw is not None:
+        mesh.plan.start(int(hw[0]), int(hw[1]))
+
+
+def record_rows(mesh: Mesh, h: int, w: int):
+    """Record in ``mesh``'s row plan that the maps on rows of width ``w``
+    have ``h`` global rows."""
+    mesh.plan.record(int(h), int(w))
+
+
+def global_rows(x: torch.Tensor, mesh: Mesh) -> int:
+    """The global height of the map of which ``x`` ``[B, C, h, W]`` is this
+    rank's rows, from the row plan; raises where the plan has no map of its
+    width or where ``h`` is not this rank's share of that height."""
+    w = x.shape[3]
+    if w not in mesh.plan.heights:
+        raise ValueError(f"no map on rows of width {w} in the row plan: a "
+                         f"model on rows starts it with input_rows")
+    h = mesh.plan.heights[w]
+    rows = rows_of(mesh, h)
+    if x.shape[2] != rows.stop - rows.start:
+        raise ValueError(f"{x.shape[2]} rows of width {w} on model rank "
+                         f"{mesh.model_rank} are not its share of the "
+                         f"{h} rows the row plan records")
+    return h
+
+
+def sum_with_count(sums: torch.Tensor, count: float, mesh: Optional[Mesh],
+                   axis: str) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``sums`` and ``count`` (how many elements they add) each summed over
+    the ranks of ``axis``, in one SUM all-reduce with autograd: the means
+    of unequal shards as ``sums / count``."""
+    flat = torch.cat([sums.reshape(-1), sums.new_full((1,), float(count))])
+    flat = all_reduce_sum(flat, mesh, axis)
+    return flat[:-1].view_as(sums), flat[-1]
 
 
 def run_on_rows(*modules: torch.nn.Module):
@@ -460,25 +572,23 @@ def _resolve(mesh) -> Optional[Mesh]:
 
 class _Despatialize(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, mesh):
-        h, m = x.shape[2], mesh.model_rank
-        ctx.rows = (m * h, (m + 1) * h)
-        out = x.new_zeros((x.shape[0], x.shape[1], h * mesh.num_model,
-                           x.shape[3]))
-        out[:, :, m * h:(m + 1) * h] = x
+    def forward(ctx, x, mesh, h):
+        rows = rows_of(mesh, h)
+        ctx.rows = rows
+        out = x.new_zeros((x.shape[0], x.shape[1], h, x.shape[3]))
+        out[:, :, rows] = x
         dist.all_reduce(out, op=dist.ReduceOp.SUM, group=mesh.model_group)
         return out
 
     @staticmethod
     def backward(ctx, grad):
-        a, b = ctx.rows
-        return grad[:, :, a:b], None
+        return grad[:, :, ctx.rows], None, None
 
 
 class _TakeRows(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, mesh):
-        rows = image_rows(mesh, x.shape[2])
+        rows = rows_of(mesh, x.shape[2])
         ctx.mesh, ctx.rows, ctx.h = mesh, rows, x.shape[2]
         return x[:, :, rows]
 
@@ -493,30 +603,39 @@ class _TakeRows(torch.autograd.Function):
 
 def despatialize(x: torch.Tensor, mesh=CONTEXT) -> torch.Tensor:
     """Rows to whole: this rank's rows ``[B, C, h, W]`` of every model rank
-    joined into the ``[B, C, h M, W]`` map, on every rank (JAX's
-    ``despatialize``, ``P("data")``). The identity off a model axis and for
-    ``mesh`` None; by default the mesh is :func:`spatial_mesh`'s."""
+    joined into the whole ``[B, C, H, W]`` map (``H`` from the row plan,
+    :func:`global_rows`), on every rank (JAX's ``despatialize``,
+    ``P("data")``): one SUM all-reduce of the whole map, into which each
+    rank puts only its own rows (each rank's slot is its rows of the map).
+    The identity off a model axis and for ``mesh`` None; by default the
+    mesh is :func:`spatial_mesh`'s."""
     mesh = _resolve(mesh)
-    return x if mesh is None else _Despatialize.apply(x, mesh)
+    if mesh is None:
+        return x
+    return _Despatialize.apply(x, mesh, global_rows(x, mesh))
 
 
 def take_rows(x: torch.Tensor, mesh=CONTEXT) -> torch.Tensor:
-    """Whole to rows: this rank's rows of a whole ``[B, C, H, W]`` map. The
-    identity off a model axis and for ``mesh`` None; by default the mesh
-    is :func:`spatial_mesh`'s."""
+    """Whole to rows: this rank's rows (:func:`row_bounds`) of a whole
+    ``[B, C, H, W]`` map, ``H`` recorded in the row plan. The identity off
+    a model axis and for ``mesh`` None; by default the mesh is
+    :func:`spatial_mesh`'s."""
     mesh = _resolve(mesh)
-    return x if mesh is None else _TakeRows.apply(x, mesh)
+    if mesh is None:
+        return x
+    record_rows(mesh, x.shape[2], x.shape[3])
+    return _TakeRows.apply(x, mesh)
 
 
-def halo_segments(h: int, needs: Sequence[Tuple[int, int]]):
+def halo_segments(bounds: Sequence[int], needs: Sequence[Tuple[int, int]]):
     """Where the rows each model rank needs beyond its own lie in one
     exchange buffer: ``(rank, first, end, offset)`` per run of rows that
-    rank ``rank`` needs and does not hold, and the buffer's rows. ``h`` is
-    the local height of every rank, ``needs[q]`` the global rows ``[lo,
-    hi)`` that rank ``q`` needs."""
+    rank ``rank`` needs and does not hold, and the buffer's rows. Rank
+    ``q`` holds the global rows ``[bounds[q], bounds[q + 1])`` and needs
+    ``needs[q]``, ``[lo, hi)``."""
     segments, total = [], 0
     for q, (lo, hi) in enumerate(needs):
-        own0, own1 = q * h, (q + 1) * h
+        own0, own1 = bounds[q], bounds[q + 1]
         for a, b in ((lo, min(hi, own0)), (max(lo, own1), hi)):
             if b > a:
                 segments.append((q, a, b, total))
@@ -526,12 +645,12 @@ def halo_segments(h: int, needs: Sequence[Tuple[int, int]]):
 
 class _FetchRows(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, needs, mesh):
-        h, m = x.shape[2], mesh.model_rank
-        own0, own1 = m * h, (m + 1) * h
-        segments, total = halo_segments(h, needs)
-        ctx.mesh, ctx.needs, ctx.segments, ctx.total, ctx.h_local = (
-            mesh, needs, segments, total, h)
+    def forward(ctx, x, needs, mesh, bounds):
+        m = mesh.model_rank
+        own0, own1 = bounds[m], bounds[m + 1]
+        segments, total = halo_segments(bounds, needs)
+        ctx.mesh, ctx.needs, ctx.segments, ctx.total, ctx.own = (
+            mesh, needs, segments, total, (own0, own1))
         lo, hi = needs[m]
         mid = x[:, :, max(lo, own0) - own0:max(min(hi, own1) - own0, 0)]
         buf = x.new_zeros((x.shape[0], x.shape[1], total, x.shape[3]))
@@ -552,9 +671,8 @@ class _FetchRows(torch.autograd.Function):
         mesh, segments, total = ctx.mesh, ctx.segments, ctx.total
         m = mesh.model_rank
         lo, hi = ctx.needs[m]
-        h = ctx.h_local
-        own0, own1 = m * h, (m + 1) * h
-        out = grad.new_zeros((grad.shape[0], grad.shape[1], h,
+        own0, own1 = ctx.own
+        out = grad.new_zeros((grad.shape[0], grad.shape[1], own1 - own0,
                               grad.shape[3]))
         i0, i1 = max(lo, own0), min(hi, own1)
         if i1 > i0:
@@ -571,25 +689,27 @@ class _FetchRows(torch.autograd.Function):
             if j1 > j0:
                 out[:, :, j0 - own0:j1 - own0] += buf[
                     :, :, off + j0 - a:off + j1 - a]
-        return out, None, None
+        return out, None, None, None
 
 
 def fetch_rows(x: torch.Tensor, needs: Sequence[Tuple[int, int]],
-               mesh: Mesh) -> torch.Tensor:
-    """The global rows ``needs[model_rank]`` of a map of which every model
-    rank holds its rows ``x`` ``[B, C, h, W]``: its own rows and those of
-    other ranks, in order. ``needs`` lists the rows of every rank (each
-    within ``[0, h M)``), so each rank knows what to send; the rows that
-    ranks need beyond their own travel in one SUM all-reduce of a buffer
-    that holds only them (none when every need lies within its rank's own
-    rows). The backward sends each borrowed row's cotangent back to its
-    owner the same way."""
+               mesh: Mesh, h: int) -> torch.Tensor:
+    """The global rows ``needs[model_rank]`` of an ``h``-row map of which
+    every model rank holds its rows (:func:`row_bounds`; this rank's are
+    ``x`` ``[B, C, rows, W]``): its own rows and those of other ranks, in
+    order. ``needs`` lists the rows of every rank (each within ``[0, h)``),
+    so each rank knows what to send; the rows that ranks need beyond their
+    own travel in one SUM all-reduce of a buffer that holds only them, which
+    every rank enters (none when every need lies within its rank's own
+    rows, on every rank alike). The backward sends each borrowed row's
+    cotangent back to its owner the same way."""
     needs = tuple((int(a), int(b)) for a, b in needs)
-    h, m = x.shape[2], mesh.model_rank
-    if not halo_segments(h, needs)[1]:
-        lo, hi = needs[m]
-        return x[:, :, lo - m * h:hi - m * h]
-    return _FetchRows.apply(x, needs, mesh)
+    bounds = tuple(row_bounds(int(h), mesh.num_model))
+    if not halo_segments(bounds, needs)[1]:
+        lo, hi = needs[mesh.model_rank]
+        own0 = bounds[mesh.model_rank]
+        return x[:, :, lo - own0:hi - own0]
+    return _FetchRows.apply(x, needs, mesh, bounds)
 
 
 def min_spatial_height(num_model: int, max_stride: int = 32) -> int:
@@ -597,8 +717,8 @@ def min_spatial_height(num_model: int, max_stride: int = 32) -> int:
     (``tpudepth/core/mesh.py:116-129``): ``2 * num_model * max_stride``.
     There XLA's SPMD partitioner mis-scales backward passes once a fused
     stage's shard reaches one row a device; the port's own exchange has no
-    partitioner to miscompile, and its models check their row shards
-    themselves (:func:`check_rows`). Kept as the JAX package's API."""
+    partitioner to miscompile and refuses no height beyond the input's split
+    (:func:`image_rows`). Kept as the JAX package's API."""
     return 2 * num_model * max_stride
 
 

@@ -15,9 +15,11 @@ rank's image rows. The high-resolution branch runs on rows (``conv1``,
 which run on rows, and before ``layer4``, ``layer5`` and ``spp``. One
 point lies earlier than JAX's: ``down4``'s second stride-2 conv runs whole
 (JAX gathers after it), so that no map on rows lies below 1/16 of the
-image, where JAX's own test shape (64 rows over 4 ranks) leaves 2 rows for
-4 ranks and NYU's 480 rows over 2 ranks leave 7.5 a rank. Whole maps join
-the branch on rows resized to the global size, then ``take_rows``.
+image (JAX's own test shape, 64 rows over 4 ranks, leaves 2 rows at 1/32
+for 4 ranks). Any input height that the model axis divides runs: the maps
+below it split by ``core/mesh.py::row_bounds`` (NYU's 480 rows over 4
+ranks leave 30 rows at 1/16, 8, 8, 7 and 7 a rank). Whole maps join the
+branch on rows resized to the global size, then ``take_rows``.
 """
 
 from __future__ import annotations
@@ -26,8 +28,8 @@ import torch
 import torch.nn as nn
 
 from tpudepth_torch.core.mesh import (
-    check_rows,
     despatialize,
+    input_rows,
     run_on_rows,
     spatial_mesh,
     take_rows,
@@ -205,8 +207,7 @@ class DualResNetBackbone(nn.Module):
 
     def forward(self, x):
         mesh = spatial_mesh()
-        rows = x.shape[2] * (mesh.num_model if mesh is not None else 1)
-        check_rows(rows, mesh, 16, "DDRNet")
+        rows = x.shape[2] if mesh is None else input_rows(x, mesh)
         size = (rows // 8, x.shape[3] // 8)
         h = self.conv1(x)
         l1 = self.layer1(h)

@@ -19,10 +19,14 @@ image rows. The encoder runs on rows down to 1/16 (``models/
 mobilenetv3.py``). The attention decoder runs on the whole map: its taps on
 rows are despatialized (windows of 7, padding to multiples of 7 and
 NewCRF's shift of 3 cross the ranks' edges) and its output goes back to
-rows. The interpolated U-Net's decoder runs on rows from the first stage
-whose tap is on rows: that stage resizes the whole map to the tap's global
-size and takes its rows; later stages resize on rows. DenseDepth and the
-transposed-conv U-Net have no model axis (``NotImplementedError``).
+rows. The DenseDepth and interpolated U-Net decoders run on rows from the
+first stage whose tap is on rows: that stage resizes the whole map to the
+tap's global size and takes its rows; later stages resize on rows; the
+head conv runs on rows. The transposed-conv U-Net keeps its MaxPool, its
+bridge and its first up on the whole map; the first up whose tap is on
+rows transposes the whole map and takes its rows, and later ups transpose
+on rows (``layers.conv_transpose_rows``). The row shards of a map need not
+be equal (``core/mesh.py::row_bounds``).
 """
 
 from __future__ import annotations
@@ -34,6 +38,8 @@ import torch.nn as nn
 
 from tpudepth_torch.core.mesh import (
     despatialize,
+    global_rows,
+    input_rows,
     rows_mesh,
     run_on_rows,
     spatial_mesh,
@@ -179,7 +185,7 @@ class UpSampleConcat(nn.Module):
         if mesh is None:
             x = resize_bilinear(x, skip.shape[2:], align_corners=True)
         else:
-            size = (skip.shape[2] * mesh.num_model, skip.shape[3])
+            size = (global_rows(skip, mesh), skip.shape[3])
             if self.joins_whole:
                 x = take_rows(resize_bilinear(x, size, align_corners=True),
                               mesh)
@@ -190,22 +196,36 @@ class UpSampleConcat(nn.Module):
 
 class UpTransposed(nn.Module):
     """ConvTranspose(k2, s2) up + concat + ConvBlock
-    (``src/models/model_mobileV3_Unet.py:52-67``)."""
+    (``src/models/model_mobileV3_Unet.py:52-67``). On rows the skip is
+    rows; ``x`` is rows too, or the whole map where ``joins_whole`` is set
+    (transposed whole, then its rows taken)."""
 
     def __init__(self, cin: int, skip: int, features: int):
         super().__init__()
         self.up = ConvTranspose(cin, features)
         self.convBlock = ConvBlock(features + skip, features)
+        self.joins_whole = False
 
     def forward(self, x: torch.Tensor, skip: torch.Tensor) -> torch.Tensor:
-        return self.convBlock(torch.cat([self.up(x), skip], dim=1))
+        x = self.up(x)
+        if self.joins_whole:
+            x = take_rows(x, rows_mesh(self))
+        return self.convBlock(torch.cat([x, skip], dim=1))
 
 
-def _no_model_axis(what: str):
-    if spatial_mesh() is not None:
-        raise NotImplementedError(
-            f"{what} does not run under a model axis yet (ROADMAP, Held: "
-            "DenseDepth and the U-Net on rows)")
+def _decode_on_rows(ups: Sequence[nn.Module], taps: Sequence[int],
+                    last_rows: int):
+    """Mark the stages of a decoder whose tap is on rows (``tap <=
+    last_rows``, the encoder's ``first_whole``) to run on rows, the first
+    of them to join the whole map (a transposed up's ``up`` then runs on
+    the whole map)."""
+    whole = True
+    for up, tap in zip(ups, taps):
+        if tap <= last_rows:
+            run_on_rows(up)
+            if whole and isinstance(up, UpTransposed):
+                up.up.on_rows = False
+            up.joins_whole, whole = whole, False
 
 
 class MobileV3DenseDepth(nn.Module):
@@ -213,7 +233,8 @@ class MobileV3DenseDepth(nn.Module):
     1x1 bridge 960 -> 960 without the reference's ``padding=1`` (as the JAX
     package, ``tpudepth/models/decoders.py:153-157``), six UpSample stages
     over taps feats[16, 13, 10, 7, 4, 2], 3x3 head; output at half the
-    input's size."""
+    input's size. Under a model axis the bridge and the first stage run on
+    the whole 1/32 map, the stages from tap 13 and the head on rows."""
 
     TAPS = (16, 13, 10, 7, 4, 2)
 
@@ -229,9 +250,11 @@ class MobileV3DenseDepth(nn.Module):
             setattr(self, f"up{i}", UpSampleConcat(cin, ch[tap], width))
             cin = width
         self.conv3 = Conv(cin, 1, 3, padding=1)
+        _decode_on_rows([getattr(self, f"up{i}") for i in range(6)],
+                        self.TAPS, self.encoder.first_whole)
+        run_on_rows(self.conv3)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        _no_model_axis("DenseDepth")
         feats = self.encoder(x)
         h = self.conv2(feats[17])
         for i, tap in enumerate(self.TAPS):
@@ -244,7 +267,9 @@ class MobileV3UNet(nn.Module):
     MaxPool(2) and a 1x1 bridge 960 -> 1280 at H/64, then five transposed-
     conv ups over taps feats[17, 13, 7, 4, 2], 3x3 head at half the input's
     size. Each up doubles its map exactly, so H and W must be multiples of
-    64 (a JAX model fails elsewhere at its concat)."""
+    64 (a JAX model fails elsewhere at its concat). Under a model axis the
+    MaxPool, the bridge and ``upa`` run on the whole map, the ups from tap
+    13 and the head on rows."""
 
     UPS = (("upa", 17, 960), ("up0", 13, 112), ("up1", 7, 40),
            ("up2", 4, 24), ("up3", 2, 16))
@@ -259,10 +284,15 @@ class MobileV3UNet(nn.Module):
             setattr(self, name, UpTransposed(cin, ch[tap], width))
             cin = width
         self.conv3 = Conv(cin, 1, 3, padding=1)
+        _decode_on_rows([getattr(self, name) for name, _, _ in self.UPS],
+                        [tap for _, tap, _ in self.UPS],
+                        self.encoder.first_whole)
+        run_on_rows(self.conv3)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        _no_model_axis("the transposed-conv U-Net")
-        h, w = x.shape[2:]
+        mesh = spatial_mesh()
+        h = x.shape[2] if mesh is None else input_rows(x, mesh)
+        w = x.shape[3]
         if h % 64 or w % 64:
             raise ValueError(f"the U-Net takes H and W that are multiples of "
                              f"64, not {h}x{w}")
@@ -295,15 +325,13 @@ class MobileV3UNetInterp(nn.Module):
         self.encoder = MobileNetV3Features(arch)
         self.bridge = Conv(ch[self.taps[0]], bridge, 1)
         cin = bridge
-        last_rows, whole = self.encoder.first_whole, True
         for i, (tap, width) in enumerate(zip(self.taps, widths)):
-            up = UpSampleConcat(cin, ch[tap], width)
-            setattr(self, f"up{i}", up)
-            if tap <= last_rows:
-                run_on_rows(up)
-                up.joins_whole, whole = whole, False
+            setattr(self, f"up{i}", UpSampleConcat(cin, ch[tap], width))
             cin = width
         self.conv3 = Conv(cin, 1, 3, padding=1)
+        _decode_on_rows([getattr(self, f"up{i}")
+                         for i in range(len(self.taps))],
+                        self.taps, self.encoder.first_whole)
         run_on_rows(self.conv3)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

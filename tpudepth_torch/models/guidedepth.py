@@ -50,11 +50,13 @@ import torch
 import torch.nn as nn
 
 from tpudepth_torch.core.mesh import (
-    all_reduce_sum,
     despatialize,
+    global_rows,
+    input_rows,
     rows_mesh,
     run_on_rows,
     spatial_mesh,
+    sum_with_count,
     take_rows,
 )
 from tpudepth_torch.models.ddrnet import DualResNetBackbone
@@ -138,10 +140,12 @@ class SELayer(nn.Module):
                 splits: Optional[Sequence[int]] = None,
                 rows=None) -> torch.Tensor:
         """Per-original-channel spatial means ``[B, C]``; with ``rows`` (a
-        mesh) ``x`` is this rank's rows and the means the whole image's."""
+        mesh) ``x`` is this rank's rows and the means the whole image's
+        (the rows' sums and counts added over the model ranks)."""
         if rows is not None:
-            n = x.shape[2] * rows.num_model * x.shape[3]
-            return all_reduce_sum(x.sum(dim=(2, 3)), rows, "model") / n
+            s, n = sum_with_count(x.sum(dim=(2, 3)), x.shape[2] * x.shape[3],
+                                  rows, "model")
+            return s / n
         if block is None:
             return x.mean(dim=(2, 3))
         if splits is None:
@@ -325,11 +329,12 @@ class GuideDepth(nn.Module):
 
     def forward(self, x):
         mesh = spatial_mesh()
-        y = self.feature_extractor(x)
         h, w = x.shape[2:]
         rows = None
         if mesh is not None:
-            h = h * mesh.num_model
+            h = input_rows(x, mesh)
+        y = self.feature_extractor(x)
+        if mesh is not None:
             # the stages run on rows, or (fused, packed) all on the whole map
             rows = rows_mesh(self.up_1)
             if rows is None:
@@ -342,7 +347,7 @@ class GuideDepth(nn.Module):
             if blk is not None:
                 y, guide = upsample2x_pack(y, blk), space_to_depth(guide, blk)
             else:
-                hy = y.shape[2] * (rows.num_model if rows is not None else 1)
+                hy = y.shape[2] if rows is None else global_rows(y, rows)
                 y = resize_bilinear(y, (hy * 2, y.shape[3] * 2), rows=rows)
             if self.remat_stages and self.training:
                 y = rematerialize(gub, guide, y, blk)

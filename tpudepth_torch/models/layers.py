@@ -13,10 +13,14 @@ buffers, as ``Conv(packed=...)`` and ``BatchNorm(packed=...)`` do in JAX.
 running statistics moved once, by the forward and not by its recomputation.
 
 Under a model axis (``core/mesh.py``) a module marked to run on rows
-(``run_on_rows``) takes and gives this rank's image rows: a ``Conv`` reads
-the rows its window needs beyond its own from its neighbours
-(:func:`conv_rows`), a ``BatchNorm`` reduces its statistics over the data
-and model ranks, a ``SqueezeExcitation`` its means over the model ranks.
+(``run_on_rows``) takes and gives this rank's image rows, which need not be
+as many as another rank's: a ``Conv`` reads the rows its window needs
+beyond its own from its neighbours (:func:`conv_rows`), a
+``ConvTranspose`` the rows that add into its output rows
+(:func:`conv_transpose_rows`), a ``BatchNorm`` adds its sums and counts
+over the data and model ranks, a ``SqueezeExcitation`` its means' sums and
+counts over the model ranks. The global height of a map comes from the
+forward's row plan (``core/mesh.py::global_rows``).
 """
 
 from __future__ import annotations
@@ -35,7 +39,11 @@ from tpudepth_torch.core.mesh import (
     all_reduce_sum,
     current_axis,
     fetch_rows,
+    global_rows,
+    record_rows,
+    row_bounds,
     rows_mesh,
+    sum_with_count,
 )
 from tpudepth_torch.ops.image import global_avg_pool
 from tpudepth_torch.ops.kernels.mlp_infer import mlp_infer
@@ -112,19 +120,20 @@ def conv_plan(h_in: int, kernel: int, stride: int, padding: int,
     """How a conv (along H: ``kernel``, ``stride``, ``padding``,
     ``dilation``) of an ``h_in``-row map splits over ``num_model`` row
     shards: per rank ``(o0, o1, lo, hi, top, bottom)``, its output rows
-    ``[o0, o1)`` (equal shards), the input rows ``[lo, hi)`` they read and
-    the rows of zero padding above and below them. Output row ``j`` reads
-    input rows ``s j - p`` to ``s j - p + d (k - 1)``; rows outside ``[0,
-    h_in)`` are the padding."""
+    ``[o0, o1)`` (``core/mesh.py::row_bounds``), the input rows ``[lo, hi)``
+    they read and the rows of zero padding above and below them. Output row
+    ``j`` reads input rows ``s j - p`` to ``s j - p + d (k - 1)``; rows
+    outside ``[0, h_in)`` are the padding. A rank with no output rows reads
+    none."""
     h_out = (h_in + 2 * padding - dilation * (kernel - 1) - 1) // stride + 1
-    if h_out % num_model:
-        raise ValueError(f"a conv's output of {h_out} rows does not split "
-                         f"into {num_model} equal shards over the model axis")
-    per = h_out // num_model
+    bounds = row_bounds(h_out, num_model)
     plan = []
-    for q in range(num_model):
-        o0, o1 = q * per, (q + 1) * per
+    for o0, o1 in zip(bounds, bounds[1:]):
         a = stride * o0 - padding
+        if o1 == o0:
+            lo = min(max(a, 0), h_in)
+            plan.append((o0, o1, lo, lo, 0, 0))
+            continue
         b = stride * (o1 - 1) - padding + dilation * (kernel - 1) + 1
         lo, hi = max(a, 0), min(b, h_in)
         plan.append((o0, o1, lo, hi, lo - a, b - hi))
@@ -136,12 +145,17 @@ def conv_strip(strip: torch.Tensor, weight: torch.Tensor,
                dilation, groups: int) -> torch.Tensor:
     """A conv's output rows ``rows`` (an entry of :func:`conv_plan`) from the
     input rows ``[lo, hi)`` they read (``strip``): the strip padded with
-    its rows of zeros, the conv without H padding."""
+    its rows of zeros, the conv without H padding. No output rows: the
+    conv of one window of zeros, none of its rows kept, so the weight
+    still gets a (zero) gradient on this rank."""
     top, bottom = rows[4], rows[5]
+    if rows[0] == rows[1]:
+        top, bottom = 0, dilation[0] * (weight.shape[2] - 1) + 1
     if top or bottom:
         strip = F.pad(strip, (0, 0, top, bottom))
-    return F.conv2d(strip, weight, bias, stride, (0, padding[1]), dilation,
-                    groups)
+    out = F.conv2d(strip, weight, bias, stride, (0, padding[1]), dilation,
+                   groups)
+    return out[:, :, :rows[1] - rows[0]]
 
 
 def conv_rows(x: torch.Tensor, weight: torch.Tensor,
@@ -149,12 +163,73 @@ def conv_rows(x: torch.Tensor, weight: torch.Tensor,
               groups: int, mesh: Mesh) -> torch.Tensor:
     """``F.conv2d`` of a map of which this rank holds the rows ``x``: the
     rows of its output, from its own input rows and the halo rows its
-    neighbours send (``core/mesh.py::fetch_rows``)."""
-    plan = conv_plan(x.shape[2] * mesh.num_model, weight.shape[2], stride[0],
-                     padding[0], dilation[0], mesh.num_model)
-    strip = fetch_rows(x, [(lo, hi) for _, _, lo, hi, _, _ in plan], mesh)
-    return conv_strip(strip, weight, bias, plan[mesh.model_rank], stride,
-                      padding, dilation, groups)
+    neighbours send (``core/mesh.py::fetch_rows``); the output's global
+    height goes into the row plan. A conv of one row at stride 1 without
+    H padding reads each row alone: it runs on this rank's rows as they
+    are (the SE's 1x1 convs run so on its ``[B, C, 1, 1]`` means)."""
+    if weight.shape[2] == 1 and stride[0] == 1 and padding[0] == 0:
+        return F.conv2d(x, weight, bias, stride, padding, dilation, groups)
+    h_in = global_rows(x, mesh)
+    plan = conv_plan(h_in, weight.shape[2], stride[0], padding[0],
+                     dilation[0], mesh.num_model)
+    strip = fetch_rows(x, [(lo, hi) for _, _, lo, hi, _, _ in plan], mesh,
+                       h_in)
+    out = conv_strip(strip, weight, bias, plan[mesh.model_rank], stride,
+                     padding, dilation, groups)
+    record_rows(mesh, plan[-1][1], out.shape[3])
+    return out
+
+
+def transpose_plan(h_in: int, kernel: int, stride: int, num_model: int
+                   ) -> List[Tuple[int, int, int, int]]:
+    """How a transposed conv (along H: ``kernel``, ``stride``, no padding,
+    ``kernel >= stride``) of an ``h_in``-row map splits over ``num_model``
+    row shards: per rank ``(o0, o1, lo, hi)``, its output rows ``[o0, o1)``
+    (``core/mesh.py::row_bounds``) and the input rows ``[lo, hi)`` that add
+    into them. Input row ``i`` adds into output rows ``s i`` to ``s i + k -
+    1`` (k = s = 2: output rows ``2i`` and ``2i + 1`` read input row ``i``
+    alone), so output row ``j`` reads input rows ``ceil((j - k + 1) / s)``
+    to ``floor(j / s)``."""
+    h_out = (h_in - 1) * stride + kernel
+    bounds = row_bounds(h_out, num_model)
+    plan = []
+    for o0, o1 in zip(bounds, bounds[1:]):
+        lo = min(max(-((kernel - 1 - o0) // stride), 0), h_in)
+        hi = lo if o1 == o0 else max(min((o1 - 1) // stride + 1, h_in), lo)
+        plan.append((o0, o1, lo, hi))
+    return plan
+
+
+def transpose_strip(strip: torch.Tensor, weight: torch.Tensor,
+                    bias: Optional[torch.Tensor], rows,
+                    stride) -> torch.Tensor:
+    """A transposed conv's output rows ``rows`` (an entry of
+    :func:`transpose_plan`) from the input rows ``[lo, hi)`` that add into
+    them (``strip``): the strip's transposed conv, whose first row is
+    output row ``s lo``, cut to ``[o0, o1)``. No input rows: one row of
+    zeros, none of its outputs kept (the weight's gradient stays
+    connected)."""
+    o0, o1, lo, hi = rows
+    if hi == lo:
+        strip = F.pad(strip, (0, 0, 0, 1))
+    out = F.conv_transpose2d(strip, weight, bias, stride)
+    first = stride[0] * lo
+    return out[:, :, o0 - first:o1 - first]
+
+
+def conv_transpose_rows(x: torch.Tensor, weight: torch.Tensor,
+                        bias: Optional[torch.Tensor], stride,
+                        mesh: Mesh) -> torch.Tensor:
+    """``F.conv_transpose2d`` (no padding) of a map of which this rank holds
+    the rows ``x``: the rows of its output (:func:`transpose_plan`), from
+    the input rows that add into them, its neighbours' too when the output's
+    shards do not line up with twice the input's."""
+    h_in = global_rows(x, mesh)
+    plan = transpose_plan(h_in, weight.shape[2], stride[0], mesh.num_model)
+    strip = fetch_rows(x, [(lo, hi) for _, _, lo, hi in plan], mesh, h_in)
+    out = transpose_strip(strip, weight, bias, plan[mesh.model_rank], stride)
+    record_rows(mesh, plan[-1][1], out.shape[3])
+    return out
 
 
 class Conv(nn.Conv2d):
@@ -193,7 +268,8 @@ class ConvTranspose(nn.ConvTranspose2d):
     ``src/models/model_mobileV3_Unet.py:58``; ``tpudepth/models/layers.py
     ::ConvTranspose``) whose f32 weight ``[in, out, k, k]`` and bias are cast
     to the input dtype. Its weight is flax's kernel transposed and flipped in
-    space (``jax_weights``)."""
+    space (``jax_weights``). Marked to run on rows under a model axis, it
+    runs :func:`conv_transpose_rows`."""
 
     def __init__(self, cin: int, cout: int, kernel_size: int = 2,
                  stride: int = 2):
@@ -201,6 +277,10 @@ class ConvTranspose(nn.ConvTranspose2d):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         bias = None if self.bias is None else self.bias.to(x.dtype)
+        mesh = rows_mesh(self)
+        if mesh is not None:
+            return conv_transpose_rows(x, self.weight.to(x.dtype), bias,
+                                       self.stride, mesh)
         return F.conv_transpose2d(x, self.weight.to(x.dtype), bias,
                                   self.stride)
 
@@ -247,9 +327,10 @@ class BatchNorm(nn.BatchNorm2d):
     sums, are SUM-all-reduced with autograd, so the running statistics move
     alike on every rank. ``nn.SyncBatchNorm`` is not used: it moves the
     running variance by the unbiased variance. Marked to run on rows under
-    a model axis, it averages those moments over the model ranks' rows too
-    (:meth:`_over_rows`); a BatchNorm on the whole map reduces over the
-    data ranks only."""
+    a model axis, it adds the sums and element counts of every rank's rows
+    over the data and model ranks instead (:meth:`_batch_moments`: shards
+    of unequal rows weigh by their rows); a BatchNorm on the whole map
+    reduces over the data ranks only."""
 
     def __init__(self, num_features: int, eps: float = BN_EPS,
                  momentum: float = BN_MOMENTUM):
@@ -293,29 +374,46 @@ class BatchNorm(nn.BatchNorm2d):
             if block is not None:
                 b2 = block_total(block)
                 s, q = s.reshape(b2, -1).sum(0), q.reshape(b2, -1).sum(0)
-            mesh = current_axis()
-            if mesh is not None:
+            rows, mesh = rows_mesh(self), current_axis()
+            if rows is not None:
+                # the sums and counts of every rank's rows, once
+                (s, q), n = sum_with_count(torch.stack([s, q]), n, rows,
+                                           "grid")
+            elif mesh is not None:
                 # the global batch's sums, once, after the packed fold
                 s, q = all_reduce_sum(torch.stack([s, q]), mesh)
                 n = n * mesh.world
-            mean, mean2 = self._over_rows(s / n, q / n)
+            mean, mean2 = s / n, q / n
         else:
-            mean, mean2 = self._over_rows(
-                *self._moments(y.to(self.weight.dtype), block))
+            mean, mean2 = self._batch_moments(y.to(self.weight.dtype), block)
         var = torch.clamp(mean2 - mean * mean, min=0.0)
         self._move_running(mean.detach(), var.detach())
         a = torch.rsqrt(var + self.eps) * self.weight
         return a, self.bias - mean * a
 
-    def _over_rows(self, mean: torch.Tensor, mean2: torch.Tensor):
-        """On rows under a model axis, the moments of the data ranks'
-        batch (:meth:`_moments`) averaged over the model ranks' rows too
-        (equal shards), with autograd; else as they are."""
-        mesh = rows_mesh(self)
-        if mesh is None:
-            return mean, mean2
-        both = all_reduce_sum(torch.stack([mean, mean2]), mesh, "model")
-        return both[0] / mesh.num_model, both[1] / mesh.num_model
+    def _batch_moments(self, xf: torch.Tensor, block: Optional[BlockSpec]):
+        """The batch's ``E[x]`` and ``E[x^2]`` per (original) channel
+        (:meth:`_moments`); on rows under a model axis from the sums and
+        element counts of every rank's rows, added over the data and model
+        ranks (``sum_with_count``, with autograd): row shards need not be
+        equal."""
+        rows = rows_mesh(self)
+        if rows is None:
+            return self._moments(xf, block)
+        xf, dims = self._by_channel(xf, block)
+        s = torch.stack([xf.sum(dim=dims), (xf * xf).sum(dim=dims)])
+        (s, q), n = sum_with_count(s, xf.numel() // s.shape[1], rows, "grid")
+        return s / n, q / n
+
+    @staticmethod
+    def _by_channel(xf: torch.Tensor, block: Optional[BlockSpec]):
+        """``xf`` viewed so that the dims returned reduce each (original)
+        channel."""
+        if block is None:
+            return xf, (0, 2, 3)
+        b2 = block_total(block)
+        return (xf.reshape(xf.shape[0], b2, xf.shape[1] // b2, *xf.shape[2:]),
+                (0, 1, 3, 4))
 
     @staticmethod
     def _moments(xf: torch.Tensor, block: Optional[BlockSpec]):
@@ -323,12 +421,7 @@ class BatchNorm(nn.BatchNorm2d):
         (``core/mesh.py::data_axis``) those of the global batch: the SUM
         all-reduce of the rank's moments over the world size (the shards
         are equal), with autograd."""
-        if block is not None:
-            b2 = block_total(block)
-            xf = xf.reshape(xf.shape[0], b2, xf.shape[1] // b2, *xf.shape[2:])
-            dims = (0, 1, 3, 4)
-        else:
-            dims = (0, 2, 3)
+        xf, dims = BatchNorm._by_channel(xf, block)
         mean, mean2 = xf.mean(dim=dims), (xf * xf).mean(dim=dims)
         mesh = current_axis()
         if mesh is not None:
@@ -350,7 +443,7 @@ class BatchNorm(nn.BatchNorm2d):
             a, c = self.eval_affine()
             return x * per_channel(a) + per_channel(c)
         xf = x if x.dtype == torch.float64 else x.float()
-        mean, mean2 = self._over_rows(*self._moments(xf, block))
+        mean, mean2 = self._batch_moments(xf, block)
         var = torch.clamp(mean2 - mean * mean, min=0.0)
         self._move_running(mean.detach(), var.detach())
         mul = torch.rsqrt(var.to(dt) + self.eps) * self.weight.to(dt)

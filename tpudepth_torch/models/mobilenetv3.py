@@ -13,7 +13,9 @@ that reaches 1/32 (``first_whole``: ``features[13]`` of Large,
 ``features[9]`` of Small) takes its input despatialized, so the taps
 ``feats[:first_whole + 1]`` are rows and the deeper ones whole maps. The
 1/32 maps are not split: at JAX's test shape (64 rows over 4 ranks) they
-hold 2 rows for 4 ranks.
+hold 2 rows for 4 ranks. The maps on rows need not split equally
+(``core/mesh.py::row_bounds``): any input height the model axis divides
+runs.
 """
 
 from __future__ import annotations
@@ -24,8 +26,8 @@ import torch
 import torch.nn as nn
 
 from tpudepth_torch.core.mesh import (
-    check_rows,
     despatialize,
+    input_rows,
     run_on_rows,
     spatial_mesh,
 )
@@ -129,7 +131,7 @@ class MobileNetV3Features(nn.Module):
     def forward(self, x: torch.Tensor) -> List[torch.Tensor]:
         mesh = spatial_mesh()
         if mesh is not None:
-            check_rows(x.shape[2] * mesh.num_model, mesh, 16, "MobileNetV3")
+            input_rows(x, mesh)
         feats = [x]
         for i, m in enumerate(self.features):
             h = feats[-1]

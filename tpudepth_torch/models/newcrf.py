@@ -53,7 +53,12 @@ import functools
 import torch
 import torch.nn as nn
 
-from tpudepth_torch.core.mesh import despatialize, gathering_mesh, take_rows
+from tpudepth_torch.core.mesh import (
+    despatialize,
+    gathering_mesh,
+    input_rows,
+    take_rows,
+)
 from tpudepth_torch.models.layers import Conv, LayerNorm, Linear, Mlp
 from tpudepth_torch.models.sam import WindowAttention
 from tpudepth_torch.ops.attention import window_cross_attention_packed
@@ -244,8 +249,9 @@ class NewCRF(nn.Module):
     values ``v`` (NCHW) to ``embed_dim`` with 3x3 convs, runs the blocks and
     returns ``norm_crf`` of their output (NCHW, channels_last memory).
     Marked by ``core/mesh.py::run_whole_on_rows``, under a model axis it
-    takes and gives this rank's rows and computes on the despatialized maps
-    (windows and the shift cross the ranks' edges)."""
+    takes and gives this rank's rows of inputs split as a model's input
+    (equal shards) and computes on the despatialized maps (windows and the
+    shift cross the ranks' edges)."""
 
     def __init__(self, input_dim: int, embed_dim: int, v_dim: int,
                  num_heads: int, window_size: int = 7, depth: int = 2,
@@ -261,6 +267,8 @@ class NewCRF(nn.Module):
 
     def forward(self, x: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
         mesh = gathering_mesh(self)
+        if mesh is not None:
+            input_rows(x, mesh)
         x, v = despatialize(x, mesh), despatialize(v, mesh)
         if self.proj_x is not None:
             x = self.proj_x(x)

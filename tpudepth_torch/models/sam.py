@@ -39,7 +39,12 @@ from __future__ import annotations
 import torch
 import torch.nn as nn
 
-from tpudepth_torch.core.mesh import despatialize, gathering_mesh, take_rows
+from tpudepth_torch.core.mesh import (
+    despatialize,
+    gathering_mesh,
+    input_rows,
+    take_rows,
+)
 from tpudepth_torch.models.layers import Conv, LayerNorm, Linear, Mlp
 from tpudepth_torch.ops.attention import window_cross_attention_packed
 from tpudepth_torch.ops.image import nhwc
@@ -205,8 +210,9 @@ class SAM(nn.Module):
     block with queries from q and keys / values from e, and returns
     ``LN(q_out) + e_proj + q_proj`` (NCHW, channels_last memory). Marked
     by ``core/mesh.py::run_whole_on_rows``, under a model axis it takes and
-    gives this rank's rows and computes on the despatialized maps (windows
-    cross the ranks' edges)."""
+    gives this rank's rows of inputs split as a model's input (equal
+    shards) and computes on the despatialized maps (windows cross the
+    ranks' edges)."""
 
     def __init__(self, input_dim: int, embed_dim: int, v_dim: int,
                  num_heads: int, window_size: int = 7, mode: str = "fused"):
@@ -220,6 +226,8 @@ class SAM(nn.Module):
 
     def forward(self, e: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
         mesh = gathering_mesh(self)
+        if mesh is not None:
+            input_rows(e, mesh)
         e, q = despatialize(e, mesh), despatialize(q, mesh)
         if self.proj_q is not None:
             q = self.proj_q(q)

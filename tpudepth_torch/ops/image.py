@@ -7,10 +7,13 @@ contractions, strided slices, ``reduce_window``); here they are the matching
 
 The resizes and :func:`global_avg_pool` also run on rows under a model axis
 (``rows=mesh``, ``core/mesh.py``): ``x`` is this rank's rows of a map, the
-size is the whole output's, and the result is this rank's rows of it. A
-resize reads the source rows its output rows interpolate from, its
-neighbours' too, and clamps at the image's edges alone
-(:func:`resize_plan`, :func:`resize_strip`).
+size is the whole output's, and the result is this rank's rows of it
+(``core/mesh.py::row_bounds``; the input's global height from the row
+plan, ``global_rows``, the output's recorded in it). A resize reads the
+source rows its output rows interpolate from, its neighbours' too, and
+clamps at the image's edges alone (:func:`resize_plan`,
+:func:`resize_strip`); a mean adds the rows' sums and counts over the model
+ranks.
 """
 
 from __future__ import annotations
@@ -21,7 +24,14 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from tpudepth_torch.core.mesh import Mesh, all_reduce_sum, fetch_rows
+from tpudepth_torch.core.mesh import (
+    Mesh,
+    fetch_rows,
+    global_rows,
+    record_rows,
+    row_bounds,
+    sum_with_count,
+)
 
 
 def nhwc(x: torch.Tensor) -> torch.Tensor:
@@ -62,17 +72,17 @@ def resize_plan(h_in: int, h_out: int, num_model: int, mode: str,
                 align_corners: bool = False) -> List[Tuple[int, int, int, int]]:
     """How a resize from ``h_in`` to ``h_out`` rows splits over
     ``num_model`` row shards: per rank ``(o0, o1, lo, hi)``, its output
-    rows ``[o0, o1)`` (equal shards) and the source rows ``[lo, hi)`` they
-    interpolate from."""
-    if h_out % num_model:
-        raise ValueError(f"a resize to {h_out} rows does not split into "
-                         f"{num_model} equal shards over the model axis")
-    per = h_out // num_model
+    rows ``[o0, o1)`` (``core/mesh.py::row_bounds``) and the source rows
+    ``[lo, hi)`` they interpolate from (none for no output rows)."""
+    bounds = row_bounds(h_out, num_model)
     plan = []
-    for q in range(num_model):
-        lo, hi, _ = source_rows(h_in, h_out, np.arange(q * per, (q + 1) * per),
-                                mode, align_corners)
-        plan.append((q * per, (q + 1) * per, int(lo.min()), int(hi.max()) + 1))
+    for o0, o1 in zip(bounds, bounds[1:]):
+        if o1 == o0:
+            plan.append((o0, o1, 0, 0))
+            continue
+        lo, hi, _ = source_rows(h_in, h_out, np.arange(o0, o1), mode,
+                                align_corners)
+        plan.append((o0, o1, int(lo.min()), int(hi.max()) + 1))
     return plan
 
 
@@ -86,6 +96,8 @@ def resize_strip(strip: torch.Tensor, h_in: int, size: Tuple[int, int],
     order, ``(1 - frac) a + frac b``, in float32 (float64 for float64)."""
     o0, o1, lo0, _ = rows
     size = (int(size[0]), int(size[1]))
+    if o1 == o0:
+        return strip.new_zeros((strip.shape[0], strip.shape[1], 0, size[1]))
     if strip.shape[3] != size[1]:
         kw = {} if mode == "nearest" else {"align_corners": align_corners}
         strip = F.interpolate(strip, size=(strip.shape[2], size[1]),
@@ -108,10 +120,11 @@ def resize_rows(x: torch.Tensor, size: Tuple[int, int], mode: str,
                 align_corners: bool, mesh: Mesh) -> torch.Tensor:
     """The resize to ``size`` (the whole output's) of a map of which this
     rank holds the rows ``x``: this rank's rows of the output."""
-    h_in = x.shape[2] * mesh.num_model
+    h_in = global_rows(x, mesh)
     plan = resize_plan(h_in, int(size[0]), mesh.num_model, mode,
                        align_corners)
-    strip = fetch_rows(x, [(lo, hi) for _, _, lo, hi in plan], mesh)
+    strip = fetch_rows(x, [(lo, hi) for _, _, lo, hi in plan], mesh, h_in)
+    record_rows(mesh, size[0], size[1])
     return resize_strip(strip, h_in, size, plan[mesh.model_rank], mode,
                         align_corners)
 
@@ -123,7 +136,7 @@ def resize_bilinear(x: torch.Tensor, size: Tuple[int, int],
     with ``rows`` (module docstring)."""
     size = (int(size[0]), int(size[1]))
     if rows is not None:
-        if (x.shape[2] * rows.num_model, x.shape[3]) == size:
+        if (global_rows(x, rows), x.shape[3]) == size:
             return x
         return resize_rows(x, size, "bilinear", align_corners, rows)
     if tuple(x.shape[2:]) == size:
@@ -138,7 +151,7 @@ def resize_nearest(x: torch.Tensor, size: Tuple[int, int],
     on rows with ``rows``."""
     size = (int(size[0]), int(size[1]))
     if rows is not None:
-        if (x.shape[2] * rows.num_model, x.shape[3]) == size:
+        if (global_rows(x, rows), x.shape[3]) == size:
             return x
         return resize_rows(x, size, "nearest", False, rows)
     if tuple(x.shape[2:]) == size:
@@ -150,10 +163,8 @@ def upsample(x: torch.Tensor, scale_factor: int = 2,
              align_corners: bool = False,
              rows: Optional[Mesh] = None) -> torch.Tensor:
     """Scale-factor bilinear upsample; on rows with ``rows``."""
-    h, w = x.shape[2:]
-    if rows is not None:
-        h = h * rows.num_model
-    return resize_bilinear(x, (h * scale_factor, w * scale_factor),
+    h = x.shape[2] if rows is None else global_rows(x, rows)
+    return resize_bilinear(x, (h * scale_factor, x.shape[3] * scale_factor),
                            align_corners, rows)
 
 
@@ -192,10 +203,10 @@ def avg_pool(x: torch.Tensor, window: int, stride: int = 1,
 def global_avg_pool(x: torch.Tensor, keepdims: bool = False,
                     rows: Optional[Mesh] = None) -> torch.Tensor:
     """Mean over H and W; with ``rows``, over the whole image of which this
-    rank holds the rows ``x`` (the rows' sums added over the model ranks,
-    with autograd)."""
+    rank holds the rows ``x`` (the rows' sums and counts added over the
+    model ranks, with autograd: shards need not be equal)."""
     if rows is None:
         return x.mean(dim=(2, 3), keepdim=keepdims)
-    n = x.shape[2] * rows.num_model * x.shape[3]
-    s = all_reduce_sum(x.sum(dim=(2, 3), keepdim=keepdims), rows, "model")
+    s, n = sum_with_count(x.sum(dim=(2, 3), keepdim=keepdims),
+                          x.shape[2] * x.shape[3], rows, "model")
     return s / n

@@ -285,6 +285,12 @@ def make_train_step(
 
     def step(state: TrainState, image: torch.Tensor, depth: torch.Tensor,
              generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        try:
+            return run(state, image, depth, generator)
+        finally:
+            mesh_lib.pin_input_rows(spatial, None)
+
+    def run(state, image, depth, generator):
         image, depth = _nchw(image), _nchw(depth)
         if image.dtype == torch.uint8:
             image = image.float() * (1.0 / 255.0)
@@ -292,13 +298,17 @@ def make_train_step(
             depth = depth.float() * (depth_post_scale / 255.0)
         elif depth.dtype == torch.uint16:
             depth = depth.float() * depth_post_scale
-        h = image.shape[2] * mesh.num_model
+        h = (image.shape[2] if spatial is None
+             else mesh_lib.input_rows(image, spatial))
         if train_hw is not None and (h > train_hw[0]
                                      or image.shape[3] > train_hw[1]):
-            # on the whole images, then this rank's rows of them
-            image, depth = (mesh_lib.take_rows(resize_bilinear(
-                mesh_lib.despatialize(t, spatial), train_hw), spatial)
-                for t in (image, depth))
+            # on the whole images, then this rank's rows of them, which
+            # need not split equally: the model's input height is pinned
+            image, depth = [resize_bilinear(mesh_lib.despatialize(t, spatial),
+                                            train_hw) for t in (image, depth)]
+            mesh_lib.pin_input_rows(spatial, train_hw)
+            image, depth = (mesh_lib.take_rows(t, spatial)
+                            for t in (image, depth))
         if augment:
             # the global batch's decisions, drawn alike on every rank, and
             # this rank's rows of them
